@@ -2,11 +2,11 @@
 """Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --phases build,paged_decode,causal_fwd
+    python3 chip_smoke.py --phases build,causal_bwd,train,train_parity
 
 Phases, each printing one JSON line:
 
-1. build: nvcc builds every kernel of the serving path from
+1. build: nvcc builds every kernel of the serving and training paths from
    paddle_tpu_torch/csrc (sm_90a), all at once; prints the card's name and
    power limit as nvidia-smi reports them.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
@@ -15,23 +15,45 @@ Phases, each printing one JSON line:
    f32: outputs within tolerance, pools bit-identical; timings.
 3. causal_fwd: the causal attention kernel against its plain version at
    B1 H16 S2048 D128 and at a ragged S=300, bf16 and f32; timings, with
-   torch's scaled_dot_product_attention timed as the library yardstick.
-4. engine: GPT-1.3B at full width and depth, bf16, random weights from a
+   torch's scaled_dot_product_attention timed as the library yardstick;
+   causal Sq != Skv takes the dense route, non-causal shapes raise.
+4. causal_bwd: the causal attention backward kernel against its plain
+   version at B2 H16 S2048 D128 (the training shape) and at S=300, bf16
+   and f32, and at B1 H16 S256 f32 (train_parity's shape), for dq, dk and
+   dv; timings, with the backward of torch's scaled_dot_product_attention
+   (autograd.grad, its forward not timed) as the library yardstick.
+5. engine: GPT-1.3B at full width and depth, bf16, random weights from a
    seed, served greedily by GenerationEngine (8 slots, block 16, chunked
    prefill, prefix cache) over a trace with mid-run arrivals, a shared
    512-token prefix and a repeated prompt (a copy-on-write), then one
    generate(use_cache=True) near full context. drain()'s leak check runs.
-5. generate_parity: the same config in f32: engine tokens against
+6. generate_parity: the same config in f32: engine tokens against
    GPTForCausalLM.generate(use_cache=True) for prompts of 256 and 300.
+7. train: GPT-1.3B in bench.py's training configuration (vocab 32768,
+   hidden 2048, 24 layers, 16 heads, 2048 positions, dropout 0), bf16
+   parameters, AdamW(1e-4), batch 2 x seq 2048 with the labels the input
+   ids, through TrainStep.run_scan over one random batch per step, as
+   bench.py feeds them: 2 warm-up steps, then 5 timed steps; ms/step,
+   tokens/s, the model-FLOP share of 989 TFLOP/s, peak memory and the
+   losses, which must be finite. Then three steps feed the first batch
+   again, and its loss must fall.
+8. train_parity: f32, hidden 2048, 16 heads, 2 layers, batch 1, seq 256,
+   from the same weights on the card and on the CPU (plain versions,
+   outside the counted run): the first batch's loss gradients, then three
+   AdamW steps; the losses, and per parameter the gradients and the
+   change of the parameters, must agree.
 
-Phases 4 and 5 are the main path, in four runs: the bf16 engine, the bf16
-generate(), the f32 engine and the f32 generate(). Kernel counts are set to
-0 just before each run and read just after it; each run must launch the
-kernel it takes (the engine the paged decode kernel, generate() the causal
-kernel) and call no plain version. The line before the last lists the
-kernels with their launches, errors and times; the last line is the device
-line. Any failed phase exits non-zero without it. With
-no CUDA device, or without the repository beside it, the script fails.
+Phases 5 to 8 are the main path, in six runs: the bf16 engine, the bf16
+generate(), the f32 engine, the f32 generate(), the bf16 train steps and
+the f32 train steps. Kernel counts are set to 0 just before each run and
+read just after it; each run must launch every kernel it takes
+(PATH_KERNEL: the engine the paged decode kernel, generate() the causal
+forward, training the causal forward and backward, 24 times a step at
+1.3B) and call no plain version. `--profile` adds a device-time breakdown
+of the engine run and of one train step. The line before the last lists
+the kernels with their launches, errors and times; the last line is the
+device line. Any failed phase exits non-zero without it. With no CUDA
+device, or without the repository beside it, the script fails.
 """
 from __future__ import annotations
 
@@ -47,16 +69,33 @@ import traceback
 import numpy as np
 
 SEED = 0                           # weights and traces are drawn from it
-PHASES = ("build", "paged_decode", "causal_fwd", "engine", "generate_parity")
+PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
+          "generate_parity", "train", "train_parity")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
-# each run of the main path, and the kernel that run must launch
-PATH_KERNEL = {"engine_bf16": "paged_decode_attention",
-               "generate_bf16": "causal_attention_fwd",
-               "engine_f32": "paged_decode_attention",
-               "generate_f32": "causal_attention_fwd"}
+# backward: max |kernel - plain| <= rel * max |plain| + abs, per gradient:
+# bf16 relative (a P or dS value on a rounding boundary may round the
+# other way), f32 absolute (fp32 sums in another order)
+BWD_TOL = {"bfloat16": (1e-2, 1e-5), "float32": (0.0, 1e-5)}
+# f32 train steps on the card against the CPU (cuBLAS and the CPU's GEMMs
+# sum in other orders): the per-step loss, absolute; the first batch's
+# gradients and the change of the parameters over three AdamW steps, each
+# as the relative L2 error of its worst parameter. Sound runs read about
+# 1e-6, 3e-6 and 3e-2. The change is loose because of qkv_proj.bias: the
+# gradient of its key third is zero in exact arithmetic (it adds one
+# constant to a row's logits), so Adam scales rounding noise to +-lr with
+# either sign; every other parameter's change agrees to 3e-4.
+TRAIN_PARITY_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-1}
+FWD, BWD = "causal_attention_fwd", "causal_attention_bwd"
+# each run of the main path, and the kernels that run must launch
+PATH_KERNEL = {"engine_bf16": ("paged_decode_attention",),
+               "generate_bf16": (FWD,),
+               "engine_f32": ("paged_decode_attention",),
+               "generate_f32": (FWD,),
+               "train_bf16": (FWD, BWD),
+               "train_f32": (FWD, BWD)}
 
 
 def emit(obj):
@@ -284,14 +323,21 @@ def phase_causal_fwd(torch, ctx):
     except ValueError:
         raises["head_dim_96"] = True
     z = torch.zeros((1, 64, 2, 64), device="cuda")
+    zk = torch.zeros((1, 80, 2, 64), device="cuda")
     try:
-        flash_attention(z, torch.zeros((1, 80, 2, 64), device="cuda"),
-                        torch.zeros((1, 80, 2, 64), device="cuda"))
-        raises["sq_ne_skv"] = False
+        flash_attention(z, zk, zk, causal=False)
+        raises["non_causal"] = False
     except NotImplementedError:
-        raises["sq_ne_skv"] = True
+        raises["non_causal"] = True
     res["raises"] = raises
     ok &= all(raises.values())
+    # causal Sq != Skv has no TPU kernel: dense on every device
+    dense = flash_attention.dense_calls
+    out = flash_attention(z, zk, zk, causal=True)
+    res["causal_sq_ne_skv_dense"] = bool(
+        flash_attention.dense_calls == dense + 1 and out.shape == z.shape
+        and bool(torch.isfinite(out).all()))
+    ok &= res["causal_sq_ne_skv_dense"]
     res["ok"] = bool(ok)
     emit(res)
     if not ok:
@@ -299,10 +345,88 @@ def phase_causal_fwd(torch, ctx):
                              "plain version")
 
 
+def phase_causal_bwd(torch, ctx):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.flash_attention import (
+        causal_attention_bwd, causal_attention_bwd_plain,
+        causal_attention_fwd)
+
+    g = torch.Generator("cuda").manual_seed(3)
+    res = {"phase": "causal_bwd", "cases": []}
+    ok = True
+    H, D = 16, 128
+    scale = 1.0 / math.sqrt(D)
+    # (dtype, batch, S): the training shape, a ragged S, and train_parity's
+    # f32 shape
+    cases = [(dt, 2, S) for dt in (torch.bfloat16, torch.float32)
+             for S in (2048, 300)] + [(torch.float32, 1, 256)]
+    for dtype, B, S in cases:
+        BH = B * H
+        q, k, v, do = (torch.randn((BH, S, D), generator=g,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        o, lse = causal_attention_fwd(q, k, v, scale)
+        ref = causal_attention_bwd_plain(q, k, v, o, do, lse, scale)
+        got = causal_attention_bwd(q, k, v, o, do, lse, scale)
+        torch.cuda.synchronize()
+        name = dname(torch, dtype)
+        rel, floor = BWD_TOL[name]
+        errs, passed = {}, True
+        for gn, a, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (a.float() - r.float()).abs().max().item()
+            top = r.float().abs().max().item()
+            errs[gn] = {"max_abs_err": err, "max_abs_ref": top,
+                        "rel_err": err / top if top else None}
+            passed &= math.isfinite(err) and err <= rel * top + floor
+        case = {"dtype": name, "S": S, "BH": BH, "D": D, "errors": errs,
+                "tol_rel": rel, "tol_abs": floor, "ok": bool(passed),
+                "max_abs_err": max(e["max_abs_err"]
+                                   for e in errs.values())}
+        ok &= passed
+        if dtype == torch.bfloat16 and S == 2048:
+            kms = cuda_ms(torch, lambda: causal_attention_bwd(
+                q, k, v, o, do, lse, scale), 10)
+            pms = cuda_ms(torch, lambda: causal_attention_bwd_plain(
+                q, k, v, o, do, lse, scale), 5)
+            q4, k4, v4 = (x.view(B, H, S, D).clone().requires_grad_()
+                          for x in (q, k, v))
+            out4 = F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, scale=scale)
+            do4 = do.view(B, H, S, D)
+            lms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True), 10)
+            del q4, k4, v4, out4
+            isz = q.element_size()
+            nbytes = 8 * BH * S * D * isz + BH * S * 4
+            flops = 5 * BH * D * S * (S + 1)
+            b, by = bound_ms(nbytes, flops, name)
+            case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
+                        bound_ms=b, bound_by=by)
+            ctx["causal_bwd"] = dict(case, shape="B2 H16 S2048 D128")
+        res["cases"].append(case)
+        del q, k, v, do, o, lse, ref, got
+    torch.cuda.empty_cache()
+    # no fallback: a CUDA tensor the kernel cannot take raises
+    z = torch.zeros((2, 8, 96), device="cuda")
+    try:
+        causal_attention_bwd(z, z, z, z, z, torch.zeros((2, 8),
+                                                        device="cuda"))
+        res["unsupported_head_dim_raises"] = False
+    except ValueError:
+        res["unsupported_head_dim_raises"] = True
+    ok &= res["unsupported_head_dim_raises"]
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("causal attention backward kernel disagrees "
+                             "with its plain version")
+
+
 def _counted(torch, ctx, path, fn):
     """One run of the main path: every kernel count is set to 0 just before
     `fn` and read just after it, into ctx["paths"][path]. The run fails if
-    the kernel it must take (PATH_KERNEL) never launched, or if any plain
+    a kernel it must take (PATH_KERNEL) never launched, or if any plain
     version was called on the card."""
     for w in ctx["wrappers"]:
         w.launches = 0
@@ -313,7 +437,7 @@ def _counted(torch, ctx, path, fn):
                            "plain_calls": w.plain_calls}
               for w in ctx["wrappers"]}
     ctx["paths"][path] = counts
-    if (counts[PATH_KERNEL[path]]["launches"] == 0
+    if (any(counts[k]["launches"] == 0 for k in PATH_KERNEL[path])
             or any(c["plain_calls"] for c in counts.values())):
         raise AssertionError(f"main path {path}: kernel counts {counts}")
     return out
@@ -329,12 +453,13 @@ def _model(torch, dtype, seed):
     return m
 
 
-def _device_breakdown(prof):
-    """Device time of a profiled window from its chrome trace: busy time
-    (the union of kernel, memcpy and memset intervals) against the window
-    (first to last event of any kind), and kernel time by family."""
+def _device_breakdown(prof, name):
+    """Device time of a profiled window from its chrome trace (written to
+    build/paddle_tpu_torch/<name>_trace.json): busy time (the union of
+    kernel, memcpy and memset intervals) against the window (first to last
+    event of any kind), and kernel time by family."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "paddle_tpu_torch", "engine_trace.json")
+                        "paddle_tpu_torch", f"{name}_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -356,6 +481,8 @@ def _device_breakdown(prof):
         n = e["name"]
         key = ("paged_decode_kernel" if "paged_decode" in n else
                "causal_fwd_kernel" if "causal_fwd" in n else
+               "causal_bwd_kernels" if any(t in n for t in (
+                   "dkdv_kernel", "dq_kernel", "delta_kernel")) else
                "gemm" if any(t in n.lower() for t in
                              ("gemm", "xmma", "cutlass", "gemv", "nvjet")) else
                e["cat"] if e["cat"] != "kernel" else "other kernels")
@@ -405,7 +532,8 @@ def phase_engine(torch, ctx, seed):
                                  ProfilerActivity.CUDA]) as prof:
             out = eng.drain()
             torch.cuda.synchronize()
-        emit(dict(phase="engine_profile", **_device_breakdown(prof)))
+        emit(dict(phase="engine_profile",
+                  **_device_breakdown(prof, "engine")))
         return ids, out
 
     t0 = time.perf_counter()
@@ -493,14 +621,167 @@ def phase_generate_parity(torch, ctx, seed):
         raise AssertionError("engine tokens differ from generate()")
 
 
+def _bench_config():
+    """bench.py's GPT-1.3B training configuration."""
+    from paddle_tpu_torch import GPTConfig
+
+    return GPTConfig(vocab_size=32768, hidden_size=2048, num_layers=24,
+                     num_heads=16, max_seq_len=2048, dropout=0.0)
+
+
+def phase_train(torch, ctx, seed):
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+
+    cfg = _bench_config()
+    batch, seq, warm, timed, refeed = 2, 2048, 2, 5, 3
+    g = torch.Generator("cuda").manual_seed(seed)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=g).train()
+    step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                  parameters=model.parameters()),
+                     model.loss_fn)
+    # one distinct batch per step, as bench.py feeds them (run_scan)
+    rng = np.random.RandomState(seed + 2)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (warm + timed, batch, seq))
+                           .astype(np.int64)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    warm_losses = step.run_scan(ids[:warm], ids[:warm])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = _counted(torch, ctx, "train_bf16",
+                      lambda: step.run_scan(ids[warm:], ids[warm:]))
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in torch.cat([warm_losses, losses])]
+    # fresh random batches barely lower the loss in 7 bf16 steps; that the
+    # updates take hold shows on one batch fed again (outside the timing)
+    refeed_losses = [float(x) for x in
+                     step.run_repeat(ids[0], ids[0], refeed)]
+    ms = wall / timed * 1e3
+    tok_s = batch * seq * timed / wall
+    counts = ctx["paths"]["train_bf16"]
+    res = {"phase": "train", "config": "bench.py gpt_1p3b train (vocab "
+           "32768, hidden 2048, 24 layers, 16 heads, seq 2048, dropout 0), "
+           "bf16 params, AdamW(1e-4), batch 2", "params": model.num_params(),
+           "warmup_steps": warm, "timed_steps": timed, "ms_per_step": ms,
+           "tokens_per_s": tok_s,
+           "model_flop_share_of_989tflops": model.flops_per_token(seq)
+           * tok_s / PEAK_FLOPS["bfloat16"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "refeed_losses": refeed_losses,
+           "kernel_counts": counts}
+    per_step = {k: counts[k]["launches"] / timed for k in (FWD, BWD)}
+    res["launches_per_step"] = per_step
+    # the optimizer's share of a step: one more forward and backward, then
+    # AdamW's update alone between CUDA events
+    model.zero_grad(set_to_none=True)
+    model(ids[0], labels=ids[0]).backward()
+    t_opt = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t_opt[0].record()
+    step.optimizer.step()
+    t_opt[1].record()
+    torch.cuda.synchronize()
+    step.optimizer.clear_grad()
+    res["optimizer_step_ms"] = t_opt[0].elapsed_time(t_opt[1])
+    res["ok"] = bool(all(math.isfinite(x) for x in losses + refeed_losses)
+                     and refeed_losses[-1] < refeed_losses[0]
+                     and all(n == cfg.num_layers for n in per_step.values()))
+    emit(res)
+    if ctx.get("profile"):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(ids[1], ids[1])
+            torch.cuda.synchronize()
+        emit(dict(phase="train_profile", **_device_breakdown(prof, "train")))
+    del step, model
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("train phase failed its checks")
+
+
+def _worst_leaf(got, want):
+    """Relative L2 error ||got - want|| / ||want|| of every parameter's
+    tensor (`got` on the card, `want` on the CPU): (the worst parameter,
+    its error, every parameter's error)."""
+    errs = {}
+    for n, w in want.items():
+        w = w.double()
+        d = (got[n].cpu().double() - w).norm().item()
+        top = w.norm().item()
+        errs[n] = d / top if top else d
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst], errs
+
+
+def phase_train_parity(torch, ctx, seed):
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+
+    cfg = _bench_config()
+    cfg.num_layers = 2
+    steps, batch, seq = 3, 1, 256
+    g = torch.Generator("cuda").manual_seed(seed)
+    card = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                          generator=g).train()
+    host = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32).train()
+    host.load_state_dict({k: v.cpu() for k, v in
+                          card.state_dict().items()})
+    rng = np.random.RandomState(seed + 3)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (steps, batch, seq))
+                           .astype(np.int64))
+
+    def run(model, x):
+        """The first batch's gradients (one forward and backward), then
+        the AdamW steps: (losses, grads, parameter changes)."""
+        model.zero_grad(set_to_none=True)
+        model(x[0], labels=x[0]).backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                      parameters=model.parameters()),
+                         model.loss_fn)
+        losses = [float(v) for v in step.run_scan(x, x)]
+        return losses, grads, {n: p.detach() - before[n]
+                               for n, p in model.named_parameters()}
+
+    got, g_card, d_card = _counted(torch, ctx, "train_f32",
+                                   lambda: run(card, ids.cuda()))
+    want, g_host, d_host = run(host, ids)
+    diffs = [abs(a - b) for a, b in zip(got, want)]
+    grad_leaf, grad_err, grad_errs = _worst_leaf(g_card, g_host)
+    upd_leaf, upd_err, upd_errs = _worst_leaf(d_card, d_host)
+    tol = TRAIN_PARITY_TOL
+    res = {"phase": "train_parity", "dtype": "float32", "config": "bench "
+           "widths, 2 layers, batch 1, seq 256, AdamW(1e-4), 3 steps",
+           "card_losses": got, "cpu_losses": want,
+           "loss_max_abs_diff": max(diffs),
+           "grad_worst_leaf": grad_leaf, "grad_rel_err": grad_err,
+           "update_worst_leaf": upd_leaf, "update_rel_err": upd_err,
+           "grad_rel_err_by_leaf": grad_errs,
+           "update_rel_err_by_leaf": upd_errs, "tol": tol,
+           "kernel_counts": ctx["paths"]["train_f32"]}
+    res["ok"] = bool(max(diffs) <= tol["loss"] and grad_err <= tol["grad"]
+                     and upd_err <= tol["update"]
+                     and all(math.isfinite(x) for x in got))
+    emit(res)
+    del card, host
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("f32 train steps on the card differ from the "
+                             "CPU")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="profile the engine phase's main run with "
-                    "torch.profiler and print its device-time breakdown "
-                    "(slows that run; its tokens/s is then not comparable)")
+                    help="profile the engine phase's main run and one "
+                    "train step with torch.profiler and print their "
+                    "device-time breakdowns (slows the engine run; its "
+                    "tokens/s is then not comparable)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in PHASES]
@@ -514,13 +795,15 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401  (fails outside the repository)
-    from paddle_tpu_torch.ops.flash_attention import causal_attention_fwd
+    from paddle_tpu_torch.ops.flash_attention import (causal_attention_bwd,
+                                                      causal_attention_fwd)
     from paddle_tpu_torch.ops.paged_decode import paged_decode_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ctx = {"profile": args.profile, "paths": {},
-           "wrappers": (paged_decode_attention, causal_attention_fwd)}
+           "wrappers": (paged_decode_attention, causal_attention_fwd,
+                        causal_attention_bwd)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -531,10 +814,16 @@ def main(argv=None):
                 phase_paged_decode(torch, ctx)
             elif name == "causal_fwd":
                 phase_causal_fwd(torch, ctx)
+            elif name == "causal_bwd":
+                phase_causal_bwd(torch, ctx)
             elif name == "engine":
                 phase_engine(torch, ctx, SEED)
-            else:
+            elif name == "generate_parity":
                 phase_generate_parity(torch, ctx, SEED)
+            elif name == "train":
+                phase_train(torch, ctx, SEED)
+            else:
+                phase_train_parity(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -549,14 +838,18 @@ def main(argv=None):
             ("paged_decode", "paged_decode_attention",
              "paddle_tpu_torch/csrc/paged_decode.cu",
              "paddle_tpu/ops/pallas/paged_attention.py:64"),
-            ("causal_fwd", "causal_attention_fwd",
+            ("causal_fwd", FWD,
              "paddle_tpu_torch/csrc/causal_attention.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:428")):
+             "paddle_tpu/ops/pallas/flash_attention.py:428"),
+            ("causal_bwd", BWD,
+             "paddle_tpu_torch/csrc/causal_attention_bwd.cu",
+             "paddle_tpu/ops/pallas/flash_attention.py:452")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
-        # kernel (bf16 before f32); every run's count beside it
-        own = [p for p, k in PATH_KERNEL.items()
-               if k == name and p in ctx["paths"]]
+        # kernel (serving before training, bf16 before f32); every run's
+        # count beside it
+        own = [p for p, ks in PATH_KERNEL.items()
+               if name in ks and p in ctx["paths"]]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

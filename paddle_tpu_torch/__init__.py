@@ -7,16 +7,25 @@ for sm_90a under `csrc/`, built with nvcc at first use; its wrapper takes the
 plain PyTorch version for a CPU tensor and launches the kernel (or raises)
 for a CUDA tensor.
 
-This slice: greedy serving of the GPT through the paged engine
-(`inference.GenerationEngine` over `models.GPTForCausalLM`), with the paged
-decode kernel (`ops.paged_decode`) and the causal attention forward
-(`ops.flash_attention`).
+Ported so far:
+- greedy serving of the GPT through the paged engine
+  (`inference.GenerationEngine` over `models.GPTForCausalLM`), with the
+  paged decode kernel (`ops.paged_decode`) and the causal attention
+  forward (`ops.flash_attention`);
+- training of the GPT: `jit.TrainStep` over the model's loss, AdamW or
+  Adam (`optimizer`), LR schedulers (`optimizer.lr`) and gradient
+  clipping (`nn`), with the causal attention backward kernel.
 """
+from . import optimizer
 from .device import resolve_device
 from .inference.engine import GenerationEngine, PagedKVCache, Request
+from .jit import TrainStep
 from .models.convert import load_paddle_tpu_state, paddle_tpu_state
 from .models.gpt import GPTConfig, GPTForCausalLM
+from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .optimizer import Adam, AdamW
 
 __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "GPTConfig", "GPTForCausalLM", "load_paddle_tpu_state",
-           "paddle_tpu_state"]
+           "paddle_tpu_state", "TrainStep", "Adam", "AdamW", "optimizer",
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]

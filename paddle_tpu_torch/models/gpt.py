@@ -5,10 +5,12 @@ Pre-norm blocks with a fused qkv projection reshaped 3-major
 and the LM head tied to `wte`. Parameter names match the JAX model's
 `state_dict()` (`models/convert.py` bridges the weights).
 
-This slice ports what serving runs: `forward`, the prefill and decode
-paths of `generate` and of the paged engine. Training (dropout, loss, the
-backward kernel), tensor parallelism, LoRA, int8 KV scales and the
-speculative verify step are later slices.
+Ported: what serving runs (`forward`, the prefill and decode paths of
+`generate` and of the paged engine) and what training runs (`forward` with
+labels and `loss_fn`, dropout where the JAX model applies it, backward
+through the causal attention kernels, `num_params`, `flops_per_token`).
+Tensor parallelism, LoRA, int8 KV scales and the speculative verify step
+are later slices.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import resolve_device
-from ..ops.nn_ops import scaled_dot_product_attention
+from ..ops.nn_ops import cross_entropy, dropout, scaled_dot_product_attention
 from ..ops.paged_attention import paged_attention_step, paged_prefill_chunk
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "GPTBlock",
@@ -73,6 +75,7 @@ class GPTAttention(nn.Module):
         kw = dict(bias=config.use_bias, device=device, dtype=dtype)
         self.qkv_proj = nn.Linear(H, 3 * H, **kw)   # fused qkv
         self.out_proj = nn.Linear(H, H, **kw)
+        self.dropout = config.dropout
 
     def _qkv_heads(self, x):
         """Per-head q/k/v `[B, S, heads, D]` from the fused projection
@@ -84,10 +87,15 @@ class GPTAttention(nn.Module):
     def _attn_out(self, out, B, S):
         return self.out_proj(out.reshape(B, S, -1))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """Causal self-attention; in training mode with dropout > 0 the
+        attention output is dropped (the dense SDPA branch, as in the JAX
+        model), its mask drawn from `generator`."""
         B, S, _ = x.shape
         q, k, v = self._qkv_heads(x)
-        out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=self.dropout,
+            training=self.training, generator=generator)
         return self._attn_out(out, B, S)
 
     def forward_prefill(self, x):
@@ -143,9 +151,11 @@ class GPTMLP(nn.Module):
                              **kw)
         self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size,
                              **kw)
+        self.dropout = config.dropout
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x, generator=None):
+        out = self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return dropout(out, self.dropout, self.training, generator)
 
 
 class GPTBlock(nn.Module):
@@ -157,9 +167,9 @@ class GPTBlock(nn.Module):
         self.ln2 = nn.LayerNorm(config.hidden_size, **kw)
         self.mlp = GPTMLP(config, device=device, dtype=dtype)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, generator=None):
+        x = x + self.attn(self.ln1(x), generator)
+        return x + self.mlp(self.ln2(x), generator)
 
     def forward_prefill(self, x):
         a, k, v = self.attn.forward_prefill(self.ln1(x))
@@ -184,9 +194,16 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
+    """Embeddings, blocks and the final LayerNorm. It owns
+    `dropout_generator`, a `torch.Generator` on its device seeded with 0,
+    from which every dropout mask of `forward` is drawn in order; a caller
+    may reseed it or put another generator in its place."""
+
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
+        self.dropout_generator = torch.Generator(
+            device=device if device is not None else "cpu").manual_seed(0)
         kw = dict(device=device, dtype=dtype)
         self.wte = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
         self.wpe = nn.Embedding(config.max_seq_len, config.hidden_size, **kw)
@@ -195,12 +212,17 @@ class GPTModel(nn.Module):
         self.ln_f = nn.LayerNorm(config.hidden_size,
                                  eps=config.layer_norm_epsilon, **kw)
 
-    def forward(self, input_ids):
-        S = input_ids.shape[1]
-        h = self.wte(input_ids) + self.wpe(
-            torch.arange(S, device=input_ids.device))
+    def forward(self, input_ids, position_ids=None):
+        """Hidden states `[B, S, H]`; dropout after the embedding and in
+        every block in training mode."""
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)
+        g = self.dropout_generator
+        h = self.wte(input_ids) + self.wpe(position_ids)
+        h = dropout(h, self.config.dropout, self.training, g)
         for blk in self.blocks:
-            h = blk(h)
+            h = blk(h, g)
         return self.ln_f(h)
 
     def forward_prefill(self, input_ids):
@@ -263,9 +285,10 @@ class GPTForCausalLM(nn.Module):
     JAX package's init scheme from `generator` (a `torch.Generator` on
     `device`; seed 0 when None): N(0, initializer_range) for the
     embeddings and projections, fc2 scaled by 1/sqrt(2 * num_layers),
-    zero biases, unit LayerNorm weights. Dropout is not applied: this
-    slice serves, and `forward` in training mode with dropout > 0
-    raises."""
+    zero biases, unit LayerNorm weights. In training mode with
+    `config.dropout > 0`, dropout masks come from
+    `self.gpt.dropout_generator` (seeded with 0; the caller may reseed
+    it)."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
                  generator=None):
@@ -295,12 +318,28 @@ class GPTForCausalLM(nn.Module):
             ln.weight.fill_(1.0)
             ln.bias.zero_()
 
-    def forward(self, input_ids):
-        """Logits `[B, S, vocab]` (the tied projection)."""
-        if self.training and self.config.dropout > 0:
-            raise ValueError("dropout is not ported yet (training slice); "
-                             "call model.eval() first")
-        return self._logits_of(self.gpt(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Logits `[B, S, vocab]` (the tied projection), or with `labels`
+        `[B, S]` the mean cross entropy of the logits against them (as
+        given: the caller shifts them if it wants next-token targets)."""
+        logits = self._logits_of(self.gpt(input_ids))
+        if labels is not None:
+            return self.loss_fn(logits, labels)
+        return logits
+
+    def loss_fn(self, logits, labels):
+        """Mean hard-label cross entropy over every position."""
+        V = self.config.vocab_size
+        return cross_entropy(logits.reshape(-1, V), labels.reshape(-1))
+
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len=None):
+        """Approximate training FLOPs/token (6ND + attention)."""
+        c = self.config
+        s = seq_len or c.max_seq_len
+        return 6 * self.num_params() + 12 * c.num_layers * c.hidden_size * s
 
     def _logits_of(self, hidden):
         """Tied-embedding logits: hidden @ wte^T."""

@@ -1,36 +1,102 @@
-"""Attention entry point of the port: counterpart of
-paddle_tpu/ops/nn_ops.py `scaled_dot_product_attention`.
+"""Attention entry point, dropout and the cross-entropy losses of the port:
+counterparts of `scaled_dot_product_attention`, `dropout`,
+`softmax_with_cross_entropy` and `cross_entropy` in
+paddle_tpu/ops/nn_ops.py.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import dense_attention, flash_attention
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = ["scaled_dot_product_attention", "dropout",
+           "softmax_with_cross_entropy", "cross_entropy"]
 
 
-def scaled_dot_product_attention(q, k, v, attn_mask=None, is_causal=False,
-                                 scale=None):
+def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
+                                 is_causal=False, training=True, scale=None,
+                                 generator=None):
     """Attention in paddle layout `[batch, seq, heads, head_dim]`.
 
-    Without a mask it routes to `flash_attention` (the causal kernel for
-    causal Sq == Skv; other shapes raise). With `attn_mask`, an additive
-    mask broadcastable to `[B, H, Sq, Skv]` (0 keeps, -1e30 drops: the
-    fixed-cache decode of `generate`), it is plain PyTorch, as the JAX
-    package computes it outside Pallas: fp32 logits, the mask added, fp32
-    softmax, the probabilities cast to q's dtype before PV. A mask together
-    with `is_causal` has no caller in the port and raises."""
-    if attn_mask is None:
+    Without a mask and without active dropout it routes to
+    `flash_attention` (the causal kernels for causal Sq == Skv, dense for
+    causal Sq != Skv; non-causal shapes raise). Otherwise it takes the JAX
+    package's dense branch (`dense_attention`): fp32 logits, the causal
+    mask (bottom-right aligned) with `is_causal`, the additive `attn_mask`
+    (broadcastable to `[B, H, Sq, Skv]`), fp32 softmax, the probabilities
+    cast to q's dtype before PV. With `dropout_p > 0` and `training`, the
+    OUTPUT is dropped (as the JAX package does), the mask drawn from
+    `generator`."""
+    drop = dropout_p > 0.0 and training
+    if attn_mask is None and not drop:
         return flash_attention(q, k, v, causal=is_causal, scale=scale)
-    if is_causal:
-        raise NotImplementedError("scaled_dot_product_attention: attn_mask "
-                                  "with is_causal=True is not ported")
-    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * s
-    logits = logits + attn_mask.float()
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(probs, vh).transpose(1, 2)
+    out = dense_attention(q, k, v, is_causal, scale, mask=attn_mask)
+    if drop:
+        out = dropout(out, dropout_p, training=True, generator=generator)
+    return out
+
+
+def dropout(x, p=0.5, training=True, generator=None):
+    """Dropout, `upscale_in_train`: kept elements become x / (1 - p), the
+    rest 0, in x's dtype. The keep mask is Bernoulli(1 - p) drawn from
+    `generator` (a `torch.Generator` on x's device), which the caller
+    owns: there is no global RNG state, so the same generator state gives
+    the same mask and each draw advances it."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout draws its mask from an explicit "
+                         "torch.Generator; pass generator=")
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def _hard_labels(label, ndim, axis):
+    if label.dim() == ndim and label.shape[axis] == 1:
+        label = label.squeeze(axis)
+    return label
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
+                               ignore_index=-100):
+    """Hard-label softmax cross entropy, per token, keeping `axis` with size
+    1: fp32 `log_softmax`, -log p[label], 0 where the label is
+    `ignore_index`, cast back to the logits' dtype. Soft labels are not
+    ported and raise."""
+    if soft_label:
+        raise NotImplementedError("soft_label=True is not ported yet")
+    axis = axis % logits.dim()
+    idx = _hard_labels(label, logits.dim(), axis).unsqueeze(axis).long()
+    logp = torch.log_softmax(logits.float(), dim=axis)
+    keep = idx != ignore_index
+    ll = torch.gather(logp, axis, torch.where(keep, idx, 0))
+    loss = torch.where(keep, -ll, torch.zeros((), device=ll.device))
+    return loss.to(logits.dtype)
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """Hard-label cross entropy over `axis` with `ignore_index` and
+    `reduction` in none / sum / mean; mean is over the labels that are not
+    ignored (paddle semantics). `weight`, soft labels, `label_smoothing`
+    and `use_softmax=False` are not ported and raise."""
+    if weight is not None or soft_label or label_smoothing > 0.0 \
+            or not use_softmax:
+        raise NotImplementedError(
+            "cross_entropy: weight, soft_label, label_smoothing and "
+            "use_softmax=False are not ported yet")
+    if reduction not in ("none", "sum", "mean"):
+        raise ValueError(f"reduction must be none, sum or mean, got "
+                         f"{reduction!r}")
+    axis = axis % input.dim()
+    loss = softmax_with_cross_entropy(input, label, axis=axis,
+                                      ignore_index=ignore_index).squeeze(axis)
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    valid = (_hard_labels(label, input.dim(), axis) != ignore_index).float()
+    return loss.sum() / valid.sum().clamp_min(1.0)

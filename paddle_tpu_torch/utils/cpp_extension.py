@@ -33,6 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "paddle_tpu_torch")
 KERNEL_SOURCES = {
     "paged_decode": ("paged_decode.cu",),
     "causal_attention": ("causal_attention.cu",),
+    "causal_attention_bwd": ("causal_attention_bwd.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,13 +1,19 @@
-"""Causal attention forward of the PyTorch port against the JAX package.
+"""Causal attention of the PyTorch port against the JAX package.
 
-The plain version (what the CUDA kernel's wrapper runs on a CPU tensor) is
-held against the JAX Pallas kernel itself, run in interpret mode, and
-against the dense `_xla_attention` at a ragged length. Same seeded numpy
-inputs to both; fp32; within 1e-5.
+The plain versions of the forward and backward kernels (what the CUDA
+kernels' wrappers run on a CPU tensor) are held against the JAX Pallas
+kernels themselves, run in interpret mode, and against the dense
+`_xla_attention` (and `jax.grad` through it) at ragged lengths; the
+autograd function against `jax.grad` through JAX's
+`chunked_causal_attention`; the dense routes (causal Sq != Skv, a mask with
+`is_causal`) against JAX's. Same seeded numpy inputs to both; fp32; within
+1e-5.
 """
 import importlib
 import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -76,29 +82,178 @@ def test_plain_causal_forward_matches_xla_attention_at_ragged_s(S):
 @pytest.mark.parametrize("causal,Sq,Skv", [(True, 5, 9), (False, 7, 7),
                                            (False, 4, 11)])
 def test_flash_attention_without_kernel_raises(causal, Sq, Skv):
-    """Shapes without a kernel in the port raise on the CPU as on the card,
-    through `flash_attention` and the mask-free `scaled_dot_product_attention`
-    alike; the causal Sq == Skv case at the same widths matches JAX."""
+    """Shapes without a kernel: non-causal ones raise on the CPU as on the
+    card, through `flash_attention` and the mask-free
+    `scaled_dot_product_attention` alike; causal Sq != Skv is computed
+    densely through both, as JAX computes it. The causal Sq == Skv case at
+    the same widths matches JAX."""
     rng = np.random.RandomState(Sq * Skv)
     B, H, D = 2, 3, 16
     q = torch.from_numpy(rng.randn(B, Sq, H, D).astype(np.float32))
     k = torch.from_numpy(rng.randn(B, Skv, H, D).astype(np.float32))
     v = torch.from_numpy(rng.randn(B, Skv, H, D).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, k, v, causal=causal)
-    with pytest.raises(NotImplementedError):
-        scaled_dot_product_attention(q, k, v, is_causal=causal)
+    if causal:
+        want = np.asarray(jfa.flash_attention(q.numpy(), k.numpy(),
+                                              v.numpy(), causal=True))
+        for got in (tfa.flash_attention(q, k, v, causal=True),
+                    scaled_dot_product_attention(q, k, v, is_causal=True)):
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:
+        with pytest.raises(NotImplementedError):
+            tfa.flash_attention(q, k, v, causal=causal)
+        with pytest.raises(NotImplementedError):
+            scaled_dot_product_attention(q, k, v, is_causal=causal)
     want = jfa.flash_attention(q.numpy(), q.numpy(), q.numpy(), causal=True)
     got = tfa.flash_attention(q, q, q, causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
 
 
+@pytest.mark.parametrize("Sq,Skv", [(5, 9), (1, 7), (3, 4)])
+def test_causal_flash_attention_sq_ne_skv_is_dense_like_jax(Sq, Skv):
+    """Causal with Sq != Skv has no TPU kernel: JAX computes it densely,
+    bottom-right aligned, on every device, and so does the port (counted
+    in `flash_attention.dense_calls`), with gradients through autograd."""
+    rng = np.random.RandomState(Sq * 31 + Skv)
+    B, H, D = 2, 3, 16
+    q = rng.randn(B, Sq, H, D).astype(np.float32)
+    k = rng.randn(B, Skv, H, D).astype(np.float32)
+    v = rng.randn(B, Skv, H, D).astype(np.float32)
+    do = rng.randn(B, Sq, H, D).astype(np.float32)
+    want = jfa.flash_attention(q, k, v, causal=True)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    calls = tfa.flash_attention.dense_calls
+    got = tfa.flash_attention(tq, tk, tv, causal=True)
+    assert tfa.flash_attention.dense_calls == calls + 1
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=0)
+    jgrads = jax.grad(lambda a, b, c: jnp.sum(
+        jfa.flash_attention(a, b, c, causal=True) * do), (0, 1, 2))(q, k, v)
+    tgrads = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(do))
+    for jg, tg in zip(jgrads, tgrads):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-5,
+                                   rtol=0)
+
+
 def test_masked_sdpa_with_is_causal_raises():
-    z = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError):
-        scaled_dot_product_attention(z, z, z, attn_mask=torch.zeros(4),
-                                     is_causal=True)
+    """A mask together with `is_causal` no longer raises: it takes JAX's
+    dense branch, where the bottom-right causal mask and the additive mask
+    both apply, and matches JAX (Sq == Skv and Sq < Skv)."""
+    rng = np.random.RandomState(4)
+    B, H, D = 2, 2, 16
+    for Sq, Skv in ((4, 4), (1, 6)):
+        q = rng.randn(B, Sq, H, D).astype(np.float32)
+        k = rng.randn(B, Skv, H, D).astype(np.float32)
+        v = rng.randn(B, Skv, H, D).astype(np.float32)
+        mask = np.where(rng.rand(B, 1, Sq, Skv) < 0.3, -1e30, 0.0).astype(
+            np.float32)
+        mask[..., -1] = 0.0                # every row keeps a key
+        want = j_sdpa(q, k, v, attn_mask=mask, is_causal=True)
+        got = scaled_dot_product_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            attn_mask=torch.from_numpy(mask), is_causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want._array),
+                                   atol=1e-5, rtol=0)
+
+
+def test_sdpa_dropout_takes_the_dense_branch_and_drops_the_output():
+    """dropout_p > 0 in training: the dense branch, then dropout on the
+    output (kept values are the dense output / keep, exactly); not in
+    training, or at dropout_p 0, the kernel route; no generator raises."""
+    rng = np.random.RandomState(9)
+    q, k, v = (torch.from_numpy(rng.randn(2, 8, 2, 16).astype(np.float32))
+               for _ in range(3))
+    dense = tfa.dense_attention(q, k, v, True)
+    g = torch.Generator().manual_seed(3)
+    fwd = tfa.causal_attention_fwd.plain_calls
+    out = scaled_dot_product_attention(q, k, v, dropout_p=0.25,
+                                       is_causal=True, generator=g)
+    assert tfa.causal_attention_fwd.plain_calls == fwd
+    kept = out != 0
+    assert 0 < int(kept.sum()) < out.numel()
+    torch.testing.assert_close(out[kept], (dense / 0.75)[kept], rtol=0,
+                               atol=0)
+    for p, training in ((0.25, False), (0.0, True)):
+        got = scaled_dot_product_attention(q, k, v, dropout_p=p,
+                                           is_causal=True, training=training,
+                                           generator=g)
+        assert tfa.causal_attention_fwd.plain_calls == fwd + 1
+        torch.testing.assert_close(got, tfa.chunked_causal_attention(
+            q, k, v), rtol=0, atol=0)
+        fwd += 2
+    with pytest.raises(ValueError, match="generator"):
+        scaled_dot_product_attention(q, k, v, dropout_p=0.25, is_causal=True)
+
+
+def test_plain_causal_backward_matches_jax_interpret_kernel():
+    """B1 H2 S256 D64: dq, dk, dv of the plain backward against
+    `_causal_call_bwd` (the TPU kernel, interpreted) on the same q, k, v,
+    dO and the JAX forward's O and LSE (the port's LSE is row 0 of the TPU
+    kernel's [BH, 8, S])."""
+    rng = np.random.RandomState(1)
+    BH, S, D = 2, 256, 64
+    scale = 1.0 / math.sqrt(D)
+    q, k, v = _qkv(rng, BH, S, D)
+    do = rng.randn(BH, S, D).astype(np.float32)
+    bq = jfa._causal_bq(S, D, 4)
+    jo, jl = jfa._causal_call_fwd(q, k, v, scale, bq, interpret=True)
+    want = jfa._causal_call_bwd(q, k, v, jo, do, jl, scale, bq,
+                                interpret=True)
+    launches = tfa.causal_attention_bwd.launches
+    plain = tfa.causal_attention_bwd.plain_calls
+    got = tfa.causal_attention_bwd(*(torch.tensor(np.asarray(x)) for x in
+                                     (q, k, v, jo, do, np.asarray(jl)[:, 0])),
+                                   scale)
+    assert tfa.causal_attention_bwd.launches == launches
+    assert tfa.causal_attention_bwd.plain_calls == plain + 1
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("S", [1, 77, 130])
+def test_plain_causal_backward_matches_grad_of_xla_attention(S):
+    """Ragged S (the TPU kernel needs S % 128 == 0, the port does not):
+    the plain backward from the port's own forward against `jax.grad` of
+    the dense `_xla_attention`."""
+    rng = np.random.RandomState(100 + S)
+    BH, D = 3, 64
+    scale = 1.0 / math.sqrt(D)
+    q, k, v = _qkv(rng, BH, S, D)
+    do = rng.randn(BH, S, D).astype(np.float32)
+    want = jax.grad(lambda a, b, c: jnp.sum(jfa._xla_attention(
+        a[None], b[None], c[None], True, scale)[0] * do), (0, 1, 2))(q, k, v)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = tfa.causal_attention_fwd(tq, tk, tv, scale)
+    got = tfa.causal_attention_bwd(tq, tk, tv, o, tdo, lse, scale)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+
+
+def test_causal_attention_function_grads_match_jax_chunked():
+    """Gradients through `chunked_causal_attention` (the autograd function
+    whose backward is the backward kernel's wrapper) against `jax.grad`
+    through JAX's `chunked_causal_attention(interpret=True)`, B1 S256 H2
+    D64 paddle layout; under `torch.no_grad()` the forward alone runs."""
+    rng = np.random.RandomState(2)
+    B, S, H, D = 1, 256, 2, 64
+    q, k, v = _qkv(rng, B, S, H, D)
+    do = rng.randn(B, S, H, D).astype(np.float32)
+    want = jax.grad(lambda a, b, c: jnp.sum(jfa.chunked_causal_attention(
+        a, b, c, interpret=True) * do), (0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    bwd = tfa.causal_attention_bwd.plain_calls
+    out = tfa.chunked_causal_attention(tq, tk, tv)
+    out.backward(torch.from_numpy(do))
+    assert tfa.causal_attention_bwd.plain_calls == bwd + 1
+    for w, t in zip(want, (tq, tk, tv)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+    with torch.no_grad():
+        again = tfa.chunked_causal_attention(tq, tk, tv)
+    assert again.grad_fn is None
+    torch.testing.assert_close(again, out.detach(), rtol=0, atol=0)
 
 
 def test_masked_sdpa_matches_jax():

@@ -6,15 +6,17 @@ interpret mode). On a machine with a card, without jax installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 This file imports nothing of jax or paddle_tpu. chip_smoke.py holds the
-kernels at the serving shapes; these cover the other head dims and block
-sizes the kernels take.
+kernels at the serving and training shapes; these cover the other head
+dims, lengths and block sizes the kernels take.
 """
 import math
 
 import pytest
 import torch
 
-from paddle_tpu_torch.ops.flash_attention import (causal_attention_fwd,
+from paddle_tpu_torch.ops.flash_attention import (causal_attention_bwd,
+                                                  causal_attention_bwd_plain,
+                                                  causal_attention_fwd,
                                                   causal_attention_plain)
 from paddle_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                paged_decode_plain)
@@ -22,6 +24,19 @@ from paddle_tpu_torch.ops.paged_decode import (paged_decode_attention,
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# backward: f32 absolute (fp32 sums over up to S terms in another order);
+# bf16 relative to the largest |reference| (a P or dS value on a bf16
+# rounding boundary may round the other way), plus a floor for S = 1,
+# where dq and dk are zero up to rounding
+BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (0.0, 1e-5)}
+
+
+def bwd_within_tol(got, ref, dtype):
+    """max |got - ref| <= rel * max |ref| + abs, for each of dq, dk, dv."""
+    rel, floor = BWD_TOL[dtype]
+    return all((g.float() - r.float()).abs().max().item()
+               <= rel * r.float().abs().max().item() + floor
+               for g, r in zip(got, ref))
 
 
 @pytest.fixture
@@ -77,6 +92,27 @@ def test_causal_kernel_matches_plain(card, dtype, D, S):
     assert (lse - l_ref).abs().max().item() <= lse_tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 129, 512])
+def test_causal_bwd_kernel_matches_plain(card, dtype, D, S):
+    """dq, dk, dv of the kernel against the plain version from the same
+    forward O and LSE, one launch counted, the same bits on a rerun."""
+    q, k, v, do = (torch.randn((4, S, D), generator=card,
+                               device="cuda").to(dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    o, lse = causal_attention_fwd(q, k, v, scale)
+    ref = causal_attention_bwd_plain(q, k, v, o, do, lse, scale)
+    launches = causal_attention_bwd.launches
+    got = causal_attention_bwd(q, k, v, o, do, lse, scale)
+    again = causal_attention_bwd(q, k, v, o, do, lse, scale)
+    torch.cuda.synchronize()
+    assert causal_attention_bwd.launches == launches + 2
+    assert all(x.dtype == dtype and x.shape == q.shape for x in got)
+    assert bwd_within_tol(got, ref, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((2, 1, 2, 96), device="cuda")
     pool = torch.zeros((1, 4, 16, 2, 96), device="cuda")
@@ -91,3 +127,18 @@ def test_kernels_refuse_what_they_do_not_take(card):
     x = torch.zeros((2, 8, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         causal_attention_fwd(x, x, x)
+    z = torch.zeros((2, 8, 64), device="cuda")
+    lse = torch.zeros((2, 8), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros((2, 8, 96), device="cuda")
+        causal_attention_bwd(x, x, x, x, x, lse)
+    with pytest.raises(ValueError, match="dtype"):
+        x = z.half()
+        causal_attention_bwd(x, x, x, x, x, lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        causal_attention_bwd(z, z, z, z, z.transpose(0, 1).contiguous()
+                             .transpose(0, 1), lse)
+    with pytest.raises(ValueError, match="lse"):
+        causal_attention_bwd(z, z, z, z, z, lse.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="the card"):
+        causal_attention_bwd(z, z, z, z, z.cpu(), lse)
