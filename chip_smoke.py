@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,causal_bwd,train,train_parity
+    python3 chip_smoke.py --phases build,paged_verify,paged_int8,\
+engine_spec,spec_parity,engine_int8
 
 Phases, each printing one JSON line:
 
@@ -42,18 +44,50 @@ Phases, each printing one JSON line:
    outside the counted run): the first batch's loss gradients, then three
    AdamW steps; the losses, and per parameter the gradients and the
    change of the parameters, must agree.
+9. paged_verify: the speculative verify kernel against its plain version
+   (8 slots, W 5, block 16, 16 heads, D 128, 2 layers; decode's position
+   mix with draft lengths 0-4: an idle lane, a window in the slot's first
+   block crossing into the second, windows crossing blocks, one ending at
+   the table's last position, two slots sharing blocks read-only), bf16
+   and f32: outputs on live rows within tolerance, pools bit-identical
+   outside the null block 0; timings.
+10. paged_int8: the int8 decode and verify kernels against their plain
+   versions at the same shapes over int8 pools (normal rows quantized on
+   per-block grids), the quantization run once in plain torch before
+   both: outputs within tolerance, codes bit-identical outside block 0,
+   scales untouched; timings.
+11. engine_spec: phase 5's trace plus one request whose prompt tiles a
+   64-token motif 8 times, served by GenerationEngine(spec_decode_k=4)
+   with the n-gram drafter (bf16): tokens/s, verify steps, accepted and
+   rejected drafts, spec_degrade stalls, drain()'s leak check.
+12. spec_parity: f32, 2 slots, phase 6's prompts: K=0, K=4 with the n-gram
+   drafter and K=4 with an oracle drafter proposing the K=0 run's tokens
+   must emit the same tokens (a difference only at a near-tie, reported);
+   the oracle run accepts more than half of its drafts.
+13. engine_int8: phase 5's trace at kv_dtype="int8" (bf16 model), K=0 and
+   K=4: tokens/s, pool bytes against the bf16 pools, and the share of
+   tokens equal to the bf16 K=0 run's, held to the JAX package's int8
+   budget of 0.90 (tests/test_engine_quantized.py:41) as the JAX package
+   counts it (bench_ops.py `_token_match_fraction`: position by position
+   over each request's prompt and generated tokens); the share of
+   generated tokens alone, and for each request that diverges the first
+   differing token and the bf16 run's top-2 logit gap there, are
+   reported beside it.
 
-Phases 5 to 8 are the main path, in six runs: the bf16 engine, the bf16
-generate(), the f32 engine, the f32 generate(), the bf16 train steps and
-the f32 train steps. Kernel counts are set to 0 just before each run and
-read just after it; each run must launch every kernel it takes
-(PATH_KERNEL: the engine the paged decode kernel, generate() the causal
-forward, training the causal forward and backward, 24 times a step at
-1.3B) and call no plain version. `--profile` adds a device-time breakdown
-of the engine run and of one train step. The line before the last lists
-the kernels with their launches, errors and times; the last line is the
-device line. Any failed phase exits non-zero without it. With no CUDA
-device, or without the repository beside it, the script fails.
+Phases 5 to 8 and 11 to 13 are the main path, in ten runs: the bf16
+engine, the bf16 generate(), the f32 engine, the f32 generate(), the bf16
+train steps, the f32 train steps, the bf16 speculative engine, the three
+f32 engines of spec_parity, the int8 engine and the int8 speculative
+engine. Kernel counts are set to 0 just before each run and read just
+after it; each run must launch every kernel it takes (PATH_KERNEL: the
+engine the paged decode kernel, generate() the causal forward, training
+the causal forward and backward, 24 times a step at 1.3B, the speculative
+engine the verify kernel, the int8 engines their int8 kernels) and call no
+plain version. `--profile` adds a device-time breakdown of each engine run
+(the part after its prefixes are cached) and of one train step. The line before the last lists the kernels with
+their launches, errors and times; the last line is the device line. Any
+failed phase exits non-zero without it. With no CUDA device, or without
+the repository beside it, the script fails.
 """
 from __future__ import annotations
 
@@ -70,7 +104,8 @@ import numpy as np
 
 SEED = 0                           # weights and traces are drawn from it
 PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
-          "generate_parity", "train", "train_parity")
+          "generate_parity", "train", "train_parity", "paged_verify",
+          "paged_int8", "engine_spec", "spec_parity", "engine_int8")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -89,13 +124,23 @@ BWD_TOL = {"bfloat16": (1e-2, 1e-5), "float32": (0.0, 1e-5)}
 # either sign; every other parameter's change agrees to 3e-4.
 TRAIN_PARITY_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-1}
 FWD, BWD = "causal_attention_fwd", "causal_attention_bwd"
+DEC, VER = "paged_decode_attention", "paged_verify_attention"
+DEC8, VER8 = "paged_decode_attention_int8", "paged_verify_attention_int8"
 # each run of the main path, and the kernels that run must launch
-PATH_KERNEL = {"engine_bf16": ("paged_decode_attention",),
+PATH_KERNEL = {"engine_bf16": (DEC,),
                "generate_bf16": (FWD,),
-               "engine_f32": ("paged_decode_attention",),
+               "engine_f32": (DEC,),
                "generate_f32": (FWD,),
                "train_bf16": (FWD, BWD),
-               "train_f32": (FWD, BWD)}
+               "train_f32": (FWD, BWD),
+               "engine_spec_bf16": (VER,),
+               "spec_f32": (DEC, VER),
+               "engine_int8_bf16": (DEC8,),
+               "engine_int8_spec_bf16": (VER8,)}
+SPEC_K = 4
+# the JAX package's int8 KV budget: generated tokens equal to the fp
+# engine's (tests/test_engine_quantized.py:41)
+TOKEN_PARITY_MIN = 0.90
 
 
 def emit(obj):
@@ -479,7 +524,8 @@ def _device_breakdown(prof, name):
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
         n = e["name"]
-        key = ("paged_decode_kernel" if "paged_decode" in n else
+        key = ("paged_verify_kernel" if "paged_verify" in n else
+               "paged_decode_kernel" if "paged_decode" in n else
                "causal_fwd_kernel" if "causal_fwd" in n else
                "causal_bwd_kernels" if any(t in n for t in (
                    "dkdv_kernel", "dq_kernel", "delta_kernel")) else
@@ -496,11 +542,11 @@ def _device_breakdown(prof, name):
                 by_name.items(), key=lambda kv: -kv[1])[:12]}}
 
 
-def phase_engine(torch, ctx, seed):
-    from paddle_tpu_torch import GenerationEngine
-
-    model = _model(torch, torch.bfloat16, seed)
-    V = model.config.vocab_size
+def _engine_trace(V, seed):
+    """The serving trace (phase 5): 13 requests of 64-1536 prompt tokens,
+    five arriving once the shared 512-token prefix and a 1024-token
+    prompt are cached, that prompt repeated whole (a full-prefix hit whose
+    first write takes a copy-on-write). Returns (rng, trace)."""
     rng = np.random.RandomState(seed)
     shared = rng.randint(0, V, 512)
     repeat = rng.randint(0, V, 1024)             # block-aligned: full hit
@@ -512,37 +558,68 @@ def phase_engine(torch, ctx, seed):
              (repeat, 32),                       # whole repeat: COW
              (rng.randint(0, V, 1200), 44), (rng.randint(0, V, 96), 64),
              (rng.randint(0, V, 450), 50)]
-    eng = GenerationEngine(model, num_slots=8, block_size=16)
-    torch.cuda.synchronize()
+    return rng, dict(first=first, later=later, repeat=repeat, shared=shared)
 
-    def serve():
-        ids = [eng.add_request(p, n) for p, n in first]
-        # run until the repeated prompt and the shared prefix are cached
-        while (eng.cache.warm_prefix_tokens(repeat) < len(repeat)
-               or eng.cache.warm_prefix_tokens(shared) < len(shared)):
-            if eng.step() == 0:
-                raise AssertionError("trace ended before its prefixes "
-                                     "cached")
-        ids += [eng.add_request(p, n) for p, n in later]
+
+def _serve_trace(eng, trace, finish=None):
+    """Serve `trace` on `eng`: the first requests, steps until the repeated
+    prompt and the shared prefix are cached, then the later ones; `finish`
+    (drain() by default: the leak check) runs the rest. Returns (request
+    ids, results)."""
+    ids = [eng.add_request(p, n) for p, n in trace["first"]]
+    while (eng.cache.warm_prefix_tokens(trace["repeat"])
+           < len(trace["repeat"])
+           or eng.cache.warm_prefix_tokens(trace["shared"])
+           < len(trace["shared"])):
+        if eng.step() == 0:
+            raise AssertionError("trace ended before its prefixes cached")
+    ids += [eng.add_request(p, n) for p, n in trace["later"]]
+    return ids, (finish or (lambda e: e.drain()))(eng)
+
+
+def _outputs_ok(ids, out, reqs, V):
+    return all(out[r] is not None and len(out[r]) == len(p) + n
+               and all(0 <= t < V for t in out[r])
+               for r, (p, n) in zip(ids, reqs))
+
+
+def _drain_profiled(torch, ctx, name):
+    """drain(), under torch.profiler with `--profile` (its device-time
+    breakdown printed as phase `<name>_profile`)."""
+    def drain(eng):
         if not ctx.get("profile"):
-            return ids, eng.drain()              # leak check included
+            return eng.drain()
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             out = eng.drain()
             torch.cuda.synchronize()
-        emit(dict(phase="engine_profile",
-                  **_device_breakdown(prof, "engine")))
-        return ids, out
+        emit(dict(phase=f"{name}_profile",
+                  **_device_breakdown(prof, name)))
+        return out
+    return drain
+
+
+def phase_engine(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+
+    model = _model(torch, torch.bfloat16, seed)
+    V = model.config.vocab_size
+    rng, trace = _engine_trace(V, seed)
+    eng = GenerationEngine(model, num_slots=8, block_size=16)
+    torch.cuda.synchronize()
+
+    def serve():
+        return _serve_trace(eng, trace,
+                            _drain_profiled(torch, ctx, "engine"))
 
     t0 = time.perf_counter()
     ids, out = _counted(torch, ctx, "engine_bf16", serve)
     wall = time.perf_counter() - t0
-    reqs = first + later
-    shapes_ok = all(out[r] is not None and len(out[r]) == len(p) + n
-                    and all(0 <= t < V for t in out[r])
-                    for r, (p, n) in zip(ids, reqs))
+    reqs = trace["first"] + trace["later"]
+    shapes_ok = _outputs_ok(ids, out, reqs, V)
+    ctx["engine_tokens"] = [out[r] for r in ids]
     # the model's own serving entry near full context (causal kernel)
     prompt = torch.from_numpy(rng.randint(0, V, 2040).astype(np.int32))
     gen = _counted(torch, ctx, "generate_bf16", lambda: model.generate(
@@ -773,15 +850,459 @@ def phase_train_parity(torch, ctx, seed):
                              "CPU")
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding and int8 KV
+#
+# The null block 0 is a race, not a reference: idle lanes, dead window rows
+# of every slot and (int8) candidate blocks past a table all write it, from
+# concurrent CTAs on the card. So pools are compared outside block 0 and
+# outputs on the live rows of live slots only.
+# ---------------------------------------------------------------------------
+
+def _window_case(torch, g, W, dtype, int8):
+    """Pools and inputs at the engine's shapes: 8 slots, bs 16, 16 heads, D
+    128, 2 layers, W rows per slot (W 1 is the decode step). Decode's
+    position mix with draft lengths 0-4: slot 0 idle; slot 1's window
+    starts in its first block and crosses into the second; windows at
+    511 and 1023 cross a block; slot 5's ends at position 2047, the
+    table's last; slot 6 reads slot 4's first 32 blocks read-only. int8:
+    normal rows quantized on per-block grids 0.7-1.3x absmax / 127."""
+    from paddle_tpu_torch.ops.paged_attention import _quant_rows
+
+    slots, bs, heads, D, L = 8, 16, 16, 128, 2
+    if W == 1:
+        positions, dlens = [0, 15, 16, 511, 1023, 2047, 700, 1300], [0] * 8
+    else:
+        positions = [0, 13, 16, 511, 1023, 2043, 700, 1300]
+        dlens = [0, 4, 0, 1, 2, 4, 3, 4]
+        dlens = [min(d, W - 1) for d in dlens]
+    max_blocks = 2048 // bs
+    tables = np.zeros((slots, max_blocks), np.int32)
+    nxt = 1
+    for s, (p, d) in enumerate(zip(positions, dlens)):
+        if s == 0:
+            continue
+        nb = (p + d) // bs + 1
+        start = 0
+        if s == 6:
+            tables[s, :32] = tables[4, :32]
+            start = 32
+        tables[s, start:nb] = np.arange(nxt, nxt + nb - start)
+        nxt += nb - start
+    dev = "cuda"
+    shape = (L, nxt, bs, heads, D)
+    kpool, vpool = (torch.randn(shape, generator=g, device=dev)
+                    for _ in range(2))
+    scales = None
+    if int8:
+        amax = torch.stack([kpool.abs().amax((2, 3, 4)),
+                            vpool.abs().amax((2, 3, 4))], -1)
+        scales = amax / 127 * (0.7 + 0.6 * torch.rand(
+            amax.shape, generator=g, device=dev))
+        kpool, vpool = (_quant_rows(x, scales[..., i, None, None, None])
+                        for i, x in enumerate((kpool, vpool)))
+    else:
+        kpool, vpool = kpool.to(dtype), vpool.to(dtype)
+    q, kn, vn = (torch.randn((slots, W, heads, D), generator=g,
+                             device=dev).to(dtype) for _ in range(3))
+    live = np.arange(W)[None, :] <= np.array(dlens)[:, None]
+    live[0] = False
+    return dict(q=q, kn=kn, vn=vn, kpool=kpool, vpool=vpool, scales=scales,
+                tables_np=tables, tables=torch.from_numpy(tables).to(dev),
+                positions=torch.tensor(positions, dtype=torch.int32,
+                                       device=dev),
+                dlens=torch.tensor(dlens, dtype=torch.int32, device=dev),
+                pos_list=positions, dlen_list=dlens,
+                live=torch.from_numpy(live).to(dev), bs=bs, heads=heads,
+                D=D, W=W)
+
+
+def _window_bound(c, isz_q, isz_pool, dtype_name):
+    """The least time for one step at case `c`: bytes (the distinct pool
+    rows below each window, k and v, once; the scale rows of the blocks
+    read, int8; q, the new rows, their writes, the output; tables,
+    positions, draft lengths) over the memory rate, and the live rows'
+    QK and PV products over the dtype's peak."""
+    bs, row = c["bs"], c["heads"] * c["D"]
+    slots, W = len(c["pos_list"]), c["W"]
+    live = int(c["live"].sum())
+    blocks = sum((p + d) // bs + 1
+                 for p, d in zip(c["pos_list"], c["dlen_list"]))
+    nbytes = (_live_pool_rows(c["tables_np"], c["pos_list"], bs)
+              * row * 2 * isz_pool                  # cached k and v, once
+              + slots * W * row * (2 * isz_q        # q, out
+                                   + 2 * isz_pool)  # knew, vnew
+              + 2 * live * row * isz_pool           # written rows
+              + blocks * 4 + slots * 8)             # tables, pos, dlen
+    if isz_pool == 1:
+        nbytes += blocks * 8                        # scale rows
+    flops = 4 * row * sum(p + w + 1 for s, (p, d) in enumerate(
+        zip(c["pos_list"], c["dlen_list"])) for w in range(W)
+        if bool(c["live"][s, w]))
+    return bound_ms(nbytes, flops, dtype_name)
+
+
+def _kernel_vs_plain(torch, c, kernel, plain, int8, layer=1):
+    """Quantize once (int8), then the plain version and the kernel on
+    clones of the same pools. Returns (output error on live rows, pools
+    bit-identical outside block 0, scales untouched, args for timing)."""
+    from paddle_tpu_torch.ops import paged_attention as tpa
+
+    q, kn, vn = c["q"], c["kn"], c["vn"]
+    if int8:
+        if c["W"] == 1:
+            kn, vn = tpa._quant_write_decode(
+                c["kpool"], c["vpool"], c["scales"], kn, vn, c["tables"],
+                c["positions"], layer)
+            kn, vn = kn[:, None].contiguous(), vn[:, None].contiguous()
+        else:
+            kn, vn = tpa._quant_write_window(
+                c["kpool"], c["vpool"], c["scales"], kn, vn, c["tables"],
+                c["positions"], c["dlens"], layer)
+    sc0 = None if c["scales"] is None else c["scales"].clone()
+    pre = (c["scales"][layer],) if int8 else ()
+    post = () if c["W"] == 1 else (c["dlens"],)
+    kp0, vp0 = c["kpool"].clone(), c["vpool"].clone()
+    kp1, vp1 = c["kpool"].clone(), c["vpool"].clone()
+    tail = (layer, c["tables"], c["positions"]) + post
+    ref = plain(q, kn, vn, kp0, vp0, *pre, *tail)
+    out = kernel(q, kn, vn, kp1, vp1, *pre, *tail)
+    torch.cuda.synchronize()
+    live = c["live"]
+    err = (out.float() - ref.float())[live].abs().max().item()
+    pools = bool(torch.equal(kp0[:, 1:], kp1[:, 1:])
+                 and torch.equal(vp0[:, 1:], vp1[:, 1:]))
+    scales = sc0 is None or bool(torch.equal(sc0, c["scales"]))
+    return err, pools, scales, ((q, kn, vn, kp1, vp1) + pre + tail,
+                                (q, kn, vn, kp0, vp0) + pre + tail)
+
+
+def _time_paged(torch, kernel, plain, kargs, pargs):
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                        device="cuda")               # 256 MB > L2
+    kms = cuda_ms(torch, lambda: kernel(*kargs), 50, flush)
+    pms = cuda_ms(torch, lambda: plain(*pargs), 5, flush, warmup=1)
+    return kms, pms
+
+
+def phase_paged_verify(torch, ctx):
+    from paddle_tpu_torch.ops.paged_verify import (paged_verify_attention,
+                                                   paged_verify_plain)
+
+    g = torch.Generator("cuda").manual_seed(4)
+    res = {"phase": "paged_verify", "cases": []}
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        c = _window_case(torch, g, SPEC_K + 1, dtype, int8=False)
+        err, pools, _, (kargs, pargs) = _kernel_vs_plain(
+            torch, c, paged_verify_attention, paged_verify_plain, False)
+        name = dname(torch, dtype)
+        case = {"dtype": name, "max_abs_err": err, "tol": TOL[name],
+                "pools_bit_identical_outside_block0": pools}
+        ok &= err <= TOL[name] and pools and math.isfinite(err)
+        if dtype == torch.bfloat16:
+            kms, pms = _time_paged(torch, paged_verify_attention,
+                                   paged_verify_plain, kargs, pargs)
+            isz = c["q"].element_size()
+            b, by = _window_bound(c, isz, isz, name)
+            case.update(kernel_ms=kms, plain_ms=pms, bound_ms=b,
+                        bound_by=by, library_ms=None)
+            ctx["paged_verify"] = dict(case, shape=(
+                f"slots8 W{SPEC_K + 1} bs16 H16 D128 positions "
+                f"{c['pos_list']} draft_lens {c['dlen_list']}"))
+        res["cases"].append(case)
+    # no fallback: a window the kernel cannot take raises on the card
+    q = torch.zeros((2, 10, 2, 64), device="cuda")
+    pool = torch.zeros((1, 4, 16, 2, 64), device="cuda")
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    try:
+        paged_verify_attention(q, q, q, pool, pool.clone(), 0,
+                               torch.zeros((2, 4), dtype=torch.int32,
+                                           device="cuda"), z, z)
+        res["window_10_raises"] = False
+    except ValueError:
+        res["window_10_raises"] = True
+    ok &= res["window_10_raises"]
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("paged verify kernel disagrees with its plain "
+                             "version")
+
+
+def phase_paged_int8(torch, ctx):
+    from paddle_tpu_torch.ops.paged_decode import (
+        paged_decode_attention_int8, paged_decode_int8_plain)
+    from paddle_tpu_torch.ops.paged_verify import (
+        paged_verify_attention_int8, paged_verify_int8_plain)
+
+    g = torch.Generator("cuda").manual_seed(5)
+    res = {"phase": "paged_int8", "cases": []}
+    ok = True
+    for key, W, kernel, plain in (
+            ("paged_decode_int8", 1, paged_decode_attention_int8,
+             paged_decode_int8_plain),
+            ("paged_verify_int8", SPEC_K + 1, paged_verify_attention_int8,
+             paged_verify_int8_plain)):
+        for dtype in (torch.bfloat16, torch.float32):
+            c = _window_case(torch, g, W, dtype, int8=True)
+            err, pools, scales, (kargs, pargs) = _kernel_vs_plain(
+                torch, c, kernel, plain, True)
+            name = dname(torch, dtype)
+            case = {"kernel": kernel.__name__, "dtype": name,
+                    "max_abs_err": err, "tol": TOL[name],
+                    "codes_bit_identical_outside_block0": pools,
+                    "scales_untouched": scales}
+            ok &= err <= TOL[name] and pools and scales \
+                and math.isfinite(err)
+            if dtype == torch.bfloat16:
+                kms, pms = _time_paged(torch, kernel, plain, kargs, pargs)
+                b, by = _window_bound(c, c["q"].element_size(), 1, name)
+                case.update(kernel_ms=kms, plain_ms=pms, bound_ms=b,
+                            bound_by=by, library_ms=None)
+                ctx[key] = dict(case, shape=(
+                    f"slots8 W{W} bs16 H16 D128 int8 pools, q bf16, "
+                    f"positions {c['pos_list']} draft_lens "
+                    f"{c['dlen_list']}"))
+            res["cases"].append(case)
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("int8 paged kernels disagree with their plain "
+                             "versions")
+
+
+def _token_match_fraction(ref_outs, got_outs):
+    """The JAX package's int8 budget metric (bench_ops.py, copied):
+    fraction of positionally matching tokens across two runs' aligned
+    output lists (prompt + generated per request)."""
+    match = total = 0
+    for a, b in zip(ref_outs, got_outs):
+        n = max(len(a), len(b))
+        total += n
+        match += sum(x == y for x, y in zip(a, b))
+    return match / max(total, 1)
+
+
+def _token_share(outs, refs, reqs):
+    """Share of generated tokens equal, position by position, to `refs`."""
+    same = total = 0
+    for o, r, (p, _) in zip(outs, refs, reqs):
+        same += sum(a == b for a, b in zip(o[len(p):], r[len(p):]))
+        total += len(r) - len(p)
+    return same / total
+
+
+def phase_engine_spec(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+
+    model = _model(torch, torch.bfloat16, seed)
+    V = model.config.vocab_size
+    _, trace = _engine_trace(V, seed)
+    motif = np.random.RandomState(seed + 4).randint(0, V, 64)
+    trace["first"] = trace["first"] + [(np.tile(motif, 8), 64)]
+    eng = GenerationEngine(model, num_slots=8, block_size=16,
+                           spec_decode_k=SPEC_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, out = _counted(torch, ctx, "engine_spec_bf16",
+                        lambda: _serve_trace(eng, trace, _drain_profiled(
+                            torch, ctx, "engine_spec")))
+    wall = time.perf_counter() - t0
+    reqs = trace["first"] + trace["later"]
+    proposed = eng.spec_accepted_tokens + eng.spec_rejected_tokens
+    res = {"phase": "engine_spec", "config": "gpt_1p3b bf16, 8 slots, "
+           f"block 16, spec_decode_k={SPEC_K}, NgramDrafter",
+           "requests": len(reqs), "wall_s": wall,
+           "tokens_generated": eng.tokens_generated,
+           "tokens_per_s": eng.tokens_generated / wall,
+           "verify_steps": eng.decode_steps,
+           "accepted_per_verify_step": eng.spec_accepted_tokens
+           / max(eng.decode_steps, 1),
+           "accepted_draft_tokens": eng.spec_accepted_tokens,
+           "rejected_draft_tokens": eng.spec_rejected_tokens,
+           "acceptance": eng.spec_accepted_tokens / proposed
+           if proposed else None,
+           "spec_degrade_stalls": eng.stalls["spec_degrade"],
+           "stalls": eng.stalls, "prefill_chunks": eng.prefill_chunks,
+           "prefix_hit_tokens": eng.prefix_hit_tokens,
+           "cow_copies": eng.cow_copies, "leak_check": "passed",
+           "kernel_counts": ctx["paths"]["engine_spec_bf16"]}
+    m = len(trace["first"]) - 1                  # the motif request
+    if "engine_tokens" in ctx:                   # against phase 5's K=0
+        keep = [i for i in range(len(ids)) if i != m]
+        res["share_equal_to_k0_bf16"] = _token_share(
+            [out[ids[i]] for i in keep], ctx["engine_tokens"],
+            [reqs[i] for i in keep])
+    motif_out = out[ids[m]]
+    res["motif_request_ok"] = bool(len(motif_out) == 512 + 64)
+    res["outputs_ok"] = _outputs_ok(ids, out, reqs, V)
+    res["ok"] = bool(res["outputs_ok"] and res["motif_request_ok"]
+                     and eng.spec_accepted_tokens > 0
+                     and eng.prefix_hit_tokens > 0 and eng.cow_copies >= 1)
+    emit(res)
+    del eng, model
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("engine_spec phase failed its checks")
+
+
+class _OracleDrafter:
+    """Proposes a reference run's continuation of each prompt."""
+
+    def __init__(self, prompts, outputs):
+        self.ref = {bytes(np.asarray(p, np.int32)): list(o)
+                    for p, o in zip(prompts, outputs)}
+
+    def propose(self, prompt, generated, k):
+        out = self.ref[bytes(np.asarray(prompt, np.int32))]
+        n = len(prompt) + len(generated)
+        return out[n:n + k]
+
+
+def _first_diff(torch, model, got, ref):
+    """(index of the first differing token, top-2 logit gap there)."""
+    at = int(np.nonzero(np.asarray(got) != np.asarray(ref))[0][0])
+    with torch.no_grad():
+        logits = model(torch.from_numpy(np.asarray(ref[:at], np.int32))
+                       [None].cuda())[0, -1].float()
+    top2 = torch.topk(logits, 2).values
+    return at, float(top2[0] - top2[1])
+
+
+def phase_spec_parity(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+
+    model = _model(torch, torch.float32, seed)
+    V = model.config.vocab_size
+    rng = np.random.RandomState(seed + 1)        # phase 6's prompts
+    prompts = [rng.randint(0, V, 256), rng.randint(0, V, 300)]
+    new = 16
+    runs = {}
+
+    def serve(**kw):
+        eng = GenerationEngine(model, num_slots=2, block_size=16, **kw)
+        ids = [eng.add_request(p, new) for p in prompts]
+        out = eng.drain()
+        return eng, [out[r] for r in ids]
+
+    def all_runs():
+        runs["k0"] = serve()
+        runs["ngram"] = serve(spec_decode_k=SPEC_K)
+        runs["oracle"] = serve(spec_decode_k=SPEC_K, drafter=_OracleDrafter(
+            prompts, runs["k0"][1]))
+
+    _counted(torch, ctx, "spec_f32", all_runs)
+    res = {"phase": "spec_parity", "dtype": "float32", "runs": {},
+           "kernel_counts": ctx["paths"]["spec_f32"]}
+    ok = True
+    base = runs["k0"][1]
+    for name in ("ngram", "oracle"):
+        eng, outs = runs[name]
+        proposed = eng.spec_accepted_tokens + eng.spec_rejected_tokens
+        run = {"accepted": eng.spec_accepted_tokens,
+               "rejected": eng.spec_rejected_tokens,
+               "verify_steps": eng.decode_steps, "cases": []}
+        for got, ref, p in zip(outs, base, prompts):
+            case = {"prompt_len": len(p),
+                    "identical": bool(np.array_equal(got, ref))}
+            if not case["identical"]:
+                at, gap = _first_diff(torch, model, got, ref)
+                case.update(first_diff=at, top2_gap=gap,
+                            near_tie=gap <= 1e-3)
+                ok &= gap <= 1e-3
+            run["cases"].append(case)
+        if name == "oracle":
+            run["accepted_share"] = eng.spec_accepted_tokens / proposed \
+                if proposed else 0.0
+            ok &= run["accepted_share"] > 0.5
+        res["runs"][name] = run
+    res["k0_decode_steps"] = runs["k0"][0].decode_steps
+    res["ok"] = bool(ok)
+    emit(res)
+    del runs, model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("speculative tokens differ from K=0")
+
+
+def phase_engine_int8(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+
+    model = _model(torch, torch.bfloat16, seed)
+    V = model.config.vocab_size
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    if "engine_tokens" not in ctx:                 # phase 5 did not run
+        eng = GenerationEngine(model, num_slots=8, block_size=16)
+        ids, out = _counted(torch, ctx, "engine_bf16",
+                            lambda: _serve_trace(eng, trace))
+        ctx["engine_tokens"] = [out[r] for r in ids]
+        del eng
+    res = {"phase": "engine_int8", "config": "gpt_1p3b bf16 model, int8 "
+           "KV pools, 8 slots, block 16", "runs": {},
+           "token_parity_min": TOKEN_PARITY_MIN}
+    ok = True
+    for path, K in (("engine_int8_bf16", 0),
+                    ("engine_int8_spec_bf16", SPEC_K)):
+        eng = GenerationEngine(model, num_slots=8, block_size=16,
+                               kv_dtype="int8", spec_decode_k=K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, out = _counted(torch, ctx, path,
+                            lambda: _serve_trace(eng, trace, _drain_profiled(
+                                torch, ctx, path)))
+        wall = time.perf_counter() - t0
+        outs = [out[r] for r in ids]
+        fp_bytes = 2 * eng.cache.kpool.numel() * 2       # bf16 k and v
+        share = _token_match_fraction(ctx["engine_tokens"], outs)
+        diverged = []
+        for i, (o, r, (p, _)) in enumerate(zip(outs, ctx["engine_tokens"],
+                                               reqs)):
+            if o != r:
+                at, gap = _first_diff(torch, model, o, r)
+                diverged.append({"request": i, "prompt_len": len(p),
+                                 "first_diff_generated": at - len(p),
+                                 "generated": len(r) - len(p),
+                                 "bf16_top2_gap": gap})
+        run = {"spec_decode_k": K, "wall_s": wall,
+               "tokens_generated": eng.tokens_generated,
+               "tokens_per_s": eng.tokens_generated / wall,
+               "decode_steps": eng.decode_steps,
+               "pool_nbytes": eng.cache.pool_nbytes(),
+               "bf16_pool_nbytes": fp_bytes,
+               "pool_bytes_ratio": eng.cache.pool_nbytes() / fp_bytes,
+               "token_match_fraction": share,
+               "generated_share_equal_to_bf16_k0": _token_share(
+                   outs, ctx["engine_tokens"], reqs),
+               "diverged_requests": diverged,
+               "outputs_ok": _outputs_ok(ids, out, reqs, V),
+               "leak_check": "passed", "kernel_counts": ctx["paths"][path]}
+        if K:
+            run.update(accepted=eng.spec_accepted_tokens,
+                       rejected=eng.spec_rejected_tokens)
+        ok &= run["outputs_ok"] and share >= TOKEN_PARITY_MIN
+        res["runs"][path] = run
+        del eng
+        torch.cuda.empty_cache()
+    res["ok"] = bool(ok)
+    emit(res)
+    del model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("int8 engine outside its token budget")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="profile the engine phase's main run and one "
-                    "train step with torch.profiler and print their "
-                    "device-time breakdowns (slows the engine run; its "
-                    "tokens/s is then not comparable)")
+                    help="profile the engine runs (phases engine, "
+                    "engine_spec, engine_int8) after their prefixes are "
+                    "cached, and one train step, with torch.profiler and "
+                    "print their device-time breakdowns (slows those "
+                    "runs; their tokens/s is then not comparable)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in PHASES]
@@ -797,13 +1318,18 @@ def main(argv=None):
     import paddle_tpu_torch  # noqa: F401  (fails outside the repository)
     from paddle_tpu_torch.ops.flash_attention import (causal_attention_bwd,
                                                       causal_attention_fwd)
-    from paddle_tpu_torch.ops.paged_decode import paged_decode_attention
+    from paddle_tpu_torch.ops.paged_decode import (
+        paged_decode_attention, paged_decode_attention_int8)
+    from paddle_tpu_torch.ops.paged_verify import (
+        paged_verify_attention, paged_verify_attention_int8)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ctx = {"profile": args.profile, "paths": {},
            "wrappers": (paged_decode_attention, causal_attention_fwd,
-                        causal_attention_bwd)}
+                        causal_attention_bwd, paged_verify_attention,
+                        paged_decode_attention_int8,
+                        paged_verify_attention_int8)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -822,8 +1348,18 @@ def main(argv=None):
                 phase_generate_parity(torch, ctx, SEED)
             elif name == "train":
                 phase_train(torch, ctx, SEED)
-            else:
+            elif name == "train_parity":
                 phase_train_parity(torch, ctx, SEED)
+            elif name == "paged_verify":
+                phase_paged_verify(torch, ctx)
+            elif name == "paged_int8":
+                phase_paged_int8(torch, ctx)
+            elif name == "engine_spec":
+                phase_engine_spec(torch, ctx, SEED)
+            elif name == "spec_parity":
+                phase_spec_parity(torch, ctx, SEED)
+            else:
+                phase_engine_int8(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -843,7 +1379,15 @@ def main(argv=None):
              "paddle_tpu/ops/pallas/flash_attention.py:428"),
             ("causal_bwd", BWD,
              "paddle_tpu_torch/csrc/causal_attention_bwd.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:452")):
+             "paddle_tpu/ops/pallas/flash_attention.py:452"),
+            ("paged_verify", VER, "paddle_tpu_torch/csrc/paged_verify.cu",
+             "paddle_tpu/ops/pallas/paged_attention.py:350"),
+            ("paged_decode_int8", DEC8,
+             "paddle_tpu_torch/csrc/paged_decode.cu",
+             "paddle_tpu/ops/pallas/paged_attention.py:163"),
+            ("paged_verify_int8", VER8,
+             "paddle_tpu_torch/csrc/paged_verify.cu",
+             "paddle_tpu/ops/pallas/paged_attention.py:464")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

@@ -2,7 +2,8 @@
 // the continuous-batching engine, for one layer.
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py `_decode_kernel`
-// (entry `paged_decode_attention`). Plain PyTorch version and wrapper:
+// (entry `paged_decode_attention`) and, as the template variant over int8
+// pools, `_decode_kernel_int8`. Plain PyTorch versions and wrappers:
 // paddle_tpu_torch/ops/paged_decode.py.
 //
 // What it computes, per (slot s, head h):
@@ -39,10 +40,22 @@
 // threads per (slot, head), 64 keys per tile, plain loads through the
 // cache, no cp.async/TMA pipelining and no split of long contexts across
 // CTAs. At 8 slots x 16 heads the grid is 128 CTAs of 128 threads.
+//
+// int8 variant (pool element P = int8_t): the pools hold int8 codes and
+// `kv_scales` is this layer's [num_blocks, 2] f32 K/V grid. The new rows
+// arrive already quantized (the op layer grows the written block's grid,
+// requantizes it and updates its scale row first), so the write is the
+// same copy. q stays in f32 (no rounding to the pool dtype), codes are
+// cast to f32, and the dequant follows `_dense_step_q`'s order: logits
+// (q.k) * scale * ks per key; probabilities not rounded; each block's
+// p.v scaled by its vs before it joins the accumulator. The bound halves
+// the cached bytes (one byte a code, plus 8 bytes of scales a block).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -52,6 +65,9 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -65,14 +81,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 
 // grid (slots, heads), block D threads: thread `tid` owns output column
 // `tid`; for QK each warp takes keys warp, warp + D/32, ... of a tile and
-// each lane a contiguous D/32 slice of the dot product.
-template <typename T, int D>
+// each lane a contiguous D/32 slice of the dot product. T is the dtype of
+// q and out, P the pool's: T for the fp kernel, int8_t for the int8 one.
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(D) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ knew,
-    const T* __restrict__ vnew, T* kpool, T* vpool,
+    const T* __restrict__ q, const P* __restrict__ knew,
+    const P* __restrict__ vnew, P* kpool, P* vpool,
+    const float* __restrict__ kv_scales,
     const int32_t* __restrict__ tables,
     const int32_t* __restrict__ positions, T* __restrict__ out, int layer,
     int num_blocks, int bs, int heads, int max_blocks, float scale) {
+  constexpr bool kQ = std::is_same<P, int8_t>::value;
   constexpr int kWarps = D / 32;
   constexpr int kPer = D / 32;
   const int s = blockIdx.x;
@@ -101,7 +120,9 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   __shared__ float s_p[kTileKeys];    // fp32 probabilities (for l)
   __shared__ float s_pv[kTileKeys];   // rounded to the V dtype (for PV)
   __shared__ size_t s_row[kTileKeys]; // pool offset of each key's row
+  __shared__ float s_vs[kTileKeys];   // int8: V scale of each key's block
 
+  // fp: q rounded to the pool dtype, which is q's own; int8: q in f32
   float qf[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) qf[i] = to_f(q[qoff + lane * kPer + i]);
@@ -116,9 +137,9 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
       const int t = t0 + k;
       float dot = kNegInf;
       if (t < nkeys) {  // warp-uniform branch
-        const size_t row =
-            plane + table[t / bs] * block_stride + (t % bs) * row_stride;
-        const T* krow = kpool + row + lane * kPer;
+        const int bid = table[t / bs];
+        const size_t row = plane + bid * block_stride + (t % bs) * row_stride;
+        const P* krow = kpool + row + lane * kPer;
         float part = 0.f;
 #pragma unroll
         for (int i = 0; i < kPer; ++i) part += qf[i] * to_f(krow[i]);
@@ -126,7 +147,11 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
         for (int off = 16; off > 0; off >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
         dot = part * scale;
-        if (lane == 0) s_row[k] = row;
+        if constexpr (kQ) dot = dot * kv_scales[2 * bid];  // fused dequant
+        if (lane == 0) {
+          s_row[k] = row;
+          if constexpr (kQ) s_vs[k] = kv_scales[2 * bid + 1];
+        }
       }
       if (lane == 0) s_logit[k] = dot;
     }
@@ -139,7 +164,11 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     if (tid < kTileKeys) {
       const float p = expf(s_logit[tid] - m_new);  // masked keys give 0
       s_p[tid] = p;
-      s_pv[tid] = to_f(from_f<T>(p));
+      if constexpr (kQ) {
+        s_pv[tid] = p;                             // int8: not rounded
+      } else {
+        s_pv[tid] = to_f(from_f<T>(p));
+      }
     }
     __syncthreads();
 
@@ -150,8 +179,21 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     l = alpha * l + psum;
     const int kend = min(kTileKeys, nkeys - t0);
     float pv = 0.f;
-    for (int k = 0; k < kend; ++k)
-      pv += s_pv[k] * to_f(vpool[s_row[k] + tid]);
+    if constexpr (kQ) {
+      // each block's p.v scaled once by its grid (tiles are whole blocks:
+      // bs divides kTileKeys and t0 is a multiple of it)
+      float pvb = 0.f;
+      for (int k = 0; k < kend; ++k) {
+        pvb += s_pv[k] * to_f(vpool[s_row[k] + tid]);
+        if ((t0 + k + 1) % bs == 0 || k + 1 == kend) {
+          pv += pvb * s_vs[k];
+          pvb = 0.f;
+        }
+      }
+    } else {
+      for (int k = 0; k < kend; ++k)
+        pv += s_pv[k] * to_f(vpool[s_row[k] + tid]);
+    }
     acc = acc * alpha + pv;
     m = m_new;
     __syncthreads();  // s_logit / s_p / s_row are rewritten next tile
@@ -159,17 +201,18 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   out[qoff + tid] = from_f<T>(acc / fmaxf(l, 1e-30f));
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 int launch(const void* q, const void* knew, const void* vnew, void* kpool,
-           void* vpool, const void* tables, const void* positions,
-           void* out, int slots, int heads, int layer, int num_blocks,
-           int block_size, int max_blocks, float scale,
+           void* vpool, const void* kv_scales, const void* tables,
+           const void* positions, void* out, int slots, int heads, int layer,
+           int num_blocks, int block_size, int max_blocks, float scale,
            cudaStream_t stream) {
   dim3 grid(slots, heads);
-  paged_decode_kernel<T, D><<<grid, D, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(knew),
-      static_cast<const T*>(vnew), static_cast<T*>(kpool),
-      static_cast<T*>(vpool), static_cast<const int32_t*>(tables),
+  paged_decode_kernel<T, P, D><<<grid, D, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(knew),
+      static_cast<const P*>(vnew), static_cast<P*>(kpool),
+      static_cast<P*>(vpool), static_cast<const float*>(kv_scales),
+      static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(positions), static_cast<T*>(out), layer,
       num_blocks, block_size, heads, max_blocks, scale);
   return static_cast<int>(cudaGetLastError());
@@ -177,8 +220,9 @@ int launch(const void* q, const void* knew, const void* vnew, void* kpool,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim in {64, 128}. Returns the
-// launch's cudaError_t (0 on success); the wrapper validated everything.
+// dtype (of q, the new rows, the pools and out): 0 = float32,
+// 1 = bfloat16. head_dim in {64, 128}. Returns the launch's cudaError_t (0
+// on success); the wrapper validated everything.
 extern "C" int paged_decode(const void* q, const void* knew,
                             const void* vnew, void* kpool, void* vpool,
                             const void* tables, const void* positions,
@@ -187,10 +231,34 @@ extern "C" int paged_decode(const void* q, const void* knew,
                             int block_size, int max_blocks, float scale,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PD_LAUNCH(T, D)                                                   \
-  return launch<T, D>(q, knew, vnew, kpool, vpool, tables, positions,   \
-                      out, slots, heads, layer, num_blocks, block_size, \
-                      max_blocks, scale, st)
+#define PD_LAUNCH(T, D)                                                     \
+  return launch<T, T, D>(q, knew, vnew, kpool, vpool, nullptr, tables,    \
+                         positions, out, slots, heads, layer, num_blocks, \
+                         block_size, max_blocks, scale, st)
+  if (dtype == 0 && head_dim == 64) PD_LAUNCH(float, 64);
+  if (dtype == 0 && head_dim == 128) PD_LAUNCH(float, 128);
+  if (dtype == 1 && head_dim == 64) PD_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && head_dim == 128) PD_LAUNCH(__nv_bfloat16, 128);
+#undef PD_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// int8 pools: knew/vnew are the quantized int8 rows, kv_scales this
+// layer's [num_blocks, 2] f32 plane; dtype (of q and out) as above.
+extern "C" int paged_decode_int8(const void* q, const void* knew,
+                                 const void* vnew, void* kpool, void* vpool,
+                                 const void* kv_scales, const void* tables,
+                                 const void* positions, void* out,
+                                 int dtype, int slots, int heads,
+                                 int head_dim, int layer, int num_blocks,
+                                 int block_size, int max_blocks,
+                                 float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PD_LAUNCH(T, D)                                                    \
+  return launch<T, int8_t, D>(q, knew, vnew, kpool, vpool, kv_scales,    \
+                              tables, positions, out, slots, heads,      \
+                              layer, num_blocks, block_size, max_blocks, \
+                              scale, st)
   if (dtype == 0 && head_dim == 64) PD_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) PD_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) PD_LAUNCH(__nv_bfloat16, 64);

@@ -1,6 +1,6 @@
 """Continuous-batching generation engine over a paged KV cache: counterpart
-of paddle_tpu/inference/engine.py (greedy, fp pools, one device, serial
-core).
+of paddle_tpu/inference/engine.py (greedy, fp or int8 pools, speculative
+decoding, one device, serial core).
 
 - `PagedKVCache`: pools `[layers, num_blocks, block_size, heads, head_dim]`
   on the device plus a host-side allocator with per-block refcounts and a
@@ -14,15 +14,25 @@ core).
   lane. A lane that cannot get a block stalls and retries next step.
 - copy-on-write: a decode write about to land in a shared or cached block
   first copies it to a private block.
+- speculative decoding (`spec_decode_k=K > 0`): the decode step becomes a
+  verify step over a `[slots, K+1]` window, the feed token plus up to K
+  tokens a drafter proposed (`NgramDrafter` by default); the longest
+  draft prefix equal to the target's argmax is accepted, plus the
+  target's own next token. Rejected rows need no cleanup: the lane does
+  not advance past them and attention is bounded by position.
+- int8 KV (`kv_dtype="int8"`): int8 pools plus a `[layers, num_blocks, 2]`
+  f32 per-block K/V scale array, quantized on every write.
 
-The pools are updated IN PLACE by every step (PyTorch is eager: there is no
-compiled step, no donation, no trace count). Greedy output matches
-`GPTForCausalLM.generate(use_cache=True)` per request.
+The pools (and scales) are updated IN PLACE by every step (PyTorch is
+eager: there is no compiled step, no donation, no trace count). Greedy
+output matches `GPTForCausalLM.generate(use_cache=True)` per request, with
+or without speculation; int8 pools hold to the JAX int8 engine instead.
 
-Left for later slices: bucketed prefill, speculative decoding, tensor
-parallelism, int8 KV and weights, adapters, sampling, the metrics registry,
-tracing and the flight recorder, the async core and the fleet handoff.
-Plain counters stand in for the metrics.
+Left for later slices: bucketed prefill, sampled acceptance and the async
+drafter thread, tensor parallelism, int8 weights, adapters, sampling, the
+environment overrides (`PADDLE_SPEC_DECODE_K`, `PADDLE_SERVE_KV_DTYPE`),
+the metrics registry, tracing and the flight recorder, the async core and
+the fleet handoff. Plain counters stand in for the metrics.
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.paged_attention import copy_pool_block
+from ..ops.paged_attention import KV_QUANT_EPS, copy_pool_block
+from .speculative import NgramDrafter, draft_window
 
 __all__ = ["PagedKVCache", "GenerationEngine", "Request", "PRIORITY_CLASSES",
            "prefix_key", "iter_prefix_key"]
@@ -92,23 +103,39 @@ class PagedKVCache:
     `register_prefix` publishes a prompt's FULL blocks under their chain
     hashes once their KV is written; `match_prefix` walks the chain and
     takes a reference on every hit. A cached block at refcount zero parks
-    in an LRU pool, still matchable, until `allocate` evicts it."""
+    in an LRU pool, still matchable, until `allocate` evicts it.
+
+    `kv_dtype="int8"`: the pools hold int8 codes and `scales`
+    `[layers, num_blocks, 2]` f32 holds each block's K (column 0) and V
+    (column 1) grid, filled with `KV_QUANT_EPS`; `dtype` stays the model
+    dtype the attention output casts back to. Without it `scales` is
+    None."""
 
     def __init__(self, num_layers, num_blocks, block_size, num_heads,
-                 head_dim, dtype=torch.float32, device=None):
+                 head_dim, dtype=torch.float32, device=None, kv_dtype=None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null "
                              "block)")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None (fp pools) or 'int8', got "
+                f"{kv_dtype!r}")
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
+        self.kv_dtype = kv_dtype
         self.dtype = dtype
         self.device = resolve_device(device)
-        shape = self.pool_spec()[0]
-        self.kpool = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.vpool = torch.zeros(shape, dtype=dtype, device=self.device)
+        shape, dt = self.pool_spec()
+        self.kpool = torch.zeros(shape, dtype=dt, device=self.device)
+        self.vpool = torch.zeros(shape, dtype=dt, device=self.device)
+        self.scales = None
+        if kv_dtype == "int8":
+            shape, dt = self.scale_spec()
+            self.scales = torch.full(shape, KV_QUANT_EPS, dtype=dt,
+                                     device=self.device)
         # LIFO free list: recently-freed blocks are reused first
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._ref = [0] * self.num_blocks
@@ -118,9 +145,25 @@ class PagedKVCache:
         self._evictable = OrderedDict()   # refcount-0 cached, oldest first
 
     def pool_spec(self):
-        """`([layers, blocks, block_size, heads, head_dim], dtype)`."""
+        """`([layers, blocks, block_size, heads, head_dim], dtype)`: int8
+        under `kv_dtype="int8"`."""
+        dt = torch.int8 if self.kv_dtype == "int8" else self.dtype
         return ((self.num_layers, self.num_blocks, self.block_size,
-                 self.num_heads, self.head_dim), self.dtype)
+                 self.num_heads, self.head_dim), dt)
+
+    def scale_spec(self):
+        """`([layers, blocks, 2], float32)` for int8 pools, else None."""
+        if self.kv_dtype != "int8":
+            return None
+        return ((self.num_layers, self.num_blocks, 2), torch.float32)
+
+    def pool_nbytes(self):
+        """Bytes of the paged KV state: both pools plus the scales."""
+        n = sum(t.numel() * t.element_size()
+                for t in (self.kpool, self.vpool))
+        if self.scales is not None:
+            n += self.scales.numel() * self.scales.element_size()
+        return n
 
     @property
     def num_free(self):
@@ -146,6 +189,11 @@ class PagedKVCache:
             got.append(block)
         for b in got:
             self._ref[b] = 1
+        if got and self.scales is not None:
+            # a recycled block's grid belongs to its previous tenant: reset
+            # it to the floor so the new owner's first write sets a fresh
+            # grid
+            self.scales[:, got] = KV_QUANT_EPS
         return got
 
     def free(self, blocks):
@@ -280,14 +328,20 @@ class GenerationEngine:
 
     `model` is a `GPTForCausalLM`. `device=None` means the CUDA card (and
     raises without one); it must be the model's device. The pools take
-    the model's dtype. Counters: `tokens_generated`, `prefix_hit_tokens`,
-    `cow_copies`, `prefill_chunks`, `decode_steps`, `stalls` by path and
-    `shed`.
+    the model's dtype, or int8 with `kv_dtype="int8"`. `spec_decode_k=K`
+    turns each decode step into a K-token verify step over drafts from
+    `drafter` (an `NgramDrafter` when None); K=0 is plain decoding.
+    Counters: `tokens_generated`, `prefix_hit_tokens`, `cow_copies`,
+    `prefill_chunks`, `decode_steps` (verify steps when K > 0), `stalls` by
+    path (`prefill`, `decode`, and `spec_degrade`: a lane that shed its
+    draft under pool pressure and still ran), `shed`,
+    `spec_accepted_tokens` and `spec_rejected_tokens`.
     """
 
     def __init__(self, model, num_slots=8, block_size=16, num_blocks=None,
                  max_model_len=None, eos_token_id=None, prefill_chunk=None,
-                 enable_prefix_cache=True, max_queue=None, device=None):
+                 enable_prefix_cache=True, max_queue=None, device=None,
+                 spec_decode_k=0, drafter=None, kv_dtype=None):
         cfg = model.config
         if model.training and cfg.dropout > 0:
             raise ValueError("GenerationEngine decodes deterministically "
@@ -311,13 +365,19 @@ class GenerationEngine:
         self.prefill_chunk = max(1, min(
             int(prefill_chunk or 128), self.max_model_len))
         self.enable_prefix_cache = bool(enable_prefix_cache)
+        k = int(spec_decode_k)
+        if k < 0:
+            raise ValueError(f"spec_decode_k must be >= 0, got {k}")
+        self.spec_decode_k = k
+        self.drafter = (drafter if drafter is not None else NgramDrafter()) \
+            if k > 0 else None
         # default pool: every slot at full context (+ the null block)
         self.cache = PagedKVCache(
             cfg.num_layers,
             int(num_blocks or 1 + self.num_slots * self.max_blocks),
             self.block_size, cfg.num_heads,
             cfg.hidden_size // cfg.num_heads, dtype=wte.dtype,
-            device=self.device)
+            device=self.device, kv_dtype=kv_dtype)
         self._queues = {p: deque() for p in PRIORITY_CLASSES}
         self._slots = [None] * self.num_slots
         self._results = {}
@@ -329,8 +389,10 @@ class GenerationEngine:
         self.cow_copies = 0
         self.prefill_chunks = 0
         self.decode_steps = 0
-        self.stalls = {"prefill": 0, "decode": 0}
+        self.stalls = {"prefill": 0, "decode": 0, "spec_degrade": 0}
         self.shed = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rejected_tokens = 0
 
     # -- request intake ----------------------------------------------------
     def add_request(self, prompt, max_new_tokens, eos_token_id=None,
@@ -409,16 +471,18 @@ class GenerationEngine:
         self.cache.free(slot.blocks)
         self._slots[i] = None
 
-    def _emit(self, i, tok):
-        """Append one generated token to lane i; retire the lane on EOS or
-        at its budget."""
+    def _emit(self, i, toks):
+        """Append generated tokens to lane i up to and including the first
+        EOS or the request's budget; retire the lane if either was hit."""
         slot = self._slots[i]
         req = slot.req
-        slot.generated.append(tok)
-        self.tokens_generated += 1
-        if (req.eos_token_id is not None and tok == req.eos_token_id) \
-                or len(slot.generated) >= req.max_new_tokens:
-            self._finish(i)
+        for tok in toks:
+            slot.generated.append(tok)
+            self.tokens_generated += 1
+            if (req.eos_token_id is not None and tok == req.eos_token_id) \
+                    or len(slot.generated) >= req.max_new_tokens:
+                self._finish(i)
+                return
 
     def _admit_chunked(self):
         """Seat queued requests into free lanes: match the longest cached
@@ -476,7 +540,7 @@ class GenerationEngine:
             with torch.no_grad():
                 hidden = self.model.gpt.forward_prefill_chunk(
                     self._device_int32(tokens), start, c.kpool, c.vpool,
-                    self._device_int32(row), plen)
+                    self._device_int32(row), plen, c.scales)
                 self.prefill_chunks += 1
                 slot.prefill_pos = end
                 if end < plen:
@@ -487,20 +551,25 @@ class GenerationEngine:
             if self.enable_prefix_cache:
                 # the prompt's KV is fully written: publish its full blocks
                 self.cache.register_prefix(req.prompt, slot.blocks)
-            self._emit(i, first)
+            self._emit(i, [first])
             return 1
         return 0
 
-    def _cow_promote(self, slot, bi):
+    def _cow_promote(self, slot, bi, count_stall=True):
         """Give `slot` a private copy of its table entry `bi` (a write is
         about to land there and other owners still read it). Returns False
-        when the pool cannot serve the copy (the lane stalls)."""
+        when the pool cannot serve the copy (the lane stalls;
+        `count_stall=False` when the caller has a degrade path and the lane
+        may still run)."""
         got = self.cache.allocate(1)
         if got is None:
-            self.stalls["decode"] += 1
+            if count_stall:
+                self.stalls["decode"] += 1
             return False
         src, dst = slot.blocks[bi], got[0]
-        copy_pool_block(self.cache.kpool, self.cache.vpool, src, dst)
+        # int8 pools: the block's grid rides the copy
+        copy_pool_block(self.cache.kpool, self.cache.vpool, src, dst,
+                        self.cache.scales)
         self.cache.free([src])         # drop our shared reference
         slot.blocks[bi] = dst
         self.cow_copies += 1
@@ -529,7 +598,14 @@ class GenerationEngine:
     def _decode_step(self):
         """One batched decode step over the runnable lanes. Idle and
         stalled lanes ride token 0, position 0 and an all-zero table: they
-        write the null block and their tokens are discarded."""
+        write the null block and their tokens are discarded. With K > 0
+        the step is the speculative verify step."""
+        if self.spec_decode_k:
+            runnable, drafts = self._spec_schedule()
+            if not runnable:
+                return 0
+            return self._spec_complete(runnable, drafts,
+                                       self._spec_dispatch(runnable, drafts))
         runnable = self._plain_schedule()
         if not runnable:
             return 0
@@ -545,12 +621,126 @@ class GenerationEngine:
         with torch.no_grad():
             hidden = self.model.gpt.forward_decode_paged(
                 self._device_int32(tokens), self._device_int32(positions),
-                c.kpool, c.vpool, self._device_int32(tables))
+                c.kpool, c.vpool, self._device_int32(tables), c.scales)
             nxt = self.model._logits_of(hidden)[:, 0].argmax(-1).cpu() \
                 .numpy()
         self.decode_steps += 1
         for i in runnable:
-            self._emit(i, int(nxt[i]))
+            self._emit(i, [int(nxt[i])])
+        return len(runnable)
+
+    def _spec_schedule(self):
+        """Schedule stage of a verify step: draft up to K tokens per
+        decode-phase lane (host-side), then grow the table to the window's
+        last write and copy-on-write every block the window writes. Under
+        pool pressure a lane sheds its draft (a `spec_degrade` stall: it
+        still runs a one-token window) before it stalls; when the COW copy
+        fails mid-window it also returns the surplus tail blocks past its
+        feed block, which only ever held rejected rows. Returns (runnable
+        lane indices, lane -> draft)."""
+        K = self.spec_decode_k
+        bs = self.block_size
+        vocab = self.model.config.vocab_size
+        runnable, drafts = [], {}
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot.prefilling:
+                continue
+            req = slot.req
+            # emitted tokens cap at the request's allowance, and the last
+            # write position stays inside the model's length
+            budget = min(K, req.max_new_tokens - len(slot.generated) - 1,
+                         self.max_model_len - 1 - slot.feed_pos)
+            draft = draft_window(self.drafter, req.prompt, slot.generated,
+                                 budget, vocab)
+            stalled = False
+            while True:
+                need = (slot.feed_pos + len(draft)) // bs + 1 \
+                    - len(slot.blocks)
+                if need <= 0:
+                    break
+                got = self.cache.allocate(need)
+                if got is not None:
+                    slot.blocks.extend(got)
+                    break
+                if not draft:
+                    self.stalls["decode"] += 1
+                    stalled = True
+                    break
+                draft = []             # degrade: draftless step
+                self.stalls["spec_degrade"] += 1
+            if stalled:
+                continue
+            if not self._cow_window(slot, len(draft), count_stall=False):
+                feed_bi = slot.feed_pos // bs
+                surplus = slot.blocks[feed_bi + 1:]
+                if surplus:
+                    del slot.blocks[feed_bi + 1:]
+                    self.cache.free(surplus)
+                if draft:
+                    draft = []
+                    self.stalls["spec_degrade"] += 1
+                if not self._cow_window(slot, 0, count_stall=True):
+                    continue           # truly stalled this iteration
+            drafts[i] = draft
+            runnable.append(i)
+        return runnable, drafts
+
+    def _cow_window(self, slot, k_len, count_stall):
+        """Copy-on-write every block a window of `k_len` drafts writes: a
+        speculative write must never land in a block other owners (or the
+        prefix cache) still read. False when a copy could not be served."""
+        bs = self.block_size
+        for bi in range(slot.feed_pos // bs,
+                        (slot.feed_pos + k_len) // bs + 1):
+            if self.cache.needs_cow(slot.blocks[bi]) and not \
+                    self._cow_promote(slot, bi, count_stall=count_stall):
+                return False
+        return True
+
+    def _spec_dispatch(self, runnable, drafts):
+        """Score all K+1 window positions of every runnable lane in one
+        verify pass; returns the target's argmax per row, `[slots, K+1]`.
+        Idle and stalled lanes ride (token 0, position 0, draft length 0,
+        all-zero table)."""
+        W = self.spec_decode_k + 1
+        tokens = np.zeros((self.num_slots, W), np.int32)
+        positions = np.zeros(self.num_slots, np.int32)
+        dlens = np.zeros(self.num_slots, np.int32)
+        tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
+        for i in runnable:
+            slot = self._slots[i]
+            d = drafts[i]
+            tokens[i, 0] = slot.feed_token
+            tokens[i, 1:1 + len(d)] = d
+            positions[i] = slot.feed_pos
+            dlens[i] = len(d)
+            tables[i, :len(slot.blocks)] = slot.blocks
+        c = self.cache
+        with torch.no_grad():
+            hidden = self.model.gpt.forward_verify_paged(
+                self._device_int32(tokens), self._device_int32(positions),
+                self._device_int32(dlens), c.kpool, c.vpool,
+                self._device_int32(tables), c.scales)
+            nxt = self.model._logits_of(hidden).argmax(-1).cpu().numpy()
+        self.decode_steps += 1
+        return nxt
+
+    def _spec_complete(self, runnable, drafts, nxt):
+        """Exact greedy acceptance per lane: the target's own next token,
+        then every draft token that equals the target's argmax at its
+        position (each match validates the next column); emission stops at
+        the first EOS or at the request's budget."""
+        for i in runnable:
+            d = drafts[i]
+            out = nxt[i]
+            acc = [int(out[0])]
+            for j, dj in enumerate(d):
+                if dj != int(out[j]):
+                    break
+                acc.append(int(out[j + 1]))
+            self.spec_accepted_tokens += len(acc) - 1
+            self.spec_rejected_tokens += len(d) - (len(acc) - 1)
+            self._emit(i, acc)
         return len(runnable)
 
     def step(self):

@@ -6,11 +6,13 @@ and the LM head tied to `wte`. Parameter names match the JAX model's
 `state_dict()` (`models/convert.py` bridges the weights).
 
 Ported: what serving runs (`forward`, the prefill and decode paths of
-`generate` and of the paged engine) and what training runs (`forward` with
+`generate` and of the paged engine, the speculative verify step, the int8
+KV scales those paths thread) and what training runs (`forward` with
 labels and `loss_fn`, dropout where the JAX model applies it, backward
 through the causal attention kernels, `num_params`, `flops_per_token`).
-Tensor parallelism, LoRA, int8 KV scales and the speculative verify step
-are later slices.
+Tensor parallelism and LoRA are later slices. The paged paths update the
+pools (and, with `kv_scales`, the `[layers, num_blocks, 2]` scale array)
+IN PLACE and return only the hidden states.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..ops.nn_ops import cross_entropy, dropout, scaled_dot_product_attention
-from ..ops.paged_attention import paged_attention_step, paged_prefill_chunk
+from ..ops.paged_attention import (paged_attention_step,
+                                   paged_prefill_chunk, paged_verify_window)
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "GPTBlock",
            "GPTAttention", "GPTMLP"]
@@ -106,13 +109,13 @@ class GPTAttention(nn.Module):
         return self._attn_out(out, B, S), k, v
 
     def forward_prefill_chunk(self, x, kpool, vpool, layer_idx, block_row,
-                              start, plen):
+                              start, plen, kv_scales=None):
         """Chunked prefill for ONE slot against the paged pools (updated
         in place). x `[1, C, H]`; start/plen host ints."""
         B, C, _ = x.shape
         q, k, v = self._qkv_heads(x)
         out = paged_prefill_chunk(q, k, v, kpool, vpool, layer_idx,
-                                  block_row, start, plen)
+                                  block_row, start, plen, scales=kv_scales)
         return self._attn_out(out, B, C)
 
     def forward_decode(self, x, kcache, vcache, pos):
@@ -133,14 +136,29 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(B, 1, H))
 
     def forward_decode_paged(self, x, kpool, vpool, layer_idx,
-                             block_tables, positions):
+                             block_tables, positions, kv_scales=None):
         """Batched one-token decode against the global paged pools
         (updated in place): x `[slots, 1, H]`."""
         B = x.shape[0]
         q, k, v = self._qkv_heads(x)
         out = paged_attention_step(q, k, v, kpool, vpool, layer_idx,
-                                   block_tables, positions)
+                                   block_tables, positions,
+                                   scales=kv_scales)
         return self._attn_out(out, B, 1)
+
+    def forward_verify_paged(self, x, kpool, vpool, layer_idx,
+                             block_tables, positions, draft_lens,
+                             kv_scales=None):
+        """Speculative verify of a `[slots, W]` window against the global
+        paged pools (updated in place): x `[slots, W, H]`; every live
+        row's k/v lands through the table and each row attends causally
+        up to its own position."""
+        B, W, _ = x.shape
+        q, k, v = self._qkv_heads(x)
+        out = paged_verify_window(q, k, v, kpool, vpool, layer_idx,
+                                  block_tables, positions, draft_lens,
+                                  scales=kv_scales)
+        return self._attn_out(out, B, W)
 
 
 class GPTMLP(nn.Module):
@@ -177,9 +195,10 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x)), k, v
 
     def forward_prefill_chunk(self, x, kpool, vpool, layer_idx, block_row,
-                              start, plen):
+                              start, plen, kv_scales=None):
         x = x + self.attn.forward_prefill_chunk(
-            self.ln1(x), kpool, vpool, layer_idx, block_row, start, plen)
+            self.ln1(x), kpool, vpool, layer_idx, block_row, start, plen,
+            kv_scales)
         return x + self.mlp(self.ln2(x))
 
     def forward_decode(self, x, kcache, vcache, pos):
@@ -187,9 +206,17 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
     def forward_decode_paged(self, x, kpool, vpool, layer_idx, block_tables,
-                             positions):
+                             positions, kv_scales=None):
         x = x + self.attn.forward_decode_paged(
-            self.ln1(x), kpool, vpool, layer_idx, block_tables, positions)
+            self.ln1(x), kpool, vpool, layer_idx, block_tables, positions,
+            kv_scales)
+        return x + self.mlp(self.ln2(x))
+
+    def forward_verify_paged(self, x, kpool, vpool, layer_idx, block_tables,
+                             positions, draft_lens, kv_scales=None):
+        x = x + self.attn.forward_verify_paged(
+            self.ln1(x), kpool, vpool, layer_idx, block_tables, positions,
+            draft_lens, kv_scales)
         return x + self.mlp(self.ln2(x))
 
 
@@ -239,11 +266,12 @@ class GPTModel(nn.Module):
         return self.ln_f(h), torch.stack(ks), torch.stack(vs)
 
     def forward_prefill_chunk(self, token_ids, start, kpool, vpool,
-                              block_row, plen):
+                              block_row, plen, kv_scales=None):
         """Chunked paged prefill: token_ids `[1, C]`, chunk
         `[start, start + C)` of one slot's prompt padded past `plen`
         (host ints); writes each layer's k/v through `block_row` into the
-        pools IN PLACE. Returns hidden `[1, C, H]`."""
+        pools IN PLACE (int8 pools: quantized, `kv_scales` updated in
+        place). Returns hidden `[1, C, H]`."""
         C = token_ids.shape[1]
         # padded-tail positions clamp into the wpe table: their rows are
         # garbage the engine ignores, but the gather must stay in bounds
@@ -252,7 +280,7 @@ class GPTModel(nn.Module):
         h = self.wte(token_ids) + self.wpe(pos).unsqueeze(0)
         for i, blk in enumerate(self.blocks):
             h = blk.forward_prefill_chunk(h, kpool, vpool, i, block_row,
-                                          start, plen)
+                                          start, plen, kv_scales)
         return self.ln_f(h)
 
     def forward_decode(self, token_ids, pos, kstack, vstack):
@@ -266,14 +294,37 @@ class GPTModel(nn.Module):
         return self.ln_f(h)
 
     def forward_decode_paged(self, token_ids, positions, kpool, vpool,
-                             block_tables):
+                             block_tables, kv_scales=None):
         """Batched decode over the paged pools (updated IN PLACE):
         token_ids `[slots, 1]`, positions `[slots]` int32, block_tables
-        `[slots, max_blocks]` int32. Returns hidden `[slots, 1, H]`."""
+        `[slots, max_blocks]` int32; int8 pools with `kv_scales`. Returns
+        hidden `[slots, 1, H]`."""
         h = self.wte(token_ids) + self.wpe(positions).unsqueeze(1)
         for i, blk in enumerate(self.blocks):
             h = blk.forward_decode_paged(h, kpool, vpool, i, block_tables,
-                                         positions)
+                                         positions, kv_scales)
+        return self.ln_f(h)
+
+    def forward_verify_paged(self, token_ids, positions, draft_lens, kpool,
+                             vpool, block_tables, kv_scales=None):
+        """Speculative verify step over the paged pools (updated IN
+        PLACE): token_ids `[slots, W]` (the feed token, then up to W-1
+        drafted tokens), positions `[slots]` int32 (row 0's absolute
+        position), draft_lens `[slots]` int32 (rows past it are dead),
+        block_tables `[slots, max_blocks]` int32; int8 pools with
+        `kv_scales`. Returns hidden `[slots, W, H]` at every window row."""
+        W = token_ids.shape[1]
+        # dead rows past a slot's draft may run beyond the position table:
+        # their rows are garbage the engine ignores, but the gather must
+        # stay in bounds
+        wpos = torch.clamp(
+            positions[:, None] + torch.arange(W, device=positions.device,
+                                              dtype=positions.dtype)[None],
+            0, self.config.max_seq_len - 1)
+        h = self.wte(token_ids) + self.wpe(wpos)
+        for i, blk in enumerate(self.blocks):
+            h = blk.forward_verify_paged(h, kpool, vpool, i, block_tables,
+                                         positions, draft_lens, kv_scales)
         return self.ln_f(h)
 
 

@@ -32,6 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "paddle_tpu_torch")
 #: kernel library name -> its sources under csrc/
 KERNEL_SOURCES = {
     "paged_decode": ("paged_decode.cu",),
+    "paged_verify": ("paged_verify.cu",),
     "causal_attention": ("causal_attention.cu",),
     "causal_attention_bwd": ("causal_attention_bwd.cu",),
 }

@@ -7,7 +7,14 @@ interpret mode). On a machine with a card, without jax installed:
 
 This file imports nothing of jax or paddle_tpu. chip_smoke.py holds the
 kernels at the serving and training shapes; these cover the other head
-dims, lengths and block sizes the kernels take.
+dims, lengths, block sizes and window widths the kernels take.
+
+Paged kernels: pools must be bit-identical to the plain version's outside
+the null block 0, and outputs within tolerance on the live rows of live
+slots. Block 0 is a race, not a reference: idle lanes and dead window rows
+of every slot write it from concurrent CTAs. For the int8 kernels the
+quantization runs once, in plain torch, before both the kernel and its
+plain version take the same int8 rows and scale plane.
 """
 import math
 
@@ -18,8 +25,15 @@ from paddle_tpu_torch.ops.flash_attention import (causal_attention_bwd,
                                                   causal_attention_bwd_plain,
                                                   causal_attention_fwd,
                                                   causal_attention_plain)
+from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                               paged_decode_attention_int8,
+                                               paged_decode_int8_plain,
                                                paged_decode_plain)
+from paddle_tpu_torch.ops.paged_verify import (paged_verify_attention,
+                                               paged_verify_attention_int8,
+                                               paged_verify_int8_plain,
+                                               paged_verify_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +89,116 @@ def test_paged_decode_kernel_matches_plain(card, dtype, D, bs):
     assert paged_decode_attention.launches == launches + 1
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
     assert torch.equal(k0, k1) and torch.equal(v0, v1)
+
+
+def window_case(g, W, bs, D, dtype, int8):
+    """Six slots over tables of 8 blocks, 3 heads, 2 layers: an idle lane;
+    a window starting in the slot's first block and crossing into the
+    second; draft length 0; a dead last row; a window ending at the
+    table's last position (dead rows past the table); a window crossing a
+    block in a slot reading another slot's first two blocks read-only.
+    W = 1 is the decode step (positions 0, bs-2, bs+3, ...). int8 pools
+    hold normal rows quantized on per-block grids 0.7-1.3x absmax/127.
+    Returns (q, knew, vnew, kpool, vpool, scales or None, tables,
+    positions, draft_lens, live rows)."""
+    slots, heads, L, maxb = 6, 3, 2, 8
+    K = W - 1
+    last = maxb * bs - 1
+    pos = [0, bs - 2, bs + 3, 3 * bs + 1, last - min(2, K), 4 * bs - 1]
+    dlen = [0, K, 0, max(K - 1, 0), min(2, K), K]
+    tables = torch.zeros((slots, maxb), dtype=torch.int32)
+    nxt = 1
+    for s in range(1, slots):
+        nb = (pos[s] + dlen[s]) // bs + 1
+        start = 0
+        if s == 5:
+            tables[s, :2] = tables[4, :2]
+            start = 2
+        tables[s, start:nb] = torch.arange(nxt, nxt + nb - start)
+        nxt += nb - start
+    dev = "cuda"
+    shape = (L, nxt, bs, heads, D)
+    kp, vp = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    scales = None
+    if int8:
+        amax = torch.stack([kp.abs().amax((2, 3, 4)),
+                            vp.abs().amax((2, 3, 4))], -1)
+        scales = amax / 127 * (0.7 + 0.6 * torch.rand(
+            amax.shape, generator=g, device=dev))
+        kp, vp = (tpa._quant_rows(x, scales[..., i, None, None, None])
+                  for i, x in enumerate((kp, vp)))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    q, kn, vn = (torch.randn((slots, W, heads, D), generator=g,
+                             device=dev).to(dtype) for _ in range(3))
+    dl = torch.tensor(dlen, dtype=torch.int32)
+    live = torch.arange(W)[None, :] <= dl[:, None]
+    live[0] = False
+    return (q, kn, vn, kp, vp, scales, tables.to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev), dl.to(dev),
+            live.to(dev))
+
+
+def _paged_kernel_vs_plain(kernel, plain, c, int8, layer=1):
+    """Quantize once (int8), then run the plain version and the kernel on
+    clones of the same pools; returns (max |out diff| on live rows, pools
+    bit-identical outside block 0, scales untouched by both)."""
+    q, kn, vn, kp, vp, sc, tb, pos, dl, live = c
+    W = q.shape[1]
+    if int8:
+        if W == 1:
+            kq, vq = tpa._quant_write_decode(kp, vp, sc, kn, vn, tb, pos,
+                                             layer)
+            kq, vq = kq[:, None], vq[:, None]
+        else:
+            kq, vq = tpa._quant_write_window(kp, vp, sc, kn, vn, tb, pos,
+                                             dl, layer)
+        kn, vn = kq.contiguous(), vq.contiguous()
+    sc0 = None if sc is None else sc.clone()
+    k0, v0, k1, v1 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    pre = ((sc[layer],) if int8 else ())
+    post = (() if W == 1 else (dl,))
+    ref = plain(q, kn, vn, k0, v0, *pre, layer, tb, pos, *post)
+    launches = kernel.launches
+    out = kernel(q, kn, vn, k1, v1, *pre, layer, tb, pos, *post)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    err = (out.float() - ref.float())[live].abs().max().item()
+    pools = torch.equal(k0[:, 1:], k1[:, 1:]) and torch.equal(v0[:, 1:],
+                                                              v1[:, 1:])
+    return err, pools, sc is None or torch.equal(sc, sc0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("W", [2, 5, 9])
+def test_paged_verify_kernel_matches_plain(card, dtype, D, bs, W):
+    c = window_case(card, W, bs, D, dtype, int8=False)
+    err, pools, _ = _paged_kernel_vs_plain(paged_verify_attention,
+                                           paged_verify_plain, c, False)
+    assert err <= TOL[dtype] and pools
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("W", [2, 5, 9])
+def test_paged_verify_int8_kernel_matches_plain(card, dtype, D, bs, W):
+    c = window_case(card, W, bs, D, dtype, int8=True)
+    err, pools, scales = _paged_kernel_vs_plain(
+        paged_verify_attention_int8, paged_verify_int8_plain, c, True)
+    assert err <= TOL[dtype] and pools and scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_paged_decode_int8_kernel_matches_plain(card, dtype, D, bs):
+    c = window_case(card, 1, bs, D, dtype, int8=True)
+    err, pools, scales = _paged_kernel_vs_plain(
+        paged_decode_attention_int8, paged_decode_int8_plain, c, True)
+    assert err <= TOL[dtype] and pools and scales
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -142,3 +266,24 @@ def test_kernels_refuse_what_they_do_not_take(card):
         causal_attention_bwd(z, z, z, z, z, lse.to(torch.bfloat16))
     with pytest.raises(ValueError, match="the card"):
         causal_attention_bwd(z, z, z, z, z.cpu(), lse)
+    # verify: a window wider than 9 rows, one row, an int8 pool without
+    # its scale plane's shape
+    tb = torch.zeros((2, 4), dtype=torch.int32, device="cuda")
+    pool = torch.zeros((1, 4, 16, 2, 64), device="cuda")
+    for W in (10, 1):
+        q = torch.zeros((2, W, 2, 64), device="cuda")
+        with pytest.raises(ValueError, match="rows per slot"):
+            paged_verify_attention(q, q, q, pool, pool.clone(), 0, tb, pos,
+                                   pos)
+    q = torch.zeros((2, 3, 2, 64), device="cuda")
+    codes = torch.zeros((2, 3, 2, 64), dtype=torch.int8, device="cuda")
+    ipool = torch.zeros((1, 4, 16, 2, 64), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="kv_scales"):
+        paged_verify_attention_int8(q, codes, codes, ipool, ipool.clone(),
+                                    torch.zeros((3, 2), device="cuda"), 0,
+                                    tb, pos, pos)
+    with pytest.raises(ValueError, match="int8"):
+        paged_decode_attention_int8(q[:, :1], q[:, :1], q[:, :1], pool,
+                                    pool.clone(),
+                                    torch.zeros((4, 2), device="cuda"), 0,
+                                    tb, pos)
