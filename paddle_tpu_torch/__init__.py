@@ -14,18 +14,29 @@ Ported so far:
   forward (`ops.flash_attention`);
 - training of the GPT: `jit.TrainStep` over the model's loss, AdamW or
   Adam (`optimizer`), LR schedulers (`optimizer.lr`) and gradient
-  clipping (`nn`), with the causal attention backward kernel.
+  clipping (`nn`), with the causal attention backward kernel;
+- speculative decoding (`spec_decode_k`) and int8 KV pools on the engine,
+  with the paged verify kernel and the int8 paged kernels;
+- the encoder path: BERT/ERNIE (`models.bert`) through
+  `BertForSequenceClassification` and `BertForPretraining`, trained
+  through `TrainStep`, with the short-sequence attention forward and
+  backward kernels, mask-free and key-masked (`ops.flash_attention`).
 """
 from . import optimizer
 from .device import resolve_device
 from .inference.engine import GenerationEngine, PagedKVCache, Request
 from .jit import TrainStep
+from .models.bert import (BertConfig, BertForPretraining,
+                          BertForSequenceClassification, BertModel,
+                          ErnieModel)
 from .models.convert import load_paddle_tpu_state, paddle_tpu_state
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .optimizer import Adam, AdamW
 
 __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
-           "GPTConfig", "GPTForCausalLM", "load_paddle_tpu_state",
+           "GPTConfig", "GPTForCausalLM", "BertConfig", "BertModel",
+           "ErnieModel", "BertForSequenceClassification",
+           "BertForPretraining", "load_paddle_tpu_state",
            "paddle_tpu_state", "TrainStep", "Adam", "AdamW", "optimizer",
            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]

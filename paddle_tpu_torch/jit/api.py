@@ -4,9 +4,9 @@ The JAX package compiles forward, loss, backward, clip and optimizer
 update into one XLA program with donated buffers. PyTorch runs eagerly, so
 here one step is those same stages run in order on the model's device:
 the model's forward, `loss_fn(out, label)`, `loss.backward()` (through the
-causal attention kernels), then `optimizer.step()`, which clips and
-updates the parameters in place. `run_scan` and `run_repeat` are plain
-loops over that step.
+attention kernels' autograd functions), then `optimizer.step()`, which
+clips and updates the parameters in place. `run_scan` and `run_repeat`
+are plain loops over that step.
 """
 from __future__ import annotations
 

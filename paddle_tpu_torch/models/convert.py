@@ -1,9 +1,14 @@
-"""Weight bridge between the JAX package's GPT and the port's.
+"""Weight bridge between the JAX package's models and the port's: the GPT
+and BERT (both heads).
 
 The input is the JAX model's `state_dict()` (paddle_tpu/nn/layer.py) as
 numpy arrays under the same names, which the port's parameter names match
 one to one. Paddle's `Linear` keeps its weight `[in, out]`
-(paddle_tpu/nn/common.py); torch's is `[out, in]`, so those transpose.
+(paddle_tpu/nn/common.py); torch's is `[out, in]`, so those transpose;
+embeddings and every other parameter do not. A tied weight appears once,
+under its owner's name: the GPT's LM head reads `gpt.wte.weight`, and
+BERT's pretraining decoder `bert.embeddings.word_embeddings.weight`
+(neither state_dict has a name of its own for the tied side).
 """
 from __future__ import annotations
 

@@ -1,23 +1,30 @@
-"""Causal attention: the CUDA kernels `csrc/causal_attention.cu` (forward)
-and `csrc/causal_attention_bwd.cu` (backward), their plain PyTorch
-versions, the autograd function that joins them, and the attention routing
-of the port.
+"""Attention kernels of the port, their plain PyTorch versions, the
+autograd functions that join them, and the attention routing.
 
-Counterpart of paddle_tpu/ops/pallas/flash_attention.py: the kernels
-replace `_causal_fwd_kernel` and `_causal_bwd_kernel` (through
-`_causal_call_fwd` / `_causal_call_bwd`, joined by `_causal_attention`'s
-custom_vjp); `_CausalAttention` is that custom_vjp and
-`chunked_causal_attention` goes through it. `flash_attention` ports the
-routing.
+Counterpart of paddle_tpu/ops/pallas/flash_attention.py:
+- causal (decoder) attention: `csrc/causal_attention.cu` and
+  `csrc/causal_attention_bwd.cu` replace `_causal_fwd_kernel` and
+  `_causal_bwd_kernel` (through `_causal_call_fwd` / `_causal_call_bwd`,
+  joined by `_causal_attention`'s custom_vjp); `_CausalAttention` is that
+  custom_vjp and `chunked_causal_attention` goes through it;
+- short-sequence (encoder) attention: `csrc/shortseq_attention.cu` and
+  `csrc/shortseq_attention_bwd.cu` replace `_shortseq_fwd_kernel` /
+  `_shortseq_fwd_kernel_masked` and `_shortseq_bwd_kernel` /
+  `_shortseq_bwd_kernel_masked` (through `_shortseq_call_fwd` /
+  `_shortseq_call_bwd`); `_ShortseqAttention` is `_shortseq_attention`'s
+  custom_vjp and `shortseq_attention` goes through it;
+- `flash_attention` ports the routing.
 
-`causal_attention_fwd` and `causal_attention_bwd` take the plain version
-for CPU tensors and launch the kernel for CUDA tensors; they never fall
-back. Each counts its kernel launches in `.launches` and every call of its
-plain version, on any device, in `.plain_calls`.
+Each kernel wrapper takes the plain version for CPU tensors and launches
+the kernel for CUDA tensors; it never falls back. It counts its kernel
+launches in `.launches` and every call of its plain version, on any
+device, in `.plain_calls`; the shortseq wrappers count launches of their
+masked variant apart, in `.masked_launches`.
 
 Layouts: `[BH, S, D]` at the kernels, `[B, S, H, D]` (paddle layout) at
-`chunked_causal_attention` and `flash_attention`. The LSE is `[BH, S]`
-fp32; the TPU kernel's `[BH, 8, S]` was eight identical rows, padding for
+`chunked_causal_attention`, `shortseq_attention` and `flash_attention`.
+The LSE is `[BH, S]` fp32 and the shortseq key mask `[BH, S]` or `[B, S]`
+fp32; the TPU kernels' `[BH, 8, S]` were eight identical rows, padding for
 the TPU's (8, 128) tiling.
 """
 from __future__ import annotations
@@ -32,7 +39,10 @@ from ..utils import cpp_extension
 
 __all__ = ["causal_attention_fwd", "causal_attention_plain",
            "causal_attention_bwd", "causal_attention_bwd_plain",
-           "chunked_causal_attention", "dense_attention", "flash_attention"]
+           "chunked_causal_attention", "shortseq_attention_fwd",
+           "shortseq_attention_plain", "shortseq_attention_bwd",
+           "shortseq_attention_bwd_plain", "shortseq_attention",
+           "dense_attention", "flash_attention"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,29 +57,25 @@ def _causal_logits(q, k, scale):
     return torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
 
 
-def causal_attention_plain(q, k, v, scale):
-    """Plain PyTorch version of the forward kernel: `[BH, S, D]` -> (O in
-    q's dtype, LSE `[BH, S]` fp32). Exact per-row softmax as in
-    `_causal_fwd_kernel`: fp32 logits, probabilities rounded to v's dtype
-    before PV, fp32 PV, divide by the row sum, one cast."""
-    causal_attention_fwd.plain_calls += 1
-    logits = _causal_logits(q, k, scale)
+def _softmax_pv(logits, v, dtype):
+    """The forward kernels' arithmetic from fp32 logits `[BH, S, S]`: exact
+    per-row softmax (row max, exp, sum), the probabilities rounded to v's
+    dtype before an fp32 PV, divided by the row sum, one cast. Returns (O in
+    `dtype`, LSE `[BH, S]` fp32)."""
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(-1, keepdim=True)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
-    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+    return o.to(dtype), (m + torch.log(l))[..., 0]
 
 
-def causal_attention_bwd_plain(q, k, v, o, do, lse, scale):
-    """Plain PyTorch version of the backward kernel, written out from the
-    formulas of `_causal_bwd_kernel`: p = exp(s - lse) in fp32 from the
-    forward's LSE; dv = p_b^T do with p rounded to v's dtype; dp = do v^T
-    and delta = rowsum(do * o) in fp32; ds = p * (dp - delta) * scale
-    rounded to q's dtype; dq = ds k and dk = ds^T q in fp32, each cast
-    once. Returns (dq, dk, dv) in q's dtype."""
-    causal_attention_bwd.plain_calls += 1
-    p = torch.exp(_causal_logits(q, k, scale) - lse[..., None])
+def _bwd_from_logits(logits, q, k, v, o, do, lse, scale):
+    """The backward kernels' arithmetic from the forward's fp32 logits: p =
+    exp(s - lse) in fp32; dv = p_b^T do with p rounded to v's dtype; dp =
+    do v^T and delta = rowsum(do * o) in fp32; ds = p * (dp - delta) *
+    scale rounded to q's dtype; dq = ds k and dk = ds^T q in fp32, each
+    cast once. Returns (dq, dk, dv) in q's dtype."""
+    p = torch.exp(logits - lse[..., None])
     dof = do.float()
     dv = torch.matmul(p.to(v.dtype).float().transpose(1, 2), dof)
     dp = torch.matmul(dof, v.float().transpose(1, 2))
@@ -78,6 +84,23 @@ def causal_attention_bwd_plain(q, k, v, o, do, lse, scale):
     dq = torch.matmul(ds, k.float())
     dk = torch.matmul(ds.transpose(1, 2), q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def causal_attention_plain(q, k, v, scale):
+    """Plain PyTorch version of the forward kernel: `[BH, S, D]` -> (O in
+    q's dtype, LSE `[BH, S]` fp32), `_causal_fwd_kernel`'s arithmetic
+    (`_softmax_pv`) over causal logits."""
+    causal_attention_fwd.plain_calls += 1
+    return _softmax_pv(_causal_logits(q, k, scale), v, q.dtype)
+
+
+def causal_attention_bwd_plain(q, k, v, o, do, lse, scale):
+    """Plain PyTorch version of the backward kernel, written out from the
+    formulas of `_causal_bwd_kernel` (`_bwd_from_logits` over causal
+    logits). Returns (dq, dk, dv) in q's dtype."""
+    causal_attention_bwd.plain_calls += 1
+    return _bwd_from_logits(_causal_logits(q, k, scale), q, k, v, o, do,
+                            lse, scale)
 
 
 def _check_kernel_args(fn_name, named):
@@ -101,13 +124,22 @@ def _check_kernel_args(fn_name, named):
                          f"(supported: {_HEAD_DIMS})")
 
 
+def _check_lse(fn_name, lse, q):
+    BH, S, _ = q.shape
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (BH, S) or not lse.is_contiguous()):
+        raise ValueError(f"{fn_name}: lse must be a contiguous float32 "
+                         f"[{BH}, {S}] tensor on {q.device}")
+
+
 @functools.lru_cache(maxsize=None)
-def _bind(lib, name, n_pointers):
+def _bind(lib, name, n_pointers, n_ints=4):
     """C function `name` of kernel library `lib`: `n_pointers` pointers,
-    then dtype, bh, S, head_dim, the scale and the stream."""
+    then `n_ints` ints (dtype, bh, S, head_dim[, heads per mask row]), the
+    scale and the stream."""
     fn = getattr(cpp_extension.load(lib), name)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * n_pointers + [I] * 4 + [ctypes.c_float, P]
+    fn.argtypes = [P] * n_pointers + [I] * n_ints + [ctypes.c_float, P]
     fn.restype = I
     return fn
 
@@ -153,10 +185,7 @@ def causal_attention_bwd(q, k, v, o, do, lse, scale=None):
     _check_kernel_args("causal_attention_bwd", (
         ("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
     BH, S, D = q.shape
-    if (lse.device != q.device or lse.dtype != torch.float32
-            or lse.shape != (BH, S) or not lse.is_contiguous()):
-        raise ValueError("causal_attention_bwd: lse must be a contiguous "
-                         f"float32 [{BH}, {S}] tensor on {q.device}")
+    _check_lse("causal_attention_bwd", lse, q)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((BH, S), dtype=torch.float32, device=q.device)
     fn = _bind("causal_attention_bwd", "causal_attention_bwd", 10)
@@ -211,6 +240,200 @@ def chunked_causal_attention(q, k, v, scale=None):
     return o.reshape(B, H, S, D).transpose(1, 2)
 
 
+# ---------------------------------------------------------------------------
+# short-sequence (encoder) attention
+# ---------------------------------------------------------------------------
+_SHORTSEQ_MAX_S = 512
+
+
+def _shapes_ok_for_shortseq(Sq, Skv, D):
+    """The TPU shortseq kernels' shapes (`_shapes_ok_for_shortseq`):
+    non-causal self-attention with S <= 512, S % 128 == 0, D in {64, 128}."""
+    return (Sq == Skv and Sq <= _SHORTSEQ_MAX_S and Sq % 128 == 0
+            and D in _HEAD_DIMS)
+
+
+def _shapes_ok_for_lib(Sq, Skv, D):
+    """The shapes the JAX package hands to jax's library flash kernel on a
+    TPU (`_shapes_ok_for_lib`); the port's kernel for them (B6,
+    `_sdpa_fwd_kernel`) is still to port."""
+    return (Sq >= 128 and Sq % 128 == 0 and Skv >= 128 and Skv % 128 == 0
+            and D % 64 == 0)
+
+
+def _mask_rows(key_mask, BH):
+    """fp32 key mask `[BH, S]` from `[BH, S]` or `[B, S]` (row b serves the
+    heads b*H .. b*H + H - 1, as the TPU wrapper's `jnp.repeat`)."""
+    km = key_mask.float()
+    return km if km.shape[0] == BH else km.repeat_interleave(
+        BH // km.shape[0], dim=0)
+
+
+def _key_logits(q, k, scale, key_mask):
+    """fp32 logits `[BH, S, S]` = q k^T * scale, plus the additive fp32 key
+    mask over keys (whatever value it holds: -1e30, -inf or any other)."""
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if key_mask is not None:
+        logits = logits + _mask_rows(key_mask, q.shape[0])[:, None, :]
+    return logits
+
+
+def shortseq_attention_plain(q, k, v, scale, key_mask=None):
+    """Plain PyTorch version of the shortseq forward kernel (both
+    variants): `[BH, S, D]` -> (O in q's dtype, LSE `[BH, S]` fp32),
+    `_shortseq_fwd_core`'s arithmetic (`_softmax_pv`) over non-causal
+    logits plus the key mask. A row whose keys are all masked at -1e30
+    gives the mean of v, as the TPU kernel does."""
+    shortseq_attention_fwd.plain_calls += 1
+    return _softmax_pv(_key_logits(q, k, scale, key_mask), v, q.dtype)
+
+
+def shortseq_attention_bwd_plain(q, k, v, o, do, lse, scale, key_mask=None):
+    """Plain PyTorch version of the shortseq backward kernel (both
+    variants), `_shortseq_bwd_core`'s formulas (`_bwd_from_logits`) with
+    the key mask added to s again. On a row whose keys are all masked at
+    -1e30, s and the LSE both round to -1e30 and p = 1 for every key (not
+    1/S): the TPU kernel's result, which this version and the kernel
+    follow. Returns (dq, dk, dv) in q's dtype."""
+    shortseq_attention_bwd.plain_calls += 1
+    return _bwd_from_logits(_key_logits(q, k, scale, key_mask), q, k, v, o,
+                            do, lse, scale)
+
+
+def _check_shortseq_args(fn_name, q, key_mask):
+    """The shortseq kernels' shapes, and the key mask as the kernel reads
+    it. Returns (mask or None, heads per mask row)."""
+    BH, S, D = q.shape
+    if S % 128 or S > _SHORTSEQ_MAX_S:
+        raise ValueError(f"{fn_name}: S={S} has no kernel (S % 128 == 0 "
+                         f"and S <= {_SHORTSEQ_MAX_S})")
+    if key_mask is None:
+        return None, 1
+    if (key_mask.device != q.device or key_mask.dtype != torch.float32
+            or key_mask.dim() != 2 or key_mask.shape[1] != S
+            or key_mask.shape[0] == 0 or BH % key_mask.shape[0]
+            or not key_mask.is_contiguous()):
+        raise ValueError(f"{fn_name}: key_mask must be a contiguous float32 "
+                         f"[BH, {S}] or [B, {S}] tensor on {q.device} "
+                         f"(BH={BH} a multiple of B)")
+    return key_mask, BH // key_mask.shape[0]
+
+
+def _count_launch(wrapper, key_mask):
+    if key_mask is None:
+        wrapper.launches += 1
+    else:
+        wrapper.masked_launches += 1
+
+
+def shortseq_attention_fwd(q, k, v, scale=None, key_mask=None):
+    """Non-causal whole-sequence attention forward, `[BH, S, D]` -> (O
+    `[BH, S, D]` in the input dtype, LSE `[BH, S]` fp32), with an optional
+    additive fp32 key mask `[BH, S]` or `[B, S]`. CPU tensors take
+    `shortseq_attention_plain`; CUDA tensors launch the kernel (S % 128 ==
+    0, S <= 512, D in {64, 128}, float32 or bfloat16, contiguous; the
+    masked variant when a mask is given) or raise."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return shortseq_attention_plain(q, k, v, scale, key_mask)
+    _check_kernel_args("shortseq_attention_fwd", (("q", q), ("k", k),
+                                                  ("v", v)))
+    km, hpm = _check_shortseq_args("shortseq_attention_fwd", q, key_mask)
+    BH, S, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    fn = _bind("shortseq_attention", "shortseq_attention_fwd", 6, 5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _count_launch(shortseq_attention_fwd, km)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if km is None else km.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), _DTYPE_CODE[q.dtype], BH, S, D, hpm,
+             float(scale), stream)
+    if err:
+        raise RuntimeError(f"shortseq_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    return o, lse
+
+
+shortseq_attention_fwd.launches = 0
+shortseq_attention_fwd.masked_launches = 0
+shortseq_attention_fwd.plain_calls = 0
+
+
+def shortseq_attention_bwd(q, k, v, o, do, lse, scale=None, key_mask=None):
+    """Shortseq attention backward, `[BH, S, D]` x5, the forward's LSE
+    `[BH, S]` fp32 and its key mask -> (dq, dk, dv) in the input dtype.
+    CPU tensors take `shortseq_attention_bwd_plain`; CUDA tensors launch
+    the kernel (the forward's shapes and dtypes, all contiguous) or
+    raise."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return shortseq_attention_bwd_plain(q, k, v, o, do, lse, scale,
+                                            key_mask)
+    _check_kernel_args("shortseq_attention_bwd", (
+        ("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
+    km, hpm = _check_shortseq_args("shortseq_attention_bwd", q, key_mask)
+    BH, S, D = q.shape
+    _check_lse("shortseq_attention_bwd", lse, q)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    fn = _bind("shortseq_attention_bwd", "shortseq_attention_bwd", 11, 5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _count_launch(shortseq_attention_bwd, km)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if km is None else km.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], BH, S, D,
+             hpm, float(scale), stream)
+    if err:
+        raise RuntimeError(f"shortseq_attention_bwd kernel launch failed: "
+                           f"CUDA error {err}")
+    return dq, dk, dv
+
+
+shortseq_attention_bwd.launches = 0
+shortseq_attention_bwd.masked_launches = 0
+shortseq_attention_bwd.plain_calls = 0
+
+
+class _ShortseqAttention(torch.autograd.Function):
+    """`[BH, S, D]` non-causal attention with an optional key mask, whose
+    backward is `shortseq_attention_bwd` from the saved q, k, v, mask, O
+    and LSE: the port of `_shortseq_attention` / `_shortseq_vjp_fwd` /
+    `_shortseq_vjp_bwd`. The mask is data and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale):
+        o, lse = shortseq_attention_fwd(q, k, v, scale, key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = shortseq_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                            ctx.scale, key_mask)
+        return dq, dk, dv, None, None
+
+
+def shortseq_attention(q, k, v, scale=None, key_mask=None):
+    """Non-causal self-attention `[B, S, H, D]` -> `[B, S, H, D]` (the port
+    of `shortseq_attention`), through `_ShortseqAttention`. `key_mask` is an
+    optional additive `[B, S]` mask over keys (0 for real tokens, -1e30 for
+    padding, the encoder convention), cast to fp32 and broadcast over
+    heads by the kernel."""
+    B, S, H, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+
+    def to_bh(x):
+        return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
+
+    km = None if key_mask is None else key_mask.float().contiguous()
+    o = _ShortseqAttention.apply(to_bh(q), to_bh(k), to_bh(v), km, scale)
+    return o.reshape(B, H, S, D).transpose(1, 2)
+
+
 def dense_attention(q, k, v, causal, scale=None, mask=None):
     """Plain PyTorch attention `[B, Sq, H, D]` x `[B, Skv, H, D]`, the JAX
     package's dense route (`_xla_attention`, and the dense branch of
@@ -234,24 +457,34 @@ def dense_attention(q, k, v, causal, scale=None, mask=None):
 
 def flash_attention(q, k, v, causal=True, scale=None):
     """Mask-free attention `[B, Sq, H, D]` x `[B, Skv, H, D]` ->
-    `[B, Sq, H, D]`, differentiable.
-
-    Causal with Sq == Skv takes `chunked_causal_attention` (the kernels on
-    the card, their plain versions on the CPU). Causal with Sq != Skv has
-    no TPU kernel either: the JAX package computes it densely on every
-    device, and so does the port (`dense_attention`, counted in
-    `flash_attention.dense_calls`). Non-causal shapes go to kernels still
-    to port and raise on every device."""
-    Sq, Skv = q.shape[1], k.shape[1]
+    `[B, Sq, H, D]`, differentiable. The JAX package's routing, in its
+    order:
+    - non-causal shortseq shapes (`_shapes_ok_for_shortseq`) take
+      `shortseq_attention` (the kernels on the card, their plain versions
+      on the CPU);
+    - causal Sq == Skv takes `chunked_causal_attention`;
+    - non-causal shapes that a TPU hands to jax's library kernel
+      (`_shapes_ok_for_lib`) raise on the card: their kernel, B6
+      (`_sdpa_fwd_kernel`), is still to port. On the CPU they are
+      computed densely, as JAX computes them there;
+    - every other shape (causal Sq != Skv, head dims or lengths no kernel
+      takes) is dense on every device, as in JAX (`dense_attention`).
+    Every dense computation counts in `flash_attention.dense_calls`."""
+    Sq, Skv, D = q.shape[1], k.shape[1], q.shape[3]
+    if not causal and _shapes_ok_for_shortseq(Sq, Skv, D):
+        return shortseq_attention(q, k, v, scale)
     if causal and Sq == Skv:
         return chunked_causal_attention(q, k, v, scale)
-    if causal:
-        flash_attention.dense_calls += 1
-        return dense_attention(q, k, v, True, scale)
-    raise NotImplementedError(
-        f"flash_attention(causal=False) with Sq={Sq}, Skv={Skv} has no "
-        "kernel in the port yet (the TPU package's _sdpa_fwd_kernel and "
-        "shortseq kernels are still to port)")
+    # JAX's library condition is `_shapes_ok_for_lib and (not causal or
+    # Sq == Skv)`; causal Sq == Skv returned above
+    if (not causal and q.device.type == "cuda"
+            and _shapes_ok_for_lib(Sq, Skv, D)):
+        raise NotImplementedError(
+            f"flash_attention(causal=False) with Sq={Sq}, Skv={Skv}, D={D} "
+            "needs the flash forward kernel B6 (_sdpa_fwd_kernel), which "
+            "the port has not ported yet")
+    flash_attention.dense_calls += 1
+    return dense_attention(q, k, v, causal, scale)
 
 
 flash_attention.dense_calls = 0

@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import dense_attention, flash_attention
+from .flash_attention import (_shapes_ok_for_shortseq, dense_attention,
+                              flash_attention, shortseq_attention)
 
 __all__ = ["scaled_dot_product_attention", "dropout",
            "softmax_with_cross_entropy", "cross_entropy"]
@@ -16,22 +17,38 @@ __all__ = ["scaled_dot_product_attention", "dropout",
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True, scale=None,
                                  generator=None):
-    """Attention in paddle layout `[batch, seq, heads, head_dim]`.
+    """Attention in paddle layout `[batch, seq, heads, head_dim]`, routed
+    as the JAX package routes it (paddle_tpu/ops/nn_ops.py):
 
-    Without a mask and without active dropout it routes to
-    `flash_attention` (the causal kernels for causal Sq == Skv, dense for
-    causal Sq != Skv; non-causal shapes raise). Otherwise it takes the JAX
-    package's dense branch (`dense_attention`): fp32 logits, the causal
-    mask (bottom-right aligned) with `is_causal`, the additive `attn_mask`
-    (broadcastable to `[B, H, Sq, Skv]`), fp32 softmax, the probabilities
-    cast to q's dtype before PV. With `dropout_p > 0` and `training`, the
-    OUTPUT is dropped (as the JAX package does), the mask drawn from
-    `generator`."""
-    drop = dropout_p > 0.0 and training
-    if attn_mask is None and not drop:
+    - no mask and `dropout_p == 0.0`: `flash_attention`, which routes by
+      shape (shortseq and causal kernels, dense otherwise);
+    - a key-only additive mask `[B or 1, 1, 1, Skv]`, `dropout_p == 0.0`,
+      not causal, shortseq shapes: `shortseq_attention` with that mask
+      (the encoder padding mask; the masked kernels on the card);
+    - everything else: the dense branch (`dense_attention`): fp32 logits,
+      the causal mask (bottom-right aligned) with `is_causal`, the
+      additive `attn_mask` (broadcastable to `[B, H, Sq, Skv]`), fp32
+      softmax, the probabilities cast to q's dtype before PV.
+
+    The routing reads `dropout_p` alone, not `training`: with
+    `dropout_p > 0` and `training=False` the dense branch runs and drops
+    nothing. With `dropout_p > 0` and `training`, the OUTPUT is dropped
+    (as the JAX package does), the mask drawn from `generator`."""
+    if attn_mask is None and dropout_p == 0.0:
         return flash_attention(q, k, v, causal=is_causal, scale=scale)
+    if (attn_mask is not None and dropout_p == 0.0 and not is_causal
+            and attn_mask.dim() == 4 and attn_mask.shape[1] == 1
+            and attn_mask.shape[2] == 1):
+        B, Sq, _, D = q.shape
+        Skv = k.shape[1]
+        if (_shapes_ok_for_shortseq(Sq, Skv, D)
+                and attn_mask.shape[0] in (1, B)
+                and attn_mask.shape[3] == Skv):
+            key_mask = attn_mask[:, 0, 0, :].expand(B, Skv)
+            return shortseq_attention(q, k, v, scale=scale,
+                                      key_mask=key_mask)
     out = dense_attention(q, k, v, is_causal, scale, mask=attn_mask)
-    if drop:
+    if dropout_p > 0.0 and training:
         out = dropout(out, dropout_p, training=True, generator=generator)
     return out
 

@@ -35,6 +35,8 @@ KERNEL_SOURCES = {
     "paged_verify": ("paged_verify.cu",),
     "causal_attention": ("causal_attention.cu",),
     "causal_attention_bwd": ("causal_attention_bwd.cu",),
+    "shortseq_attention": ("shortseq_attention.cu",),
+    "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

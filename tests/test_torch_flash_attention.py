@@ -82,27 +82,24 @@ def test_plain_causal_forward_matches_xla_attention_at_ragged_s(S):
 @pytest.mark.parametrize("causal,Sq,Skv", [(True, 5, 9), (False, 7, 7),
                                            (False, 4, 11)])
 def test_flash_attention_without_kernel_raises(causal, Sq, Skv):
-    """Shapes without a kernel: non-causal ones raise on the CPU as on the
-    card, through `flash_attention` and the mask-free
-    `scaled_dot_product_attention` alike; causal Sq != Skv is computed
-    densely through both, as JAX computes it. The causal Sq == Skv case at
-    the same widths matches JAX."""
+    """Shapes without a kernel (here D 16, which no TPU kernel takes) are
+    computed densely, as JAX computes them on every device, through
+    `flash_attention` and the mask-free `scaled_dot_product_attention`
+    alike, each counted in `flash_attention.dense_calls`: causal
+    Sq != Skv, and non-causal shapes whether Sq == Skv or not. The causal
+    Sq == Skv case at the same widths matches JAX."""
     rng = np.random.RandomState(Sq * Skv)
     B, H, D = 2, 3, 16
     q = torch.from_numpy(rng.randn(B, Sq, H, D).astype(np.float32))
     k = torch.from_numpy(rng.randn(B, Skv, H, D).astype(np.float32))
     v = torch.from_numpy(rng.randn(B, Skv, H, D).astype(np.float32))
-    if causal:
-        want = np.asarray(jfa.flash_attention(q.numpy(), k.numpy(),
-                                              v.numpy(), causal=True))
-        for got in (tfa.flash_attention(q, k, v, causal=True),
-                    scaled_dot_product_attention(q, k, v, is_causal=True)):
-            np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
-    else:
-        with pytest.raises(NotImplementedError):
-            tfa.flash_attention(q, k, v, causal=causal)
-        with pytest.raises(NotImplementedError):
-            scaled_dot_product_attention(q, k, v, is_causal=causal)
+    want = np.asarray(jfa.flash_attention(q.numpy(), k.numpy(), v.numpy(),
+                                          causal=causal))
+    dense = tfa.flash_attention.dense_calls
+    for got in (tfa.flash_attention(q, k, v, causal=causal),
+                scaled_dot_product_attention(q, k, v, is_causal=causal)):
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    assert tfa.flash_attention.dense_calls == dense + 2
     want = jfa.flash_attention(q.numpy(), q.numpy(), q.numpy(), causal=True)
     got = tfa.flash_attention(q, q, q, causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
@@ -158,8 +155,10 @@ def test_masked_sdpa_with_is_causal_raises():
 
 def test_sdpa_dropout_takes_the_dense_branch_and_drops_the_output():
     """dropout_p > 0 in training: the dense branch, then dropout on the
-    output (kept values are the dense output / keep, exactly); not in
-    training, or at dropout_p 0, the kernel route; no generator raises."""
+    output (kept values are the dense output / keep, exactly). dropout_p
+    > 0 not in training: the dense branch, nothing dropped, as JAX routes
+    it (the flash route only at dropout_p == 0.0). dropout_p 0: the kernel
+    route. No generator raises."""
     rng = np.random.RandomState(9)
     q, k, v = (torch.from_numpy(rng.randn(2, 8, 2, 16).astype(np.float32))
                for _ in range(3))
@@ -177,10 +176,13 @@ def test_sdpa_dropout_takes_the_dense_branch_and_drops_the_output():
         got = scaled_dot_product_attention(q, k, v, dropout_p=p,
                                            is_causal=True, training=training,
                                            generator=g)
+        if p > 0.0:
+            assert tfa.causal_attention_fwd.plain_calls == fwd
+            torch.testing.assert_close(got, dense, rtol=0, atol=0)
+            continue
         assert tfa.causal_attention_fwd.plain_calls == fwd + 1
         torch.testing.assert_close(got, tfa.chunked_causal_attention(
             q, k, v), rtol=0, atol=0)
-        fwd += 2
     with pytest.raises(ValueError, match="generator"):
         scaled_dot_product_attention(q, k, v, dropout_p=0.25, is_causal=True)
 

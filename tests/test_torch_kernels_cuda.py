@@ -21,10 +21,11 @@ import math
 import pytest
 import torch
 
-from paddle_tpu_torch.ops.flash_attention import (causal_attention_bwd,
-                                                  causal_attention_bwd_plain,
-                                                  causal_attention_fwd,
-                                                  causal_attention_plain)
+from paddle_tpu_torch.ops.flash_attention import (
+    causal_attention_bwd, causal_attention_bwd_plain, causal_attention_fwd,
+    causal_attention_plain, shortseq_attention, shortseq_attention_bwd,
+    shortseq_attention_bwd_plain, shortseq_attention_fwd,
+    shortseq_attention_plain, flash_attention)
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                paged_decode_attention_int8,
@@ -45,12 +46,47 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (0.0, 1e-5)}
 
 
+# shortseq backward, per sequence (per [S, D] slab of bh): max |got - ref|
+# <= rel * max |ref| + abs over that slab. An all-padding sequence has p = 1
+# on every key, so its gradients sum S unit-size terms (|ref| up to ~115 at
+# S 512 against ~5 elsewhere) and fp32 sums in another order differ by a
+# small multiple of 1e-7 of that; other sequences keep the causal
+# backward's limits.
+SHORTSEQ_BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (4e-6, 1e-5)}
+
+
 def bwd_within_tol(got, ref, dtype):
     """max |got - ref| <= rel * max |ref| + abs, for each of dq, dk, dv."""
     rel, floor = BWD_TOL[dtype]
     return all((g.float() - r.float()).abs().max().item()
                <= rel * r.float().abs().max().item() + floor
                for g, r in zip(got, ref))
+
+
+def shortseq_bwd_within_tol(got, ref, dtype):
+    """SHORTSEQ_BWD_TOL per sequence, for each of dq, dk, dv."""
+    rel, floor = SHORTSEQ_BWD_TOL[dtype]
+    for g, r in zip(got, ref):
+        err = (g.float() - r.float()).abs().amax((1, 2))
+        if not bool((err <= rel * r.float().abs().amax((1, 2))
+                     + floor).all()):
+            return False
+    return True
+
+
+def shortseq_key_mask(B, H, S, kind):
+    """None, or the additive fp32 key mask: `B` -> `[B, S]` (broadcast over
+    heads) with padded tails of different lengths and sequence B - 1 all
+    padding, at -1e30 as BertModel makes it; `BH` -> `[B * H, S]`, each
+    head its own tail."""
+    if kind is None:
+        return None
+    rows = B if kind == "B" else B * H
+    lens = [S - (37 * i) % S for i in range(rows)]
+    lens[-1] = 0
+    keep = torch.arange(S, device="cuda")[None] < torch.tensor(
+        lens, device="cuda")[:, None]
+    return torch.where(keep, 0.0, -1e30).float().contiguous()
 
 
 @pytest.fixture
@@ -235,6 +271,134 @@ def test_causal_bwd_kernel_matches_plain(card, dtype, D, S):
     assert all(x.dtype == dtype and x.shape == q.shape for x in got)
     assert bwd_within_tol(got, ref, dtype)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [128, 256, 512])
+@pytest.mark.parametrize("mask", [None, "B", "BH"])
+def test_shortseq_kernel_matches_plain(card, dtype, D, S, mask):
+    """O and LSE of the forward kernel (mask-free, a [B, S] mask broadcast
+    over heads, a [BH, S] mask; padded tails and one all-padding sequence)
+    against the plain version; the variant's own count moves."""
+    B, H = 3, 2
+    q, k, v = (torch.randn((B * H, S, D), generator=card,
+                           device="cuda").to(dtype) for _ in range(3))
+    km = shortseq_key_mask(B, H, S, mask)
+    scale = 1.0 / math.sqrt(D)
+    o_ref, l_ref = shortseq_attention_plain(q, k, v, scale, km)
+    counts = (shortseq_attention_fwd.launches,
+              shortseq_attention_fwd.masked_launches)
+    o, lse = shortseq_attention_fwd(q, k, v, scale, km)
+    torch.cuda.synchronize()
+    masked = km is not None
+    assert (shortseq_attention_fwd.launches - counts[0],
+            shortseq_attention_fwd.masked_launches - counts[1]) == (
+                int(not masked), int(masked))
+    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype]
+    lse_tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    assert (lse - l_ref).abs().max().item() <= lse_tol
+    if masked:                 # the all-padding sequence: the mean of v
+        last = slice((B - 1) * H, B * H) if mask == "B" else slice(-1, None)
+        mean = v[last].float().mean(1, keepdim=True)
+        assert (o[last].float() - mean).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [128, 256, 512])
+@pytest.mark.parametrize("mask", [None, "B", "BH"])
+def test_shortseq_bwd_kernel_matches_plain(card, dtype, D, S, mask):
+    """dq, dk, dv of the backward kernel against the plain version from the
+    kernel's forward O and LSE, one launch of the right variant counted,
+    the same bits on a rerun."""
+    B, H = 3, 2
+    q, k, v, do = (torch.randn((B * H, S, D), generator=card,
+                               device="cuda").to(dtype) for _ in range(4))
+    km = shortseq_key_mask(B, H, S, mask)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = shortseq_attention_fwd(q, k, v, scale, km)
+    ref = shortseq_attention_bwd_plain(q, k, v, o, do, lse, scale, km)
+    counts = (shortseq_attention_bwd.launches,
+              shortseq_attention_bwd.masked_launches)
+    got = shortseq_attention_bwd(q, k, v, o, do, lse, scale, km)
+    again = shortseq_attention_bwd(q, k, v, o, do, lse, scale, km)
+    torch.cuda.synchronize()
+    masked = km is not None
+    assert (shortseq_attention_bwd.launches - counts[0],
+            shortseq_attention_bwd.masked_launches - counts[1]) == (
+                2 * int(not masked), 2 * int(masked))
+    assert all(x.dtype == dtype and x.shape == q.shape for x in got)
+    assert shortseq_bwd_within_tol(got, ref, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_shortseq_attention_grads_through_the_kernels(card):
+    """`shortseq_attention` in paddle layout with a [B, S] mask: autograd
+    reaches the backward kernel's masked variant, the mask gets no
+    gradient, and the gradients equal the plain backward's within tol."""
+    B, S, H, D = 2, 256, 3, 64
+    q, k, v = (torch.randn((B, S, H, D), generator=card, device="cuda")
+               .requires_grad_() for _ in range(3))
+    km = shortseq_key_mask(B, H, S, "B")
+    km[-1, :100] = 0.0                     # no all-padding sequence here
+    km.requires_grad_()
+    do = torch.randn((B, S, H, D), generator=card, device="cuda")
+    before = shortseq_attention_bwd.masked_launches
+    out = shortseq_attention(q, k, v, key_mask=km)
+    out.backward(do)
+    assert shortseq_attention_bwd.masked_launches == before + 1
+    assert km.grad is None
+
+    def bh(x):
+        return x.detach().transpose(1, 2).reshape(B * H, S, D).contiguous()
+
+    scale = 1.0 / math.sqrt(D)
+    o, lse = shortseq_attention_plain(bh(q), bh(k), bh(v), scale, km.detach())
+    ref = shortseq_attention_bwd_plain(bh(q), bh(k), bh(v), o, bh(do), lse,
+                                       scale, km.detach())
+    got = [bh(x.grad) for x in (q, k, v)]
+    assert shortseq_bwd_within_tol(got, ref, torch.float32)
+
+
+def test_flash_attention_routes_on_the_card(card):
+    """Non-causal shortseq shapes launch the shortseq kernel; non-causal
+    shapes that wait for the flash forward kernel B6 raise on the card;
+    shapes no kernel takes are dense."""
+    x = torch.randn((2, 256, 2, 64), generator=card, device="cuda")
+    before = shortseq_attention_fwd.launches
+    flash_attention(x, x, x, causal=False)
+    assert shortseq_attention_fwd.launches == before + 1
+    z = torch.zeros((1, 1024, 2, 64), device="cuda")
+    with pytest.raises(NotImplementedError, match="B6"):
+        flash_attention(z, z, z, causal=False)
+    dense = flash_attention.dense_calls
+    z = torch.zeros((1, 96, 2, 64), device="cuda")
+    assert flash_attention(z, z, z, causal=False).shape == z.shape
+    assert flash_attention.dense_calls == dense + 1
+
+
+def test_shortseq_kernels_refuse_what_they_do_not_take(card):
+    z = torch.zeros((2, 256, 64), device="cuda")
+    lse = torch.zeros((2, 256), device="cuda")
+    for bad in (torch.zeros((2, 192, 64), device="cuda"),
+                torch.zeros((2, 1024, 64), device="cuda")):
+        with pytest.raises(ValueError, match="S="):
+            shortseq_attention_fwd(bad, bad, bad)
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros((2, 256, 96), device="cuda")
+        shortseq_attention_fwd(x, x, x)
+    for km in (torch.zeros((2, 256), device="cuda", dtype=torch.bfloat16),
+               torch.zeros((3, 256), device="cuda"),
+               torch.zeros((2, 128), device="cuda"),
+               torch.zeros((2, 256)),
+               torch.zeros((256, 2), device="cuda").t()):
+        with pytest.raises(ValueError, match="key_mask"):
+            shortseq_attention_fwd(z, z, z, key_mask=km)
+        with pytest.raises(ValueError, match="key_mask"):
+            shortseq_attention_bwd(z, z, z, z, z, lse, key_mask=km)
+    with pytest.raises(ValueError, match="lse"):
+        shortseq_attention_bwd(z, z, z, z, z, lse[:, :128].contiguous())
 
 
 def test_kernels_refuse_what_they_do_not_take(card):
