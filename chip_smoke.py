@@ -7,6 +7,7 @@
 engine_spec,spec_parity,engine_int8
     python3 chip_smoke.py --phases build,shortseq_fwd,shortseq_bwd,\
 bert_train,bert_parity
+    python3 chip_smoke.py --phases build,conv_fwd,resnet_infer,resnet_parity
 
 Phases, each printing one JSON line:
 
@@ -108,16 +109,19 @@ the bf16 engine, the bf16 generate(), the f32 engine, the f32 generate(),
 the bf16 train steps, the f32 train steps, the bf16 speculative engine,
 the three f32 engines of spec_parity, the int8 engine, the int8
 speculative engine, BERT's mask-free and padded bf16 train steps, its
-padded eval forwards and its f32 padded steps. Kernel counts are set to 0
+padded eval forwards and its f32 padded steps, the timed bf16 ResNet-50
+forwards and the f32 ResNet-50 forward. Kernel counts are set to 0
 just before each run and read just after it; each run must launch every
 kernel it takes (PATH_KERNEL: the engine the paged decode kernel,
 generate() the causal forward, training the causal forward and backward,
 24 times a step at 1.3B, the speculative engine the verify kernel, the
 int8 engines their int8 kernels, BERT's mask-free steps the mask-free
 shortseq kernels 12 times a step each and its padded runs the masked
-variants alone) and call no plain version. `--profile` adds a device-time
+variants alone, a ResNet-50 forward the 1x1 kernel 36 times and the 3x3
+kernel 16 times) and call no plain version. `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
-one GPT train step and of one BERT train step. The line before the last
+one GPT train step, of one BERT train step and of one bf16 ResNet-50
+forward on each route. The line before the last
 lists the kernels with their launches, errors and times; the last line is
 the device line. Any failed phase exits non-zero without it. With no CUDA
 device, or without the repository beside it, the script fails.
@@ -139,7 +143,8 @@ SEED = 0                           # weights and traces are drawn from it
 PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "generate_parity", "train", "train_parity", "paged_verify",
           "paged_int8", "engine_spec", "spec_parity", "engine_int8",
-          "shortseq_fwd", "shortseq_bwd", "bert_train", "bert_parity")
+          "shortseq_fwd", "shortseq_bwd", "bert_train", "bert_parity",
+          "conv_fwd", "resnet_infer", "resnet_parity")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -184,10 +189,39 @@ GRADS = ("dq", "dk", "dv")
 # the change 1.3e-4 outside qkv_proj.bias (PR 4).
 BERT_PARITY_TOL = {"logits": 1e-5, "loss": 1e-5, "grad": 1e-4,
                    "update": 1e-3, "key_bias_step": 1.01}
+# conv kernels against their plain version, max |kernel - plain| / max
+# |plain|: both sum exact fp32 products in fp32, in other orders; a bf16
+# output may then round the other way, one bf16 ulp of the value, at most
+# 2^-7 of max |plain|; f32 as the JAX suite's FP32_REL_TOL
+# (tests/test_pallas_conv.py)
+CONV_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# f32 ResNet-50 logits on the card against the CPU, max |card - cpu| / max
+# |cpu|: the kernels and cuDNN (TF32 off) sum in other orders than the
+# CPU's convolutions. Sound runs on an H100 read 1.27e-6, as the port
+# against the JAX package, both on the CPU, read 1.6e-6 at 32 x 32.
+RESNET_PARITY_TOL = 1e-5
+# bench.py's resnet50_infer check: the fused route against the dense
+# composition, bf16 (bench_ops.py CONV_FUSED_REL_TOL)
+RESNET_DENSE_REL_TOL = 0.03
+RESNET50_FWD_FLOPS = 4.09e9        # per 224 x 224 image (bench.py)
+CONV_BATCH = 256
+# bench_ops.py's nine ResNet-50 sweep shapes: (name, hw, cin, cout, k, s)
+CONV_SWEEP_SHAPES = (
+    ("conv_c2_1x1_64_256", 56, 64, 256, 1, 1),
+    ("conv_c2_3x3_64", 56, 64, 64, 3, 1),
+    ("conv_c3_3x3_128_s2", 56, 128, 128, 3, 2),
+    ("conv_c3_3x3_128", 28, 128, 128, 3, 1),
+    ("conv_c4_3x3_256_s2", 28, 256, 256, 3, 2),
+    ("conv_c4_3x3_256", 14, 256, 256, 3, 1),
+    ("conv_c5_3x3_512_s2", 14, 512, 512, 3, 2),
+    ("conv_c5_3x3_512", 7, 512, 512, 3, 1),
+    ("conv_c5_1x1_512_2048", 7, 512, 2048, 1, 1),
+)
 FWD, BWD = "causal_attention_fwd", "causal_attention_bwd"
 DEC, VER = "paged_decode_attention", "paged_verify_attention"
 DEC8, VER8 = "paged_decode_attention_int8", "paged_verify_attention_int8"
 SSF, SSB = "shortseq_attention_fwd", "shortseq_attention_bwd"
+C1, C3 = "conv1x1_bn_relu", "conv3x3_bn_relu"
 # the masked variants' launches, counted apart on the same wrappers
 SSFM, SSBM = SSF + "_masked", SSB + "_masked"
 # each run of the main path, and the kernels that run must launch
@@ -204,7 +238,9 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "bert_train_bf16": (SSF, SSB),
                "bert_padded_bf16": (SSFM, SSBM),
                "bert_eval_padded_bf16": (SSFM,),
-               "bert_f32": (SSFM, SSBM)}
+               "bert_f32": (SSFM, SSBM),
+               "resnet_infer_bf16": (C1, C3),
+               "resnet_f32": (C1, C3)}
 # bench.py's BERT row: batch, heads, seq, head dim
 BERT_SHAPE = (64, 12, 512, 64)
 SPEC_K = 4
@@ -608,7 +644,12 @@ def _device_breakdown(prof, name):
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
         n = e["name"]
-        key = ("paged_verify_kernel" if "paged_verify" in n else
+        key = ("conv1x1_bn_relu_kernel" if "conv1x1_bn_relu" in n else
+               "conv3x3_bn_relu_kernel" if "conv3x3_bn_relu" in n else
+               "cudnn conv" if any(t in n.lower() for t in (
+                   "cudnn", "fprop", "implicit_gemm", "conv2d",
+                   "convolve")) else
+               "paged_verify_kernel" if "paged_verify" in n else
                "paged_decode_kernel" if "paged_decode" in n else
                "shortseq_fwd_kernel" if "shortseq_fwd" in n else
                "shortseq_bwd_kernels" if "shortseq_d" in n else
@@ -1782,6 +1823,256 @@ def phase_bert_parity(torch, ctx, seed):
                              "CPU")
 
 
+# ---------------------------------------------------------------------------
+# the conv path: ResNet eval
+# ---------------------------------------------------------------------------
+def _conv_case(torch, g, N, hw, cin, cout, k, dtype):
+    """x NHWC (the view of a channels_last NCHW tensor, as ConvBNReLU hands
+    it over), w HWIO, fp32 scale and shift of a folded BatchNorm."""
+    x = torch.randn((N, cin, hw, hw), generator=g, device="cuda") \
+        .to(dtype).contiguous(memory_format=torch.channels_last) \
+        .permute(0, 2, 3, 1)
+    w = (torch.randn((k, k, cin, cout), generator=g, device="cuda")
+         / math.sqrt(k * k * cin)).to(dtype)
+    scale = torch.rand(cout, generator=g, device="cuda") + 0.5
+    shift = torch.randn(cout, generator=g, device="cuda") * 0.5
+    return x, w, scale, shift
+
+
+def _conv_library(torch, x, w, scale, shift, stride, pads):
+    """The yardstick: F.conv2d of the BN-folded weights (OIHW, channels
+    last) with the shift as bias on the NCHW view, then relu_; F.pad first
+    where the padding is asymmetric (SAME at stride 2)."""
+    import torch.nn.functional as F
+
+    xn = x.permute(0, 3, 1, 2)
+    wf = (w.float() * scale).to(w.dtype).permute(3, 2, 0, 1) \
+        .contiguous(memory_format=torch.channels_last)
+    b = shift.to(x.dtype)
+    (pt, pb), (pl, pr) = pads
+    if pt == pb and pl == pr:
+        return lambda: F.conv2d(xn, wf, b, stride, (pt, pl)).relu_()
+    return lambda: F.conv2d(F.pad(xn, (pl, pr, pt, pb)), wf, b,
+                            stride).relu_()
+
+
+def phase_conv_fwd(torch, ctx):
+    from paddle_tpu_torch.ops.conv import (conv_bn_relu_plain,
+                                           fused_conv_bn_relu,
+                                           normalize_conv_padding)
+
+    g = torch.Generator("cuda").manual_seed(9)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    res = {"phase": "conv_fwd", "batch": CONV_BATCH, "tol": CONV_TOL,
+           "cases": []}
+    ok = True
+    # the sweep at its own stride, SAME and ReLU, timed; then stride 2 on
+    # the 1x1, ResNet's int padding on the 3x3 at both strides, ReLU off
+    cases = [(n, hw, ci, co, k, s, "SAME", True, True)
+             for n, hw, ci, co, k, s in CONV_SWEEP_SHAPES]
+    cases += [("conv_c2_1x1_64_256", 56, 64, 256, 1, 2, 0, True, False),
+              ("conv_c5_1x1_512_2048", 7, 512, 2048, 1, 1, "SAME", False,
+               False),
+              ("conv_c3_3x3_128_s2", 56, 128, 128, 3, 2, 1, True, False),
+              ("conv_c2_3x3_64", 56, 64, 64, 3, 1, 1, False, False)]
+    for name, hw, cin, cout, k, s, pad, relu, timed in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = dname(torch, dtype)
+            x, w, scale, shift = _conv_case(torch, g, CONV_BATCH, hw, cin,
+                                            cout, k, dtype)
+            ref = conv_bn_relu_plain(x, w, scale, shift, s, pad, relu)
+            got = fused_conv_bn_relu(x, w, scale, shift, s, pad, relu)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            top = ref.float().abs().max().item()
+            case = {"name": name, "dtype": dn, "stride": s,
+                    "padding": pad, "relu": relu,
+                    "shape": f"N{CONV_BATCH} {hw}x{hw} {cin}->{cout} "
+                             f"k{k} s{s}",
+                    "max_abs_err": err, "max_abs_plain": top,
+                    "rel_err": err / top, "tol": CONV_TOL[dn],
+                    "ok": bool(math.isfinite(err) and
+                               err <= CONV_TOL[dn] * top
+                               and got.shape == ref.shape)}
+            ok &= case["ok"]
+            del ref
+            if timed:
+                M = got.shape[0] * got.shape[1] * got.shape[2]
+                isz = x.element_size()
+                nbytes = ((x.numel() + w.numel() + got.numel()) * isz
+                          + 2 * cout * 4)
+                b, by = bound_ms(nbytes, 2 * M * cin * cout * k * k, dn)
+                case.update(bound_ms=b, bound_by=by,
+                            kernel_ms=cuda_ms(torch, lambda: fused_conv_bn_relu(
+                                x, w, scale, shift, s, pad, relu), 10, flush))
+                if dtype == torch.bfloat16:
+                    pads = normalize_conv_padding(pad, k, s,
+                                                  in_hw=(hw, hw))
+                    case.update(
+                        plain_ms=cuda_ms(torch, lambda: conv_bn_relu_plain(
+                            x, w, scale, shift, s, pad, relu), 3, flush,
+                            warmup=1),
+                        library_ms=cuda_ms(torch, _conv_library(
+                            torch, x, w, scale, shift, s, pads), 10, flush))
+                    if name == "conv_c2_1x1_64_256":
+                        ctx["conv1x1"] = case
+                    elif name == "conv_c2_3x3_64":
+                        ctx["conv3x3"] = case
+            res["cases"].append(case)
+            del x, w, got
+    del flush
+    torch.cuda.empty_cache()
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("fused conv kernels disagree with their plain "
+                             "version")
+
+
+def _seed_bn(torch, model, seed):
+    """Draw every BatchNorm's gamma, beta, running mean and (positive)
+    running variance from `seed` (numpy, so the card and the CPU agree):
+    at random init they are the identity, which would hide a wrong fold."""
+    from paddle_tpu_torch.nn import BatchNorm2D
+
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2D):
+                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.bias, -0.5, 0.5),
+                                  (m._mean, -0.5, 0.5),
+                                  (m._variance, 0.5, 2.0)):
+                    t.copy_(torch.from_numpy(rng.uniform(
+                        lo, hi, t.shape).astype(np.float32)))
+
+
+def _resnet50(torch, classes, dtype, seed, backend=None):
+    from paddle_tpu_torch import resnet50
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    m = resnet50(num_classes=classes, conv_backend=backend, device="cuda",
+                 generator=g)
+    _seed_bn(torch, m, seed + 9)
+    return m.to(dtype).eval()
+
+
+def phase_resnet_infer(torch, ctx, seed):
+    from paddle_tpu_torch.ops.conv import fused_conv_bn_relu
+
+    batch, size, classes, warm, timed = CONV_BATCH, 224, 1000, 2, 10
+    rng = np.random.RandomState(seed + 10)
+    x = torch.from_numpy(rng.uniform(-1, 1, (batch, 3, size, size))
+                         .astype(np.float32)).cuda().to(torch.bfloat16)
+
+    def serve(model, path, exact):
+        """2 warm-up forwards, then `timed` ones, each ending in a
+        synchronize, counted as one run (`_counted`) when `path` is given;
+        (logits, seconds per forward, peak GB, dense calls)."""
+        with torch.no_grad():
+            for _ in range(warm):
+                model(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+            def run():
+                secs = []
+                for _ in range(timed):
+                    t0 = time.perf_counter()
+                    out = model(x)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                return out, secs
+
+            fused_conv_bn_relu.dense_calls = 0
+            out, secs = (_counted(torch, ctx, path, run, exact) if path
+                         else run())
+            dense = fused_conv_bn_relu.dense_calls
+        return out, secs, torch.cuda.max_memory_allocated() / 1e9, dense
+
+    def report(secs, peak):
+        ips = batch * len(secs) / sum(secs)
+        return {"images_per_s": ips,
+                "ms_per_forward": sum(secs) / len(secs) * 1e3,
+                "ms_per_forward_min_median_max": [
+                    min(secs) * 1e3, float(np.median(secs)) * 1e3,
+                    max(secs) * 1e3],
+                "model_flop_share_of_989tflops": RESNET50_FWD_FLOPS * ips
+                / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak}
+
+    model = _resnet50(torch, classes, torch.bfloat16, seed)
+    out_k, secs_k, peak_k, dense_k = serve(
+        model, "resnet_infer_bf16", {C1: 36 * timed, C3: 16 * timed})
+    res = {"phase": "resnet_infer", "config": "bench.py resnet50_infer: "
+           "resnet50(num_classes=1000), bf16, eval, seed-0 weights, seeded "
+           "BatchNorm statistics, batch 256 x 3 x 224 x 224 uniform(-1, 1)",
+           "warmup_forwards": warm, "timed_forwards": timed,
+           "nvidia_smi": ctx.get("smi"), **report(secs_k, peak_k),
+           "dense_calls": dense_k,
+           "kernel_counts": ctx["paths"]["resnet_infer_bf16"]}
+    # the same weights through the dense composition, no kernel
+    dense = _resnet50(torch, classes, torch.bfloat16, seed, "dense")
+    dense.load_state_dict(model.state_dict())
+    before = [(w.launches, w.plain_calls) for w in ctx["wrappers"]]
+    out_d, secs_d, peak_d, dense_d = serve(dense, None, None)
+    no_kernel = before == [(w.launches, w.plain_calls)
+                           for w in ctx["wrappers"]]
+    if ctx.get("profile"):
+        from torch.profiler import ProfilerActivity, profile
+
+        for m, name in ((model, "resnet_infer"),
+                        (dense, "resnet_infer_dense")):
+            with torch.no_grad(), profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                m(x)
+                torch.cuda.synchronize()
+            emit(dict(phase=name + "_profile",
+                      **_device_breakdown(prof, name)))
+    rel = ((out_k.float() - out_d.float()).abs().max()
+           / out_d.float().abs().max()).item()
+    res.update(dense_route=dict(report(secs_d, peak_d), dense_calls=dense_d,
+                                no_kernel_or_plain_call=no_kernel),
+               rel_linf_vs_dense=rel, tol=RESNET_DENSE_REL_TOL,
+               max_abs_logit=out_d.float().abs().max().item())
+    res["ok"] = bool(
+        out_k.shape == (batch, classes) and dense_k == 0
+        and dense_d == 52 * timed and no_kernel
+        and bool(torch.isfinite(out_k.float()).all())
+        and rel <= RESNET_DENSE_REL_TOL)
+    emit(res)
+    del model, dense, x
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("resnet_infer phase failed its checks")
+
+
+def phase_resnet_parity(torch, ctx, seed):
+    from paddle_tpu_torch import resnet50
+
+    card = _resnet50(torch, 10, torch.float32, seed)
+    host = resnet50(num_classes=10, device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x = torch.from_numpy(np.random.RandomState(seed + 11).uniform(
+        -1, 1, (2, 3, 64, 64)).astype(np.float32))
+    with torch.no_grad():
+        got = _counted(torch, ctx, "resnet_f32", lambda: card(x.cuda()),
+                       exact={C1: 36, C3: 16}).cpu()
+        want = host(x)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    res = {"phase": "resnet_parity", "dtype": "float32",
+           "config": "resnet50(num_classes=10), batch 2, 64 x 64, seeded "
+           "BatchNorm statistics", "rel_linf": err,
+           "max_abs_logit": want.abs().max().item(),
+           "tol": RESNET_PARITY_TOL,
+           "kernel_counts": ctx["paths"]["resnet_f32"],
+           "ok": bool(math.isfinite(err) and err <= RESNET_PARITY_TOL)}
+    emit(res)
+    del card, host
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("f32 ResNet-50 logits on the card differ from "
+                             "the CPU")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1789,8 +2080,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile the engine runs (phases engine, "
                     "engine_spec, engine_int8) after their prefixes are "
-                    "cached, one GPT train step and one BERT train step "
-                    "(phases train, bert_train), with torch.profiler and "
+                    "cached, one GPT train step, one BERT train step and "
+                    "one ResNet-50 forward on each route (phases train, "
+                    "bert_train, resnet_infer), with torch.profiler and "
                     "print their device-time breakdowns (slows those "
                     "runs; their tokens/s is then not comparable)")
     args = ap.parse_args(argv)
@@ -1806,6 +2098,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401  (fails outside the repository)
+    from paddle_tpu_torch.ops.conv import conv1x1_bn_relu, conv3x3_bn_relu
     from paddle_tpu_torch.ops.flash_attention import (
         causal_attention_bwd, causal_attention_fwd, shortseq_attention_bwd,
         shortseq_attention_fwd)
@@ -1821,7 +2114,8 @@ def main(argv=None):
                         causal_attention_bwd, paged_verify_attention,
                         paged_decode_attention_int8,
                         paged_verify_attention_int8, shortseq_attention_fwd,
-                        shortseq_attention_bwd)}
+                        shortseq_attention_bwd, conv1x1_bn_relu,
+                        conv3x3_bn_relu)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -1858,8 +2152,14 @@ def main(argv=None):
                 phase_shortseq_bwd(torch, ctx)
             elif name == "bert_train":
                 phase_bert_train(torch, ctx, SEED)
-            else:
+            elif name == "bert_parity":
                 phase_bert_parity(torch, ctx, SEED)
+            elif name == "conv_fwd":
+                phase_conv_fwd(torch, ctx)
+            elif name == "resnet_infer":
+                phase_resnet_infer(torch, ctx, SEED)
+            else:
+                phase_resnet_parity(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -1899,7 +2199,11 @@ def main(argv=None):
              "paddle_tpu/ops/pallas/flash_attention.py:255"),
             ("shortseq_bwd_masked", SSBM,
              "paddle_tpu_torch/csrc/shortseq_attention_bwd.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:262")):
+             "paddle_tpu/ops/pallas/flash_attention.py:262"),
+            ("conv1x1", C1, "paddle_tpu_torch/csrc/conv_bn_relu.cu",
+             "paddle_tpu/ops/pallas/conv.py:317"),
+            ("conv3x3", C3, "paddle_tpu_torch/csrc/conv_bn_relu.cu",
+             "paddle_tpu/ops/pallas/conv.py:395")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

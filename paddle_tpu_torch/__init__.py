@@ -20,9 +20,12 @@ Ported so far:
 - the encoder path: BERT/ERNIE (`models.bert`) through
   `BertForSequenceClassification` and `BertForPretraining`, trained
   through `TrainStep`, with the short-sequence attention forward and
-  backward kernels, mask-free and key-masked (`ops.flash_attention`).
+  backward kernels, mask-free and key-masked (`ops.flash_attention`);
+- ResNet eval inference (`vision.models.resnet50` and the other depths),
+  built from `nn.ConvBNReLU`, with the fused 1x1 and 3x3 conv+BN+ReLU
+  kernels (`ops.conv`).
 """
-from . import optimizer
+from . import optimizer, vision
 from .device import resolve_device
 from .inference.engine import GenerationEngine, PagedKVCache, Request
 from .jit import TrainStep
@@ -33,10 +36,13 @@ from .models.convert import load_paddle_tpu_state, paddle_tpu_state
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .optimizer import Adam, AdamW
+from .vision.models import resnet18, resnet34, resnet50, resnet101, resnet152
 
 __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "GPTConfig", "GPTForCausalLM", "BertConfig", "BertModel",
            "ErnieModel", "BertForSequenceClassification",
            "BertForPretraining", "load_paddle_tpu_state",
            "paddle_tpu_state", "TrainStep", "Adam", "AdamW", "optimizer",
-           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "vision", "resnet18", "resnet34", "resnet50", "resnet101",
+           "resnet152"]

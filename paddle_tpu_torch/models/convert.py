@@ -1,14 +1,16 @@
-"""Weight bridge between the JAX package's models and the port's: the GPT
-and BERT (both heads).
+"""Weight bridge between the JAX package's models and the port's: the GPT,
+BERT (both heads) and the ResNets.
 
 The input is the JAX model's `state_dict()` (paddle_tpu/nn/layer.py) as
-numpy arrays under the same names, which the port's parameter names match
-one to one. Paddle's `Linear` keeps its weight `[in, out]`
-(paddle_tpu/nn/common.py); torch's is `[out, in]`, so those transpose;
-embeddings and every other parameter do not. A tied weight appears once,
-under its owner's name: the GPT's LM head reads `gpt.wte.weight`, and
-BERT's pretraining decoder `bert.embeddings.word_embeddings.weight`
-(neither state_dict has a name of its own for the tied side).
+numpy arrays under the same names: its parameters and its persistable
+buffers (BatchNorm's `_mean` and `_variance`), which the port's parameters
+and persistent buffers match one to one. Paddle's `Linear` keeps its
+weight `[in, out]` (paddle_tpu/nn/common.py); torch's is `[out, in]`, so
+those transpose; conv weights (OIHW in both), embeddings and every other
+entry do not. A tied weight appears once, under its owner's name: the
+GPT's LM head reads `gpt.wte.weight`, and BERT's pretraining decoder
+`bert.embeddings.word_embeddings.weight` (neither state_dict has a name of
+its own for the tied side).
 """
 from __future__ import annotations
 
@@ -24,13 +26,22 @@ def _linear_weights(model):
             if isinstance(mod, nn.Linear)}
 
 
+def _entries(model):
+    """{name: tensor} of the parameters (each shared one once) and the
+    persistent buffers: the entries of the JAX model's state_dict."""
+    out = dict(model.named_parameters())
+    persistent = model.state_dict(keep_vars=True)
+    out.update((n, b) for n, b in model.named_buffers() if n in persistent)
+    return out
+
+
 @torch.no_grad()
 def load_paddle_tpu_state(model, arrays):
     """Copy `arrays` ({JAX state_dict name: np.ndarray}) into `model`'s
-    parameters, transposing Linear weights and casting to each
-    parameter's dtype. A name on either side that the other lacks, or a
-    shape that does not match, raises."""
-    params = dict(model.named_parameters())
+    parameters and persistent buffers, transposing Linear weights and
+    casting to each entry's dtype. A name on either side that the other
+    lacks, or a shape that does not match, raises."""
+    params = _entries(model)
     missing = sorted(set(params) - set(arrays))
     unused = sorted(set(arrays) - set(params))
     if missing or unused:
@@ -50,10 +61,10 @@ def load_paddle_tpu_state(model, arrays):
 
 def paddle_tpu_state(model):
     """The inverse: {JAX state_dict name: float32 np.ndarray} in the JAX
-    package's layout (Linear weights `[in, out]`)."""
+    package's layout (Linear weights `[in, out]`), buffers included."""
     linear = _linear_weights(model)
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in _entries(model).items():
         a = p.detach().float().cpu().numpy()
         out[name] = np.ascontiguousarray(a.T if name in linear else a)
     return out

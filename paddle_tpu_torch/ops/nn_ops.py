@@ -1,17 +1,25 @@
-"""Attention entry point, dropout and the cross-entropy losses of the port:
-counterparts of `scaled_dot_product_attention`, `dropout`,
-`softmax_with_cross_entropy` and `cross_entropy` in
-paddle_tpu/ops/nn_ops.py.
+"""Attention entry point, dropout, the cross-entropy losses and the ops a
+ResNet's eval forward needs: counterparts of `scaled_dot_product_attention`,
+`dropout`, `softmax_with_cross_entropy`, `cross_entropy`, `conv2d`,
+`batch_norm` (its inference form), `max_pool2d` and `adaptive_avg_pool2d`
+in paddle_tpu/ops/nn_ops.py. The conv, BatchNorm and pooling ops take
+NCHW, as the paddle API does, in any memory format torch accepts,
+`channels_last` included; NHWC `data_format` is not ported.
 """
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+from torch.nn import functional as F
+
+from .conv import _pair, normalize_conv_padding
 from .flash_attention import (_shapes_ok_for_shortseq, dense_attention,
                               flash_attention, shortseq_attention)
 
 __all__ = ["scaled_dot_product_attention", "dropout",
-           "softmax_with_cross_entropy", "cross_entropy"]
+           "softmax_with_cross_entropy", "cross_entropy", "conv2d",
+           "batch_norm", "max_pool2d", "adaptive_avg_pool2d"]
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -117,3 +125,70 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         return loss.sum()
     valid = (_hard_labels(label, input.dim(), axis) != ignore_index).float()
     return loss.sum() / valid.sum().clamp_min(1.0)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    """2-D convolution, x NCHW, weight OIHW (paddle), the result in x's
+    dtype with `bias` added after it (as the JAX package adds it, after the
+    conv's cast). Padding as `normalize_conv_padding` takes it: an int,
+    per-dim ints, 4 ints (top, bottom, left, right), (lo, hi) pairs, or
+    "SAME"/"VALID" (lax's asymmetric SAME at stride > 1, over the dilated
+    window). The conv is `F.conv2d`'s: XLA computes this conv outside any
+    Pallas kernel too."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    window = [(k - 1) * d + 1 for k, d in zip(weight.shape[2:], dilation)]
+    (pt, pb), (pl, pr) = normalize_conv_padding(padding, window, stride,
+                                                in_hw=x.shape[2:])
+    if pt == pb >= 0 and pl == pr >= 0:
+        out = F.conv2d(x, weight, None, stride, (pt, pl), dilation, groups)
+    else:
+        out = F.conv2d(F.pad(x, (pl, pr, pt, pb)), weight, None, stride, 0,
+                       dilation, groups)
+    if bias is not None:
+        out = out + bias.view(1, -1, 1, 1)
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, epsilon=1e-5):
+    """BatchNorm's inference form over the channel axis 1: `(x - mean) *
+    rsqrt(var + eps) * weight + bias`, op by op in the operands' dtype, as
+    JAX's `infer_fn`. The training form (batch statistics, the running-stat
+    update) is not ported yet and raises."""
+    if training:
+        raise NotImplementedError("batch_norm with batch statistics "
+                                  "(training) is not ported yet")
+    shape = [1] * x.dim()
+    shape[1] = x.shape[1]
+    out = (x - running_mean.view(shape)) \
+        * torch.rsqrt(running_var.view(shape) + epsilon)
+    if weight is not None:
+        out = out * weight.view(shape)
+    if bias is not None:
+        out = out + bias.view(shape)
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0):
+    """Max pooling over NCHW, the window padded with -inf (JAX's
+    `_pool2d`), the padding as `conv2d` takes it. `stride` defaults to the
+    window."""
+    ks = _pair(kernel_size)
+    st = _pair(stride if stride is not None else kernel_size)
+    (pt, pb), (pl, pr) = normalize_conv_padding(padding, ks, st,
+                                                in_hw=x.shape[2:])
+    if pt == pb and pl == pr and 0 <= pt <= ks[0] // 2 \
+            and 0 <= pl <= ks[1] // 2:
+        return F.max_pool2d(x, ks, st, (pt, pl))
+    return F.max_pool2d(F.pad(x, (pl, pr, pt, pb), value=-math.inf), ks, st)
+
+
+def adaptive_avg_pool2d(x, output_size):
+    """Adaptive average pooling over NCHW to `output_size`, for input sizes
+    that are multiples of it (the mean over each H/oh x W/ow window);
+    other sizes raise, as in JAX."""
+    oh, ow = _pair(output_size)
+    H, W = x.shape[2], x.shape[3]
+    if H % oh or W % ow:
+        raise NotImplementedError("adaptive pool with non-divisible sizes")
+    return F.avg_pool2d(x, (H // oh, W // ow))

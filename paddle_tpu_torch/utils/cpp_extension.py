@@ -37,6 +37,7 @@ KERNEL_SOURCES = {
     "causal_attention_bwd": ("causal_attention_bwd.cu",),
     "shortseq_attention": ("shortseq_attention.cu",),
     "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",),
+    "conv_bn_relu": ("conv_bn_relu.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -52,7 +52,7 @@ def test_port_sources_import_neither_jax_nor_paddle_tpu(path):
 def test_entry_points_default_to_the_card_and_raise_without_one(
         monkeypatch):
     from paddle_tpu_torch import (GenerationEngine, GPTConfig,
-                                  GPTForCausalLM, resolve_device)
+                                  GPTForCausalLM, resnet50, resolve_device)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = GPTConfig.tiny(vocab=61, hidden=32, layers=1, heads=2, seq=16)
@@ -68,3 +68,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
     assert eng.cache.kpool.device.type == "cpu"
     with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
         resolve_device("meta")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet50()
+    net = resnet50(num_classes=10, device="cpu")
+    assert net.conv1.weight.device.type == "cpu"
+    assert net.layer4[2].convbn3.bn._mean.device.type == "cpu"

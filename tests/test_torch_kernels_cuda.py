@@ -9,6 +9,10 @@ This file imports nothing of jax or paddle_tpu. chip_smoke.py holds the
 kernels at the serving and training shapes; these cover the other head
 dims, lengths, block sizes and window widths the kernels take.
 
+Conv kernels (B7, B8): against `conv_bn_relu_plain` on the card with
+TF32 off, max |kernel - plain| relative to max |plain| (CONV_TOL); the
+ResNet on the card against the same ResNet on the CPU.
+
 Paged kernels: pools must be bit-identical to the plain version's outside
 the null block 0, and outputs within tolerance on the live rows of live
 slots. Block 0 is a race, not a reference: idle lanes and dead window rows
@@ -27,6 +31,8 @@ from paddle_tpu_torch.ops.flash_attention import (
     shortseq_attention_bwd_plain, shortseq_attention_fwd,
     shortseq_attention_plain, flash_attention)
 from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.ops.conv import (conv1x1_bn_relu, conv3x3_bn_relu,
+                                       conv_bn_relu_plain, fused_conv_bn_relu)
 from paddle_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                paged_decode_attention_int8,
                                                paged_decode_int8_plain,
@@ -53,6 +59,12 @@ BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (0.0, 1e-5)}
 # small multiple of 1e-7 of that; other sequences keep the causal
 # backward's limits.
 SHORTSEQ_BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (4e-6, 1e-5)}
+
+# conv kernels, max |kernel - plain| / max |plain|: both sum exact fp32
+# products in fp32, in other orders; bf16 output may then round the other
+# way, by one bf16 ulp of the value, at most 2^-7 of max |plain|; f32 as
+# the JAX suite's FP32_REL_TOL (tests/test_pallas_conv.py)
+CONV_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 
 
 def bwd_within_tol(got, ref, dtype):
@@ -94,6 +106,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator("cuda").manual_seed(0)
 
 
@@ -451,3 +464,105 @@ def test_kernels_refuse_what_they_do_not_take(card):
                                     pool.clone(),
                                     torch.zeros((4, 2), device="cuda"), 0,
                                     tb, pos)
+
+
+def conv_case(g, N, H, W, cin, cout, k, dtype):
+    """x NHWC, the view of a channels_last NCHW tensor (as ConvBNReLU hands
+    it over), w HWIO, fp32 scale and shift."""
+    x = torch.randn((N, cin, H, W), generator=g, device="cuda").to(dtype) \
+        .contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    w = (torch.randn((k, k, cin, cout), generator=g, device="cuda")
+         * 0.1).to(dtype)
+    scale = torch.rand(cout, generator=g, device="cuda") + 0.5
+    shift = torch.randn(cout, generator=g, device="cuda")
+    return x, w, scale, shift
+
+
+def conv_rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-6)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("padding", ["int", "SAME"])
+@pytest.mark.parametrize("shape", [(3, 7, 7, 24, 72), (2, 28, 19, 64, 136)],
+                         ids=["M147", "M1064-or-266"])
+def test_conv_kernels_match_plain(card, dtype, k, stride, relu, padding,
+                                  shape):
+    """B7 and B8 against the plain version: M not a multiple of the 128-row
+    tile, Cout not a multiple of 64, odd widths (SAME's asymmetric halo at
+    stride 2), int padding (1 for 3x3, 0 for 1x1)."""
+    N, H, W, cin, cout = shape
+    x, w, scale, shift = conv_case(card, N, H, W, cin, cout, k, dtype)
+    pad = "SAME" if padding == "SAME" else (1 if k == 3 else 0)
+    wrapper = conv1x1_bn_relu if k == 1 else conv3x3_bn_relu
+    before = wrapper.launches
+    got = fused_conv_bn_relu(x, w, scale, shift, stride, pad, relu)
+    ref = conv_bn_relu_plain(x, w, scale, shift, stride, pad, relu)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert got.is_contiguous()
+    assert conv_rel_err(got, ref) <= CONV_TOL[dtype]
+    if not relu:
+        assert bool((got < 0).any())
+
+
+def test_conv_kernels_at_stage_widths(card):
+    """A ResNet stage-4 3x3 (512 channels, 4608-long reduction) and the
+    stage-1 1x1 64 -> 256, bf16 and f32."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, cin, cout, k, s in ((7, 512, 512, 3, 1), (14, 64, 256, 1, 1),
+                                   (14, 256, 512, 1, 2)):
+            x, w, scale, shift = conv_case(card, 4, H, H, cin, cout, k,
+                                           dtype)
+            pad = 1 if k == 3 else 0
+            got = fused_conv_bn_relu(x, w, scale, shift, s, pad)
+            ref = conv_bn_relu_plain(x, w, scale, shift, s, pad)
+            assert conv_rel_err(got, ref) <= CONV_TOL[dtype], (H, cin, k)
+
+
+def test_conv_kernels_refuse_what_they_do_not_take(card):
+    x, w, scale, shift = conv_case(card, 2, 8, 8, 16, 16, 3, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        # NHWC view of an NCHW-contiguous tensor
+        conv3x3_bn_relu(x.permute(0, 3, 1, 2).contiguous()
+                        .permute(0, 2, 3, 1), w, scale, shift, 1, 1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv3x3_bn_relu(x, w.to(torch.bfloat16), scale, shift, 1, 1)
+    with pytest.raises(ValueError, match="float32"):
+        conv3x3_bn_relu(x, w, scale.to(torch.bfloat16), shift, 1, 1)
+    with pytest.raises(ValueError, match="is on"):
+        conv3x3_bn_relu(x, w, scale.cpu(), shift, 1, 1)
+    with pytest.raises(ValueError, match="do not cover"):
+        x12, w12, s12, b12 = conv_case(card, 2, 8, 8, 12, 16, 3,
+                                       torch.float32)
+        conv3x3_bn_relu(x12, w12, s12, b12, 1, 1)
+    with pytest.raises(ValueError, match="do not cover"):
+        conv1x1_bn_relu(x, w[:1, :1], scale, shift, 1, 1)   # padded 1x1
+    with pytest.raises(ValueError, match="takes a 1x1"):
+        conv1x1_bn_relu(x, w, scale, shift, 1, 1)
+
+
+def test_resnet_on_the_card_matches_the_cpu(card):
+    """resnet18, f32, from the same weights: every block conv through the
+    kernels on the card (8 x 2 3x3, 3 downsample 1x1), none through a plain
+    version; the logits against the plain versions on the CPU."""
+    from paddle_tpu_torch import resnet18
+
+    model = resnet18(num_classes=10, device="cuda", generator=card).eval()
+    host = resnet18(num_classes=10, device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.rand((2, 3, 32, 32), generator=card, device="cuda") * 2 - 1
+    counts = [(w.launches, w.plain_calls)
+              for w in (conv1x1_bn_relu, conv3x3_bn_relu)]
+    with torch.no_grad():
+        got = model(x)
+        torch.cuda.synchronize()
+        assert [(w.launches - a, w.plain_calls - b) for w, (a, b) in zip(
+            (conv1x1_bn_relu, conv3x3_bn_relu), counts)] == [(3, 0), (16, 0)]
+        ref = host(x.cpu())
+    assert conv_rel_err(got.cpu(), ref) <= 1e-5
