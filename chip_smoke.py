@@ -8,6 +8,8 @@ engine_spec,spec_parity,engine_int8
     python3 chip_smoke.py --phases build,shortseq_fwd,shortseq_bwd,\
 bert_train,bert_parity
     python3 chip_smoke.py --phases build,conv_fwd,resnet_infer,resnet_parity
+    python3 chip_smoke.py --phases build,conv_train,resnet_train,\
+resnet_train_parity
 
 Phases, each printing one JSON line:
 
@@ -21,8 +23,8 @@ Phases, each printing one JSON line:
 3. causal_fwd: the causal attention kernel against its plain version at
    B1 H16 S2048 D128 and at a ragged S=300, bf16 and f32; timings, with
    torch's scaled_dot_product_attention timed as the library yardstick;
-   shapes no kernel takes (causal Sq != Skv, non-causal 64 x 80) take the
-   dense route, non-causal shapes left to kernel B6 raise.
+   shapes no kernel takes (causal Sq != Skv, non-causal 64 x 80, causal
+   head dim 96) take the dense route, shapes left to kernel B6 raise.
 4. causal_bwd: the causal attention backward kernel against its plain
    version at B2 H16 S2048 D128 (the training shape) and at S=300, bf16
    and f32, and at B1 H16 S256 f32 (train_parity's shape), for dq, dk and
@@ -104,13 +106,45 @@ Phases, each printing one JSON line:
    the losses, and per parameter the gradients and the change of the
    parameters, must agree.
 
-Phases 5 to 8, 11 to 13, 16 and 17 are the main path, in fourteen runs:
+18. conv_fwd: the fused eval conv kernels (B7, B8) against their plain
+   version at bench_ops.py's nine ResNet-50 sweep shapes at batch 256, bf16
+   and f32, plus stride 2, int padding and ReLU off; timings against the
+   bound, the plain version and F.conv2d of the folded weights.
+19. resnet_infer: bench.py's resnet50_infer (resnet50, bf16, batch 256 x
+   224 x 224, seeded BatchNorm statistics), 2 + 10 forwards on the kernel
+   route, then the dense route from the same weights; logits within 0.03.
+20. resnet_parity: f32 ResNet-50 logits on the card against the CPU.
+21. conv_train: the training kernels against their plain versions at the
+   nine sweep shapes at batch 256 (plus the stride-2 1x1 and a stride-2
+   3x3 at int padding), bf16 and f32: the train forwards (B9a, B9b: the
+   conv and its [2, Cout] sums), the 1x1 backward (B10: dx and dw from one
+   bundle), the 3x3 dWeight (B11) and B8 as the 3x3 dX walk over the
+   dilated dConv; bf16 timings at the sweep shapes against the bound, the
+   plain version and the library call (B10: aten.convolution_backward of
+   the 1x1, products only; B11: torch.nn.grad.conv2d_weight; B9: none).
+22. resnet_train: bench.py's resnet50 row, nothing cut: resnet50(1000),
+   bf16, seed-0 weights, Momentum(0.1, 0.9), TrainStep(cross_entropy), one
+   batch of 256 x 3 x 224 x 224 from uniform(-1, 1) with random labels,
+   run_repeat of 2 warm-up and 10 timed steps: ms/step, images/s, the
+   model-FLOP share of 989 TFLOP/s at 3 x 4.09 GFLOP an image, peak
+   memory. Then resnet50_train's check: the same weights on the dense
+   route, first-step losses within 0.03 (bench.py), its ms/step beside.
+23. resnet_train_parity: f32 resnet50(10), batch 2, 64 x 64, seeded
+   BatchNorm, three Momentum steps on the card against the CPU: the
+   losses, the first step's gradients, the change of the parameters and
+   the running statistics, beside the CPU's own sensitivity to inputs
+   1e-7 apart (RESNET_TRAIN_PARITY_TOL says why the bars are where they
+   are).
+
+Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22 and 23 are the main path, in
+eighteen runs:
 the bf16 engine, the bf16 generate(), the f32 engine, the f32 generate(),
 the bf16 train steps, the f32 train steps, the bf16 speculative engine,
 the three f32 engines of spec_parity, the int8 engine, the int8
 speculative engine, BERT's mask-free and padded bf16 train steps, its
 padded eval forwards and its f32 padded steps, the timed bf16 ResNet-50
-forwards and the f32 ResNet-50 forward. Kernel counts are set to 0
+forwards, the f32 ResNet-50 forward, the timed bf16 ResNet-50 train steps
+and the f32 ResNet-50 train steps. Kernel counts are set to 0
 just before each run and read just after it; each run must launch every
 kernel it takes (PATH_KERNEL: the engine the paged decode kernel,
 generate() the causal forward, training the causal forward and backward,
@@ -118,10 +152,14 @@ generate() the causal forward, training the causal forward and backward,
 int8 engines their int8 kernels, BERT's mask-free steps the mask-free
 shortseq kernels 12 times a step each and its padded runs the masked
 variants alone, a ResNet-50 forward the 1x1 kernel 36 times and the 3x3
-kernel 16 times) and call no plain version. `--profile` adds a device-time
+kernel 16 times, a ResNet-50 train step the 1x1 and 3x3 train forwards
+36 and 16 times, the 1x1 backward 36, the 3x3 dWeight 16 and the 3x3
+eval kernel 16 times as the dX walk) and call no plain version.
+`--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
-one GPT train step, of one BERT train step and of one bf16 ResNet-50
-forward on each route. The line before the last
+one GPT train step, of one BERT train step, of one bf16 ResNet-50
+forward and one bf16 ResNet-50 train step on each route. The line before
+the last
 lists the kernels with their launches, errors and times; the last line is
 the device line. Any failed phase exits non-zero without it. With no CUDA
 device, or without the repository beside it, the script fails.
@@ -129,6 +167,7 @@ device, or without the repository beside it, the script fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -144,7 +183,8 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "generate_parity", "train", "train_parity", "paged_verify",
           "paged_int8", "engine_spec", "spec_parity", "engine_int8",
           "shortseq_fwd", "shortseq_bwd", "bert_train", "bert_parity",
-          "conv_fwd", "resnet_infer", "resnet_parity")
+          "conv_fwd", "resnet_infer", "resnet_parity", "conv_train",
+          "resnet_train", "resnet_train_parity")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -203,6 +243,26 @@ RESNET_PARITY_TOL = 1e-5
 # bench.py's resnet50_infer check: the fused route against the dense
 # composition, bf16 (bench_ops.py CONV_FUSED_REL_TOL)
 RESNET_DENSE_REL_TOL = 0.03
+# one-term-per-pixel fp32 sums (the train forward's [2, Cout] statistics,
+# both dWeights) against the plain version: the statistics relative to the
+# sum of their terms' magnitudes, a dWeight relative to max |dw|. f32: sums
+# in other orders over up to 802,816 pixels; bf16 statistics: a cast value
+# may also round the other way, one bf16 ulp of that value (2^-7); a bf16
+# dWeight sums the same exact products of the same bf16 dConv, so f32's bar
+CONV_SUM_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# f32 ResNet-50 train steps on the card against the CPU (Momentum(0.1,
+# 0.9), batch 2, 64 x 64): the first loss, relative; the later losses,
+# relative; and, relative L2 over all parameters (or buffers) together,
+# the first step's gradients, the change of the parameters over three
+# steps and the running statistics after them. A ResNet-50 in train mode
+# at random init amplifies fp32 rounding ~1000x by the output of layer4:
+# on the CPU, inputs 1e-7 apart move the first loss 1.9e-5, the gradients
+# 0.038 and the change 0.076, and the port against the JAX package read
+# 5.6e-5, 0.067 and 0.10 (tests/test_torch_resnet_train.py); the bars are
+# about three times those readings. The phase prints the CPU's noise
+# beside the card's errors.
+RESNET_TRAIN_PARITY_TOL = {"first_loss": 2e-4, "later_loss": 0.05,
+                           "grad": 0.3, "update": 0.3, "buffers": 0.3}
 RESNET50_FWD_FLOPS = 4.09e9        # per 224 x 224 image (bench.py)
 CONV_BATCH = 256
 # bench_ops.py's nine ResNet-50 sweep shapes: (name, hw, cin, cout, k, s)
@@ -222,6 +282,8 @@ DEC, VER = "paged_decode_attention", "paged_verify_attention"
 DEC8, VER8 = "paged_decode_attention_int8", "paged_verify_attention_int8"
 SSF, SSB = "shortseq_attention_fwd", "shortseq_attention_bwd"
 C1, C3 = "conv1x1_bn_relu", "conv3x3_bn_relu"
+C9A, C9B = "conv1x1_train", "conv3x3_train"
+C10, C11 = "conv1x1_bwd", "conv3x3_dw"
 # the masked variants' launches, counted apart on the same wrappers
 SSFM, SSBM = SSF + "_masked", SSB + "_masked"
 # each run of the main path, and the kernels that run must launch
@@ -240,7 +302,9 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "bert_eval_padded_bf16": (SSFM,),
                "bert_f32": (SSFM, SSBM),
                "resnet_infer_bf16": (C1, C3),
-               "resnet_f32": (C1, C3)}
+               "resnet_f32": (C1, C3),
+               "resnet_train_bf16": (C9A, C9B, C10, C11, C3),
+               "resnet_train_f32": (C9A, C9B, C10, C11, C3)}
 # bench.py's BERT row: batch, heads, seq, head dim
 BERT_SHAPE = (64, 12, 512, 64)
 SPEC_K = 4
@@ -427,6 +491,7 @@ def phase_causal_fwd(torch, ctx):
 
     from paddle_tpu_torch.ops.flash_attention import (causal_attention_fwd,
                                                       causal_attention_plain,
+                                                      dense_attention,
                                                       flash_attention)
 
     g = torch.Generator("cuda").manual_seed(2)
@@ -465,33 +530,33 @@ def phase_causal_fwd(torch, ctx):
                             bound_ms=b, bound_by=by)
                 ctx["causal_fwd"] = dict(case, shape="B1 H16 S2048 D128")
             res["cases"].append(case)
-    # no fallback: shapes without a kernel raise on the card
+    # no fallback: the shapes a TPU hands to jax's library kernel wait for
+    # B6 and raise on the card, causal or not
     raises = {}
-    z = torch.zeros((1, 64, 2, 96), device="cuda")
-    try:
-        flash_attention(z, z, z, causal=True)
-        raises["head_dim_96"] = False
-    except ValueError:
-        raises["head_dim_96"] = True
-    # non-causal shapes a TPU hands to jax's library kernel wait for B6
-    z = torch.zeros((1, 1024, 2, 64), device="cuda")
-    try:
-        flash_attention(z, z, z, causal=False)
-        raises["non_causal_b6_shape"] = False
-    except NotImplementedError:
-        raises["non_causal_b6_shape"] = True
+    for name, shape, causal in (("non_causal_b6_shape", (1, 1024, 2, 64),
+                                 False),
+                                ("causal_b6_shape", (1, 128, 1, 192), True)):
+        z = torch.zeros(shape, device="cuda")
+        try:
+            flash_attention(z, z, z, causal=causal)
+            raises[name] = False
+        except NotImplementedError:
+            raises[name] = True
     res["raises"] = raises
     ok &= all(raises.values())
-    # shapes no TPU kernel takes (causal Sq != Skv, non-causal 64 x 80):
-    # dense on every device
+    # shapes no kernel takes (causal Sq != Skv, non-causal 64 x 80, causal
+    # head dim 96): dense on every device, as in JAX
     z = torch.zeros((1, 64, 2, 64), device="cuda")
     zk = torch.zeros((1, 80, 2, 64), device="cuda")
+    z96 = torch.randn((1, 64, 2, 96), generator=g, device="cuda")
     dense = flash_attention.dense_calls
     outs = [flash_attention(z, zk, zk, causal=c) for c in (True, False)]
+    o96 = flash_attention(z96, z96, z96, causal=True)
     res["no_kernel_shapes_dense"] = bool(
-        flash_attention.dense_calls == dense + 2
+        flash_attention.dense_calls == dense + 3
         and all(o.shape == z.shape and bool(torch.isfinite(o).all())
-                for o in outs))
+                for o in outs)
+        and torch.equal(o96, dense_attention(z96, z96, z96, True)))
     ok &= res["no_kernel_shapes_dense"]
     res["ok"] = bool(ok)
     emit(res)
@@ -646,9 +711,14 @@ def _device_breakdown(prof, name):
         n = e["name"]
         key = ("conv1x1_bn_relu_kernel" if "conv1x1_bn_relu" in n else
                "conv3x3_bn_relu_kernel" if "conv3x3_bn_relu" in n else
+               "conv1x1_train_kernel" if "conv1x1_train" in n else
+               "conv3x3_train_kernel" if "conv3x3_train" in n else
+               "conv1x1_bwd_kernels" if "conv1x1_bwd" in n else
+               "conv3x3_dw_kernel" if "conv3x3_dw" in n else
+               "sum_rows_kernel" if "sum_rows" in n else
                "cudnn conv" if any(t in n.lower() for t in (
-                   "cudnn", "fprop", "implicit_gemm", "conv2d",
-                   "convolve")) else
+                   "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
+                   "conv2d", "convolve")) else
                "paged_verify_kernel" if "paged_verify" in n else
                "paged_decode_kernel" if "paged_decode" in n else
                "shortseq_fwd_kernel" if "shortseq_fwd" in n else
@@ -2073,6 +2143,418 @@ def phase_resnet_parity(torch, ctx, seed):
                              "the CPU")
 
 
+# ---------------------------------------------------------------------------
+# the conv path: ResNet training
+# ---------------------------------------------------------------------------
+def _sums_err(got, ref, conv):
+    """max |got - ref| of each row of [2, Cout] sums relative to the sum of
+    the magnitudes of its terms (per channel, over every pixel)."""
+    p = conv.reshape(-1, conv.shape[-1]).float()
+    mag = (p.abs().sum(0), (p * p).sum(0))
+    return max(((got[i] - ref[i]).abs() / mag[i].clamp_min(1e-6)).max()
+               .item() for i in range(2))
+
+
+def _bwd_bundle(torch, g, cout, dtype):
+    """An fp32 bundle [8, Cout] = [mean_n, inv_n, gamma, beta, mean32,
+    rstd32, c1, c2] as pass 1 makes it: the *_n rows rounded through the
+    compute dtype."""
+    mean32 = torch.randn(cout, generator=g, device="cuda") * 0.3
+    rstd32 = torch.rand(cout, generator=g, device="cuda") + 0.5
+    gamma = torch.rand(cout, generator=g, device="cuda") + 0.5
+    beta = torch.randn(cout, generator=g, device="cuda") * 0.5
+    c1, c2 = (torch.randn(cout, generator=g, device="cuda") * 0.1
+              for _ in range(2))
+    return torch.stack([mean32.to(dtype).float(), rstd32.to(dtype).float(),
+                        gamma, beta, mean32, rstd32, c1, c2]).contiguous()
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-6)).item()
+
+
+def phase_conv_train(torch, ctx):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.conv import (
+        conv1x1_bwd, conv1x1_bwd_plain, conv1x1_train, conv3x3_bn_relu,
+        conv3x3_dw, conv3x3_dw_plain, conv3x3_train, conv_bn_relu_plain,
+        conv_train_plain, normalize_conv_padding)
+
+    g = torch.Generator("cuda").manual_seed(12)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    res = {"phase": "conv_train", "batch": CONV_BATCH,
+           "tol": {"conv": CONV_TOL, "sums": CONV_SUM_TOL,
+                   "dw": CONV_SUM_TOL}, "cases": []}
+    ok = True
+    # the sweep at its own stride and SAME padding, then the stride-2 1x1
+    # (the downsample) and ResNet's int padding on a stride-2 3x3
+    cases = [(n, hw, ci, co, k, s, "SAME")
+             for n, hw, ci, co, k, s in CONV_SWEEP_SHAPES]
+    cases += [("conv_c2_1x1_64_256", 56, 64, 256, 1, 2, 0),
+              ("conv_c3_3x3_128_s2", 56, 128, 128, 3, 2, 1)]
+    for idx, (name, hw, cin, cout, k, s, pad) in enumerate(cases):
+        timed = idx < len(CONV_SWEEP_SHAPES)
+        pads = normalize_conv_padding(pad, k, s, in_hw=(hw, hw))
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = dname(torch, dtype)
+            time_it = timed and dtype == torch.bfloat16
+            x, w, _, _ = _conv_case(torch, g, CONV_BATCH, hw, cin, cout, k,
+                                    dtype)
+            N = CONV_BATCH
+            shape = f"N{N} {hw}x{hw} {cin}->{cout} k{k} s{s}"
+            isz = x.element_size()
+            # B9: the train forward
+            train = conv1x1_train if k == 1 else conv3x3_train
+            run9 = (functools.partial(train, x, w, s) if k == 1
+                    else functools.partial(train, x, w, s, pad))
+            conv, sums = run9()
+            ref, ref_sums = conv_train_plain(x, w, s, pad)
+            torch.cuda.synchronize()
+            err, serr = _rel(conv, ref), _sums_err(sums, ref_sums, ref)
+            case = {"kernel": train.__name__, "name": name, "dtype": dn,
+                    "stride": s, "padding": pad, "shape": shape,
+                    "max_abs_err": (conv.float() - ref.float()).abs().max()
+                    .item(), "rel_err": err, "sums_rel_err": serr,
+                    "ok": bool(math.isfinite(err) and err <= CONV_TOL[dn]
+                               and serr <= CONV_SUM_TOL[dn])}
+            del ref, ref_sums
+            M = conv.shape[0] * conv.shape[1] * conv.shape[2]
+            if time_it:
+                b, by = bound_ms((x.numel() + w.numel() + conv.numel()) * isz
+                                 + 2 * cout * 4,
+                                 2 * M * cin * cout * k * k, dn)
+                case.update(bound_ms=b, bound_by=by,
+                            kernel_ms=cuda_ms(torch, run9, 10, flush),
+                            plain_ms=cuda_ms(torch, lambda: conv_train_plain(
+                                x, w, s, pad), 3, flush, warmup=1),
+                            library_ms=None)
+                if name == "conv_c2_1x1_64_256":
+                    ctx["conv1x1_train"] = case
+                elif name == "conv_c2_3x3_64":
+                    ctx["conv3x3_train"] = case
+            ok &= case["ok"]
+            res["cases"].append(case)
+            Ho, Wo = conv.shape[1], conv.shape[2]
+            dy = (torch.randn(conv.shape, generator=g, device="cuda")
+                  .to(dtype))
+            if k == 1:
+                # B10: the whole 1x1 backward from one bundle
+                rows = _bwd_bundle(torch, g, cout, dtype)
+                wt = w[0, 0].t().contiguous()
+                run10 = functools.partial(conv1x1_bwd, x, dy, conv, rows,
+                                          wt, s)
+                dx, dw = run10()
+                rdx, rdw = conv1x1_bwd_plain(x, dy, conv, rows, wt, s)
+                torch.cuda.synchronize()
+                e_dx, e_dw = _rel(dx, rdx), _rel(dw, rdw)
+                case = {"kernel": "conv1x1_bwd", "name": name, "dtype": dn,
+                        "stride": s, "shape": shape,
+                        "max_abs_err": max(
+                            (dx.float() - rdx.float()).abs().max().item(),
+                            (dw - rdw).abs().max().item()),
+                        "dx_rel_err": e_dx, "dw_rel_err": e_dw,
+                        "ok": bool(e_dx <= CONV_TOL[dn]
+                                   and e_dw <= CONV_SUM_TOL[dn])}
+                del rdx, rdw
+                if time_it:
+                    xs_n = M * cin
+                    b, by = bound_ms(
+                        (xs_n + 2 * M * cout + x.numel() + wt.numel()) * isz
+                        + 8 * cout * 4 + cin * cout * 4,
+                        4 * M * cin * cout, dn)
+                    dcv = dy.permute(0, 3, 1, 2)
+                    xs = x[:, ::s, ::s].permute(0, 3, 1, 2)
+                    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+                    case.update(
+                        bound_ms=b, bound_by=by,
+                        kernel_ms=cuda_ms(torch, run10, 10, flush),
+                        plain_ms=cuda_ms(torch, lambda: conv1x1_bwd_plain(
+                            x, dy, conv, rows, wt, s), 3, flush, warmup=1),
+                        library_ms=cuda_ms(
+                            torch, lambda: torch.ops.aten.convolution_backward(
+                                dcv, xs, w_oihw, None, [1, 1], [0, 0],
+                                [1, 1], False, [0, 0], 1,
+                                [True, True, False]), 10, flush),
+                        library="aten.convolution_backward of the 1x1 over "
+                                "the materialised dConv: products only")
+                    if name == "conv_c2_1x1_64_256":
+                        ctx["conv1x1_bwd"] = case
+                ok &= case["ok"]
+                res["cases"].append(case)
+            else:
+                # B11: the 3x3 dWeight over the dConv, then B8 as the dX walk
+                run11 = functools.partial(conv3x3_dw, x, dy, s, pad)
+                dw = run11()
+                rdw = conv3x3_dw_plain(x, dy, s, pad)
+                torch.cuda.synchronize()
+                e_dw = _rel(dw, rdw)
+                case = {"kernel": "conv3x3_dw", "name": name, "dtype": dn,
+                        "stride": s, "padding": pad, "shape": shape,
+                        "max_abs_err": (dw - rdw).abs().max().item(),
+                        "rel_err": e_dw,
+                        "ok": bool(e_dw <= CONV_SUM_TOL[dn])}
+                del rdw
+                if time_it:
+                    (pt, pb), (pl, pr) = pads
+                    b, by = bound_ms((x.numel() + dy.numel()) * isz
+                                     + 9 * cin * cout * 4,
+                                     2 * M * 9 * cin * cout, dn)
+                    xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+                    gn = dy.permute(0, 3, 1, 2)
+                    case.update(
+                        bound_ms=b, bound_by=by,
+                        kernel_ms=cuda_ms(torch, run11, 10, flush),
+                        plain_ms=cuda_ms(torch, lambda: conv3x3_dw_plain(
+                            x, dy, s, pad), 3, flush, warmup=1),
+                        library_ms=cuda_ms(
+                            torch, lambda: torch.nn.grad.conv2d_weight(
+                                xp, (cout, cin, 3, 3), gn, s), 10, flush),
+                        library="torch.nn.grad.conv2d_weight")
+                    if name == "conv_c2_3x3_64":
+                        ctx["conv3x3_dw"] = case
+                ok &= case["ok"]
+                res["cases"].append(case)
+                if s != 1:
+                    dil = dy.new_zeros((N, s * (Ho - 1) + 1, s * (Wo - 1) + 1,
+                                        cout))
+                    dil[:, ::s, ::s] = dy
+                else:
+                    dil = dy
+                wflip = w.flip(0, 1).transpose(2, 3).contiguous()
+                one = torch.ones(cin, device="cuda")
+                zero = torch.zeros(cin, device="cuda")
+                run8 = functools.partial(conv3x3_bn_relu, dil, wflip, one,
+                                         zero, 1, 2, relu=False)
+                dxp = run8()
+                rdxp = conv_bn_relu_plain(dil, wflip, one, zero, 1, 2, False)
+                torch.cuda.synchronize()
+                e8 = _rel(dxp, rdxp)
+                case = {"kernel": "conv3x3_bn_relu (dX walk)", "name": name,
+                        "dtype": dn, "stride": s, "shape": shape,
+                        "rel_err": e8, "ok": bool(e8 <= CONV_TOL[dn])}
+                if time_it:
+                    Md = dxp.shape[0] * dxp.shape[1] * dxp.shape[2]
+                    b, by = bound_ms((dil.numel() + wflip.numel()
+                                      + dxp.numel()) * isz,
+                                     2 * Md * 9 * cin * cout, dn)
+                    case.update(bound_ms=b, bound_by=by,
+                                kernel_ms=cuda_ms(torch, run8, 10, flush))
+                ok &= case["ok"]
+                res["cases"].append(case)
+                del dil, dxp, rdxp
+            del x, w, conv, sums, dy
+    del flush
+    torch.cuda.empty_cache()
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("conv train kernels disagree with their plain "
+                             "versions")
+
+
+def _snapshot(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase_resnet_train(torch, ctx, seed):
+    from paddle_tpu_torch import Momentum, TrainStep, resnet50
+    from paddle_tpu_torch.ops.conv import fused_conv_bn_relu
+    from paddle_tpu_torch.ops.nn_ops import cross_entropy
+
+    batch, size, classes, warm, timed = CONV_BATCH, 224, 1000, 2, 10
+    rng = np.random.RandomState(seed + 13)
+    x = torch.from_numpy(rng.uniform(-1, 1, (batch, 3, size, size))
+                         .astype(np.float32)).cuda().to(torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, classes, (batch,))
+                         .astype(np.int64)).cuda()
+
+    def build(backend):
+        g = torch.Generator("cuda").manual_seed(seed)
+        m = resnet50(num_classes=classes, conv_backend=backend,
+                     device="cuda", generator=g).to(torch.bfloat16).train()
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=m.parameters())
+        return m, TrainStep(m, opt, cross_entropy)
+
+    def run(step, path, exact, n_warm):
+        """`n_warm` warm-up steps, then `timed` through run_repeat, counted
+        as one run when `path` is given; (warm-up losses, timed losses,
+        seconds a step, peak GB, dense training calls)."""
+        first = [float(v) for v in step.run_repeat(x, y, n_warm)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_conv_bn_relu.dense_train_calls = 0
+
+        def go():
+            t0 = time.perf_counter()
+            out = step.run_repeat(x, y, timed)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        losses, secs = (_counted(torch, ctx, path, go, exact) if path
+                        else go())
+        return (first, [float(v) for v in losses], secs / timed,
+                torch.cuda.max_memory_allocated() / 1e9,
+                fused_conv_bn_relu.dense_train_calls)
+
+    def report(sec, peak):
+        ips = batch / sec
+        return {"ms_per_step": sec * 1e3, "images_per_s": ips,
+                "model_flop_share_of_989tflops": 3 * RESNET50_FWD_FLOPS * ips
+                / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak}
+
+    model, step = build(None)
+    start = _snapshot(model)
+    first_k, losses_k, sec_k, peak_k, dense_k = run(
+        step, "resnet_train_bf16",
+        {C9A: 36 * timed, C9B: 16 * timed, C10: 36 * timed, C11: 16 * timed,
+         C3: 16 * timed, C1: 0}, warm)
+    counts = ctx["paths"]["resnet_train_bf16"]
+    res = {"phase": "resnet_train", "config": "bench.py resnet50: "
+           "resnet50(num_classes=1000), bf16, seed-0 weights, "
+           "Momentum(0.1, 0.9), TrainStep(cross_entropy), batch 256 x 3 x "
+           "224 x 224 uniform(-1, 1), random labels, run_repeat",
+           "warmup_steps": warm, "timed_steps": timed,
+           "nvidia_smi": ctx.get("smi"), **report(sec_k, peak_k),
+           "warmup_losses": first_k, "losses": losses_k,
+           "dense_train_calls": dense_k,
+           "launches_per_step": {k: counts[k]["launches"] / timed
+                                 for k in (C9A, C9B, C10, C11, C3)},
+           "kernel_counts": counts}
+    if ctx.get("profile"):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(x, y)
+            torch.cuda.synchronize()
+        emit(dict(phase="resnet_train_profile",
+                  **_device_breakdown(prof, "resnet_train")))
+    del step, model
+    torch.cuda.empty_cache()
+    # bench.py resnet50_train's check: the same weights on the dense
+    # composition, first-step losses within CONV_FUSED_REL_TOL
+    dense, dstep = build("dense")
+    dense.load_state_dict(start)
+    del start
+    before = [(w.launches, w.plain_calls) for w in ctx["wrappers"]]
+    first_d, losses_d, sec_d, peak_d, dense_d = run(dstep, None, None, warm)
+    no_kernel = before == [(w.launches, w.plain_calls)
+                           for w in ctx["wrappers"]]
+    if ctx.get("profile"):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dstep(x, y)
+            torch.cuda.synchronize()
+        emit(dict(phase="resnet_train_dense_profile",
+                  **_device_breakdown(prof, "resnet_train_dense")))
+    rel = abs(first_k[0] - first_d[0]) / abs(first_d[0])
+    res.update(dense_route=dict(report(sec_d, peak_d),
+                                warmup_losses=first_d, losses=losses_d,
+                                dense_train_calls=dense_d,
+                                no_kernel_or_plain_call=no_kernel),
+               first_loss_rel_err_vs_dense=rel, tol=RESNET_DENSE_REL_TOL)
+    res["ok"] = bool(
+        all(math.isfinite(v) for v in first_k + losses_k)
+        and dense_k == 0 and dense_d == 52 * timed and no_kernel
+        and rel <= RESNET_DENSE_REL_TOL)
+    emit(res)
+    del dense, dstep, x
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("resnet_train phase failed its checks")
+
+
+def phase_resnet_train_parity(torch, ctx, seed):
+    from paddle_tpu_torch import Momentum, TrainStep, resnet50
+    from paddle_tpu_torch.ops.nn_ops import cross_entropy
+
+    steps, batch, size = 3, 2, 64
+    g = torch.Generator("cuda").manual_seed(seed)
+    card = resnet50(num_classes=10, device="cuda", generator=g).train()
+    _seed_bn(torch, card, seed + 14)
+    start = {k: v.cpu() for k, v in card.state_dict().items()}
+    rng = np.random.RandomState(seed + 15)
+    xs = torch.from_numpy(rng.uniform(-1, 1, (steps, batch, 3, size, size))
+                          .astype(np.float32))
+    ys = torch.from_numpy(rng.randint(0, 10, (steps, batch)).astype(np.int64))
+
+    def run(model, xs, ys):
+        """Three steps: (losses, the first step's gradients, which are
+        Momentum's velocity after it, the end state)."""
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters())
+        step = TrainStep(model, opt, cross_entropy)
+        losses = []
+        for i in range(steps):
+            losses.append(float(step(xs[i], ys[i])))
+            if i == 0:
+                grads = torch.cat([v.flatten().cpu().double()
+                                   for v in opt._accumulators["velocity"]])
+        return losses, grads, {k: v.cpu().double()
+                               for k, v in model.state_dict().items()}
+
+    got, g_card, end_card = _counted(
+        torch, ctx, "resnet_train_f32", lambda: run(card, xs.cuda(),
+                                                    ys.cuda()),
+        exact={C9A: 36 * steps, C9B: 16 * steps, C10: 36 * steps,
+               C11: 16 * steps, C3: 16 * steps})
+    res_cpu = []
+    for scale in (1.0, 1.0 + 1e-7):
+        host = resnet50(num_classes=10, device="cpu").train()
+        host.load_state_dict(start)
+        res_cpu.append(run(host, xs * scale, ys))
+    want, g_host, end_host = res_cpu[0]
+
+    def rel_l2(a, b, keys=None):
+        if isinstance(a, dict):
+            num = sum(float((a[k] - b[k]).norm() ** 2) for k in keys)
+            den = sum(float(b[k].norm() ** 2) for k in keys)
+            return (num / den) ** 0.5
+        return float((a - b).norm() / b.norm())
+
+    params = [k for k in end_host if not k.endswith(("_mean", "_variance"))]
+    buffers = [k for k in end_host if k.endswith(("_mean", "_variance"))]
+    s64 = {k: v.double() for k, v in start.items()}
+    d_card = {k: end_card[k] - s64[k] for k in params}
+    d_host = {k: end_host[k] - s64[k] for k in params}
+    tol = RESNET_TRAIN_PARITY_TOL
+    errs = {"first_loss": abs(got[0] - want[0]) / abs(want[0]),
+            "later_loss": max(abs(a - b) / abs(b)
+                              for a, b in zip(got[1:], want[1:])),
+            "grad": rel_l2(g_card, g_host),
+            "update": rel_l2(d_card, d_host, params),
+            "buffers": rel_l2(end_card, end_host, buffers)}
+    # the same errors between two CPU runs whose inputs differ by 1e-7
+    # relative: the model's own sensitivity to fp32 rounding
+    p_loss, p_grad, p_end = res_cpu[1]
+    d_pert = {k: p_end[k] - s64[k] for k in params}
+    noise = {"first_loss": abs(p_loss[0] - want[0]) / abs(want[0]),
+             "later_loss": max(abs(a - b) / abs(b)
+                               for a, b in zip(p_loss[1:], want[1:])),
+             "grad": rel_l2(p_grad, g_host),
+             "update": rel_l2(d_pert, d_host, params),
+             "buffers": rel_l2(p_end, end_host, buffers)}
+    res = {"phase": "resnet_train_parity", "dtype": "float32",
+           "config": "resnet50(num_classes=10), batch 2, 64 x 64, seeded "
+           "BatchNorm, Momentum(0.1, 0.9), 3 TrainStep steps",
+           "card_losses": got, "cpu_losses": want, "rel_err": errs,
+           "cpu_noise_at_1e-7_input": noise, "tol": tol,
+           "kernel_counts": ctx["paths"]["resnet_train_f32"]}
+    res["ok"] = bool(all(math.isfinite(v) for v in got)
+                     and all(errs[k] <= tol[k] for k in tol))
+    emit(res)
+    del card
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("f32 ResNet-50 train steps on the card differ "
+                             "from the CPU")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2080,9 +2562,10 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile the engine runs (phases engine, "
                     "engine_spec, engine_int8) after their prefixes are "
-                    "cached, one GPT train step, one BERT train step and "
-                    "one ResNet-50 forward on each route (phases train, "
-                    "bert_train, resnet_infer), with torch.profiler and "
+                    "cached, one GPT train step, one BERT train step, one "
+                    "ResNet-50 forward and one ResNet-50 train step on "
+                    "each route (phases train, bert_train, resnet_infer, "
+                    "resnet_train), with torch.profiler and "
                     "print their device-time breakdowns (slows those "
                     "runs; their tokens/s is then not comparable)")
     args = ap.parse_args(argv)
@@ -2098,7 +2581,9 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401  (fails outside the repository)
-    from paddle_tpu_torch.ops.conv import conv1x1_bn_relu, conv3x3_bn_relu
+    from paddle_tpu_torch.ops.conv import (conv1x1_bn_relu, conv1x1_bwd,
+                                           conv1x1_train, conv3x3_bn_relu,
+                                           conv3x3_dw, conv3x3_train)
     from paddle_tpu_torch.ops.flash_attention import (
         causal_attention_bwd, causal_attention_fwd, shortseq_attention_bwd,
         shortseq_attention_fwd)
@@ -2115,7 +2600,8 @@ def main(argv=None):
                         paged_decode_attention_int8,
                         paged_verify_attention_int8, shortseq_attention_fwd,
                         shortseq_attention_bwd, conv1x1_bn_relu,
-                        conv3x3_bn_relu)}
+                        conv3x3_bn_relu, conv1x1_train, conv3x3_train,
+                        conv1x1_bwd, conv3x3_dw)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -2158,8 +2644,14 @@ def main(argv=None):
                 phase_conv_fwd(torch, ctx)
             elif name == "resnet_infer":
                 phase_resnet_infer(torch, ctx, SEED)
-            else:
+            elif name == "resnet_parity":
                 phase_resnet_parity(torch, ctx, SEED)
+            elif name == "conv_train":
+                phase_conv_train(torch, ctx)
+            elif name == "resnet_train":
+                phase_resnet_train(torch, ctx, SEED)
+            else:
+                phase_resnet_train_parity(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -2203,7 +2695,15 @@ def main(argv=None):
             ("conv1x1", C1, "paddle_tpu_torch/csrc/conv_bn_relu.cu",
              "paddle_tpu/ops/pallas/conv.py:317"),
             ("conv3x3", C3, "paddle_tpu_torch/csrc/conv_bn_relu.cu",
-             "paddle_tpu/ops/pallas/conv.py:395")):
+             "paddle_tpu/ops/pallas/conv.py:395"),
+            ("conv1x1_train", C9A, "paddle_tpu_torch/csrc/conv_bn_relu.cu",
+             "paddle_tpu/ops/pallas/conv.py:536"),
+            ("conv3x3_train", C9B, "paddle_tpu_torch/csrc/conv_bn_relu.cu",
+             "paddle_tpu/ops/pallas/conv.py:592"),
+            ("conv1x1_bwd", C10, "paddle_tpu_torch/csrc/conv_bn_relu_bwd.cu",
+             "paddle_tpu/ops/pallas/conv.py:691"),
+            ("conv3x3_dw", C11, "paddle_tpu_torch/csrc/conv_bn_relu_bwd.cu",
+             "paddle_tpu/ops/pallas/conv.py:767")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

@@ -23,7 +23,12 @@ Ported so far:
   backward kernels, mask-free and key-masked (`ops.flash_attention`);
 - ResNet eval inference (`vision.models.resnet50` and the other depths),
   built from `nn.ConvBNReLU`, with the fused 1x1 and 3x3 conv+BN+ReLU
-  kernels (`ops.conv`).
+  kernels (`ops.conv`);
+- ResNet training through `TrainStep` with `Momentum`: BatchNorm's
+  training form, and `ConvBNReLU`'s train route through
+  `ops.conv.fused_conv_bn_relu_train`, with the conv train-forward
+  kernels (batch statistics in the epilogue), the 1x1 backward and the
+  3x3 dWeight kernels.
 """
 from . import optimizer, vision
 from .device import resolve_device
@@ -35,14 +40,15 @@ from .models.bert import (BertConfig, BertForPretraining,
 from .models.convert import load_paddle_tpu_state, paddle_tpu_state
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .optimizer import Adam, AdamW
+from .optimizer import Adam, AdamW, Momentum
 from .vision.models import resnet18, resnet34, resnet50, resnet101, resnet152
 
 __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "GPTConfig", "GPTForCausalLM", "BertConfig", "BertModel",
            "ErnieModel", "BertForSequenceClassification",
            "BertForPretraining", "load_paddle_tpu_state",
-           "paddle_tpu_state", "TrainStep", "Adam", "AdamW", "optimizer",
+           "paddle_tpu_state", "TrainStep", "Momentum", "Adam", "AdamW",
+           "optimizer",
            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
            "vision", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152"]

@@ -22,6 +22,10 @@ decoding, one device, serial core).
   not advance past them and attention is bounded by position.
 - int8 KV (`kv_dtype="int8"`): int8 pools plus a `[layers, num_blocks, 2]`
   f32 per-block K/V scale array, quantized on every write.
+- the attention backend (`attention_backend`, or the environment's
+  `PADDLE_PAGED_ATTENTION_BACKEND`, which wins): `auto`/`dense`/`pallas`
+  resolved once by `ops.paged_attention.resolve_backend`; `pallas` runs
+  the paged kernels, `dense` their plain versions on every device.
 
 The pools (and scales) are updated IN PLACE by every step (PyTorch is
 eager: there is no compiled step, no donation, no trace count). Greedy
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import os
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
@@ -45,7 +50,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.paged_attention import KV_QUANT_EPS, copy_pool_block
+from ..ops.paged_attention import (KV_QUANT_EPS, copy_pool_block,
+                                   resolve_backend)
 from .speculative import NgramDrafter, draft_window
 
 __all__ = ["PagedKVCache", "GenerationEngine", "Request", "PRIORITY_CLASSES",
@@ -331,17 +337,20 @@ class GenerationEngine:
     the model's dtype, or int8 with `kv_dtype="int8"`. `spec_decode_k=K`
     turns each decode step into a K-token verify step over drafts from
     `drafter` (an `NgramDrafter` when None); K=0 is plain decoding.
-    Counters: `tokens_generated`, `prefix_hit_tokens`, `cow_copies`,
-    `prefill_chunks`, `decode_steps` (verify steps when K > 0), `stalls` by
-    path (`prefill`, `decode`, and `spec_degrade`: a lane that shed its
-    draft under pool pressure and still ran), `shed`,
-    `spec_accepted_tokens` and `spec_rejected_tokens`.
+    `attention_backend` (`auto` by default) is resolved once into
+    `attention_backend` (`dense` or `pallas`); `auto` is dense at head dims
+    and block sizes the kernels do not take. Counters: `tokens_generated`,
+    `prefix_hit_tokens`, `cow_copies`, `prefill_chunks`, `decode_steps`
+    (verify steps when K > 0), `stalls` by path (`prefill`, `decode`, and
+    `spec_degrade`: a lane that shed its draft under pool pressure and
+    still ran), `shed`, `spec_accepted_tokens` and `spec_rejected_tokens`.
     """
 
     def __init__(self, model, num_slots=8, block_size=16, num_blocks=None,
                  max_model_len=None, eos_token_id=None, prefill_chunk=None,
                  enable_prefix_cache=True, max_queue=None, device=None,
-                 spec_decode_k=0, drafter=None, kv_dtype=None):
+                 spec_decode_k=0, drafter=None, kv_dtype=None,
+                 attention_backend=None):
         cfg = model.config
         if model.training and cfg.dropout > 0:
             raise ValueError("GenerationEngine decodes deterministically "
@@ -360,6 +369,14 @@ class GenerationEngine:
                 f"max_model_len={self.max_model_len} exceeds the "
                 f"model's position table ({cfg.max_seq_len})")
         self.max_blocks = math.ceil(self.max_model_len / self.block_size)
+        # the paged attention's backend: the argument, overridden by the
+        # environment, resolved once, so every step runs the same one
+        requested = os.environ.get("PADDLE_PAGED_ATTENTION_BACKEND") \
+            or attention_backend or "auto"
+        self.attention_backend_requested = requested
+        self.attention_backend = resolve_backend(
+            requested, head_dim=cfg.hidden_size // cfg.num_heads,
+            block_size=self.block_size)
         self.eos_token_id = eos_token_id
         self.max_queue = None if max_queue is None else int(max_queue)
         self.prefill_chunk = max(1, min(
@@ -621,7 +638,8 @@ class GenerationEngine:
         with torch.no_grad():
             hidden = self.model.gpt.forward_decode_paged(
                 self._device_int32(tokens), self._device_int32(positions),
-                c.kpool, c.vpool, self._device_int32(tables), c.scales)
+                c.kpool, c.vpool, self._device_int32(tables), c.scales,
+                self.attention_backend)
             nxt = self.model._logits_of(hidden)[:, 0].argmax(-1).cpu() \
                 .numpy()
         self.decode_steps += 1
@@ -720,7 +738,7 @@ class GenerationEngine:
             hidden = self.model.gpt.forward_verify_paged(
                 self._device_int32(tokens), self._device_int32(positions),
                 self._device_int32(dlens), c.kpool, c.vpool,
-                self._device_int32(tables), c.scales)
+                self._device_int32(tables), c.scales, self.attention_backend)
             nxt = self.model._logits_of(hidden).argmax(-1).cpu().numpy()
         self.decode_steps += 1
         return nxt

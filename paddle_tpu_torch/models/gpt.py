@@ -136,19 +136,21 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(B, 1, H))
 
     def forward_decode_paged(self, x, kpool, vpool, layer_idx,
-                             block_tables, positions, kv_scales=None):
+                             block_tables, positions, kv_scales=None,
+                             backend="pallas"):
         """Batched one-token decode against the global paged pools
-        (updated in place): x `[slots, 1, H]`."""
+        (updated in place): x `[slots, 1, H]`; `backend` the paged
+        attention's (`dense` or `pallas`)."""
         B = x.shape[0]
         q, k, v = self._qkv_heads(x)
         out = paged_attention_step(q, k, v, kpool, vpool, layer_idx,
                                    block_tables, positions,
-                                   scales=kv_scales)
+                                   scales=kv_scales, backend=backend)
         return self._attn_out(out, B, 1)
 
     def forward_verify_paged(self, x, kpool, vpool, layer_idx,
                              block_tables, positions, draft_lens,
-                             kv_scales=None):
+                             kv_scales=None, backend="pallas"):
         """Speculative verify of a `[slots, W]` window against the global
         paged pools (updated in place): x `[slots, W, H]`; every live
         row's k/v lands through the table and each row attends causally
@@ -157,7 +159,7 @@ class GPTAttention(nn.Module):
         q, k, v = self._qkv_heads(x)
         out = paged_verify_window(q, k, v, kpool, vpool, layer_idx,
                                   block_tables, positions, draft_lens,
-                                  scales=kv_scales)
+                                  scales=kv_scales, backend=backend)
         return self._attn_out(out, B, W)
 
 
@@ -206,17 +208,18 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
     def forward_decode_paged(self, x, kpool, vpool, layer_idx, block_tables,
-                             positions, kv_scales=None):
+                             positions, kv_scales=None, backend="pallas"):
         x = x + self.attn.forward_decode_paged(
             self.ln1(x), kpool, vpool, layer_idx, block_tables, positions,
-            kv_scales)
+            kv_scales, backend)
         return x + self.mlp(self.ln2(x))
 
     def forward_verify_paged(self, x, kpool, vpool, layer_idx, block_tables,
-                             positions, draft_lens, kv_scales=None):
+                             positions, draft_lens, kv_scales=None,
+                             backend="pallas"):
         x = x + self.attn.forward_verify_paged(
             self.ln1(x), kpool, vpool, layer_idx, block_tables, positions,
-            draft_lens, kv_scales)
+            draft_lens, kv_scales, backend)
         return x + self.mlp(self.ln2(x))
 
 
@@ -294,19 +297,21 @@ class GPTModel(nn.Module):
         return self.ln_f(h)
 
     def forward_decode_paged(self, token_ids, positions, kpool, vpool,
-                             block_tables, kv_scales=None):
+                             block_tables, kv_scales=None, backend="pallas"):
         """Batched decode over the paged pools (updated IN PLACE):
         token_ids `[slots, 1]`, positions `[slots]` int32, block_tables
-        `[slots, max_blocks]` int32; int8 pools with `kv_scales`. Returns
-        hidden `[slots, 1, H]`."""
+        `[slots, max_blocks]` int32; int8 pools with `kv_scales`; `backend`
+        the paged attention's (`dense` or `pallas`). Returns hidden
+        `[slots, 1, H]`."""
         h = self.wte(token_ids) + self.wpe(positions).unsqueeze(1)
         for i, blk in enumerate(self.blocks):
             h = blk.forward_decode_paged(h, kpool, vpool, i, block_tables,
-                                         positions, kv_scales)
+                                         positions, kv_scales, backend)
         return self.ln_f(h)
 
     def forward_verify_paged(self, token_ids, positions, draft_lens, kpool,
-                             vpool, block_tables, kv_scales=None):
+                             vpool, block_tables, kv_scales=None,
+                             backend="pallas"):
         """Speculative verify step over the paged pools (updated IN
         PLACE): token_ids `[slots, W]` (the feed token, then up to W-1
         drafted tokens), positions `[slots]` int32 (row 0's absolute
@@ -324,7 +329,8 @@ class GPTModel(nn.Module):
         h = self.wte(token_ids) + self.wpe(wpos)
         for i, blk in enumerate(self.blocks):
             h = blk.forward_verify_paged(h, kpool, vpool, i, block_tables,
-                                         positions, draft_lens, kv_scales)
+                                         positions, draft_lens, kv_scales,
+                                         backend)
         return self.ln_f(h)
 
 

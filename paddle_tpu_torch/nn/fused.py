@@ -4,13 +4,22 @@
 (no bias) + BatchNorm2D (+ optional ReLU) whose eval forward on the kernel
 route is ONE fused kernel (`ops.conv.fused_conv_bn_relu`): the BatchNorm
 affine folded to an fp32 scale and shift, applied with the ReLU in
-registers before the one store. The backend (`auto`/`dense`/`pallas`) is
-resolved once, at construction. The dense backend, a folded block and
-training mode run the composition conv -> BatchNorm -> ReLU, counted in
-`fused_conv_bn_relu.dense_calls`. Training on the kernel route (batch
-statistics in the kernel's epilogue, the fused backward) is not ported
-yet; the composition's BatchNorm raises in training mode unless it uses
-global statistics.
+registers before the one store. Its training forward on the kernel route
+is `ops.conv.fused_conv_bn_relu_train` (the conv with the batch
+statistics in the kernel's epilogue, and a backward through the 1x1
+backward, 3x3 dWeight and 3x3 dInput kernels), with the running-stat
+update of `batch_norm`. The backend (`auto`/`dense`/`pallas`) is resolved
+once, at construction. The dense backend, a folded block and a BatchNorm
+with `use_global_stats` run the composition conv -> BatchNorm -> ReLU,
+counted in `fused_conv_bn_relu.dense_calls` in eval and
+`fused_conv_bn_relu.dense_train_calls` in training (JAX's "dense" and
+"dense_train").
+
+There is no per-call geometry gate on either route. JAX checks
+`conv_geometry_tileable` / `conv_train_geometry_tileable` on every forward
+and runs the composition where the TPU walk cannot tile; those are TPU
+limits (VMEM slabs, the 16-tile unroll bound) the CUDA kernels do not
+have, so every shape the static gate accepts takes the kernels here.
 
 Parameter names match the JAX block's: `conv.weight`, `bn.weight`,
 `bn.bias` and the buffers `bn._mean`, `bn._variance`.
@@ -24,7 +33,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.conv import fused_conv_bn_relu, resolve_conv_backend
+from ..ops.conv import (fused_conv_bn_relu, fused_conv_bn_relu_train,
+                        resolve_conv_backend)
+from ..ops.nn_ops import update_running_stats
 from .conv import Conv2D
 from .norm import BatchNorm2D
 
@@ -79,14 +90,19 @@ class ConvBNReLU(nn.Module):
                 f"backend={self.backend}")
 
     def forward(self, x):
-        if self.backend == "pallas" and not self._folded \
-                and not self.training:
-            return self._forward_fused(x)
+        if self.backend == "pallas" and not self._folded:
+            if not self.training:
+                return self._forward_fused(x)
+            if not self.bn._use_global_stats:
+                return self._forward_fused_train(x)
         return self._compose(x)
 
     def _compose(self, x):
         """The dense route: conv -> BatchNorm (unless folded) -> ReLU."""
-        fused_conv_bn_relu.dense_calls += 1
+        if self.training:
+            fused_conv_bn_relu.dense_train_calls += 1
+        else:
+            fused_conv_bn_relu.dense_calls += 1
         out = self.conv(x)
         if not self._folded:
             out = self.bn(out)
@@ -112,6 +128,25 @@ class ConvBNReLU(nn.Module):
                                  padding=self.conv._padding,
                                  relu=self._act == "relu")
         return out.permute(0, 3, 1, 2)
+
+    def _forward_fused_train(self, x):
+        """One differentiable op: the NHWC view of the channels_last input
+        and the weight in HWIO (a differentiable copy) through
+        `fused_conv_bn_relu_train`, the output viewed back as NCHW. The
+        running statistics update in place from the returned batch mean
+        and var with `batch_norm`'s rule (unbiased var over N*Ho*Wo,
+        `momentum`)."""
+        bn = self.bn
+        xh = x.contiguous(memory_format=torch.channels_last) \
+            .permute(0, 2, 3, 1)
+        w = self.conv.weight.permute(2, 3, 1, 0).contiguous()   # OIHW -> HWIO
+        y, mean, var = fused_conv_bn_relu_train(
+            xh, w, bn.weight, bn.bias, stride=self.conv._stride,
+            padding=self.conv._padding, relu=self._act == "relu",
+            eps=bn._epsilon)
+        update_running_stats(bn._mean, bn._variance, mean, var,
+                             y.numel() // y.shape[3], bn._momentum)
+        return y.permute(0, 3, 1, 2)
 
     def fold(self):
         """Inference-time folding: the running-stat affine absorbed into the

@@ -4,9 +4,10 @@
 are the buffers `_mean` (zeros) and `_variance` (ones), under the JAX
 layer's names, so that the weight bridge carries them and
 `.to(torch.bfloat16)` casts them with the parameters, as JAX's `Layer.to`
-does. NCHW. The eval forward is `ops.nn_ops.batch_norm`'s inference
-form; the training form (batch statistics, with `momentum`) is not ported
-yet and raises unless `use_global_stats`.
+does. NCHW. The forward is `ops.nn_ops.batch_norm`: in training mode its
+training form (batch statistics; the running statistics updated in place
+with `momentum`), unless `use_global_stats`, which keeps the inference
+form from the running statistics, as in eval.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ class BatchNorm2D(nn.Module):
         training = self.training and not self._use_global_stats
         return batch_norm(x, self._mean, self._variance, self.weight,
                           self.bias, training=training,
-                          epsilon=self._epsilon)
+                          momentum=self._momentum, epsilon=self._epsilon)
 
     def extra_repr(self):
         return (f"num_features={self._num_features}, "

@@ -253,6 +253,15 @@ def _shapes_ok_for_shortseq(Sq, Skv, D):
             and D in _HEAD_DIMS)
 
 
+def _shapes_ok_for_causal(Sq, Skv, D):
+    """The causal kernel's shapes: self-attention at head dim 64 or 128, as
+    the TPU kernel's `_shapes_ok_for_causal` takes them. Its further terms
+    (S a multiple of a 128-512 q block, a VMEM budget, an unroll bound)
+    are TPU tiling limits the CUDA kernel does not have: it takes any
+    length."""
+    return Sq == Skv and D in _HEAD_DIMS
+
+
 def _shapes_ok_for_lib(Sq, Skv, D):
     """The shapes the JAX package hands to jax's library flash kernel on a
     TPU (`_shapes_ok_for_lib`); the port's kernel for them (B6,
@@ -462,27 +471,27 @@ def flash_attention(q, k, v, causal=True, scale=None):
     - non-causal shortseq shapes (`_shapes_ok_for_shortseq`) take
       `shortseq_attention` (the kernels on the card, their plain versions
       on the CPU);
-    - causal Sq == Skv takes `chunked_causal_attention`;
-    - non-causal shapes that a TPU hands to jax's library kernel
-      (`_shapes_ok_for_lib`) raise on the card: their kernel, B6
-      (`_sdpa_fwd_kernel`), is still to port. On the CPU they are
-      computed densely, as JAX computes them there;
+    - causal Sq == Skv at head dims 64 and 128 (`_shapes_ok_for_causal`)
+      takes `chunked_causal_attention`;
+    - shapes that a TPU hands to jax's library kernel
+      (`_shapes_ok_for_lib`, non-causal or causal Sq == Skv) raise on the
+      card: their kernel, B6 (`_sdpa_fwd_kernel`), is still to port. On the
+      CPU they are computed densely, as JAX computes them there;
     - every other shape (causal Sq != Skv, head dims or lengths no kernel
-      takes) is dense on every device, as in JAX (`dense_attention`).
+      takes, such as a causal head dim of 16) is dense on every device, as
+      in JAX (`dense_attention`).
     Every dense computation counts in `flash_attention.dense_calls`."""
     Sq, Skv, D = q.shape[1], k.shape[1], q.shape[3]
     if not causal and _shapes_ok_for_shortseq(Sq, Skv, D):
         return shortseq_attention(q, k, v, scale)
-    if causal and Sq == Skv:
+    if causal and _shapes_ok_for_causal(Sq, Skv, D):
         return chunked_causal_attention(q, k, v, scale)
-    # JAX's library condition is `_shapes_ok_for_lib and (not causal or
-    # Sq == Skv)`; causal Sq == Skv returned above
-    if (not causal and q.device.type == "cuda"
-            and _shapes_ok_for_lib(Sq, Skv, D)):
+    if (q.device.type == "cuda" and _shapes_ok_for_lib(Sq, Skv, D)
+            and (not causal or Sq == Skv)):
         raise NotImplementedError(
-            f"flash_attention(causal=False) with Sq={Sq}, Skv={Skv}, D={D} "
-            "needs the flash forward kernel B6 (_sdpa_fwd_kernel), which "
-            "the port has not ported yet")
+            f"flash_attention(causal={causal}) with Sq={Sq}, Skv={Skv}, "
+            f"D={D} needs the flash forward kernel B6 (_sdpa_fwd_kernel), "
+            "which the port has not ported yet")
     flash_attention.dense_calls += 1
     return dense_attention(q, k, v, causal, scale)
 

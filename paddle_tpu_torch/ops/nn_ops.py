@@ -1,8 +1,8 @@
 """Attention entry point, dropout, the cross-entropy losses and the ops a
-ResNet's eval forward needs: counterparts of `scaled_dot_product_attention`,
+ResNet needs: counterparts of `scaled_dot_product_attention`,
 `dropout`, `softmax_with_cross_entropy`, `cross_entropy`, `conv2d`,
-`batch_norm` (its inference form), `max_pool2d` and `adaptive_avg_pool2d`
-in paddle_tpu/ops/nn_ops.py. The conv, BatchNorm and pooling ops take
+`batch_norm` (both forms), `max_pool2d` and `adaptive_avg_pool2d` in
+paddle_tpu/ops/nn_ops.py. The conv, BatchNorm and pooling ops take
 NCHW, as the paddle API does, in any memory format torch accepts,
 `channels_last` included; NHWC `data_format` is not ported.
 """
@@ -19,7 +19,8 @@ from .flash_attention import (_shapes_ok_for_shortseq, dense_attention,
 
 __all__ = ["scaled_dot_product_attention", "dropout",
            "softmax_with_cross_entropy", "cross_entropy", "conv2d",
-           "batch_norm", "max_pool2d", "adaptive_avg_pool2d"]
+           "batch_norm", "update_running_stats", "max_pool2d",
+           "adaptive_avg_pool2d"]
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -150,23 +151,57 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
-               training=False, epsilon=1e-5):
-    """BatchNorm's inference form over the channel axis 1: `(x - mean) *
-    rsqrt(var + eps) * weight + bias`, op by op in the operands' dtype, as
-    JAX's `infer_fn`. The training form (batch statistics, the running-stat
-    update) is not ported yet and raises."""
-    if training:
-        raise NotImplementedError("batch_norm with batch statistics "
-                                  "(training) is not ported yet")
+               training=False, momentum=0.9, epsilon=1e-5):
+    """BatchNorm over the channel axis 1, both forms of JAX's `batch_norm`.
+
+    Inference (`training=False`): `(x - mean) * rsqrt(var + eps) * weight +
+    bias` from the running statistics, op by op in the operands' dtype, as
+    JAX's `infer_fn`.
+
+    Training: single-pass fp32 batch statistics, mean32 and E[x^2] -
+    mean32^2 clamped at 0 (var32); mean and var cast to x's dtype; `inv =
+    rsqrt(var32 + eps)` cast to x's dtype; `(x - mean) * inv`, then
+    `* weight`, then `+ bias`, each in x's dtype (or the promoted one).
+    Gradients flow through the statistics. The running statistics update
+    IN PLACE, outside autograd, as `momentum * running + (1 - momentum) *
+    batch`, with the dtype-cast var times `n / max(n - 1, 1)` (unbiased),
+    each op in the buffers' dtype, as JAX's eager update rounds."""
     shape = [1] * x.dim()
     shape[1] = x.shape[1]
-    out = (x - running_mean.view(shape)) \
-        * torch.rsqrt(running_var.view(shape) + epsilon)
+    if training:
+        red = [i for i in range(x.dim()) if i != 1]
+        af = x.float()
+        mean32 = af.mean(dim=red)
+        var32 = torch.clamp_min((af * af).mean(dim=red) - mean32 * mean32,
+                                0.0)
+        mean = mean32.to(x.dtype)
+        var = var32.to(x.dtype)
+        inv = torch.rsqrt(var32.view(shape) + epsilon).to(x.dtype)
+        out = (x - mean.view(shape)) * inv
+        if running_mean is not None:
+            update_running_stats(running_mean, running_var, mean, var,
+                                 x.numel() // x.shape[1], momentum)
+    else:
+        out = (x - running_mean.view(shape)) \
+            * torch.rsqrt(running_var.view(shape) + epsilon)
     if weight is not None:
         out = out * weight.view(shape)
     if bias is not None:
         out = out + bias.view(shape)
     return out
+
+
+@torch.no_grad()
+def update_running_stats(running_mean, running_var, mean, var, n, momentum):
+    """The running-stat side effect of BatchNorm's training form, IN PLACE:
+    `momentum * running + (1 - momentum) * batch`, the batch var made
+    unbiased as `var * (n / max(n - 1, 1))` from the dtype-cast `var`, each
+    op rounding to the buffers' dtype (JAX's update, op for op)."""
+    n = float(n)
+    unbiased = var.detach() * (n / max(n - 1.0, 1.0))
+    running_mean.copy_(momentum * running_mean
+                       + (1 - momentum) * mean.detach())
+    running_var.copy_(momentum * running_var + (1 - momentum) * unbiased)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0):

@@ -14,6 +14,10 @@ PyTorch writes them directly).
 - `paged_verify_window`: one speculative verify step over a `[slots, K+1]`
   window, through the verify kernel's wrapper (`ops/paged_verify.py`),
   whose plain version is the port of `_dense_verify`.
+- `resolve_backend`: the engine's `attention_backend` seam. Both steps
+  take `backend`: `pallas` goes through the kernels' wrappers, `dense`
+  calls the plain versions (the JAX package's dense paths) on every
+  device, counted in each step's `.dense_calls`.
 - `paged_prefill_chunk`: one chunk of chunked prefill for one slot. The JAX
   package runs it outside Pallas, so it stays plain PyTorch here.
 - `copy_pool_block`: the engine's copy-on-write step.
@@ -40,12 +44,15 @@ import math
 import numpy as np
 import torch
 
-from .paged_decode import paged_decode_attention, \
-    paged_decode_attention_int8
-from .paged_verify import paged_verify_attention, \
-    paged_verify_attention_int8
+from .paged_decode import (_BLOCK_SIZES, _HEAD_DIMS, paged_decode_attention,
+                           paged_decode_attention_int8,
+                           paged_decode_int8_plain, paged_decode_plain)
+from .paged_verify import (paged_verify_attention,
+                           paged_verify_attention_int8,
+                           paged_verify_int8_plain, paged_verify_plain)
 
-__all__ = ["paged_attention_step", "paged_verify_window",
+__all__ = ["PAGED_BACKENDS", "resolve_backend", "paged_attention_step",
+           "paged_verify_window",
            "paged_prefill_chunk", "copy_pool_block",
            "dense_gather_reference", "KV_QUANT_EPS"]
 
@@ -148,8 +155,42 @@ def _quant_write_window(kpool, vpool, scales, k, v, block_tables, positions,
             _quant_rows(v, s_row[..., 1, None, None]))
 
 
+PAGED_BACKENDS = ("auto", "dense", "pallas")
+
+
+def resolve_backend(backend, head_dim, block_size):
+    """Resolve `auto`/`dense`/`pallas` to the backend the engine's steps
+    run, once (JAX's `resolve_backend`). An explicit `dense` or `pallas`
+    wins; `pallas` names the CUDA kernels. `auto` follows JAX's rule, dense
+    at head_dim < 64 or block_size < 8, and is also dense where the CUDA
+    kernels do not take the shape (head_dim not in {64, 128}, block_size
+    not in {8, 16, 32, 64}); otherwise the kernels, on every device (their
+    plain versions on the CPU), where JAX's `auto` takes them on a TPU
+    only."""
+    if backend not in PAGED_BACKENDS:
+        raise ValueError(f"backend must be one of {PAGED_BACKENDS}, "
+                         f"got {backend!r}")
+    if backend != "auto":
+        return backend
+    if (head_dim >= 64 and block_size >= 8 and head_dim in _HEAD_DIMS
+            and block_size in _BLOCK_SIZES):
+        return "pallas"
+    return "dense"
+
+
+def _dense(step, backend):
+    if backend not in ("dense", "pallas"):
+        raise ValueError(f"backend must be 'dense' or 'pallas' (resolve "
+                         f"'auto' first), got {backend!r}")
+    if backend == "dense":
+        step.dense_calls += 1
+        return True
+    return False
+
+
 def paged_attention_step(q, k, v, kpool, vpool, layer, block_tables,
-                         positions, scale=None, scales=None):
+                         positions, scale=None, scales=None,
+                         backend="pallas"):
     """One batched decode step against the paged cache, for one layer.
 
     q/k/v `[slots, 1, heads, head_dim]` (any strides); pools updated IN
@@ -158,24 +199,31 @@ def paged_attention_step(q, k, v, kpool, vpool, layer, block_tables,
     then attends q over the slot's positions `<= pos`. Idle slots are
     (position 0, all-null table). With `scales` the pools are int8: the
     step quantizes on write (scales updated IN PLACE) and runs the int8
-    kernel at the default softmax scale. Returns
+    kernel at the default softmax scale. `backend` "pallas" runs the
+    kernel's wrapper, "dense" its plain version. Returns
     `out [slots, 1, heads, head_dim]`.
     """
+    dense = _dense(paged_attention_step, backend)
     if scales is None:
-        return paged_decode_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), kpool, vpool, layer,
-                                      block_tables, positions, scale)
+        return (paged_decode_plain if dense else paged_decode_attention)(
+            q.contiguous(), k.contiguous(), v.contiguous(), kpool, vpool,
+            layer, block_tables, positions, scale)
     if scale is not None:
         raise ValueError("int8 pools take the default softmax scale")
     kq, vq = _quant_write_decode(kpool, vpool, scales, k, v, block_tables,
                                  positions, layer)
-    return paged_decode_attention_int8(
+    return (paged_decode_int8_plain if dense
+            else paged_decode_attention_int8)(
         q.contiguous(), kq[:, None].contiguous(), vq[:, None].contiguous(),
         kpool, vpool, scales[layer], layer, block_tables, positions)
 
 
+paged_attention_step.dense_calls = 0
+
+
 def paged_verify_window(q, k, v, kpool, vpool, layer, block_tables,
-                        positions, draft_lens, scales=None):
+                        positions, draft_lens, scales=None,
+                        backend="pallas"):
     """Speculative-verify attention over a fixed `[slots, W]` window
     (W = K+1), for one layer.
 
@@ -187,17 +235,23 @@ def paged_verify_window(q, k, v, kpool, vpool, layer, block_tables,
     the table, dead rows the null block, and every row attends causally up
     to its own position. Idle lanes are (position 0, draft length 0,
     all-null table). With `scales` the pools are int8 (window
-    quant-on-write, then the int8 kernel). Returns
-    `out [slots, W, heads, head_dim]`; dead rows' outputs are garbage."""
+    quant-on-write, then the int8 kernel). `backend` as
+    `paged_attention_step`. Returns `out [slots, W, heads, head_dim]`;
+    dead rows' outputs are garbage."""
+    dense = _dense(paged_verify_window, backend)
     if scales is None:
-        return paged_verify_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), kpool, vpool, layer,
-                                      block_tables, positions, draft_lens)
+        return (paged_verify_plain if dense else paged_verify_attention)(
+            q.contiguous(), k.contiguous(), v.contiguous(), kpool, vpool,
+            layer, block_tables, positions, draft_lens)
     kq, vq = _quant_write_window(kpool, vpool, scales, k, v, block_tables,
                                  positions, draft_lens, layer)
-    return paged_verify_attention_int8(q.contiguous(), kq, vq, kpool, vpool,
-                                       scales[layer], layer, block_tables,
-                                       positions, draft_lens)
+    return (paged_verify_int8_plain if dense
+            else paged_verify_attention_int8)(
+        q.contiguous(), kq, vq, kpool, vpool, scales[layer], layer,
+        block_tables, positions, draft_lens)
+
+
+paged_verify_window.dense_calls = 0
 
 
 def paged_prefill_chunk(q, k, v, kpool, vpool, layer, block_row, start,

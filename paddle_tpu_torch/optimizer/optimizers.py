@@ -1,8 +1,10 @@
-"""Adam and AdamW: counterparts of paddle_tpu/optimizer/optimizers.py (analogs
-of python/paddle/optimizer/{adam,adamw}.py).
+"""Momentum, Adam and AdamW: counterparts of
+paddle_tpu/optimizer/optimizers.py (analogs of
+python/paddle/optimizer/{momentum,adam,adamw}.py).
 
 The update follows the JAX package's `_single_update` op for op, in fp32:
-the grad and the parameter are read in fp32, the moments are kept,
+the grad and the parameter are read in fp32, Momentum's velocity and
+Adam's moments are kept,
 updated and bias-corrected in fp32 (the JAX package's
 `multi_precision=True`), and the new parameter is rounded back to its own
 dtype every step. There is no fp32 master copy of a bf16 parameter,
@@ -17,7 +19,32 @@ import torch
 
 from .optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Momentum", "Adam", "AdamW"]
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum: `v = momentum * v + g`, then `p - lr * v`, or
+    `p - lr * (g + momentum * v)` with `use_nesterov`. The velocity is
+    fp32; a `weight_decay` float is an L2 term added to the fp32 grad."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _create_accumulators(self):
+        return {"velocity": self._fp32_zeros_like_params()}
+
+    def _single_update(self, i, p, g, acc, lr, step):
+        g = g.float()
+        pf = p.float()
+        if self._weight_decay:
+            g = g + self._weight_decay * pf
+        v = self._momentum * acc["velocity"] + g
+        acc["velocity"].copy_(v)
+        upd = g + self._momentum * v if self._nesterov else v
+        p.copy_(pf - lr * upd)
 
 
 class Adam(Optimizer):

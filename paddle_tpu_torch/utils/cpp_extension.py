@@ -2,7 +2,8 @@
 paddle_tpu/utils/cpp_extension.py.
 
 Each kernel is a `.cu` file under `paddle_tpu_torch/csrc/` with a plain C
-interface. `nvcc` compiles it for `sm_90a` into a shared library under
+interface, and may include a shared `.cuh` header from there. `nvcc`
+compiles it for `sm_90a` into a shared library under
 `build/paddle_tpu_torch/` at the root of the checkout, named by a hash of
 its sources and flags, and `ctypes` loads it. No PyTorch header is
 included, so a build takes seconds, not minutes. Every pointer and the
@@ -29,7 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "paddle_tpu_torch")
 
-#: kernel library name -> its sources under csrc/
+#: kernel library name -> its sources under csrc/: the `.cu` files nvcc
+#: compiles and the `.cuh` headers they include (hashed with them)
 KERNEL_SOURCES = {
     "paged_decode": ("paged_decode.cu",),
     "paged_verify": ("paged_verify.cu",),
@@ -37,7 +39,8 @@ KERNEL_SOURCES = {
     "causal_attention_bwd": ("causal_attention_bwd.cu",),
     "shortseq_attention": ("shortseq_attention.cu",),
     "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",),
-    "conv_bn_relu": ("conv_bn_relu.cu",),
+    "conv_bn_relu": ("conv_bn_relu.cu", "conv_common.cuh"),
+    "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -89,7 +92,8 @@ def build(names=None) -> dict:
             continue
         nvcc = nvcc or find_nvcc()
         tmp = f"{path}.{os.getpid()}.tmp"
-        srcs = [os.path.join(CSRC, s) for s in KERNEL_SOURCES[name]]
+        srcs = [os.path.join(CSRC, s) for s in KERNEL_SOURCES[name]
+                if s.endswith(".cu")]
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -213,9 +213,16 @@ def test_batch_norm_and_pooling_match_jax():
     got = tops.batch_norm(torch.from_numpy(x),
                           *(torch.from_numpy(a) for a in stats))
     assert _rel_err(got.numpy(), ref) <= F32_TOL
-    with pytest.raises(NotImplementedError, match="training"):
-        tops.batch_norm(torch.from_numpy(x),
-                        *(torch.from_numpy(a) for a in stats), training=True)
+    # the training form: batch statistics, the running stats updated in
+    # place (tests/test_torch_conv_train.py holds it in full)
+    jstats = [paddle.to_tensor(a) for a in stats]
+    tstats = [torch.from_numpy(a.copy()) for a in stats]
+    ref = jops.batch_norm(paddle.to_tensor(x), *jstats,
+                          training=True).numpy()
+    got = tops.batch_norm(torch.from_numpy(x), *tstats, training=True)
+    assert _rel_err(got.numpy(), ref) <= F32_TOL
+    for t, j in zip(tstats[:2], jstats[:2]):
+        assert _rel_err(t.numpy(), j.numpy()) <= F32_TOL
     for k, s, p in ((3, 2, 1), (3, 2, "SAME"), (2, None, 0), (3, 1, 2),
                     (3, 2, [0, 1, 1, 0])):
         ref = jops.max_pool2d(paddle.to_tensor(x), k, s, p).numpy()

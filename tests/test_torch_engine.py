@@ -212,3 +212,52 @@ def test_allocator_refcounts_prefix_lru_and_leak_check():
     got = c.allocate(6)                              # 4 free + 2 evicted
     assert got is not None and c.warm_prefix_tokens(toks) == 4
     assert c.allocate(2) is None                     # the stall path
+
+
+@pytest.mark.parametrize("backend", ["dense", "pallas", "auto"])
+def test_attention_backend_seam_token_identical_to_jax(models, backend,
+                                                       monkeypatch):
+    """`attention_backend` (ROADMAP Queue C 9): each port backend serves
+    JAX's dense engine's tokens. `dense` runs the plain dense paged path,
+    counted in `paged_attention_step.dense_calls`; `pallas` goes through
+    the kernel's wrapper (its plain version on the CPU); `auto` resolves
+    dense here, as JAX's rule does at head dim 16. The environment's
+    PADDLE_PAGED_ATTENTION_BACKEND wins over the argument, and
+    `resolve_backend` takes JAX's names and rule."""
+    from paddle_tpu.ops.paged_attention import resolve_backend as j_resolve
+    from paddle_tpu_torch.ops import paged_attention as tpa
+
+    monkeypatch.delenv("PADDLE_PAGED_ATTENTION_BACKEND", raising=False)
+    rng = np.random.RandomState(5)
+    reqs = _reqs(rng, 5, 2, 9, 3, 8)
+    kw = dict(num_slots=3, block_size=4, num_blocks=40)
+    jeng = JEngine(models[0], attention_backend="dense", **kw)
+    want = _drive(jeng, reqs[:3], reqs[3:], 2, lambda e: e.run())
+    teng = GenerationEngine(models[1], device="cpu",
+                            attention_backend=backend, **kw)
+    assert teng.attention_backend_requested == backend
+    assert teng.attention_backend == ("pallas" if backend == "pallas"
+                                      else "dense")
+    dense = tpa.paged_attention_step.dense_calls
+    plain = paged_decode_attention.plain_calls
+    got = _drive(teng, reqs[:3], reqs[3:], 2, lambda e: e.drain())
+    assert got == want
+    steps = teng.decode_steps * 2                        # two layers
+    assert tpa.paged_attention_step.dense_calls - dense == \
+        (0 if backend == "pallas" else steps)
+    assert paged_decode_attention.plain_calls - plain == steps
+    monkeypatch.setenv("PADDLE_PAGED_ATTENTION_BACKEND", "pallas")
+    assert GenerationEngine(models[1], device="cpu", attention_backend=backend,
+                            **kw).attention_backend == "pallas"
+    # JAX's `auto` takes the kernel only on a TPU, at head_dim >= 64 and
+    # block_size >= 8; the port's on every device, where the CUDA kernel
+    # also takes the shape (head dims 64 and 128, blocks of 8 to 64)
+    for hd, bs, auto in ((16, 16, "dense"), (64, 4, "dense"),
+                         (64, 16, "pallas"), (128, 8, "pallas"),
+                         (96, 16, "dense"), (64, 128, "dense")):
+        for name in ("dense", "pallas"):
+            assert tpa.resolve_backend(name, hd, bs) == \
+                j_resolve(name, hd, bs) == name
+        assert tpa.resolve_backend("auto", hd, bs) == auto, (hd, bs)
+    with pytest.raises(ValueError, match="backend"):
+        tpa.resolve_backend("cuda", 64, 16)

@@ -158,9 +158,10 @@ def test_sdpa_dropout_takes_the_dense_branch_and_drops_the_output():
     output (kept values are the dense output / keep, exactly). dropout_p
     > 0 not in training: the dense branch, nothing dropped, as JAX routes
     it (the flash route only at dropout_p == 0.0). dropout_p 0: the kernel
-    route. No generator raises."""
+    route (head dim 64: the causal kernel's; other head dims are dense, as
+    in JAX). No generator raises."""
     rng = np.random.RandomState(9)
-    q, k, v = (torch.from_numpy(rng.randn(2, 8, 2, 16).astype(np.float32))
+    q, k, v = (torch.from_numpy(rng.randn(2, 8, 2, 64).astype(np.float32))
                for _ in range(3))
     dense = tfa.dense_attention(q, k, v, True)
     g = torch.Generator().manual_seed(3)
@@ -274,3 +275,35 @@ def test_masked_sdpa_matches_jax():
         attn_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want._array),
                                atol=1e-5, rtol=0)
+
+
+def test_causal_flash_attention_routes_like_jax():
+    """Causal Sq == Skv in JAX's order (ROADMAP Queue C 8): head dims 64
+    and 128 take `chunked_causal_attention` (its plain version here); a
+    library shape (S 128, D 192) and every other head dim (16, 32, 80) are
+    dense, counted in `flash_attention.dense_calls`, as JAX computes them
+    off a TPU. Outputs, and the gradients of the dense routes through
+    autograd, match JAX's `flash_attention` and `jax.grad` of it."""
+    cases = [(64, 64, 1), (32, 128, 1), (128, 192, 0), (48, 16, 0),
+             (40, 32, 0), (24, 80, 0)]
+    for S, D, to_kernel in cases:
+        rng = np.random.RandomState(S + D)
+        q, k, v = _qkv(rng, 1, S, 2, D)
+        do = rng.randn(1, S, 2, D).astype(np.float32)
+        want = jfa.flash_attention(q, k, v, causal=True)
+        jgrads = jax.grad(lambda a, b, c: jnp.sum(
+            jfa.flash_attention(a, b, c, causal=True) * do),
+            argnums=(0, 1, 2))(q, k, v)
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        dense = tfa.flash_attention.dense_calls
+        plain = tfa.causal_attention_fwd.plain_calls
+        got = tfa.flash_attention(tq, tk, tv, causal=True)
+        assert tfa.causal_attention_fwd.plain_calls - plain == to_kernel
+        assert tfa.flash_attention.dense_calls - dense == 1 - to_kernel
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=0, err_msg=str((S, D)))
+        got.backward(torch.from_numpy(do))
+        for t, j in zip((tq, tk, tv), jgrads):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
+                                       atol=1e-4, rtol=0,
+                                       err_msg=str((S, D)))

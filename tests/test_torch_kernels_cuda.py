@@ -11,7 +11,11 @@ dims, lengths, block sizes and window widths the kernels take.
 
 Conv kernels (B7, B8): against `conv_bn_relu_plain` on the card with
 TF32 off, max |kernel - plain| relative to max |plain| (CONV_TOL); the
-ResNet on the card against the same ResNet on the CPU.
+ResNet on the card against the same ResNet on the CPU. The conv training
+kernels (B9a/B9b train forwards, B10 1x1 backward, B11 3x3 dWeight)
+against their plain versions over dtype x stride x shape, the training
+op's gradients through the kernels against autograd through the plain
+composition, and a ResNet-50 train step on the card against the CPU.
 
 Paged kernels: pools must be bit-identical to the plain version's outside
 the null block 0, and outputs within tolerance on the live rows of live
@@ -31,8 +35,11 @@ from paddle_tpu_torch.ops.flash_attention import (
     shortseq_attention_bwd_plain, shortseq_attention_fwd,
     shortseq_attention_plain, flash_attention)
 from paddle_tpu_torch.ops import paged_attention as tpa
-from paddle_tpu_torch.ops.conv import (conv1x1_bn_relu, conv3x3_bn_relu,
-                                       conv_bn_relu_plain, fused_conv_bn_relu)
+from paddle_tpu_torch.ops.conv import (
+    conv1x1_bn_relu, conv1x1_bwd, conv1x1_bwd_plain, conv1x1_train,
+    conv3x3_bn_relu, conv3x3_dw, conv3x3_dw_plain, conv3x3_train,
+    conv_bn_relu_plain, conv_bn_relu_train_plain, conv_train_plain,
+    fused_conv_bn_relu, fused_conv_bn_relu_train)
 from paddle_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                paged_decode_attention_int8,
                                                paged_decode_int8_plain,
@@ -65,6 +72,14 @@ SHORTSEQ_BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (4e-6, 1e-5)}
 # way, by one bf16 ulp of the value, at most 2^-7 of max |plain|; f32 as
 # the JAX suite's FP32_REL_TOL (tests/test_pallas_conv.py)
 CONV_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+# fp32 sums of one term per pixel (the batch statistics, a dWeight) in
+# other orders, relative to the sum of the terms' magnitudes (statistics)
+# or to max |dw|: up to a few thousand pixels here
+SUM_TOL = 1e-5
+# bf16 training gradients through the kernels against autograd through the
+# plain composition: relative L2 (bench_ops.py CONV_FUSED_REL_TOL, the JAX
+# suite's BF16_GRAD_TOL)
+BF16_GRAD_TOL = 0.03
 
 
 def bwd_within_tol(got, ref, dtype):
@@ -566,3 +581,284 @@ def test_resnet_on_the_card_matches_the_cpu(card):
             (conv1x1_bn_relu, conv3x3_bn_relu), counts)] == [(3, 0), (16, 0)]
         ref = host(x.cpu())
     assert conv_rel_err(got.cpu(), ref) <= 1e-5
+
+
+def test_causal_flash_attention_routes_on_the_card(card):
+    """Causal self-attention in JAX's order (ROADMAP Queue C 8): head dim
+    64 launches the causal kernel; head dim 16 computes densely instead of
+    raising (dense_attention's result, counted); a library shape (S 128, D
+    192) raises naming B6; a tiny GPT (head dim 16) takes a train step on
+    the card with a finite loss."""
+    from paddle_tpu_torch import AdamW, GPTConfig, GPTForCausalLM, TrainStep
+    from paddle_tpu_torch.ops.flash_attention import dense_attention
+
+    x = torch.randn((1, 64, 2, 64), generator=card, device="cuda")
+    before = causal_attention_fwd.launches
+    flash_attention(x, x, x, causal=True)
+    assert causal_attention_fwd.launches == before + 1
+    y = torch.randn((2, 48, 2, 16), generator=card, device="cuda")
+    dense = flash_attention.dense_calls
+    got = flash_attention(y, y, y, causal=True)
+    assert flash_attention.dense_calls == dense + 1
+    torch.testing.assert_close(got, dense_attention(y, y, y, True),
+                               rtol=0, atol=0)
+    z = torch.zeros((1, 128, 1, 192), device="cuda")
+    with pytest.raises(NotImplementedError, match="B6"):
+        flash_attention(z, z, z, causal=True)
+    model = GPTForCausalLM(GPTConfig.tiny(vocab=61, hidden=32, heads=2),
+                           device="cuda", generator=card)
+    step = TrainStep(model, AdamW(1e-3, parameters=model.parameters()),
+                     model.loss_fn)
+    ids = torch.randint(0, 61, (2, 16), generator=card, device="cuda")
+    assert math.isfinite(float(step(ids, ids)))
+
+
+def test_engine_serves_a_narrow_head_on_the_card(card):
+    """An engine at head dim 32 (ROADMAP Queue C 9): `auto` resolves dense,
+    serves greedily on the card through the plain dense paged path, and
+    equals `generate(use_cache=True)`; an explicit `pallas` is the kernel,
+    which refuses the head dim."""
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+
+    model = GPTForCausalLM(GPTConfig.tiny(vocab=61, hidden=64, heads=2),
+                           device="cuda", generator=card).eval()
+    eng = GenerationEngine(model, num_slots=2, block_size=8)
+    assert eng.attention_backend == "dense"
+    dense = tpa.paged_attention_step.dense_calls
+    prompt = [3, 14, 15, 9, 26, 5, 35]
+    rid = eng.add_request(prompt, 12)
+    out = eng.run()[rid]
+    assert tpa.paged_attention_step.dense_calls > dense
+    ref = model.generate(torch.tensor([prompt], device="cuda"),
+                         max_length=len(prompt) + 12, use_cache=True)
+    assert list(out) == ref[0].tolist()
+    eng = GenerationEngine(model, num_slots=2, block_size=8,
+                           attention_backend="pallas")
+    eng.add_request(prompt, 4)
+    with pytest.raises(ValueError, match="head_dim"):
+        eng.run()
+
+
+def sums_rel_err(got, ref, mag):
+    """max |got - ref| over each row of [2, Cout] sums, relative to the sum
+    of the magnitudes of its terms (`mag`)."""
+    return ((got - ref).abs() / mag.clamp_min(1e-6)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("padding", ["int", "SAME"])
+@pytest.mark.parametrize("shape", [(3, 7, 7, 24, 72), (2, 28, 19, 64, 136)],
+                         ids=["M147", "M1064-or-266"])
+def test_conv_train_kernels_match_plain(card, dtype, k, stride, padding,
+                                        shape):
+    """B9a and B9b against `conv_train_plain`: the conv within CONV_TOL and
+    both rows of its [2, Cout] sums within SUM_TOL of the sum of the
+    terms' magnitudes (bf16: a cast value may round the other way, one
+    ulp of that value, so 2^-7)."""
+    N, H, W, cin, cout = shape
+    x, w, _, _ = conv_case(card, N, H, W, cin, cout, k, dtype)
+    pad = "SAME" if padding == "SAME" else (1 if k == 3 else 0)
+    if k == 1 and pad == "SAME" and stride == 2:
+        pad = 0                                  # SAME k=1 is VALID
+    wrapper = conv1x1_train if k == 1 else conv3x3_train
+    before = wrapper.launches
+    got, sums = (wrapper(x, w, stride) if k == 1
+                 else wrapper(x, w, stride, pad))
+    ref, ref_sums = conv_train_plain(x, w, stride, pad)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert sums.shape == (2, cout) and sums.dtype == torch.float32
+    assert conv_rel_err(got, ref) <= CONV_TOL[dtype]
+    p = ref.reshape(-1, cout).float()
+    mag = torch.stack([p.abs().sum(0), (p * p).sum(0)])
+    tol = SUM_TOL if dtype == torch.float32 else 2.0 ** -7
+    assert sums_rel_err(sums, ref_sums, mag) <= tol
+
+
+def bwd_bundle(g, cout, dtype):
+    """An fp32 bundle [8, Cout] = [mean_n, inv_n, gamma, beta, mean32,
+    rstd32, c1, c2], the *_n rows rounded through the compute dtype."""
+    mean32 = torch.randn(cout, generator=g, device="cuda") * 0.3
+    rstd32 = torch.rand(cout, generator=g, device="cuda") + 0.5
+    gamma = torch.rand(cout, generator=g, device="cuda") + 0.5
+    beta = torch.randn(cout, generator=g, device="cuda") * 0.5
+    c1, c2 = (torch.randn(cout, generator=g, device="cuda") * 0.1
+              for _ in range(2))
+    return torch.stack([mean32.to(dtype).float(), rstd32.to(dtype).float(),
+                        gamma, beta, mean32, rstd32, c1, c2]).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [(3, 7, 7, 24, 72), (2, 28, 19, 64, 136),
+                                   (2, 14, 14, 256, 64)],
+                         ids=["M147", "M1064-or-266", "Cin256"])
+def test_conv1x1_bwd_kernel_matches_plain(card, dtype, stride, relu, shape):
+    """B10 against `conv1x1_bwd_plain` from the same bundle: dx within
+    CONV_TOL (the same dConv bits, products summed in other orders, one
+    cast) with zeros off the stride's sampled pixels, dw within SUM_TOL of
+    max |dw|."""
+    N, H, W, cin, cout = shape
+    x, w, _, _ = conv_case(card, N, H, W, cin, cout, 1, dtype)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    y = torch.randn((N, Ho, Wo, cout), generator=card, device="cuda") \
+        .to(dtype)
+    dy = torch.randn((N, Ho, Wo, cout), generator=card, device="cuda") \
+        .to(dtype)
+    rows = bwd_bundle(card, cout, dtype)
+    wt = w[0, 0].t().contiguous()
+    before = conv1x1_bwd.launches
+    dx, dw = conv1x1_bwd(x, dy, y, rows, wt, stride, relu)
+    rdx, rdw = conv1x1_bwd_plain(x, dy, y, rows, wt, stride, relu)
+    torch.cuda.synchronize()
+    assert conv1x1_bwd.launches == before + 1
+    assert dx.shape == x.shape and dx.dtype == dtype
+    assert dw.shape == (cin, cout) and dw.dtype == torch.float32
+    assert conv_rel_err(dx, rdx) <= CONV_TOL[dtype]
+    if stride == 2:
+        off = torch.ones_like(dx, dtype=torch.bool)
+        off[:, ::2, ::2] = False
+        assert bool((dx[off] == 0).all())
+    assert conv_rel_err(dw, rdw) <= SUM_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("padding", ["int", "SAME", "VALID"])
+@pytest.mark.parametrize("shape", [(3, 7, 7, 24, 72), (2, 28, 19, 64, 136),
+                                   (2, 7, 7, 512, 64)],
+                         ids=["M147", "M1064-or-266", "Cin512"])
+def test_conv3x3_dw_kernel_matches_plain(card, dtype, stride, padding,
+                                         shape):
+    """B11 against `conv3x3_dw_plain`: the nine taps' dw within SUM_TOL of
+    max |dw|, with the halo of every padding read as zero."""
+    N, H, W, cin, cout = shape
+    x, _, _, _ = conv_case(card, N, H, W, cin, cout, 3, dtype)
+    pad = 1 if padding == "int" else padding
+    from paddle_tpu_torch.ops.conv import normalize_conv_padding
+
+    (pt, pb), (pl, pr) = normalize_conv_padding(pad, 3, stride, (H, W))
+    Ho, Wo = (H + pt + pb - 3) // stride + 1, (W + pl + pr - 3) // stride + 1
+    g = torch.randn((N, Ho, Wo, cout), generator=card, device="cuda") \
+        .to(dtype)
+    before = conv3x3_dw.launches
+    dw = conv3x3_dw(x, g, stride, pad)
+    ref = conv3x3_dw_plain(x, g, stride, pad)
+    torch.cuda.synchronize()
+    assert conv3x3_dw.launches == before + 1
+    assert dw.shape == (3, 3, cin, cout) and dw.dtype == torch.float32
+    assert conv_rel_err(dw, ref) <= SUM_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,relu,padding", [
+    (1, 1, True, 0), (1, 2, False, 0), (3, 1, True, 1), (3, 2, True, 1),
+    (3, 2, False, "SAME")])
+def test_fused_train_grads_through_the_kernels(card, dtype, k, stride, relu,
+                                               padding):
+    """`fused_conv_bn_relu_train` through the kernels (one launch each of
+    the train forward and of B10, or of B11 and the B8 dX walk). f32:
+    against autograd through the plain composition
+    `conv_bn_relu_train_plain` on the card, y, mean, var and the four
+    gradients within 1e-5 of their largest value. bf16: against the same
+    op on CPU copies of the inputs (its plain versions: the same
+    algorithm, sums in other orders), y, mean and var within CONV_TOL and
+    the gradients within BF16_GRAD_TOL relative L2. At bf16 the dense
+    autograd is no yardstick here: its ReLU masks and BatchNorm backward
+    round at other places, and on the CPU both it and the train op sit
+    2-7 % (relative L2) from the fp32 gradients at these shapes."""
+    x, w, _, _ = conv_case(card, 4, 15, 15, 32, 48, k, dtype)
+    gamma = (torch.rand(48, generator=card, device="cuda") + 0.5).to(dtype)
+    beta = torch.randn(48, generator=card, device="cuda").to(dtype)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, w, gamma, beta)]
+    kernels = ((conv1x1_train, conv1x1_bwd) if k == 1 else
+               (conv3x3_train, conv3x3_dw, conv3x3_bn_relu))
+    before = [(kk.launches, kk.plain_calls) for kk in kernels]
+    y, mean, var = fused_conv_bn_relu_train(*leaves, stride=stride,
+                                            padding=padding, relu=relu)
+    dy = torch.randn(y.shape, generator=card, device="cuda").to(y.dtype)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert [(kk.launches - a, kk.plain_calls - b)
+            for kk, (a, b) in zip(kernels, before)] == [(1, 0)] * len(kernels)
+    if dtype == torch.float32:
+        ref_leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, w, gamma, beta)]
+        ref = conv_bn_relu_train_plain(*ref_leaves, stride=stride,
+                                       padding=padding, relu=relu)
+        rgrads = torch.autograd.grad(ref[0], ref_leaves, dy)
+    else:
+        ref_leaves = [t.detach().cpu().contiguous().requires_grad_()
+                      for t in (x, w, gamma, beta)]
+        ref = fused_conv_bn_relu_train(*ref_leaves, stride=stride,
+                                       padding=padding, relu=relu)
+        rgrads = torch.autograd.grad(ref[0], ref_leaves, dy.cpu())
+    for got, r in zip((y, mean, var), ref):
+        assert conv_rel_err(got.cpu(), r.cpu()) <= CONV_TOL[dtype]
+    for name, got, r in zip(("dx", "dw", "dgamma", "dbeta"), grads, rgrads):
+        assert got.dtype == r.dtype, name
+        got, r = got.cpu(), r.cpu()
+        if dtype == torch.float32:
+            assert conv_rel_err(got, r) <= 1e-5, name
+        else:
+            err = ((got.float() - r.float()).norm() / r.float().norm()).item()
+            assert err <= BF16_GRAD_TOL, name
+
+
+def test_conv_train_kernels_refuse_what_they_do_not_take(card):
+    x, w, _, _ = conv_case(card, 2, 8, 8, 16, 16, 3, torch.float32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv3x3_train(x, w.to(torch.bfloat16), 1, 1)
+    with pytest.raises(ValueError, match="takes a 1x1"):
+        conv1x1_train(x, w, 1)
+    g = torch.zeros((2, 8, 8, 16), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv3x3_dw(x, g, 1, 1)
+    y = torch.zeros((2, 8, 8, 16), device="cuda")
+    rows = torch.zeros((8, 16), device="cuda")
+    with pytest.raises(ValueError, match="rows"):
+        conv1x1_bwd(x, y, y, rows.to(torch.bfloat16), w[0, 0], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv1x1_bwd(x, y.permute(0, 2, 1, 3), y, rows, w[0, 0], 1)
+
+
+def test_resnet50_train_step_on_the_card_matches_the_cpu(card):
+    """resnet50(num_classes=10), f32, batch 2 at 64 x 64, one TrainStep
+    with Momentum(0.1, 0.9) from the same weights: on the card every
+    bottleneck and downsample conv trains through the kernels (36 1x1 and
+    16 3x3 train forwards, 36 1x1 backwards, 16 3x3 dWeights, 16 B8 dX
+    walks) and none through a plain version; against the plain versions
+    on the CPU the loss is within 2e-4 and the gradients within 0.3
+    (relative L2 over all parameters): a ResNet-50 in train mode at random
+    init amplifies fp32 rounding ~1000x by layer4, so two fp32
+    implementations that sum in other orders differ this much
+    (tests/test_torch_resnet_train.py measures it)."""
+    from paddle_tpu_torch import Momentum, TrainStep, resnet50
+    from paddle_tpu_torch.ops.nn_ops import cross_entropy
+
+    model = resnet50(num_classes=10, device="cuda", generator=card)
+    host = resnet50(num_classes=10, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.rand((2, 3, 64, 64), generator=card, device="cuda") * 2 - 1
+    y = torch.randint(0, 10, (2,), generator=card, device="cuda")
+    kernels = (conv1x1_train, conv3x3_train, conv1x1_bwd, conv3x3_dw,
+               conv3x3_bn_relu)
+    losses, grads = [], []
+    for m, xx, yy in ((model, x, y), (host, x.cpu(), y.cpu())):
+        opt = Momentum(0.1, 0.9, parameters=m.parameters())
+        before = [(kk.launches, kk.plain_calls) for kk in kernels]
+        losses.append(float(TrainStep(m, opt, cross_entropy)(xx, yy)))
+        if m is model:
+            torch.cuda.synchronize()
+            assert [(kk.launches - a, kk.plain_calls - b) for kk, (a, b)
+                    in zip(kernels, before)] == \
+                [(36, 0), (16, 0), (36, 0), (16, 0), (16, 0)]
+        grads.append(torch.cat([v.flatten().cpu() for v in
+                                opt._accumulators["velocity"]]))
+    assert abs(losses[0] - losses[1]) <= 2e-4 * abs(losses[1])
+    assert ((grads[0] - grads[1]).norm() / grads[1].norm()).item() <= 0.3

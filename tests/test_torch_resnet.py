@@ -211,8 +211,9 @@ def test_resnet_draws_the_jax_init_scheme(cases):
 
 def test_resnet_layouts_heads_and_modes(cases):
     """NCHW and channels_last inputs give the same logits; without a head
-    or a pool the features come back; training mode (batch statistics) is
-    not ported and raises."""
+    or a pool the features come back; training mode normalizes by batch
+    statistics (other logits than eval) and updates the running statistics
+    (tests/test_torch_resnet_train.py holds it against JAX)."""
     case = cases["resnet18"]
     tm = _port("resnet18", case)
     x = torch.from_numpy(case["x"])
@@ -223,6 +224,10 @@ def test_resnet_layouts_heads_and_modes(cases):
         feats = resnet18(num_classes=0, with_pool=False,
                          device="cpu").eval()(x)
     assert feats.shape == (2, 512, 1, 1)
+    before = tm.bn1._mean.clone()
     tm.train()
-    with pytest.raises(NotImplementedError, match="training"):
-        tm(x)
+    with torch.no_grad():
+        c = tm(x)
+    assert c.shape == a.shape and bool(torch.isfinite(c).all())
+    assert not torch.equal(c, a)
+    assert not torch.equal(tm.bn1._mean, before)

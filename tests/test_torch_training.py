@@ -335,9 +335,9 @@ def test_gpt_dropout_draws_from_the_model_generator():
 # ---------------------------------------------------------------------------
 # the slice as a whole
 # ---------------------------------------------------------------------------
-def _pair(seed=0):
+def _pair(seed=0, hidden=32):
     paddle.seed(seed)
-    kw = dict(vocab=VOCAB, hidden=32, layers=2, heads=2, seq=64)
+    kw = dict(vocab=VOCAB, hidden=hidden, layers=2, heads=2, seq=64)
     jm = JGPT(JConfig.tiny(**kw))
     arrays = {k: np.asarray(v._array) for k, v in jm.state_dict().items()}
     tm = GPTForCausalLM(GPTConfig.tiny(**kw), device="cpu")
@@ -349,8 +349,10 @@ def test_tiny_gpt_gradients_match_jax():
     """One forward with labels and one backward: the loss within 1e-6 and
     every parameter's gradient within 1e-5 (Linear grads transposed:
     paddle keeps Linear weights [in, out], torch [out, in]); the backward
-    went through the causal backward's wrapper once per layer."""
-    jm, tm = _pair()
+    went through the causal backward's wrapper once per layer (hidden 128
+    and 2 heads: head dim 64, a causal kernel shape; narrower heads are
+    dense, as in JAX)."""
+    jm, tm = _pair(hidden=128)
     ids = np.random.RandomState(3).randint(0, VOCAB, (2, 16)).astype(
         np.int32)
     jloss = jm(Tensor._wrap(ids), labels=Tensor._wrap(ids))
