@@ -10,6 +10,8 @@ bert_train,bert_parity
     python3 chip_smoke.py --phases build,conv_fwd,resnet_infer,resnet_parity
     python3 chip_smoke.py --phases build,conv_train,resnet_train,\
 resnet_train_parity
+    python3 chip_smoke.py --phases build,sdpa_fwd,transformer_infer,\
+transformer_parity
 
 Phases, each printing one JSON line:
 
@@ -24,7 +26,9 @@ Phases, each printing one JSON line:
    B1 H16 S2048 D128 and at a ragged S=300, bf16 and f32; timings, with
    torch's scaled_dot_product_attention timed as the library yardstick;
    shapes no kernel takes (causal Sq != Skv, non-causal 64 x 80, causal
-   head dim 96) take the dense route, shapes left to kernel B6 raise.
+   head dim 96) take the dense route; the library shapes (non-causal S
+   1024, causal head dim 192) launch the flash forward B6 when no gradient
+   is needed and raise naming the library route's backward when one is.
 4. causal_bwd: the causal attention backward kernel against its plain
    version at B2 H16 S2048 D128 (the training shape) and at S=300, bf16
    and f32, and at B1 H16 S256 f32 (train_parity's shape), for dq, dk and
@@ -135,16 +139,40 @@ Phases, each printing one JSON line:
    the running statistics, beside the CPU's own sensitivity to inputs
    1e-7 apart (RESNET_TRAIN_PARITY_TOL says why the bars are where they
    are).
+24. sdpa_fwd: the flash forward kernel B6 against its plain version, bf16
+   and f32, at the Transformer-base encoder's self-attention (B8 H8 S1024
+   D64), its cross-attention (B8 H8 Sq256 Skv1024 D64), the JAX entry
+   point pallas_sdpa_forward's flagship shape (B2 H16 S2048 D128, causal,
+   through that entry point) and the library route's causal head dim (B1
+   H8 S2048 D256); bf16 timings, L2 flushed, against the bound, the plain
+   version and torch's scaled_dot_product_attention. Then the routes: a
+   no-grad library shape launches B6, a grad-requiring one raises naming
+   the backward, head dim 320 raises, and pallas_sdpa_forward with S not a
+   multiple of its block fails its assert.
+25. transformer_infer: nn.Transformer() at its defaults (the base model of
+   Vaswani et al. 2017: d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
+   ReLU, post-norm), dropout 0, bf16, seed-0 weights, eval mode under
+   torch.inference_mode(), batch 8, source 1024 and target 256 tokens from
+   uniform(-1, 1) with the causal tgt_mask: 2 warm-up and 10 timed
+   forwards; ms per forward, source and target tokens/s, the FLOP share
+   of 989 TFLOP/s, peak memory; 12 B6 launches a forward (6 encoder
+   self-attentions, 6 cross-attentions), no plain call, nothing dense
+   through flash_attention; the output finite and within
+   TRANSFORMER_BF16_REL_TOL of the same model in f32.
+26. transformer_parity: f32 at width 512, 8 heads, 2 + 2 layers, batch 2,
+   source 640 and target 128, from the same weights on the card and on
+   the CPU: the outputs within TRANSFORMER_PARITY_TOL (relative L2).
 
-Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22 and 23 are the main path, in
-eighteen runs:
+Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25 and 26 are the main
+path, in twenty runs:
 the bf16 engine, the bf16 generate(), the f32 engine, the f32 generate(),
 the bf16 train steps, the f32 train steps, the bf16 speculative engine,
 the three f32 engines of spec_parity, the int8 engine, the int8
 speculative engine, BERT's mask-free and padded bf16 train steps, its
 padded eval forwards and its f32 padded steps, the timed bf16 ResNet-50
-forwards, the f32 ResNet-50 forward, the timed bf16 ResNet-50 train steps
-and the f32 ResNet-50 train steps. Kernel counts are set to 0
+forwards, the f32 ResNet-50 forward, the timed bf16 ResNet-50 train steps,
+the f32 ResNet-50 train steps, the timed bf16 Transformer forwards and the
+f32 Transformer forward. Kernel counts are set to 0
 just before each run and read just after it; each run must launch every
 kernel it takes (PATH_KERNEL: the engine the paged decode kernel,
 generate() the causal forward, training the causal forward and backward,
@@ -154,11 +182,13 @@ shortseq kernels 12 times a step each and its padded runs the masked
 variants alone, a ResNet-50 forward the 1x1 kernel 36 times and the 3x3
 kernel 16 times, a ResNet-50 train step the 1x1 and 3x3 train forwards
 36 and 16 times, the 1x1 backward 36, the 3x3 dWeight 16 and the 3x3
-eval kernel 16 times as the dX walk) and call no plain version.
+eval kernel 16 times as the dX walk, a Transformer forward the flash
+forward B6 12 times) and call no plain version.
 `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
 one GPT train step, of one BERT train step, of one bf16 ResNet-50
-forward and one bf16 ResNet-50 train step on each route. The line before
+forward and one bf16 ResNet-50 train step on each route, and of one bf16
+Transformer forward. The line before
 the last
 lists the kernels with their launches, errors and times; the last line is
 the device line. Any failed phase exits non-zero without it. With no CUDA
@@ -184,7 +214,8 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "paged_int8", "engine_spec", "spec_parity", "engine_int8",
           "shortseq_fwd", "shortseq_bwd", "bert_train", "bert_parity",
           "conv_fwd", "resnet_infer", "resnet_parity", "conv_train",
-          "resnet_train", "resnet_train_parity")
+          "resnet_train", "resnet_train_parity", "sdpa_fwd",
+          "transformer_infer", "transformer_parity")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -263,6 +294,22 @@ CONV_SUM_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 # beside the card's errors.
 RESNET_TRAIN_PARITY_TOL = {"first_loss": 2e-4, "later_loss": 0.05,
                            "grad": 0.3, "update": 0.3, "buffers": 0.3}
+# B6 against its plain version, max |kernel - plain|: bf16 relative to max
+# |plain| (both divide the same fp32 sums up to their order; a bf16 output
+# on a rounding boundary may round the other way, one bf16 ulp of the
+# value, at most 2^-7 of max |plain|, as CONV_TOL); f32 absolute (fp32
+# sums in another order)
+SDPA_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# f32 Transformer on the card against the CPU, relative L2 over the output
+# (cuBLAS and the CPU's GEMMs and B6 against its plain version sum in other
+# orders), as BERT_PARITY_TOL holds the logits
+TRANSFORMER_PARITY_TOL = 1e-5
+# the bf16 Transformer-base forward against the same weights and inputs in
+# f32 on the card, relative L2 over the output: bf16 rounds every GEMM
+# input, residual and LayerNorm output (2^-9 relative each) through 12
+# post-norm layers; the LayerNorms keep each layer's output at unit scale,
+# so the rounding does not grow layer over layer
+TRANSFORMER_BF16_REL_TOL = 0.05
 RESNET50_FWD_FLOPS = 4.09e9        # per 224 x 224 image (bench.py)
 CONV_BATCH = 256
 # bench_ops.py's nine ResNet-50 sweep shapes: (name, hw, cin, cout, k, s)
@@ -284,6 +331,7 @@ SSF, SSB = "shortseq_attention_fwd", "shortseq_attention_bwd"
 C1, C3 = "conv1x1_bn_relu", "conv3x3_bn_relu"
 C9A, C9B = "conv1x1_train", "conv3x3_train"
 C10, C11 = "conv1x1_bwd", "conv3x3_dw"
+SDPA = "sdpa_forward"
 # the masked variants' launches, counted apart on the same wrappers
 SSFM, SSBM = SSF + "_masked", SSB + "_masked"
 # each run of the main path, and the kernels that run must launch
@@ -304,7 +352,9 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "resnet_infer_bf16": (C1, C3),
                "resnet_f32": (C1, C3),
                "resnet_train_bf16": (C9A, C9B, C10, C11, C3),
-               "resnet_train_f32": (C9A, C9B, C10, C11, C3)}
+               "resnet_train_f32": (C9A, C9B, C10, C11, C3),
+               "transformer_infer_bf16": (SDPA,),
+               "transformer_f32": (SDPA,)}
 # bench.py's BERT row: batch, heads, seq, head dim
 BERT_SHAPE = (64, 12, 512, 64)
 SPEC_K = 4
@@ -492,7 +542,8 @@ def phase_causal_fwd(torch, ctx):
     from paddle_tpu_torch.ops.flash_attention import (causal_attention_fwd,
                                                       causal_attention_plain,
                                                       dense_attention,
-                                                      flash_attention)
+                                                      flash_attention,
+                                                      sdpa_forward)
 
     g = torch.Generator("cuda").manual_seed(2)
     res = {"phase": "causal_fwd", "cases": []}
@@ -530,20 +581,27 @@ def phase_causal_fwd(torch, ctx):
                             bound_ms=b, bound_by=by)
                 ctx["causal_fwd"] = dict(case, shape="B1 H16 S2048 D128")
             res["cases"].append(case)
-    # no fallback: the shapes a TPU hands to jax's library kernel wait for
-    # B6 and raise on the card, causal or not
-    raises = {}
+    # the shapes a TPU hands to jax's library kernel, causal or not: B6
+    # without a gradient; with one they raise (no fallback), naming the
+    # library route's backward, which is still to port
+    raises, launched = {}, {}
     for name, shape, causal in (("non_causal_b6_shape", (1, 1024, 2, 64),
                                  False),
                                 ("causal_b6_shape", (1, 128, 1, 192), True)):
         z = torch.zeros(shape, device="cuda")
-        try:
+        before = sdpa_forward.launches
+        with torch.no_grad():
             flash_attention(z, z, z, causal=causal)
+        launched[name] = sdpa_forward.launches == before + 1
+        zg = z.clone().requires_grad_()
+        try:
+            flash_attention(zg, zg, zg, causal=causal)
             raises[name] = False
-        except NotImplementedError:
-            raises[name] = True
-    res["raises"] = raises
-    ok &= all(raises.values())
+        except NotImplementedError as e:
+            raises[name] = "backward" in str(e)
+    res["raises_with_grad"] = raises
+    res["launches_b6_without_grad"] = launched
+    ok &= all(raises.values()) and all(launched.values())
     # shapes no kernel takes (causal Sq != Skv, non-causal 64 x 80, causal
     # head dim 96): dense on every device, as in JAX
     z = torch.zeros((1, 64, 2, 64), device="cuda")
@@ -716,6 +774,7 @@ def _device_breakdown(prof, name):
                "conv1x1_bwd_kernels" if "conv1x1_bwd" in n else
                "conv3x3_dw_kernel" if "conv3x3_dw" in n else
                "sum_rows_kernel" if "sum_rows" in n else
+               "sdpa_fwd_kernel" if "sdpa_fwd" in n else
                "cudnn conv" if any(t in n.lower() for t in (
                    "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
                    "conv2d", "convolve")) else
@@ -2555,6 +2614,262 @@ def phase_resnet_train_parity(torch, ctx, seed):
                              "from the CPU")
 
 
+# ---------------------------------------------------------------------------
+# the flash forward B6 and Transformer inference
+# ---------------------------------------------------------------------------
+# (name, batch, heads, Sq, Skv, head dim, causal): the Transformer-base
+# encoder's self-attention and cross-attention (phase 25's shapes), the JAX
+# entry point's flagship shape, the library route's causal head dim
+SDPA_SHAPES = (("encoder_self_attention", 8, 8, 1024, 1024, 64, False),
+               ("cross_attention", 8, 8, 256, 1024, 64, False),
+               ("pallas_sdpa_forward", 2, 16, 2048, 2048, 128, True),
+               ("causal_head_dim_256", 1, 8, 2048, 2048, 256, True))
+
+
+def _sdpa_bound(BH, Sq, Skv, D, causal, isz, dtype_name):
+    """q, k, v read and O written once; 4 BH Sq Skv D FLOP (QK and PV),
+    over the lower triangle with its diagonal when causal."""
+    nbytes = 2 * BH * (Sq + Skv) * D * isz
+    flops = (2 * BH * D * Sq * (Sq + 1) if causal
+             else 4 * BH * Sq * Skv * D)
+    return bound_ms(nbytes, flops, dtype_name)
+
+
+def phase_sdpa_fwd(torch, ctx):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      pallas_sdpa_forward,
+                                                      sdpa_forward,
+                                                      sdpa_forward_plain)
+
+    g = torch.Generator("cuda").manual_seed(12)
+    res = {"phase": "sdpa_fwd", "cases": []}
+    ok = True
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    for name, B, H, Sq, Skv, D, causal in SDPA_SHAPES:
+        BH, scale = B * H, 1.0 / math.sqrt(D)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = dname(torch, dtype)
+            q = torch.randn((B, Sq, H, D), generator=g,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((B, Skv, H, D), generator=g,
+                                device="cuda").to(dtype) for _ in range(2))
+            qh, kh, vh = (x.transpose(1, 2).reshape(BH, -1, D).contiguous()
+                          for x in (q, k, v))
+            ref = sdpa_forward_plain(qh, kh, vh, scale, causal)
+            if name == "pallas_sdpa_forward":
+                got = pallas_sdpa_forward(q, k, v, causal=True).transpose(
+                    1, 2).reshape(BH, Sq, D)
+            else:
+                got = sdpa_forward(qh, kh, vh, scale, causal)
+            again = sdpa_forward(qh, kh, vh, scale, causal)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            top = ref.float().abs().max().item()
+            limit = SDPA_TOL[dn] * (top if dtype == torch.bfloat16 else 1.0)
+            same = bool(torch.equal(got, again))
+            case = {"shape": f"{name}: B{B} H{H} Sq{Sq} Skv{Skv} D{D}"
+                    + (" causal" if causal else ""), "dtype": dn,
+                    "max_abs_err": err, "max_abs_plain": top,
+                    "tol": SDPA_TOL[dn],
+                    "tol_kind": "relative to max |plain|"
+                    if dtype == torch.bfloat16 else "absolute",
+                    "same_bits_on_rerun": same}
+            passed = math.isfinite(err) and err <= limit and same
+            if dtype == torch.bfloat16:
+                kms = cuda_ms(torch, lambda: sdpa_forward(
+                    qh, kh, vh, scale, causal), 10, flush)
+                pms = cuda_ms(torch, lambda: sdpa_forward_plain(
+                    qh, kh, vh, scale, causal), 3, flush, warmup=1)
+                q4, k4, v4 = (x.view(B, H, -1, D) for x in (qh, kh, vh))
+                lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal, scale=scale), 10, flush)
+                b, by = _sdpa_bound(BH, Sq, Skv, D, causal,
+                                    q.element_size(), dn)
+                case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
+                            bound_ms=b, bound_by=by)
+                if name == "encoder_self_attention":
+                    ctx["sdpa_fwd"] = dict(case)
+            case["ok"] = bool(passed)
+            ok &= passed
+            res["cases"].append(case)
+            del q, k, v, qh, kh, vh, ref, got, again
+    del flush
+    torch.cuda.empty_cache()
+    # the routes (no fallback)
+    routes = {}
+    z = torch.randn((1, 1024, 2, 64), generator=g, device="cuda")
+    before = sdpa_forward.launches
+    with torch.no_grad():
+        flash_attention(z, z, z, causal=False)
+    routes["no_grad_library_shape_launches_b6"] = \
+        sdpa_forward.launches == before + 1
+    zg = z.clone().requires_grad_()
+    try:
+        flash_attention(zg, zg, zg, causal=False)
+        routes["grad_library_shape_raises_naming_backward"] = False
+    except NotImplementedError as e:
+        routes["grad_library_shape_raises_naming_backward"] = \
+            "backward" in str(e)
+    z320 = torch.zeros((1, 128, 1, 320), device="cuda")
+    try:
+        with torch.no_grad():
+            flash_attention(z320, z320, z320, causal=False)
+        routes["head_dim_320_raises"] = False
+    except ValueError as e:
+        routes["head_dim_320_raises"] = "256" in str(e)
+    z384 = torch.zeros((1, 384, 1, 64), device="cuda")
+    try:
+        pallas_sdpa_forward(z384, z384, z384)
+        routes["pallas_sdpa_forward_block_assert"] = False
+    except AssertionError:
+        routes["pallas_sdpa_forward_block_assert"] = True
+    res["routes"] = routes
+    ok &= all(routes.values())
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("flash forward kernel B6 disagrees with its "
+                             "plain version, or a route is wrong")
+
+
+def _transformer_flops(B, S, T, d, f, L_enc, L_dec):
+    """Forward FLOP of nn.Transformer (2 per multiply-add), by part: batch
+    B, source S, target T, width d, FFN f."""
+    return {"encoder_projections_and_ffn": L_enc * (8 * B * S * d * d
+                                                    + 4 * B * S * d * f),
+            "encoder_attention": L_enc * 4 * B * S * S * d,
+            "decoder_projections_and_ffn": L_dec * (8 * B * T * d * d
+                                                    + 4 * B * T * d * d
+                                                    + 4 * B * T * d * f),
+            "cross_attention_kv_over_memory": L_dec * 4 * B * S * d * d,
+            "cross_attention": L_dec * 4 * B * T * S * d,
+            "decoder_self_attention": L_dec * 4 * B * T * T * d}
+
+
+def _transformer(torch, dtype, seed, **kw):
+    from paddle_tpu_torch import Transformer
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    return Transformer(dropout=0.0, device="cuda", dtype=dtype, generator=g,
+                       **kw).eval()
+
+
+def phase_transformer_infer(torch, ctx, seed):
+    from paddle_tpu_torch import Transformer
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+
+    B, S, T, warm, timed = 8, 1024, 256, 2, 10
+    model = _transformer(torch, torch.bfloat16, seed)
+    d, f = model.d_model, model.encoder.layers[0].linear1.out_features
+    rng = np.random.RandomState(seed + 20)
+    src32, tgt32 = (torch.from_numpy(rng.uniform(-1, 1, (B, n, d)).astype(
+        np.float32)).cuda() for n in (S, T))
+    src, tgt = src32.to(torch.bfloat16), tgt32.to(torch.bfloat16)
+    mask = Transformer.generate_square_subsequent_mask(T)
+    with torch.inference_mode():
+        for _ in range(warm):
+            model(src, tgt, tgt_mask=mask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            secs = []
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                out = model(src, tgt, tgt_mask=mask)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            return out, secs
+
+        dense = flash_attention.dense_calls
+        out, secs = _counted(torch, ctx, "transformer_infer_bf16", run,
+                             exact={SDPA: 12 * timed})
+        dense = flash_attention.dense_calls - dense
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if ctx.get("profile"):
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model(src, tgt, tgt_mask=mask)
+                torch.cuda.synchronize()
+            emit(dict(phase="transformer_infer_profile",
+                      **_device_breakdown(prof, "transformer_infer")))
+        # the same weights and inputs in f32, outside the counted run
+        ref_model = _transformer(torch, torch.float32, seed)
+        ref_model.load_state_dict(model.state_dict())
+        ref = ref_model(src32, tgt32, tgt_mask=mask)
+        rel = ((out.float() - ref).norm() / ref.norm()).item()
+    flops = _transformer_flops(B, S, T, d, f, 6, 6)
+    total = sum(flops.values())
+    per = sum(secs) / len(secs)
+    res = {"phase": "transformer_infer",
+           "config": "nn.Transformer() defaults (d_model 512, 8 heads, 6 + 6 "
+           "layers, FFN 2048, ReLU, post-norm), dropout 0, bf16, seed-0 "
+           "weights, eval, inference_mode; batch 8, source 1024, target 256, "
+           "uniform(-1, 1), causal tgt_mask",
+           "warmup_forwards": warm, "timed_forwards": timed,
+           "nvidia_smi": ctx.get("smi"),
+           "ms_per_forward": per * 1e3,
+           "ms_per_forward_min_median_max": [
+               min(secs) * 1e3, float(np.median(secs)) * 1e3,
+               max(secs) * 1e3],
+           "source_tokens_per_s": B * S / per,
+           "target_tokens_per_s": B * T / per,
+           "gflop_per_forward": total / 1e9,
+           "gflop_by_part": {k: v / 1e9 for k, v in flops.items()},
+           "flop_share_of_989tflops": total / per / PEAK_FLOPS["bfloat16"],
+           "peak_memory_gb": peak,
+           "b6_launches_per_forward":
+               ctx["paths"]["transformer_infer_bf16"][SDPA]["launches"]
+               / timed,
+           "flash_attention_dense_calls": dense,
+           "rel_l2_vs_f32": rel, "tol": TRANSFORMER_BF16_REL_TOL,
+           "kernel_counts": ctx["paths"]["transformer_infer_bf16"]}
+    res["ok"] = bool(out.shape == (B, T, d) and dense == 0
+                     and bool(torch.isfinite(out.float()).all())
+                     and math.isfinite(rel)
+                     and rel <= TRANSFORMER_BF16_REL_TOL)
+    emit(res)
+    del model, ref_model, src, tgt, src32, tgt32, out, ref
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("transformer_infer phase failed its checks")
+
+
+def phase_transformer_parity(torch, ctx, seed):
+    from paddle_tpu_torch import Transformer
+
+    kw = dict(num_encoder_layers=2, num_decoder_layers=2)
+    card = _transformer(torch, torch.float32, seed, **kw)
+    host = Transformer(dropout=0.0, device="cpu", **kw).eval()
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.RandomState(seed + 21)
+    src, tgt = (torch.from_numpy(rng.uniform(-1, 1, (2, n, 512)).astype(
+        np.float32)) for n in (640, 128))
+    mask = Transformer.generate_square_subsequent_mask(128, device="cpu")
+    with torch.inference_mode():
+        got = _counted(torch, ctx, "transformer_f32", lambda: card(
+            src.cuda(), tgt.cuda(), tgt_mask=mask.cuda()),
+            exact={SDPA: 4}).cpu()
+        want = host(src, tgt, tgt_mask=mask)
+    err = ((got - want).norm() / want.norm()).item()
+    res = {"phase": "transformer_parity", "dtype": "float32",
+           "config": "nn.Transformer(512, 8 heads, 2 + 2 layers, FFN 2048), "
+           "dropout 0, batch 2, source 640, target 128, causal tgt_mask",
+           "rel_l2": err, "tol": TRANSFORMER_PARITY_TOL,
+           "kernel_counts": ctx["paths"]["transformer_f32"],
+           "ok": bool(math.isfinite(err) and err <= TRANSFORMER_PARITY_TOL)}
+    emit(res)
+    del card, host
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("f32 Transformer on the card differs from the "
+                             "CPU")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2564,8 +2879,9 @@ def main(argv=None):
                     "engine_spec, engine_int8) after their prefixes are "
                     "cached, one GPT train step, one BERT train step, one "
                     "ResNet-50 forward and one ResNet-50 train step on "
-                    "each route (phases train, bert_train, resnet_infer, "
-                    "resnet_train), with torch.profiler and "
+                    "each route, and one Transformer forward (phases "
+                    "train, bert_train, resnet_infer, resnet_train, "
+                    "transformer_infer), with torch.profiler and "
                     "print their device-time breakdowns (slows those "
                     "runs; their tokens/s is then not comparable)")
     args = ap.parse_args(argv)
@@ -2585,8 +2901,8 @@ def main(argv=None):
                                            conv1x1_train, conv3x3_bn_relu,
                                            conv3x3_dw, conv3x3_train)
     from paddle_tpu_torch.ops.flash_attention import (
-        causal_attention_bwd, causal_attention_fwd, shortseq_attention_bwd,
-        shortseq_attention_fwd)
+        causal_attention_bwd, causal_attention_fwd, sdpa_forward,
+        shortseq_attention_bwd, shortseq_attention_fwd)
     from paddle_tpu_torch.ops.paged_decode import (
         paged_decode_attention, paged_decode_attention_int8)
     from paddle_tpu_torch.ops.paged_verify import (
@@ -2601,7 +2917,7 @@ def main(argv=None):
                         paged_verify_attention_int8, shortseq_attention_fwd,
                         shortseq_attention_bwd, conv1x1_bn_relu,
                         conv3x3_bn_relu, conv1x1_train, conv3x3_train,
-                        conv1x1_bwd, conv3x3_dw)}
+                        conv1x1_bwd, conv3x3_dw, sdpa_forward)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -2650,8 +2966,14 @@ def main(argv=None):
                 phase_conv_train(torch, ctx)
             elif name == "resnet_train":
                 phase_resnet_train(torch, ctx, SEED)
-            else:
+            elif name == "resnet_train_parity":
                 phase_resnet_train_parity(torch, ctx, SEED)
+            elif name == "sdpa_fwd":
+                phase_sdpa_fwd(torch, ctx)
+            elif name == "transformer_infer":
+                phase_transformer_infer(torch, ctx, SEED)
+            else:
+                phase_transformer_parity(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -2703,7 +3025,9 @@ def main(argv=None):
             ("conv1x1_bwd", C10, "paddle_tpu_torch/csrc/conv_bn_relu_bwd.cu",
              "paddle_tpu/ops/pallas/conv.py:691"),
             ("conv3x3_dw", C11, "paddle_tpu_torch/csrc/conv_bn_relu_bwd.cu",
-             "paddle_tpu/ops/pallas/conv.py:767")):
+             "paddle_tpu/ops/pallas/conv.py:767"),
+            ("sdpa_fwd", SDPA, "paddle_tpu_torch/csrc/sdpa_forward.cu",
+             "paddle_tpu/ops/pallas/flash_attention.py:64")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

@@ -28,7 +28,11 @@ Ported so far:
   training form, and `ConvBNReLU`'s train route through
   `ops.conv.fused_conv_bn_relu_train`, with the conv train-forward
   kernels (batch statistics in the epilogue), the 1x1 backward and the
-  3x3 dWeight kernels.
+  3x3 dWeight kernels;
+- inference of the encoder-decoder Transformer (`nn.Transformer` and its
+  layers), whose encoder self-attention over long sources and decoder
+  cross-attention take the flash forward kernel B6
+  (`ops.flash_attention.sdpa_forward`, also behind `pallas_sdpa_forward`).
 """
 from . import optimizer, vision
 from .device import resolve_device
@@ -39,7 +43,10 @@ from .models.bert import (BertConfig, BertForPretraining,
                           ErnieModel)
 from .models.convert import load_paddle_tpu_state, paddle_tpu_state
 from .models.gpt import GPTConfig, GPTForCausalLM
-from .nn import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .nn import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                 MultiHeadAttention, Transformer, TransformerDecoder,
+                 TransformerDecoderLayer, TransformerEncoder,
+                 TransformerEncoderLayer)
 from .optimizer import Adam, AdamW, Momentum
 from .vision.models import resnet18, resnet34, resnet50, resnet101, resnet152
 
@@ -50,5 +57,8 @@ __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "paddle_tpu_state", "TrainStep", "Momentum", "Adam", "AdamW",
            "optimizer",
            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "MultiHeadAttention", "TransformerEncoderLayer",
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer",
            "vision", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152"]

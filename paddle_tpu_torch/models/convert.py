@@ -1,5 +1,7 @@
 """Weight bridge between the JAX package's models and the port's: the GPT,
-BERT (both heads) and the ResNets.
+BERT (both heads), the ResNets and the Transformer family
+(`nn.Transformer`, its encoder and decoder stacks and layers,
+`MultiHeadAttention`).
 
 The input is the JAX model's `state_dict()` (paddle_tpu/nn/layer.py) as
 numpy arrays under the same names: its parameters and its persistable

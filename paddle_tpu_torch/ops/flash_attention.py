@@ -13,6 +13,9 @@ Counterpart of paddle_tpu/ops/pallas/flash_attention.py:
   `_shortseq_bwd_kernel_masked` (through `_shortseq_call_fwd` /
   `_shortseq_call_bwd`); `_ShortseqAttention` is `_shortseq_attention`'s
   custom_vjp and `shortseq_attention` goes through it;
+- the flash forward: `csrc/sdpa_forward.cu` replaces `_sdpa_fwd_kernel`
+  (B6, through `pallas_sdpa_forward`), and also serves `flash_attention`'s
+  library route, the shapes a TPU hands to jax's library flash kernel;
 - `flash_attention` ports the routing.
 
 Each kernel wrapper takes the plain version for CPU tensors and launches
@@ -22,7 +25,8 @@ device, in `.plain_calls`; the shortseq wrappers count launches of their
 masked variant apart, in `.masked_launches`.
 
 Layouts: `[BH, S, D]` at the kernels, `[B, S, H, D]` (paddle layout) at
-`chunked_causal_attention`, `shortseq_attention` and `flash_attention`.
+`chunked_causal_attention`, `shortseq_attention`, `pallas_sdpa_forward`
+and `flash_attention`.
 The LSE is `[BH, S]` fp32 and the shortseq key mask `[BH, S]` or `[B, S]`
 fp32; the TPU kernels' `[BH, 8, S]` were eight identical rows, padding for
 the TPU's (8, 128) tiling.
@@ -42,6 +46,7 @@ __all__ = ["causal_attention_fwd", "causal_attention_plain",
            "chunked_causal_attention", "shortseq_attention_fwd",
            "shortseq_attention_plain", "shortseq_attention_bwd",
            "shortseq_attention_bwd_plain", "shortseq_attention",
+           "sdpa_forward", "sdpa_forward_plain", "pallas_sdpa_forward",
            "dense_attention", "flash_attention"]
 
 _NEG_INF = -1e30
@@ -103,7 +108,7 @@ def causal_attention_bwd_plain(q, k, v, o, do, lse, scale):
                             lse, scale)
 
 
-def _check_kernel_args(fn_name, named):
+def _check_kernel_args(fn_name, named, head_dims=_HEAD_DIMS):
     q = named[0][1]
     for name, t in named:
         if t.device.type != "cuda":
@@ -119,9 +124,9 @@ def _check_kernel_args(fn_name, named):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{fn_name}: dtype {q.dtype} has no kernel "
                          "(float32 or bfloat16)")
-    if q.shape[2] not in _HEAD_DIMS:
+    if q.shape[2] not in head_dims:
         raise ValueError(f"{fn_name}: head_dim {q.shape[2]} has no kernel "
-                         f"(supported: {_HEAD_DIMS})")
+                         f"(supported: {head_dims})")
 
 
 def _check_lse(fn_name, lse, q):
@@ -225,19 +230,26 @@ class _CausalAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _to_bh(x):
+    """`[B, S, H, D]` -> contiguous `[B * H, S, D]`."""
+    B, S, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
+
+
+def _from_bh(o, B):
+    """`[B * H, S, D]` -> `[B, S, H, D]` (a view)."""
+    BH, S, D = o.shape
+    return o.reshape(B, BH // B, S, D).transpose(1, 2)
+
+
 def chunked_causal_attention(q, k, v, scale=None):
     """Causal attention `[B, S, H, D]` -> `[B, S, H, D]` (the port of
     `chunked_causal_attention`), through `_CausalAttention`. When no
     gradient is needed (serving, `torch.no_grad()`), autograd saves
     nothing for a backward."""
-    B, S, H, D = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-
-    def to_bh(x):
-        return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
-
-    o = _CausalAttention.apply(to_bh(q), to_bh(k), to_bh(v), scale)
-    return o.reshape(B, H, S, D).transpose(1, 2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    o = _CausalAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), scale)
+    return _from_bh(o, q.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +276,9 @@ def _shapes_ok_for_causal(Sq, Skv, D):
 
 def _shapes_ok_for_lib(Sq, Skv, D):
     """The shapes the JAX package hands to jax's library flash kernel on a
-    TPU (`_shapes_ok_for_lib`); the port's kernel for them (B6,
-    `_sdpa_fwd_kernel`) is still to port."""
+    TPU (`_shapes_ok_for_lib`). The port gives their forward to B6
+    (`sdpa_forward`, the port of `_sdpa_fwd_kernel`), which takes head
+    dims up to 256; their backward is still to port."""
     return (Sq >= 128 and Sq % 128 == 0 and Skv >= 128 and Skv % 128 == 0
             and D % 64 == 0)
 
@@ -432,15 +445,101 @@ def shortseq_attention(q, k, v, scale=None, key_mask=None):
     optional additive `[B, S]` mask over keys (0 for real tokens, -1e30 for
     padding, the encoder convention), cast to fp32 and broadcast over
     heads by the kernel."""
-    B, S, H, D = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-
-    def to_bh(x):
-        return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
-
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
     km = None if key_mask is None else key_mask.float().contiguous()
-    o = _ShortseqAttention.apply(to_bh(q), to_bh(k), to_bh(v), km, scale)
-    return o.reshape(B, H, S, D).transpose(1, 2)
+    o = _ShortseqAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), km, scale)
+    return _from_bh(o, q.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# the flash forward (B6)
+# ---------------------------------------------------------------------------
+_SDPA_HEAD_DIMS = (64, 128, 192, 256)
+
+
+def sdpa_forward_plain(q, k, v, scale, causal=False):
+    """Plain PyTorch version of the flash forward kernel B6: q `[BH, Sq,
+    D]` x k, v `[BH, Skv, D]` -> O `[BH, Sq, D]` in q's dtype, no LSE.
+
+    `_sdpa_fwd_kernel`'s arithmetic: q, k and v cast to fp32; s = q k^T *
+    scale; when causal (Sq == Skv), -1e30 where the key comes after the
+    query; softmax; the probabilities stay fp32 for PV (unlike B1 and the
+    dense route, which round them to v's dtype); O = acc / max(l, 1e-30)
+    cast once. The kernel walks key blocks with an online softmax (a
+    running max m, sum l and fp32 accumulator, each rescaled by exp(m_prev
+    - m_new) at every block); this version takes the row's exact max over
+    all keys at once, which is the same function: after the last block
+    the kernel's m is that max, its l the row's sum of exp(s - m) and its
+    acc the matching sum of p v, up to the order of fp32 sums."""
+    sdpa_forward.plain_calls += 1
+    s = (_causal_logits(q, k, scale) if causal
+         else _key_logits(q, k, scale, None))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    return (torch.matmul(p, v.float()) / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def sdpa_forward(q, k, v, scale=None, causal=False):
+    """Flash attention forward, q `[BH, Sq, D]` x k, v `[BH, Skv, D]` -> O
+    `[BH, Sq, D]` in the input dtype. CPU tensors take
+    `sdpa_forward_plain`; CUDA tensors launch B6 (any Sq and Skv, causal
+    only at Sq == Skv; D 64, 128, 192 or 256; float32 or bfloat16;
+    contiguous) or raise. Causal with Sq != Skv raises on every device:
+    the TPU kernel takes only Sq == Skv."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"sdpa_forward: causal needs Sq == Skv, got "
+                         f"{q.shape[1]} and {k.shape[1]}")
+    if q.device.type == "cpu":
+        return sdpa_forward_plain(q, k, v, scale, causal)
+    D = q.shape[-1]
+    if D > _SDPA_HEAD_DIMS[-1]:
+        raise ValueError(f"sdpa_forward: head_dim {D} is over the kernel's "
+                         f"limit of {_SDPA_HEAD_DIMS[-1]}")
+    _check_kernel_args("sdpa_forward", (("q", q),), _SDPA_HEAD_DIMS)
+    _check_kernel_args("sdpa_forward", (("k", k), ("v", v)),
+                       _SDPA_HEAD_DIMS)
+    BH, Sq, _ = q.shape
+    Skv = k.shape[1]
+    if k.dtype != q.dtype or k.shape[0] != BH or k.shape[2] != D \
+            or Sq == 0 or Skv == 0:
+        raise ValueError("sdpa_forward: q [BH, Sq, D] and k, v [BH, Skv, D] "
+                         "must share BH, D and dtype, with Sq, Skv > 0")
+    o = torch.empty_like(q)
+    fn = _bind("sdpa_forward", "sdpa_forward", 4, 6)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sdpa_forward.launches += 1
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _DTYPE_CODE[q.dtype], BH, Sq, Skv, D, int(causal), float(scale),
+             stream)
+    if err:
+        raise RuntimeError(f"sdpa_forward kernel launch failed: CUDA error "
+                           f"{err}")
+    return o
+
+
+sdpa_forward.launches = 0
+sdpa_forward.plain_calls = 0
+
+
+def pallas_sdpa_forward(q, k, v, causal=True, scale=None, block_q=256,
+                        block_k=256, interpret=False):
+    """The port of the JAX entry point of B6: `[B, S, H, D]` (paddle
+    layout) -> `[B, S, H, D]`, through `sdpa_forward`. As in JAX, each
+    block is cut to S and S must be a multiple of both (an AssertionError
+    otherwise). The blocks are checked and nothing more: the CUDA kernel
+    tiles by its own 64-row tiles. `interpret` selects nothing either: the
+    tensors' device does (the plain version on the CPU, the kernel on the
+    card)."""
+    B, S, H, D = q.shape
+    block_q = min(block_q, S)
+    block_k = min(block_k, S)
+    if S % block_q or S % block_k:  # JAX's assert, kept under python -O
+        raise AssertionError(f"pallas_sdpa_forward: S={S} must be a "
+                             f"multiple of block_q={block_q} and "
+                             f"block_k={block_k}")
+    o = sdpa_forward(_to_bh(q), _to_bh(k), _to_bh(v), scale, causal)
+    return _from_bh(o, B)
 
 
 def dense_attention(q, k, v, causal, scale=None, mask=None):
@@ -474,9 +573,12 @@ def flash_attention(q, k, v, causal=True, scale=None):
     - causal Sq == Skv at head dims 64 and 128 (`_shapes_ok_for_causal`)
       takes `chunked_causal_attention`;
     - shapes that a TPU hands to jax's library kernel
-      (`_shapes_ok_for_lib`, non-causal or causal Sq == Skv) raise on the
-      card: their kernel, B6 (`_sdpa_fwd_kernel`), is still to port. On the
-      CPU they are computed densely, as JAX computes them there;
+      (`_shapes_ok_for_lib`, non-causal or causal Sq == Skv): when no
+      gradient is needed (grad mode off, or no input requires grad), B6
+      (`sdpa_forward`: the kernel on the card, its plain version on the
+      CPU). When a gradient is needed they raise on the card, since the
+      library route's backward is still to port, and are computed densely
+      on the CPU, as JAX computes them there;
     - every other shape (causal Sq != Skv, head dims or lengths no kernel
       takes, such as a causal head dim of 16) is dense on every device, as
       in JAX (`dense_attention`).
@@ -486,12 +588,17 @@ def flash_attention(q, k, v, causal=True, scale=None):
         return shortseq_attention(q, k, v, scale)
     if causal and _shapes_ok_for_causal(Sq, Skv, D):
         return chunked_causal_attention(q, k, v, scale)
-    if (q.device.type == "cuda" and _shapes_ok_for_lib(Sq, Skv, D)
-            and (not causal or Sq == Skv)):
-        raise NotImplementedError(
-            f"flash_attention(causal={causal}) with Sq={Sq}, Skv={Skv}, "
-            f"D={D} needs the flash forward kernel B6 (_sdpa_fwd_kernel), "
-            "which the port has not ported yet")
+    if _shapes_ok_for_lib(Sq, Skv, D) and (not causal or Sq == Skv):
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (q, k, v))):
+            o = sdpa_forward(_to_bh(q), _to_bh(k), _to_bh(v), scale, causal)
+            return _from_bh(o, q.shape[0])
+        if q.device.type == "cuda":
+            raise NotImplementedError(
+                f"flash_attention(causal={causal}) with Sq={Sq}, Skv={Skv}, "
+                f"D={D} and a gradient needs the library route's backward, "
+                "which the port has not ported yet (B6, sdpa_forward, is "
+                "forward only)")
     flash_attention.dense_calls += 1
     return dense_attention(q, k, v, causal, scale)
 

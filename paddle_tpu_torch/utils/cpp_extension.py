@@ -39,6 +39,7 @@ KERNEL_SOURCES = {
     "causal_attention_bwd": ("causal_attention_bwd.cu",),
     "shortseq_attention": ("shortseq_attention.cu",),
     "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",),
+    "sdpa_forward": ("sdpa_forward.cu",),
     "conv_bn_relu": ("conv_bn_relu.cu", "conv_common.cuh"),
     "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh"),
 }

@@ -280,9 +280,11 @@ def test_masked_sdpa_matches_jax():
 def test_causal_flash_attention_routes_like_jax():
     """Causal Sq == Skv in JAX's order (ROADMAP Queue C 8): head dims 64
     and 128 take `chunked_causal_attention` (its plain version here); a
-    library shape (S 128, D 192) and every other head dim (16, 32, 80) are
-    dense, counted in `flash_attention.dense_calls`, as JAX computes them
-    off a TPU. Outputs, and the gradients of the dense routes through
+    library shape (S 128, D 192) with a gradient needed, as here, and
+    every other head dim (16, 32, 80) are dense, counted in
+    `flash_attention.dense_calls`, as JAX computes them off a TPU; the
+    library shape without a gradient takes B6 (`sdpa_forward`, its plain
+    version here). Outputs, and the gradients of the dense routes through
     autograd, match JAX's `flash_attention` and `jax.grad` of it."""
     cases = [(64, 64, 1), (32, 128, 1), (128, 192, 0), (48, 16, 0),
              (40, 32, 0), (24, 80, 0)]
@@ -307,3 +309,9 @@ def test_causal_flash_attention_routes_like_jax():
             np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
                                        atol=1e-4, rtol=0,
                                        err_msg=str((S, D)))
+        sdpa = tfa.sdpa_forward.plain_calls
+        with torch.no_grad():
+            again = tfa.flash_attention(tq, tk, tv, causal=True)
+        assert tfa.sdpa_forward.plain_calls - sdpa == int(D == 192)
+        np.testing.assert_allclose(again.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=0, err_msg=str((S, D)))

@@ -9,6 +9,12 @@ This file imports nothing of jax or paddle_tpu. chip_smoke.py holds the
 kernels at the serving and training shapes; these cover the other head
 dims, lengths, block sizes and window widths the kernels take.
 
+The flash forward B6 (`sdpa_forward`): against `sdpa_forward_plain` at each
+dtype and head dim (64 to 256), causal and not, Sq == Skv and Sq != Skv,
+ragged lengths; its refusals; `flash_attention`'s library route (B6 with
+no gradient, a raise naming the backward with one); a Transformer on the
+card against the same Transformer on the CPU.
+
 Conv kernels (B7, B8): against `conv_bn_relu_plain` on the card with
 TF32 off, max |kernel - plain| relative to max |plain| (CONV_TOL); the
 ResNet on the card against the same ResNet on the CPU. The conv training
@@ -33,7 +39,8 @@ from paddle_tpu_torch.ops.flash_attention import (
     causal_attention_bwd, causal_attention_bwd_plain, causal_attention_fwd,
     causal_attention_plain, shortseq_attention, shortseq_attention_bwd,
     shortseq_attention_bwd_plain, shortseq_attention_fwd,
-    shortseq_attention_plain, flash_attention)
+    shortseq_attention_plain, flash_attention, pallas_sdpa_forward,
+    sdpa_forward, sdpa_forward_plain)
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops.conv import (
     conv1x1_bn_relu, conv1x1_bwd, conv1x1_bwd_plain, conv1x1_train,
@@ -66,6 +73,13 @@ BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (0.0, 1e-5)}
 # small multiple of 1e-7 of that; other sequences keep the causal
 # backward's limits.
 SHORTSEQ_BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (4e-6, 1e-5)}
+
+# B6 against its plain version, max |kernel - plain|: bf16 relative to max
+# |plain| (both divide the same fp32 sums up to their order, and a bf16
+# output on a rounding boundary may round the other way, one bf16 ulp of
+# the value, at most 2^-7 of max |plain|); f32 absolute (fp32 sums in
+# another order)
+SDPA_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 
 # conv kernels, max |kernel - plain| / max |plain|: both sum exact fp32
 # products in fp32, in other orders; bf16 output may then round the other
@@ -389,17 +403,99 @@ def test_shortseq_attention_grads_through_the_kernels(card):
     assert shortseq_bwd_within_tol(got, ref, torch.float32)
 
 
+def sdpa_within_tol(o, ref, dtype):
+    err = (o.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item() if dtype == torch.bfloat16 else 1.0
+    return err <= SDPA_TOL[dtype] * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("Sq,Skv,causal", [
+    (1, 1, True), (63, 63, True), (130, 130, True), (512, 512, False),
+    (64, 300, False), (257, 128, False), (1, 77, False)])
+def test_sdpa_forward_kernel_matches_plain(card, dtype, D, Sq, Skv, causal):
+    """B6 against its plain version, one launch a call, no plain call, the
+    same bits on a rerun (no atomics)."""
+    q = torch.randn((3, Sq, D), generator=card, device="cuda").to(dtype)
+    k, v = (torch.randn((3, Skv, D), generator=card, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(D)
+    ref = sdpa_forward_plain(q, k, v, scale, causal)
+    launches, plain = sdpa_forward.launches, sdpa_forward.plain_calls
+    o = sdpa_forward(q, k, v, scale, causal)
+    again = sdpa_forward(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert (sdpa_forward.launches - launches,
+            sdpa_forward.plain_calls - plain) == (2, 0)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert torch.equal(o, again)
+    assert sdpa_within_tol(o, ref, dtype)
+
+
+def test_pallas_sdpa_forward_on_the_card(card):
+    """The JAX entry point's port at B2 S256 H2 D128, causal and not: one
+    kernel launch, its output in paddle layout against the plain version
+    on the same `[BH, S, D]` rows; the block assert holds on the card
+    too."""
+    q, k, v = (torch.randn((2, 256, 2, 128), generator=card, device="cuda")
+               for _ in range(3))
+
+    def bh(x):
+        return x.transpose(1, 2).reshape(4, 256, 128).contiguous()
+
+    for causal in (True, False):
+        launches = sdpa_forward.launches
+        got = pallas_sdpa_forward(q, k, v, causal=causal, block_q=128)
+        assert sdpa_forward.launches == launches + 1
+        ref = sdpa_forward_plain(bh(q), bh(k), bh(v), 1.0 / math.sqrt(128),
+                                 causal)
+        assert sdpa_within_tol(bh(got), ref, torch.float32)
+    with pytest.raises(AssertionError):
+        pallas_sdpa_forward(q, k, v, block_q=96)
+
+
+def test_sdpa_forward_refuses_what_it_does_not_take(card):
+    z = torch.zeros((2, 128, 64), device="cuda")
+    for q, k, match in (
+            (torch.zeros((2, 128, 320), device="cuda"),) * 2 + ("256",),
+            (torch.zeros((2, 128, 96), device="cuda"),) * 2 + ("head_dim",),
+            (z.half(), z.half(), "dtype"),
+            (z.transpose(0, 1), z.transpose(0, 1), "contiguous"),
+            (z, z.bfloat16(), "share"),
+            (z, torch.zeros((3, 128, 64), device="cuda"), "share"),
+            (z, z.cpu(), "card")):
+        with pytest.raises(ValueError, match=match):
+            sdpa_forward(q, k, k)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        sdpa_forward(z, torch.zeros((2, 256, 64), device="cuda"),
+                     torch.zeros((2, 256, 64), device="cuda"), causal=True)
+
+
 def test_flash_attention_routes_on_the_card(card):
     """Non-causal shortseq shapes launch the shortseq kernel; non-causal
-    shapes that wait for the flash forward kernel B6 raise on the card;
-    shapes no kernel takes are dense."""
+    library shapes launch B6 when no gradient is needed and raise naming
+    the library route's backward when one is; head dim 320 raises naming
+    B6's limit; shapes no kernel takes are dense."""
     x = torch.randn((2, 256, 2, 64), generator=card, device="cuda")
     before = shortseq_attention_fwd.launches
     flash_attention(x, x, x, causal=False)
     assert shortseq_attention_fwd.launches == before + 1
-    z = torch.zeros((1, 1024, 2, 64), device="cuda")
-    with pytest.raises(NotImplementedError, match="B6"):
-        flash_attention(z, z, z, causal=False)
+    z = torch.randn((1, 1024, 2, 64), generator=card, device="cuda")
+    launches = sdpa_forward.launches
+    got = flash_attention(z, z, z, causal=False)
+    assert sdpa_forward.launches == launches + 1
+    assert (got.cpu() - flash_attention(z.cpu(), z.cpu(), z.cpu(),
+                                        causal=False)).abs().max() <= 1e-5
+    zg = z.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_attention(zg, zg, zg, causal=False)
+    with torch.no_grad():
+        flash_attention(zg, zg, zg, causal=False)
+    assert sdpa_forward.launches == launches + 2
+    z320 = torch.zeros((1, 128, 1, 320), device="cuda")
+    with pytest.raises(ValueError, match="256"):
+        flash_attention(z320, z320, z320, causal=False)
     dense = flash_attention.dense_calls
     z = torch.zeros((1, 96, 2, 64), device="cuda")
     assert flash_attention(z, z, z, causal=False).shape == z.shape
@@ -587,8 +683,9 @@ def test_causal_flash_attention_routes_on_the_card(card):
     """Causal self-attention in JAX's order (ROADMAP Queue C 8): head dim
     64 launches the causal kernel; head dim 16 computes densely instead of
     raising (dense_attention's result, counted); a library shape (S 128, D
-    192) raises naming B6; a tiny GPT (head dim 16) takes a train step on
-    the card with a finite loss."""
+    192) launches B6 without a gradient and raises naming the backward
+    with one; a tiny GPT (head dim 16) takes a train step on the card with
+    a finite loss."""
     from paddle_tpu_torch import AdamW, GPTConfig, GPTForCausalLM, TrainStep
     from paddle_tpu_torch.ops.flash_attention import dense_attention
 
@@ -602,9 +699,16 @@ def test_causal_flash_attention_routes_on_the_card(card):
     assert flash_attention.dense_calls == dense + 1
     torch.testing.assert_close(got, dense_attention(y, y, y, True),
                                rtol=0, atol=0)
-    z = torch.zeros((1, 128, 1, 192), device="cuda")
-    with pytest.raises(NotImplementedError, match="B6"):
-        flash_attention(z, z, z, causal=True)
+    z = torch.randn((1, 128, 1, 192), generator=card, device="cuda")
+    launches = sdpa_forward.launches
+    with torch.inference_mode():
+        got = flash_attention(z, z, z, causal=True)
+    assert sdpa_forward.launches == launches + 1
+    assert (got.cpu() - flash_attention(z.cpu(), z.cpu(), z.cpu(),
+                                        causal=True)).abs().max() <= 1e-5
+    zg = z.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_attention(zg, zg, zg, causal=True)
     model = GPTForCausalLM(GPTConfig.tiny(vocab=61, hidden=32, heads=2),
                            device="cuda", generator=card)
     step = TrainStep(model, AdamW(1e-3, parameters=model.parameters()),
@@ -862,3 +966,31 @@ def test_resnet50_train_step_on_the_card_matches_the_cpu(card):
                                 opt._accumulators["velocity"]]))
     assert abs(losses[0] - losses[1]) <= 2e-4 * abs(losses[1])
     assert ((grads[0] - grads[1]).norm() / grads[1].norm()).item() <= 0.3
+
+
+def test_transformer_on_the_card_matches_the_cpu(card):
+    """nn.Transformer(128, 2 heads, 2 + 2 layers, FFN 256), f32, from the
+    same weights, a source of 640 and a target of 128 under the causal
+    mask: B6 launches 4 times (the encoder self-attentions and the
+    cross-attentions), no plain call, nothing dense through
+    `flash_attention`; the output against the CPU within 1e-5 relative
+    L2."""
+    from paddle_tpu_torch import Transformer
+
+    model = Transformer(128, 2, 2, 2, 256, 0.0, device="cuda",
+                        generator=card).eval()
+    host = Transformer(128, 2, 2, 2, 256, 0.0, device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    src = torch.rand((2, 640, 128), generator=card, device="cuda") * 2 - 1
+    tgt = torch.rand((2, 128, 128), generator=card, device="cuda") * 2 - 1
+    mask = Transformer.generate_square_subsequent_mask(128)
+    launches, plain = sdpa_forward.launches, sdpa_forward.plain_calls
+    dense = flash_attention.dense_calls
+    with torch.inference_mode():
+        got = model(src, tgt, tgt_mask=mask)
+        torch.cuda.synchronize()
+        assert (sdpa_forward.launches - launches,
+                sdpa_forward.plain_calls - plain,
+                flash_attention.dense_calls - dense) == (4, 0, 0)
+        ref = host(src.cpu(), tgt.cpu(), tgt_mask=mask.cpu())
+    assert ((got.cpu() - ref).norm() / ref.norm()).item() <= 1e-5

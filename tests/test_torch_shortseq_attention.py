@@ -239,23 +239,31 @@ def _counts():
 def test_flash_attention_routes_like_jax():
     """Non-causal shortseq shapes take `shortseq_attention` (its plain
     version here); non-causal shapes JAX hands to the library kernel on a
-    TPU (S 1024) and every other non-causal shape (S 96, D 32) are dense
-    on the CPU, as JAX computes them there; causal Sq == Skv takes the
-    causal route. Each output matches JAX's `flash_attention`."""
-    cases = [((1, 128, 2, 64), False, (1, 0, 0)),
-             ((1, 1024, 1, 64), False, (0, 0, 1)),
-             ((2, 96, 2, 64), False, (0, 0, 1)),
-             ((2, 128, 2, 32), False, (0, 0, 1)),
-             ((1, 128, 2, 64), True, (0, 1, 0))]
+    TPU (S 1024) take B6 (`sdpa_forward`, its plain version here) when no
+    gradient is needed, as here, and are dense with one; every other
+    non-causal shape (S 96, D 32) is dense on the CPU, as JAX computes it
+    there; causal Sq == Skv takes the causal route. Each output matches
+    JAX's `flash_attention`. Counts: (shortseq, causal, dense, B6)."""
+    cases = [((1, 128, 2, 64), False, (1, 0, 0, 0)),
+             ((1, 1024, 1, 64), False, (0, 0, 0, 1)),
+             ((2, 96, 2, 64), False, (0, 0, 1, 0)),
+             ((2, 128, 2, 32), False, (0, 0, 1, 0)),
+             ((1, 128, 2, 64), True, (0, 1, 0, 0))]
     for i, ((b, S, h, D), causal, moved) in enumerate(cases):
         q, k, v = _bshd(20 + i, b, S, h, D)
         want = jfa.flash_attention(q, k, v, causal=causal)
-        before = _counts()
+        before = _counts() + (tfa.sdpa_forward.plain_calls,)
         got = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
                                   causal=causal)
-        assert tuple(a - b_ for a, b_ in zip(_counts(), before)) == moved
+        after = _counts() + (tfa.sdpa_forward.plain_calls,)
+        assert tuple(a - b_ for a, b_ in zip(after, before)) == moved
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                    rtol=0)
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _bshd(21, 1, 1024, 1, 64))
+    dense = tfa.flash_attention.dense_calls
+    tfa.flash_attention(q, k, v, causal=False)
+    assert tfa.flash_attention.dense_calls == dense + 1
 
 
 def test_sdpa_key_mask_route_and_dense_route_match_jax():
