@@ -17,14 +17,18 @@ Phases, each printing one JSON line:
 
 1. build: nvcc builds every kernel of the serving and training paths from
    paddle_tpu_torch/csrc (sm_90a), all at once; prints the card's name and
-   power limit as nvidia-smi reports them.
+   power limit as nvidia-smi reports them; counts, with cuobjdump -sass,
+   the HMMA (tensor-core) instructions of each bf16 causal kernel, and
+   fails if one has none or if either causal library holds an atomic.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16 and
    f32: outputs within tolerance, pools bit-identical; timings.
 3. causal_fwd: the causal attention kernel against its plain version at
-   B1 H16 S2048 D128 and at a ragged S=300, bf16 and f32; timings, with
-   torch's scaled_dot_product_attention timed as the library yardstick;
+   B1 H16 S2048 D128 and at a ragged S=300, bf16 and f32, a rerun giving
+   the same bits; bf16 timings at B1 H16 S2048 D128, L2 flushed, with the
+   achieved TFLOP/s and the share of the bound, and torch's
+   scaled_dot_product_attention timed as the library yardstick;
    shapes no kernel takes (causal Sq != Skv, non-causal 64 x 80, causal
    head dim 96) take the dense route; the library shapes (non-causal S
    1024, causal head dim 192) launch the flash forward B6 when no gradient
@@ -32,8 +36,10 @@ Phases, each printing one JSON line:
 4. causal_bwd: the causal attention backward kernel against its plain
    version at B2 H16 S2048 D128 (the training shape) and at S=300, bf16
    and f32, and at B1 H16 S256 f32 (train_parity's shape), for dq, dk and
-   dv; timings, with the backward of torch's scaled_dot_product_attention
-   (autograd.grad, its forward not timed) as the library yardstick.
+   dv; bf16 timings at the training shape, L2 flushed, with the achieved
+   TFLOP/s and the share of the bound, and the backward of torch's
+   scaled_dot_product_attention (autograd.grad, its forward not timed) as
+   the library yardstick.
 5. engine: GPT-1.3B at full width and depth, bf16, random weights from a
    seed, served greedily by GenerationEngine (8 slots, block 16, chunked
    prefill, prefix cache) over a trace with mid-run arrivals, a shared
@@ -190,7 +196,8 @@ one GPT train step, of one BERT train step, of one bf16 ResNet-50
 forward and one bf16 ResNet-50 train step on each route, and of one bf16
 Transformer forward. The line before
 the last
-lists the kernels with their launches, errors and times; the last line is
+lists the kernels with their launches, errors, times and design (tensor
+cores or fp32 FMA); the last line is
 the device line. Any failed phase exits non-zero without it. With no CUDA
 device, or without the repository beside it, the script fails.
 """
@@ -201,6 +208,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -363,6 +371,18 @@ SPEC_K = 4
 TOKEN_PARITY_MIN = 0.90
 
 
+# the bf16 kernels of each library that must run on the tensor cores
+# (function names as they appear in the SASS), and the opcodes counted
+MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
+               "causal_attention_bwd": ("dkdv_mma_kernel", "dq_mma_kernel")}
+SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)")
+SASS_ATOMICS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDUX")
+# each kernel's design: the bf16 causal pair runs on the tensor cores,
+# every other kernel is scalar fp32 FMA
+DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16"}
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -405,22 +425,91 @@ def dname(torch, dt):
 
 
 # ---------------------------------------------------------------------------
+def kernel_name(mangled):
+    """`name<template args>` of a mangled kernel function in a namespace
+    (the sources' anonymous one), e.g. dkdv_mma_kernel<128> or
+    dkdv_fma_kernel<float,128>."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if m is None:
+        return mangled
+    at = m.end() + int(m.group(1))         # past the namespace's name
+    m = re.match(r"\d+", mangled[at:])
+    if m is None:
+        return mangled
+    start, n = at + m.end(), int(m.group(0))
+    name, rest = mangled[start:start + n], mangled[start + n:]
+    args = (["float"] if rest.startswith("If") else
+            ["bf16"] if rest.startswith("I13__nv_bfloat16") else [])
+    args += re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0])
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_by_function(log):
+    """{kernel: its registers and spills} from nvcc's `-Xptxas -v`
+    output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif fn and ("registers" in line or "spill" in line):
+            text = line.split("ptxas info    :")[-1].strip()
+            out[fn] = f"{out[fn]}; {text}" if fn in out else text
+    return out
+
+
+def sass_counts(cuobjdump, lib):
+    """{kernel function (mangled): {"HMMA": n, "atomics": n}} of a built
+    library, from `cuobjdump -sass`."""
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"HMMA": 0, "atomics": 0}
+            continue
+        m = SASS_OPCODE.search(line)
+        if fn is None or m is None:
+            continue
+        op = m.group(1)
+        if op == "HMMA":
+            counts[fn]["HMMA"] += 1
+        elif op in SASS_ATOMICS:
+            counts[fn]["atomics"] += 1
+    return counts
+
+
 def phase_build(torch, ctx):
     from paddle_tpu_torch.utils import cpp_extension
 
     t0 = time.perf_counter()
     info = cpp_extension.build()
     secs = time.perf_counter() - t0
-    ptxas = {n: [ln.strip() for ln in i["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, i in info.items()}
+    ptxas = {n: ptxas_by_function(i["log"]) for n, i in info.items()}
     smi = nvidia_smi_line()
     ctx["smi"] = smi
     print(smi, flush=True)
-    emit({"phase": "build", "ok": True, "seconds": secs,
+    # the tensor cores are reached: every bf16 causal kernel holds HMMA
+    # instructions, and neither causal library an atomic
+    cuobjdump = os.path.join(os.path.dirname(cpp_extension.find_nvcc()),
+                             "cuobjdump")
+    sass, ok = {}, True
+    for lib, fns in MMA_KERNELS.items():
+        counts = sass_counts(cuobjdump, info[lib]["path"])
+        sass[lib] = {
+            "HMMA": {f: sum(c["HMMA"] for n, c in counts.items() if f in n)
+                     for f in fns},
+            "atomics": sum(c["atomics"] for c in counts.values())}
+        ok &= (all(n > 0 for n in sass[lib]["HMMA"].values())
+               and sass[lib]["atomics"] == 0)
+    emit({"phase": "build", "ok": bool(ok), "seconds": secs,
           "kernels": {n: {"seconds": i["seconds"], "cached": i["cached"]}
                       for n, i in info.items()},
-          "ptxas": ptxas, "nvidia_smi": smi})
+          "ptxas": ptxas, "sass": sass, "nvidia_smi": smi})
+    if not ok:
+        raise AssertionError(f"bf16 causal kernels without HMMA or with "
+                             f"atomics: {sass}")
 
 
 def _decode_case(torch, dtype, g):
@@ -557,28 +646,36 @@ def phase_causal_fwd(torch, ctx):
             scale = 1.0 / math.sqrt(D)
             o_ref, l_ref = causal_attention_plain(q, k, v, scale)
             o, lse = causal_attention_fwd(q, k, v, scale)
+            o2, lse2 = causal_attention_fwd(q, k, v, scale)
             torch.cuda.synchronize()
             err = (o.float() - o_ref.float()).abs().max().item()
             lerr = (lse - l_ref).abs().max().item()
+            same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
             name = dname(torch, dtype)
             case = {"dtype": name, "S": S, "max_abs_err": err,
                     "lse_max_abs_err": lerr, "tol": TOL[name],
-                    "lse_tol": LSE_TOL[name]}
-            ok &= err <= TOL[name] and lerr <= LSE_TOL[name]
+                    "lse_tol": LSE_TOL[name], "rerun_same_bits": same}
+            ok &= err <= TOL[name] and lerr <= LSE_TOL[name] and same
             if dtype == torch.bfloat16 and S == 2048:
+                flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                                    device="cuda")
                 kms = cuda_ms(torch, lambda: causal_attention_fwd(
-                    q, k, v, scale), 20)
+                    q, k, v, scale), 20, flush)
                 pms = cuda_ms(torch, lambda: causal_attention_plain(
-                    q, k, v, scale), 5)
+                    q, k, v, scale), 5, flush)
                 q4, k4, v4 = (x.view(1, BH, S, D) for x in (q, k, v))
                 lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, scale=scale), 20)
+                    q4, k4, v4, is_causal=True, scale=scale), 20, flush)
+                del flush
                 isz = q.element_size()
                 nbytes = 4 * BH * S * D * isz + BH * S * 4
                 flops = 2 * BH * D * S * (S + 1)
                 b, by = bound_ms(nbytes, flops, name)
                 case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
-                            bound_ms=b, bound_by=by)
+                            bound_ms=b, bound_by=by,
+                            tflops=flops / kms / 1e9,
+                            library_tflops=flops / lms / 1e9,
+                            share_of_bound=b / kms)
                 ctx["causal_fwd"] = dict(case, shape="B1 H16 S2048 D128")
             res["cases"].append(case)
     # the shapes a TPU hands to jax's library kernel, causal or not: B6
@@ -663,24 +760,29 @@ def phase_causal_bwd(torch, ctx):
                                    for e in errs.values())}
         ok &= passed
         if dtype == torch.bfloat16 and S == 2048:
+            flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                                device="cuda")
             kms = cuda_ms(torch, lambda: causal_attention_bwd(
-                q, k, v, o, do, lse, scale), 10)
+                q, k, v, o, do, lse, scale), 10, flush)
             pms = cuda_ms(torch, lambda: causal_attention_bwd_plain(
-                q, k, v, o, do, lse, scale), 5)
+                q, k, v, o, do, lse, scale), 5, flush)
             q4, k4, v4 = (x.view(B, H, S, D).clone().requires_grad_()
                           for x in (q, k, v))
             out4 = F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=True, scale=scale)
             do4 = do.view(B, H, S, D)
             lms = cuda_ms(torch, lambda: torch.autograd.grad(
-                out4, (q4, k4, v4), do4, retain_graph=True), 10)
-            del q4, k4, v4, out4
+                out4, (q4, k4, v4), do4, retain_graph=True), 10, flush)
+            del q4, k4, v4, out4, flush
             isz = q.element_size()
             nbytes = 8 * BH * S * D * isz + BH * S * 4
             flops = 5 * BH * D * S * (S + 1)
             b, by = bound_ms(nbytes, flops, name)
             case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
-                        bound_ms=b, bound_by=by)
+                        bound_ms=b, bound_by=by,
+                        tflops=flops / kms / 1e9,
+                        library_tflops=flops / lms / 1e9,
+                        share_of_bound=b / kms)
             ctx["causal_bwd"] = dict(case, shape="B2 H16 S2048 D128")
         res["cases"].append(case)
         del q, k, v, do, o, lse, ref, got
@@ -784,7 +886,8 @@ def _device_breakdown(prof, name):
                "shortseq_bwd_kernels" if "shortseq_d" in n else
                "causal_fwd_kernel" if "causal_fwd" in n else
                "causal_bwd_kernels" if any(t in n for t in (
-                   "dkdv_kernel", "dq_kernel", "delta_kernel")) else
+                   "dkdv_mma", "dq_mma", "delta_mma", "dkdv_fma", "dq_fma",
+                   "delta_fma")) else
                "gemm" if any(t in n.lower() for t in
                              ("gemm", "xmma", "cutlass", "gemv", "nvjet")) else
                e["cat"] if e["cat"] != "kernel" else "other kernels")
@@ -3046,7 +3149,8 @@ def main(argv=None):
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"),
             "library_ms": m.get("library_ms"), "shape": m.get("shape"),
-            "dtype": m.get("dtype")})
+            "dtype": m.get("dtype"),
+            "design": DESIGN.get(key, "fp32 FMA")})
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)
         return 1

@@ -6,7 +6,9 @@ Counterpart of paddle_tpu/ops/pallas/flash_attention.py:
   `csrc/causal_attention_bwd.cu` replace `_causal_fwd_kernel` and
   `_causal_bwd_kernel` (through `_causal_call_fwd` / `_causal_call_bwd`,
   joined by `_causal_attention`'s custom_vjp); `_CausalAttention` is that
-  custom_vjp and `chunked_causal_attention` goes through it;
+  custom_vjp and `chunked_causal_attention` goes through it. Their
+  bfloat16 path runs on the tensor cores (`mma.sync`, the fragment
+  helpers of `csrc/attention_mma.cuh`), their float32 path in fp32 FMA;
 - short-sequence (encoder) attention: `csrc/shortseq_attention.cu` and
   `csrc/shortseq_attention_bwd.cu` replace `_shortseq_fwd_kernel` /
   `_shortseq_fwd_kernel_masked` and `_shortseq_bwd_kernel` /
@@ -116,6 +118,9 @@ def _check_kernel_args(fn_name, named, head_dims=_HEAD_DIMS):
                              "kernel needs the card")
         if not t.is_contiguous():
             raise ValueError(f"{fn_name}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn_name}: {name} must be 16-byte aligned "
+                             "(the kernels copy 16 bytes a lane)")
         if t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError(f"{fn_name}: {', '.join(n for n, _ in named)} "
                              "must share one shape and dtype")
@@ -153,7 +158,8 @@ def causal_attention_fwd(q, k, v, scale=None):
     """Causal self-attention forward, `[BH, S, D]` -> (O `[BH, S, D]` in the
     input dtype, LSE `[BH, S]` fp32). CPU tensors take
     `causal_attention_plain`; CUDA tensors launch the kernel (any S,
-    D in {64, 128}, float32 or bfloat16, contiguous) or raise."""
+    D in {64, 128}, float32 or bfloat16, contiguous and 16-byte aligned)
+    or raise. bfloat16 runs on the tensor cores, float32 in fp32 FMA."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return causal_attention_plain(q, k, v, scale)
@@ -182,8 +188,8 @@ def causal_attention_bwd(q, k, v, o, do, lse, scale=None):
     """Causal self-attention backward, `[BH, S, D]` x5 and the forward's LSE
     `[BH, S]` fp32 -> (dq, dk, dv) in the input dtype. CPU tensors take
     `causal_attention_bwd_plain`; CUDA tensors launch the kernel (the
-    forward's shapes and dtypes, all contiguous, the LSE fp32
-    `[BH, S]`) or raise."""
+    forward's shapes and dtypes, all contiguous and 16-byte aligned, the
+    LSE fp32 `[BH, S]`) or raise."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return causal_attention_bwd_plain(q, k, v, o, do, lse, scale)

@@ -35,8 +35,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "paddle_tpu_torch")
 KERNEL_SOURCES = {
     "paged_decode": ("paged_decode.cu",),
     "paged_verify": ("paged_verify.cu",),
-    "causal_attention": ("causal_attention.cu",),
-    "causal_attention_bwd": ("causal_attention_bwd.cu",),
+    "causal_attention": ("causal_attention.cu", "attention_mma.cuh"),
+    "causal_attention_bwd": ("causal_attention_bwd.cu", "attention_mma.cuh"),
     "shortseq_attention": ("shortseq_attention.cu",),
     "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",),
     "sdpa_forward": ("sdpa_forward.cu",),

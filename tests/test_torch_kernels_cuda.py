@@ -7,7 +7,9 @@ interpret mode). On a machine with a card, without jax installed:
 
 This file imports nothing of jax or paddle_tpu. chip_smoke.py holds the
 kernels at the serving and training shapes; these cover the other head
-dims, lengths, block sizes and window widths the kernels take.
+dims, lengths, block sizes and window widths the kernels take. The causal
+pair (bf16 on the tensor cores, f32 in fp32 FMA) runs at the tile edges of
+both designs and at a BH of 1 as well as 4; both refuse a misaligned view.
 
 The flash forward B6 (`sdpa_forward`): against `sdpa_forward_plain` at each
 dtype and head dim (64 to 256), causal and not, Sq == Skv and Sq != Skv,
@@ -279,28 +281,40 @@ def test_paged_decode_int8_kernel_matches_plain(card, dtype, D, bs):
     assert err <= TOL[dtype] and pools and scales
 
 
+# the causal kernels' lengths: the tile edges of the bf16 design (16-row
+# warp blocks, 64-key and 64-row tiles, 128-row forward q tiles) and of the
+# f32 design (64), a length of one, ragged lengths, and a long one
+CAUSAL_S = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300, 512, 1000]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("S", [1, 63, 64, 129, 512])
-def test_causal_kernel_matches_plain(card, dtype, D, S):
-    q, k, v = (torch.randn((4, S, D), generator=card,
+@pytest.mark.parametrize("S", CAUSAL_S)
+@pytest.mark.parametrize("BH", [1, 4])
+def test_causal_kernel_matches_plain(card, dtype, D, S, BH):
+    """O and the LSE of the kernel against the plain version, the same
+    bits on a rerun; BH 1 leaves most of the card's SMs idle."""
+    q, k, v = (torch.randn((BH, S, D), generator=card,
                            device="cuda").to(dtype) for _ in range(3))
     scale = 1.0 / math.sqrt(D)
     o_ref, l_ref = causal_attention_plain(q, k, v, scale)
     o, lse = causal_attention_fwd(q, k, v, scale)
+    o2, lse2 = causal_attention_fwd(q, k, v, scale)
     torch.cuda.synchronize()
     assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype]
     lse_tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
     assert (lse - l_ref).abs().max().item() <= lse_tol
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("S", [1, 63, 64, 129, 512])
-def test_causal_bwd_kernel_matches_plain(card, dtype, D, S):
+@pytest.mark.parametrize("S", CAUSAL_S)
+@pytest.mark.parametrize("BH", [1, 4])
+def test_causal_bwd_kernel_matches_plain(card, dtype, D, S, BH):
     """dq, dk, dv of the kernel against the plain version from the same
     forward O and LSE, one launch counted, the same bits on a rerun."""
-    q, k, v, do = (torch.randn((4, S, D), generator=card,
+    q, k, v, do = (torch.randn((BH, S, D), generator=card,
                                device="cuda").to(dtype) for _ in range(4))
     scale = 1.0 / math.sqrt(D)
     o, lse = causal_attention_fwd(q, k, v, scale)
@@ -575,6 +589,26 @@ def test_kernels_refuse_what_they_do_not_take(card):
                                     pool.clone(),
                                     torch.zeros((4, 2), device="cuda"), 0,
                                     tb, pos)
+
+
+def test_causal_kernels_refuse_a_misaligned_view(card):
+    """A contiguous bf16 view whose storage starts 2 bytes past a 16-byte
+    boundary: the kernels copy 16 bytes a lane, so both raise before a
+    launch instead of faulting."""
+    n = 2 * 8 * 64
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16, device="cuda")
+    x = flat[1:1 + n].view(2, 8, 64)
+    z = flat[8:8 + n].view(2, 8, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    assert z.data_ptr() % 16 == 0
+    lse = torch.zeros((2, 8), device="cuda")
+    fwd, bwd = causal_attention_fwd.launches, causal_attention_bwd.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        causal_attention_fwd(x, z, z)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        causal_attention_bwd(z, z, z, z, x, lse)
+    assert causal_attention_fwd.launches == fwd
+    assert causal_attention_bwd.launches == bwd
 
 
 def conv_case(g, N, H, W, cin, cout, k, dtype):
