@@ -18,8 +18,10 @@ Phases, each printing one JSON line:
 1. build: nvcc builds every kernel of the serving and training paths from
    paddle_tpu_torch/csrc (sm_90a), all at once; prints the card's name and
    power limit as nvidia-smi reports them; counts, with cuobjdump -sass,
-   the HMMA (tensor-core) instructions of each bf16 causal kernel, and
-   fails if one has none or if either causal library holds an atomic.
+   the HMMA (tensor-core) instructions of each bf16 mma kernel (the causal
+   pair, the shortseq forward, the flash forward B6), and fails if one has
+   none, if a library of them holds an atomic, or if ptxas reports a spill
+   in any mma kernel.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16 and
@@ -96,7 +98,8 @@ Phases, each printing one JSON line:
    over heads), then at bench.py's BERT shape (B64 H12 S512 D64 bf16),
    timed against its bound, its plain version and torch's
    scaled_dot_product_attention (non-causal, a float [B, 1, 1, S] mask
-   for the masked variant).
+   for the masked variant), with the achieved TFLOP/s and the share of
+   the bound.
 15. shortseq_bwd: its backward kernel likewise, from the kernel's forward
    O and LSE, per sequence for dq, dk and dv; the library yardstick is
    autograd.grad through scaled_dot_product_attention.
@@ -151,7 +154,8 @@ Phases, each printing one JSON line:
    point pallas_sdpa_forward's flagship shape (B2 H16 S2048 D128, causal,
    through that entry point) and the library route's causal head dim (B1
    H8 S2048 D256); bf16 timings, L2 flushed, against the bound, the plain
-   version and torch's scaled_dot_product_attention. Then the routes: a
+   version and torch's scaled_dot_product_attention, with the achieved
+   TFLOP/s and the share of the bound. Then the routes: a
    no-grad library shape launches B6, a grad-requiring one raises naming
    the backward, head dim 320 raises, and pallas_sdpa_forward with S not a
    multiple of its block fails its assert.
@@ -374,13 +378,19 @@ TOKEN_PARITY_MIN = 0.90
 # the bf16 kernels of each library that must run on the tensor cores
 # (function names as they appear in the SASS), and the opcodes counted
 MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
-               "causal_attention_bwd": ("dkdv_mma_kernel", "dq_mma_kernel")}
+               "causal_attention_bwd": ("dkdv_mma_kernel", "dq_mma_kernel"),
+               "shortseq_attention": ("shortseq_fwd_mma_kernel",),
+               "sdpa_forward": ("sdpa_fwd_mma_kernel",)}
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                          r"([A-Z][A-Z0-9_]*)")
 SASS_ATOMICS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDUX")
-# each kernel's design: the bf16 causal pair runs on the tensor cores,
+SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+# each kernel's design: the bf16 causal pair, the bf16 shortseq forward
+# (both variants) and the bf16 flash forward B6 run on the tensor cores,
 # every other kernel is scalar fp32 FMA
-DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16"}
+DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
+          "shortseq_fwd": "mma.sync bf16",
+          "shortseq_fwd_masked": "mma.sync bf16", "sdpa_fwd": "mma.sync bf16"}
 
 
 def emit(obj):
@@ -427,8 +437,9 @@ def dname(torch, dt):
 # ---------------------------------------------------------------------------
 def kernel_name(mangled):
     """`name<template args>` of a mangled kernel function in a namespace
-    (the sources' anonymous one), e.g. dkdv_mma_kernel<128> or
-    dkdv_fma_kernel<float,128>."""
+    (the sources' anonymous one), e.g. dkdv_mma_kernel<128>,
+    dkdv_fma_kernel<float,128> or sdpa_fwd_mma_kernel<64,1> (a bool as 0
+    or 1)."""
     m = re.match(r"_ZN(\d+)", mangled)
     if m is None:
         return mangled
@@ -440,7 +451,7 @@ def kernel_name(mangled):
     name, rest = mangled[start:start + n], mangled[start + n:]
     args = (["float"] if rest.startswith("If") else
             ["bf16"] if rest.startswith("I13__nv_bfloat16") else [])
-    args += re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0])
+    args += re.findall(r"L[ib](\d+)E", rest.split("Ev", 1)[0])
     return f"{name}<{','.join(args)}>" if args else name
 
 
@@ -490,8 +501,8 @@ def phase_build(torch, ctx):
     smi = nvidia_smi_line()
     ctx["smi"] = smi
     print(smi, flush=True)
-    # the tensor cores are reached: every bf16 causal kernel holds HMMA
-    # instructions, and neither causal library an atomic
+    # the tensor cores are reached: every bf16 mma kernel holds HMMA
+    # instructions, no library of them an atomic, and no mma kernel spills
     cuobjdump = os.path.join(os.path.dirname(cpp_extension.find_nvcc()),
                              "cuobjdump")
     sass, ok = {}, True
@@ -503,13 +514,18 @@ def phase_build(torch, ctx):
             "atomics": sum(c["atomics"] for c in counts.values())}
         ok &= (all(n > 0 for n in sass[lib]["HMMA"].values())
                and sass[lib]["atomics"] == 0)
+    spills = {f"{lib}: {fn}": text for lib, fns in ptxas.items()
+              for fn, text in fns.items() if "_mma_kernel" in fn
+              and any(int(a) or int(b) for a, b in SPILL.findall(text))}
+    ok &= not spills
     emit({"phase": "build", "ok": bool(ok), "seconds": secs,
           "kernels": {n: {"seconds": i["seconds"], "cached": i["cached"]}
                       for n, i in info.items()},
-          "ptxas": ptxas, "sass": sass, "nvidia_smi": smi})
+          "ptxas": ptxas, "sass": sass, "mma_spills": spills,
+          "nvidia_smi": smi})
     if not ok:
-        raise AssertionError(f"bf16 causal kernels without HMMA or with "
-                             f"atomics: {sass}")
+        raise AssertionError(f"bf16 mma kernels without HMMA, with atomics "
+                             f"or with spills: {sass}, spills {spills}")
 
 
 def _decode_case(torch, dtype, g):
@@ -1773,8 +1789,12 @@ def phase_shortseq_fwd(torch, ctx):
         lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=m4, scale=scale), 20, flush)
         b, by = _shortseq_bound(BH, S, D, q.element_size(), Bb, masked, True)
+        flops = 4 * BH * S * S * D
         case = dict(case, dtype="bfloat16", masked=masked, kernel_ms=kms,
                     plain_ms=pms, library_ms=lms, bound_ms=b, bound_by=by,
+                    tflops=flops / kms / 1e9,
+                    library_tflops=flops / lms / 1e9,
+                    share_of_bound=b / kms,
                     shape="B64 H12 S512 D64" + (
                         ", rows keep 128-512 keys" if masked else ""))
         ok &= case["ok"]
@@ -2731,11 +2751,12 @@ SDPA_SHAPES = (("encoder_self_attention", 8, 8, 1024, 1024, 64, False),
 
 def _sdpa_bound(BH, Sq, Skv, D, causal, isz, dtype_name):
     """q, k, v read and O written once; 4 BH Sq Skv D FLOP (QK and PV),
-    over the lower triangle with its diagonal when causal."""
+    over the lower triangle with its diagonal when causal. Returns (bound
+    ms, what bounds it, FLOP)."""
     nbytes = 2 * BH * (Sq + Skv) * D * isz
     flops = (2 * BH * D * Sq * (Sq + 1) if causal
              else 4 * BH * Sq * Skv * D)
-    return bound_ms(nbytes, flops, dtype_name)
+    return (*bound_ms(nbytes, flops, dtype_name), flops)
 
 
 def phase_sdpa_fwd(torch, ctx):
@@ -2788,10 +2809,13 @@ def phase_sdpa_fwd(torch, ctx):
                 q4, k4, v4 = (x.view(B, H, -1, D) for x in (qh, kh, vh))
                 lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=causal, scale=scale), 10, flush)
-                b, by = _sdpa_bound(BH, Sq, Skv, D, causal,
-                                    q.element_size(), dn)
+                b, by, flops = _sdpa_bound(BH, Sq, Skv, D, causal,
+                                           q.element_size(), dn)
                 case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
-                            bound_ms=b, bound_by=by)
+                            bound_ms=b, bound_by=by,
+                            tflops=flops / kms / 1e9,
+                            library_tflops=flops / lms / 1e9,
+                            share_of_bound=b / kms)
                 if name == "encoder_self_attention":
                     ctx["sdpa_fwd"] = dict(case)
             case["ok"] = bool(passed)

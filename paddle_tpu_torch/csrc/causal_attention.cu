@@ -273,15 +273,7 @@ __global__ void __launch_bounds__(kMmaThreads) causal_fwd_mma_kernel(
     for (int nb = 0; nb < NK; ++nb)
       s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NK / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, frag_addr<D>(cK, np * 16, kk * 16, lane));
-        mma_bf16(s[2 * np], qf[kk], b[0], b[2]);
-        mma_bf16(s[2 * np + 1], qf[kk], b[1], b[3]);
-      }
-    }
+    for (int kk = 0; kk < KD; ++kk) qk_step<D>(s, qf[kk], cK, kk, lane);
 
     // scale, the causal mask on a tile that crosses the warp's diagonal,
     // and the tile's row max
@@ -304,8 +296,7 @@ __global__ void __launch_bounds__(kMmaThreads) causal_fwd_mma_kernel(
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mx[i] = quad_max(mx[i]);
       alpha[i] = exp2f((m[i] - mx[i]) * kLog2e);
       m[i] = mx[i];
     }
@@ -333,13 +324,7 @@ __global__ void __launch_bounds__(kMmaThreads) causal_fwd_mma_kernel(
     for (int kk = 0; kk < kMmaBK / 16; ++kk) {
       uint32_t pa[4];
       c_to_a(pa, s, kk);
-#pragma unroll
-      for (int dp = 0; dp < ND / 2; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, frag_addr<D>(cV, kk * 16, dp * 16, lane));
-        mma_bf16(acc[2 * dp], pa, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], pa, b[2], b[3]);
-      }
+      pv_step<D>(acc, pa, cV, kk, lane);
     }
   }
 
@@ -347,8 +332,7 @@ __global__ void __launch_bounds__(kMmaThreads) causal_fwd_mma_kernel(
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = quad_sum(l[i]);
     inv[i] = 1.f / fmaxf(l[i], 1e-30f);
   }
   store_rows<D>(o + base, acc, wrow, S, lane, inv[0], inv[1]);

@@ -14,10 +14,14 @@ Counterpart of paddle_tpu/ops/pallas/flash_attention.py:
   `_shortseq_fwd_kernel_masked` and `_shortseq_bwd_kernel` /
   `_shortseq_bwd_kernel_masked` (through `_shortseq_call_fwd` /
   `_shortseq_call_bwd`); `_ShortseqAttention` is `_shortseq_attention`'s
-  custom_vjp and `shortseq_attention` goes through it;
+  custom_vjp and `shortseq_attention` goes through it. The forward's
+  bfloat16 path runs on the tensor cores, its float32 path and the
+  backward in fp32 FMA;
 - the flash forward: `csrc/sdpa_forward.cu` replaces `_sdpa_fwd_kernel`
   (B6, through `pallas_sdpa_forward`), and also serves `flash_attention`'s
-  library route, the shapes a TPU hands to jax's library flash kernel;
+  library route, the shapes a TPU hands to jax's library flash kernel.
+  Its bfloat16 path runs on the tensor cores, its float32 path in fp32
+  FMA;
 - `flash_attention` ports the routing.
 
 Each kernel wrapper takes the plain version for CPU tensors and launches

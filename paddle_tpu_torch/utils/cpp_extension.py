@@ -37,9 +37,9 @@ KERNEL_SOURCES = {
     "paged_verify": ("paged_verify.cu",),
     "causal_attention": ("causal_attention.cu", "attention_mma.cuh"),
     "causal_attention_bwd": ("causal_attention_bwd.cu", "attention_mma.cuh"),
-    "shortseq_attention": ("shortseq_attention.cu",),
+    "shortseq_attention": ("shortseq_attention.cu", "attention_mma.cuh"),
     "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",),
-    "sdpa_forward": ("sdpa_forward.cu",),
+    "sdpa_forward": ("sdpa_forward.cu", "attention_mma.cuh"),
     "conv_bn_relu": ("conv_bn_relu.cu", "conv_common.cuh"),
     "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh"),
 }

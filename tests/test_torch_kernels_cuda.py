@@ -11,9 +11,14 @@ dims, lengths, block sizes and window widths the kernels take. The causal
 pair (bf16 on the tensor cores, f32 in fp32 FMA) runs at the tile edges of
 both designs and at a BH of 1 as well as 4; both refuse a misaligned view.
 
+The shortseq forward B12 (bf16 on the tensor cores in two passes, f32 in
+fp32 FMA) at every S it takes, a rerun giving the same bits, and with
+peaked logits (q scaled by 8), where a wrong row max shows.
+
 The flash forward B6 (`sdpa_forward`): against `sdpa_forward_plain` at each
 dtype and head dim (64 to 256), causal and not, Sq == Skv and Sq != Skv,
-ragged lengths; its refusals; `flash_attention`'s library route (B6 with
+ragged lengths; with peaked logits and a ragged key tail, where a wrong
+online rescale or an unmasked tail key shows; its refusals; `flash_attention`'s library route (B6 with
 no gradient, a raise naming the backward with one); a Transformer on the
 card against the same Transformer on the CPU.
 
@@ -75,6 +80,13 @@ BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (0.0, 1e-5)}
 # small multiple of 1e-7 of that; other sequences keep the causal
 # backward's limits.
 SHORTSEQ_BWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (4e-6, 1e-5)}
+
+# shortseq forward with peaked logits, per sequence as SHORTSEQ_BWD_TOL,
+# over O: bf16 relative to the slab's max |O| (O is then close to single
+# rows of v, up to ~4, where one bf16 ulp is 2^-5 and a value on a rounding
+# boundary may round the other way: at most 2^-7 of the value), f32
+# absolute (chip_smoke.py's SHORTSEQ_FWD_TOL)
+SHORTSEQ_FWD_TOL = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (0.0, 1e-5)}
 
 # B6 against its plain version, max |kernel - plain|: bf16 relative to max
 # |plain| (both divide the same fp32 sums up to their order, and a bf16
@@ -331,12 +343,13 @@ def test_causal_bwd_kernel_matches_plain(card, dtype, D, S, BH):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("S", [128, 256, 512])
+@pytest.mark.parametrize("S", [128, 256, 384, 512])
 @pytest.mark.parametrize("mask", [None, "B", "BH"])
 def test_shortseq_kernel_matches_plain(card, dtype, D, S, mask):
     """O and LSE of the forward kernel (mask-free, a [B, S] mask broadcast
     over heads, a [BH, S] mask; padded tails and one all-padding sequence)
-    against the plain version; the variant's own count moves."""
+    against the plain version; the variant's own count moves; a rerun gives
+    the same bits."""
     B, H = 3, 2
     q, k, v = (torch.randn((B * H, S, D), generator=card,
                            device="cuda").to(dtype) for _ in range(3))
@@ -358,6 +371,36 @@ def test_shortseq_kernel_matches_plain(card, dtype, D, S, mask):
         last = slice((B - 1) * H, B * H) if mask == "B" else slice(-1, None)
         mean = v[last].float().mean(1, keepdim=True)
         assert (o[last].float() - mean).abs().max().item() <= TOL[dtype]
+    o2, lse2 = shortseq_attention_fwd(q, k, v, scale, km)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [128, 512])
+@pytest.mark.parametrize("mask", [None, "B"])
+def test_shortseq_kernel_with_peaked_logits(card, D, S, mask):
+    """bf16, q scaled by 8: logits of ~8 times the usual spread, so each
+    row's softmax is dominated by a few keys and p = exp(s - m) is far from
+    1 elsewhere; a row max taken over part of the keys, or different in the
+    two passes, moves O and the LSE far past the bars. O per sequence
+    within SHORTSEQ_FWD_TOL, the LSE as the bf16 case above, the same bits
+    on a rerun."""
+    B, H = 3, 2
+    q, k, v = (torch.randn((B * H, S, D), generator=card, device="cuda")
+               for _ in range(3))
+    q, k, v = (8 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    km = shortseq_key_mask(B, H, S, mask)
+    scale = 1.0 / math.sqrt(D)
+    o_ref, l_ref = shortseq_attention_plain(q, k, v, scale, km)
+    o, lse = shortseq_attention_fwd(q, k, v, scale, km)
+    o2, lse2 = shortseq_attention_fwd(q, k, v, scale, km)
+    torch.cuda.synchronize()
+    rel, floor = SHORTSEQ_FWD_TOL[torch.bfloat16]
+    err = (o.float() - o_ref.float()).abs().amax((1, 2))
+    assert bool((err <= rel * o_ref.float().abs().amax((1, 2))
+                 + floor).all())
+    assert (lse - l_ref).abs().max().item() <= 1e-3
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -427,10 +470,13 @@ def sdpa_within_tol(o, ref, dtype):
 @pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("Sq,Skv,causal", [
     (1, 1, True), (63, 63, True), (130, 130, True), (512, 512, False),
-    (64, 300, False), (257, 128, False), (1, 77, False)])
+    (64, 300, False), (257, 128, False), (1, 77, False),
+    (1000, 1000, True), (300, 700, False)])
 def test_sdpa_forward_kernel_matches_plain(card, dtype, D, Sq, Skv, causal):
     """B6 against its plain version, one launch a call, no plain call, the
-    same bits on a rerun (no atomics)."""
+    same bits on a rerun (no atomics); the last two shapes walk many q and
+    key tiles (at D 192 and 256 the bf16 design reads Q's fragments again
+    from shared memory at every key tile)."""
     q = torch.randn((3, Sq, D), generator=card, device="cuda").to(dtype)
     k, v = (torch.randn((3, Skv, D), generator=card, device="cuda").to(dtype)
             for _ in range(2))
@@ -445,6 +491,28 @@ def test_sdpa_forward_kernel_matches_plain(card, dtype, D, Sq, Skv, causal):
     assert o.dtype == dtype and o.shape == q.shape
     assert torch.equal(o, again)
     assert sdpa_within_tol(o, ref, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Skv,causal", [(200, 1000, False),
+                                           (1000, 1000, True)])
+def test_sdpa_forward_kernel_with_peaked_logits(card, D, Sq, Skv, causal):
+    """bf16, q scaled by 8 and a key length not a multiple of the 64-key
+    tile: the running max moves by many units from tile to tile, so a wrong
+    rescale of l or of the accumulator shows, and the zero-filled keys
+    past Skv would score 0 (a large weight against peaked logits) if left
+    unmasked. Within SDPA_TOL, the same bits on a rerun."""
+    q = torch.randn((3, Sq, D), generator=card, device="cuda")
+    k, v = (torch.randn((3, Skv, D), generator=card, device="cuda")
+            for _ in range(2))
+    q, k, v = (8 * q).bfloat16(), k.bfloat16(), v.bfloat16()
+    scale = 1.0 / math.sqrt(D)
+    ref = sdpa_forward_plain(q, k, v, scale, causal)
+    o = sdpa_forward(q, k, v, scale, causal)
+    again = sdpa_forward(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again)
+    assert sdpa_within_tol(o, ref, torch.bfloat16)
 
 
 def test_pallas_sdpa_forward_on_the_card(card):

@@ -11,6 +11,11 @@ and its CPU routing is counted: B6's plain version when no gradient is
 needed, the dense route (counted) when one is; GPT and BERT shapes keep
 their kernels' routes. Same seeded numpy inputs to both packages; fp32;
 within 1e-5 (fp32 sums in another order).
+
+The bf16 design of the CUDA kernel keeps P at fp32 precision on the
+tensor cores by splitting it into hi = bf16(p) and lo = bf16(p - hi);
+`test_hi_lo_split_keeps_p_at_fp32_precision` emulates that walk in plain
+torch and holds it to the plain version's fp32-P product.
 """
 import importlib
 import math
@@ -179,3 +184,53 @@ def test_library_route_with_a_gradient_is_dense_on_the_cpu(shape, causal):
     with torch.no_grad():
         tfa.flash_attention(tq, tk, tv, causal=causal)
     assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 0, 1)
+
+
+# the split's bar: hi + lo carries p to about 2^-16 relative, and fp32
+# sums in another order add ~1e-7; a quarter of the way from there to the
+# 2^-9 rounding of a bf16 P, and well under the bf16 output's own 2^-9
+SPLIT_REL_TOL = 2.0 ** -14
+
+
+def _b6_bf16_walk(q, k, v, scale, split):
+    """The bf16 kernel's arithmetic on one q tile in plain torch: 64-key
+    tiles, fp32 scores of bf16 inputs (exact products), B6's online
+    softmax, and P into PV as bf16 hi and lo parts (`split`) or rounded to
+    bf16 alone, each product of bf16 values summed in fp32; O = acc /
+    max(l, 1e-30)."""
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[1], 64):
+        kt, vt = k[:, k0:k0 + 64], v[:, k0:k0 + 64]
+        s = torch.matmul(q, kt.transpose(1, 2)) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        acc = acc * alpha + torch.matmul(hi, vt)
+        if split:
+            acc = acc + torch.matmul((p - hi).bfloat16().float(), vt)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0])
+def test_hi_lo_split_keeps_p_at_fp32_precision(peak):
+    """At the Transformer-base encoder's tile (a 128-row q tile against
+    1024 keys, D 64; q scaled by `peak`), bf16 inputs: the hi/lo walk
+    stays within SPLIT_REL_TOL of `sdpa_forward_plain`'s fp32-P result,
+    relative to its max |O|, and rounding P to bf16 alone reads at least
+    16 times further off, past 2^-12."""
+    q, k, v = _rand(int(peak), (1, 128, 64), (1, 1024, 64), (1, 1024, 64))
+    q, k, v = (torch.from_numpy(x).bfloat16().float()
+               for x in (peak * q, k, v))
+    scale = 1.0 / math.sqrt(64)
+    want = tfa.sdpa_forward_plain(q, k, v, scale)
+    top = want.abs().max().item()
+    split = (_b6_bf16_walk(q, k, v, scale, True) - want).abs().max().item()
+    rounded = (_b6_bf16_walk(q, k, v, scale, False)
+               - want).abs().max().item()
+    assert split <= SPLIT_REL_TOL * top
+    assert rounded >= max(16 * split, 2.0 ** -12 * top)
