@@ -19,9 +19,9 @@ Phases, each printing one JSON line:
    paddle_tpu_torch/csrc (sm_90a), all at once; prints the card's name and
    power limit as nvidia-smi reports them; counts, with cuobjdump -sass,
    the HMMA (tensor-core) instructions of each bf16 mma kernel (the causal
-   pair, the shortseq forward, the flash forward B6), and fails if one has
-   none, if a library of them holds an atomic, or if ptxas reports a spill
-   in any mma kernel.
+   pair, the shortseq forward and backward, the flash forward B6, the 3x3
+   dWeight B11), and fails if one has none, if a library of them holds an
+   atomic, or if ptxas reports a spill in any mma kernel.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16 and
@@ -134,7 +134,10 @@ Phases, each printing one JSON line:
    bundle), the 3x3 dWeight (B11) and B8 as the 3x3 dX walk over the
    dilated dConv; bf16 timings at the sweep shapes against the bound, the
    plain version and the library call (B10: aten.convolution_backward of
-   the 1x1, products only; B11: torch.nn.grad.conv2d_weight; B9: none).
+   the 1x1, products only; B11: torch.nn.grad.conv2d_weight; B9: none);
+   at each timed shape the bf16 B11, its plain version and the library
+   call (on the bf16 inputs and on their fp32 copies) against an fp64
+   reference.
 22. resnet_train: bench.py's resnet50 row, nothing cut: resnet50(1000),
    bf16, seed-0 weights, Momentum(0.1, 0.9), TrainStep(cross_entropy), one
    batch of 256 x 3 x 224 x 224 from uniform(-1, 1) with random labels,
@@ -380,17 +383,48 @@ TOKEN_PARITY_MIN = 0.90
 MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                "causal_attention_bwd": ("dkdv_mma_kernel", "dq_mma_kernel"),
                "shortseq_attention": ("shortseq_fwd_mma_kernel",),
-               "sdpa_forward": ("sdpa_fwd_mma_kernel",)}
+               "shortseq_attention_bwd": ("shortseq_dkdv_mma_kernel",
+                                          "shortseq_dq_mma_kernel"),
+               "sdpa_forward": ("sdpa_fwd_mma_kernel",),
+               "conv_bn_relu_bwd": ("conv3x3_dw_mma_kernel",)}
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                          r"([A-Z][A-Z0-9_]*)")
 SASS_ATOMICS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDUX")
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 # each kernel's design: the bf16 causal pair, the bf16 shortseq forward
-# (both variants) and the bf16 flash forward B6 run on the tensor cores,
-# every other kernel is scalar fp32 FMA
+# and backward (both variants), the bf16 flash forward B6 and the bf16 3x3
+# dWeight B11 run on the tensor cores, every other kernel is scalar fp32
+# FMA
 DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "shortseq_fwd": "mma.sync bf16",
-          "shortseq_fwd_masked": "mma.sync bf16", "sdpa_fwd": "mma.sync bf16"}
+          "shortseq_fwd_masked": "mma.sync bf16",
+          "shortseq_bwd": "mma.sync bf16",
+          "shortseq_bwd_masked": "mma.sync bf16", "sdpa_fwd": "mma.sync bf16",
+          "conv3x3_dw": "mma.sync bf16"}
+# a device-time family of the profiles, by a substring of the kernel's
+# name in lower case, first match wins: the port's conv kernels before
+# cuDNN's (whose names may hold "conv2d"), and the shortseq backward's
+# (shortseq_delta_, shortseq_dkdv_, shortseq_dq_) before the causal
+# backward's, whose names they contain
+KERNEL_FAMILIES = (
+    ("conv1x1_bn_relu_kernel", ("conv1x1_bn_relu",)),
+    ("conv3x3_bn_relu_kernel", ("conv3x3_bn_relu",)),
+    ("conv1x1_train_kernel", ("conv1x1_train",)),
+    ("conv3x3_train_kernel", ("conv3x3_train",)),
+    ("conv1x1_bwd_kernels", ("conv1x1_bwd",)),
+    ("conv3x3_dw_kernel", ("conv3x3_dw",)),
+    ("sum_rows_kernel", ("sum_rows",)),
+    ("sdpa_fwd_kernel", ("sdpa_fwd",)),
+    ("cudnn conv", ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
+                    "conv2d", "convolve")),
+    ("paged_verify_kernel", ("paged_verify",)),
+    ("paged_decode_kernel", ("paged_decode",)),
+    ("shortseq_fwd_kernel", ("shortseq_fwd",)),
+    ("shortseq_bwd_kernels", ("shortseq_d",)),
+    ("causal_fwd_kernel", ("causal_fwd",)),
+    ("causal_bwd_kernels", ("dkdv_mma", "dq_mma", "delta_mma", "dkdv_fma",
+                            "dq_fma", "delta_fma")),
+    ("gemm", ("gemm", "xmma", "cutlass", "gemv", "nvjet")))
 
 
 def emit(obj):
@@ -859,6 +893,16 @@ def _model(torch, dtype, seed):
     return m
 
 
+def kernel_family(name, cat="kernel"):
+    """The device-time family of a profiled event (KERNEL_FAMILIES), or
+    the event's category."""
+    lower = name.lower()
+    for family, tags in KERNEL_FAMILIES:
+        if any(t in lower for t in tags):
+            return family
+    return cat if cat != "kernel" else "other kernels"
+
+
 def _device_breakdown(prof, name):
     """Device time of a profiled window from its chrome trace (written to
     build/paddle_tpu_torch/<name>_trace.json): busy time (the union of
@@ -884,29 +928,7 @@ def _device_breakdown(prof, name):
     fam, by_name = {}, {}
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-        n = e["name"]
-        key = ("conv1x1_bn_relu_kernel" if "conv1x1_bn_relu" in n else
-               "conv3x3_bn_relu_kernel" if "conv3x3_bn_relu" in n else
-               "conv1x1_train_kernel" if "conv1x1_train" in n else
-               "conv3x3_train_kernel" if "conv3x3_train" in n else
-               "conv1x1_bwd_kernels" if "conv1x1_bwd" in n else
-               "conv3x3_dw_kernel" if "conv3x3_dw" in n else
-               "sum_rows_kernel" if "sum_rows" in n else
-               "sdpa_fwd_kernel" if "sdpa_fwd" in n else
-               "cudnn conv" if any(t in n.lower() for t in (
-                   "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
-                   "conv2d", "convolve")) else
-               "paged_verify_kernel" if "paged_verify" in n else
-               "paged_decode_kernel" if "paged_decode" in n else
-               "shortseq_fwd_kernel" if "shortseq_fwd" in n else
-               "shortseq_bwd_kernels" if "shortseq_d" in n else
-               "causal_fwd_kernel" if "causal_fwd" in n else
-               "causal_bwd_kernels" if any(t in n for t in (
-                   "dkdv_mma", "dq_mma", "delta_mma", "dkdv_fma", "dq_fma",
-                   "delta_fma")) else
-               "gemm" if any(t in n.lower() for t in
-                             ("gemm", "xmma", "cutlass", "gemv", "nvjet")) else
-               e["cat"] if e["cat"] != "kernel" else "other kernels")
+        key = kernel_family(e["name"], e["cat"])
         fam[key] = fam.get(key, 0.0) + e["dur"]
     return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (t1 - t0),
@@ -1888,11 +1910,14 @@ def phase_shortseq_bwd(torch, ctx):
         del q4, k4, v4, out4
         b, by = _shortseq_bound(BH, S, D, q.element_size(), Bb, masked,
                                 False)
+        flops = 10 * BH * S * S * D
         case = {"dtype": "bfloat16", "masked": masked, "errors": errs,
                 "tol": SHORTSEQ_BWD_TOL["bfloat16"], "ok": bool(passed),
                 "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                 "kernel_ms": kms, "plain_ms": pms, "library_ms": lms,
-                "bound_ms": b, "bound_by": by,
+                "bound_ms": b, "bound_by": by, "tflops": flops / kms / 1e9,
+                "library_tflops": flops / lms / 1e9,
+                "share_of_bound": b / kms,
                 "shape": "B64 H12 S512 D64" + (
                     ", rows keep 128-512 keys" if masked else "")}
         ok &= passed
@@ -2356,6 +2381,41 @@ def _rel(got, ref):
             / ref.float().abs().max().clamp_min(1e-6)).item()
 
 
+def _dw_errors_fp64(torch, x, g, s, pads, dw, plain, xp, gn):
+    """A bf16 3x3 dWeight against an fp64 reference (conv3x3_dw_plain's
+    nine tap products in fp64 on the card): the kernel's, the plain
+    version's (fp32 cuBLAS) and torch.nn.grad.conv2d_weight's max |err| /
+    max |ref|, the library call both on the bf16 inputs (a bf16 result)
+    and on their fp32 copies (TF32 off)."""
+    import torch.nn.functional as F
+
+    (pt, pb), (pl, pr) = pads
+    N, Ho, Wo, cout = g.shape
+    cin = x.shape[3]
+    xd = F.pad(x.double(), (0, 0, pl, pr, pt, pb))
+    gd = g.reshape(-1, cout).double()
+    ref = torch.empty((3, 3, cin, cout), dtype=torch.float64, device="cuda")
+    for dy in range(3):
+        for dx in range(3):
+            xs = xd[:, dy:dy + s * (Ho - 1) + 1:s, dx:dx + s * (Wo - 1) + 1:s]
+            ref[dy, dx] = xs.reshape(-1, cin).t() @ gd
+    del xd, gd
+    top = ref.abs().max().item()
+
+    def err(w):  # w [3, 3, Cin, Cout]
+        return (w.double() - ref).abs().max().item() / top
+
+    def lib(xl, gl):  # the library's [Cout, Cin, 3, 3] as [3, 3, Cin, Cout]
+        return torch.nn.grad.conv2d_weight(xl, (cout, cin, 3, 3), gl,
+                                           s).permute(2, 3, 1, 0)
+
+    out = {"fp64_rel_err": err(dw), "plain_fp64_rel_err": err(plain),
+           "library_fp64_rel_err": err(lib(xp, gn)),
+           "library_f32_fp64_rel_err": err(lib(xp.float(), gn.float()))}
+    del ref
+    return out
+
+
 def phase_conv_train(torch, ctx):
     import torch.nn.functional as F
 
@@ -2477,7 +2537,6 @@ def phase_conv_train(torch, ctx):
                         "max_abs_err": (dw - rdw).abs().max().item(),
                         "rel_err": e_dw,
                         "ok": bool(e_dw <= CONV_SUM_TOL[dn])}
-                del rdw
                 if time_it:
                     (pt, pb), (pl, pr) = pads
                     b, by = bound_ms((x.numel() + dy.numel()) * isz
@@ -2485,17 +2544,22 @@ def phase_conv_train(torch, ctx):
                                      2 * M * 9 * cin * cout, dn)
                     xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
                     gn = dy.permute(0, 3, 1, 2)
+                    kms = cuda_ms(torch, run11, 10, flush)
                     case.update(
-                        bound_ms=b, bound_by=by,
-                        kernel_ms=cuda_ms(torch, run11, 10, flush),
+                        bound_ms=b, bound_by=by, kernel_ms=kms,
+                        tflops=2 * M * 9 * cin * cout / kms / 1e9,
+                        share_of_bound=b / kms,
                         plain_ms=cuda_ms(torch, lambda: conv3x3_dw_plain(
                             x, dy, s, pad), 3, flush, warmup=1),
                         library_ms=cuda_ms(
                             torch, lambda: torch.nn.grad.conv2d_weight(
                                 xp, (cout, cin, 3, 3), gn, s), 10, flush),
                         library="torch.nn.grad.conv2d_weight")
+                    case.update(_dw_errors_fp64(torch, x, dy, s, pads, dw,
+                                                rdw, xp, gn))
                     if name == "conv_c2_3x3_64":
                         ctx["conv3x3_dw"] = case
+                del rdw
                 ok &= case["ok"]
                 res["cases"].append(case)
                 if s != 1:

@@ -33,24 +33,29 @@
 // (fp32, taps outside x read 0): the nine shifted taps of the TPU kernel as
 // one GEMM whose rows are (tap, ci).
 //
-// Design. Three GEMMs on conv_common.cuh's `gemm_mainloop` (128 x 64 fp32
-// tiles, steps of 8): B10's dX (rows pixels, columns Cin, reduction over
-// Cout, the A tile dConv computed from dy and y), B10's dW and B11's dW
-// (rows Cin or (tap, Cin), columns Cout, reduction over pixels). The TPU
-// accumulates each dW in one output block across a sequential grid. Here
-// the pixels are cut into `splits` chunks, one per grid z; each CTA writes
-// its fp32 partial [rows, Cout] and `sum_rows_kernel` adds the splits in a
-// fixed order: deterministic, no atomics. B10 is three launches (dX, dW
-// partials, the sum), B11 two.
+// Design. B10's two GEMMs and B11's f32 path run on conv_common.cuh's
+// `gemm_mainloop` (128 x 64 fp32-FMA tiles, steps of 8): B10's dX (rows
+// pixels, columns Cin, reduction over Cout, the A tile dConv computed from
+// dy and y), B10's dW and B11's dW (rows Cin or (tap, Cin), columns Cout,
+// reduction over pixels). B11's bf16 path runs on the tensor cores
+// (`conv3x3_dw_mma_kernel`, below). The TPU accumulates each dW in one
+// output block across a sequential grid. Here the pixels are cut into
+// `splits` ranges, one per grid z; each CTA writes its fp32 partial [rows,
+// Cout] and `sum_rows_kernel` adds the splits in a fixed order:
+// deterministic, no atomics. B10 is three launches (dX, dW partials, the
+// sum), B11 two.
 //
 // Bound on this card at the bench's stage-2 shapes (batch 256, 56 x 56,
 // bf16): B10 at 64 -> 256 by bytes (x, dy, y read and dx written, 1.03 GB,
 // 0.307 ms at 3.35 TB/s; its two products 53 GFLOP); B11 at 3x3 64 -> 64 by
-// bytes and FLOP alike (0.061 ms). This first design reads dy and y once per
-// 64 input channels of dX and once per 64 output channels of dW, uses fp32
-// FMA (no tensor cores), no TMA or cp.async.
+// bytes and FLOP alike (59.2 GFLOP, 205.5 MB: 0.061 ms). B10 still reads
+// dy and y once per 64 input channels of dX and once per 64 output
+// channels of dW, in fp32 FMA (no tensor cores), no TMA or cp.async.
+
+#include <algorithm>
 
 #include "conv_common.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -335,6 +340,200 @@ conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
           Cout, r0, n0);
 }
 
+// ---------------------------------------------------------------------------
+// B11 in bf16: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+// The nine taps' GEMM on `mma.sync` (conv_mma.cuh's fragments): rows (tap,
+// ci), columns co, k = 16 output pixels. A CTA owns one filter row dy (three
+// taps dx), 64 input channels and 64 output channels of dw, and walks its
+// split's pixels in chunks: TH consecutive output rows (n, ho) of TW
+// columns (a row wider than kDwPix in segments), at most kDwPix pixels. For
+// each chunk it copies, once, the x patch those pixels read at row dy (TH
+// input rows of XW = (TW - 1) * stride + 3 columns, 64 channels, zero
+// outside x) and the g tile (the chunk's pixels in the split, 64 channels,
+// zero elsewhere) into swizzled shared memory with cp.async,
+// double-buffered across chunks. x and g thus leave device memory once per
+// chunk and filter row, not once per tap. The three taps read A = x^T from
+// the one patch at slots shifted by dx (stride 2 takes every other slot)
+// through `ldmatrix.trans`, one slot address per lane; B = g likewise. A
+// warp owns 3 taps x 16 ci x 32 co (12 products a k-step). Each chunk's
+// products are summed on the tensor cores from zero, then added into an
+// fp32 register sum: a two-level sum, since the tensor cores' fp32
+// accumulation truncates rather than rounding to nearest at each add, and
+// no run of it is longer than one chunk. 128 registers and 2 x 47 KB of
+// shared memory at most let two CTAs share an SM, so one's copies overlap
+// the other's products.
+constexpr int kDwPix = 192;       // output pixels a chunk holds (12 k-steps)
+constexpr int kDwSlots = 245;     // x patch slots a chunk holds
+constexpr int kDwThreads = 256;   // 8 warps: 4 (16 ci) x 2 (32 co)
+
+struct DwGeom {
+  int H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l, M;
+  int TH, TW, XW, nseg;   // chunk rows and columns, patch width, chunks a row
+};
+
+// chunk i of a split whose output rows start at t_first: its first row t0
+// and column c0, its first pixel's index m, and the pixels [p_lo, p_hi) of
+// it inside the split [mb, me) (pixel p is m + p)
+struct DwChunk {
+  int t0, c0, p_lo, p_hi;
+  long long m;
+  __device__ DwChunk(const DwGeom& geo, int i, int t_first, int mb, int me) {
+    const int rg = i / geo.nseg, seg = i - rg * geo.nseg;
+    t0 = t_first + rg * geo.TH;
+    c0 = seg * geo.TW;
+    m = static_cast<long long>(t0) * geo.Wo + c0;
+    const int peff = geo.nseg == 1 ? geo.TH * geo.TW : min(geo.TW, geo.Wo - c0);
+    p_lo = static_cast<int>(max(0LL, mb - m));
+    p_hi = static_cast<int>(min(static_cast<long long>(peff), me - m));
+  }
+};
+
+__global__ void __launch_bounds__(kDwThreads, 2)
+conv3x3_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ g,
+                      float* __restrict__ partial, const DwGeom geo,
+                      const int chunk) {
+  using namespace conv_mma;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp & 3, wc = warp >> 2;   // 16 ci block, 32 co block
+  const int dy = blockIdx.x % 3;
+  const int ci0 = (blockIdx.x / 3) * kCh;
+  const int co0 = blockIdx.y * kCh;
+  const int s = geo.stride;
+  const int xslots = geo.TH * geo.XW;
+  const uint32_t stage_bytes = (xslots + kDwPix) * kRowBytes;
+  const uint32_t smem0 = smem_u32(smem_raw);
+  const int rows_total = geo.M / geo.Wo;    // N * Ho
+
+  const int mb = blockIdx.z * chunk;
+  const int me = min(geo.M, mb + chunk);
+  const int t_first = mb / geo.Wo;
+  const int nch = ((me - 1) / geo.Wo - t_first) / geo.TH * geo.nseg +
+                  geo.nseg;
+
+  // this thread's copies: chunk cc (8 channels) of slots / pixel rows
+  // tid / 8, tid / 8 + 32, ...
+  const int cc = tid & 7;
+  const int xr0 = (tid >> 3) / geo.XW, xj0 = (tid >> 3) - xr0 * geo.XW;
+  const bool ci_ok = ci0 + cc * 8 < geo.Cin;
+  const bool co_ok = co0 + cc * 8 < geo.Cout;
+
+  auto load = [&](int i, uint32_t xt) {
+    const DwChunk ch(geo, i, t_first, mb, me);
+    const uint32_t gt = xt + xslots * kRowBytes;
+    int j = xj0, t = ch.t0 + xr0;
+    int n = t / geo.Ho, ho = t - n * geo.Ho;
+    for (int slot = tid >> 3; slot < xslots; slot += kDwThreads / 8) {
+      const int hi = ho * s - geo.pad_t + dy;
+      const int wi = ch.c0 * s - geo.pad_l + j;
+      const bool ok = ci_ok && t < rows_total && hi >= 0 && hi < geo.H &&
+                      wi >= 0 && wi < geo.W;
+      const __nv_bfloat16* src =
+          ok ? x + ((static_cast<size_t>(n) * geo.H + hi) * geo.W + wi) *
+                       geo.Cin + ci0 + cc * 8
+             : x;
+      copy_chunk(xt, slot, cc, src, ok);
+      for (j += kDwThreads / 8; j >= geo.XW; j -= geo.XW) {
+        ++t;
+        if (++ho == geo.Ho) { ho = 0; ++n; }
+      }
+    }
+    const int p_end = (ch.p_hi + 15) & ~15;
+    for (int p = (ch.p_lo & ~15) + (tid >> 3); p < p_end;
+         p += kDwThreads / 8) {
+      const bool ok = co_ok && p >= ch.p_lo && p < ch.p_hi;
+      const __nv_bfloat16* src =
+          ok ? g + static_cast<size_t>(ch.m + p) * geo.Cout + co0 + cc * 8
+             : g;
+      copy_chunk(gt, p, cc, src, ok);
+    }
+  };
+
+  float sum[3][4][4];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[dx][nb][e] = 0.f;
+
+  load(0, smem0);
+  cp_async_commit();
+  const int apix = a_pixel(lane);
+  const int slot_max = xslots - 3;
+  for (int i = 0; i < nch; ++i) {
+    cp_async_wait<0>();  // chunk i has landed
+    __syncthreads();     // ... for every thread; chunk i - 1 is released
+    if (i + 1 < nch) load(i + 1, smem0 + ((i + 1) & 1) * stage_bytes);
+    cp_async_commit();
+    const DwChunk ch(geo, i, t_first, mb, me);
+    const uint32_t xt = smem0 + (i & 1) * stage_bytes;
+    const uint32_t gt = xt + xslots * kRowBytes;
+    float acc[3][4][4];
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dx][nb][e] = 0.f;
+    // this lane's A pixel of the first k-step: (row r, column c), its slot
+    const int ks_lo = ch.p_lo >> 4, ks_hi = (ch.p_hi + 15) >> 4;
+    int c = ks_lo * 16 + apix;
+    const int r = c / geo.TW;
+    c -= r * geo.TW;
+    int slot = r * geo.XW + c * s;
+#pragma unroll 2
+    for (int ks = ks_lo; ks < ks_hi; ++ks) {
+      // a pixel past the chunk's last reads a slot inside the patch; its g
+      // row is zero
+      const int sl = min(slot, slot_max);
+      uint32_t a[3][4], b[2][4];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) a_trans(a[dx], xt, sl + dx, wr, lane);
+      b_trans(b[0], gt, ks * 16, 2 * wc, lane);
+      b_trans(b[1], gt, ks * 16, 2 * wc + 1, lane);
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+          mma_bf16(acc[dx][nb], a[dx], b[nb >> 1][(nb & 1) * 2],
+                   b[nb >> 1][(nb & 1) * 2 + 1]);
+      for (c += 16, slot += 16 * s; c >= geo.TW; c -= geo.TW)
+        slot += geo.XW - geo.TW * s;
+    }
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[dx][nb][e] += acc[dx][nb][e];
+  }
+
+  // C fragment: rows ci (g and g + 8 of the warp's 16), columns co (2t,
+  // 2t + 1 of each 8-column block)
+  const int gq = lane >> 2, t4 = lane & 3;
+  float* out = partial + static_cast<size_t>(blockIdx.z) * 9 * geo.Cin *
+                             geo.Cout;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int co = co0 + wc * 32 + nb * 8 + 2 * t4;
+      if (co >= geo.Cout) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = ci0 + wr * 16 + gq + 8 * h;
+        if (ci < geo.Cin)
+          *reinterpret_cast<float2*>(
+              out + static_cast<size_t>((dy * 3 + dx) * geo.Cin + ci) *
+                        geo.Cout + co) =
+              make_float2(sum[dx][nb][2 * h], sum[dx][nb][2 * h + 1]);
+      }
+    }
+}
+
 template <typename T>
 int launch_1x1(const void* x, const void* dy, const void* y,
                const void* rows, const void* wt, void* dx, void* dw,
@@ -377,6 +576,39 @@ int launch_3x3_dw(const void* x, const void* g, void* dw, void* partial,
   if (err) return err;
   return sum_rows(part, static_cast<float*>(dw), splits,
                   9LL * Cin * Cout, stream);
+}
+
+int launch_3x3_dw_mma(const void* x, const void* g, void* dw, void* partial,
+                      int N, int H, int W, int Cin, int Cout, int Ho, int Wo,
+                      int stride, int pad_t, int pad_l, int splits, int chunk,
+                      cudaStream_t stream) {
+  if (stride != 1 && stride != 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DwGeom geo{H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l, N * Ho * Wo,
+             0, 0, 0, 0};
+  // a row's chunk columns: all of it, or segments of at most kDwPix pixels
+  // whose patch fits kDwSlots; several rows a chunk when they fit
+  geo.TW = std::min({Wo, kDwPix, (kDwSlots - 3) / stride + 1});
+  geo.XW = (geo.TW - 1) * stride + 3;
+  geo.nseg = (Wo + geo.TW - 1) / geo.TW;
+  geo.TH = geo.nseg > 1 ? 1 : std::min(kDwPix / geo.TW, kDwSlots / geo.XW);
+  const int bytes = 2 * (geo.TH * geo.XW + kDwPix) * conv_mma::kRowBytes;
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      conv3x3_dw_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes));
+  if (err) return err;
+  conv3x3_dw_mma_kernel<<<dim3(3 * ((Cin + conv_mma::kCh - 1) / conv_mma::kCh),
+                               (Cout + conv_mma::kCh - 1) / conv_mma::kCh,
+                               splits),
+                          kDwThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(g), static_cast<float*>(partial),
+      geo, chunk);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return sum_rows(static_cast<float*>(partial), static_cast<float*>(dw),
+                  splits, 9LL * Cin * Cout, stream);
 }
 
 bool bad_args(int dtype, int Cin, int Cout, int splits, int chunk) {
@@ -424,9 +656,8 @@ int conv3x3_dw(const void* x, const void* g, void* dw, void* partial,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? launch_3x3_dw<__nv_bfloat16>(x, g, dw, partial, N, H, W, Cin, Cout,
-                                     Ho, Wo, stride, pad_t, pad_l, splits,
-                                     chunk, s)
+      ? launch_3x3_dw_mma(x, g, dw, partial, N, H, W, Cin, Cout, Ho, Wo,
+                          stride, pad_t, pad_l, splits, chunk, s)
       : launch_3x3_dw<float>(x, g, dw, partial, N, H, W, Cin, Cout, Ho, Wo,
                              stride, pad_t, pad_l, splits, chunk, s);
 }

@@ -36,12 +36,15 @@ KERNEL_SOURCES = {
     "paged_decode": ("paged_decode.cu",),
     "paged_verify": ("paged_verify.cu",),
     "causal_attention": ("causal_attention.cu", "attention_mma.cuh"),
-    "causal_attention_bwd": ("causal_attention_bwd.cu", "attention_mma.cuh"),
+    "causal_attention_bwd": ("causal_attention_bwd.cu", "attention_bwd.cuh",
+                             "attention_mma.cuh"),
     "shortseq_attention": ("shortseq_attention.cu", "attention_mma.cuh"),
-    "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",),
+    "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",
+                               "attention_bwd.cuh", "attention_mma.cuh"),
     "sdpa_forward": ("sdpa_forward.cu", "attention_mma.cuh"),
     "conv_bn_relu": ("conv_bn_relu.cu", "conv_common.cuh"),
-    "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh"),
+    "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh",
+                         "conv_mma.cuh", "attention_mma.cuh"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

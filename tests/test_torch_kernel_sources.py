@@ -2,8 +2,12 @@
 compiler: every kernel that `chip_smoke.py` requires to run on the tensor
 cores (`MMA_KERNELS`) is a `__global__` function of the `.cu` files that
 `KERNEL_SOURCES` lists for its library, and every header a library's
-`.cu` file includes from `csrc/` is listed for that library, so that a
-change to the header changes the library's hash and rebuilds it."""
+`.cu` file includes from `csrc/`, directly or through another header, is
+listed for that library, so that a change to the header changes the
+library's hash and rebuilds it. The causal (B2) and shortseq (B13)
+backwards share one source, `attention_bwd.cuh`: each `.cu` keeps only
+thin kernels over its bodies, and `chip_smoke.py`'s profile families
+still tell the two apart by their kernels' names."""
 import importlib.util
 import re
 from pathlib import Path
@@ -23,11 +27,32 @@ def _chip_smoke():
     return mod
 
 
-MMA_KERNELS = _chip_smoke().MMA_KERNELS
+CHIP_SMOKE = _chip_smoke()
+MMA_KERNELS = CHIP_SMOKE.MMA_KERNELS
+BWD_LIBS = ("causal_attention_bwd", "shortseq_attention_bwd")
+# the `__device__` bodies of the attention backward, in attention_bwd.cuh
+BWD_BODIES = ("delta_fma", "dkdv_fma", "dq_fma", "delta_mma", "dkdv_mma",
+              "dq_mma")
 
 
 def _cu_sources(lib):
     return [Path(CSRC) / s for s in KERNEL_SOURCES[lib] if s.endswith(".cu")]
+
+
+def _includes(path):
+    return re.findall(r'#include\s+"([^"]+)"', path.read_text())
+
+
+def _included(lib):
+    """The headers from csrc/ a library's `.cu` files include, directly or
+    through another header."""
+    seen, todo = set(), [h for p in _cu_sources(lib) for h in _includes(p)]
+    while todo:
+        h = todo.pop()
+        if h not in seen:
+            seen.add(h)
+            todo += _includes(Path(CSRC) / h)
+    return seen
 
 
 def _globals(lib):
@@ -51,18 +76,91 @@ def test_mma_kernels_are_kernels_of_their_library(lib):
 def test_included_headers_are_listed_with_their_library(lib):
     srcs = _cu_sources(lib)
     assert srcs and all(p.is_file() for p in srcs)
-    included = {h for p in srcs
-                for h in re.findall(r'#include\s+"([^"]+)"', p.read_text())}
+    included = _included(lib)
     assert included <= set(KERNEL_SOURCES[lib]), (
         f"{lib} includes {sorted(included - set(KERNEL_SOURCES[lib]))} "
         f"without listing it")
     assert all((Path(CSRC) / h).is_file() for h in included)
+    listed = {h for h in KERNEL_SOURCES[lib] if h.endswith(".cuh")}
+    assert listed <= included, f"{lib} lists {sorted(listed - included)}"
 
 
 def test_attention_mma_header_is_listed_wherever_it_is_included():
-    users = {lib for lib in KERNEL_SOURCES for p in _cu_sources(lib)
-             if '#include "attention_mma.cuh"' in p.read_text()}
+    users = {lib for lib in KERNEL_SOURCES
+             if "attention_mma.cuh" in _included(lib)}
     listed = {lib for lib, srcs in KERNEL_SOURCES.items()
               if "attention_mma.cuh" in srcs}
     assert users == listed
     assert set(MMA_KERNELS) <= users
+
+
+def test_attention_bwd_header_serves_both_backward_libraries():
+    users = {lib for lib in KERNEL_SOURCES
+             if "attention_bwd.cuh" in _included(lib)}
+    listed = {lib for lib, srcs in KERNEL_SOURCES.items()
+              if "attention_bwd.cuh" in srcs}
+    assert users == listed == set(BWD_LIBS)
+
+
+@pytest.mark.parametrize("lib", BWD_LIBS)
+def test_backward_bodies_live_in_the_shared_header_alone(lib):
+    """Each backward library's `.cu` calls every body of the header and
+    keeps no device arithmetic of its own: no shared memory, no product,
+    no copy of a body."""
+    header = (Path(CSRC) / "attention_bwd.cuh").read_text()
+    for body in BWD_BODIES:
+        assert re.search(rf"__device__ __forceinline__ void {body}\(",
+                         header), body
+    for path in _cu_sources(lib):
+        text = path.read_text()
+        assert '#include "attention_bwd.cuh"' in text
+        for body in BWD_BODIES:
+            assert f"attn_bwd::{body}<" in text, (path.name, body)
+        for mark in ("__shared__", "mma_bf16(", "ldsm_x4", "cp_async",
+                     "__device__", "exp2f(", "expf("):
+            assert mark not in text, (path.name, mark)
+
+
+# every kernel of the two attention backwards and of the conv backward, as
+# torch.profiler names it, against the family chip_smoke.py files it under
+FAMILY_OF_LIB = {"causal_attention_bwd": "causal_bwd_kernels",
+                 "shortseq_attention_bwd": "shortseq_bwd_kernels"}
+
+
+def _profiled_name(kernel):
+    return (f"void (anonymous namespace)::{kernel}<64, false>"
+            f"(__nv_bfloat16 const*, float const*, int, float)")
+
+
+@pytest.mark.parametrize("lib,kernel", sorted(
+    (lib, k) for lib in FAMILY_OF_LIB for k in _globals(lib)))
+def test_profile_family_of_attention_backward_kernels(lib, kernel):
+    assert CHIP_SMOKE.kernel_family(_profiled_name(kernel)) == \
+        FAMILY_OF_LIB[lib]
+
+
+@pytest.mark.parametrize("kernel,family", [
+    ("conv3x3_dw_mma_kernel", "conv3x3_dw_kernel"),
+    ("conv3x3_dw_kernel", "conv3x3_dw_kernel"),
+    ("conv1x1_bwd_dx_kernel", "conv1x1_bwd_kernels"),
+    ("conv1x1_bwd_dw_kernel", "conv1x1_bwd_kernels"),
+    ("sum_rows_kernel", "sum_rows_kernel"),
+    ("shortseq_fwd_mma_kernel", "shortseq_fwd_kernel"),
+    ("causal_fwd_mma_kernel", "causal_fwd_kernel")])
+def test_profile_family_of_conv_and_forward_kernels(kernel, family):
+    defined = set()
+    for path in Path(CSRC).iterdir():
+        text = re.sub(r"__launch_bounds__\([^)]*\)", "", path.read_text())
+        defined.update(re.findall(r"__global__\s+void\s+(\w+)\s*\(", text))
+    assert kernel in defined
+    assert CHIP_SMOKE.kernel_family(_profiled_name(kernel)) == family
+
+
+def test_profile_family_of_library_kernels():
+    assert CHIP_SMOKE.kernel_family(
+        "sm90_xmma_wgrad_implicit_gemm_indexed_bf16") == "cudnn conv"
+    assert CHIP_SMOKE.kernel_family("nvjet_tst_128x64_64x4") == "gemm"
+    assert CHIP_SMOKE.kernel_family("Memcpy DtoD", "gpu_memcpy") == \
+        "gpu_memcpy"
+    assert CHIP_SMOKE.kernel_family("vectorized_elementwise_kernel") == \
+        "other kernels"

@@ -13,7 +13,10 @@ both designs and at a BH of 1 as well as 4; both refuse a misaligned view.
 
 The shortseq forward B12 (bf16 on the tensor cores in two passes, f32 in
 fp32 FMA) at every S it takes, a rerun giving the same bits, and with
-peaked logits (q scaled by 8), where a wrong row max shows.
+peaked logits (q scaled by 8), where a wrong row max shows. The shortseq
+backward B13 (the causal backward's source without the causal mask, with
+the key mask: bf16 on the tensor cores, f32 in fp32 FMA) at every D and
+S, mask-free and with both mask layouts and an all-padding sequence.
 
 The flash forward B6 (`sdpa_forward`): against `sdpa_forward_plain` at each
 dtype and head dim (64 to 256), causal and not, Sq == Skv and Sq != Skv,
@@ -25,8 +28,9 @@ card against the same Transformer on the CPU.
 Conv kernels (B7, B8): against `conv_bn_relu_plain` on the card with
 TF32 off, max |kernel - plain| relative to max |plain| (CONV_TOL); the
 ResNet on the card against the same ResNet on the CPU. The conv training
-kernels (B9a/B9b train forwards, B10 1x1 backward, B11 3x3 dWeight)
-against their plain versions over dtype x stride x shape, the training
+kernels (B9a/B9b train forwards, B10 1x1 backward, B11 3x3 dWeight: bf16
+on the tensor cores, also at the seven sweep shapes against an fp64
+reference) against their plain versions over dtype x stride x shape, the training
 op's gradients through the kernels against autograd through the plain
 composition, and a ResNet-50 train step on the card against the CPU.
 
@@ -936,12 +940,13 @@ def test_conv1x1_bwd_kernel_matches_plain(card, dtype, stride, relu, shape):
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("padding", ["int", "SAME", "VALID"])
 @pytest.mark.parametrize("shape", [(3, 7, 7, 24, 72), (2, 28, 19, 64, 136),
-                                   (2, 7, 7, 512, 64)],
-                         ids=["M147", "M1064-or-266", "Cin512"])
+                                   (2, 7, 7, 512, 64), (1, 5, 300, 16, 8)],
+                         ids=["M147", "M1064-or-266", "Cin512", "wide-row"])
 def test_conv3x3_dw_kernel_matches_plain(card, dtype, stride, padding,
                                          shape):
     """B11 against `conv3x3_dw_plain`: the nine taps' dw within SUM_TOL of
-    max |dw|, with the halo of every padding read as zero."""
+    max |dw|, with the halo of every padding read as zero; a row wider than
+    the bf16 kernel's chunk is walked in segments."""
     N, H, W, cin, cout = shape
     x, _, _, _ = conv_case(card, N, H, W, cin, cout, 3, dtype)
     pad = 1 if padding == "int" else padding
@@ -958,6 +963,58 @@ def test_conv3x3_dw_kernel_matches_plain(card, dtype, stride, padding,
     assert conv3x3_dw.launches == before + 1
     assert dw.shape == (3, 3, cin, cout) and dw.dtype == torch.float32
     assert conv_rel_err(dw, ref) <= SUM_TOL
+
+
+def dw_fp64(x, g, stride, pads):
+    """conv3x3_dw_plain's nine tap products in fp64: [3, 3, Cin, Cout]."""
+    (pt, pb), (pl, pr) = pads
+    N, Ho, Wo, cout = g.shape
+    cin = x.shape[3]
+    xp = torch.nn.functional.pad(x.double(), (0, 0, pl, pr, pt, pb))
+    gd = g.reshape(-1, cout).double()
+    ref = torch.empty((3, 3, cin, cout), dtype=torch.float64, device="cuda")
+    for dy in range(3):
+        for dx in range(3):
+            xs = xp[:, dy:dy + stride * (Ho - 1) + 1:stride,
+                    dx:dx + stride * (Wo - 1) + 1:stride]
+            ref[dy, dx] = xs.reshape(-1, cin).t() @ gd
+    return ref
+
+
+# bench_ops.py's seven ResNet-50 3x3 sweep shapes: (hw, cin, cout, stride)
+DW_SWEEP = [(56, 64, 64, 1), (56, 128, 128, 2), (28, 128, 128, 1),
+            (28, 256, 256, 2), (14, 256, 256, 1), (14, 512, 512, 2),
+            (7, 512, 512, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DW_SWEEP,
+                         ids=[f"{h}x{h}-{ci}-{co}-s{s}"
+                              for h, ci, co, s in DW_SWEEP])
+def test_conv3x3_dw_kernel_at_the_sweep_shapes(card, dtype, shape):
+    """B11 at the sweep shapes at batch 2, SAME padding (the bf16 path on
+    the tensor cores, f32 in fp32 FMA): within SUM_TOL of max |dw| of the
+    plain version and of an fp64 reference; the same bits on a rerun."""
+    from paddle_tpu_torch.ops.conv import normalize_conv_padding
+
+    hw, cin, cout, stride = shape
+    N = 2
+    x, _, _, _ = conv_case(card, N, hw, hw, cin, cout, 3, dtype)
+    pads = normalize_conv_padding("SAME", 3, stride, (hw, hw))
+    Ho = Wo = -(-hw // stride)
+    g = torch.randn((N, Ho, Wo, cout), generator=card, device="cuda") \
+        .to(dtype)
+    before = conv3x3_dw.launches
+    dw = conv3x3_dw(x, g, stride, "SAME")
+    again = conv3x3_dw(x, g, stride, "SAME")
+    ref = conv3x3_dw_plain(x, g, stride, "SAME")
+    torch.cuda.synchronize()
+    assert conv3x3_dw.launches == before + 2
+    assert conv_rel_err(dw, ref) <= SUM_TOL
+    ref64 = dw_fp64(x, g, stride, pads)
+    assert ((dw.double() - ref64).abs().max()
+            / ref64.abs().max()).item() <= SUM_TOL
+    assert torch.equal(dw, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
