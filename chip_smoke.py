@@ -20,8 +20,9 @@ Phases, each printing one JSON line:
    power limit as nvidia-smi reports them; counts, with cuobjdump -sass,
    the HMMA (tensor-core) instructions of each bf16 mma kernel (the causal
    pair, the shortseq forward and backward, the flash forward B6, the 3x3
-   dWeight B11), and fails if one has none, if a library of them holds an
-   atomic, or if ptxas reports a spill in any mma kernel.
+   conv B8, the 1x1 backward B10, the 3x3 dWeight B11), and fails if one
+   has none, if a library of them holds an atomic, or if ptxas reports a
+   spill in any mma kernel.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16 and
@@ -386,20 +387,24 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                "shortseq_attention_bwd": ("shortseq_dkdv_mma_kernel",
                                           "shortseq_dq_mma_kernel"),
                "sdpa_forward": ("sdpa_fwd_mma_kernel",),
-               "conv_bn_relu_bwd": ("conv3x3_dw_mma_kernel",)}
+               "conv_bn_relu": ("conv3x3_bn_relu_mma_kernel",),
+               "conv_bn_relu_bwd": ("conv3x3_dw_mma_kernel",
+                                    "conv1x1_bwd_dx_mma_kernel",
+                                    "conv1x1_bwd_dw_mma_kernel")}
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                          r"([A-Z][A-Z0-9_]*)")
 SASS_ATOMICS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDUX")
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 # each kernel's design: the bf16 causal pair, the bf16 shortseq forward
-# and backward (both variants), the bf16 flash forward B6 and the bf16 3x3
-# dWeight B11 run on the tensor cores, every other kernel is scalar fp32
-# FMA
+# and backward (both variants), the bf16 flash forward B6, the bf16 3x3
+# conv B8, the bf16 1x1 backward B10 and the bf16 3x3 dWeight B11 run on
+# the tensor cores, every other kernel is scalar fp32 FMA
 DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "shortseq_fwd": "mma.sync bf16",
           "shortseq_fwd_masked": "mma.sync bf16",
           "shortseq_bwd": "mma.sync bf16",
           "shortseq_bwd_masked": "mma.sync bf16", "sdpa_fwd": "mma.sync bf16",
+          "conv3x3": "mma.sync bf16", "conv1x1_bwd": "mma.sync bf16",
           "conv3x3_dw": "mma.sync bf16"}
 # a device-time family of the profiles, by a substring of the kernel's
 # name in lower case, first match wins: the port's conv kernels before
@@ -2133,6 +2138,34 @@ def _conv_library(torch, x, w, scale, shift, stride, pads):
                             stride).relu_()
 
 
+def _conv_errors_fp64(torch, x, w, scale, shift, stride, pads, relu, got,
+                      plain, library):
+    """A bf16 conv+BN+ReLU against an fp64 reference (the conv of the same
+    bf16 inputs in fp64, then the affine and the ReLU in fp64): the
+    kernel's, the plain version's and the library call's (F.conv2d of the
+    folded weights, a bf16 result) max |err| / max |ref|."""
+    import torch.nn.functional as F
+
+    (pt, pb), (pl, pr) = pads
+    xd = F.pad(x.permute(0, 3, 1, 2).double(), (pl, pr, pt, pb))
+    ref = F.conv2d(xd, w.permute(3, 2, 0, 1).double(), stride=stride)
+    del xd
+    ref = ref * scale.double().view(1, -1, 1, 1) \
+        + shift.double().view(1, -1, 1, 1)
+    if relu:
+        ref = ref.relu()
+    ref = ref.permute(0, 2, 3, 1)
+    top = ref.abs().max().item()
+
+    def err(t):
+        return (t.double() - ref).abs().max().item() / top
+
+    out = {"fp64_rel_err": err(got), "plain_fp64_rel_err": err(plain),
+           "library_fp64_rel_err": err(library.permute(0, 2, 3, 1))}
+    del ref
+    return out
+
+
 def phase_conv_fwd(torch, ctx):
     from paddle_tpu_torch.ops.conv import (conv_bn_relu_plain,
                                            fused_conv_bn_relu,
@@ -2178,19 +2211,26 @@ def phase_conv_fwd(torch, ctx):
                 isz = x.element_size()
                 nbytes = ((x.numel() + w.numel() + got.numel()) * isz
                           + 2 * cout * 4)
-                b, by = bound_ms(nbytes, 2 * M * cin * cout * k * k, dn)
-                case.update(bound_ms=b, bound_by=by,
-                            kernel_ms=cuda_ms(torch, lambda: fused_conv_bn_relu(
-                                x, w, scale, shift, s, pad, relu), 10, flush))
+                flops = 2 * M * cin * cout * k * k
+                b, by = bound_ms(nbytes, flops, dn)
+                kms = cuda_ms(torch, lambda: fused_conv_bn_relu(
+                    x, w, scale, shift, s, pad, relu), 10, flush)
+                case.update(bound_ms=b, bound_by=by, kernel_ms=kms,
+                            tflops=flops / kms / 1e9, share_of_bound=b / kms)
                 if dtype == torch.bfloat16:
                     pads = normalize_conv_padding(pad, k, s,
                                                   in_hw=(hw, hw))
+                    lib = _conv_library(torch, x, w, scale, shift, s, pads)
                     case.update(
                         plain_ms=cuda_ms(torch, lambda: conv_bn_relu_plain(
                             x, w, scale, shift, s, pad, relu), 3, flush,
                             warmup=1),
-                        library_ms=cuda_ms(torch, _conv_library(
-                            torch, x, w, scale, shift, s, pads), 10, flush))
+                        library_ms=cuda_ms(torch, lib, 10, flush))
+                    if k == 3:
+                        case.update(_conv_errors_fp64(
+                            torch, x, w, scale, shift, s, pads, relu, got,
+                            conv_bn_relu_plain(x, w, scale, shift, s, pad,
+                                               relu), lib()))
                     if name == "conv_c2_1x1_64_256":
                         ctx["conv1x1"] = case
                     elif name == "conv_c2_3x3_64":
@@ -2416,6 +2456,39 @@ def _dw_errors_fp64(torch, x, g, s, pads, dw, plain, xp, gn):
     return out
 
 
+def _dw1x1_errors_fp64(torch, x, dy, y, rows, wt, s, dw, plain):
+    """B10's bf16 dWeight against an fp64 reference: xs^T @ dConv in fp64,
+    the dConv bf16 as the kernel and its plain version round it (with the
+    ReLU). The kernel's, the plain version's (fp32 cuBLAS) and
+    aten.convolution_backward's (its weight gradient over the same bf16
+    dConv, a bf16 result) max |err| / max |ref|."""
+    N, Ho, Wo, cout = y.shape
+    cin = x.shape[3]
+    r = rows.float()
+    yv = y.reshape(-1, cout).float()
+    dz = torch.where((yv - r[0]) * r[1] * r[2] + r[3] > 0,
+                     dy.reshape(-1, cout).float(), 0.0)
+    xh = (yv - r[4]) * r[5]
+    dcv = ((r[2] * r[5]) * (dz - r[6] - xh * r[7])).to(x.dtype)
+    del yv, dz, xh
+    xs = x[:, ::s, ::s]
+    ref = xs.reshape(-1, cin).double().t() @ dcv.double()
+    top = ref.abs().max().item()
+    lib = torch.ops.aten.convolution_backward(
+        dcv.view(N, Ho, Wo, cout).permute(0, 3, 1, 2),
+        xs.permute(0, 3, 1, 2), wt.t().reshape(cout, cin, 1, 1)
+        .contiguous(), None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+        [False, True, False])[1]
+
+    def err(t):
+        return (t.double() - ref).abs().max().item() / top
+
+    out = {"dw_fp64_rel_err": err(dw), "dw_plain_fp64_rel_err": err(plain),
+           "dw_library_fp64_rel_err": err(lib.reshape(cout, cin).t())}
+    del ref, dcv, lib
+    return out
+
+
 def phase_conv_train(torch, ctx):
     import torch.nn.functional as F
 
@@ -2499,19 +2572,19 @@ def phase_conv_train(torch, ctx):
                         "dx_rel_err": e_dx, "dw_rel_err": e_dw,
                         "ok": bool(e_dx <= CONV_TOL[dn]
                                    and e_dw <= CONV_SUM_TOL[dn])}
-                del rdx, rdw
                 if time_it:
                     xs_n = M * cin
+                    flops = 4 * M * cin * cout
                     b, by = bound_ms(
                         (xs_n + 2 * M * cout + x.numel() + wt.numel()) * isz
-                        + 8 * cout * 4 + cin * cout * 4,
-                        4 * M * cin * cout, dn)
+                        + 8 * cout * 4 + cin * cout * 4, flops, dn)
                     dcv = dy.permute(0, 3, 1, 2)
                     xs = x[:, ::s, ::s].permute(0, 3, 1, 2)
                     w_oihw = w.permute(3, 2, 0, 1).contiguous()
+                    kms = cuda_ms(torch, run10, 10, flush)
                     case.update(
-                        bound_ms=b, bound_by=by,
-                        kernel_ms=cuda_ms(torch, run10, 10, flush),
+                        bound_ms=b, bound_by=by, kernel_ms=kms,
+                        tflops=flops / kms / 1e9, share_of_bound=b / kms,
                         plain_ms=cuda_ms(torch, lambda: conv1x1_bwd_plain(
                             x, dy, conv, rows, wt, s), 3, flush, warmup=1),
                         library_ms=cuda_ms(
@@ -2521,8 +2594,11 @@ def phase_conv_train(torch, ctx):
                                 [True, True, False]), 10, flush),
                         library="aten.convolution_backward of the 1x1 over "
                                 "the materialised dConv: products only")
+                    case.update(_dw1x1_errors_fp64(torch, x, dy, conv, rows,
+                                                   wt, s, dw, rdw))
                     if name == "conv_c2_1x1_64_256":
                         ctx["conv1x1_bwd"] = case
+                del rdx, rdw
                 ok &= case["ok"]
                 res["cases"].append(case)
             else:
@@ -2582,11 +2658,25 @@ def phase_conv_train(torch, ctx):
                         "rel_err": e8, "ok": bool(e8 <= CONV_TOL[dn])}
                 if time_it:
                     Md = dxp.shape[0] * dxp.shape[1] * dxp.shape[2]
+                    flops = 2 * Md * 9 * cin * cout
                     b, by = bound_ms((dil.numel() + wflip.numel()
-                                      + dxp.numel()) * isz,
-                                     2 * Md * 9 * cin * cout, dn)
-                    case.update(bound_ms=b, bound_by=by,
-                                kernel_ms=cuda_ms(torch, run8, 10, flush))
+                                      + dxp.numel()) * isz, flops, dn)
+                    kms = cuda_ms(torch, run8, 10, flush)
+                    gn = dy.permute(0, 3, 1, 2)
+                    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+                    (pt, pb), (pl, pr) = pads
+                    hp, wp = hw + pt + pb, hw + pl + pr
+                    case.update(
+                        bound_ms=b, bound_by=by, kernel_ms=kms,
+                        tflops=flops / kms / 1e9, share_of_bound=b / kms,
+                        plain_ms=cuda_ms(torch, lambda: conv_bn_relu_plain(
+                            dil, wflip, one, zero, 1, 2, False), 3, flush,
+                            warmup=1),
+                        library_ms=cuda_ms(
+                            torch, lambda: torch.nn.grad.conv2d_input(
+                                (N, cin, hp, wp), w_oihw, gn, s), 10, flush),
+                        library="torch.nn.grad.conv2d_input of the padded "
+                                "input from the undilated dConv")
                 ok &= case["ok"]
                 res["cases"].append(case)
                 del dil, dxp, rdxp

@@ -30,24 +30,29 @@
 // TPU wrapper's padded copy, so symmetric, SAME's asymmetric and VALID
 // padding all take this one path.
 //
-// Design. An implicit GEMM through conv_common.cuh's `gemm_mainloop`: the
-// output [M, Cout] is tiled 128 x 64 per CTA; the reduction walks the taps
-// and, inside each, Cin in steps of 8 (Cin is a multiple of 8, so a step
-// never straddles two taps). The A tile gathers 128 output pixels x 8
-// input channels of one tap from x with the bounds check, the B tile is
-// 8 x 64 of w. The epilogue is a template parameter, so the eval and train
-// kernels share one body, as B9 is the B7/B8 walk with the epilogue
-// replaced on the TPU. The TPU kernel's VMEM slab walk, its double-buffered
-// DMA and its row and width tiles have no counterpart here.
+// Design. B7, B9a, B9b and the f32 B8 are an implicit GEMM through
+// conv_common.cuh's `gemm_mainloop`: the output [M, Cout] is tiled 128 x
+// 64 per CTA; the reduction walks the taps and, inside each, Cin in steps
+// of 8 (Cin is a multiple of 8, so a step never straddles two taps). The A
+// tile gathers 128 output pixels x 8 input channels of one tap from x with
+// the bounds check, the B tile is 8 x 64 of w. The epilogue is a template
+// parameter, so the eval and train kernels share one body, as B9 is the
+// B7/B8 walk with the epilogue replaced on the TPU. The bf16 B8 runs on
+// the tensor cores (`conv3x3_bn_relu_mma_kernel`, below). The TPU
+// kernel's VMEM slab walk, its double-buffered DMA and its row and width
+// tiles have no counterpart here.
 //
 // Bound on this card at the bench's stage-2 shapes (batch 256, 56 x 56,
 // bf16): bytes for the 1x1 64 -> 256 (514 MB, 0.153 ms at 3.35 TB/s),
 // bytes and FLOP alike for the 3x3 64 -> 64 (206 MB, 0.061 ms; 59.2 GFLOP,
 // 0.060 ms at 989 TFLOP/s); the train epilogue adds the partials (a few
-// MB). This first design is far from either: fp32 FMA (no tensor cores: no
-// mma.sync or wgmma), no TMA or cp.async, a step of only 8 input channels.
+// MB). The FMA design is far from either: fp32 FMA (no tensor cores), no
+// TMA or cp.async, a step of only 8 input channels.
+
+#include <algorithm>
 
 #include "conv_common.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -245,6 +250,251 @@ conv3x3_train_kernel(const T* __restrict__ x, const T* __restrict__ w,
   conv_tile<T, 3>(x, w, g, epi);
 }
 
+// ---------------------------------------------------------------------------
+// B8 in bf16: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+// An implicit GEMM on `mma.sync` (conv_mma.cuh's fragments): rows output
+// pixels, columns Cout, k = (tap, ci). A CTA owns a tile of output pixels,
+// TH consecutive output rows (n, ho) of TW columns (a row wider than that
+// in segments), at most kFwdPix pixels, and 64 output channels. For each
+// chunk of 64 input channels it copies, once, the x patch the tile reads
+// through all nine taps into swizzled shared memory with cp.async,
+// zero-filled outside x (halo, pads, channels past Cin): its rows are the
+// input rows of the tile's output rows, shared between neighbouring output
+// rows of one image; an image boundary inside the tile opens a new run of
+// rows (patch row of output row r and filter row dy: r * s + dy + (images
+// crossed) * (3 - s)), and each row holds XW = (TW - 1) * s + 3 columns.
+// So x leaves device memory once per chunk, not once per tap. The nine
+// taps read A = x from that one patch at slots shifted by (dy * XW + dx)
+// through `ldmatrix`, one slot address per lane (stride 2 takes every
+// other slot); B = w's [64 ci][64 co] tile of the tap through
+// `ldmatrix.trans`, from a ring of four (chunk, tap) tiles that runs three
+// taps ahead. Patches are double-buffered: the next chunk's is copied while
+// this chunk's nine taps run. A warp owns 32 pixels x 32 co. Each chunk's
+// 36 k-steps are summed on the tensor cores from zero, then added into an
+// fp32 register sum: the tensor cores' fp32 accumulation truncates, so no
+// run of it is longer than one chunk. The epilogue is a functor on (pixel,
+// column pair, two values): the affine and ReLU here, so that the train
+// forward's statistics epilogue can take the mainloop up.
+constexpr int kFwdThreads = 256;    // 8 warps: 4 (32 pixels) x 2 (32 co)
+constexpr int kFwdPix = 128;        // output pixels a tile holds
+constexpr int kFwdSlots = 640;      // x patch slots a stage holds (80 KB)
+constexpr int kFwdRows = 64;        // x patch rows at most
+constexpr int kFwdWStages = 4;      // ring of (chunk, tap) filter tiles
+constexpr int kFwdTileBytes = conv_mma::kCh * conv_mma::kRowBytes;  // 8 KB
+
+struct FwdGeom {
+  int N, H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l;
+  int TH, TW, XW, PR, nseg;  // tile rows, columns; patch width, rows;
+                             // segments a row
+};
+
+// eval epilogue of the mma kernel (B8): the BatchNorm affine and ReLU in
+// fp32 on two neighbouring columns, one cast, one 4-byte store
+struct AffineMmaEpilogue {
+  const float* scale;
+  const float* shift;
+  __nv_bfloat16* out;
+  int Cout, relu;
+
+  __device__ __forceinline__ void operator()(long long m, int co, float v0,
+                                             float v1) const {
+    float y0 = __fadd_rn(__fmul_rn(v0, __ldg(scale + co)), __ldg(shift + co));
+    float y1 = __fadd_rn(__fmul_rn(v1, __ldg(scale + co + 1)),
+                         __ldg(shift + co + 1));
+    if (relu) {
+      y0 = fmaxf(y0, 0.f);
+      y1 = fmaxf(y1, 0.f);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + m * Cout + co) =
+        __floats2bfloat162_rn(y0, y1);
+  }
+};
+
+template <class Epilogue>
+__device__ __forceinline__ void conv3x3_mma_tile(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const FwdGeom& geo, const Epilogue& epi) {
+  using namespace conv_mma;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int row_n[kFwdRows], row_hi[kFwdRows];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wc = warp >> 2;   // 32 pixel block, 32 co block
+  const int s = geo.stride;
+  const int rows_total = geo.N * geo.Ho;
+  const int rg = blockIdx.x / geo.nseg, seg = blockIdx.x - rg * geo.nseg;
+  const int t0 = rg * geo.TH, c0 = seg * geo.TW;
+  const int n0 = t0 / geo.Ho;
+  const int co0 = blockIdx.y * kCh;
+  const int xslots = geo.PR * geo.XW;
+  const uint32_t xbytes = xslots * kRowBytes;
+  const uint32_t smem0 = smem_u32(smem_raw);
+  const uint32_t wring = smem0 + 2 * xbytes;
+
+  // patch row -> its image and input row; an image past the batch reads 0
+  if (tid < geo.PR) {
+    int n = n0, ho = t0 - n0 * geo.Ho, r = 0, base = 0;
+    int pn = geo.N, phi = 0;
+    while (r < geo.TH) {
+      const int cnt = min(geo.TH - r, geo.Ho - ho);
+      const int span = (cnt - 1) * s + 3;
+      if (tid < base + span) {
+        pn = n;
+        phi = ho * s - geo.pad_t + (tid - base);
+        break;
+      }
+      base += span;
+      r += cnt;
+      ho = 0;
+      ++n;
+    }
+    row_n[tid] = pn;
+    row_hi[tid] = phi;
+  }
+
+  // this lane's A pixel in each of its two m-tiles -> its tap-0 slot (a
+  // pixel past the tile reads slot 0 and is never stored)
+  int abase[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int p = wm * 32 + mt * 16 + a_row(lane);
+    const int r = p / geo.TW, c = p - r * geo.TW;
+    abase[mt] = r < geo.TH
+        ? (r * s + ((t0 + r) / geo.Ho - n0) * (3 - s)) * geo.XW + c * s
+        : 0;
+  }
+
+  // this thread's copies: chunk cc (8 channels) of slots / rows tid / 8,
+  // tid / 8 + 32, ...
+  const int cc = tid & 7;
+  auto load_x = [&](int kc, uint32_t xt) {
+    const int ci = kc * kCh + cc * 8;
+    const bool ci_ok = ci < geo.Cin;
+    int pr = (tid >> 3) / geo.XW, j = (tid >> 3) - pr * geo.XW;
+    for (int slot = tid >> 3; slot < xslots; slot += kFwdThreads / 8) {
+      const int n = row_n[pr], hi = row_hi[pr];
+      const int wi = c0 * s - geo.pad_l + j;
+      const bool ok = ci_ok && n < geo.N && hi >= 0 && hi < geo.H &&
+                      wi >= 0 && wi < geo.W;
+      const __nv_bfloat16* src =
+          ok ? x + ((static_cast<size_t>(n) * geo.H + hi) * geo.W + wi) *
+                       geo.Cin + ci
+             : x;
+      copy_chunk(xt, slot, cc, src, ok);
+      for (j += kFwdThreads / 8; j >= geo.XW; j -= geo.XW) ++pr;
+    }
+  };
+  // step i = (chunk kc, tap): w[tap][kc * 64 .., co0 ..] as [64 ci][64 co]
+  auto load_w = [&](int i, uint32_t wt) {
+    const int kc = i / 9, tap = i - kc * 9;
+    const int co = co0 + cc * 8;
+    for (int r = tid >> 3; r < kCh; r += kFwdThreads / 8) {
+      const int ci = kc * kCh + r;
+      const bool ok = ci < geo.Cin && co < geo.Cout;
+      const __nv_bfloat16* src =
+          ok ? w + (static_cast<size_t>(tap) * geo.Cin + ci) * geo.Cout + co
+             : w;
+      copy_chunk(wt, r, cc, src, ok);
+    }
+  };
+
+  float acc[2][4][4], sum[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nb][e] = sum[mt][nb][e] = 0.f;
+
+  const int nch = (geo.Cin + kCh - 1) / kCh;
+  const int steps = 9 * nch;
+  __syncthreads();  // the row table
+  load_x(0, smem0);
+  for (int i = 0; i < kFwdWStages - 1; ++i) {
+    if (i < steps) load_w(i, wring + i * kFwdTileBytes);
+    cp_async_commit();
+  }
+  int kc = 0, tap = 0;
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<kFwdWStages - 2>();  // step i's tile (and patch) landed
+    __syncthreads();  // ... for every thread; step i - 1 is released
+    const int nxt = i + kFwdWStages - 1;
+    if (nxt < steps) load_w(nxt, wring + (nxt % kFwdWStages) * kFwdTileBytes);
+    if (tap == 0 && kc + 1 < nch) {
+      load_x(kc + 1, smem0 + ((kc + 1) & 1) * xbytes);
+    }
+    cp_async_commit();
+    const uint32_t xt = smem0 + (kc & 1) * xbytes;
+    const uint32_t wt = wring + (i % kFwdWStages) * kFwdTileBytes;
+    const int off = (tap / 3) * geo.XW + tap % 3;
+#pragma unroll
+    for (int kk = 0; kk < kCh / 16; ++kk) {
+      uint32_t a[2][4], b[2][4];
+      a_rows(a[0], xt, abase[0] + off, kk, lane);
+      a_rows(a[1], xt, abase[1] + off, kk, lane);
+      b_trans(b[0], wt, kk * 16, 2 * wc, lane);
+      b_trans(b[1], wt, kk * 16, 2 * wc + 1, lane);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+          mma_bf16(acc[mt][nb], a[mt], b[nb >> 1][(nb & 1) * 2],
+                   b[nb >> 1][(nb & 1) * 2 + 1]);
+    }
+    if (++tap == 9) {
+      tap = 0;
+      ++kc;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sum[mt][nb][e] += acc[mt][nb][e];
+            acc[mt][nb][e] = 0.f;
+          }
+    }
+  }
+
+  // C fragment: rows pixels (g and g + 8 of each m-tile), columns co (2t,
+  // 2t + 1 of each 8-column block)
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = wm * 32 + mt * 16 + gq + 8 * h;
+      const int r = p / geo.TW, c = p - r * geo.TW;
+      if (r >= geo.TH || t0 + r >= rows_total || c0 + c >= geo.Wo) continue;
+      const long long m = static_cast<long long>(t0 + r) * geo.Wo + c0 + c;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int co = co0 + wc * 32 + nb * 8 + 2 * t4;
+        if (co < geo.Cout) {
+          epi(m, co, sum[mt][nb][2 * h], sum[mt][nb][2 * h + 1]);
+        }
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 2)
+conv3x3_bn_relu_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const FwdGeom geo, const AffineMmaEpilogue epi) {
+  conv3x3_mma_tile(x, w, geo, epi);
+}
+
+// the most image boundaries TH consecutive output rows starting at a
+// multiple of TH cross (the starts repeat modulo Ho)
+int boundaries(int TH, int Ho) {
+  int most = 0;
+  for (int k = 0; k < Ho; ++k) {
+    const long long t0 = static_cast<long long>(k) * TH;
+    most = std::max(most, static_cast<int>((t0 + TH - 1) / Ho - t0 / Ho));
+  }
+  return most;
+}
+
 Geometry geometry(int N, int H, int W, int Cin, int Cout, int Ho, int Wo,
                   int stride, int pad_t, int pad_l) {
   return Geometry{N, H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l,
@@ -255,16 +505,62 @@ dim3 grid_of(const Geometry& g) {
   return dim3((g.M + kBM - 1) / kBM, (g.Cout + kBN - 1) / kBN);
 }
 
-template <typename T>
-int launch_eval(int K, const void* x, const void* w, const void* scale,
+template <typename T, int K>
+int launch_eval(const void* x, const void* w, const void* scale,
                 const void* shift, void* out, const Geometry& g, int relu,
                 cudaStream_t stream) {
   const AffineEpilogue<T> epi{static_cast<const float*>(scale),
                               static_cast<const float*>(shift),
                               static_cast<T*>(out), relu};
-  auto kernel = K == 1 ? conv1x1_bn_relu_kernel<T> : conv3x3_bn_relu_kernel<T>;
+  void (*kernel)(const T*, const T*, const Geometry, const AffineEpilogue<T>);
+  if constexpr (K == 1) {
+    kernel = conv1x1_bn_relu_kernel<T>;
+  } else {
+    kernel = conv3x3_bn_relu_kernel<T>;
+  }
   kernel<<<grid_of(g), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), g, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_3x3_mma(const void* x, const void* w, const void* scale,
+                   const void* shift, void* out, const Geometry& g, int relu,
+                   cudaStream_t stream) {
+  if (g.stride != 1 && g.stride != 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int s = g.stride;
+  FwdGeom geo{g.N, g.H, g.W, g.Cin, g.Cout, g.Ho, g.Wo, s, g.pad_t, g.pad_l,
+              0, 0, 0, 0, 0};
+  // a tile's columns: the whole row, or segments whose three patch rows
+  // fit a stage; several rows a tile when the patch fits too
+  geo.TW = std::min({g.Wo, kFwdPix, (kFwdSlots / 3 - 3) / s + 1});
+  geo.XW = (geo.TW - 1) * s + 3;
+  geo.nseg = (g.Wo + geo.TW - 1) / geo.TW;
+  geo.TH = geo.nseg > 1 ? 1 : kFwdPix / geo.TW;
+  for (;; --geo.TH) {
+    geo.PR = (geo.TH - 1) * s + 3 + boundaries(geo.TH, g.Ho) * (3 - s);
+    if (geo.TH == 1 ||
+        (geo.PR <= kFwdRows && geo.PR * geo.XW <= kFwdSlots)) {
+      break;
+    }
+  }
+  const int bytes = 2 * geo.PR * geo.XW * conv_mma::kRowBytes +
+                    kFwdWStages * kFwdTileBytes;
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      conv3x3_bn_relu_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes));
+  if (err) return err;
+  const long long rows = static_cast<long long>(g.N) * g.Ho;
+  const dim3 grid(
+      static_cast<unsigned>(geo.nseg * ((rows + geo.TH - 1) / geo.TH)),
+      (g.Cout + conv_mma::kCh - 1) / conv_mma::kCh);
+  const AffineMmaEpilogue epi{static_cast<const float*>(scale),
+                              static_cast<const float*>(shift),
+                              static_cast<__nv_bfloat16*>(out), g.Cout, relu};
+  conv3x3_bn_relu_mma_kernel<<<grid, kFwdThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), geo, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -295,7 +591,8 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16. Each returns the launches' cudaError_t.
 
-// B7 / B8: out = relu?(conv(x, w) * scale + shift), NHWC
+// B7 / B8: out = relu?(conv(x, w) * scale + shift), NHWC; B8's bf16 path
+// on the tensor cores
 int conv1x1_bn_relu(const void* x, const void* w, const void* scale,
                     const void* shift, void* out, int dtype, int N, int H,
                     int W, int Cin, int Cout, int Ho, int Wo, int stride,
@@ -304,8 +601,8 @@ int conv1x1_bn_relu(const void* x, const void* w, const void* scale,
   const Geometry g = geometry(N, H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? launch_eval<__nv_bfloat16>(1, x, w, scale, shift, out, g, relu, s)
-      : launch_eval<float>(1, x, w, scale, shift, out, g, relu, s);
+      ? launch_eval<__nv_bfloat16, 1>(x, w, scale, shift, out, g, relu, s)
+      : launch_eval<float, 1>(x, w, scale, shift, out, g, relu, s);
 }
 
 int conv3x3_bn_relu(const void* x, const void* w, const void* scale,
@@ -316,8 +613,8 @@ int conv3x3_bn_relu(const void* x, const void* w, const void* scale,
   const Geometry g = geometry(N, H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? launch_eval<__nv_bfloat16>(3, x, w, scale, shift, out, g, relu, s)
-      : launch_eval<float>(3, x, w, scale, shift, out, g, relu, s);
+      ? launch_3x3_mma(x, w, scale, shift, out, g, relu, s)
+      : launch_eval<float, 3>(x, w, scale, shift, out, g, relu, s);
 }
 
 // B9a (K 1) / B9b (K 3): out = conv(x, w) in x's dtype, NHWC; sums

@@ -33,12 +33,13 @@
 // (fp32, taps outside x read 0): the nine shifted taps of the TPU kernel as
 // one GEMM whose rows are (tap, ci).
 //
-// Design. B10's two GEMMs and B11's f32 path run on conv_common.cuh's
+// Design. The f32 paths of B10 and B11 run on conv_common.cuh's
 // `gemm_mainloop` (128 x 64 fp32-FMA tiles, steps of 8): B10's dX (rows
 // pixels, columns Cin, reduction over Cout, the A tile dConv computed from
 // dy and y), B10's dW and B11's dW (rows Cin or (tap, Cin), columns Cout,
-// reduction over pixels). B11's bf16 path runs on the tensor cores
-// (`conv3x3_dw_mma_kernel`, below). The TPU accumulates each dW in one
+// reduction over pixels). The bf16 paths run on the tensor cores
+// (`conv3x3_dw_mma_kernel`, `conv1x1_bwd_dx_mma_kernel`,
+// `conv1x1_bwd_dw_mma_kernel`, below). The TPU accumulates each dW in one
 // output block across a sequential grid. Here the pixels are cut into
 // `splits` ranges, one per grid z; each CTA writes its fp32 partial [rows,
 // Cout] and `sum_rows_kernel` adds the splits in a fixed order:
@@ -48,9 +49,11 @@
 // Bound on this card at the bench's stage-2 shapes (batch 256, 56 x 56,
 // bf16): B10 at 64 -> 256 by bytes (x, dy, y read and dx written, 1.03 GB,
 // 0.307 ms at 3.35 TB/s; its two products 53 GFLOP); B11 at 3x3 64 -> 64 by
-// bytes and FLOP alike (59.2 GFLOP, 205.5 MB: 0.061 ms). B10 still reads
-// dy and y once per 64 input channels of dX and once per 64 output
-// channels of dW, in fp32 FMA (no tensor cores), no TMA or cp.async.
+// bytes and FLOP alike (59.2 GFLOP, 205.5 MB: 0.061 ms). B10's dX and dW
+// are two launches, so dy and y leave device memory twice (at 64 -> 256,
+// 0.49 ms of bytes alone): one CTA holding a pixel tile's whole dConv for
+// both products would need its dW tile of Cin x Cout in registers across
+// the split, more than a CTA holds at ResNet-50's widths.
 
 #include <algorithm>
 
@@ -534,6 +537,356 @@ conv3x3_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
+// ---------------------------------------------------------------------------
+// B10 in bf16: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+// dX on `mma.sync`: rows pixels, columns Cin, k = Cout. A CTA owns 128
+// pixels and 64 input channels and walks Cout in chunks of 64. A chunk's
+// dy and y [128 px][64 co], wt [64 co][64 ci] and bundle rows arrive by
+// cp.async into a ring of two stages, one chunk ahead of its use. Then
+// A = dConv is built where it is read (`build_dconv`): each lane holds the
+// bundle of two channels in registers and applies `dconv` unchanged to
+// those channels of one pixel row after another (4 bytes of dy and of y
+// from shared memory, a warp a 128-byte row, no bank conflict), rounds to
+// bf16 and stores into the swizzled A tile; a barrier, then the products,
+// B = wt through `ldmatrix.trans`. A warp owns 32 pixels x 32 ci. 100 KB of
+// shared memory and at most 128 registers let two CTAs share an SM, so
+// one's dConv build overlaps the other's products.
+// dW on `mma.sync`: rows Cin, columns Cout, k = pixels of the CTA's split,
+// B11's product with one tap. A chunk's x at the sampled pixels [64 px][64
+// ci] and dy and y [64 px][64 co] arrive by cp.async into a ring of three
+// stages, two chunks ahead; B = dConv is built as in dX from the CTA's 64
+// channels' bundle (staged once), A = x^T through `ldmatrix.trans`. A warp
+// owns 16 ci x 32 co. Both sum at most kFold chunks (12 k-steps) on the
+// tensor cores from zero before an fp32 register sum takes them (B11's
+// two-level sum), and store no atomics.
+constexpr int k1x1Threads = 256;
+constexpr int kDxPix = 128;       // dX: pixels a CTA holds
+constexpr int kDxStages = 2;      // dX: the ring's chunks
+constexpr int kDwStep = 64;       // dW: pixels a chunk holds (4 k-steps)
+constexpr int kDwStages = 3;      // dW: the ring's chunks
+constexpr int kFold = 3;          // chunks the tensor cores sum alone
+constexpr int kBundle = 8 * conv_mma::kCh;   // bundle floats a chunk holds
+constexpr int kTile = conv_mma::kCh * conv_mma::kRowBytes;     // 8 KB
+constexpr int kDxRaw = kDxPix * conv_mma::kRowBytes;           // 16 KB
+// a dX stage: dy, y, wt and the bundle; the A tile after the stages
+constexpr int kDxStage = 2 * kDxRaw + kTile + kBundle * 4;
+constexpr int kDxSmem = kDxStages * kDxStage + kDxRaw;         // 100 KB
+// a dW stage: x, dy and y; the dConv tile and the bundle after the stages
+constexpr int kDwStage = 3 * kTile;
+constexpr int kDwSmem = kDwStages * kDwStage + kTile + kBundle * 4;  // 82 KB
+
+// cp.async of bundle rows [8, Cout] at channels [c0, c0 + 64) into R
+// [8][64]; channels past Cout read 0
+__device__ __forceinline__ void stage_bundle(float* R, const float* rows,
+                                             int Cout, int c0, int tid) {
+  for (int e = tid; e < kBundle; e += k1x1Threads) {
+    const int q = e >> 6, c = c0 + (e & 63);
+    const bool ok = c < Cout;
+    conv_mma::cp_async_4(conv_mma::smem_u32(R + e),
+                         rows + (ok ? q * Cout + c : 0), ok);
+  }
+}
+
+// the dConv of a [P rows][64 channels] chunk: `dst` (swizzled) <- dconv of
+// the same rows and channels of the raw dy and y tiles, rounded to bf16, 0
+// for rows at or past `valid_rows` or channels past Cout. Lane pc of each
+// warp owns channels 2 pc, 2 pc + 1 and holds their bundle (from R [8][64])
+// in registers; warp w takes rows w, w + 8, ...: a warp reads and writes
+// one 128-byte row at a time, without bank conflicts.
+template <int P>
+__device__ __forceinline__ void build_dconv(unsigned char* dst,
+                                            const unsigned char* dyt,
+                                            const unsigned char* yt,
+                                            const float* R, int valid_rows,
+                                            bool ch_ok, int relu, int tid) {
+  const int pc = tid & 31, w = tid >> 5;
+  float r0[8], r1[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float2 v = *reinterpret_cast<const float2*>(R + q * 64 + 2 * pc);
+    r0[q] = v.x;
+    r1[q] = v.y;
+  }
+#pragma unroll 4
+  for (int p = w; p < P; p += k1x1Threads / 32) {
+    const uint32_t off = conv_mma::tile_offset(p, pc >> 2) + (pc & 3) * 4;
+    uint32_t v = 0;
+    if (ch_ok && p < valid_rows) {
+      const float2 df = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dyt + off));
+      const float2 yf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(yt + off));
+      v = conv_mma::pack_bf16x2(dconv(yf.x, df.x, r0, relu),
+                                dconv(yf.y, df.y, r1, relu));
+    }
+    *reinterpret_cast<uint32_t*>(dst + off) = v;
+  }
+}
+
+__global__ void __launch_bounds__(k1x1Threads, 2)
+conv1x1_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ dy,
+                          const __nv_bfloat16* __restrict__ y,
+                          const float* __restrict__ rows,
+                          const __nv_bfloat16* __restrict__ wt,
+                          __nv_bfloat16* __restrict__ dx, const Sampler smp,
+                          const int Cout, const int M, const int relu) {
+  using namespace conv_mma;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* a_ptr = smem_raw + kDxStages * kDxStage;
+  const uint32_t s_u32 = smem_u32(smem_raw), a_u32 = smem_u32(a_ptr);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wc = warp >> 2;   // 32 pixel block, 32 ci block
+  const int m0 = blockIdx.x * kDxPix, ci0 = blockIdx.y * kCh;
+  const int Cin = smp.Cin;
+  const int nch = (Cout + kCh - 1) / kCh;
+  // this thread's rows and 16-byte chunk: pixels p0 + 32 i, chunk cc
+  const int cc = tid & 7, p0 = tid >> 3;
+
+  // chunk k -> stage st: dy, y [128 px][64 co], wt [64 co][64 ci], bundle
+  auto load = [&](int k, int st) {
+    const uint32_t b = s_u32 + st * kDxStage;
+    const int co = k * kCh + cc * 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = p0 + 32 * i, m = m0 + p;
+      const bool ok = m < M && co < Cout;
+      const size_t off = ok ? static_cast<size_t>(m) * Cout + co : 0;
+      copy_chunk(b, p, cc, dy + off, ok);
+      copy_chunk(b + kDxRaw, p, cc, y + off, ok);
+    }
+    const int ci = ci0 + cc * 8;
+    for (int r = tid >> 3; r < kCh; r += k1x1Threads / 8) {
+      const int cr = k * kCh + r;
+      const bool ok = cr < Cout && ci < Cin;
+      copy_chunk(b + 2 * kDxRaw, r, cc,
+                 ok ? wt + static_cast<size_t>(cr) * Cin + ci : wt, ok);
+    }
+    stage_bundle(reinterpret_cast<float*>(smem_raw + st * kDxStage +
+                                          2 * kDxRaw + kTile),
+                 rows, Cout, k * kCh, tid);
+  };
+
+  float acc[2][4][4], sum[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nb][e] = sum[mt][nb][e] = 0.f;
+
+  for (int i = 0; i < kDxStages - 1; ++i) {
+    if (i < nch) load(i, i);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nch; ++k) {
+    cp_async_wait<kDxStages - 2>();  // chunk k has landed
+    __syncthreads();  // ... for every thread; chunk k - 1 is released
+    const int nxt = k + kDxStages - 1;
+    if (nxt < nch) load(nxt, nxt % kDxStages);
+    cp_async_commit();
+    const int st = k % kDxStages;
+    const unsigned char* base = smem_raw + st * kDxStage;
+    build_dconv<kDxPix>(
+        a_ptr, base, base + kDxRaw,
+        reinterpret_cast<const float*>(base + 2 * kDxRaw + kTile), M - m0,
+        k * kCh + 2 * (tid & 31) < Cout, relu, tid);
+    __syncthreads();  // A(k)
+    const uint32_t bt = s_u32 + st * kDxStage + 2 * kDxRaw;
+#pragma unroll
+    for (int kk = 0; kk < kCh / 16; ++kk) {
+      uint32_t a[2][4], b[2][4];
+      a_rows(a[0], a_u32, wm * 32 + a_row(lane), kk, lane);
+      a_rows(a[1], a_u32, wm * 32 + 16 + a_row(lane), kk, lane);
+      b_trans(b[0], bt, kk * 16, 2 * wc, lane);
+      b_trans(b[1], bt, kk * 16, 2 * wc + 1, lane);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+          mma_bf16(acc[mt][nb], a[mt], b[nb >> 1][(nb & 1) * 2],
+                   b[nb >> 1][(nb & 1) * 2 + 1]);
+    }
+    if ((k + 1) % kFold == 0 || k + 1 == nch) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sum[mt][nb][e] += acc[mt][nb][e];
+            acc[mt][nb][e] = 0.f;
+          }
+    }
+  }
+  cp_async_wait<0>();
+
+  // C fragment: rows pixels (g and g + 8 of each m-tile), columns ci (2t,
+  // 2t + 1 of each 8-column block), written at the sampled pixel
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + mt * 16 + gq + 8 * h;
+      if (m >= M) continue;
+      __nv_bfloat16* out = dx + smp.offset(m);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int ci = ci0 + wc * 32 + nb * 8 + 2 * t4;
+        if (ci < Cin) {
+          *reinterpret_cast<__nv_bfloat162*>(out + ci) =
+              __floats2bfloat162_rn(sum[mt][nb][2 * h],
+                                    sum[mt][nb][2 * h + 1]);
+        }
+      }
+    }
+}
+
+__global__ void __launch_bounds__(k1x1Threads, 2)
+conv1x1_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ dy,
+                          const __nv_bfloat16* __restrict__ y,
+                          const float* __restrict__ rows,
+                          float* __restrict__ partial, const Sampler smp,
+                          const int Cout, const int M, const int chunk,
+                          const int relu) {
+  using namespace conv_mma;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* d_ptr = smem_raw + kDwStages * kDwStage;
+  float* R = reinterpret_cast<float*>(d_ptr + kTile);
+  const uint32_t s_u32 = smem_u32(smem_raw), d_u32 = smem_u32(d_ptr);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp & 3, wc = warp >> 2;   // 16 ci block, 32 co block
+  const int ci0 = blockIdx.x * kCh, co0 = blockIdx.y * kCh;
+  const int Cin = smp.Cin;
+  const int mb = blockIdx.z * chunk;
+  const int me = min(M, mb + chunk);
+  const int nst = me > mb ? (me - mb + kDwStep - 1) / kDwStep : 0;
+  // this thread's rows and 16-byte chunk: pixels p0 and p0 + 32, chunk cc
+  const int cc = tid & 7, p0 = tid >> 3;
+  const bool ci_ok = ci0 + cc * 8 < Cin, co_ok = co0 + cc * 8 < Cout;
+
+  // chunk k -> stage st: x [64 px][64 ci], dy and y [64 px][64 co]
+  auto load = [&](int k, int st) {
+    const uint32_t b = s_u32 + st * kDwStage;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = p0 + 32 * i, m = mb + k * kDwStep + p;
+      const bool in = m < me;
+      copy_chunk(b, p, cc, in && ci_ok ? x + smp.offset(m) + ci0 + cc * 8
+                                       : x, in && ci_ok);
+      const size_t off =
+          in && co_ok ? static_cast<size_t>(m) * Cout + co0 + cc * 8 : 0;
+      copy_chunk(b + kTile, p, cc, dy + off, in && co_ok);
+      copy_chunk(b + 2 * kTile, p, cc, y + off, in && co_ok);
+    }
+  };
+
+  float acc[4][4], sum[4][4];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = sum[nb][e] = 0.f;
+
+  stage_bundle(R, rows, Cout, co0, tid);
+  for (int i = 0; i < kDwStages - 1; ++i) {
+    if (i < nst) load(i, i);
+    cp_async_commit();
+  }
+  const int apix = a_pixel(lane);
+  for (int k = 0; k < nst; ++k) {
+    cp_async_wait<kDwStages - 2>();  // chunk k (and the bundle) landed
+    __syncthreads();  // ... for every thread; chunk k - 1 is released
+    const int nxt = k + kDwStages - 1;
+    if (nxt < nst) load(nxt, nxt % kDwStages);
+    cp_async_commit();
+    const int st = k % kDwStages;
+    const unsigned char* base = smem_raw + st * kDwStage;
+    build_dconv<kDwStep>(d_ptr, base + kTile, base + 2 * kTile, R,
+                         me - mb - k * kDwStep, co0 + 2 * (tid & 31) < Cout,
+                         relu, tid);
+    __syncthreads();  // D(k)
+    const uint32_t xt = s_u32 + st * kDwStage;
+#pragma unroll
+    for (int ks = 0; ks < kDwStep / 16; ++ks) {
+      uint32_t a[4], b[2][4];
+      a_trans(a, xt, ks * 16 + apix, wr, lane);
+      b_trans(b[0], d_u32, ks * 16, 2 * wc, lane);
+      b_trans(b[1], d_u32, ks * 16, 2 * wc + 1, lane);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+        mma_bf16(acc[nb], a, b[nb >> 1][(nb & 1) * 2],
+                 b[nb >> 1][(nb & 1) * 2 + 1]);
+    }
+    if ((k + 1) % kFold == 0 || k + 1 == nst) {
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sum[nb][e] += acc[nb][e];
+          acc[nb][e] = 0.f;
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  // C fragment: rows ci (g and g + 8 of the warp's 16), columns co (2t,
+  // 2t + 1 of each 8-column block)
+  const int gq = lane >> 2, t4 = lane & 3;
+  float* out = partial + static_cast<size_t>(blockIdx.z) * Cin * Cout;
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    const int co = co0 + wc * 32 + nb * 8 + 2 * t4;
+    if (co >= Cout) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ci = ci0 + wr * 16 + gq + 8 * h;
+      if (ci < Cin)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(ci) * Cout +
+                                   co) =
+            make_float2(sum[nb][2 * h], sum[nb][2 * h + 1]);
+    }
+  }
+}
+
+int launch_1x1_mma(const void* x, const void* dy, const void* y,
+                   const void* rows, const void* wt, void* dx, void* dw,
+                   void* partial, const Sampler& smp, int M, int Cout,
+                   int relu, int splits, int chunk, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const bf16* dyt = static_cast<const bf16*>(dy);
+  const bf16* yt = static_cast<const bf16*>(y);
+  const float* r = static_cast<const float*>(rows);
+  float* part = static_cast<float*>(partial);
+  const int ch = conv_mma::kCh;
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      conv1x1_bwd_dx_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDxSmem));
+  if (!err) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        conv1x1_bwd_dw_mma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem));
+  }
+  if (err) return err;
+  conv1x1_bwd_dx_mma_kernel<<<dim3((M + kDxPix - 1) / kDxPix,
+                                   (smp.Cin + ch - 1) / ch),
+                              k1x1Threads, kDxSmem, stream>>>(
+      dyt, yt, r, static_cast<const bf16*>(wt), static_cast<bf16*>(dx), smp,
+      Cout, M, relu);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  conv1x1_bwd_dw_mma_kernel<<<dim3((smp.Cin + ch - 1) / ch,
+                                   (Cout + ch - 1) / ch, splits),
+                              k1x1Threads, kDwSmem, stream>>>(
+      static_cast<const bf16*>(x), dyt, yt, r, part, smp, Cout, M, chunk,
+      relu);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return sum_rows(part, static_cast<float*>(dw), splits,
+                  (long long)smp.Cin * Cout, stream);
+}
+
 template <typename T>
 int launch_1x1(const void* x, const void* dy, const void* y,
                const void* rows, const void* wt, void* dx, void* dw,
@@ -623,10 +976,11 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16. Each returns the launches' cudaError_t.
 
-// B10: x [N, H, W, Cin] (read at pixels (n, ho*s, wo*s)), dy and y [N, Ho,
-// Wo, Cout], rows [8, Cout] fp32, wt [Cout, Cin] -> dx [N, H, W, Cin]
-// (written at the sampled pixels only), dw [Cin, Cout] fp32; partial: fp32
-// scratch [splits, Cin, Cout], the pixels cut into chunks of `chunk`
+// B10 (bf16 on the tensor cores): x [N, H, W, Cin] (read at pixels (n,
+// ho*s, wo*s)), dy and y [N, Ho, Wo, Cout], rows [8, Cout] fp32, wt [Cout,
+// Cin] -> dx [N, H, W, Cin] (written at the sampled pixels only), dw [Cin,
+// Cout] fp32; partial: fp32 scratch [splits, Cin, Cout], the pixels cut
+// into chunks of `chunk`
 int conv1x1_bwd(const void* x, const void* dy, const void* y,
                 const void* rows, const void* wt, void* dx, void* dw,
                 void* partial, int dtype, int N, int H, int W, int Cin,
@@ -639,8 +993,8 @@ int conv1x1_bwd(const void* x, const void* dy, const void* y,
   const int M = N * Ho * Wo;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? launch_1x1<__nv_bfloat16>(x, dy, y, rows, wt, dx, dw, partial, smp,
-                                  M, Cout, relu, splits, chunk, s)
+      ? launch_1x1_mma(x, dy, y, rows, wt, dx, dw, partial, smp, M, Cout,
+                       relu, splits, chunk, s)
       : launch_1x1<float>(x, dy, y, rows, wt, dx, dw, partial, smp, M, Cout,
                           relu, splits, chunk, s);
 }

@@ -1,7 +1,7 @@
 // Tensor-core pieces of the conv kernels for Hopper (sm_90a): tiles of
 // NHWC rows in shared memory and the `mma.sync` fragments read from them.
-// conv_bn_relu_bwd.cu's bf16 3x3 dWeight (B11) uses them; they are written
-// so that the 1x1 dWeight (B10) and the 3x3 forward (B8) can take them up.
+// The bf16 kernels of conv_bn_relu_bwd.cu (the 3x3 dWeight B11, the 1x1
+// backward B10) and of conv_bn_relu.cu (the 3x3 forward B8) use them.
 //
 // A tile holds rows of 64 bf16 channels (128 bytes, eight 16-byte chunks):
 // a pixel's channels [c0, c0 + 64) of an NHWC tensor, one row a pixel
@@ -18,10 +18,15 @@
 //     columns 16 pixels (a dWeight's x^T). Each lane names its own slot
 //     (pixel k0 + (lane & 7) + 8 (lane >> 4)), so the 16 pixels may sit
 //     anywhere in the tile: a 3x3 tap is the same read at shifted slots;
-//   - `b_trans`: B = X for a [pixel][channel] tile X whose rows k0 .. k0 +
-//     15 are the 16 pixels, columns channels n0 .. n0 + 15 as two 8-column
-//     blocks: b(block 0) = {r[0], r[1]}, b(block 1) = {r[2], r[3]} (a
-//     dWeight's dConv).
+//   - `a_rows`: A = X itself for a [pixel][channel] tile X, rows 16
+//     pixels, columns 16 channels (B10's dConv in dX, B8's x). Each lane
+//     names the slot of pixel `lane & 15` (`a_row`), so a 3x3 tap is again
+//     the same read at shifted slots;
+//   - `b_trans`: B = X for a [row][channel] tile X whose rows k0 .. k0 +
+//     15 are the 16 k values, columns channels n0 .. n0 + 15 as two
+//     8-column blocks: b(block 0) = {r[0], r[1]}, b(block 1) = {r[2], r[3]}
+//     (a dWeight's dConv over pixels; B10's wt [co][ci] and B8's w [ci][co]
+//     over channels).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,10 +38,13 @@ namespace conv_mma {
 
 using bf16 = __nv_bfloat16;
 using attn_mma::cp_async_16;
+using attn_mma::cp_async_4;
 using attn_mma::cp_async_commit;
 using attn_mma::cp_async_wait;
+using attn_mma::ldsm_x4;
 using attn_mma::ldsm_x4_trans;
 using attn_mma::mma_bf16;
+using attn_mma::pack_bf16x2;
 using attn_mma::smem_u32;
 
 constexpr int kCh = 64;               // channels a tile row holds
@@ -66,8 +74,20 @@ __device__ __forceinline__ int a_pixel(int lane) {
   return (lane & 7) + ((lane >> 4) << 3);
 }
 
-// B fragments (16 pixels from row k0, channels from chunk 2 * cb) of a
-// [pixel][channel] tile; k0 a multiple of 8
+// A fragment (16 pixels, 16 channels from chunk 2 * cb) of a
+// [pixel][channel] tile read as it is; `slot` is this lane's pixel's row:
+// lanes 0-15 name pixels 0-15 at channels 0-7, lanes 16-31 the same pixels
+// at channels 8-15, so r[0..3] are a[0..3]
+__device__ __forceinline__ void a_rows(uint32_t (&a)[4], uint32_t tile,
+                                       int slot, int cb, int lane) {
+  ldsm_x4(a, tile + tile_offset(slot, 2 * cb + (lane >> 4)));
+}
+
+// the lane's pixel in a 16-pixel m-tile for `a_rows`
+__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
+
+// B fragments (16 k rows from row k0, channels from chunk 2 * cb) of a
+// [row][channel] tile; k0 a multiple of 8
 __device__ __forceinline__ void b_trans(uint32_t (&b)[4], uint32_t tile,
                                         int k0, int cb, int lane) {
   ldsm_x4_trans(b, tile + tile_offset(k0 + (lane & 15),

@@ -26,17 +26,29 @@ decoding, one device, serial core).
   `PADDLE_PAGED_ATTENTION_BACKEND`, which wins): `auto`/`dense`/`pallas`
   resolved once by `ops.paged_attention.resolve_backend`; `pallas` runs
   the paged kernels, `dense` their plain versions on every device.
+- the deploy switches, resolved as the JAX engine resolves them: the
+  environment wins over the argument and an empty value means unset.
+  `PADDLE_SPEC_DECODE_K` over `spec_decode_k` and `PADDLE_SERVE_KV_DTYPE`
+  over `kv_dtype` (unset or `int8`). The switches of features not ported
+  yet are parsed by JAX's rules and raise `NotImplementedError` when they
+  ask for their feature, never serving without it: `PADDLE_SERVE_MP` > 1,
+  `PADDLE_SERVE_WEIGHT_DTYPE=int8`, and `PADDLE_SERVE_SAMPLING`,
+  `PADDLE_SERVE_TRACING` or `PADDLE_SERVE_ASYNC` on.
+- prefill: chunked, `prefill_chunk="auto"` (the default) being
+  `min(128, max_model_len)` as in JAX. JAX's bucketed prefill
+  (`prefill_chunk=None` or `prefill_buckets=`) raises
+  `NotImplementedError`.
 
 The pools (and scales) are updated IN PLACE by every step (PyTorch is
 eager: there is no compiled step, no donation, no trace count). Greedy
 output matches `GPTForCausalLM.generate(use_cache=True)` per request, with
 or without speculation; int8 pools hold to the JAX int8 engine instead.
 
-Left for later slices: bucketed prefill, sampled acceptance and the async
-drafter thread, tensor parallelism, int8 weights, adapters, sampling, the
-environment overrides (`PADDLE_SPEC_DECODE_K`, `PADDLE_SERVE_KV_DTYPE`),
-the metrics registry, tracing and the flight recorder, the async core and
-the fleet handoff. Plain counters stand in for the metrics.
+Left for later slices (ROADMAP Queue A): bucketed prefill, sampled
+acceptance and the async drafter thread, tensor parallelism, int8
+weights, adapters, sampling, the metrics registry, tracing and the flight
+recorder, the async core and the fleet handoff. Plain counters stand in
+for the metrics.
 """
 from __future__ import annotations
 
@@ -281,6 +293,75 @@ class PagedKVCache:
                         and (b in free or b in self._evictable))]
 
 
+# copied from paddle_tpu/inference/engine.py (GenerationEngine's static
+# methods), so that a switch parses, and fails, as it does there
+def _resolve_dtype_knob(env_name, requested):
+    """Resolve a quantization knob: env override wins, '' means
+    unset, only None/'int8' are valid (the fp path is the absence
+    of the knob, not a named dtype)."""
+    env = os.environ.get(env_name)
+    if env not in (None, ""):
+        requested = env
+    if requested in (None, ""):
+        return None
+    if requested != "int8":
+        raise ValueError(
+            f"{env_name}/ctor value must be unset or 'int8', got "
+            f"{requested!r}")
+    return "int8"
+
+
+def _resolve_bool_knob(env_name, requested):
+    """Resolve a boolean serving knob: env override wins, ''
+    means unset, None defaults to off."""
+    env = os.environ.get(env_name)
+    if env not in (None, ""):
+        low = env.lower()
+        if low in ("1", "true", "on", "yes"):
+            return True
+        if low in ("0", "false", "off", "no"):
+            return False
+        raise ValueError(
+            f"{env_name}={env!r} is not a boolean (use 0/1)")
+    return bool(requested) if requested is not None else False
+
+
+def _resolve_env_mp():
+    """`PADDLE_SERVE_MP` as `_resolve_mesh` parses it: None when unset,
+    else an int >= 1."""
+    env = os.environ.get("PADDLE_SERVE_MP")
+    if env in (None, ""):
+        return None
+    try:
+        mp = int(env)
+    except ValueError:
+        raise ValueError(f"PADDLE_SERVE_MP={env!r} is not an integer")
+    if mp < 1:
+        raise ValueError(f"mp degree must be >= 1, got {mp}")
+    return mp
+
+
+def _refuse_unported_switches():
+    """Raise NotImplementedError when a deploy switch of a feature the
+    port lacks asks for it, naming the ROADMAP Queue A item that ports
+    it; a bad value raises JAX's ValueError. Off and unset pass."""
+    mp = _resolve_env_mp()
+    if mp is not None and mp > 1:
+        raise NotImplementedError(
+            f"PADDLE_SERVE_MP={mp}: tensor-parallel serving is not ported "
+            "yet (ROADMAP Queue A 10)")
+    if _resolve_dtype_knob("PADDLE_SERVE_WEIGHT_DTYPE", None):
+        raise NotImplementedError(
+            "PADDLE_SERVE_WEIGHT_DTYPE=int8: int8 weights are not ported "
+            "yet (ROADMAP Queue A 7)")
+    for name, item in (("PADDLE_SERVE_SAMPLING", "6"),
+                       ("PADDLE_SERVE_TRACING", "11"),
+                       ("PADDLE_SERVE_ASYNC", "11")):
+        if _resolve_bool_knob(name, None):
+            raise NotImplementedError(
+                f"{name} is on: not ported yet (ROADMAP Queue A {item})")
+
+
 # admission QoS classes, best-served first
 PRIORITY_CLASSES = ("interactive", "standard", "batch")
 
@@ -337,6 +418,9 @@ class GenerationEngine:
     the model's dtype, or int8 with `kv_dtype="int8"`. `spec_decode_k=K`
     turns each decode step into a K-token verify step over drafts from
     `drafter` (an `NgramDrafter` when None); K=0 is plain decoding.
+    `PADDLE_SPEC_DECODE_K` and `PADDLE_SERVE_KV_DTYPE` win over those two
+    arguments. `prefill_chunk` is `"auto"` (`min(128, max_model_len)`) or
+    an int; `None` and `prefill_buckets` (bucketed prefill) raise.
     `attention_backend` (`auto` by default) is resolved once into
     `attention_backend` (`dense` or `pallas`); `auto` is dense at head dims
     and block sizes the kernels do not take. Counters: `tokens_generated`,
@@ -347,14 +431,15 @@ class GenerationEngine:
     """
 
     def __init__(self, model, num_slots=8, block_size=16, num_blocks=None,
-                 max_model_len=None, eos_token_id=None, prefill_chunk=None,
+                 max_model_len=None, eos_token_id=None, prefill_chunk="auto",
                  enable_prefix_cache=True, max_queue=None, device=None,
                  spec_decode_k=0, drafter=None, kv_dtype=None,
-                 attention_backend=None):
+                 attention_backend=None, prefill_buckets=None):
         cfg = model.config
         if model.training and cfg.dropout > 0:
             raise ValueError("GenerationEngine decodes deterministically "
                              "(no dropout) — call model.eval() first")
+        _refuse_unported_switches()
         self.device = resolve_device(device)
         wte = model.gpt.wte.weight
         if wte.device.type != self.device.type:
@@ -379,22 +464,47 @@ class GenerationEngine:
             block_size=self.block_size)
         self.eos_token_id = eos_token_id
         self.max_queue = None if max_queue is None else int(max_queue)
-        self.prefill_chunk = max(1, min(
-            int(prefill_chunk or 128), self.max_model_len))
+        # chunked prefill only: JAX's "auto" resolves to a chunk, and its
+        # bucketed prefill (a None chunk, or buckets) is not ported
+        if prefill_chunk == "auto" and prefill_buckets is None:
+            prefill_chunk = min(128, self.max_model_len)
+        elif prefill_chunk not in (None, "auto") \
+                and prefill_buckets is not None:
+            raise ValueError("prefill_chunk and prefill_buckets are "
+                             "mutually exclusive prefill strategies")
+        if prefill_chunk in (None, "auto"):
+            raise NotImplementedError(
+                "bucketed prefill (prefill_chunk=None or prefill_buckets=) "
+                "is not ported yet (ROADMAP Queue A 8); the port runs "
+                "chunked prefill: pass prefill_chunk='auto' or an int")
+        self.prefill_chunk = max(1, min(int(prefill_chunk),
+                                        self.max_model_len))
         self.enable_prefix_cache = bool(enable_prefix_cache)
-        k = int(spec_decode_k)
+        # speculative decoding and int8 KV: the environment wins, as the
+        # deploy-time switches of the JAX engine
+        env_k = os.environ.get("PADDLE_SPEC_DECODE_K")
+        if env_k not in (None, ""):
+            try:
+                k = int(env_k)
+            except ValueError:
+                raise ValueError(
+                    f"PADDLE_SPEC_DECODE_K={env_k!r} is not an integer")
+        else:
+            k = int(spec_decode_k)
         if k < 0:
             raise ValueError(f"spec_decode_k must be >= 0, got {k}")
         self.spec_decode_k = k
         self.drafter = (drafter if drafter is not None else NgramDrafter()) \
             if k > 0 else None
+        self.kv_dtype = _resolve_dtype_knob("PADDLE_SERVE_KV_DTYPE",
+                                            kv_dtype)
         # default pool: every slot at full context (+ the null block)
         self.cache = PagedKVCache(
             cfg.num_layers,
             int(num_blocks or 1 + self.num_slots * self.max_blocks),
             self.block_size, cfg.num_heads,
             cfg.hidden_size // cfg.num_heads, dtype=wte.dtype,
-            device=self.device, kv_dtype=kv_dtype)
+            device=self.device, kv_dtype=self.kv_dtype)
         self._queues = {p: deque() for p in PRIORITY_CLASSES}
         self._slots = [None] * self.num_slots
         self._results = {}

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 from torch.nn import functional as F
@@ -140,12 +141,14 @@ def resolve_conv_backend(backend=None, *, kernel=(3, 3), stride=(1, 1),
                          groups=1, padding=0):
     """Resolve `auto`/`dense`/`pallas` to the backend a fused conv block
     runs, once, at construction. `pallas` names the hand-written kernels
-    (the JAX package's name, kept for API parity). Shapes
-    `conv_shapes_supported` rejects resolve `dense` whatever was asked; a
-    supported shape honours an explicit `dense` or `pallas`, and `auto`
-    takes the kernels, as JAX's `auto` does on its accelerator. On the CPU
-    the kernel route runs the plain version."""
-    requested = backend or "auto"
+    (the JAX package's name, kept for API parity). The environment's
+    `PADDLE_CONV_BACKEND` wins over `backend`, as in JAX (a deploy-time
+    switch; empty means unset). Shapes `conv_shapes_supported` rejects
+    resolve `dense` whatever was asked; a supported shape honours an
+    explicit `dense` or `pallas`, and `auto` takes the kernels, as JAX's
+    `auto` does on its accelerator. On the CPU the kernel route runs the
+    plain version."""
+    requested = os.environ.get("PADDLE_CONV_BACKEND") or backend or "auto"
     if requested not in CONV_BACKENDS:
         raise ValueError(f"conv backend must be one of {CONV_BACKENDS}, "
                          f"got {requested!r}")

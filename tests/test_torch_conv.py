@@ -319,3 +319,28 @@ def test_convbnrelu_resolves_like_jax(monkeypatch):
         ConvBNReLU(8, 8, 3, act="gelu", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         ConvBNReLU(8, 8, 3, backend="cudnn", device="cpu")
+
+
+@pytest.mark.parametrize("env", ["dense", "pallas", ""])
+def test_convbnrelu_backend_env_wins_as_in_jax(env, monkeypatch):
+    """ROADMAP Queue C 14: `PADDLE_CONV_BACKEND` wins over the block's
+    `backend` argument in both packages (empty means unset); shapes the
+    kernels do not take stay dense whatever it says. Unset, the port's
+    `auto` takes the kernels where JAX's takes them on a TPU alone
+    (Queue C 7), so JAX is asked for `pallas` there."""
+    monkeypatch.setenv("PADDLE_CONV_BACKEND", env)
+    cases = [((3, 64, 7), dict(stride=2, padding=3)), ((12, 16, 3), {}),
+             ((16, 16, 3), dict(padding=1)), ((16, 16, 1), dict(stride=2))]
+    for args, kw in cases:
+        for backend in (None, "dense", "pallas"):
+            tb = ConvBNReLU(*args, backend=backend, device="cpu", **kw)
+            jb = jnn.ConvBNReLU(*args, backend=backend or (env or "pallas"),
+                                **kw)
+            assert tb.backend == jb.backend, (args, backend)
+            if env and args[0] % 8 == 0 and args[2] != 7:
+                assert tb.backend == env
+    monkeypatch.setenv("PADDLE_CONV_BACKEND", "cudnn")
+    with pytest.raises(ValueError, match="backend"):
+        ConvBNReLU(8, 8, 3, device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        jnn.ConvBNReLU(8, 8, 3)

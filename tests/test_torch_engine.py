@@ -261,3 +261,137 @@ def test_attention_backend_seam_token_identical_to_jax(models, backend,
         assert tpa.resolve_backend("auto", hd, bs) == auto, (hd, bs)
     with pytest.raises(ValueError, match="backend"):
         tpa.resolve_backend("cuda", 64, 16)
+
+
+# ROADMAP Queue C 14: the deploy switches and `prefill_chunk`, as JAX
+# resolves them
+SWITCHES = ("PADDLE_SPEC_DECODE_K", "PADDLE_SERVE_KV_DTYPE", "PADDLE_SERVE_MP",
+            "PADDLE_SERVE_WEIGHT_DTYPE", "PADDLE_SERVE_SAMPLING",
+            "PADDLE_SERVE_TRACING", "PADDLE_SERVE_ASYNC",
+            "PADDLE_PAGED_ATTENTION_BACKEND")
+
+
+@pytest.fixture
+def no_switches(monkeypatch):
+    for var in SWITCHES:
+        monkeypatch.delenv(var, raising=False)
+    return monkeypatch
+
+
+def _raised(fn):
+    """(exception type, message) of what `fn()` raised, or None."""
+    try:
+        fn()
+    except Exception as e:                      # noqa: BLE001
+        return type(e), str(e)
+    return None
+
+
+@pytest.mark.parametrize("max_model_len", [None, 40, 7])
+def test_prefill_chunk_auto_is_jax_chunk(models, no_switches, max_model_len):
+    """`prefill_chunk="auto"`, the default in both packages, resolves to
+    JAX's `min(128, max_model_len)`, and the engines serve the same
+    tokens from it; an int is clamped as in JAX."""
+    jm, tm = models
+    kw = dict(num_slots=2, block_size=4, num_blocks=40,
+              max_model_len=max_model_len)
+    jeng = JEngine(jm, attention_backend="dense", **kw)
+    teng = GenerationEngine(tm, device="cpu", **kw)
+    assert teng.prefill_chunk == jeng.prefill_chunk == \
+        min(128, max_model_len or 64)
+    assert GenerationEngine(tm, device="cpu", prefill_chunk="auto",
+                            **kw).prefill_chunk == teng.prefill_chunk
+    for chunk in (0, 5, 500):
+        assert GenerationEngine(tm, device="cpu", prefill_chunk=chunk,
+                                **kw).prefill_chunk == \
+            JEngine(jm, attention_backend="dense", prefill_chunk=chunk,
+                    **kw).prefill_chunk
+    rng = np.random.RandomState(2)
+    hi = min(6, (max_model_len or 64) - 1)
+    reqs = [(rng.randint(0, VOCAB, rng.randint(1, hi)).astype(np.int32),
+             int((max_model_len or 64) - hi), {}) for _ in range(3)]
+    want = _drive(jeng, reqs[:2], reqs[2:], 1, lambda e: e.run())
+    got = _drive(teng, reqs[:2], reqs[2:], 1, lambda e: e.drain())
+    assert got == want
+
+
+@pytest.mark.parametrize("kw,raises", [
+    (dict(prefill_chunk=None), NotImplementedError),
+    (dict(prefill_buckets=(16, 64)), NotImplementedError),
+    (dict(prefill_chunk="auto", prefill_buckets=(16, 64)),
+     NotImplementedError),
+    (dict(prefill_chunk=8, prefill_buckets=(16, 64)), ValueError),
+    (dict(prefill_chunk="eight"), ValueError)])
+def test_bucketed_prefill_raises_instead_of_chunking(models, no_switches, kw,
+                                                     raises):
+    """JAX's bucketed prefill (`prefill_chunk=None` or `prefill_buckets=`)
+    is not ported: the port raises naming ROADMAP Queue A 8 and never
+    runs chunked prefill in its place. A chunk beside buckets, or a chunk
+    that is not an int, raises JAX's ValueError."""
+    jm, tm = models
+    got = _raised(lambda: GenerationEngine(tm, device="cpu", num_slots=2,
+                                           block_size=4, **kw))
+    assert got is not None and got[0] is raises
+    if raises is NotImplementedError:
+        assert "Queue A 8" in got[1]
+        JEngine(jm, attention_backend="dense", num_slots=2, block_size=4,
+                **kw)                          # JAX builds a bucketed engine
+    else:
+        assert got == _raised(lambda: JEngine(
+            jm, attention_backend="dense", num_slots=2, block_size=4, **kw))
+
+
+@pytest.mark.parametrize("var,value,item", [
+    ("PADDLE_SERVE_MP", "2", "Queue A 10"),
+    ("PADDLE_SERVE_WEIGHT_DTYPE", "int8", "Queue A 7"),
+    ("PADDLE_SERVE_SAMPLING", "1", "Queue A 6"),
+    ("PADDLE_SERVE_TRACING", "on", "Queue A 11"),
+    ("PADDLE_SERVE_ASYNC", "true", "Queue A 11")])
+def test_unported_switch_raises_rather_than_serving_without_it(
+        models, no_switches, var, value, item):
+    """A deploy switch of a feature the port lacks raises when it asks for
+    the feature, naming the ROADMAP item that ports it."""
+    no_switches.setenv(var, value)
+    with pytest.raises(NotImplementedError, match=item):
+        GenerationEngine(models[1], device="cpu", num_slots=2, block_size=4)
+
+
+@pytest.mark.parametrize("var,value", [
+    ("PADDLE_SERVE_MP", "1"), ("PADDLE_SERVE_MP", ""),
+    ("PADDLE_SERVE_WEIGHT_DTYPE", ""), ("PADDLE_SERVE_SAMPLING", "0"),
+    ("PADDLE_SERVE_TRACING", "off"), ("PADDLE_SERVE_ASYNC", "no"),
+    ("PADDLE_SPEC_DECODE_K", ""), ("PADDLE_SERVE_KV_DTYPE", "")])
+def test_switch_off_or_unset_serves_as_before(models, no_switches, var,
+                                              value):
+    """Off, one degree and the empty string (unset) build the engine the
+    arguments ask for, in both packages."""
+    no_switches.setenv(var, value)
+    jm, tm = models
+    kw = dict(num_slots=2, block_size=4, num_blocks=40, spec_decode_k=1)
+    teng = GenerationEngine(tm, device="cpu", **kw)
+    jeng = JEngine(jm, attention_backend="dense", **kw)
+    assert teng.spec_decode_k == jeng.spec_decode_k == 1
+    assert teng.kv_dtype is None and jeng.kv_dtype is None
+    rng = np.random.RandomState(4)
+    reqs = _reqs(rng, 3, 2, 9, 3, 8)
+    assert _drive(teng, reqs, [], 0, lambda e: e.drain()) == \
+        _drive(jeng, reqs, [], 0, lambda e: e.run())
+
+
+@pytest.mark.parametrize("var,value", [
+    ("PADDLE_SPEC_DECODE_K", "two"), ("PADDLE_SPEC_DECODE_K", "-1"),
+    ("PADDLE_SERVE_KV_DTYPE", "fp8"), ("PADDLE_SERVE_MP", "x"),
+    ("PADDLE_SERVE_MP", "0"), ("PADDLE_SERVE_WEIGHT_DTYPE", "int4"),
+    ("PADDLE_SERVE_SAMPLING", "maybe"), ("PADDLE_SERVE_TRACING", "2"),
+    ("PADDLE_SERVE_ASYNC", "later")])
+def test_bad_switch_value_raises_as_jax(models, no_switches, var, value):
+    """A switch's bad value raises the JAX engine's ValueError, message
+    and all."""
+    no_switches.setenv(var, value)
+    jm, tm = models
+    got = _raised(lambda: GenerationEngine(tm, device="cpu", num_slots=2,
+                                           block_size=4))
+    want = _raised(lambda: JEngine(jm, attention_backend="dense",
+                                   num_slots=2, block_size=4))
+    assert got is not None and got[0] is ValueError
+    assert got == want

@@ -328,3 +328,40 @@ def test_int8_cow_keeps_shared_blocks_and_scales(models):
     for before, now in zip(snap, (eng.cache.kpool, eng.cache.vpool,
                                   eng.cache.scales)):
         assert torch.equal(now[:, cached], before)
+
+
+def test_deploy_switches_build_the_engine_jax_builds(models, monkeypatch):
+    """ROADMAP Queue C 14: `PADDLE_SPEC_DECODE_K` and `PADDLE_SERVE_KV_DTYPE`
+    win over the constructor's arguments in both packages: under K=2 and
+    int8 an engine asked for K=0 and fp pools verifies two drafts over int8
+    pools of JAX's bytes, and serves the JAX engine's tokens; an explicit
+    argument of the other value loses too, and an empty value is unset."""
+    for var in ("PADDLE_SPEC_DECODE_K", "PADDLE_SERVE_KV_DTYPE",
+                "PADDLE_SERVE_MP", "PADDLE_SERVE_WEIGHT_DTYPE",
+                "PADDLE_SERVE_SAMPLING", "PADDLE_SERVE_TRACING",
+                "PADDLE_SERVE_ASYNC", "PADDLE_PAGED_ATTENTION_BACKEND"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PADDLE_SPEC_DECODE_K", "2")
+    monkeypatch.setenv("PADDLE_SERVE_KV_DTYPE", "int8")
+    jm, tm = models
+    kw = dict(num_slots=3, block_size=4, num_blocks=48, prefill_chunk=8)
+    jeng = JEngine(jm, attention_backend="dense", **kw)
+    teng = GenerationEngine(tm, device="cpu", **kw)
+    assert teng.spec_decode_k == jeng.spec_decode_k == 2
+    assert teng.kv_dtype == jeng.kv_dtype == "int8"
+    assert teng.cache.kpool.dtype == torch.int8
+    assert np.asarray(jeng.cache.kpool).dtype == np.int8
+    assert teng.cache.pool_nbytes() == jeng.cache.pool_nbytes()
+    reqs = _mixed_trace(np.random.RandomState(7))
+    assert _serve(teng, reqs) == _serve(jeng, reqs)
+    assert teng.spec_accepted_tokens + teng.spec_rejected_tokens > 0
+    monkeypatch.setenv("PADDLE_SPEC_DECODE_K", "0")
+    both = [E(m, spec_decode_k=3, kv_dtype=None, **dict(kw, **extra))
+            for E, m, extra in ((JEngine, jm, {"attention_backend": "dense"}),
+                                (GenerationEngine, tm, {"device": "cpu"}))]
+    assert [(e.spec_decode_k, e.kv_dtype) for e in both] == [(0, "int8")] * 2
+    monkeypatch.setenv("PADDLE_SPEC_DECODE_K", "")
+    monkeypatch.setenv("PADDLE_SERVE_KV_DTYPE", "")
+    eng = GenerationEngine(tm, device="cpu", spec_decode_k=3, **kw)
+    assert (eng.spec_decode_k, eng.kv_dtype, eng.cache.scales) == (3, None,
+                                                                   None)

@@ -144,6 +144,11 @@ def test_profile_family_of_attention_backward_kernels(lib, kernel):
     ("conv3x3_dw_kernel", "conv3x3_dw_kernel"),
     ("conv1x1_bwd_dx_kernel", "conv1x1_bwd_kernels"),
     ("conv1x1_bwd_dw_kernel", "conv1x1_bwd_kernels"),
+    ("conv1x1_bwd_dx_mma_kernel", "conv1x1_bwd_kernels"),
+    ("conv1x1_bwd_dw_mma_kernel", "conv1x1_bwd_kernels"),
+    ("conv3x3_bn_relu_mma_kernel", "conv3x3_bn_relu_kernel"),
+    ("conv3x3_bn_relu_kernel", "conv3x3_bn_relu_kernel"),
+    ("conv1x1_bn_relu_kernel", "conv1x1_bn_relu_kernel"),
     ("sum_rows_kernel", "sum_rows_kernel"),
     ("shortseq_fwd_mma_kernel", "shortseq_fwd_kernel"),
     ("causal_fwd_mma_kernel", "causal_fwd_kernel")])
@@ -164,3 +169,15 @@ def test_profile_family_of_library_kernels():
         "gpu_memcpy"
     assert CHIP_SMOKE.kernel_family("vectorized_elementwise_kernel") == \
         "other kernels"
+
+
+def test_conv_libraries_list_the_mma_headers():
+    """Both conv libraries run bf16 kernels on the tensor cores: each
+    includes `conv_mma.cuh` (and through it `attention_mma.cuh`) and lists
+    both, with `conv_common.cuh`, so that a change to a header rebuilds
+    it."""
+    for lib in ("conv_bn_relu", "conv_bn_relu_bwd"):
+        assert {"conv_common.cuh", "conv_mma.cuh",
+                "attention_mma.cuh"} == _included(lib)
+        assert _included(lib) <= set(KERNEL_SOURCES[lib])
+        assert lib in MMA_KERNELS

@@ -28,9 +28,11 @@ card against the same Transformer on the CPU.
 Conv kernels (B7, B8): against `conv_bn_relu_plain` on the card with
 TF32 off, max |kernel - plain| relative to max |plain| (CONV_TOL); the
 ResNet on the card against the same ResNet on the CPU. The conv training
-kernels (B9a/B9b train forwards, B10 1x1 backward, B11 3x3 dWeight: bf16
-on the tensor cores, also at the seven sweep shapes against an fp64
-reference) against their plain versions over dtype x stride x shape, the training
+kernels (B9a/B9b train forwards, B10 1x1 backward, B11 3x3 dWeight; B8,
+B10 and B11 bf16 on the tensor cores, B11 also at the seven sweep shapes
+against an fp64 reference, B10 at Cout 2048 and across pixel splits, B8
+at Cin 512 stride 2, at rows wider than a tile and as the stride-2 dX
+walk) against their plain versions over dtype x stride x shape, the training
 op's gradients through the kernels against autograd through the plain
 composition, and a ResNet-50 train step on the card against the CPU.
 
@@ -934,6 +936,106 @@ def test_conv1x1_bwd_kernel_matches_plain(card, dtype, stride, relu, shape):
         off[:, ::2, ::2] = False
         assert bool((dx[off] == 0).all())
     assert conv_rel_err(dw, rdw) <= SUM_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,stride", [
+    ((2, 7, 7, 512, 2048), 1), ((5, 19, 13, 64, 72), 1),
+    ((3, 37, 27, 64, 72), 2)], ids=["Cout2048", "M1235-splits3",
+                                    "M798-splits2-s2"])
+def test_conv1x1_bwd_kernel_at_long_reductions_and_splits(card, dtype, shape,
+                                                          stride):
+    """B10 at Cout 2048 (dX sums 128 k-steps: the two-level sum) and with
+    the pixels cut into more than one split, M not a multiple of 8: dx
+    within CONV_TOL, dw within SUM_TOL of max |dw| of the plain version and
+    of an fp64 reference from the same bf16 dConv."""
+    from paddle_tpu_torch.ops.conv import _splits
+
+    N, H, W, cin, cout = shape
+    x, w, _, _ = conv_case(card, N, H, W, cin, cout, 1, dtype)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    M = N * Ho * Wo
+    assert cout == 2048 or (M % 8 and _splits(M, cin, cout)[0] > 1)
+    y = torch.randn((N, Ho, Wo, cout), generator=card, device="cuda") \
+        .to(dtype)
+    dy = torch.randn((N, Ho, Wo, cout), generator=card, device="cuda") \
+        .to(dtype)
+    rows = bwd_bundle(card, cout, dtype)
+    wt = w[0, 0].t().contiguous()
+    dx, dw = conv1x1_bwd(x, dy, y, rows, wt, stride)
+    rdx, rdw = conv1x1_bwd_plain(x, dy, y, rows, wt, stride)
+    torch.cuda.synchronize()
+    assert conv_rel_err(dx, rdx) <= CONV_TOL[dtype]
+    assert conv_rel_err(dw, rdw) <= SUM_TOL
+    r = rows.float()
+    yv = y.reshape(-1, cout).float()
+    dz = torch.where((yv - r[0]) * r[1] * r[2] + r[3] > 0,
+                     dy.reshape(-1, cout).float(), 0.0)
+    dcv = ((r[2] * r[5]) * (dz - r[6] - (yv - r[4]) * r[5] * r[7])) \
+        .to(dtype)
+    ref = x[:, ::stride, ::stride].reshape(-1, cin).double().t() \
+        @ dcv.double()
+    assert ((dw.double() - ref).abs().max() / ref.abs().max()).item() \
+        <= SUM_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,stride,padding", [
+    ((2, 14, 14, 512, 512), 2, "SAME"), ((2, 14, 14, 512, 512), 2, 1),
+    ((1, 5, 300, 16, 8), 1, 1), ((1, 5, 300, 16, 8), 2, "SAME"),
+    ((4, 7, 7, 136, 24), 1, 1)],
+    ids=["Cin512-s2-SAME", "Cin512-s2-int", "wide-row", "wide-row-s2",
+         "three-images-a-tile"])
+def test_conv3x3_kernel_at_wide_rows_and_deep_inputs(card, dtype, shape,
+                                                     stride, padding):
+    """B8 at Cin 512 stride 2 (eight channel chunks, a tile across image
+    boundaries), at a row wider than one tile (walked in segments) and with
+    tiles over three image boundaries: against the plain version within
+    CONV_TOL, relu on and off."""
+    N, H, W, cin, cout = shape
+    x, w, scale, shift = conv_case(card, N, H, W, cin, cout, 3, dtype)
+    for relu in (True, False):
+        before = conv3x3_bn_relu.launches
+        got = conv3x3_bn_relu(x, w, scale, shift, stride, padding, relu)
+        ref = conv_bn_relu_plain(x, w, scale, shift, stride, padding, relu)
+        torch.cuda.synchronize()
+        assert conv3x3_bn_relu.launches == before + 1
+        assert got.shape == ref.shape
+        assert conv_rel_err(got, ref) <= CONV_TOL[dtype], relu
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,padding", [((2, 28, 28, 64, 128), "SAME"),
+                                           ((2, 28, 28, 64, 128), 1),
+                                           ((3, 14, 13, 24, 72), 1)])
+def test_conv3x3_dx_walk_at_stride_2(card, dtype, shape, padding):
+    """B8 as the training 3x3 dX walk at stride 2: over the dConv dilated
+    by the stride, at padding 2 against the flipped, In/Out-swapped filter
+    (scale 1, shift 0, no ReLU), against the plain version within
+    CONV_TOL; cropped, it is torch's conv2d_input of the undilated dConv
+    (fp32, TF32 off)."""
+    from paddle_tpu_torch.ops.conv import normalize_conv_padding
+
+    N, H, W, cin, cout = shape
+    x, w, _, _ = conv_case(card, N, H, W, cin, cout, 3, dtype)
+    (pt, pb), (pl, pr) = normalize_conv_padding(padding, 3, 2, (H, W))
+    Ho, Wo = (H + pt + pb - 3) // 2 + 1, (W + pl + pr - 3) // 2 + 1
+    g = torch.randn((N, Ho, Wo, cout), generator=card, device="cuda") \
+        .to(dtype)
+    dil = g.new_zeros((N, 2 * Ho - 1, 2 * Wo - 1, cout))
+    dil[:, ::2, ::2] = g
+    wflip = w.flip(0, 1).transpose(2, 3).contiguous()
+    one = torch.ones(cin, device="cuda")
+    zero = torch.zeros(cin, device="cuda")
+    got = conv3x3_bn_relu(dil, wflip, one, zero, 1, 2, relu=False)
+    ref = conv_bn_relu_plain(dil, wflip, one, zero, 1, 2, False)
+    torch.cuda.synchronize()
+    assert conv_rel_err(got, ref) <= CONV_TOL[dtype]
+    dxp = torch.nn.grad.conv2d_input(
+        (N, cin, H + pt + pb, W + pl + pr), w.permute(3, 2, 0, 1).float(),
+        g.permute(0, 3, 1, 2).float(), 2)
+    want = dxp.permute(0, 2, 3, 1)[:, :got.shape[1], :got.shape[2]]
+    assert conv_rel_err(got, want) <= CONV_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
