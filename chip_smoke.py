@@ -20,9 +20,10 @@ Phases, each printing one JSON line:
    power limit as nvidia-smi reports them; counts, with cuobjdump -sass,
    the HMMA (tensor-core) instructions of each bf16 mma kernel (the causal
    pair, the shortseq forward and backward, the flash forward B6, the 3x3
-   conv B8, the 1x1 backward B10, the 3x3 dWeight B11), and fails if one
-   has none, if a library of them holds an atomic, or if ptxas reports a
-   spill in any mma kernel.
+   conv B8, the 1x1 conv B7, the 1x1 backward B10, the 3x3 dWeight B11),
+   and fails if one has none, if a library of them holds an atomic, if
+   ptxas reports a spill in any mma kernel, or if the paged verify library
+   (the split walk and its combine, fp32 FMA) holds an atomic or spills.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16 and
@@ -68,8 +69,9 @@ Phases, each printing one JSON line:
    mix with draft lengths 0-4: an idle lane, a window in the slot's first
    block crossing into the second, windows crossing blocks, one ending at
    the table's last position, two slots sharing blocks read-only), bf16
-   and f32: outputs on live rows within tolerance, pools bit-identical
-   outside the null block 0; timings.
+   (the split walk) and f32 (the first design): outputs on live rows
+   within tolerance, pools bit-identical outside the null block 0;
+   timings, with the split walk's ranges (its grid's and those walked).
 10. paged_int8: the int8 decode and verify kernels against their plain
    versions at the same shapes over int8 pools (normal rows quantized on
    per-block grids), the quantization run once in plain torch before
@@ -123,7 +125,9 @@ Phases, each printing one JSON line:
 18. conv_fwd: the fused eval conv kernels (B7, B8) against their plain
    version at bench_ops.py's nine ResNet-50 sweep shapes at batch 256, bf16
    and f32, plus stride 2, int padding and ReLU off; timings against the
-   bound, the plain version and F.conv2d of the folded weights.
+   bound, the plain version and F.conv2d of the folded weights; at each
+   timed shape the bf16 kernel, its plain version and the library call
+   against an fp64 reference.
 19. resnet_infer: bench.py's resnet50_infer (resnet50, bf16, batch 256 x
    224 x 224, seeded BatchNorm statistics), 2 + 10 forwards on the kernel
    route, then the dense route from the same weights; logits within 0.03.
@@ -387,25 +391,33 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                "shortseq_attention_bwd": ("shortseq_dkdv_mma_kernel",
                                           "shortseq_dq_mma_kernel"),
                "sdpa_forward": ("sdpa_fwd_mma_kernel",),
-               "conv_bn_relu": ("conv3x3_bn_relu_mma_kernel",),
+               "conv_bn_relu": ("conv3x3_bn_relu_mma_kernel",
+                                "conv1x1_bn_relu_mma_kernel"),
                "conv_bn_relu_bwd": ("conv3x3_dw_mma_kernel",
                                     "conv1x1_bwd_dx_mma_kernel",
                                     "conv1x1_bwd_dw_mma_kernel")}
+# libraries without tensor-core kernels held to no atomic (each result the
+# same from run to run) and no spill in any kernel: the split walk
+FMA_LIBS = ("paged_verify",)
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                          r"([A-Z][A-Z0-9_]*)")
 SASS_ATOMICS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDUX")
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 # each kernel's design: the bf16 causal pair, the bf16 shortseq forward
 # and backward (both variants), the bf16 flash forward B6, the bf16 3x3
-# conv B8, the bf16 1x1 backward B10 and the bf16 3x3 dWeight B11 run on
-# the tensor cores, every other kernel is scalar fp32 FMA
+# conv B8, the bf16 1x1 conv B7, the bf16 1x1 backward B10 and the bf16
+# 3x3 dWeight B11 run on the tensor cores; the bf16 and int8 verify walks
+# split each slot's context across CTAs; every other kernel is scalar
+# fp32 FMA
 DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "shortseq_fwd": "mma.sync bf16",
           "shortseq_fwd_masked": "mma.sync bf16",
           "shortseq_bwd": "mma.sync bf16",
           "shortseq_bwd_masked": "mma.sync bf16", "sdpa_fwd": "mma.sync bf16",
-          "conv3x3": "mma.sync bf16", "conv1x1_bwd": "mma.sync bf16",
-          "conv3x3_dw": "mma.sync bf16"}
+          "conv3x3": "mma.sync bf16", "conv1x1": "mma.sync bf16",
+          "conv1x1_bwd": "mma.sync bf16", "conv3x3_dw": "mma.sync bf16",
+          "paged_verify": "split walk, fp32 FMA",
+          "paged_verify_int8": "split walk, fp32 FMA"}
 # a device-time family of the profiles, by a substring of the kernel's
 # name in lower case, first match wins: the port's conv kernels before
 # cuDNN's (whose names may hold "conv2d"), and the shortseq backward's
@@ -553,8 +565,13 @@ def phase_build(torch, ctx):
             "atomics": sum(c["atomics"] for c in counts.values())}
         ok &= (all(n > 0 for n in sass[lib]["HMMA"].values())
                and sass[lib]["atomics"] == 0)
+    for lib in FMA_LIBS:
+        counts = sass_counts(cuobjdump, info[lib]["path"])
+        sass[lib] = {"atomics": sum(c["atomics"] for c in counts.values())}
+        ok &= sass[lib]["atomics"] == 0
     spills = {f"{lib}: {fn}": text for lib, fns in ptxas.items()
-              for fn, text in fns.items() if "_mma_kernel" in fn
+              for fn, text in fns.items()
+              if ("_mma_kernel" in fn or lib in FMA_LIBS)
               and any(int(a) or int(b) for a, b in SPILL.findall(text))}
     ok &= not spills
     emit({"phase": "build", "ok": bool(ok), "seconds": secs,
@@ -564,7 +581,8 @@ def phase_build(torch, ctx):
           "nvidia_smi": smi})
     if not ok:
         raise AssertionError(f"bf16 mma kernels without HMMA, with atomics "
-                             f"or with spills: {sass}, spills {spills}")
+                             f"or with spills, or the split walk with atomics "
+                             f"or spills: {sass}, spills {spills}")
 
 
 def _decode_case(torch, dtype, g):
@@ -1403,6 +1421,19 @@ def _kernel_vs_plain(torch, c, kernel, plain, int8, layer=1):
                                 (q, kn, vn, kp0, vp0) + pre + tail)
 
 
+def _split_ranges(c):
+    """The split walk's ranges at case `c`: those of its grid (from the
+    table's width) and those its CTAs walk (every head of a slot walks
+    ranges 0 .. (pos + dlen) // RANGE_KEYS)."""
+    from paddle_tpu_torch.ops.paged_verify import RANGE_KEYS, split_ranges
+
+    return {"range_keys": RANGE_KEYS,
+            "ranges_in_grid": split_ranges(c["tables_np"].shape[1], c["bs"]),
+            "ranges_walked": c["heads"] * sum(
+                (p + d) // RANGE_KEYS + 1
+                for p, d in zip(c["pos_list"], c["dlen_list"]))}
+
+
 def _time_paged(torch, kernel, plain, kargs, pargs):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
                         device="cuda")               # 256 MB > L2
@@ -1432,7 +1463,7 @@ def phase_paged_verify(torch, ctx):
             isz = c["q"].element_size()
             b, by = _window_bound(c, isz, isz, name)
             case.update(kernel_ms=kms, plain_ms=pms, bound_ms=b,
-                        bound_by=by, library_ms=None)
+                        bound_by=by, library_ms=None, **_split_ranges(c))
             ctx["paged_verify"] = dict(case, shape=(
                 f"slots8 W{SPEC_K + 1} bs16 H16 D128 positions "
                 f"{c['pos_list']} draft_lens {c['dlen_list']}"))
@@ -1486,6 +1517,8 @@ def phase_paged_int8(torch, ctx):
                 b, by = _window_bound(c, c["q"].element_size(), 1, name)
                 case.update(kernel_ms=kms, plain_ms=pms, bound_ms=b,
                             bound_by=by, library_ms=None)
+                if W > 1:
+                    case.update(_split_ranges(c))
                 ctx[key] = dict(case, shape=(
                     f"slots8 W{W} bs16 H16 D128 int8 pools, q bf16, "
                     f"positions {c['pos_list']} draft_lens "
@@ -2226,11 +2259,10 @@ def phase_conv_fwd(torch, ctx):
                             x, w, scale, shift, s, pad, relu), 3, flush,
                             warmup=1),
                         library_ms=cuda_ms(torch, lib, 10, flush))
-                    if k == 3:
-                        case.update(_conv_errors_fp64(
-                            torch, x, w, scale, shift, s, pads, relu, got,
-                            conv_bn_relu_plain(x, w, scale, shift, s, pad,
-                                               relu), lib()))
+                    case.update(_conv_errors_fp64(
+                        torch, x, w, scale, shift, s, pads, relu, got,
+                        conv_bn_relu_plain(x, w, scale, shift, s, pad,
+                                           relu), lib()))
                     if name == "conv_c2_1x1_64_256":
                         ctx["conv1x1"] = case
                     elif name == "conv_c2_3x3_64":

@@ -30,24 +30,30 @@
 // TPU wrapper's padded copy, so symmetric, SAME's asymmetric and VALID
 // padding all take this one path.
 //
-// Design. B7, B9a, B9b and the f32 B8 are an implicit GEMM through
+// Design. B9a, B9b and the f32 B7 and B8 are an implicit GEMM through
 // conv_common.cuh's `gemm_mainloop`: the output [M, Cout] is tiled 128 x
 // 64 per CTA; the reduction walks the taps and, inside each, Cin in steps
 // of 8 (Cin is a multiple of 8, so a step never straddles two taps). The A
 // tile gathers 128 output pixels x 8 input channels of one tap from x with
 // the bounds check, the B tile is 8 x 64 of w. The epilogue is a template
 // parameter, so the eval and train kernels share one body, as B9 is the
-// B7/B8 walk with the epilogue replaced on the TPU. The bf16 B8 runs on
-// the tensor cores (`conv3x3_bn_relu_mma_kernel`, below). The TPU
-// kernel's VMEM slab walk, its double-buffered DMA and its row and width
-// tiles have no counterpart here.
+// B7/B8 walk with the epilogue replaced on the TPU. The bf16 B8 and B7 run
+// on the tensor cores (`conv3x3_bn_relu_mma_kernel`,
+// `conv1x1_bn_relu_mma_kernel`, below). The TPU kernel's VMEM slab walk,
+// its double-buffered DMA and its row and width tiles have no counterpart
+// here.
 //
-// Bound on this card at the bench's stage-2 shapes (batch 256, 56 x 56,
-// bf16): bytes for the 1x1 64 -> 256 (514 MB, 0.153 ms at 3.35 TB/s),
-// bytes and FLOP alike for the 3x3 64 -> 64 (206 MB, 0.061 ms; 59.2 GFLOP,
-// 0.060 ms at 989 TFLOP/s); the train epilogue adds the partials (a few
-// MB). The FMA design is far from either: fp32 FMA (no tensor cores), no
-// TMA or cp.async, a step of only 8 input channels.
+// Bound on this card at the bench's shapes (batch 256, bf16): bytes for
+// the stage-2 1x1 64 -> 256 (x 103 MB in, the output 411 MB out: 514 MB,
+// 0.153 ms at 3.35 TB/s), bytes and FLOP alike for the 3x3 64 -> 64 (206
+// MB, 0.061 ms; 59.2 GFLOP, 0.060 ms at 989 TFLOP/s), FLOP for the stage-5
+// 1x1 512 -> 2048 (26.3 GFLOP, 0.0266 ms); the train epilogue adds the
+// partials (a few MB). The FMA design is far from either: fp32 FMA (no
+// tensor cores), no TMA or cp.async, a step of only 8 input channels.
+// The bf16 B7 reads x once, keeps the next tile's copies in flight and
+// writes the output in 16-byte stores; what holds it back is `mma.sync`
+// (a quarter of `wgmma`'s rate at best) and two CTAs an SM, each of which
+// stages and stores its output tile between two tiles' products.
 
 #include <algorithm>
 
@@ -289,16 +295,17 @@ struct FwdGeom {
                              // segments a row
 };
 
-// eval epilogue of the mma kernel (B8): the BatchNorm affine and ReLU in
-// fp32 on two neighbouring columns, one cast, one 4-byte store
+// eval epilogue of the mma kernels (B8, B7): the BatchNorm affine and
+// ReLU in fp32 on two neighbouring columns, one cast (`pair`); B8 stores
+// the pair (4 bytes) where it is, B7 stages it for 16-byte stores
 struct AffineMmaEpilogue {
   const float* scale;
   const float* shift;
   __nv_bfloat16* out;
   int Cout, relu;
 
-  __device__ __forceinline__ void operator()(long long m, int co, float v0,
-                                             float v1) const {
+  __device__ __forceinline__ uint32_t pair(int co, float v0,
+                                           float v1) const {
     float y0 = __fadd_rn(__fmul_rn(v0, __ldg(scale + co)), __ldg(shift + co));
     float y1 = __fadd_rn(__fmul_rn(v1, __ldg(scale + co + 1)),
                          __ldg(shift + co + 1));
@@ -306,8 +313,12 @@ struct AffineMmaEpilogue {
       y0 = fmaxf(y0, 0.f);
       y1 = fmaxf(y1, 0.f);
     }
-    *reinterpret_cast<__nv_bfloat162*>(out + m * Cout + co) =
-        __floats2bfloat162_rn(y0, y1);
+    return conv_mma::pack_bf16x2(y0, y1);
+  }
+
+  __device__ __forceinline__ void operator()(long long m, int co, float v0,
+                                             float v1) const {
+    *reinterpret_cast<uint32_t*>(out + m * Cout + co) = pair(co, v0, v1);
   }
 };
 
@@ -484,6 +495,195 @@ conv3x3_bn_relu_mma_kernel(const __nv_bfloat16* __restrict__ x,
   conv3x3_mma_tile(x, w, geo, epi);
 }
 
+// ---------------------------------------------------------------------------
+// B7 in bf16: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+// An implicit GEMM on `mma.sync` (conv_mma.cuh's fragments): rows output
+// pixels, columns Cout, k = ci. A tile is 128 output pixels x 64 output
+// channels, eight warps of 32 pixels x 32 co, as B8. Per chunk of 64 input
+// channels, each of the tile's pixels (the sampled pixel at stride 2,
+// read in place) is one slot of an x tile and w's [64 ci][64 co] is a B
+// tile, both copied with cp.async into swizzled shared memory, zero-filled
+// past M, Cin and Cout; A comes through `ldmatrix`, B through
+// `ldmatrix.trans`. Each chunk's four k-steps sum on the tensor cores from
+// zero and then add into an fp32 register sum (B8's two-level sum). The
+// epilogue (`AffineMmaEpilogue::pair`) writes the bf16 tile into a
+// staging tile, swizzled, and the CTA stores it as 16-byte row chunks:
+// eight lanes write one pixel's 128 bytes. CTA b takes tiles b, b +
+// grid, ..., and its (tile, chunk) steps run through one ring of three
+// stages. Below three chunks a tile (Cin <= 128) the grid is persistent,
+// two CTAs an SM, so that the next tile's copies are in flight while this
+// tile is multiplied and stored (at Cin 64 a tile is one chunk); from
+// three chunks on, a tile's own chunks fill the ring and each CTA takes
+// one tile. Tiles are numbered with the co tile fastest (and a persistent
+// grid is a multiple of the co tiles, so a CTA keeps one co tile): the
+// CTAs that read one pixel tile run together, x leaves device memory
+// once, and L2 serves the other co tiles.
+constexpr int k1Threads = 256;   // 8 warps: 4 (32 pixels) x 2 (32 co)
+constexpr int k1Pix = 128;       // output pixels a tile holds
+constexpr int k1Stages = 3;      // ring of (tile, Cin chunk) steps
+constexpr int k1XBytes = k1Pix * conv_mma::kRowBytes;       // 16 KB
+constexpr int k1StageBytes = k1XBytes + kFwdTileBytes;       // 24 KB
+constexpr int k1Bytes = k1Stages * k1StageBytes + k1XBytes;  // + staging
+constexpr int k1PerSM = 2;       // CTAs an SM (__launch_bounds__)
+
+__global__ void __launch_bounds__(k1Threads, k1PerSM)
+conv1x1_bn_relu_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const Geometry g, const AffineMmaEpilogue epi,
+                           int ntiles) {
+  using namespace conv_mma;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wc = warp >> 2;   // 32 pixel block, 32 co block
+  const int nco = (g.Cout + kCh - 1) / kCh;
+  const int nch = (g.Cin + kCh - 1) / kCh;
+  const int steps =
+      (ntiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x *
+      nch;
+  const uint32_t smem0 = smem_u32(smem_raw);
+  const uint32_t stage_out = smem0 + k1Stages * k1StageBytes;
+  const int cc = tid & 7;
+  // stride 1, no padding: output pixel m reads x pixel m
+  const bool dense = g.stride == 1 && g.pad_t == 0 && g.pad_l == 0 &&
+                     g.Ho == g.H && g.Wo == g.W;
+
+  // the next step to copy: chunk lkc of tile lt (pixels from lm0, co
+  // from lco), advanced step by step so that a chunk costs no division
+  int lt = blockIdx.x, lkc = 0;
+  long long lm0 = static_cast<long long>(lt / nco) * k1Pix;
+  int lco = (lt % nco) * kCh;
+  // chunk cc (8 channels) of slots tid / 8 + 32 j, each the x pixel its
+  // output pixel samples, and w's rows tid / 8 + 32 j; then the cursor on
+  auto load_next = [&](uint32_t st) {
+    const long long m0 = lm0;
+    const int kc = lkc;
+    const int ci = kc * kCh + cc * 8;
+    const bool ci_ok = ci < g.Cin;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long m = m0 + (tid >> 3) + 32 * j;
+      bool ok = ci_ok && m < g.M;
+      long long px = m;
+      if (!dense) {
+        const int wo = static_cast<int>(m % g.Wo);
+        const long long r = m / g.Wo;
+        const int hi = static_cast<int>(r % g.Ho) * g.stride - g.pad_t;
+        const int wi = wo * g.stride - g.pad_l;
+        ok = ok && hi >= 0 && hi < g.H && wi >= 0 && wi < g.W;
+        px = (r / g.Ho * g.H + hi) * g.W + wi;
+      }
+      copy_chunk(st, (tid >> 3) + 32 * j, cc, ok ? x + px * g.Cin + ci : x,
+                 ok);
+    }
+    const int co = lco + cc * 8;
+#pragma unroll
+    for (int r = tid >> 3; r < kCh; r += k1Threads / 8) {
+      const int ck = kc * kCh + r;
+      const bool ok = ck < g.Cin && co < g.Cout;
+      copy_chunk(st + k1XBytes, r, cc,
+                 ok ? w + static_cast<size_t>(ck) * g.Cout + co : w, ok);
+    }
+    if (++lkc == nch) {
+      lkc = 0;
+      lt += gridDim.x;
+      lm0 = static_cast<long long>(lt / nco) * k1Pix;
+      lco = (lt % nco) * kCh;
+    }
+  };
+
+  float acc[2][4][4], sum[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nb][e] = sum[mt][nb][e] = 0.f;
+
+  for (int i = 0; i < k1Stages - 1; ++i) {
+    if (i < steps) load_next(smem0 + i * k1StageBytes);
+    cp_async_commit();
+  }
+  const int gq = lane >> 2, t4 = lane & 3;
+  int kc = 0, t = blockIdx.x;
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<k1Stages - 2>();  // step i landed
+    __syncthreads();  // ... for every thread; step i - 1 and the staging
+                      // tile are released
+    const int nxt = i + k1Stages - 1;
+    if (nxt < steps) load_next(smem0 + (nxt % k1Stages) * k1StageBytes);
+    cp_async_commit();
+    const uint32_t xt = smem0 + (i % k1Stages) * k1StageBytes;
+    const uint32_t wt = xt + k1XBytes;
+#pragma unroll
+    for (int kk = 0; kk < kCh / 16; ++kk) {
+      uint32_t a[2][4], b[2][4];
+      a_rows(a[0], xt, wm * 32 + a_row(lane), kk, lane);
+      a_rows(a[1], xt, wm * 32 + 16 + a_row(lane), kk, lane);
+      b_trans(b[0], wt, kk * 16, 2 * wc, lane);
+      b_trans(b[1], wt, kk * 16, 2 * wc + 1, lane);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+          mma_bf16(acc[mt][nb], a[mt], b[nb >> 1][(nb & 1) * 2],
+                   b[nb >> 1][(nb & 1) * 2 + 1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sum[mt][nb][e] += acc[mt][nb][e];
+          acc[mt][nb][e] = 0.f;
+        }
+    if (++kc < nch) continue;
+
+    // tile t done: C fragment (rows pixels g and g + 8 of each m-tile,
+    // columns co 2t, 2t + 1 of each 8-column block) -> the bf16 staging
+    // tile [128 pixels][64 co], swizzled: a warp's 32 pairs fill 32 banks
+    const long long m0 = static_cast<long long>(t / nco) * k1Pix;
+    const int co0 = (t % nco) * kCh;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = wm * 32 + mt * 16 + gq + 8 * h;
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const int col = wc * 32 + nb * 8 + 2 * t4;
+          const uint32_t v = co0 + col < g.Cout
+              ? epi.pair(co0 + col, sum[mt][nb][2 * h],
+                         sum[mt][nb][2 * h + 1])
+              : 0u;
+          sum[mt][nb][2 * h] = sum[mt][nb][2 * h + 1] = 0.f;
+          asm volatile("st.shared.u32 [%0], %1;\n"
+                       :: "r"(stage_out + tile_offset(p, col >> 3) +
+                              (col & 7) * 2),
+                          "r"(v) : "memory");
+        }
+      }
+    __syncthreads();
+    // the tile out in 16-byte chunks: lanes 8 r .. 8 r + 7 one pixel's row
+#pragma unroll
+    for (int j = tid; j < k1Pix * 8; j += k1Threads) {
+      const int r = j >> 3, c = j & 7;
+      const long long m = m0 + r;
+      const int co = co0 + c * 8;
+      if (m < g.M && co < g.Cout) {
+        uint4 v;
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                     : "r"(stage_out + tile_offset(r, c)));
+        *reinterpret_cast<uint4*>(epi.out + m * g.Cout + co) = v;
+      }
+    }
+    kc = 0;
+    t += gridDim.x;
+  }
+}
+
 // the most image boundaries TH consecutive output rows starting at a
 // multiple of TH cross (the starts repeat modulo Ho)
 int boundaries(int TH, int Ho) {
@@ -564,6 +764,43 @@ int launch_3x3_mma(const void* x, const void* w, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_1x1_mma(const void* x, const void* w, const void* scale,
+                   const void* shift, void* out, const Geometry& g, int relu,
+                   cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err) {
+    err = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+  }
+  if (!err) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        conv1x1_bn_relu_mma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, k1Bytes));
+  }
+  if (err) return err;
+  // tiles numbered co tile fastest. A tile of fewer chunks than the ring
+  // has stages cannot keep its own copies in flight: then the grid is
+  // persistent, k1PerSM CTAs an SM, a multiple of the co tiles (one co
+  // tile a CTA); else one tile a CTA, and the SMs balance the tail
+  const int nco = (g.Cout + conv_mma::kCh - 1) / conv_mma::kCh;
+  const int nch = (g.Cin + conv_mma::kCh - 1) / conv_mma::kCh;
+  const long long ntiles =
+      (static_cast<long long>(g.M) + k1Pix - 1) / k1Pix * nco;
+  const int slots = k1PerSM * sms;
+  const long long ctas = nch >= k1Stages ? ntiles : std::min<long long>(
+      ntiles, slots >= nco ? slots / nco * nco : slots);
+  const AffineMmaEpilogue epi{static_cast<const float*>(scale),
+                              static_cast<const float*>(shift),
+                              static_cast<__nv_bfloat16*>(out), g.Cout, relu};
+  conv1x1_bn_relu_mma_kernel<<<static_cast<unsigned>(ctas), k1Threads,
+                               k1Bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), g, epi,
+      static_cast<int>(ntiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_train(int K, const void* x, const void* w, void* out,
                  void* partial, void* sums, const Geometry& g,
@@ -591,7 +828,7 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16. Each returns the launches' cudaError_t.
 
-// B7 / B8: out = relu?(conv(x, w) * scale + shift), NHWC; B8's bf16 path
+// B7 / B8: out = relu?(conv(x, w) * scale + shift), NHWC; the bf16 paths
 // on the tensor cores
 int conv1x1_bn_relu(const void* x, const void* w, const void* scale,
                     const void* shift, void* out, int dtype, int N, int H,
@@ -601,7 +838,7 @@ int conv1x1_bn_relu(const void* x, const void* w, const void* scale,
   const Geometry g = geometry(N, H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? launch_eval<__nv_bfloat16, 1>(x, w, scale, shift, out, g, relu, s)
+      ? launch_1x1_mma(x, w, scale, shift, out, g, relu, s)
       : launch_eval<float, 1>(x, w, scale, shift, out, g, relu, s);
 }
 

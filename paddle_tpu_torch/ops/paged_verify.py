@@ -23,6 +23,14 @@ arrive already quantized by the op layer) take the plain version for CPU
 tensors and launch the kernel for CUDA tensors; they never fall back. Each
 counts its launches in `.launches` and every call of its plain version, on
 any device, in `.plain_calls`.
+
+On bf16 and int8 pools the kernel is the split walk: each slot's keys in
+ranges of `RANGE_KEYS`, one CTA a (range, head, slot) writing fp32
+partials that a second launch combines in range order (the wrapper
+allocates them, `split_ranges` ranges a table). It rounds p against its
+range's max where the plain version rounds against the walk's running
+max, a difference of the order of one bf16 rounding of p. f32 pools keep
+the first design, one CTA a (slot, head) over the whole walk.
 """
 from __future__ import annotations
 
@@ -37,10 +45,13 @@ from .paged_decode import _DTYPE_CODE, check_paged_args, paged_walk
 
 __all__ = ["paged_verify_attention", "paged_verify_plain",
            "paged_verify_attention_int8", "paged_verify_int8_plain",
-           "MAX_WINDOW"]
+           "MAX_WINDOW", "RANGE_KEYS", "split_ranges"]
 
 #: the widest window the kernels take (K <= 8 drafted tokens)
 MAX_WINDOW = 9
+#: keys one CTA of the split walk (bf16 and int8 pools) walks: the
+#: kernel's kRangeKeys, which the launch checks
+RANGE_KEYS = 128
 
 
 def _window_writes(knew, vnew, kpool, vpool, layer, block_tables,
@@ -109,10 +120,16 @@ def paged_verify_int8_plain(q, knew, vnew, kpool, vpool, kv_scales, layer,
 def _bind(name):
     fn = getattr(cpp_extension.load("paged_verify"), name)
     P, I = ctypes.c_void_p, ctypes.c_int
-    n_ptr = 9 if name == "paged_verify" else 10
-    fn.argtypes = [P] * n_ptr + [I] * 9 + [ctypes.c_float, P]
+    n_ptr = 11 if name == "paged_verify" else 12
+    fn.argtypes = [P] * n_ptr + [I] * 10 + [ctypes.c_float, P]
     fn.restype = I
     return fn
+
+
+def split_ranges(max_blocks, block_size):
+    """The ranges of RANGE_KEYS keys the split walk cuts a table into: its
+    grid's first dimension and the partials' third."""
+    return -(-max_blocks * block_size // RANGE_KEYS)
 
 
 def _launch(wrapper, name, q, knew, vnew, kpool, vpool, kv_scales, layer,
@@ -123,7 +140,20 @@ def _launch(wrapper, name, q, knew, vnew, kpool, vpool, kv_scales, layer,
                      extra=(("draft_lens", draft_lens),))
     slots, W, heads, d = q.shape
     L, nb, bs = kpool.shape[:3]
+    maxb = block_tables.shape[1]
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if kpool.dtype != torch.float32:       # the split walk (bf16, int8)
+        named = dict(q=q, knew=knew, vnew=vnew, kpool=kpool, vpool=vpool)
+        bad = [n for n, t in named.items() if t.data_ptr() % 16]
+        if bad:
+            raise ValueError(f"{wrapper.__name__}: {', '.join(bad)} must be "
+                             "16-byte aligned (16-byte copies)")
+        nr = split_ranges(maxb, bs)
+        part_acc = torch.empty((slots, heads, nr, W, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((slots, heads, nr, W, 2), dtype=torch.float32,
+                              device=q.device)
     fn = _bind(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [q, knew, vnew, kpool, vpool]
@@ -131,9 +161,11 @@ def _launch(wrapper, name, q, knew, vnew, kpool, vpool, kv_scales, layer,
         ptrs.append(kv_scales)
     ptrs += [block_tables, positions, draft_lens, out]
     wrapper.launches += 1
-    err = fn(*(t.data_ptr() for t in ptrs), _DTYPE_CODE[q.dtype], slots, W,
-             heads, d, int(layer), nb, bs, block_tables.shape[1],
-             1.0 / math.sqrt(d), stream)
+    err = fn(*(t.data_ptr() for t in ptrs),
+             *(None if t is None else t.data_ptr()
+               for t in (part_acc, part_ml)),
+             _DTYPE_CODE[q.dtype], slots, W, heads, d, int(layer), nb, bs,
+             maxb, RANGE_KEYS, 1.0 / math.sqrt(d), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out
@@ -152,8 +184,9 @@ def paged_verify_attention(q, knew, vnew, kpool, vpool, layer, block_tables,
 
     CPU tensors take `paged_verify_plain`. CUDA tensors launch the kernel:
     W <= 9, D in {64, 128}, block_size in {8, 16, 32, 64}, q/knew/vnew in
-    the pool dtype (float32 or bfloat16), everything contiguous; anything
-    else raises."""
+    the pool dtype (float32 or bfloat16), everything contiguous, and at
+    bfloat16 q, the new rows and the pools 16-byte aligned; anything else
+    raises."""
     if q.device.type == "cpu":
         return paged_verify_plain(q, knew, vnew, kpool, vpool, layer,
                                   block_tables, positions, draft_lens)
@@ -172,7 +205,8 @@ def paged_verify_attention_int8(q, knew, vnew, kpool, vpool, kv_scales,
     rows already quantized onto their blocks' grids (int8), kv_scales this
     layer's `[num_blocks, 2]` f32 K/V scale plane; q (float32 or bfloat16)
     stays f32 inside, out is in q's dtype. CPU tensors take
-    `paged_verify_int8_plain`; CUDA tensors launch the kernel or raise."""
+    `paged_verify_int8_plain`; CUDA tensors launch the kernel (q, the new
+    rows and the pools 16-byte aligned) or raise."""
     if q.device.type == "cpu":
         return paged_verify_int8_plain(q, knew, vnew, kpool, vpool,
                                        kv_scales, layer, block_tables,

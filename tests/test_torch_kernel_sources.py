@@ -149,6 +149,10 @@ def test_profile_family_of_attention_backward_kernels(lib, kernel):
     ("conv3x3_bn_relu_mma_kernel", "conv3x3_bn_relu_kernel"),
     ("conv3x3_bn_relu_kernel", "conv3x3_bn_relu_kernel"),
     ("conv1x1_bn_relu_kernel", "conv1x1_bn_relu_kernel"),
+    ("conv1x1_bn_relu_mma_kernel", "conv1x1_bn_relu_kernel"),
+    ("paged_verify_kernel", "paged_verify_kernel"),
+    ("paged_verify_split_kernel", "paged_verify_kernel"),
+    ("paged_verify_combine_kernel", "paged_verify_kernel"),
     ("sum_rows_kernel", "sum_rows_kernel"),
     ("shortseq_fwd_mma_kernel", "shortseq_fwd_kernel"),
     ("causal_fwd_mma_kernel", "causal_fwd_kernel")])
@@ -181,3 +185,15 @@ def test_conv_libraries_list_the_mma_headers():
                 "attention_mma.cuh"} == _included(lib)
         assert _included(lib) <= set(KERNEL_SOURCES[lib])
         assert lib in MMA_KERNELS
+
+
+def test_split_walk_range_is_the_wrappers():
+    """The split verify walk's range length in the source is the one its
+    wrapper sizes the partials with (the launch also refuses another)."""
+    from paddle_tpu_torch.ops.paged_verify import RANGE_KEYS
+
+    text = (Path(CSRC) / "paged_verify.cu").read_text()
+    assert re.search(rf"constexpr int kRangeKeys = {RANGE_KEYS};", text)
+    assert "paged_verify" in CHIP_SMOKE.FMA_LIBS
+    assert {"paged_verify_split_kernel", "paged_verify_combine_kernel",
+            "paged_verify_kernel"} <= _globals("paged_verify")

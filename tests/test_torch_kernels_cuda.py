@@ -25,9 +25,11 @@ online rescale or an unmasked tail key shows; its refusals; `flash_attention`'s 
 no gradient, a raise naming the backward with one); a Transformer on the
 card against the same Transformer on the CPU.
 
-Conv kernels (B7, B8): against `conv_bn_relu_plain` on the card with
-TF32 off, max |kernel - plain| relative to max |plain| (CONV_TOL); the
-ResNet on the card against the same ResNet on the CPU. The conv training
+Conv kernels (B7, B8; bf16 on the tensor cores, f32 in fp32 FMA): against
+`conv_bn_relu_plain` on the card with TF32 off, max |kernel - plain|
+relative to max |plain| (CONV_TOL), B7 also at every 1x1 of ResNet-50 and
+at ragged tiles; the ResNet on the card against the same ResNet on the
+CPU. The conv training
 kernels (B9a/B9b train forwards, B10 1x1 backward, B11 3x3 dWeight; B8,
 B10 and B11 bf16 on the tensor cores, B11 also at the seven sweep shapes
 against an fp64 reference, B10 at Cout 2048 and across pixel splits, B8
@@ -38,7 +40,8 @@ composition, and a ResNet-50 train step on the card against the CPU.
 
 Paged kernels: pools must be bit-identical to the plain version's outside
 the null block 0, and outputs within tolerance on the live rows of live
-slots. Block 0 is a race, not a reference: idle lanes and dead window rows
+slots. The verify kernels on bf16 and int8 pools (the split walk) also at
+contexts up to 2047 keys at every block size, and twice to the same bits. Block 0 is a race, not a reference: idle lanes and dead window rows
 of every slot write it from concurrent CTAs. For the int8 kernels the
 quantization runs once, in plain torch, before both the kernel and its
 plain version take the same int8 rows and scale plane.
@@ -297,6 +300,101 @@ def test_paged_decode_int8_kernel_matches_plain(card, dtype, D, bs):
     err, pools, scales = _paged_kernel_vs_plain(
         paged_decode_attention_int8, paged_decode_int8_plain, c, True)
     assert err <= TOL[dtype] and pools and scales
+
+
+def long_window_case(g, W, bs, D, kind):
+    """Seven slots over tables of 2048 keys, 3 heads, 2 layers, so that the
+    split walk (bf16 and int8 pools) walks many ranges of RANGE_KEYS: an
+    idle lane; a window across the first range boundary; a last key that
+    opens a range of one key (one block); a window ending at the table's
+    last position; a long context; a slot reading that one's first 512
+    keys read-only; a decode-like step (draft length 0) ending a range.
+    `kind`: "bfloat16" or "float32" pools, or "int8-bfloat16" /
+    "int8-float32" (int8 pools, q in that dtype). Returns what
+    `window_case` returns."""
+    from paddle_tpu_torch.ops.paged_verify import RANGE_KEYS
+
+    K = W - 1
+    slots, heads, L, maxb = 7, 3, 2, 2048 // bs
+    half = (K + 1) // 2
+    pos = [0, RANGE_KEYS - half, 2 * RANGE_KEYS - min(2, K),
+           maxb * bs - 1 - K, 1000, 700, RANGE_KEYS - 1]
+    dlen = [0, K, min(2, K), K, min(5, K), min(3, K), 0]
+    int8 = kind.startswith("int8")
+    dtype = torch.float32 if kind.endswith("float32") else torch.bfloat16
+    tables = torch.zeros((slots, maxb), dtype=torch.int32)
+    nxt = 1
+    for s in range(1, slots):
+        nb = (pos[s] + dlen[s]) // bs + 1
+        start = 0
+        if s == 5:                       # slot 4's first 512 keys
+            start = 512 // bs
+            tables[s, :start] = tables[4, :start]
+        tables[s, start:nb] = torch.arange(nxt, nxt + nb - start)
+        nxt += nb - start
+    shape = (L, nxt, bs, heads, D)
+    kp, vp = (torch.randn(shape, generator=g, device="cuda")
+              for _ in range(2))
+    scales = None
+    if int8:
+        amax = torch.stack([kp.abs().amax((2, 3, 4)),
+                            vp.abs().amax((2, 3, 4))], -1)
+        scales = amax / 127 * (0.7 + 0.6 * torch.rand(
+            amax.shape, generator=g, device="cuda"))
+        kp, vp = (tpa._quant_rows(x, scales[..., i, None, None, None])
+                  for i, x in enumerate((kp, vp)))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    q, kn, vn = (torch.randn((slots, W, heads, D), generator=g,
+                             device="cuda").to(dtype) for _ in range(3))
+    dl = torch.tensor(dlen, dtype=torch.int32)
+    live = torch.arange(W)[None, :] <= dl[:, None]
+    live[0] = False
+    return (q, kn, vn, kp, vp, scales, tables.cuda(),
+            torch.tensor(pos, dtype=torch.int32, device="cuda"), dl.cuda(),
+            live.cuda())
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8-bfloat16",
+                                  "int8-float32"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("W", [5, 9])
+def test_paged_verify_kernels_at_long_contexts(card, kind, D, bs, W):
+    """Contexts up to 2047 keys at every block size: the split walk across
+    up to 16 ranges, windows across a range boundary, a range of one key,
+    the combine; f32 pools through the first design at the same case."""
+    c = long_window_case(card, W, bs, D, kind)
+    int8 = kind.startswith("int8")
+    kernel, plain = ((paged_verify_attention_int8, paged_verify_int8_plain)
+                     if int8 else
+                     (paged_verify_attention, paged_verify_plain))
+    err, pools, scales = _paged_kernel_vs_plain(kernel, plain, c, int8)
+    assert err <= TOL[c[0].dtype] and pools and scales
+
+
+def test_paged_verify_split_walk_gives_the_same_bits_twice(card):
+    """The ranges are combined in a fixed order, without atomics: two runs
+    on the same inputs give the same output bits."""
+    q, kn, vn, kp, vp, _, tb, pos, dl, _ = long_window_case(
+        card, 5, 16, 128, "bfloat16")
+    outs = [paged_verify_attention(q, kn, vn, kp.clone(), vp.clone(), 1, tb,
+                                   pos, dl) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_paged_verify_split_walk_refuses_a_misaligned_view(card):
+    """The split walk copies 16 bytes at a time: a bf16 pool whose base is
+    not 16-byte aligned raises before a launch."""
+    q, kn, vn, kp, vp, _, tb, pos, dl, _ = long_window_case(
+        card, 5, 16, 64, "bfloat16")
+    flat = torch.empty(kp.numel() + 1, dtype=kp.dtype, device="cuda")
+    shifted = flat[1:].view(kp.shape)
+    shifted.copy_(kp)
+    launches = paged_verify_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_verify_attention(q, kn, vn, shifted, vp, 1, tb, pos, dl)
+    assert paged_verify_attention.launches == launches
 
 
 # the causal kernels' lengths: the tile edges of the bf16 design (16-row
@@ -742,6 +840,58 @@ def test_conv_kernels_at_stage_widths(card):
             got = fused_conv_bn_relu(x, w, scale, shift, s, pad)
             ref = conv_bn_relu_plain(x, w, scale, shift, s, pad)
             assert conv_rel_err(got, ref) <= CONV_TOL[dtype], (H, cin, k)
+
+
+# every distinct 1x1 of ResNet-50 (v1.5, the stride on the 3x3): (input
+# side, Cin, Cout, stride, relu): conv1 of each block, conv3 (no ReLU) and
+# the downsample projections (no ReLU, stride 2 from layer2 on)
+RESNET50_1X1 = [(56, 64, 64, 1, True), (56, 64, 256, 1, False),
+                (56, 256, 64, 1, True), (56, 256, 128, 1, True),
+                (56, 256, 512, 2, False), (28, 128, 512, 1, False),
+                (28, 512, 128, 1, True), (28, 512, 256, 1, True),
+                (28, 512, 1024, 2, False), (14, 256, 1024, 1, False),
+                (14, 1024, 256, 1, True), (14, 1024, 512, 1, True),
+                (14, 1024, 2048, 2, False), (7, 512, 2048, 1, False),
+                (7, 2048, 512, 1, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RESNET50_1X1,
+                         ids=[f"{h}-{ci}-{co}-s{s}"
+                              for h, ci, co, s, _ in RESNET50_1X1])
+def test_conv1x1_kernel_at_resnet50_shapes(card, dtype, shape):
+    """B7 (bf16 on the tensor cores, f32 in fp32 FMA) at every 1x1 of
+    ResNet-50 at batch 2, the stride-2 projections read in place."""
+    H, cin, cout, s, relu = shape
+    x, w, scale, shift = conv_case(card, 2, H, H, cin, cout, 1, dtype)
+    before = conv1x1_bn_relu.launches
+    got = conv1x1_bn_relu(x, w, scale, shift, s, 0, relu)
+    ref = conv_bn_relu_plain(x, w, scale, shift, s, 0, relu)
+    torch.cuda.synchronize()
+    assert conv1x1_bn_relu.launches == before + 1
+    assert got.shape == ref.shape and got.is_contiguous()
+    assert conv_rel_err(got, ref) <= CONV_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape", [(3, 7, 9, 72, 72), (1, 5, 5, 72, 136),
+                                   (2, 13, 11, 136, 72),
+                                   (1, 3, 3, 200, 24)],
+                         ids=["M189-72-72", "M25-72-136", "M286-136-72",
+                              "M9-200-24"])
+def test_conv1x1_kernel_at_ragged_tiles(card, dtype, stride, shape):
+    """B7 with M not a multiple of the 128-pixel tile, Cin not a multiple
+    of the 64-channel chunk (72: a chunk of 8 channels; 200: four chunks,
+    the ring wrapping) and Cout not a multiple of the 64-channel tile."""
+    N, H, W, cin, cout = shape
+    x, w, scale, shift = conv_case(card, N, H, W, cin, cout, 1, dtype)
+    got = conv1x1_bn_relu(x, w, scale, shift, stride, 0, False)
+    ref = conv_bn_relu_plain(x, w, scale, shift, stride, 0, False)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert conv_rel_err(got, ref) <= CONV_TOL[dtype]
+    assert bool((got < 0).any())
 
 
 def test_conv_kernels_refuse_what_they_do_not_take(card):
