@@ -22,12 +22,15 @@ Phases, each printing one JSON line:
    pair, the shortseq forward and backward, the flash forward B6, the 3x3
    conv B8, the 1x1 conv B7, the 1x1 backward B10, the 3x3 dWeight B11),
    and fails if one has none, if a library of them holds an atomic, if
-   ptxas reports a spill in any mma kernel, or if the paged verify library
-   (the split walk and its combine, fp32 FMA) holds an atomic or spills.
+   ptxas reports a spill in any mma kernel, or if the paged decode or
+   verify library (the split walk and its combine, fp32 FMA) holds an
+   atomic or spills.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
-   block-boundary positions, two slots sharing blocks read-only), bf16 and
-   f32: outputs within tolerance, pools bit-identical; timings.
+   block-boundary positions, two slots sharing blocks read-only), bf16
+   (the split walk) and f32 (the first design): outputs within tolerance,
+   pools bit-identical; timings, with the split walk's ranges (its grid's
+   and those walked).
 3. causal_fwd: the causal attention kernel against its plain version at
    B1 H16 S2048 D128 and at a ragged S=300, bf16 and f32, a rerun giving
    the same bits; bf16 timings at B1 H16 S2048 D128, L2 flushed, with the
@@ -76,7 +79,7 @@ Phases, each printing one JSON line:
    versions at the same shapes over int8 pools (normal rows quantized on
    per-block grids), the quantization run once in plain torch before
    both: outputs within tolerance, codes bit-identical outside block 0,
-   scales untouched; timings.
+   scales untouched; timings, with the split walk's ranges.
 11. engine_spec: phase 5's trace plus one request whose prompt tiles a
    64-token motif 8 times, served by GenerationEngine(spec_decode_k=4)
    with the n-gram drafter (bf16): tokens/s, verify steps, accepted and
@@ -397,8 +400,9 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                                     "conv1x1_bwd_dx_mma_kernel",
                                     "conv1x1_bwd_dw_mma_kernel")}
 # libraries without tensor-core kernels held to no atomic (each result the
-# same from run to run) and no spill in any kernel: the split walk
-FMA_LIBS = ("paged_verify",)
+# same from run to run) and no spill in any kernel: the split walk of the
+# decode and verify kernels (csrc/paged_split.cuh)
+FMA_LIBS = ("paged_verify", "paged_decode")
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                          r"([A-Z][A-Z0-9_]*)")
 SASS_ATOMICS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDUX")
@@ -406,9 +410,9 @@ SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 # each kernel's design: the bf16 causal pair, the bf16 shortseq forward
 # and backward (both variants), the bf16 flash forward B6, the bf16 3x3
 # conv B8, the bf16 1x1 conv B7, the bf16 1x1 backward B10 and the bf16
-# 3x3 dWeight B11 run on the tensor cores; the bf16 and int8 verify walks
-# split each slot's context across CTAs; every other kernel is scalar
-# fp32 FMA
+# 3x3 dWeight B11 run on the tensor cores; the bf16 and int8 decode and
+# verify walks split each slot's context across CTAs; every other kernel
+# is scalar fp32 FMA
 DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "shortseq_fwd": "mma.sync bf16",
           "shortseq_fwd_masked": "mma.sync bf16",
@@ -416,6 +420,8 @@ DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "shortseq_bwd_masked": "mma.sync bf16", "sdpa_fwd": "mma.sync bf16",
           "conv3x3": "mma.sync bf16", "conv1x1": "mma.sync bf16",
           "conv1x1_bwd": "mma.sync bf16", "conv3x3_dw": "mma.sync bf16",
+          "paged_decode": "split walk, fp32 FMA",
+          "paged_decode_int8": "split walk, fp32 FMA",
           "paged_verify": "split walk, fp32 FMA",
           "paged_verify_int8": "split walk, fp32 FMA"}
 # a device-time family of the profiles, by a substring of the kernel's
@@ -675,7 +681,7 @@ def phase_paged_decode(torch, ctx):
             flops = 4 * sum(p + 1 for p in c["pos_list"]) * row
             b, by = bound_ms(nbytes, flops, "bfloat16")
             case.update(kernel_ms=kms, plain_ms=pms, bound_ms=b,
-                        bound_by=by, library_ms=None)
+                        bound_by=by, library_ms=None, **_split_ranges(c))
             ctx["paged_decode"] = dict(case, shape="slots8 bs16 H16 D128 "
                                        "positions " + str(c["pos_list"]))
         res["cases"].append(case)
@@ -1422,16 +1428,18 @@ def _kernel_vs_plain(torch, c, kernel, plain, int8, layer=1):
 
 
 def _split_ranges(c):
-    """The split walk's ranges at case `c`: those of its grid (from the
-    table's width) and those its CTAs walk (every head of a slot walks
-    ranges 0 .. (pos + dlen) // RANGE_KEYS)."""
-    from paddle_tpu_torch.ops.paged_verify import RANGE_KEYS, split_ranges
+    """The split walk's ranges at case `c` (a decode case has no draft
+    lengths): those of its grid (from the table's width) and those its
+    CTAs walk (every head of a slot walks ranges 0 .. (pos + dlen) //
+    RANGE_KEYS)."""
+    from paddle_tpu_torch.ops.paged_decode import RANGE_KEYS, split_ranges
 
+    dlens = c.get("dlen_list") or [0] * len(c["pos_list"])
     return {"range_keys": RANGE_KEYS,
             "ranges_in_grid": split_ranges(c["tables_np"].shape[1], c["bs"]),
             "ranges_walked": c["heads"] * sum(
                 (p + d) // RANGE_KEYS + 1
-                for p, d in zip(c["pos_list"], c["dlen_list"]))}
+                for p, d in zip(c["pos_list"], dlens))}
 
 
 def _time_paged(torch, kernel, plain, kargs, pargs):
@@ -1516,9 +1524,7 @@ def phase_paged_int8(torch, ctx):
                 kms, pms = _time_paged(torch, kernel, plain, kargs, pargs)
                 b, by = _window_bound(c, c["q"].element_size(), 1, name)
                 case.update(kernel_ms=kms, plain_ms=pms, bound_ms=b,
-                            bound_by=by, library_ms=None)
-                if W > 1:
-                    case.update(_split_ranges(c))
+                            bound_by=by, library_ms=None, **_split_ranges(c))
                 ctx[key] = dict(case, shape=(
                     f"slots8 W{W} bs16 H16 D128 int8 pools, q bf16, "
                     f"positions {c['pos_list']} draft_lens "

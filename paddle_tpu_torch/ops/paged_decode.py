@@ -23,6 +23,15 @@ the plain version, on any device, in `paged_decode_attention.plain_calls`.
 per-block `[num_blocks, 2]` f32 K/V scale plane: the new rows arrive
 already quantized (the op layer's quant-on-write), and the walk
 dequantizes each block with its grid. It has its own counters.
+
+On bf16 and int8 pools the kernel is the split walk of
+`csrc/paged_split.cuh`, which the verify kernels share: each slot's keys
+in ranges of `RANGE_KEYS`, one CTA a (range, head, slot) writing fp32
+partials that a second launch combines in range order (`split_scratch`
+allocates them, `split_ranges` ranges a table). It rounds p against its
+range's max where the plain version rounds against the walk's running
+max, a difference of the order of one bf16 rounding of p. f32 pools keep
+the first design, one CTA a (slot, head) over the whole walk.
 """
 from __future__ import annotations
 
@@ -35,11 +44,15 @@ import torch
 from ..utils import cpp_extension
 
 __all__ = ["paged_decode_attention", "paged_decode_plain",
-           "paged_decode_attention_int8", "paged_decode_int8_plain"]
+           "paged_decode_attention_int8", "paged_decode_int8_plain",
+           "RANGE_KEYS", "split_ranges"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _BLOCK_SIZES = (8, 16, 32, 64)
+#: keys one CTA of the split walk (bf16 and int8 pools, decode and verify)
+#: walks: `csrc/paged_split.cuh` kRangeKeys, which the launches check
+RANGE_KEYS = 128
 
 
 def paged_decode_plain(q, knew, vnew, kpool, vpool, layer, block_tables,
@@ -211,14 +224,68 @@ def check_paged_args(fn, q, knew, vnew, kpool, vpool, layer, block_tables,
                          "layers")
 
 
+def split_ranges(max_blocks, block_size):
+    """The ranges of RANGE_KEYS keys the split walk cuts a table into: its
+    grid's first dimension and the partials' third."""
+    return -(-max_blocks * block_size // RANGE_KEYS)
+
+
+def split_scratch(fn, q, knew, vnew, kpool, vpool, max_blocks):
+    """The split walk's fp32 partials for `q [slots, W, heads, D]`:
+    `(part_acc [slots, heads, ranges, W, D], part_ml [slots, heads,
+    ranges, W, 2])`, W = 1 at decode. Raises first (`fn` names the caller)
+    unless q, the new rows and the pools are 16-byte aligned: the walk
+    copies 16 bytes at a time."""
+    named = dict(q=q, knew=knew, vnew=vnew, kpool=kpool, vpool=vpool)
+    bad = [n for n, t in named.items() if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{fn}: {', '.join(bad)} must be 16-byte aligned "
+                         "(16-byte copies)")
+    slots, W, heads, d = q.shape
+    nr = split_ranges(max_blocks, kpool.shape[2])
+    return (torch.empty((slots, heads, nr, W, d), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((slots, heads, nr, W, 2), dtype=torch.float32,
+                        device=q.device))
+
+
 @functools.lru_cache(maxsize=None)
 def _bind(name):
     fn = getattr(cpp_extension.load("paged_decode"), name)
     P, I = ctypes.c_void_p, ctypes.c_int
-    n_ptr = 8 if name == "paged_decode" else 9
-    fn.argtypes = [P] * n_ptr + [I] * 8 + [ctypes.c_float, P]
+    n_ptr = 10 if name == "paged_decode" else 11
+    fn.argtypes = [P] * n_ptr + [I] * 9 + [ctypes.c_float, P]
     fn.restype = I
     return fn
+
+
+def _launch(wrapper, name, q, knew, vnew, kpool, vpool, kv_scales, layer,
+            block_tables, positions, scale):
+    check_paged_args(wrapper.__name__, q, knew, vnew, kpool, vpool, layer,
+                     block_tables, positions, kv_scales)
+    slots, _, heads, d = q.shape
+    L, nb, bs = kpool.shape[:3]
+    maxb = block_tables.shape[1]
+    out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if kpool.dtype != torch.float32:       # the split walk (bf16, int8)
+        part_acc, part_ml = split_scratch(wrapper.__name__, q, knew, vnew,
+                                          kpool, vpool, maxb)
+    fn = _bind(name)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [q, knew, vnew, kpool, vpool]
+    if kv_scales is not None:
+        ptrs.append(kv_scales)
+    ptrs += [block_tables, positions, out]
+    wrapper.launches += 1
+    err = fn(*(t.data_ptr() for t in ptrs),
+             *(None if t is None else t.data_ptr()
+               for t in (part_acc, part_ml)),
+             _DTYPE_CODE[q.dtype], slots, heads, d, int(layer), nb, bs, maxb,
+             RANGE_KEYS, float(scale), stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
 
 
 def paged_decode_attention(q, knew, vnew, kpool, vpool, layer,
@@ -232,29 +299,15 @@ def paged_decode_attention(q, knew, vnew, kpool, vpool, layer,
 
     CPU tensors take `paged_decode_plain`. CUDA tensors launch the kernel:
     D in {64, 128}, block_size in {8, 16, 32, 64}, q/knew/vnew in the pool
-    dtype (float32 or bfloat16), everything contiguous; anything else
-    raises."""
+    dtype (float32 or bfloat16), everything contiguous, and at bfloat16 q,
+    the new rows and the pools 16-byte aligned; anything else raises."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, knew, vnew, kpool, vpool, layer,
                                   block_tables, positions, scale)
-    check_paged_args("paged_decode_attention", q, knew, vnew, kpool, vpool,
-                     layer, block_tables, positions)
-    slots, _, heads, d = q.shape
-    L, nb, bs = kpool.shape[:3]
-    s = scale if scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty_like(q)
-    fn = _bind("paged_decode")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    paged_decode_attention.launches += 1
-    err = fn(q.data_ptr(), knew.data_ptr(), vnew.data_ptr(),
-             kpool.data_ptr(), vpool.data_ptr(), block_tables.data_ptr(),
-             positions.data_ptr(), out.data_ptr(), _DTYPE_CODE[kpool.dtype],
-             slots, heads, d, int(layer), nb, bs, block_tables.shape[1],
-             float(s), stream)
-    if err:
-        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
-                           f"{err}")
-    return out
+    return _launch(paged_decode_attention, "paged_decode", q, knew, vnew,
+                   kpool, vpool, None, layer, block_tables, positions,
+                   scale if scale is not None else 1.0 / math.sqrt(
+                       q.shape[-1]))
 
 
 paged_decode_attention.launches = 0
@@ -270,28 +323,15 @@ def paged_decode_attention_int8(q, knew, vnew, kpool, vpool, kv_scales,
     (int8), and kv_scales is this layer's `[num_blocks, 2]` f32 K/V scale
     plane, contiguous. q (float32 or bfloat16) stays f32 inside; out is in
     q's dtype. CPU tensors take `paged_decode_int8_plain`; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel (q, the new rows and the pools 16-byte aligned) or
+    raise."""
     if q.device.type == "cpu":
         return paged_decode_int8_plain(q, knew, vnew, kpool, vpool,
                                        kv_scales, layer, block_tables,
                                        positions)
-    check_paged_args("paged_decode_attention_int8", q, knew, vnew, kpool,
-                     vpool, layer, block_tables, positions, kv_scales)
-    slots, _, heads, d = q.shape
-    L, nb, bs = kpool.shape[:3]
-    out = torch.empty_like(q)
-    fn = _bind("paged_decode_int8")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    paged_decode_attention_int8.launches += 1
-    err = fn(q.data_ptr(), knew.data_ptr(), vnew.data_ptr(),
-             kpool.data_ptr(), vpool.data_ptr(), kv_scales.data_ptr(),
-             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-             _DTYPE_CODE[q.dtype], slots, heads, d, int(layer), nb, bs,
-             block_tables.shape[1], 1.0 / math.sqrt(d), stream)
-    if err:
-        raise RuntimeError(f"paged_decode_int8 kernel launch failed: CUDA "
-                           f"error {err}")
-    return out
+    return _launch(paged_decode_attention_int8, "paged_decode_int8", q, knew,
+                   vnew, kpool, vpool, kv_scales, layer, block_tables,
+                   positions, 1.0 / math.sqrt(q.shape[-1]))
 
 
 paged_decode_attention_int8.launches = 0

@@ -24,13 +24,13 @@ tensors and launch the kernel for CUDA tensors; they never fall back. Each
 counts its launches in `.launches` and every call of its plain version, on
 any device, in `.plain_calls`.
 
-On bf16 and int8 pools the kernel is the split walk: each slot's keys in
-ranges of `RANGE_KEYS`, one CTA a (range, head, slot) writing fp32
-partials that a second launch combines in range order (the wrapper
-allocates them, `split_ranges` ranges a table). It rounds p against its
-range's max where the plain version rounds against the walk's running
-max, a difference of the order of one bf16 rounding of p. f32 pools keep
-the first design, one CTA a (slot, head) over the whole walk.
+On bf16 and int8 pools the kernel is the split walk of
+`csrc/paged_split.cuh`, which the decode kernels share at one row (see
+ops/paged_decode.py: `RANGE_KEYS`, `split_ranges`, `split_scratch`). It
+rounds p against its range's max where the plain version rounds against
+the walk's running max, a difference of the order of one bf16 rounding of
+p. f32 pools keep the first design, one CTA a (slot, head) over the whole
+walk.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ import math
 import torch
 
 from ..utils import cpp_extension
-from .paged_decode import _DTYPE_CODE, check_paged_args, paged_walk
+from .paged_decode import (_DTYPE_CODE, RANGE_KEYS, check_paged_args,
+                           paged_walk, split_ranges, split_scratch)
 
 __all__ = ["paged_verify_attention", "paged_verify_plain",
            "paged_verify_attention_int8", "paged_verify_int8_plain",
@@ -49,9 +50,6 @@ __all__ = ["paged_verify_attention", "paged_verify_plain",
 
 #: the widest window the kernels take (K <= 8 drafted tokens)
 MAX_WINDOW = 9
-#: keys one CTA of the split walk (bf16 and int8 pools) walks: the
-#: kernel's kRangeKeys, which the launch checks
-RANGE_KEYS = 128
 
 
 def _window_writes(knew, vnew, kpool, vpool, layer, block_tables,
@@ -126,12 +124,6 @@ def _bind(name):
     return fn
 
 
-def split_ranges(max_blocks, block_size):
-    """The ranges of RANGE_KEYS keys the split walk cuts a table into: its
-    grid's first dimension and the partials' third."""
-    return -(-max_blocks * block_size // RANGE_KEYS)
-
-
 def _launch(wrapper, name, q, knew, vnew, kpool, vpool, kv_scales, layer,
             block_tables, positions, draft_lens):
     check_paged_args(wrapper.__name__, q, knew, vnew, kpool, vpool, layer,
@@ -144,16 +136,8 @@ def _launch(wrapper, name, q, knew, vnew, kpool, vpool, kv_scales, layer,
     out = torch.empty_like(q)
     part_acc = part_ml = None
     if kpool.dtype != torch.float32:       # the split walk (bf16, int8)
-        named = dict(q=q, knew=knew, vnew=vnew, kpool=kpool, vpool=vpool)
-        bad = [n for n, t in named.items() if t.data_ptr() % 16]
-        if bad:
-            raise ValueError(f"{wrapper.__name__}: {', '.join(bad)} must be "
-                             "16-byte aligned (16-byte copies)")
-        nr = split_ranges(maxb, bs)
-        part_acc = torch.empty((slots, heads, nr, W, d), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((slots, heads, nr, W, 2), dtype=torch.float32,
-                              device=q.device)
+        part_acc, part_ml = split_scratch(wrapper.__name__, q, knew, vnew,
+                                          kpool, vpool, maxb)
     fn = _bind(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [q, knew, vnew, kpool, vpool]

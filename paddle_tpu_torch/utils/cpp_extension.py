@@ -33,8 +33,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "paddle_tpu_torch")
 #: kernel library name -> its sources under csrc/: the `.cu` files nvcc
 #: compiles and the `.cuh` headers they include (hashed with them)
 KERNEL_SOURCES = {
-    "paged_decode": ("paged_decode.cu",),
-    "paged_verify": ("paged_verify.cu", "attention_mma.cuh"),
+    "paged_decode": ("paged_decode.cu", "paged_split.cuh",
+                     "attention_mma.cuh"),
+    "paged_verify": ("paged_verify.cu", "paged_split.cuh",
+                     "attention_mma.cuh"),
     "causal_attention": ("causal_attention.cu", "attention_mma.cuh"),
     "causal_attention_bwd": ("causal_attention_bwd.cu", "attention_bwd.cuh",
                              "attention_mma.cuh"),

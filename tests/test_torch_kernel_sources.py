@@ -153,6 +153,9 @@ def test_profile_family_of_attention_backward_kernels(lib, kernel):
     ("paged_verify_kernel", "paged_verify_kernel"),
     ("paged_verify_split_kernel", "paged_verify_kernel"),
     ("paged_verify_combine_kernel", "paged_verify_kernel"),
+    ("paged_decode_kernel", "paged_decode_kernel"),
+    ("paged_decode_split_kernel", "paged_decode_kernel"),
+    ("paged_decode_combine_kernel", "paged_decode_kernel"),
     ("sum_rows_kernel", "sum_rows_kernel"),
     ("shortseq_fwd_mma_kernel", "shortseq_fwd_kernel"),
     ("causal_fwd_mma_kernel", "causal_fwd_kernel")])
@@ -188,12 +191,44 @@ def test_conv_libraries_list_the_mma_headers():
 
 
 def test_split_walk_range_is_the_wrappers():
-    """The split verify walk's range length in the source is the one its
-    wrapper sizes the partials with (the launch also refuses another)."""
-    from paddle_tpu_torch.ops.paged_verify import RANGE_KEYS
+    """The split walk's range length in its shared source is the one both
+    wrappers size the partials with (the launches also refuse another),
+    and the decode and verify libraries both take the walk from it."""
+    from paddle_tpu_torch.ops import paged_decode, paged_verify
 
-    text = (Path(CSRC) / "paged_verify.cu").read_text()
-    assert re.search(rf"constexpr int kRangeKeys = {RANGE_KEYS};", text)
-    assert "paged_verify" in CHIP_SMOKE.FMA_LIBS
+    assert paged_decode.RANGE_KEYS == paged_verify.RANGE_KEYS
+    text = (Path(CSRC) / "paged_split.cuh").read_text()
+    assert re.search(rf"constexpr int kRangeKeys = {paged_decode.RANGE_KEYS};",
+                     text)
+    for lib in ("paged_decode", "paged_verify"):
+        assert "paged_split.cuh" in _included(lib)
+        assert lib in CHIP_SMOKE.FMA_LIBS
+        assert "kRangeKeys =" not in (Path(CSRC) / f"{lib}.cu").read_text()
     assert {"paged_verify_split_kernel", "paged_verify_combine_kernel",
             "paged_verify_kernel"} <= _globals("paged_verify")
+    assert {"paged_decode_split_kernel", "paged_decode_combine_kernel",
+            "paged_decode_kernel"} <= _globals("paged_decode")
+
+
+@pytest.mark.parametrize("lib,rows", [("paged_decode", "1"),
+                                      ("paged_verify", "kMaxW")])
+def test_split_walk_kernels_are_thin(lib, rows):
+    """Each library's split kernels only call the shared bodies, at its own
+    row count (decode at one row, verify at the widest window): the walk
+    itself, its ring and its shuffles live in paged_split.cuh alone."""
+    text = (Path(CSRC) / f"{lib}.cu").read_text()
+    assert f"paged_split::walk<T, P, D, {rows}>(" in text
+    assert f"paged_split::combine<T, D, {rows}>(" in text
+    for mark in ("cp_async", "extern __shared__", "Tile<", "unpack("):
+        assert mark not in text, (lib, mark)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_split_ranges_cover_the_table(bs):
+    """The grid's ranges cover every key a table can reach, with the last
+    range starting inside the table."""
+    from paddle_tpu_torch.ops.paged_decode import RANGE_KEYS, split_ranges
+
+    for maxb in (1, 7, 8, 2048 // bs, 4096 // bs + 1):
+        nr = split_ranges(maxb, bs)
+        assert (nr - 1) * RANGE_KEYS < maxb * bs <= nr * RANGE_KEYS

@@ -40,8 +40,9 @@ composition, and a ResNet-50 train step on the card against the CPU.
 
 Paged kernels: pools must be bit-identical to the plain version's outside
 the null block 0, and outputs within tolerance on the live rows of live
-slots. The verify kernels on bf16 and int8 pools (the split walk) also at
-contexts up to 2047 keys at every block size, and twice to the same bits. Block 0 is a race, not a reference: idle lanes and dead window rows
+slots. The decode and verify kernels on bf16 and int8 pools (the split
+walk) also at contexts up to 2047 keys at every block size, and twice to
+the same bits; decode's pools whole, block 0 included. Block 0 is a race, not a reference: idle lanes and dead window rows
 of every slot write it from concurrent CTAs. For the int8 kernels the
 quantization runs once, in plain torch, before both the kernel and its
 plain version take the same int8 rows and scale plane.
@@ -395,6 +396,59 @@ def test_paged_verify_split_walk_refuses_a_misaligned_view(card):
     with pytest.raises(ValueError, match="16-byte aligned"):
         paged_verify_attention(q, kn, vn, shifted, vp, 1, tb, pos, dl)
     assert paged_verify_attention.launches == launches
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float32", "int8-bfloat16",
+                                  "int8-float32"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_paged_decode_kernels_at_long_contexts(card, kind, D, bs):
+    """The decode step (W = 1) at contexts up to 2047 keys at every block
+    size: positions 128 and 256 open a range of one key (the new one), 127
+    ends the first range, 2047 is the table's last key, a slot reads
+    another's first 512 keys read-only; the split walk (bf16 and int8
+    pools) across up to 16 ranges and the combine, f32 pools through the
+    first design. fp pools bit-identical whole, block 0 included (one idle
+    lane writes it)."""
+    c = long_window_case(card, 1, bs, D, kind)
+    if kind.startswith("int8"):
+        err, pools, scales = _paged_kernel_vs_plain(
+            paged_decode_attention_int8, paged_decode_int8_plain, c, True)
+        assert err <= TOL[c[0].dtype] and pools and scales
+        return
+    q, kn, vn, kp, vp, _, tb, pos, _, live = c
+    k0, v0, k1, v1 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    ref = paged_decode_plain(q, kn, vn, k0, v0, 1, tb, pos)
+    launches = paged_decode_attention.launches
+    out = paged_decode_attention(q, kn, vn, k1, v1, 1, tb, pos)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == launches + 1
+    assert (out.float() - ref.float())[live].abs().max().item() <= TOL[q.dtype]
+    assert torch.equal(k0, k1) and torch.equal(v0, v1)
+
+
+def test_paged_decode_split_walk_gives_the_same_bits_twice(card):
+    """The ranges are combined in a fixed order, without atomics: two runs
+    on the same inputs give the same output bits."""
+    q, kn, vn, kp, vp, _, tb, pos, _, _ = long_window_case(
+        card, 1, 16, 128, "bfloat16")
+    outs = [paged_decode_attention(q, kn, vn, kp.clone(), vp.clone(), 1, tb,
+                                   pos) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_paged_decode_split_walk_refuses_a_misaligned_view(card):
+    """The split walk copies 16 bytes at a time: a bf16 pool whose base is
+    not 16-byte aligned raises before a launch."""
+    q, kn, vn, kp, vp, _, tb, pos, _, _ = long_window_case(
+        card, 1, 16, 64, "bfloat16")
+    flat = torch.empty(kp.numel() + 1, dtype=kp.dtype, device="cuda")
+    shifted = flat[1:].view(kp.shape)
+    shifted.copy_(kp)
+    launches = paged_decode_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(q, kn, vn, shifted, vp, 1, tb, pos)
+    assert paged_decode_attention.launches == launches
 
 
 # the causal kernels' lengths: the tile edges of the bf16 design (16-row
