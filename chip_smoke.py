@@ -395,7 +395,9 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                                           "shortseq_dq_mma_kernel"),
                "sdpa_forward": ("sdpa_fwd_mma_kernel",),
                "conv_bn_relu": ("conv3x3_bn_relu_mma_kernel",
-                                "conv1x1_bn_relu_mma_kernel"),
+                                "conv1x1_bn_relu_mma_kernel",
+                                "conv3x3_train_mma_kernel",
+                                "conv1x1_train_mma_kernel"),
                "conv_bn_relu_bwd": ("conv3x3_dw_mma_kernel",
                                     "conv1x1_bwd_dx_mma_kernel",
                                     "conv1x1_bwd_dw_mma_kernel")}
@@ -409,16 +411,17 @@ SASS_ATOMICS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDUX")
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 # each kernel's design: the bf16 causal pair, the bf16 shortseq forward
 # and backward (both variants), the bf16 flash forward B6, the bf16 3x3
-# conv B8, the bf16 1x1 conv B7, the bf16 1x1 backward B10 and the bf16
-# 3x3 dWeight B11 run on the tensor cores; the bf16 and int8 decode and
-# verify walks split each slot's context across CTAs; every other kernel
-# is scalar fp32 FMA
+# conv B8, the bf16 1x1 conv B7, the bf16 train forwards B9a and B9b, the
+# bf16 1x1 backward B10 and the bf16 3x3 dWeight B11 run on the tensor
+# cores; the bf16 and int8 decode and verify walks split each slot's
+# context across CTAs; every f32 instance is scalar fp32 FMA
 DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "shortseq_fwd": "mma.sync bf16",
           "shortseq_fwd_masked": "mma.sync bf16",
           "shortseq_bwd": "mma.sync bf16",
           "shortseq_bwd_masked": "mma.sync bf16", "sdpa_fwd": "mma.sync bf16",
           "conv3x3": "mma.sync bf16", "conv1x1": "mma.sync bf16",
+          "conv1x1_train": "mma.sync bf16", "conv3x3_train": "mma.sync bf16",
           "conv1x1_bwd": "mma.sync bf16", "conv3x3_dw": "mma.sync bf16",
           "paged_decode": "split walk, fp32 FMA",
           "paged_decode_int8": "split walk, fp32 FMA",
@@ -2573,16 +2576,40 @@ def phase_conv_train(torch, ctx):
                     "ok": bool(math.isfinite(err) and err <= CONV_TOL[dn]
                                and serr <= CONV_SUM_TOL[dn])}
             del ref, ref_sums
+            if dtype == torch.bfloat16:
+                # the epilogue apart from the conv's rounding: the sums
+                # against fp64 sums of the kernel's own stored values
+                own = conv.reshape(-1, cout).double()
+                case["sums_own_fp64_rel_err"] = _sums_err(
+                    sums.double(), torch.stack([own.sum(0),
+                                                (own * own).sum(0)]), conv)
+                del own
             M = conv.shape[0] * conv.shape[1] * conv.shape[2]
             if time_it:
                 b, by = bound_ms((x.numel() + w.numel() + conv.numel()) * isz
                                  + 2 * cout * 4,
                                  2 * M * cin * cout * k * k, dn)
-                case.update(bound_ms=b, bound_by=by,
-                            kernel_ms=cuda_ms(torch, run9, 10, flush),
+                kms = cuda_ms(torch, run9, 10, flush)
+                (pt, pb), (pl, pr) = pads
+                xn = x.permute(0, 3, 1, 2)
+                w_cl = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                conv_only = (
+                    (lambda: F.conv2d(xn, w_cl, None, s, (pt, pl)))
+                    if pt == pb and pl == pr else
+                    (lambda: F.conv2d(F.pad(xn, (pl, pr, pt, pb)), w_cl,
+                                      None, s)))
+                case.update(bound_ms=b, bound_by=by, kernel_ms=kms,
+                            tflops=2 * M * cin * cout * k * k / kms / 1e9,
+                            share_of_bound=b / kms,
                             plain_ms=cuda_ms(torch, lambda: conv_train_plain(
                                 x, w, s, pad), 3, flush, warmup=1),
-                            library_ms=None)
+                            library_ms=None,
+                            conv_only_ms=cuda_ms(torch, conv_only, 10, flush),
+                            conv_only="F.conv2d of the same x and w, "
+                                      "channels_last: the conv alone, no "
+                                      "statistics")
+                del xn, w_cl
                 if name == "conv_c2_1x1_64_256":
                     ctx["conv1x1_train"] = case
                 elif name == "conv_c2_3x3_64":

@@ -21,27 +21,34 @@
 //   eval (B7/B8): y = acc * scale[co] + shift[co] (fp32, a multiply then an
 //     add), y = max(y, 0) with relu, out = y cast once to x's dtype;
 //   train (B9):   out = acc cast to x's dtype, and the SAME cast values feed
-//     fp32 per-channel sums of out and out^2, written per CTA as partials
-//     [row tiles, 2, Cout] that `sum_rows_kernel` adds in a fixed order into
-//     sums [2, Cout] (the TPU kernel's revisited [2, Cout] accumulator).
-//     Rows past M add nothing (a bounds check, no padding).
+//     fp32 per-channel sums of out and out^2, written per pixel tile as
+//     partials [tiles, 2, Cout] that `sum_rows_kernel` adds in a fixed
+//     order into sums [2, Cout] (the TPU kernel's revisited [2, Cout]
+//     accumulator). Pixels outside the output and channels past Cout add
+//     nothing (a bounds check, no padding).
 // A stride-2 1x1 (pads 0) is the TPU kernel's pre-sliced x[:, ::2, ::2],
 // read in place; a 3x3 reads the zero halo by bounds check, in place of the
 // TPU wrapper's padded copy, so symmetric, SAME's asymmetric and VALID
 // padding all take this one path.
 //
-// Design. B9a, B9b and the f32 B7 and B8 are an implicit GEMM through
-// conv_common.cuh's `gemm_mainloop`: the output [M, Cout] is tiled 128 x
-// 64 per CTA; the reduction walks the taps and, inside each, Cin in steps
-// of 8 (Cin is a multiple of 8, so a step never straddles two taps). The A
-// tile gathers 128 output pixels x 8 input channels of one tap from x with
-// the bounds check, the B tile is 8 x 64 of w. The epilogue is a template
-// parameter, so the eval and train kernels share one body, as B9 is the
-// B7/B8 walk with the epilogue replaced on the TPU. The bf16 B8 and B7 run
-// on the tensor cores (`conv3x3_bn_relu_mma_kernel`,
-// `conv1x1_bn_relu_mma_kernel`, below). The TPU kernel's VMEM slab walk,
-// its double-buffered DMA and its row and width tiles have no counterpart
-// here.
+// Design. Two by dtype. The bf16 kernels run on the tensor cores: B8 and
+// B9b share one mainloop (`conv3x3_mma_tile`, below), B7 and B9a another
+// (`conv1x1_mma_tile`), each a template on its epilogue, as B9 is the B7/B8
+// walk with the epilogue replaced on the TPU; kernels are named apart per
+// epilogue so that a profile tells them apart. The train kernels' epilogue
+// (`StatsMmaEpilogue`) sums the stored bf16 values of each channel in a
+// fixed order with no atomic: each thread its rows of the C fragment, the
+// eight lanes of a column by xor shuffles, the four pixel warps in order
+// through shared memory, then the tiles in `sum_rows_kernel`. The f32
+// kernels, which the f32 parity runs hold to the CPU, keep the first
+// design, an implicit GEMM through conv_common.cuh's `gemm_mainloop`: the
+// output [M, Cout] is tiled 128 x 64 per CTA; the reduction walks the taps
+// and, inside each, Cin in steps of 8 (Cin is a multiple of 8, so a step
+// never straddles two taps). The A tile gathers 128 output pixels x 8 input
+// channels of one tap from x with the bounds check, the B tile is 8 x 64
+// of w; the epilogue is again a template parameter. The TPU kernel's VMEM
+// slab walk, its double-buffered DMA and its row and width tiles have no
+// counterpart here.
 //
 // Bound on this card at the bench's shapes (batch 256, bf16): bytes for
 // the stage-2 1x1 64 -> 256 (x 103 MB in, the output 411 MB out: 514 MB,
@@ -164,10 +171,10 @@ struct AffineEpilogue {
   }
 };
 
-// train epilogue (B9): the conv cast once to T and stored; the cast values'
-// fp32 sum and sum of squares per channel over the CTA's rows (each thread
-// its 8 rows, then the 16 row groups in order) written to this row tile's
-// partials [2, Cout]
+// train epilogue of the f32 B9: the conv cast once to T and stored; the
+// cast values' fp32 sum and sum of squares per channel over the CTA's rows
+// (each thread its 8 rows, then the 16 row groups in order) written to
+// this row tile's partials [2, Cout]
 template <typename T>
 struct StatsEpilogue {
   T* out;
@@ -227,7 +234,7 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x,
 }
 
 // one kernel per filter size and epilogue, so that a profile tells them
-// apart: B7, B8, B9a, B9b
+// apart: B7, B8 (f32), B9a, B9b (f32)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv1x1_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -280,8 +287,9 @@ conv3x3_train_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // 36 k-steps are summed on the tensor cores from zero, then added into an
 // fp32 register sum: the tensor cores' fp32 accumulation truncates, so no
 // run of it is longer than one chunk. The epilogue is a functor on (pixel,
-// column pair, two values): the affine and ReLU here, so that the train
-// forward's statistics epilogue can take the mainloop up.
+// column pair, two values) and a `finish` the whole CTA calls: the affine
+// and ReLU for B8 (`conv3x3_bn_relu_mma_kernel`), the cast and the channel
+// statistics for B9b (`conv3x3_train_mma_kernel`).
 constexpr int kFwdThreads = 256;    // 8 warps: 4 (32 pixels) x 2 (32 co)
 constexpr int kFwdPix = 128;        // output pixels a tile holds
 constexpr int kFwdSlots = 640;      // x patch slots a stage holds (80 KB)
@@ -316,16 +324,160 @@ struct AffineMmaEpilogue {
     return conv_mma::pack_bf16x2(y0, y1);
   }
 
-  __device__ __forceinline__ void operator()(long long m, int co, float v0,
-                                             float v1) const {
+  // B8: one valid pixel's column pair (its 8-column block nb) stored
+  __device__ __forceinline__ void operator()(long long m, int /*nb*/, int co,
+                                             float v0, float v1) const {
     *reinterpret_cast<uint32_t*>(out + m * Cout + co) = pair(co, v0, v1);
+  }
+  __device__ __forceinline__ void finish(int, int, int, long long,
+                                         int) const {}
+  // B7: around the staged tile's stores
+  __device__ __forceinline__ void staged(uint32_t, long long, int, int, int,
+                                         int) const {}
+  __device__ __forceinline__ void stored(long long, int) const {}
+};
+
+// The statistics epilogue of the mma kernels (B9b, B9a): the conv cast once
+// to bf16 and stored, and the fp32 sum and sum of squares of each channel's
+// stored values over a tile, in a fixed order with no atomic:
+//   1. each thread its rows of the C fragment, in order: pixels gq, gq + 8
+//      of m-tile 0, then of m-tile 1 (gq = lane / 4), skipping pixels
+//      outside the output;
+//   2. the eight gq lanes of a column by xor shuffles over lanes 4, 8, 16
+//      (gq bits 0, 1, 2);
+//   3. the four pixel warps (wm) in order, through `red` in shared memory;
+// then row `tile` of partial [tiles, 2, Cout] holds the tile's 64 channels,
+// and sum_rows_kernel adds the tiles in order. A bf16 value's square is
+// exact in fp32 (16 significant bits).
+struct StatsMmaEpilogue {
+  __nv_bfloat16* out;
+  float* partial;  // [tiles, 2, Cout]
+  int Cout;
+};
+
+// a thread's sums over its rows, [8-column block nb][column of the pair]
+struct StatsSums {
+  const StatsMmaEpilogue& e;
+  float (*red)[4][conv_mma::kCh];  // [sum, squares][wm][column], shared
+  float s[4][2], q[4][2];
+
+  __device__ __forceinline__ StatsSums(const StatsMmaEpilogue& e_,
+                                       float (*red_)[4][conv_mma::kCh])
+      : e(e_), red(red_) {
+    zero();
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s[nb][j] = q[nb][j] = 0.f;
+  }
+
+  // the next row's stored pair of block nb (lo in the low half)
+  __device__ __forceinline__ void add(int nb, uint32_t v) {
+    const float y0 = __uint_as_float(v << 16);
+    const float y1 = __uint_as_float(v & 0xffff0000u);
+    s[nb][0] = __fadd_rn(s[nb][0], y0);
+    s[nb][1] = __fadd_rn(s[nb][1], y1);
+    q[nb][0] = __fadd_rn(q[nb][0], __fmul_rn(y0, y0));
+    q[nb][1] = __fadd_rn(q[nb][1], __fmul_rn(y1, y1));
+  }
+
+  // steps 2 and 3 up to `red`: the warp's column sums, written by the
+  // lanes of gq 0 (every lane of the warp must call this)
+  __device__ __forceinline__ void to_shared(int wm, int wc, int lane) {
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s[nb][j] = __fadd_rn(s[nb][j],
+                               __shfl_xor_sync(0xffffffffu, s[nb][j], o));
+          q[nb][j] = __fadd_rn(q[nb][j],
+                               __shfl_xor_sync(0xffffffffu, q[nb][j], o));
+        }
+    if (lane < 4) {
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = wc * 32 + nb * 8 + 2 * lane + j;
+          red[0][wm][col] = s[nb][j];
+          red[1][wm][col] = q[nb][j];
+        }
+    }
+  }
+
+  // after a barrier: the four warps in order into row `tile` of partial
+  __device__ __forceinline__ void to_partial(long long tile, int co0) const {
+    const int tid = threadIdx.x;
+    if (tid >= 2 * conv_mma::kCh) return;
+    const int which = tid / conv_mma::kCh, c = tid % conv_mma::kCh;
+    if (co0 + c >= e.Cout) return;
+    float t = red[which][0][c];
+#pragma unroll
+    for (int r = 1; r < 4; ++r) t = __fadd_rn(t, red[which][r][c]);
+    e.partial[(tile * 2 + which) * e.Cout + co0 + c] = t;
+  }
+
+  // a column pair's bits: the cast alone
+  __device__ __forceinline__ uint32_t pair(int, float v0, float v1) const {
+    return conv_mma::pack_bf16x2(v0, v1);
+  }
+
+  // B9b: one valid pixel's column pair stored and summed
+  __device__ __forceinline__ void operator()(long long m, int nb, int co,
+                                             float v0, float v1) {
+    const uint32_t v = pair(co, v0, v1);
+    *reinterpret_cast<uint32_t*>(e.out + m * e.Cout + co) = v;
+    add(nb, v);
+  }
+  __device__ __forceinline__ void finish(int wm, int wc, int lane,
+                                         long long tile, int co0) {
+    to_shared(wm, wc, lane);
+    __syncthreads();
+    to_partial(tile, co0);
+  }
+
+  // B9a, after the barrier that follows the staging: this thread's own
+  // pairs read back from the staging tile [128 pixels][64 co] (pixel m0 +
+  // p valid below M) into sums from zero, then steps 2 and 3 up to `red`
+  __device__ __forceinline__ void staged(uint32_t stage, long long m0, int M,
+                                         int wm, int wc, int lane) {
+    const int gq = lane >> 2, t4 = lane & 3;
+    zero();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = wm * 32 + mt * 16 + gq + 8 * h;
+        const bool ok = m0 + p < M;
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const int col = wc * 32 + nb * 8 + 2 * t4;
+          uint32_t v;
+          asm volatile("ld.shared.u32 %0, [%1];\n"
+                       : "=r"(v)
+                       : "r"(stage + conv_mma::tile_offset(p, col >> 3) +
+                             (col & 7) * 2));
+          if (ok) add(nb, v);
+        }
+      }
+    to_shared(wm, wc, lane);
+  }
+  // B9a, after the tile's stores: a barrier, then row `tile` of partial
+  __device__ __forceinline__ void stored(long long tile, int co0) const {
+    __syncthreads();
+    to_partial(tile, co0);
   }
 };
 
 template <class Epilogue>
 __device__ __forceinline__ void conv3x3_mma_tile(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    const FwdGeom& geo, const Epilogue& epi) {
+    const FwdGeom& geo, Epilogue& epi) {
   using namespace conv_mma;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ int row_n[kFwdRows], row_hi[kFwdRows];
@@ -482,10 +634,11 @@ __device__ __forceinline__ void conv3x3_mma_tile(
       for (int nb = 0; nb < 4; ++nb) {
         const int co = co0 + wc * 32 + nb * 8 + 2 * t4;
         if (co < geo.Cout) {
-          epi(m, co, sum[mt][nb][2 * h], sum[mt][nb][2 * h + 1]);
+          epi(m, nb, co, sum[mt][nb][2 * h], sum[mt][nb][2 * h + 1]);
         }
       }
     }
+  epi.finish(wm, wc, lane, blockIdx.x, co0);
 }
 
 __global__ void __launch_bounds__(kFwdThreads, 2)
@@ -493,6 +646,16 @@ conv3x3_bn_relu_mma_kernel(const __nv_bfloat16* __restrict__ x,
                            const __nv_bfloat16* __restrict__ w,
                            const FwdGeom geo, const AffineMmaEpilogue epi) {
   conv3x3_mma_tile(x, w, geo, epi);
+}
+
+// B9b: B8's walk with the statistics epilogue; partial row = blockIdx.x
+__global__ void __launch_bounds__(kFwdThreads, 2)
+conv3x3_train_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ w,
+                         const FwdGeom geo, const StatsMmaEpilogue epi) {
+  __shared__ float red[2][4][conv_mma::kCh];
+  StatsSums st(epi, red);
+  conv3x3_mma_tile(x, w, geo, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -527,11 +690,17 @@ constexpr int k1StageBytes = k1XBytes + kFwdTileBytes;       // 24 KB
 constexpr int k1Bytes = k1Stages * k1StageBytes + k1XBytes;  // + staging
 constexpr int k1PerSM = 2;       // CTAs an SM (__launch_bounds__)
 
-__global__ void __launch_bounds__(k1Threads, k1PerSM)
-conv1x1_bn_relu_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ w,
-                           const Geometry g, const AffineMmaEpilogue epi,
-                           int ntiles) {
+// The epilogue gives each column pair's bf16 bits (`pair`) and is called
+// around the staged tile's stores (`staged` after the barrier that
+// follows the staging, `stored` after the stores): nothing for B7
+// (`conv1x1_bn_relu_mma_kernel`), the channel statistics for B9a
+// (`conv1x1_train_mma_kernel`, partial row = the tile's pixel block t /
+// nco).
+template <class Epilogue>
+__device__ __forceinline__ void conv1x1_mma_tile(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const Geometry& g, Epilogue& epi, __nv_bfloat16* out,
+    int ntiles) {
   using namespace conv_mma;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -665,6 +834,7 @@ conv1x1_bn_relu_mma_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     __syncthreads();
+    epi.staged(stage_out, m0, g.M, wm, wc, lane);
     // the tile out in 16-byte chunks: lanes 8 r .. 8 r + 7 one pixel's row
 #pragma unroll
     for (int j = tid; j < k1Pix * 8; j += k1Threads) {
@@ -676,12 +846,31 @@ conv1x1_bn_relu_mma_kernel(const __nv_bfloat16* __restrict__ x,
         asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                      : "r"(stage_out + tile_offset(r, c)));
-        *reinterpret_cast<uint4*>(epi.out + m * g.Cout + co) = v;
+        *reinterpret_cast<uint4*>(out + m * g.Cout + co) = v;
       }
     }
+    epi.stored(t / nco, co0);
     kc = 0;
     t += gridDim.x;
   }
+}
+
+__global__ void __launch_bounds__(k1Threads, k1PerSM)
+conv1x1_bn_relu_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const Geometry g, const AffineMmaEpilogue epi,
+                           int ntiles) {
+  conv1x1_mma_tile(x, w, g, epi, epi.out, ntiles);
+}
+
+__global__ void __launch_bounds__(k1Threads, k1PerSM)
+conv1x1_train_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ w,
+                         const Geometry g, const StatsMmaEpilogue epi,
+                         int ntiles) {
+  __shared__ float red[2][4][conv_mma::kCh];
+  StatsSums st(epi, red);
+  conv1x1_mma_tile(x, w, g, st, epi.out, ntiles);
 }
 
 // the most image boundaries TH consecutive output rows starting at a
@@ -723,17 +912,13 @@ int launch_eval(const void* x, const void* w, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_3x3_mma(const void* x, const void* w, const void* scale,
-                   const void* shift, void* out, const Geometry& g, int relu,
-                   cudaStream_t stream) {
-  if (g.stride != 1 && g.stride != 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// B8's tile, which B9b shares: a tile's columns are the whole row, or
+// segments whose three patch rows fit a stage; several rows a tile when
+// the patch fits too (stride 1 or 2)
+FwdGeom fwd_geom(const Geometry& g) {
   const int s = g.stride;
   FwdGeom geo{g.N, g.H, g.W, g.Cin, g.Cout, g.Ho, g.Wo, s, g.pad_t, g.pad_l,
               0, 0, 0, 0, 0};
-  // a tile's columns: the whole row, or segments whose three patch rows
-  // fit a stage; several rows a tile when the patch fits too
   geo.TW = std::min({g.Wo, kFwdPix, (kFwdSlots / 3 - 3) / s + 1});
   geo.XW = (geo.TW - 1) * s + 3;
   geo.nseg = (g.Wo + geo.TW - 1) / geo.TW;
@@ -745,28 +930,51 @@ int launch_3x3_mma(const void* x, const void* w, const void* scale,
       break;
     }
   }
+  return geo;
+}
+
+// the tiles of B8's grid: segments x groups of TH output rows
+long long fwd_tiles(const FwdGeom& geo) {
+  const long long rows = static_cast<long long>(geo.N) * geo.Ho;
+  return geo.nseg * ((rows + geo.TH - 1) / geo.TH);
+}
+
+// B8 (affine epilogue) or B9b (statistics) on B8's tile
+template <class Epi>
+int launch_3x3_mma(void (*kernel)(const __nv_bfloat16*,
+                                  const __nv_bfloat16*, const FwdGeom,
+                                  const Epi),
+                   const void* x, const void* w, const Geometry& g,
+                   const Epi& epi, cudaStream_t stream) {
+  if (g.stride != 1 && g.stride != 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FwdGeom geo = fwd_geom(g);
   const int bytes = 2 * geo.PR * geo.XW * conv_mma::kRowBytes +
                     kFwdWStages * kFwdTileBytes;
   int err = static_cast<int>(cudaFuncSetAttribute(
-      conv3x3_bn_relu_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (err) return err;
-  const long long rows = static_cast<long long>(g.N) * g.Ho;
-  const dim3 grid(
-      static_cast<unsigned>(geo.nseg * ((rows + geo.TH - 1) / geo.TH)),
-      (g.Cout + conv_mma::kCh - 1) / conv_mma::kCh);
-  const AffineMmaEpilogue epi{static_cast<const float*>(scale),
-                              static_cast<const float*>(shift),
-                              static_cast<__nv_bfloat16*>(out), g.Cout, relu};
-  conv3x3_bn_relu_mma_kernel<<<grid, kFwdThreads, bytes, stream>>>(
+  const dim3 grid(static_cast<unsigned>(fwd_tiles(geo)),
+                  (g.Cout + conv_mma::kCh - 1) / conv_mma::kCh);
+  kernel<<<grid, kFwdThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), geo, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_1x1_mma(const void* x, const void* w, const void* scale,
-                   const void* shift, void* out, const Geometry& g, int relu,
-                   cudaStream_t stream) {
+// the pixel tiles of B7's (and B9a's) walk
+long long pixel_tiles_1x1(const Geometry& g) {
+  return (static_cast<long long>(g.M) + k1Pix - 1) / k1Pix;
+}
+
+// B7 (affine epilogue) or B9a (statistics) on B7's walk
+template <class Epi>
+int launch_1x1_mma(void (*kernel)(const __nv_bfloat16*,
+                                  const __nv_bfloat16*, const Geometry,
+                                  const Epi, int),
+                   const void* x, const void* w, const Geometry& g,
+                   const Epi& epi, cudaStream_t stream) {
   int dev = 0, sms = 0;
   int err = static_cast<int>(cudaGetDevice(&dev));
   if (!err) {
@@ -775,8 +983,7 @@ int launch_1x1_mma(const void* x, const void* w, const void* scale,
   }
   if (!err) {
     err = static_cast<int>(cudaFuncSetAttribute(
-        conv1x1_bn_relu_mma_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, k1Bytes));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k1Bytes));
   }
   if (err) return err;
   // tiles numbered co tile fastest. A tile of fewer chunks than the ring
@@ -785,22 +992,18 @@ int launch_1x1_mma(const void* x, const void* w, const void* scale,
   // tile a CTA); else one tile a CTA, and the SMs balance the tail
   const int nco = (g.Cout + conv_mma::kCh - 1) / conv_mma::kCh;
   const int nch = (g.Cin + conv_mma::kCh - 1) / conv_mma::kCh;
-  const long long ntiles =
-      (static_cast<long long>(g.M) + k1Pix - 1) / k1Pix * nco;
+  const long long ntiles = pixel_tiles_1x1(g) * nco;
   const int slots = k1PerSM * sms;
   const long long ctas = nch >= k1Stages ? ntiles : std::min<long long>(
       ntiles, slots >= nco ? slots / nco * nco : slots);
-  const AffineMmaEpilogue epi{static_cast<const float*>(scale),
-                              static_cast<const float*>(shift),
-                              static_cast<__nv_bfloat16*>(out), g.Cout, relu};
-  conv1x1_bn_relu_mma_kernel<<<static_cast<unsigned>(ctas), k1Threads,
-                               k1Bytes, stream>>>(
+  kernel<<<static_cast<unsigned>(ctas), k1Threads, k1Bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), g, epi,
       static_cast<int>(ntiles));
   return static_cast<int>(cudaGetLastError());
 }
 
+// the f32 B9a / B9b: the first design, then the tiles' sums
 template <typename T>
 int launch_train(int K, const void* x, const void* w, void* out,
                  void* partial, void* sums, const Geometry& g,
@@ -815,6 +1018,14 @@ int launch_train(int K, const void* x, const void* w, void* out,
   if (err) return err;
   return sum_rows(static_cast<const float*>(partial),
                   static_cast<float*>(sums), grid.x, 2LL * g.Cout, stream);
+}
+
+// the rows of partial a train launch writes, one per pixel tile of the
+// kernel that runs: 128 pixels a tile for f32 (B9's first design) and
+// the bf16 1x1 (B7's walk), B8's tile for the bf16 3x3
+long long train_tiles(int K, int dtype, const Geometry& g) {
+  if (dtype == 0) return grid_of(g).x;
+  return K == 1 ? pixel_tiles_1x1(g) : fwd_tiles(fwd_geom(g));
 }
 
 bool bad_args(int dtype, int Cin, int Cout) {
@@ -837,9 +1048,12 @@ int conv1x1_bn_relu(const void* x, const void* w, const void* scale,
   if (bad_args(dtype, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g = geometry(N, H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-      ? launch_1x1_mma(x, w, scale, shift, out, g, relu, s)
-      : launch_eval<float, 1>(x, w, scale, shift, out, g, relu, s);
+  if (dtype == 0) return launch_eval<float, 1>(x, w, scale, shift, out, g, relu, s);
+  return launch_1x1_mma(
+      conv1x1_bn_relu_mma_kernel, x, w, g,
+      AffineMmaEpilogue{static_cast<const float*>(scale),
+                        static_cast<const float*>(shift),
+                        static_cast<__nv_bfloat16*>(out), Cout, relu}, s);
 }
 
 int conv3x3_bn_relu(const void* x, const void* w, const void* scale,
@@ -849,26 +1063,44 @@ int conv3x3_bn_relu(const void* x, const void* w, const void* scale,
   if (bad_args(dtype, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g = geometry(N, H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-      ? launch_3x3_mma(x, w, scale, shift, out, g, relu, s)
-      : launch_eval<float, 3>(x, w, scale, shift, out, g, relu, s);
+  if (dtype == 0) return launch_eval<float, 3>(x, w, scale, shift, out, g, relu, s);
+  return launch_3x3_mma(
+      conv3x3_bn_relu_mma_kernel, x, w, g,
+      AffineMmaEpilogue{static_cast<const float*>(scale),
+                        static_cast<const float*>(shift),
+                        static_cast<__nv_bfloat16*>(out), Cout, relu}, s);
 }
 
 // B9a (K 1) / B9b (K 3): out = conv(x, w) in x's dtype, NHWC; sums
-// [2, Cout] fp32 of out and out^2; partial: fp32 scratch
-// [ceil(M / 128), 2, Cout]
+// [2, Cout] fp32 of out and out^2; partial: fp32 scratch [partial_rows, 2,
+// Cout], at least one row per pixel tile of the kernel that runs
+// (`train_tiles`; the wrapper sizes it with ops/conv.py
+// `conv_train_partial_rows`); a smaller buffer is refused. The bf16 paths
+// on the tensor cores, stride 1 or 2.
 int conv_train(const void* x, const void* w, void* out, void* partial,
-               void* sums, int K, int dtype, int N, int H, int W, int Cin,
-               int Cout, int Ho, int Wo, int stride, int pad_t, int pad_l,
-               void* stream) {
-  if (bad_args(dtype, Cin, Cout) || (K != 1 && K != 3)) {
+               void* sums, int partial_rows, int K, int dtype, int N, int H,
+               int W, int Cin, int Cout, int Ho, int Wo, int stride,
+               int pad_t, int pad_l, void* stream) {
+  if (bad_args(dtype, Cin, Cout) || (K != 1 && K != 3) ||
+      (dtype == 1 && stride != 1 && stride != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geometry g = geometry(N, H, W, Cin, Cout, Ho, Wo, stride, pad_t, pad_l);
+  const long long tiles = train_tiles(K, dtype, g);
+  if (partial_rows < tiles) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-      ? launch_train<__nv_bfloat16>(K, x, w, out, partial, sums, g, s)
-      : launch_train<float>(K, x, w, out, partial, sums, g, s);
+  if (dtype == 0) {
+    return launch_train<float>(K, x, w, out, partial, sums, g, s);
+  }
+  const StatsMmaEpilogue epi{static_cast<__nv_bfloat16*>(out),
+                             static_cast<float*>(partial), Cout};
+  const int err = K == 1
+      ? launch_1x1_mma(conv1x1_train_mma_kernel, x, w, g, epi, s)
+      : launch_3x3_mma(conv3x3_train_mma_kernel, x, w, g, epi, s);
+  if (err) return err;
+  return sum_rows(static_cast<const float*>(partial),
+                  static_cast<float*>(sums), static_cast<int>(tiles),
+                  2LL * Cout, s);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Tensor-core pieces of the conv kernels for Hopper (sm_90a): tiles of
 // NHWC rows in shared memory and the `mma.sync` fragments read from them.
 // The bf16 kernels of conv_bn_relu_bwd.cu (the 3x3 dWeight B11, the 1x1
-// backward B10) and of conv_bn_relu.cu (the 3x3 forward B8) use them.
+// backward B10) and of conv_bn_relu.cu (the forwards B7 and B8 and the
+// train forwards B9a and B9b) use them.
 //
 // A tile holds rows of 64 bf16 channels (128 bytes, eight 16-byte chunks):
 // a pixel's channels [c0, c0 + 64) of an NHWC tensor, one row a pixel

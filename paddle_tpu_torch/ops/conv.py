@@ -59,7 +59,8 @@ __all__ = ["CONV_BACKENDS", "normalize_conv_padding",
            "conv_shapes_supported", "resolve_conv_backend",
            "conv_bn_relu_plain", "conv1x1_bn_relu", "conv3x3_bn_relu",
            "fused_conv_bn_relu", "conv_bn_relu_train_plain",
-           "conv_train_plain", "conv1x1_train", "conv3x3_train",
+           "conv_train_plain", "conv_train_partial_rows", "conv1x1_train",
+           "conv3x3_train",
            "conv1x1_bwd_plain", "conv1x1_bwd", "conv3x3_dw_plain",
            "conv3x3_dw", "fused_conv_bn_relu_train"]
 
@@ -332,6 +333,8 @@ fused_conv_bn_relu.dense_train_calls = 0
 # dWeight (B11) and the autograd Function that joins them with B8
 # ---------------------------------------------------------------------------
 _BM = 128          # output rows per CTA of csrc/conv_bn_relu.cu (kBM)
+# B8's tile (csrc/conv_bn_relu.cu kFwdPix, kFwdSlots, kFwdRows)
+_FWD_PIX, _FWD_SLOTS, _FWD_ROWS = 128, 640, 64
 # a dWeight cuts its pixels into splits until its grid holds about this
 # many CTAs: four per SM of the H100's 132
 _TARGET_CTAS = 528
@@ -375,10 +378,39 @@ def conv_train_plain(x, w, stride=1, padding=0):
     return conv, torch.stack([p.sum(0), (p * p).sum(0)])
 
 
+@functools.lru_cache(maxsize=None)
+def conv_train_partial_rows(k, dtype, N, Ho, Wo, stride):
+    """Rows of the train forwards' fp32 scratch `[rows, 2, Cout]`: one per
+    pixel tile of the kernel that runs (`train_tiles` in
+    csrc/conv_bn_relu.cu, whose launch refuses fewer). A tile holds 128
+    output pixels in the f32 kernels and in the bf16 1x1 (B7's walk). The
+    bf16 3x3 takes B8's tile (`fwd_geom`): TH output rows of TW columns,
+    a row wider than the tile in nseg segments, so nseg * ceil(N * Ho /
+    TH) tiles, more than ceil(M / 128) where a tile holds fewer than 128
+    pixels (112 at 56 x 56)."""
+    if dtype != torch.bfloat16 or k == 1:
+        return -(-(N * Ho * Wo) // _BM)
+    s = stride
+    tw = min(Wo, _FWD_PIX, (_FWD_SLOTS // 3 - 3) // s + 1)
+    xw = (tw - 1) * s + 3
+    nseg = -(-Wo // tw)
+    th = 1 if nseg > 1 else _FWD_PIX // tw
+    while th > 1:
+        # the most image boundaries th output rows from a multiple of th
+        # cross widen the patch by 3 - s rows each
+        cross = max((r * th + th - 1) // Ho - r * th // Ho for r in range(Ho))
+        pr = (th - 1) * s + 3 + cross * (3 - s)
+        if pr <= _FWD_ROWS and pr * xw <= _FWD_SLOTS:
+            break
+        th -= 1
+    return nseg * -(-(N * Ho) // th)
+
+
 def _train_launch(wrapper, k, x, w, stride, padding):
     """Shared body of the train-forward wrappers: the plain version for a
     CPU x, else the checks and one launch of `conv_train` (the kernel, then
-    the fixed-order sum of its per-tile statistics)."""
+    the fixed-order sum of its per-tile statistics, sized by
+    `conv_train_partial_rows`)."""
     kh, s, pads, Ho, Wo = _geometry(x, w, stride, padding)
     if kh != k:
         raise ValueError(f"{wrapper.__name__} takes a {k}x{k} filter, got "
@@ -393,16 +425,17 @@ def _train_launch(wrapper, k, x, w, stride, padding):
     sums = torch.zeros((2, Cout), dtype=torch.float32, device=x.device)
     if M == 0:
         return out, sums
-    partial = torch.empty((-(-M // _BM), 2, Cout), dtype=torch.float32,
+    rows = conv_train_partial_rows(k, x.dtype, N, Ho, Wo, s)
+    partial = torch.empty((rows, 2, Cout), dtype=torch.float32,
                           device=x.device)
-    # x, w, out, partial and sums; K, dtype, N, H, W, Cin, Cout, Ho, Wo,
-    # stride, pad top and pad left
-    fn = _bind("conv_bn_relu", "conv_train", 5, 12)
+    # x, w, out, partial and sums; partial's rows, K, dtype, N, H, W, Cin,
+    # Cout, Ho, Wo, stride, pad top and pad left
+    fn = _bind("conv_bn_relu", "conv_train", 5, 13)
     wrapper.launches += 1
     _raise_on(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 partial.data_ptr(), sums.data_ptr(), k, _DTYPE_CODE[x.dtype],
-                 N, H, W, Cin, Cout, Ho, Wo, s, pads[0][0], pads[1][0],
-                 _stream(x)), wrapper)
+                 partial.data_ptr(), sums.data_ptr(), rows, k,
+                 _DTYPE_CODE[x.dtype], N, H, W, Cin, Cout, Ho, Wo, s,
+                 pads[0][0], pads[1][0], _stream(x)), wrapper)
     return out, sums
 
 
@@ -411,13 +444,15 @@ def conv1x1_train(x, w, stride=1):
     x NHWC, w `[1, 1, Cin, Cout]`, stride 1 or 2 (x[:, ::2, ::2] read in
     place). Returns (conv NHWC in x's dtype, fp32 `[2, Cout]` sums of conv
     and conv^2). CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel (bfloat16 on the tensor cores, B7's walk; float32 in fp32
+    FMA) or raise."""
     return _train_launch(conv1x1_train, 1, x, w, stride, 0)
 
 
 def conv3x3_train(x, w, stride=1, padding=1):
     """3x3 conv with the statistics epilogue (B9b, `_conv3x3_train_kernel`):
-    as `conv1x1_train`, any padding `conv3x3_bn_relu` takes."""
+    as `conv1x1_train` (bfloat16 on B8's walk), any padding
+    `conv3x3_bn_relu` takes."""
     return _train_launch(conv3x3_train, 3, x, w, stride, padding)
 
 

@@ -14,6 +14,16 @@ geometry the card tests use (ragged tiles, tiles across image boundaries,
 rows wider than a tile, stride 2 with SAME's asymmetric halo, the training
 dX walk at padding 2).
 
+The train forwards B9b and B9a (`conv3x3_train_mma_kernel`,
+`conv1x1_train_mma_kernel`) take B8's and B7's walks with a statistics
+epilogue (`StatsMmaEpilogue`): each thread sums its rows of the C fragment,
+the eight lanes of a column join by xor shuffles, the four pixel warps in
+order, one partial row per pixel tile, then `sum_rows_kernel` adds the
+tiles. `emulate_stats` repeats that order in fp32 over B8's TH x TW tiles
+and B7's 128-pixel tiles: every valid pixel of every channel counts once,
+the sums agree with fp64, and the tiles are the rows the wrapper
+allocates (`conv_train_partial_rows`).
+
 `csrc/conv_bn_relu_bwd.cu`'s B10 builds each chunk's dConv tile lane by
 channel pair and warp by row (`build_dconv`); its dW walks each split's
 pixels in chunks of 64. Both are emulated here too.
@@ -25,7 +35,8 @@ import pytest
 import torch
 from torch.nn import functional as F
 
-from paddle_tpu_torch.ops.conv import _splits, normalize_conv_padding
+from paddle_tpu_torch.ops.conv import (_splits, conv_train_partial_rows,
+                                       normalize_conv_padding)
 
 CH = 64                 # channels a tile row holds (conv_mma.cuh kCh)
 FWD_PIX = 128           # kFwdPix
@@ -220,3 +231,151 @@ def test_b10_dw_chunks_cover_each_pixel_once(M, cin, cout):
             seen[lo:min(me, lo + DW_STEP)] += 1
     assert (seen == 1).all()
     assert math.ceil(M / chunk) == splits
+
+
+# ---------------------------------------------------------------------------
+# the statistics epilogue of the train forwards B9b and B9a
+# ---------------------------------------------------------------------------
+def b8_tile_pixels(N, Ho, Wo, s):
+    """B8's (and B9b's) tiles as its epilogue indexes them: (m, valid), each
+    [tiles, 128]: slot p of tile bx is output row t0 + p // TW, column c0 +
+    p % TW, valid inside the tile, the batch's rows and the row."""
+    TH, TW, _, _, nseg = fwd_geometry(Ho, Wo, s)
+    rows_total = N * Ho
+    bx = np.arange(nseg * -(-rows_total // TH))
+    t0 = (bx // nseg * TH)[:, None]
+    c0 = (bx % nseg * TW)[:, None]
+    r, c = np.divmod(np.arange(FWD_PIX), TW)
+    valid = (r < TH) & (t0 + r < rows_total) & (c0 + c < Wo)
+    return np.where(valid, (t0 + r) * Wo + c0 + c, 0), valid
+
+
+def b7_tile_pixels(M):
+    """B7's (and B9a's) pixel tiles: slot p of tile t is pixel 128 t + p,
+    valid below M."""
+    m = np.arange(-(-M // FWD_PIX))[:, None] * FWD_PIX + np.arange(FWD_PIX)
+    valid = m < M
+    return np.where(valid, m, 0), valid
+
+
+def seq_sum(a, axis):
+    """fp32 sum along `axis` one term after another, from +0."""
+    t = np.zeros(np.delete(a.shape, axis), np.float32)
+    for i in range(a.shape[axis]):
+        t = t + np.take(a, i, axis=axis)
+    return t
+
+
+def sum_rows(part):
+    """`sum_rows_kernel` over [R, C] fp32: group g of G adds rows g, g + G,
+    ... into four interleaved sums, then group 0 adds the groups in
+    order."""
+    R = part.shape[0]
+    G = min(max(R // 16, 1), 32)
+    groups = []
+    for g in range(G):
+        t = [np.zeros(part.shape[1], np.float32) for _ in range(4)]
+        r = g
+        while r + 3 * G < R:
+            for i in range(4):
+                t[i] = t[i] + part[r + i * G]
+            r += 4 * G
+        while r < R:
+            t[0] = t[0] + part[r]
+            r += G
+        groups.append((t[0] + t[1]) + (t[2] + t[3]))
+    return seq_sum(np.stack(groups), 0)
+
+
+def emulate_stats(y, m, valid):
+    """The statistics epilogue on the stored values y [M, Cout] (bf16 values
+    as fp32) over tiles (m, valid): partials [tiles, 2, Cout] in the
+    kernel's order (each thread (wm, gq) its pixels wm * 32 + mt * 16 + gq
+    + 8 h in (mt, h) order, skipping invalid ones; the xor shuffles over
+    gq bits 0, 1, 2; the warps wm in order), then `sum_rows` of them."""
+    wm, gq, k = np.ix_(np.arange(4), np.arange(8), np.arange(4))
+    p = wm * 32 + (k // 2) * 16 + gq + 8 * (k % 2)            # [4, 8, 4]
+    vals = np.where(valid[:, p, None], y[m[:, p]], np.float32(0))
+    out = []
+    for v in (vals, vals * vals):        # a bf16 value's square is exact
+        t = seq_sum(v, 3)                            # [tiles, wm, gq, C]
+        for o in (1, 2, 4):
+            t = t + t[:, :, np.arange(8) ^ o]
+        out.append(seq_sum(t[:, :, 0], 1))
+    partial = np.stack(out, 1)                       # [tiles, 2, Cout]
+    return partial, sum_rows(partial.reshape(partial.shape[0], -1)) \
+        .reshape(2, -1)
+
+
+def stats_geometry(k, case):
+    N, H, W, cin, cout, s, padding = case
+    pads = normalize_conv_padding(padding, k, s, in_hw=(H, W))
+    (pt, pb), (pl, pr) = pads
+    Ho, Wo = (H + pt + pb - k) // s + 1, (W + pl + pr - k) // s + 1
+    m, valid = (b8_tile_pixels(N, Ho, Wo, s) if k == 3
+                else b7_tile_pixels(N * Ho * Wo))
+    return pads, Ho, Wo, m, valid
+
+
+# B8_CASES for B9b; for B9a ragged pixel tails (M 147, 1064, 266, 25), a
+# stride-2 sample and a single tile
+B7_CASES = [(3, 7, 7, 24, 72, 1, 0), (3, 7, 7, 24, 72, 2, 0),
+            (2, 28, 19, 64, 136, 1, 0), (2, 28, 19, 64, 136, 2, 0),
+            (1, 5, 5, 72, 136, 1, 0), (1, 8, 16, 8, 8, 1, 0)]
+STATS_CASES = [(3, c) for c in B8_CASES] + [(1, c) for c in B7_CASES]
+
+
+@pytest.mark.parametrize("k,case", STATS_CASES,
+                         ids=[f"k{k}-N{c[0]}-{c[1]}x{c[2]}-{c[4]}-s{c[5]}-"
+                              f"p{c[6]}" for k, c in STATS_CASES])
+def test_stats_epilogue_counts_each_pixel_once_and_sums_as_fp64(k, case):
+    """Over all tiles every valid output pixel of every channel is summed
+    exactly once (ragged M tails, image boundaries inside a tile, rows in
+    segments, stride 2 with SAME's halo); the fp32 sums in the kernel's
+    order agree with fp64 sums of the same bf16 values to 1e-6 of the sum
+    of the terms' magnitudes, as does every tile's partial; the tiles are
+    the rows `conv_train_partial_rows` allocates."""
+    N, H, W, cin, cout, s, _ = case
+    pads, Ho, Wo, m, valid = stats_geometry(k, case)
+    M = N * Ho * Wo
+    assert m.shape[0] == conv_train_partial_rows(k, torch.bfloat16, N, Ho,
+                                                 Wo, s)
+    seen = np.bincount(m[valid], minlength=M)
+    assert seen.shape == (M,) and (seen == 1).all()
+    rng = np.random.RandomState(1)
+    x = rng.standard_normal((N, H, W, cin))
+    w = rng.standard_normal((k, k, cin, cout)) * 0.1
+    y = torch.from_numpy(conv_fp64(x, w, s, pads).reshape(M, cout)) \
+        .to(torch.bfloat16).float().numpy()
+    partial, sums = emulate_stats(y, m, valid)
+    y64 = y.astype(np.float64)
+    terms = (y64, y64 * y64)
+    for i, t in enumerate(terms):
+        mag = np.abs(t).sum(0)
+        assert (np.abs(sums[i] - t.sum(0)) <= 1e-6 * mag).all()
+        tile_terms = np.where(valid[..., None], t[m], 0.0)
+        assert (np.abs(partial[:, i] - tile_terms.sum(1))
+                <= 1e-6 * np.abs(tile_terms).sum(1)).all()
+
+
+def test_stats_partial_rows_at_the_sweep_shapes():
+    """At bench_ops.py's nine sweep shapes (batch 256, SAME) the bf16 train
+    forwards write one partial row per tile, each valid pixel once: B7's
+    128-pixel tiles for the 1x1, B8's for the 3x3, 7168 rows at c2's 3x3
+    (112-pixel tiles) against the 6272 of ceil(M / 128), which the f32
+    kernels keep."""
+    sweep = [(56, 64, 256, 1, 1), (56, 64, 64, 3, 1), (56, 128, 128, 3, 2),
+             (28, 128, 128, 3, 1), (28, 256, 256, 3, 2), (14, 256, 256, 3, 1),
+             (14, 512, 512, 3, 2), (7, 512, 512, 3, 1), (7, 512, 2048, 1, 1)]
+    N = 256
+    for hw, _, _, k, s in sweep:
+        Ho = Wo = -(-hw // s)
+        M = N * Ho * Wo
+        m, valid = (b8_tile_pixels(N, Ho, Wo, s) if k == 3
+                    else b7_tile_pixels(M))
+        assert (np.bincount(m[valid], minlength=M) == 1).all()
+        assert m.shape[0] == conv_train_partial_rows(k, torch.bfloat16, N,
+                                                     Ho, Wo, s)
+        assert conv_train_partial_rows(k, torch.float32, N, Ho, Wo, s) == \
+            -(-M // 128)
+    assert conv_train_partial_rows(3, torch.bfloat16, N, 56, 56, 1) == 7168

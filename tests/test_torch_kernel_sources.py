@@ -150,6 +150,10 @@ def test_profile_family_of_attention_backward_kernels(lib, kernel):
     ("conv3x3_bn_relu_kernel", "conv3x3_bn_relu_kernel"),
     ("conv1x1_bn_relu_kernel", "conv1x1_bn_relu_kernel"),
     ("conv1x1_bn_relu_mma_kernel", "conv1x1_bn_relu_kernel"),
+    ("conv1x1_train_kernel", "conv1x1_train_kernel"),
+    ("conv1x1_train_mma_kernel", "conv1x1_train_kernel"),
+    ("conv3x3_train_kernel", "conv3x3_train_kernel"),
+    ("conv3x3_train_mma_kernel", "conv3x3_train_kernel"),
     ("paged_verify_kernel", "paged_verify_kernel"),
     ("paged_verify_split_kernel", "paged_verify_kernel"),
     ("paged_verify_combine_kernel", "paged_verify_kernel"),

@@ -30,8 +30,10 @@ Conv kernels (B7, B8; bf16 on the tensor cores, f32 in fp32 FMA): against
 relative to max |plain| (CONV_TOL), B7 also at every 1x1 of ResNet-50 and
 at ragged tiles; the ResNet on the card against the same ResNet on the
 CPU. The conv training
-kernels (B9a/B9b train forwards, B10 1x1 backward, B11 3x3 dWeight; B8,
-B10 and B11 bf16 on the tensor cores, B11 also at the seven sweep shapes
+kernels (B9a/B9b train forwards, B10 1x1 backward, B11 3x3 dWeight; all
+four and B8 bf16 on the tensor cores, B9b also where its tile holds fewer
+than 128 pixels, the partial buffer sized to the tile and a smaller one
+refused, B11 also at the seven sweep shapes
 against an fp64 reference, B10 at Cout 2048 and across pixel splits, B8
 at Cin 512 stride 2, at rows wider than a tile and as the stride-2 dX
 walk) against their plain versions over dtype x stride x shape, the training
@@ -62,8 +64,8 @@ from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops.conv import (
     conv1x1_bn_relu, conv1x1_bwd, conv1x1_bwd_plain, conv1x1_train,
     conv3x3_bn_relu, conv3x3_dw, conv3x3_dw_plain, conv3x3_train,
-    conv_bn_relu_plain, conv_bn_relu_train_plain, conv_train_plain,
-    fused_conv_bn_relu, fused_conv_bn_relu_train)
+    conv_bn_relu_plain, conv_bn_relu_train_plain, conv_train_partial_rows,
+    conv_train_plain, fused_conv_bn_relu, fused_conv_bn_relu_train, _bind)
 from paddle_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                paged_decode_attention_int8,
                                                paged_decode_int8_plain,
@@ -1088,6 +1090,67 @@ def test_conv_train_kernels_match_plain(card, dtype, k, stride, padding,
     assert got.shape == ref.shape and got.dtype == dtype
     assert sums.shape == (2, cout) and sums.dtype == torch.float32
     assert conv_rel_err(got, ref) <= CONV_TOL[dtype]
+    p = ref.reshape(-1, cout).float()
+    mag = torch.stack([p.abs().sum(0), (p * p).sum(0)])
+    tol = SUM_TOL if dtype == torch.float32 else 2.0 ** -7
+    assert sums_rel_err(sums, ref_sums, mag) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("padding", ["int", "SAME"])
+@pytest.mark.parametrize("shape", [(2, 56, 56, 64, 72), (3, 25, 50, 64, 72)],
+                         ids=["N2-56x56-64-72", "N3-25x50-64-72"])
+def test_conv3x3_train_kernel_at_short_tiles(card, dtype, stride, padding,
+                                             shape):
+    """B9b where the bf16 kernel's tile (B8's) holds fewer than 128 pixels,
+    so it writes more partial rows than ceil(M / 128): 56 x 56 (112-pixel
+    tiles at stride 1, Cout 72 a ragged co tile) and 25 x 50 (100-pixel
+    tiles over 75 output rows: a ragged last row group); the conv within
+    CONV_TOL and the sums as `test_conv_train_kernels_match_plain`."""
+    N, H, W, cin, cout = shape
+    x, w, _, _ = conv_case(card, N, H, W, cin, cout, 3, dtype)
+    pad = "SAME" if padding == "SAME" else 1
+    before = conv3x3_train.launches
+    got, sums = conv3x3_train(x, w, stride, pad)
+    ref, ref_sums = conv_train_plain(x, w, stride, pad)
+    torch.cuda.synchronize()
+    assert conv3x3_train.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert conv_rel_err(got, ref) <= CONV_TOL[dtype]
+    p = ref.reshape(-1, cout).float()
+    mag = torch.stack([p.abs().sum(0), (p * p).sum(0)])
+    tol = SUM_TOL if dtype == torch.float32 else 2.0 ** -7
+    assert sums_rel_err(sums, ref_sums, mag) <= tol
+
+
+@pytest.mark.parametrize("k,dtype", [(3, torch.bfloat16), (1, torch.bfloat16),
+                                     (3, torch.float32)])
+def test_conv_train_refuses_a_short_partial_buffer(card, k, dtype):
+    """`conv_train` launches with the rows `conv_train_partial_rows` gives
+    (B8's 112-pixel tiles for the bf16 3x3 at 56 x 56: 56 rows, not 49)
+    and refuses one row fewer instead of writing past the buffer."""
+    N, H, cin, cout = 2, 56, 64, 72
+    x, w, _, _ = conv_case(card, N, H, H, cin, cout, k, dtype)
+    rows = conv_train_partial_rows(k, dtype, N, H, H, 1)
+    assert rows == (56 if (k, dtype) == (3, torch.bfloat16) else 49)
+    out = torch.empty((N, H, H, cout), dtype=dtype, device="cuda")
+    sums = torch.empty((2, cout), device="cuda")
+    partial = torch.empty((rows, 2, cout), device="cuda")
+    fn = _bind("conv_bn_relu", "conv_train", 5, 13)
+
+    def launch(r):
+        return fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                  partial.data_ptr(), sums.data_ptr(), r, k,
+                  1 if dtype == torch.bfloat16 else 0, N, H, H, cin, cout,
+                  H, H, 1, k // 2, k // 2,
+                  torch.cuda.current_stream().cuda_stream)
+
+    assert launch(rows - 1) != 0
+    assert launch(rows) == 0
+    torch.cuda.synchronize()
+    ref, ref_sums = conv_train_plain(x, w, 1, k // 2)
+    assert conv_rel_err(out, ref) <= CONV_TOL[dtype]
     p = ref.reshape(-1, cout).float()
     mag = torch.stack([p.abs().sum(0), (p * p).sum(0)])
     tol = SUM_TOL if dtype == torch.float32 else 2.0 ** -7
