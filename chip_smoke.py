@@ -12,6 +12,8 @@ bert_train,bert_parity
 resnet_train_parity
     python3 chip_smoke.py --phases build,sdpa_fwd,transformer_infer,\
 transformer_parity
+    python3 chip_smoke.py --phases build,sdpa_bwd,optimizer_update,\
+transformer_train,transformer_train_parity
 
 Phases, each printing one JSON line:
 
@@ -19,12 +21,14 @@ Phases, each printing one JSON line:
    paddle_tpu_torch/csrc (sm_90a), all at once; prints the card's name and
    power limit as nvidia-smi reports them; counts, with cuobjdump -sass,
    the HMMA (tensor-core) instructions of each bf16 mma kernel (the causal
-   pair, the shortseq forward and backward, the flash forward B6, the 3x3
-   conv B8, the 1x1 conv B7, the 1x1 backward B10, the 3x3 dWeight B11),
-   and fails if one has none, if a library of them holds an atomic, if
-   ptxas reports a spill in any mma kernel, or if the paged decode or
-   verify library (the split walk and its combine, fp32 FMA) holds an
-   atomic or spills.
+   pair, the shortseq forward and backward, the flash forward B6 and the
+   library route's backward, the 3x3 conv B8, the 1x1 conv B7, the train
+   forwards B9a and B9b, the 1x1 backward B10, the 3x3 dWeight B11), and
+   fails if one has none, if a library of them holds an atomic, if ptxas
+   reports a spill in any mma kernel or in any kernel of the library
+   route's backward, or if the paged decode or verify library (the split
+   walk and its combine, fp32 FMA) or the one-pass optimizer update holds
+   an atomic or spills.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16
@@ -39,14 +43,16 @@ Phases, each printing one JSON line:
    shapes no kernel takes (causal Sq != Skv, non-causal 64 x 80, causal
    head dim 96) take the dense route; the library shapes (non-causal S
    1024, causal head dim 192) launch the flash forward B6 when no gradient
-   is needed and raise naming the library route's backward when one is.
+   is needed, and its LSE variant then the library route's backward when
+   one is.
 4. causal_bwd: the causal attention backward kernel against its plain
    version at B2 H16 S2048 D128 (the training shape) and at S=300, bf16
    and f32, and at B1 H16 S256 f32 (train_parity's shape), for dq, dk and
    dv; bf16 timings at the training shape, L2 flushed, with the achieved
    TFLOP/s and the share of the bound, and the backward of torch's
-   scaled_dot_product_attention (autograd.grad, its forward not timed) as
-   the library yardstick.
+   scaled_dot_product_attention (autograd.grad, its forward not timed,
+   from a CUDA graph's replays so that no host gap enters) as the library
+   yardstick.
 5. engine: GPT-1.3B at full width and depth, bf16, random weights from a
    seed, served greedily by GenerationEngine (8 slots, block 16, chunked
    prefill, prefix cache) over a trace with mid-run arrivals, a shared
@@ -59,9 +65,11 @@ Phases, each printing one JSON line:
    parameters, AdamW(1e-4), batch 2 x seq 2048 with the labels the input
    ids, through TrainStep.run_scan over one random batch per step, as
    bench.py feeds them: 2 warm-up steps, then 5 timed steps; ms/step,
-   tokens/s, the model-FLOP share of 989 TFLOP/s, peak memory and the
-   losses, which must be finite. Then three steps feed the first batch
-   again, and its loss must fall.
+   tokens/s, the model-FLOP share of 989 TFLOP/s, peak memory (at most
+   0.5 GB above the per-parameter loop's, LOOP_PEAK_GB) and the losses,
+   which must be finite; the update is one launch of the one-pass
+   kernel a step. Then three steps feed the first batch again, and its
+   loss must fall.
 8. train_parity: f32, hidden 2048, 16 heads, 2 layers, batch 1, seq 256,
    from the same weights on the card and on the CPU (plain versions,
    outside the counted run): the first batch's loss gradients, then three
@@ -108,7 +116,8 @@ Phases, each printing one JSON line:
    the bound.
 15. shortseq_bwd: its backward kernel likewise, from the kernel's forward
    O and LSE, per sequence for dq, dk and dv; the library yardstick is
-   autograd.grad through scaled_dot_product_attention.
+   autograd.grad through scaled_dot_product_attention, from a CUDA graph's
+   replays.
 16. bert_train: bench.py's BERT row at full width and depth, nothing cut:
    BertConfig.bert_base() (vocab 30522, hidden 768, 12 layers, 12 heads,
    FFN 3072, 512 positions), dropouts 0, eval mode, bf16 parameters,
@@ -167,9 +176,11 @@ Phases, each printing one JSON line:
    H8 S2048 D256); bf16 timings, L2 flushed, against the bound, the plain
    version and torch's scaled_dot_product_attention, with the achieved
    TFLOP/s and the share of the bound. Then the routes: a
-   no-grad library shape launches B6, a grad-requiring one raises naming
-   the backward, head dim 320 raises, and pallas_sdpa_forward with S not a
-   multiple of its block fails its assert.
+   no-grad library shape launches B6, a grad-requiring one B6's LSE
+   variant and the library route's backward, head dim 320 launches B6
+   (the wide design), head dim 576 raises naming the limit of 512, and
+   pallas_sdpa_forward with S not a multiple of its block fails its
+   assert.
 25. transformer_infer: nn.Transformer() at its defaults (the base model of
    Vaswani et al. 2017: d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
    ReLU, post-norm), dropout 0, bf16, seed-0 weights, eval mode under
@@ -183,17 +194,55 @@ Phases, each printing one JSON line:
 26. transformer_parity: f32 at width 512, 8 heads, 2 + 2 layers, batch 2,
    source 640 and target 128, from the same weights on the card and on
    the CPU: the outputs within TRANSFORMER_PARITY_TOL (relative L2).
+27. sdpa_bwd: the library route's forward and backward against their
+   plain versions, bf16 and f32, at the Transformer-base encoder's
+   self-attention (B8 H8 S1024 D64) and cross-attention (Sq 256, Skv
+   1024), head dims 128, 192 and 256, causal at 192 and 256 (B1 H8
+   S2048), and head dims 320 and 512 (the wide design): B6's LSE variant
+   (its LSE within LSE_TOL of the plain LSE, its O within SDPA_TOL and the
+   same bits as the inference instance's), then `sdpa_backward` from that
+   O and LSE; bf16 timings, L2 flushed, against the bound, the plain
+   version and autograd.grad through scaled_dot_product_attention (a
+   CUDA graph's replays, so no host gap enters), with the achieved
+   TFLOP/s and the share of the bound; B6's LSE variant timed beside its
+   inference instance.
+28. optimizer_update: one AdamW step over GPT-1.3B's own parameter list
+   (bf16, biases and norms without decay) and one Momentum step over
+   ResNet-50's, grads and accumulators drawn from the seed: the one-pass
+   kernel bitwise equal to the per-parameter loop (run on the card) in
+   parameters and accumulators; its device time (torch.profiler) against
+   the bytes bound (22 and 14 bytes a parameter), the loop's, and
+   torch.optim's (AdamW fused, SGD with momentum) as a yardstick, and the
+   whole step on the host's clock.
+29. transformer_train: nn.Transformer() at its defaults (the base model)
+   with the paper's dropout (residual 0.1, no attention or activation
+   dropout), bf16, AdamW(7e-4, the paper's peak rate) through TrainStep
+   over a wrapper that passes the causal tgt_mask, mse_loss in fp32
+   against a target drawn from the seed, batch 8, source 1024, target
+   256: 2 warm-up and 5 timed steps;
+   ms/step, source and target tokens/s, the FLOP share of 989 TFLOP/s (3
+   x the forward's FLOP), peak memory; a step launches B6's LSE variant
+   and the library backward 12 times each (6 encoder self-attentions, 6
+   cross-attentions) and the one-pass update once, and no plain version;
+   the losses finite and a re-fed batch's loss falling.
+30. transformer_train_parity: f32 at width 512, 8 heads, 2 + 2 layers,
+   batch 2, source 640 and target 128, dropout 0, from the same weights on
+   the card and on the CPU: the first batch's gradients, then three
+   AdamW steps; the losses, the gradients and the change of the
+   parameters within TRANSFORMER_TRAIN_PARITY_TOL, the CPU's own noise
+   beside them.
 
-Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25 and 26 are the main
-path, in twenty runs:
+Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 and 30 are
+the main path, in twenty-two runs:
 the bf16 engine, the bf16 generate(), the f32 engine, the f32 generate(),
 the bf16 train steps, the f32 train steps, the bf16 speculative engine,
 the three f32 engines of spec_parity, the int8 engine, the int8
 speculative engine, BERT's mask-free and padded bf16 train steps, its
 padded eval forwards and its f32 padded steps, the timed bf16 ResNet-50
 forwards, the f32 ResNet-50 forward, the timed bf16 ResNet-50 train steps,
-the f32 ResNet-50 train steps, the timed bf16 Transformer forwards and the
-f32 Transformer forward. Kernel counts are set to 0
+the f32 ResNet-50 train steps, the timed bf16 Transformer forwards, the
+f32 Transformer forward, the timed bf16 Transformer train steps and the
+f32 Transformer train steps. Kernel counts are set to 0
 just before each run and read just after it; each run must launch every
 kernel it takes (PATH_KERNEL: the engine the paged decode kernel,
 generate() the causal forward, training the causal forward and backward,
@@ -204,12 +253,15 @@ variants alone, a ResNet-50 forward the 1x1 kernel 36 times and the 3x3
 kernel 16 times, a ResNet-50 train step the 1x1 and 3x3 train forwards
 36 and 16 times, the 1x1 backward 36, the 3x3 dWeight 16 and the 3x3
 eval kernel 16 times as the dX walk, a Transformer forward the flash
-forward B6 12 times) and call no plain version.
+forward B6 12 times, a Transformer train step B6's LSE variant and the
+library route's backward 12 times each; every train step the one-pass
+optimizer update once) and call no plain version.
 `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
 one GPT train step, of one BERT train step, of one bf16 ResNet-50
-forward and one bf16 ResNet-50 train step on each route, and of one bf16
-Transformer forward. The line before
+forward and one bf16 ResNet-50 train step on each route, of one bf16
+Transformer forward and of one bf16 Transformer train step. The line
+before
 the last
 lists the kernels with their launches, errors, times and design (tensor
 cores or fp32 FMA); the last line is
@@ -238,7 +290,9 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "shortseq_fwd", "shortseq_bwd", "bert_train", "bert_parity",
           "conv_fwd", "resnet_infer", "resnet_parity", "conv_train",
           "resnet_train", "resnet_train_parity", "sdpa_fwd",
-          "transformer_infer", "transformer_parity")
+          "transformer_infer", "transformer_parity", "sdpa_bwd",
+          "optimizer_update", "transformer_train",
+          "transformer_train_parity")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -333,6 +387,19 @@ TRANSFORMER_PARITY_TOL = 1e-5
 # post-norm layers; the LayerNorms keep each layer's output at unit scale,
 # so the rounding does not grow layer over layer
 TRANSFORMER_BF16_REL_TOL = 0.05
+# f32 Transformer train steps on the card against the CPU, in
+# TRAIN_PARITY_TOL's terms, with each attention's k_proj.bias held apart:
+# its gradient is zero in exact arithmetic (it adds one constant to a row's
+# logits), so it is held to 1e-4 of the largest gradient, and its change
+# over three AdamW steps, rounding noise that Adam scales to +-lr, as the
+# GPT's key third. The phase measures the CPU's own noise (the same steps
+# from inputs 1e-7 apart) and holds the change of the parameters to
+# "update_noise_x" times it, with `update` as its floor: AdamW scales
+# gradient noise by 1 / sqrt(v), so the change's error follows the run's
+# own noise.
+TRANSFORMER_TRAIN_PARITY_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-3,
+                                "update_noise_x": 10.0, "key_bias_step": 1.01,
+                                "key_bias_grad": 1e-4}
 RESNET50_FWD_FLOPS = 4.09e9        # per 224 x 224 image (bench.py)
 CONV_BATCH = 256
 # bench_ops.py's nine ResNet-50 sweep shapes: (name, hw, cin, cout, k, s)
@@ -354,30 +421,44 @@ SSF, SSB = "shortseq_attention_fwd", "shortseq_attention_bwd"
 C1, C3 = "conv1x1_bn_relu", "conv3x3_bn_relu"
 C9A, C9B = "conv1x1_train", "conv3x3_train"
 C10, C11 = "conv1x1_bwd", "conv3x3_dw"
-SDPA = "sdpa_forward"
-# the masked variants' launches, counted apart on the same wrappers
+SDPA, SBWD = "sdpa_forward", "sdpa_backward"
+OPT = "optimizer_update"
+# the masked variants' launches, counted apart on the same wrappers, and
+# B6's LSE variant's
 SSFM, SSBM = SSF + "_masked", SSB + "_masked"
+SDPA_LSE = SDPA + "_lse"
+# extra counts some wrappers keep beside .launches: attribute -> suffix
+EXTRA_COUNTS = (("masked_launches", "_masked"), ("lse_launches", "_lse"))
 # each run of the main path, and the kernels that run must launch
 PATH_KERNEL = {"engine_bf16": (DEC,),
                "generate_bf16": (FWD,),
                "engine_f32": (DEC,),
                "generate_f32": (FWD,),
-               "train_bf16": (FWD, BWD),
-               "train_f32": (FWD, BWD),
+               "train_bf16": (FWD, BWD, OPT),
+               "train_f32": (FWD, BWD, OPT),
                "engine_spec_bf16": (VER,),
                "spec_f32": (DEC, VER),
                "engine_int8_bf16": (DEC8,),
                "engine_int8_spec_bf16": (VER8,),
-               "bert_train_bf16": (SSF, SSB),
-               "bert_padded_bf16": (SSFM, SSBM),
+               "bert_train_bf16": (SSF, SSB, OPT),
+               "bert_padded_bf16": (SSFM, SSBM, OPT),
                "bert_eval_padded_bf16": (SSFM,),
-               "bert_f32": (SSFM, SSBM),
+               "bert_f32": (SSFM, SSBM, OPT),
                "resnet_infer_bf16": (C1, C3),
                "resnet_f32": (C1, C3),
-               "resnet_train_bf16": (C9A, C9B, C10, C11, C3),
-               "resnet_train_f32": (C9A, C9B, C10, C11, C3),
+               "resnet_train_bf16": (C9A, C9B, C10, C11, C3, OPT),
+               "resnet_train_f32": (C9A, C9B, C10, C11, C3, OPT),
                "transformer_infer_bf16": (SDPA,),
-               "transformer_f32": (SDPA,)}
+               "transformer_f32": (SDPA,),
+               "transformer_train_bf16": (SDPA, SDPA_LSE, SBWD, OPT),
+               "transformer_train_f32": (SDPA, SDPA_LSE, SBWD, OPT)}
+# peak device memory (GB) of the bf16 train phases with the per-parameter
+# optimizer loop, before the update became one pass (chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700 W); each phase fails more than
+# PEAK_SLACK_GB above its own
+LOOP_PEAK_GB = {"train": 21.633068544, "bert_train": 11.866654208,
+                "resnet_train": 13.296258048}
+PEAK_SLACK_GB = 0.5
 # bench.py's BERT row: batch, heads, seq, head dim
 BERT_SHAPE = (64, 12, 512, 64)
 SPEC_K = 4
@@ -394,6 +475,8 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                "shortseq_attention_bwd": ("shortseq_dkdv_mma_kernel",
                                           "shortseq_dq_mma_kernel"),
                "sdpa_forward": ("sdpa_fwd_mma_kernel",),
+               "sdpa_backward": ("sdpa_dkdv_mma_kernel",
+                                 "sdpa_dq_mma_kernel"),
                "conv_bn_relu": ("conv3x3_bn_relu_mma_kernel",
                                 "conv1x1_bn_relu_mma_kernel",
                                 "conv3x3_train_mma_kernel",
@@ -403,8 +486,12 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                                     "conv1x1_bwd_dw_mma_kernel")}
 # libraries without tensor-core kernels held to no atomic (each result the
 # same from run to run) and no spill in any kernel: the split walk of the
-# decode and verify kernels (csrc/paged_split.cuh)
-FMA_LIBS = ("paged_verify", "paged_decode")
+# decode and verify kernels (csrc/paged_split.cuh) and the one-pass
+# optimizer update
+FMA_LIBS = ("paged_verify", "paged_decode", "optimizer_update")
+# libraries held to no spill in any kernel, not only the mma ones: those,
+# and the library route's backward (its wide FMA design too)
+SPILL_FREE_LIBS = FMA_LIBS + ("sdpa_backward",)
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                          r"([A-Z][A-Z0-9_]*)")
 SASS_ATOMICS = ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDUX")
@@ -426,7 +513,9 @@ DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "paged_decode": "split walk, fp32 FMA",
           "paged_decode_int8": "split walk, fp32 FMA",
           "paged_verify": "split walk, fp32 FMA",
-          "paged_verify_int8": "split walk, fp32 FMA"}
+          "paged_verify_int8": "split walk, fp32 FMA",
+          "sdpa_bwd": "mma.sync bf16 (D <= 256), wide fp32 FMA",
+          "optimizer_update": "one pass over a device table, fp32"}
 # a device-time family of the profiles, by a substring of the kernel's
 # name in lower case, first match wins: the port's conv kernels before
 # cuDNN's (whose names may hold "conv2d"), and the shortseq backward's
@@ -441,6 +530,8 @@ KERNEL_FAMILIES = (
     ("conv3x3_dw_kernel", ("conv3x3_dw",)),
     ("sum_rows_kernel", ("sum_rows",)),
     ("sdpa_fwd_kernel", ("sdpa_fwd",)),
+    ("sdpa_bwd_kernels", ("sdpa_delta", "sdpa_dkdv", "sdpa_dq")),
+    ("optimizer_update_kernel", ("optimizer_update",)),
     ("cudnn conv", ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
                     "conv2d", "convolve")),
     ("paged_verify_kernel", ("paged_verify",)),
@@ -580,7 +671,7 @@ def phase_build(torch, ctx):
         ok &= sass[lib]["atomics"] == 0
     spills = {f"{lib}: {fn}": text for lib, fns in ptxas.items()
               for fn, text in fns.items()
-              if ("_mma_kernel" in fn or lib in FMA_LIBS)
+              if ("_mma_kernel" in fn or lib in SPILL_FREE_LIBS)
               and any(int(a) or int(b) for a, b in SPILL.findall(text))}
     ok &= not spills
     emit({"phase": "build", "ok": bool(ok), "seconds": secs,
@@ -714,6 +805,7 @@ def phase_causal_fwd(torch, ctx):
                                                       causal_attention_plain,
                                                       dense_attention,
                                                       flash_attention,
+                                                      sdpa_backward,
                                                       sdpa_forward)
 
     g = torch.Generator("cuda").manual_seed(2)
@@ -761,9 +853,9 @@ def phase_causal_fwd(torch, ctx):
                 ctx["causal_fwd"] = dict(case, shape="B1 H16 S2048 D128")
             res["cases"].append(case)
     # the shapes a TPU hands to jax's library kernel, causal or not: B6
-    # without a gradient; with one they raise (no fallback), naming the
-    # library route's backward, which is still to port
-    raises, launched = {}, {}
+    # without a gradient; with one B6's LSE variant, then the library
+    # route's backward (no fallback)
+    trained, launched = {}, {}
     for name, shape, causal in (("non_causal_b6_shape", (1, 1024, 2, 64),
                                  False),
                                 ("causal_b6_shape", (1, 128, 1, 192), True)):
@@ -773,14 +865,14 @@ def phase_causal_fwd(torch, ctx):
             flash_attention(z, z, z, causal=causal)
         launched[name] = sdpa_forward.launches == before + 1
         zg = z.clone().requires_grad_()
-        try:
-            flash_attention(zg, zg, zg, causal=causal)
-            raises[name] = False
-        except NotImplementedError as e:
-            raises[name] = "backward" in str(e)
-    res["raises_with_grad"] = raises
+        lse, bwd = sdpa_forward.lse_launches, sdpa_backward.launches
+        flash_attention(zg, zg, zg, causal=causal).sum().backward()
+        trained[name] = (sdpa_forward.lse_launches == lse + 1
+                         and sdpa_backward.launches == bwd + 1
+                         and bool(torch.isfinite(zg.grad).all()))
+    res["library_backward_with_grad"] = trained
     res["launches_b6_without_grad"] = launched
-    ok &= all(raises.values()) and all(launched.values())
+    ok &= all(trained.values()) and all(launched.values())
     # shapes no kernel takes (causal Sq != Skv, non-causal 64 x 80, causal
     # head dim 96): dense on every device, as in JAX
     z = torch.zeros((1, 64, 2, 64), device="cuda")
@@ -848,14 +940,12 @@ def phase_causal_bwd(torch, ctx):
                 q, k, v, o, do, lse, scale), 10, flush)
             pms = cuda_ms(torch, lambda: causal_attention_bwd_plain(
                 q, k, v, o, do, lse, scale), 5, flush)
-            q4, k4, v4 = (x.view(B, H, S, D).clone().requires_grad_()
-                          for x in (q, k, v))
-            out4 = F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, scale=scale)
-            do4 = do.view(B, H, S, D)
-            lms = cuda_ms(torch, lambda: torch.autograd.grad(
-                out4, (q4, k4, v4), do4, retain_graph=True), 10, flush)
-            del q4, k4, v4, out4, flush
+            lms = _library_bwd_ms(
+                torch, lambda a, b, c: F.scaled_dot_product_attention(
+                    a, b, c, is_causal=True, scale=scale),
+                [x.view(B, H, S, D) for x in (q, k, v)],
+                do.view(B, H, S, D), flush)
+            del flush
             isz = q.element_size()
             nbytes = 8 * BH * S * D * isz + BH * S * 4
             flops = 5 * BH * D * S * (S + 1)
@@ -888,23 +978,26 @@ def phase_causal_bwd(torch, ctx):
 def _counted(torch, ctx, path, fn, exact=None):
     """One run of the main path: every kernel count is set to 0 just before
     `fn` and read just after it, into ctx["paths"][path] (the shortseq
-    wrappers' masked launches under `<name>_masked`). The run fails if a
+    wrappers' masked launches under `<name>_masked`, B6's LSE variant's
+    under `sdpa_forward_lse`). The run fails if a
     kernel it must take (PATH_KERNEL) never launched, if any plain version
     was called on the card, or if a count named in `exact` differs."""
     for w in ctx["wrappers"]:
         w.launches = 0
         w.plain_calls = 0
-        if hasattr(w, "masked_launches"):
-            w.masked_launches = 0
+        for attr, _ in EXTRA_COUNTS:
+            if hasattr(w, attr):
+                setattr(w, attr, 0)
     out = fn()
     torch.cuda.synchronize()
     counts = {}
     for w in ctx["wrappers"]:
         counts[w.__name__] = {"launches": w.launches,
                               "plain_calls": w.plain_calls}
-        if hasattr(w, "masked_launches"):
-            counts[w.__name__ + "_masked"] = {
-                "launches": w.masked_launches, "plain_calls": 0}
+        for attr, suffix in EXTRA_COUNTS:
+            if hasattr(w, attr):
+                counts[w.__name__ + suffix] = {
+                    "launches": getattr(w, attr), "plain_calls": 0}
     ctx["paths"][path] = counts
     if (any(counts[k]["launches"] == 0 for k in PATH_KERNEL[path])
             or any(c["plain_calls"] for c in counts.values())
@@ -1156,7 +1249,8 @@ def phase_train(torch, ctx, seed):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = _counted(torch, ctx, "train_bf16",
-                      lambda: step.run_scan(ids[warm:], ids[warm:]))
+                      lambda: step.run_scan(ids[warm:], ids[warm:]),
+                      exact={OPT: timed})
     wall = time.perf_counter() - t0
     losses = [float(x) for x in torch.cat([warm_losses, losses])]
     # fresh random batches barely lower the loss in 7 bf16 steps; that the
@@ -1178,6 +1272,8 @@ def phase_train(torch, ctx, seed):
            "kernel_counts": counts}
     per_step = {k: counts[k]["launches"] / timed for k in (FWD, BWD)}
     res["launches_per_step"] = per_step
+    res["optimizer_launches_per_step"] = counts[OPT]["launches"] / timed
+    res["peak_memory_gb_with_the_loop"] = LOOP_PEAK_GB["train"]
     # the optimizer's share of a step: one more forward and backward, then
     # AdamW's update alone between CUDA events
     model.zero_grad(set_to_none=True)
@@ -1191,7 +1287,9 @@ def phase_train(torch, ctx, seed):
     res["optimizer_step_ms"] = t_opt[0].elapsed_time(t_opt[1])
     res["ok"] = bool(all(math.isfinite(x) for x in losses + refeed_losses)
                      and refeed_losses[-1] < refeed_losses[0]
-                     and all(n == cfg.num_layers for n in per_step.values()))
+                     and all(n == cfg.num_layers for n in per_step.values())
+                     and res["peak_memory_gb"]
+                     <= LOOP_PEAK_GB["train"] + PEAK_SLACK_GB)
     emit(res)
     if ctx.get("profile"):
         from torch.profiler import ProfilerActivity, profile
@@ -1221,24 +1319,34 @@ def _worst_leaf(got, want):
     return worst, errs[worst], errs
 
 
-def _update_errs(torch, got, want, tol, lr, steps):
-    """The change of the parameters over `steps` AdamW steps at `lr`
-    (`got` on the card, `want` on the CPU), with the key third of each
-    fused qkv bias held apart (see TRAIN_PARITY_TOL): the worst parameter
-    and its relative L2 error, every parameter's, the key thirds' largest
-    change in units of steps * lr, and whether both are within `tol`."""
-    def split(d):
-        out, key = {}, {}
-        for n, t in d.items():
-            if n.endswith("qkv_proj.bias"):
-                q, k, v = t.chunk(3)
-                out[n + "[q,v]"] = torch.cat([q, v])
-                key[n + "[k]"] = k
-            else:
-                out[n] = t
-        return out, key
+def _qkv_key_third(torch, d):
+    """`d` split into (the rest, the key third of each fused qkv bias)."""
+    out, key = {}, {}
+    for n, t in d.items():
+        if n.endswith("qkv_proj.bias"):
+            q, k, v = t.chunk(3)
+            out[n + "[q,v]"] = torch.cat([q, v])
+            key[n + "[k]"] = k
+        else:
+            out[n] = t
+    return out, key
 
-    (card, key), (host, _) = split(got), split(want)
+
+def _k_proj_bias(torch, d):
+    """`d` split into (the rest, each attention's k_proj.bias)."""
+    out, key = {}, {}
+    for n, t in d.items():
+        (key if n.endswith("k_proj.bias") else out)[n] = t
+    return out, key
+
+
+def _update_errs(torch, got, want, tol, lr, steps, split=_qkv_key_third):
+    """The change of the parameters over `steps` AdamW steps at `lr`
+    (`got` on the card, `want` on the CPU), with the key bias held apart
+    by `split` (see TRAIN_PARITY_TOL): the worst parameter and its
+    relative L2 error, every parameter's, the key biases' largest change
+    in units of steps * lr, and whether both are within `tol`."""
+    (card, key), (host, _) = split(torch, got), split(torch, want)
     leaf, err, errs = _worst_leaf(card, host)
     key_step = max(k.abs().max().item() for k in key.values()) / (steps * lr)
     return {"update_worst_leaf": leaf, "update_rel_err": err,
@@ -1946,15 +2054,12 @@ def phase_shortseq_bwd(torch, ctx):
             q, k, v, o, do, lse, scale, km), 10, flush)
         pms = cuda_ms(torch, lambda: shortseq_attention_bwd_plain(
             q, k, v, o, do, lse, scale, km), 3, flush, warmup=1)
-        q4, k4, v4 = (x.view(Bb, Hb, S, D).clone().requires_grad_()
-                      for x in (q, k, v))
         m4 = None if km is None else km[:, None, None, :].to(q.dtype)
-        out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
-                                              scale=scale)
-        do4 = do.view(Bb, Hb, S, D)
-        lms = cuda_ms(torch, lambda: torch.autograd.grad(
-            out4, (q4, k4, v4), do4, retain_graph=True), 10, flush)
-        del q4, k4, v4, out4
+        lms = _library_bwd_ms(
+            torch, lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=m4, scale=scale),
+            [x.view(Bb, Hb, S, D) for x in (q, k, v)],
+            do.view(Bb, Hb, S, D), flush)
         b, by = _shortseq_bound(BH, S, D, q.element_size(), Bb, masked,
                                 False)
         flops = 10 * BH * S * S * D
@@ -2007,7 +2112,7 @@ def phase_bert_train(torch, ctx, seed):
     losses = _counted(torch, ctx, "bert_train_bf16",
                       lambda: step.run_repeat(ids, labels, timed),
                       exact={SSF: L * timed, SSB: L * timed, SSFM: 0,
-                             SSBM: 0})
+                             SSBM: 0, OPT: timed})
     wall = time.perf_counter() - t0
     losses = [float(x) for x in torch.cat([warm_losses, losses])]
     ms = wall / timed * 1e3
@@ -2022,9 +2127,11 @@ def phase_bert_train(torch, ctx, seed):
            "tokens_per_s": tok_s,
            "model_flop_share_of_989tflops": fpt * tok_s
            / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak,
+           "peak_memory_gb_with_the_loop": LOOP_PEAK_GB["bert_train"],
            "losses": losses, "nvidia_smi": ctx.get("smi"),
            "kernel_counts": ctx["paths"]["bert_train_bf16"]}
-    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0])
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and peak <= LOOP_PEAK_GB["bert_train"] + PEAK_SLACK_GB)
     if ctx.get("profile"):
         from torch.profiler import ProfilerActivity, profile
 
@@ -2042,7 +2149,8 @@ def phase_bert_train(torch, ctx, seed):
     t0 = time.perf_counter()
     plosses = _counted(torch, ctx, "bert_padded_bf16", lambda: [
         step(ids, None, am, labels) for _ in range(ptimed)],
-        exact={SSF: 0, SSB: 0, SSFM: L * ptimed, SSBM: L * ptimed})
+        exact={SSF: 0, SSB: 0, SSFM: L * ptimed, SSBM: L * ptimed,
+               OPT: ptimed})
     pwall = time.perf_counter() - t0
     padded += [float(x) for x in plosses]
     res.update(padded_lens_min_max=[min(lens), max(lens)],
@@ -2811,7 +2919,7 @@ def phase_resnet_train(torch, ctx, seed):
     first_k, losses_k, sec_k, peak_k, dense_k = run(
         step, "resnet_train_bf16",
         {C9A: 36 * timed, C9B: 16 * timed, C10: 36 * timed, C11: 16 * timed,
-         C3: 16 * timed, C1: 0}, warm)
+         C3: 16 * timed, C1: 0, OPT: timed}, warm)
     counts = ctx["paths"]["resnet_train_bf16"]
     res = {"phase": "resnet_train", "config": "bench.py resnet50: "
            "resnet50(num_classes=1000), bf16, seed-0 weights, "
@@ -2821,8 +2929,9 @@ def phase_resnet_train(torch, ctx, seed):
            "nvidia_smi": ctx.get("smi"), **report(sec_k, peak_k),
            "warmup_losses": first_k, "losses": losses_k,
            "dense_train_calls": dense_k,
+           "peak_memory_gb_with_the_loop": LOOP_PEAK_GB["resnet_train"],
            "launches_per_step": {k: counts[k]["launches"] / timed
-                                 for k in (C9A, C9B, C10, C11, C3)},
+                                 for k in (C9A, C9B, C10, C11, C3, OPT)},
            "kernel_counts": counts}
     if ctx.get("profile"):
         from torch.profiler import ProfilerActivity, profile
@@ -2840,10 +2949,14 @@ def phase_resnet_train(torch, ctx, seed):
     dense, dstep = build("dense")
     dense.load_state_dict(start)
     del start
-    before = [(w.launches, w.plain_calls) for w in ctx["wrappers"]]
+    # no conv kernel and no plain call (the update stays one pass)
+    def kernel_counts():
+        return [(w.launches if w.__name__ != OPT else 0, w.plain_calls)
+                for w in ctx["wrappers"]]
+
+    before = kernel_counts()
     first_d, losses_d, sec_d, peak_d, dense_d = run(dstep, None, None, warm)
-    no_kernel = before == [(w.launches, w.plain_calls)
-                           for w in ctx["wrappers"]]
+    no_kernel = before == kernel_counts()
     if ctx.get("profile"):
         from torch.profiler import ProfilerActivity, profile
 
@@ -2862,7 +2975,8 @@ def phase_resnet_train(torch, ctx, seed):
     res["ok"] = bool(
         all(math.isfinite(v) for v in first_k + losses_k)
         and dense_k == 0 and dense_d == 52 * timed and no_kernel
-        and rel <= RESNET_DENSE_REL_TOL)
+        and rel <= RESNET_DENSE_REL_TOL
+        and peak_k <= LOOP_PEAK_GB["resnet_train"] + PEAK_SLACK_GB)
     emit(res)
     del dense, dstep, x
     torch.cuda.empty_cache()
@@ -2983,6 +3097,7 @@ def phase_sdpa_fwd(torch, ctx):
 
     from paddle_tpu_torch.ops.flash_attention import (flash_attention,
                                                       pallas_sdpa_forward,
+                                                      sdpa_backward,
                                                       sdpa_forward,
                                                       sdpa_forward_plain)
 
@@ -3052,19 +3167,25 @@ def phase_sdpa_fwd(torch, ctx):
     routes["no_grad_library_shape_launches_b6"] = \
         sdpa_forward.launches == before + 1
     zg = z.clone().requires_grad_()
-    try:
-        flash_attention(zg, zg, zg, causal=False)
-        routes["grad_library_shape_raises_naming_backward"] = False
-    except NotImplementedError as e:
-        routes["grad_library_shape_raises_naming_backward"] = \
-            "backward" in str(e)
-    z320 = torch.zeros((1, 128, 1, 320), device="cuda")
+    lse, bwd = sdpa_forward.lse_launches, sdpa_backward.launches
+    flash_attention(zg, zg, zg, causal=False).sum().backward()
+    routes["grad_library_shape_launches_lse_variant_and_backward"] = (
+        sdpa_forward.lse_launches == lse + 1
+        and sdpa_backward.launches == bwd + 1)
+    z320 = torch.randn((1, 128, 1, 320), generator=g, device="cuda")
+    before = sdpa_forward.launches
+    with torch.no_grad():
+        o320 = flash_attention(z320, z320, z320, causal=False)
+    routes["head_dim_320_launches_b6"] = (
+        sdpa_forward.launches == before + 1
+        and bool(torch.isfinite(o320).all()))
+    z576 = torch.zeros((1, 128, 1, 576), device="cuda")
     try:
         with torch.no_grad():
-            flash_attention(z320, z320, z320, causal=False)
-        routes["head_dim_320_raises"] = False
+            flash_attention(z576, z576, z576, causal=False)
+        routes["head_dim_576_raises_naming_512"] = False
     except ValueError as e:
-        routes["head_dim_320_raises"] = "256" in str(e)
+        routes["head_dim_576_raises_naming_512"] = "512" in str(e)
     z384 = torch.zeros((1, 384, 1, 64), device="cuda")
     try:
         pallas_sdpa_forward(z384, z384, z384)
@@ -3216,6 +3337,523 @@ def phase_transformer_parity(torch, ctx, seed):
                              "CPU")
 
 
+# ---------------------------------------------------------------------------
+# the library route's backward, the one-pass update, Transformer training
+# ---------------------------------------------------------------------------
+# (name, batch, heads, Sq, Skv, head dim, causal): Transformer-base's encoder
+# self-attention and cross-attention (phase transformer_train's shapes),
+# the head dims the bf16 tensor-core design takes, causal at the head dims
+# the causal kernels B1/B2 do not take, and two head dims over 256 (the
+# wide design)
+SDPA_BWD_SHAPES = (("encoder_self_attention", 8, 8, 1024, 1024, 64, False),
+                   ("cross_attention", 8, 8, 256, 1024, 64, False),
+                   ("head_dim_128", 2, 8, 1024, 1024, 128, False),
+                   ("head_dim_192", 2, 8, 1024, 1024, 192, False),
+                   ("head_dim_256", 2, 8, 1024, 1024, 256, False),
+                   ("causal_head_dim_192", 1, 8, 2048, 2048, 192, True),
+                   ("causal_head_dim_256", 1, 8, 2048, 2048, 256, True),
+                   ("head_dim_320", 1, 4, 1024, 1024, 320, False),
+                   ("head_dim_512", 1, 4, 1024, 1024, 512, False))
+
+
+def _sdpa_bwd_bound(BH, Sq, Skv, D, causal, isz, dtype_name):
+    """q, k, v, O, dO and the LSE read and dq, dk, dv written once; 10 BH
+    Sq Skv D FLOP (QK, PV's dV, dP, dQ and dK), over the lower triangle
+    with its diagonal when causal. Returns (bound ms, what bounds it,
+    FLOP)."""
+    nbytes = (4 * Sq + 4 * Skv) * BH * D * isz + 4 * BH * Sq
+    flops = (5 * BH * D * Sq * (Sq + 1) if causal
+             else 10 * BH * Sq * Skv * D)
+    return (*bound_ms(nbytes, flops, dtype_name), flops)
+
+
+def _lse_variant_case(torch, q, k, v, o, lse, scale, causal, dn):
+    """B6's LSE variant (`o`, `lse`) held to the plain version on the same
+    inputs: the LSE within LSE_TOL, O within SDPA_TOL and the same bits as
+    the inference instance's. Returns (the record, whether it passed)."""
+    from paddle_tpu_torch.ops.flash_attention import (sdpa_forward,
+                                                      sdpa_forward_plain)
+
+    o_ref, lse_ref = sdpa_forward_plain(q, k, v, scale, causal,
+                                        return_lse=True)
+    o_inf = sdpa_forward(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    o_err = (o.float() - o_ref.float()).abs().max().item()
+    top = o_ref.float().abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    same = bool(torch.equal(o, o_inf))
+    rec = {"lse_max_abs_err": lse_err, "lse_tol": LSE_TOL[dn],
+           "o_max_abs_err": o_err, "o_max_abs_plain": top,
+           "o_tol": SDPA_TOL[dn],
+           "o_same_bits_as_inference_instance": same}
+    passed = (math.isfinite(lse_err) and lse_err <= LSE_TOL[dn]
+              and math.isfinite(o_err) and same
+              and o_err <= SDPA_TOL[dn] * (top if dn == "bfloat16" else 1.0))
+    rec["ok"] = bool(passed)
+    return rec, passed
+
+
+def _library_bwd_ms(torch, forward, inputs, do, flush):
+    """Device time in ms of a library backward: `torch.autograd.grad` of
+    `forward(*leaves)` with respect to leaves cloned from `inputs`, for
+    the output gradient `do` (of the output's shape). The call is captured
+    in a CUDA graph and its replays timed with `cuda_ms`, as the kernels
+    are, so that the host's gaps between its launches do not enter. The
+    forward runs on the capture stream, where autograd then runs its
+    backward."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        out = forward(*leaves)
+
+        def grad():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+        for _ in range(2):
+            grad()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        grad()
+    ms = cuda_ms(torch, graph.replay, 10, flush)
+    del graph, leaves, out
+    return ms
+
+
+def phase_sdpa_bwd(torch, ctx):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.flash_attention import (sdpa_backward,
+                                                      sdpa_backward_plain,
+                                                      sdpa_forward)
+
+    g = torch.Generator("cuda").manual_seed(14)
+    res = {"phase": "sdpa_bwd", "nvidia_smi": ctx.get("smi"), "cases": []}
+    ok = True
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    for name, B, H, Sq, Skv, D, causal in SDPA_BWD_SHAPES:
+        BH, scale = B * H, 1.0 / math.sqrt(D)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = dname(torch, dtype)
+            q, do = (torch.randn((BH, Sq, D), generator=g,
+                                 device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn((BH, Skv, D), generator=g,
+                                device="cuda").to(dtype) for _ in range(2))
+            o, lse = sdpa_forward(q, k, v, scale, causal, return_lse=True)
+            fwd, passed = _lse_variant_case(torch, q, k, v, o, lse, scale,
+                                            causal, dn)
+            ref = sdpa_backward_plain(q, k, v, o, do, lse, scale, causal)
+            got = sdpa_backward(q, k, v, o, do, lse, scale, causal)
+            again = sdpa_backward(q, k, v, o, do, lse, scale, causal)
+            torch.cuda.synchronize()
+            rel, floor = BWD_TOL[dn]
+            errs = {}
+            for gn, a, r in zip(GRADS, got, ref):
+                err = (a.float() - r.float()).abs().max().item()
+                top = r.float().abs().max().item()
+                errs[gn] = {"max_abs_err": err, "max_abs_ref": top}
+                passed &= math.isfinite(err) and err <= rel * top + floor
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            case = {"shape": f"{name}: B{B} H{H} Sq{Sq} Skv{Skv} D{D}"
+                    + (" causal" if causal else ""), "dtype": dn,
+                    "design": ("mma.sync bf16" if dtype == torch.bfloat16
+                               and D <= 256 else "wide fp32 FMA"),
+                    "errors": errs, "tol_rel": rel, "tol_abs": floor,
+                    "max_abs_err": max(e["max_abs_err"]
+                                       for e in errs.values()),
+                    "same_bits_on_rerun": same, "b6_lse_variant": fwd}
+            passed &= same
+            del ref, again
+            if dtype == torch.bfloat16:
+                kms = cuda_ms(torch, lambda: sdpa_backward(
+                    q, k, v, o, do, lse, scale, causal), 10, flush)
+                pms = cuda_ms(torch, lambda: sdpa_backward_plain(
+                    q, k, v, o, do, lse, scale, causal), 3, flush, warmup=1)
+                lms = _library_bwd_ms(
+                    torch, lambda a, b, c: F.scaled_dot_product_attention(
+                        a, b, c, is_causal=causal, scale=scale),
+                    [x.view(B, H, -1, D) for x in (q, k, v)],
+                    do.view(B, H, Sq, D), flush)
+                b, by, flops = _sdpa_bwd_bound(BH, Sq, Skv, D, causal,
+                                               q.element_size(), dn)
+                case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
+                            bound_ms=b, bound_by=by,
+                            tflops=flops / kms / 1e9,
+                            library_tflops=flops / lms / 1e9,
+                            share_of_bound=b / kms)
+                if name == "encoder_self_attention":
+                    # B6's LSE variant beside its inference instance
+                    case["b6_ms"] = cuda_ms(torch, lambda: sdpa_forward(
+                        q, k, v, scale, causal), 10, flush)
+                    case["b6_lse_variant_ms"] = cuda_ms(
+                        torch, lambda: sdpa_forward(
+                            q, k, v, scale, causal, return_lse=True),
+                        10, flush)
+                    ctx["sdpa_bwd"] = dict(case)
+            case["ok"] = bool(passed)
+            ok &= passed
+            res["cases"].append(case)
+            del q, k, v, do, o, lse, got
+    del flush
+    torch.cuda.empty_cache()
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("the library route's backward or B6's LSE "
+                             "variant disagrees with its plain version")
+
+
+def _bitwise_equal(torch, got, want):
+    """Whether two lists of tensors hold the same bits."""
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    return all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+
+
+def _device_ms(torch, fn, iters, name):
+    """Device time of `fn` in ms: its kernels', copies' and memsets' busy
+    time under torch.profiler (`_device_breakdown`) over `iters` calls
+    after one warm-up, without the host's gaps between its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return _device_breakdown(prof, name)["device_busy_ms"] / iters
+
+
+def _update_case(torch, ctx, name, params, make, moments, seed, nbytes,
+                 library):
+    """One step of the optimizer `make(params)` over `params` (bf16, on the
+    card) with grads and accumulators drawn from `seed`: the one-pass
+    kernel against the per-parameter loop (the plain version, run on the
+    card on a copy), bitwise over parameters and accumulators; then the
+    kernel's device time against the bytes bound, the loop's and
+    `library`'s (a `torch.optim` optimizer over the same tensors, as a
+    yardstick), each without the host's gaps, and the whole step() of
+    the kernel on the host's clock (the table built and uploaded)."""
+    from paddle_tpu_torch.ops.optimizer_update import (
+        optimizer_update, optimizer_update_plain)
+    from paddle_tpu_torch.optimizer import optimizer as opt_mod
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    copies = [p.detach().clone() for p in params]
+    grads = [torch.randn(p.shape, generator=g, device="cuda").to(p.dtype)
+             for p in params]
+    opt_k, opt_p = make(params), make(copies)
+    for opt in (opt_k, opt_p):
+        opt._ensure_state()
+    for key, (scale, positive) in moments.items():
+        for a, b in zip(opt_k._accumulators[key], opt_p._accumulators[key]):
+            x = torch.randn(a.shape, generator=g, device="cuda") * scale
+            a.copy_(x.abs() if positive else x)
+            b.copy_(a)
+    for p, c, gr in zip(params, copies, grads):
+        p.grad, c.grad = gr, gr
+    launches = optimizer_update.launches
+    opt_k.step()
+    saved = opt_mod.optimizer_update
+    opt_mod.optimizer_update = optimizer_update_plain
+    try:
+        opt_p.step()
+    finally:
+        opt_mod.optimizer_update = saved
+    torch.cuda.synchronize()
+    bitwise = (_bitwise_equal(torch, params, copies)
+               and all(_bitwise_equal(torch, opt_k._accumulators[k],
+                                      opt_p._accumulators[k])
+                       for k in opt_k._accumulators))
+    one_launch = optimizer_update.launches == launches + 1
+    del opt_p, copies
+    torch.cuda.empty_cache()
+    n = sum(p.numel() for p in params)
+    kms = _device_ms(torch, opt_k.step, 5, f"{name}_kernel")
+    step_ms = cuda_ms(torch, opt_k.step, 5)
+    saved = opt_mod.optimizer_update
+    opt_mod.optimizer_update = optimizer_update_plain
+    try:
+        pms = _device_ms(torch, opt_k.step, 2, f"{name}_plain")
+    finally:
+        opt_mod.optimizer_update = saved
+    lib = library(params)
+    lms = _device_ms(torch, lib.step, 5, f"{name}_library")
+    del lib
+    b, by = bound_ms(nbytes * n, 0, "bfloat16")
+    for p in params:
+        p.grad = None
+    torch.cuda.empty_cache()
+    return {"case": name, "params": n, "tensors": len(params),
+            "bitwise_equal_to_the_loop": bool(bitwise),
+            "one_launch": bool(one_launch), "kernel_ms": kms,
+            "step_ms": step_ms, "plain_ms": pms, "library_ms": lms,
+            "bound_ms": b,
+            "bound_by": by, "bytes_per_param": nbytes,
+            "share_of_bound": b / kms,
+            "ok": bool(bitwise and one_launch)}
+
+
+def phase_optimizer_update(torch, ctx, seed):
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, Momentum, resnet50
+
+    res = {"phase": "optimizer_update", "nvidia_smi": ctx.get("smi"),
+           "cases": []}
+    g = torch.Generator("cuda").manual_seed(seed)
+    gpt = GPTForCausalLM(_bench_config(), device="cuda",
+                         dtype=torch.bfloat16, generator=g)
+    named = [(n, p.detach()) for n, p in gpt.named_parameters()]
+    del gpt
+
+    def adamw(ps):
+        # biases and norms do not decay: a mixed decay
+        return AdamW(1e-4, parameters=list(zip([n for n, _ in named], ps)),
+                     weight_decay=0.01, apply_decay_param_fun=lambda n: not (
+                         n.endswith("bias") or "norm" in n))
+
+    gpt_case = _update_case(
+        torch, ctx, "gpt_1p3b_adamw_bf16", [p for _, p in named], adamw,
+        {"moment1": (1e-3, False), "moment2": (1e-6, True)}, seed + 30, 22,
+        lambda ps: torch.optim.AdamW(ps, lr=1e-4, fused=True))
+    res["cases"].append(gpt_case)
+    ctx["optimizer_update"] = dict(
+        gpt_case, max_abs_err=0.0 if gpt_case["bitwise_equal_to_the_loop"]
+        else None, shape="GPT-1.3B AdamW", dtype="bfloat16")
+    del named
+    torch.cuda.empty_cache()
+    g = torch.Generator("cuda").manual_seed(seed)
+    rn = resnet50(num_classes=1000, device="cuda", generator=g).to(
+        torch.bfloat16)
+    params = [p.detach() for p in rn.parameters()]
+    del rn
+    res["cases"].append(_update_case(
+        torch, ctx, "resnet50_momentum_bf16", params,
+        lambda ps: Momentum(0.1, 0.9, parameters=ps),
+        {"velocity": (1e-2, False)}, seed + 31, 14,
+        lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9)))
+    del params
+    torch.cuda.empty_cache()
+    res["ok"] = bool(all(c["ok"] for c in res["cases"]))
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("the one-pass optimizer update differs from "
+                             "the per-parameter loop")
+
+
+def _fp32_mse(out, label):
+    """mse_loss taken in fp32 (a bf16 loss near 2 moves in steps of 2^-6)."""
+    from paddle_tpu_torch.ops.nn_ops import mse_loss
+
+    return mse_loss(out.float(), label.float())
+
+
+def _seq2seq(torch, model, mask):
+    """`model(src, tgt, tgt_mask=mask)` as a module of two positional
+    inputs, which TrainStep feeds."""
+    class Seq2Seq(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, src, tgt):
+            return self.model(src, tgt, tgt_mask=mask)
+
+    return Seq2Seq()
+
+
+def phase_transformer_train(torch, ctx, seed):
+    from paddle_tpu_torch import AdamW, Transformer, TrainStep
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+
+    B, S, T, warm, timed, refeed = 8, 1024, 256, 2, 5, 3
+    g = torch.Generator("cuda").manual_seed(seed)
+    model = Transformer(dropout=0.1, attn_dropout=0.0, act_dropout=0.0,
+                        device="cuda", dtype=torch.bfloat16,
+                        generator=g).train()
+    d, f = model.d_model, model.encoder.layers[0].linear1.out_features
+    net = _seq2seq(torch, model,
+                   Transformer.generate_square_subsequent_mask(T))
+    # the paper's peak learning rate, d_model^-0.5 * 4000^-0.5 = 7e-4 (an
+    # update of 1e-4 is under half a bf16 ulp of most weights)
+    step = TrainStep(net, AdamW(learning_rate=7e-4,
+                                parameters=net.parameters()), _fp32_mse)
+    rng = np.random.RandomState(seed + 22)
+    src, tgt = (torch.from_numpy(rng.uniform(-1, 1, (warm + timed, B, n, d))
+                                 .astype(np.float32)).cuda()
+                .to(torch.bfloat16) for n in (S, T))
+    label = torch.from_numpy(rng.randn(warm + timed, B, T, d).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    warm_losses = [float(step(src[i], tgt[i], label[i]))
+                   for i in range(warm)]
+    torch.cuda.synchronize()
+    dense = flash_attention.dense_calls
+
+    def run():
+        secs, out = [], []
+        for i in range(warm, warm + timed):
+            t0 = time.perf_counter()
+            out.append(step(src[i], tgt[i], label[i]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out, secs
+
+    losses, secs = _counted(
+        torch, ctx, "transformer_train_bf16", run,
+        exact={SDPA: 12 * timed, SDPA_LSE: 12 * timed, SBWD: 12 * timed,
+               OPT: timed})
+    dense = flash_attention.dense_calls - dense
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = warm_losses + [float(x) for x in losses]
+    # the updates take hold: one batch fed again, its loss falls
+    refeed_losses = [float(step(src[0], tgt[0], label[0]))
+                     for _ in range(refeed)]
+    if ctx.get("profile"):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(src[1], tgt[1], label[1])
+            torch.cuda.synchronize()
+        emit(dict(phase="transformer_train_profile",
+                  **_device_breakdown(prof, "transformer_train")))
+    flops = _transformer_flops(B, S, T, d, f, 6, 6)
+    total = 3 * sum(flops.values())
+    per = sum(secs) / len(secs)
+    counts = ctx["paths"]["transformer_train_bf16"]
+    res = {"phase": "transformer_train",
+           "config": "nn.Transformer() defaults (the base model of Vaswani "
+           "et al. 2017: d_model 512, 8 heads, 6 + 6 layers, FFN 2048, "
+           "ReLU, post-norm), residual dropout 0.1, no attention or "
+           "activation dropout, bf16, seed-0 weights, AdamW(7e-4), "
+           "TrainStep(mse_loss in fp32) against a normal target; batch 8, "
+           "source "
+           "1024, target 256, uniform(-1, 1), causal tgt_mask",
+           "params": sum(p.numel() for p in model.parameters()),
+           "warmup_steps": warm, "timed_steps": timed,
+           "nvidia_smi": ctx.get("smi"), "ms_per_step": per * 1e3,
+           "ms_per_step_min_median_max": [
+               min(secs) * 1e3, float(np.median(secs)) * 1e3,
+               max(secs) * 1e3],
+           "source_tokens_per_s": B * S / per,
+           "target_tokens_per_s": B * T / per,
+           "gflop_per_step": total / 1e9,
+           "flop_share_of_989tflops": total / per / PEAK_FLOPS["bfloat16"],
+           "peak_memory_gb": peak, "losses": losses,
+           "refeed_losses": refeed_losses,
+           "launches_per_step": {k: counts[k]["launches"] / timed
+                                 for k in (SDPA_LSE, SBWD, OPT)},
+           "flash_attention_dense_calls": dense, "kernel_counts": counts}
+    res["ok"] = bool(all(math.isfinite(x) for x in losses + refeed_losses)
+                     and refeed_losses[-1] < refeed_losses[0]
+                     and dense == 0)
+    emit(res)
+    del step, net, model, src, tgt, label
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("transformer_train phase failed its checks")
+
+
+def _transformer_train_run(torch, net, batches, lr, steps):
+    """The first batch's gradients (one forward and backward), then `steps`
+    AdamW steps through TrainStep from the same start: (losses, grads,
+    parameter changes)."""
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.ops.nn_ops import mse_loss
+
+    net.zero_grad(set_to_none=True)
+    mse_loss(net(*batches[0][:2]), batches[0][2]).backward()
+    grads = {n: p.grad.clone() for n, p in net.model.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    before = {n: p.detach().clone() for n, p in net.model.named_parameters()}
+    step = TrainStep(net, AdamW(learning_rate=lr,
+                                parameters=net.parameters()), mse_loss)
+    losses = [float(step(*b)) for b in batches[:steps]]
+    return losses, grads, {n: p.detach() - before[n]
+                           for n, p in net.model.named_parameters()}
+
+
+def phase_transformer_train_parity(torch, ctx, seed):
+    from paddle_tpu_torch import Transformer
+
+    kw = dict(num_encoder_layers=2, num_decoder_layers=2, dropout=0.0)
+    steps, B, S, T, lr = 3, 2, 640, 128, 1e-4
+    g = torch.Generator("cuda").manual_seed(seed)
+    card = Transformer(device="cuda", generator=g, **kw).train()
+    host = Transformer(device="cpu", **kw).train()
+    start = {k: v.detach().cpu().clone() for k, v in card.state_dict().items()}
+    host.load_state_dict(start)
+    rng = np.random.RandomState(seed + 23)
+    batches = [tuple(torch.from_numpy(rng.uniform(-1, 1, (B, n, 512)).astype(
+        np.float32)) for n in (S, T, T)) for _ in range(steps)]
+    mask = Transformer.generate_square_subsequent_mask(T, device="cpu")
+    cnet = _seq2seq(torch, card, mask.cuda())
+    hnet = _seq2seq(torch, host, mask)
+    got, g_card, d_card = _counted(
+        torch, ctx, "transformer_train_f32", lambda: _transformer_train_run(
+            torch, cnet, [tuple(x.cuda() for x in b) for b in batches], lr,
+            steps),
+        exact={SDPA_LSE: 4 * (steps + 1), SBWD: 4 * (steps + 1),
+               OPT: steps})
+    want, g_host, d_host = _transformer_train_run(torch, hnet, batches, lr,
+                                                  steps)
+    # the CPU's own noise: the same weights, the inputs 1e-7 apart
+    host.load_state_dict(start)
+    nudged = [tuple(x * (1 + 1e-7) for x in b) for b in batches]
+    n_loss, n_grads, n_upd = _transformer_train_run(torch, hnet, nudged, lr,
+                                                    steps)
+    tol = TRANSFORMER_TRAIN_PARITY_TOL
+
+    def grad_errs(a, b):
+        rest_a, key_a = _k_proj_bias(torch, a)
+        rest_b, _ = _k_proj_bias(torch, b)
+        leaf, err, _ = _worst_leaf(rest_a, rest_b)
+        top = max(t.abs().max().item() for t in rest_b.values())
+        key = max(t.abs().max().item() for t in key_a.values()) / top
+        return leaf, err, key
+
+    leaf, gerr, gkey = grad_errs(g_card, g_host)
+    _, noise_gerr, noise_gkey = grad_errs(n_grads, g_host)
+    noise_upd = _update_errs(torch, n_upd, d_host, tol, lr, steps,
+                             split=_k_proj_bias)
+    bar = dict(tol, update=max(tol["update"], tol["update_noise_x"]
+                               * noise_upd["update_rel_err"]))
+    upd = _update_errs(torch, d_card, d_host, bar, lr, steps,
+                       split=_k_proj_bias)
+    diffs = [abs(a - b) for a, b in zip(got, want)]
+    res = {"phase": "transformer_train_parity", "dtype": "float32",
+           "config": "nn.Transformer(512, 8 heads, 2 + 2 layers, FFN 2048), "
+           "dropout 0, batch 2, source 640, target 128, causal tgt_mask, "
+           "mse_loss, AdamW(1e-4), 3 steps",
+           "card_losses": got, "cpu_losses": want,
+           "loss_max_abs_diff": max(diffs),
+           "grad_worst_leaf": leaf, "grad_rel_err": gerr,
+           "key_bias_grad_over_max_grad": gkey,
+           "update_worst_leaf": upd["update_worst_leaf"],
+           "update_rel_err": upd["update_rel_err"],
+           "key_bias_max_step": upd["key_bias_max_step"],
+           "cpu_noise": {"loss_max_abs_diff": max(
+               abs(a - b) for a, b in zip(n_loss, want)),
+               "grad_rel_err": noise_gerr,
+               "key_bias_grad_over_max_grad": noise_gkey,
+               "update_rel_err": noise_upd["update_rel_err"]},
+           "tol": tol, "update_bar": bar["update"],
+           "kernel_counts": ctx["paths"]["transformer_train_f32"]}
+    res["ok"] = bool(max(diffs) <= tol["loss"] and gerr <= tol["grad"]
+                     and gkey <= tol["key_bias_grad"] and upd["update_ok"]
+                     and all(math.isfinite(x) for x in got))
+    emit(res)
+    del card, host, cnet, hnet
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("f32 Transformer train steps on the card differ "
+                             "from the CPU")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3225,9 +3863,10 @@ def main(argv=None):
                     "engine_spec, engine_int8) after their prefixes are "
                     "cached, one GPT train step, one BERT train step, one "
                     "ResNet-50 forward and one ResNet-50 train step on "
-                    "each route, and one Transformer forward (phases "
-                    "train, bert_train, resnet_infer, resnet_train, "
-                    "transformer_infer), with torch.profiler and "
+                    "each route, one Transformer forward and one "
+                    "Transformer train step (phases train, bert_train, "
+                    "resnet_infer, resnet_train, transformer_infer, "
+                    "transformer_train), with torch.profiler and "
                     "print their device-time breakdowns (slows those "
                     "runs; their tokens/s is then not comparable)")
     args = ap.parse_args(argv)
@@ -3247,8 +3886,9 @@ def main(argv=None):
                                            conv1x1_train, conv3x3_bn_relu,
                                            conv3x3_dw, conv3x3_train)
     from paddle_tpu_torch.ops.flash_attention import (
-        causal_attention_bwd, causal_attention_fwd, sdpa_forward,
-        shortseq_attention_bwd, shortseq_attention_fwd)
+        causal_attention_bwd, causal_attention_fwd, sdpa_backward,
+        sdpa_forward, shortseq_attention_bwd, shortseq_attention_fwd)
+    from paddle_tpu_torch.ops.optimizer_update import optimizer_update
     from paddle_tpu_torch.ops.paged_decode import (
         paged_decode_attention, paged_decode_attention_int8)
     from paddle_tpu_torch.ops.paged_verify import (
@@ -3263,7 +3903,8 @@ def main(argv=None):
                         paged_verify_attention_int8, shortseq_attention_fwd,
                         shortseq_attention_bwd, conv1x1_bn_relu,
                         conv3x3_bn_relu, conv1x1_train, conv3x3_train,
-                        conv1x1_bwd, conv3x3_dw, sdpa_forward)}
+                        conv1x1_bwd, conv3x3_dw, sdpa_forward,
+                        sdpa_backward, optimizer_update)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -3318,8 +3959,16 @@ def main(argv=None):
                 phase_sdpa_fwd(torch, ctx)
             elif name == "transformer_infer":
                 phase_transformer_infer(torch, ctx, SEED)
-            else:
+            elif name == "transformer_parity":
                 phase_transformer_parity(torch, ctx, SEED)
+            elif name == "sdpa_bwd":
+                phase_sdpa_bwd(torch, ctx)
+            elif name == "optimizer_update":
+                phase_optimizer_update(torch, ctx, SEED)
+            elif name == "transformer_train":
+                phase_transformer_train(torch, ctx, SEED)
+            else:
+                phase_transformer_train_parity(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -3373,7 +4022,14 @@ def main(argv=None):
             ("conv3x3_dw", C11, "paddle_tpu_torch/csrc/conv_bn_relu_bwd.cu",
              "paddle_tpu/ops/pallas/conv.py:767"),
             ("sdpa_fwd", SDPA, "paddle_tpu_torch/csrc/sdpa_forward.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:64")):
+             "paddle_tpu/ops/pallas/flash_attention.py:64"),
+            # no Pallas counterpart: jax's library flash backward, called
+            # at this line on a TPU, and XLA's fused update_all
+            ("sdpa_bwd", SBWD, "paddle_tpu_torch/csrc/sdpa_backward.cu",
+             "paddle_tpu/ops/pallas/flash_attention.py:712"),
+            ("optimizer_update", OPT,
+             "paddle_tpu_torch/csrc/optimizer_update.cu",
+             "paddle_tpu/optimizer/optimizer.py:71")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

@@ -1,9 +1,11 @@
 // The attention backward for Hopper (sm_90a), shared by
 // causal_attention_bwd.cu (B2, causal) and shortseq_attention_bwd.cu (B13,
-// whole-sequence, mask-free and key-masked). Each of those files keeps its
-// own thin `__global__` kernels (named apart, so a profile and the SASS
-// tell B2 from B13) and its C entry point; the bodies are the `__device__`
-// templates here, on <D, CAUSAL, MASKED>.
+// whole-sequence, mask-free and key-masked), whose kernels take all of this
+// file, and sdpa_backward.cu (the library route's backward), whose bf16
+// kernels take the mma bodies. Each of those files keeps its own thin
+// `__global__` kernels (named apart, so a profile and the SASS tell them
+// apart) and its C entry point; the bodies are the `__device__` templates
+// here, on <D, CAUSAL, MASKED>, the mma ones also on DC (below).
 //
 // What it computes, per (batch*head) of [BH, S, D] inputs, from the
 // forward's output O and its per-row LSE ([BH, S] fp32):
@@ -20,7 +22,11 @@
 // did: scale first, then add, each rounded on its own (`__fmul_rn`,
 // `__fadd_rn`). On a row whose keys are all masked at -1e30, s and the
 // LSE both round to -1e30 and P = 1 for every key, the TPU kernel's
-// result. Any S: ragged last tiles are zero-filled and masked.
+// result. Any S: ragged last tiles are zero-filled and masked. The mma
+// bodies take q rows Sq and keys Skv apart (B2 and B13 pass S twice;
+// CAUSAL only at Sq == Skv), and accumulate DC of the D columns of their
+// gradient a CTA (grid z): DC = D for B2 and B13, D / 2 for the library
+// backward at D 192 and 256, whose whole rows do not fit the registers.
 //
 // The TPU kernels walk the q blocks of one head in order inside one
 // program and carry dK/dV in VMEM scratch across them. Blocks of a CUDA
@@ -320,6 +326,29 @@ constexpr size_t dq_mma_smem_bytes() {
          (MASKED ? 2 * kMmaB * sizeof(float) : 0);
 }
 
+// `store_rows` for DC of a row's D columns: a 16 x DC fp32 C-fragment tile
+// (rows row0 + g and row0 + g + 8) as bf16 pairs into columns c0 .. c0 +
+// DC - 1 of a [S, D] slab, rows at or past S skipped
+template <int D, int DC>
+__device__ __forceinline__ void store_cols(bf16* dst,
+                                           const float (&c)[DC / 8][4],
+                                           int row0, int c0, int S,
+                                           int lane) {
+  using attn_mma::pack_bf16x2;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int nd = 0; nd < DC / 8; ++nd) {
+    const int col = c0 + nd * 8 + 2 * t;
+    if (r_lo < S)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r_lo) * D + col) =
+          pack_bf16x2(c[nd][0], c[nd][1]);
+    if (r_hi < S)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r_hi) * D + col) =
+          pack_bf16x2(c[nd][2], c[nd][3]);
+  }
+}
+
 // delta[row] = sum_d dO[row, d] * O[row, d] in fp32, D / 8 lanes a row,
 // 8 values (16 bytes) a lane
 template <int D>
@@ -351,22 +380,27 @@ __device__ __forceinline__ void delta_mma(const bf16* __restrict__ o,
   if (c == 0 && row < rows) delta[row] = s;
 }
 
-// grid (BH, ceil(S / kMmaB)), block kMmaThreads; blockIdx.y is the key
-// tile, so under CAUSAL the longest walks (key tile 0) go first. Warp w
-// owns keys k0 + 16w .. k0 + 16w + 15 (the rows of S^T); lane (g, t) holds
-// keys g and g + 8 of them and q columns 2t, 2t + 1 of each 8-column
-// block.
-template <int D, bool CAUSAL, bool MASKED>
+// grid (BH, ceil(Skv / kMmaB), D / DC), block kMmaThreads; blockIdx.y is
+// the key tile, so under CAUSAL the longest walks (key tile 0) go first.
+// Warp w owns keys k0 + 16w .. k0 + 16w + 15 (the rows of S^T); lane (g, t)
+// holds keys g and g + 8 of them and q columns 2t, 2t + 1 of each 8-column
+// block. Ragged: q rows run to Sq, keys to Skv (CAUSAL only at Sq == Skv).
+// The CTA accumulates DC of the D columns of dK and dV, columns
+// blockIdx.z * DC ..; its scores take the whole head dim, so a chunked
+// head dim recomputes them once per chunk (DC = D: no chunk, B2's and
+// B13's instances).
+template <int D, bool CAUSAL, bool MASKED, int DC = D>
 __device__ __forceinline__ void dkdv_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ mask, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int S, int heads_per_row, float scale) {
+    bf16* __restrict__ dv, int Sq, int Skv, int heads_per_row, float scale) {
   using namespace attn_mma;
   constexpr int KD = D / 16;                 // k-steps over the head dim
-  constexpr int ND = D / 8;                  // 8-column blocks of dK, dV
-  constexpr int QS = D == 128 ? 32 : 64;     // q columns a step
+  constexpr int ND = DC / 8;                 // 8-column blocks of dK, dV
+  // q columns a step: 32 where the accumulators hold 2 x 64 fp32 a lane
+  constexpr int QS = (D == 128 || DC > 64) ? 32 : 64;
   constexpr int NQ = QS / 8;                 // 8-column blocks of S^T
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
@@ -379,24 +413,27 @@ __device__ __forceinline__ void dkdv_mma(
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kMmaB;
-  const size_t base = static_cast<size_t>(bh) * S * D;
-  const size_t rbase = static_cast<size_t>(bh) * S;
+  const int c0 = DC == D ? 0 : blockIdx.z * DC;  // the CTA's first column
+  const size_t qbase = static_cast<size_t>(bh) * Sq * D;
+  const size_t kbase = static_cast<size_t>(bh) * Skv * D;
+  const size_t rbase = static_cast<size_t>(bh) * Sq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wkey = k0 + warp * 16;           // the warp's first key
   // causal: q tiles above the diagonal see none of these keys
   const int qstart = CAUSAL ? k0 : 0;
-  const int ntiles = (S - qstart + kMmaB - 1) / kMmaB;
+  const int ntiles = (Sq - qstart + kMmaB - 1) / kMmaB;
 
-  load_tile<kMmaB, D, kMmaThreads>(sK, k + base, k0, S, tid);
-  load_tile<kMmaB, D, kMmaThreads>(sV, v + base, k0, S, tid);
-  load_tile<kMmaB, D, kMmaThreads>(sQ, q + base, qstart, S, tid);
-  load_tile<kMmaB, D, kMmaThreads>(sDO, dout + base, qstart, S, tid);
-  load_row_values<kMmaB, kMmaThreads>(sL, lse + rbase, qstart, S, tid);
-  load_row_values<kMmaB, kMmaThreads>(sDl, delta + rbase, qstart, S, tid);
+  load_tile<kMmaB, D, kMmaThreads>(sK, k + kbase, k0, Skv, tid);
+  load_tile<kMmaB, D, kMmaThreads>(sV, v + kbase, k0, Skv, tid);
+  load_tile<kMmaB, D, kMmaThreads>(sQ, q + qbase, qstart, Sq, tid);
+  load_tile<kMmaB, D, kMmaThreads>(sDO, dout + qbase, qstart, Sq, tid);
+  load_row_values<kMmaB, kMmaThreads>(sL, lse + rbase, qstart, Sq, tid);
+  load_row_values<kMmaB, kMmaThreads>(sDl, delta + rbase, qstart, Sq, tid);
   if (MASKED)
     load_row_values<kMmaB, kMmaThreads>(
-        sM, mask + static_cast<size_t>(bh / heads_per_row) * S, k0, S, tid);
+        sM, mask + static_cast<size_t>(bh / heads_per_row) * Skv, k0, Skv,
+        tid);
   cp_async_commit();
 
   float acc_dk[ND][4], acc_dv[ND][4];
@@ -412,14 +449,14 @@ __device__ __forceinline__ void dkdv_mma(
     const int q0 = qstart + i * kMmaB;
     if (i + 1 < ntiles) {
       const int stage = (i + 1) & 1;
-      load_tile<kMmaB, D, kMmaThreads>(sQ + stage * kMmaB * D, q + base,
-                                       q0 + kMmaB, S, tid);
-      load_tile<kMmaB, D, kMmaThreads>(sDO + stage * kMmaB * D, dout + base,
-                                       q0 + kMmaB, S, tid);
+      load_tile<kMmaB, D, kMmaThreads>(sQ + stage * kMmaB * D, q + qbase,
+                                       q0 + kMmaB, Sq, tid);
+      load_tile<kMmaB, D, kMmaThreads>(sDO + stage * kMmaB * D,
+                                       dout + qbase, q0 + kMmaB, Sq, tid);
       load_row_values<kMmaB, kMmaThreads>(sL + stage * kMmaB, lse + rbase,
-                                          q0 + kMmaB, S, tid);
+                                          q0 + kMmaB, Sq, tid);
       load_row_values<kMmaB, kMmaThreads>(sDl + stage * kMmaB, delta + rbase,
-                                          q0 + kMmaB, S, tid);
+                                          q0 + kMmaB, Sq, tid);
     }
     cp_async_commit();
     const uint32_t cQ = smem_u32(sQ + (i & 1) * kMmaB * D);
@@ -427,12 +464,12 @@ __device__ __forceinline__ void dkdv_mma(
     const float* cL = sL + (i & 1) * kMmaB;
     const float* cDl = sDl + (i & 1) * kMmaB;
     // the causal diagonal tile and a ragged last one are masked, no other
-    const bool edge = (CAUSAL && i == 0) || q0 + kMmaB > S;
+    const bool edge = (CAUSAL && i == 0) || q0 + kMmaB > Sq;
 
 #pragma unroll
     for (int sub = 0; sub < kMmaB; sub += QS) {
-      // every q of the block before the warp's keys, or past S: P = dS = 0
-      if (edge && ((CAUSAL && q0 + sub + QS - 1 < wkey) || q0 + sub >= S))
+      // every q of the block before the warp's keys, or past Sq: P = dS = 0
+      if (edge && ((CAUSAL && q0 + sub + QS - 1 < wkey) || q0 + sub >= Sq))
         continue;
       float st[NQ][4], dpt[NQ][4];
 #pragma unroll
@@ -463,7 +500,7 @@ __device__ __forceinline__ void dkdv_mma(
           const int qi = sub + nb * 8 + 2 * t + (e & 1);
           const int key = wkey + g + (e >> 1) * 8;
           const bool live =
-              !edge || (q0 + qi < S && (!CAUSAL || key <= q0 + qi));
+              !edge || (q0 + qi < Sq && (!CAUSAL || key <= q0 + qi));
           float p = 0.f;
           if (MASKED) {
             const float x = __fadd_rn(__fmul_rn(st[nb][e], scale),
@@ -476,7 +513,8 @@ __device__ __forceinline__ void dkdv_mma(
           dpt[nb][e] = p * (dpt[nb][e] - cDl[qi]) * scale;
         }
       }
-      // dV += P^T dO and dK += dS^T Q, P and dS rounded to bf16 once
+      // dV += P^T dO and dK += dS^T Q over the CTA's columns, P and dS
+      // rounded to bf16 once
 #pragma unroll
       for (int kk = 0; kk < QS / 16; ++kk) {
         uint32_t pa[4], dsa[4];
@@ -485,10 +523,12 @@ __device__ __forceinline__ void dkdv_mma(
 #pragma unroll
         for (int dp = 0; dp < ND / 2; ++dp) {
           uint32_t b[4];
-          ldsm_x4_trans(b, frag_addr<D>(cDO, sub + kk * 16, dp * 16, lane));
+          ldsm_x4_trans(b, frag_addr<D>(cDO, sub + kk * 16, c0 + dp * 16,
+                                        lane));
           mma_bf16(acc_dv[2 * dp], pa, b[0], b[1]);
           mma_bf16(acc_dv[2 * dp + 1], pa, b[2], b[3]);
-          ldsm_x4_trans(b, frag_addr<D>(cQ, sub + kk * 16, dp * 16, lane));
+          ldsm_x4_trans(b, frag_addr<D>(cQ, sub + kk * 16, c0 + dp * 16,
+                                        lane));
           mma_bf16(acc_dk[2 * dp], dsa, b[0], b[1]);
           mma_bf16(acc_dk[2 * dp + 1], dsa, b[2], b[3]);
         }
@@ -496,24 +536,30 @@ __device__ __forceinline__ void dkdv_mma(
     }
   }
 
-  store_rows<D>(dk + base, acc_dk, wkey, S, lane, 1.f, 1.f);
-  store_rows<D>(dv + base, acc_dv, wkey, S, lane, 1.f, 1.f);
+  if constexpr (DC == D) {
+    store_rows<D>(dk + kbase, acc_dk, wkey, Skv, lane, 1.f, 1.f);
+    store_rows<D>(dv + kbase, acc_dv, wkey, Skv, lane, 1.f, 1.f);
+  } else {
+    store_cols<D, DC>(dk + kbase, acc_dk, wkey, c0, Skv, lane);
+    store_cols<D, DC>(dv + kbase, acc_dv, wkey, c0, Skv, lane);
+  }
 }
 
-// grid (BH, ceil(S / kMmaB)), block kMmaThreads; under CAUSAL the q tile is
-// blockIdx.y reversed, so the longest walks (the last q tile) go first.
-// Warp w owns q rows q0 + 16w .. q0 + 16w + 15; lane (g, t) holds rows g
-// and g + 8 and key columns 2t, 2t + 1 of each 8-key block.
-template <int D, bool CAUSAL, bool MASKED>
+// grid (BH, ceil(Sq / kMmaB), D / DC), block kMmaThreads; under CAUSAL the
+// q tile is blockIdx.y reversed, so the longest walks (the last q tile) go
+// first. Warp w owns q rows q0 + 16w .. q0 + 16w + 15; lane (g, t) holds
+// rows g and g + 8 and key columns 2t, 2t + 1 of each 8-key block. Ragged
+// as dkdv_mma; the CTA accumulates the DC columns blockIdx.z * DC .. of dQ.
+template <int D, bool CAUSAL, bool MASKED, int DC = D>
 __device__ __forceinline__ void dq_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ mask, bf16* __restrict__ dq, int S,
+    const float* __restrict__ mask, bf16* __restrict__ dq, int Sq, int Skv,
     int heads_per_row, float scale) {
   using namespace attn_mma;
   constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
+  constexpr int ND = DC / 8;
   constexpr int NK = kMmaB / 8;              // 8-key blocks of S
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -525,12 +571,14 @@ __device__ __forceinline__ void dq_mma(
   const int bh = blockIdx.x;
   const int qt = CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * kMmaB;
+  const int c0 = DC == D ? 0 : blockIdx.z * DC;  // the CTA's first column
   // causal: key tiles up to the diagonal's
-  const int nkt = CAUSAL ? qt + 1 : (S + kMmaB - 1) / kMmaB;
-  const size_t base = static_cast<size_t>(bh) * S * D;
-  const size_t rbase = static_cast<size_t>(bh) * S;
+  const int nkt = CAUSAL ? qt + 1 : (Skv + kMmaB - 1) / kMmaB;
+  const size_t qbase = static_cast<size_t>(bh) * Sq * D;
+  const size_t kbase = static_cast<size_t>(bh) * Skv * D;
+  const size_t rbase = static_cast<size_t>(bh) * Sq;
   const float* mrow =
-      MASKED ? mask + static_cast<size_t>(bh / heads_per_row) * S : nullptr;
+      MASKED ? mask + static_cast<size_t>(bh / heads_per_row) * Skv : nullptr;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wrow = q0 + warp * 16;
@@ -538,15 +586,15 @@ __device__ __forceinline__ void dq_mma(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = wrow + g + 8 * i;
-    rl[i] = row < S ? lse[rbase + row] : 0.f;
-    rd[i] = row < S ? delta[rbase + row] : 0.f;
+    rl[i] = row < Sq ? lse[rbase + row] : 0.f;
+    rd[i] = row < Sq ? delta[rbase + row] : 0.f;
   }
 
-  load_tile<kMmaB, D, kMmaThreads>(sQ, q + base, q0, S, tid);
-  load_tile<kMmaB, D, kMmaThreads>(sDO, dout + base, q0, S, tid);
-  load_tile<kMmaB, D, kMmaThreads>(sK, k + base, 0, S, tid);
-  load_tile<kMmaB, D, kMmaThreads>(sV, v + base, 0, S, tid);
-  if (MASKED) load_row_values<kMmaB, kMmaThreads>(sM, mrow, 0, S, tid);
+  load_tile<kMmaB, D, kMmaThreads>(sQ, q + qbase, q0, Sq, tid);
+  load_tile<kMmaB, D, kMmaThreads>(sDO, dout + qbase, q0, Sq, tid);
+  load_tile<kMmaB, D, kMmaThreads>(sK, k + kbase, 0, Skv, tid);
+  load_tile<kMmaB, D, kMmaThreads>(sV, v + kbase, 0, Skv, tid);
+  if (MASKED) load_row_values<kMmaB, kMmaThreads>(sM, mrow, 0, Skv, tid);
   cp_async_commit();
 
   float acc[ND][4];
@@ -560,13 +608,13 @@ __device__ __forceinline__ void dq_mma(
     __syncthreads();
     if (j + 1 < nkt) {
       const int stage = (j + 1) & 1;
-      load_tile<kMmaB, D, kMmaThreads>(sK + stage * kMmaB * D, k + base,
-                                       (j + 1) * kMmaB, S, tid);
-      load_tile<kMmaB, D, kMmaThreads>(sV + stage * kMmaB * D, v + base,
-                                       (j + 1) * kMmaB, S, tid);
+      load_tile<kMmaB, D, kMmaThreads>(sK + stage * kMmaB * D, k + kbase,
+                                       (j + 1) * kMmaB, Skv, tid);
+      load_tile<kMmaB, D, kMmaThreads>(sV + stage * kMmaB * D, v + kbase,
+                                       (j + 1) * kMmaB, Skv, tid);
       if (MASKED)
         load_row_values<kMmaB, kMmaThreads>(sM + stage * kMmaB, mrow,
-                                            (j + 1) * kMmaB, S, tid);
+                                            (j + 1) * kMmaB, Skv, tid);
     }
     cp_async_commit();
     const int k0 = j * kMmaB;
@@ -574,7 +622,7 @@ __device__ __forceinline__ void dq_mma(
     const uint32_t cV = smem_u32(sV + (j & 1) * kMmaB * D);
     const float* cM = sM + (j & 1) * kMmaB;
     // the causal diagonal tile, or a ragged last key tile
-    const bool edge = CAUSAL ? j == qt : k0 + kMmaB > S;
+    const bool edge = CAUSAL ? j == qt : k0 + kMmaB > Skv;
 
     float s[NK][4], dp[NK][4];
 #pragma unroll
@@ -606,7 +654,7 @@ __device__ __forceinline__ void dq_mma(
         const int key = k0 + nb * 8 + 2 * t + (e & 1);
         const int row = wrow + g + (e >> 1) * 8;
         const bool live =
-            !edge || (CAUSAL ? row < S && key <= row : key < S);
+            !edge || (CAUSAL ? row < Sq && key <= row : key < Skv);
         float p = 0.f;
         if (MASKED) {
           const float x = __fadd_rn(__fmul_rn(s[nb][e], scale),
@@ -618,7 +666,7 @@ __device__ __forceinline__ void dq_mma(
         dp[nb][e] = p * (dp[nb][e] - rd[e >> 1]) * scale;
       }
     }
-    // dQ += dS K, dS rounded to bf16 once
+    // dQ += dS K over the CTA's columns, dS rounded to bf16 once
 #pragma unroll
     for (int kk = 0; kk < kMmaB / 16; ++kk) {
       uint32_t dsa[4];
@@ -626,14 +674,17 @@ __device__ __forceinline__ void dq_mma(
 #pragma unroll
       for (int d2 = 0; d2 < ND / 2; ++d2) {
         uint32_t b[4];
-        ldsm_x4_trans(b, frag_addr<D>(cK, kk * 16, d2 * 16, lane));
+        ldsm_x4_trans(b, frag_addr<D>(cK, kk * 16, c0 + d2 * 16, lane));
         mma_bf16(acc[2 * d2], dsa, b[0], b[1]);
         mma_bf16(acc[2 * d2 + 1], dsa, b[2], b[3]);
       }
     }
   }
 
-  store_rows<D>(dq + base, acc, wrow, S, lane, 1.f, 1.f);
+  if constexpr (DC == D)
+    store_rows<D>(dq + qbase, acc, wrow, Sq, lane, 1.f, 1.f);
+  else
+    store_cols<D, DC>(dq + qbase, acc, wrow, c0, Sq, lane);
 }
 
 // ---------------------------------------------------------------------------

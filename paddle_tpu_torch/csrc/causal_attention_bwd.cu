@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(attn_bwd::kMmaThreads) dkdv_mma_kernel(
     const float* __restrict__ mask, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int S, int heads_per_row, float scale) {
   attn_bwd::dkdv_mma<D, true, false>(q, k, v, dout, lse, delta, mask, dk, dv,
-                                     S, heads_per_row, scale);
+                                     S, S, heads_per_row, scale);
 }
 
 template <int D>
@@ -79,7 +79,7 @@ __global__ void __launch_bounds__(attn_bwd::kMmaThreads) dq_mma_kernel(
     const float* __restrict__ mask, bf16* __restrict__ dq, int S,
     int heads_per_row, float scale) {
   attn_bwd::dq_mma<D, true, false>(q, k, v, dout, lse, delta, mask, dq, S,
-                                   heads_per_row, scale);
+                                   S, heads_per_row, scale);
 }
 
 template <int D>

@@ -96,11 +96,11 @@ constexpr size_t smem_bytes() {
 // grid (ceil(Sq / kBQ), BH), block kThreads. Thread (r, part) owns q row
 // r of the tile; for QK it scores keys c = j * kTPR + part, for PV it
 // accumulates output columns d = j * kTPR + part.
-template <typename T, int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(kThreads) sdpa_fwd_fma_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-    float scale) {
+    float scale, float* __restrict__ lse) {
   constexpr int DP = D + 1;
   constexpr int PP = kBK + 1;
   extern __shared__ float smem[];
@@ -198,21 +198,183 @@ __global__ void __launch_bounds__(kThreads) sdpa_fwd_fma_kernel(
 #pragma unroll
     for (int j = 0; j < D / kTPR; ++j)
       o[at + j * kTPR + part] = from_f<T>(acc[j] / denom);
+    if (LSE && part == 0)
+      lse[static_cast<size_t>(bh) * Sq + gq] = m + logf(l);
   }
 }
 
-template <typename T, int D, bool CAUSAL>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int bh,
-               int Sq, int Skv, float scale, cudaStream_t stream) {
+template <typename T, int D, bool CAUSAL, bool LSE>
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int Sq, int Skv, float scale,
+               cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      sdpa_fwd_fma_kernel<T, D, CAUSAL>,
+      sdpa_fwd_fma_kernel<T, D, CAUSAL, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kBQ - 1) / kBQ, bh);
-  sdpa_fwd_fma_kernel<T, D, CAUSAL><<<grid, kThreads, bytes, stream>>>(
+  sdpa_fwd_fma_kernel<T, D, CAUSAL, LSE><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, scale, lse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// head dims 320 to 512, both dtypes: the wide design, scalar FMA
+// ---------------------------------------------------------------------------
+// The mma design keeps a row's fp32 accumulator in registers (D / 2 a lane
+// at 16 rows a warp): 160 to 256 registers above D 256, past the register
+// file. Here one CTA owns 32 q rows, 8 threads a row, so a thread holds
+// D / 8 accumulators (64 at D 512); 32-key tiles of K and V and the q tile
+// sit in shared memory as fp32 rows padded to D + 1 floats, 201,216 bytes
+// at D 512, so one CTA an SM (`__launch_bounds__(256, 1)`: without the 1,
+// ptxas aimed at more and spilled). The arithmetic is the first design's:
+// fp32 products of the inputs, the online softmax, P unrounded into PV.
+constexpr int kWideBQ = 32;      // q rows per CTA
+constexpr int kWideBK = 32;      // keys per tile
+constexpr int kWideTPR = 8;      // threads per q row
+constexpr int kWideThreads = kWideBQ * kWideTPR;
+
+template <int D>
+constexpr size_t wide_smem_bytes() {
+  return (3 * kWideBQ * (D + 1) + kWideBQ * (kWideBK + 1)) * sizeof(float);
+}
+
+__device__ __forceinline__ float wide_f(float x) { return x; }
+__device__ __forceinline__ float wide_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T wide_t(float x);
+template <>
+__device__ __forceinline__ float wide_t<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 wide_t<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// grid (ceil(Sq / kWideBQ), BH), block kWideThreads. Thread (r, part) owns
+// q row r; for QK it scores keys c = j * kWideTPR + part, for PV it
+// accumulates output columns d = j * kWideTPR + part.
+template <typename T, int D, bool CAUSAL, bool LSE>
+__global__ void __launch_bounds__(kWideThreads, 1) sdpa_fwd_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
+    float scale, float* __restrict__ lse) {
+  constexpr int DP = D + 1;
+  constexpr int PP = kWideBK + 1;
+  constexpr int NJ = D / kWideTPR;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + kWideBQ * DP;
+  float* sV = sK + kWideBK * DP;
+  float* sP = sV + kWideBK * DP;
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kWideBQ;
+  const size_t qbase = static_cast<size_t>(bh) * Sq * D;
+  const size_t kbase = static_cast<size_t>(bh) * Skv * D;
+  const int tid = threadIdx.x;
+  const int r = tid / kWideTPR;
+  const int part = tid % kWideTPR;
+  const int gq = q0 + r;
+
+  for (int i = tid; i < kWideBQ * D; i += kWideThreads) {
+    const int rr = i / D, d = i % D;
+    const int g = q0 + rr;
+    sQ[rr * DP + d] =
+        g < Sq ? wide_f(q[qbase + static_cast<size_t>(g) * D + d]) : 0.f;
+  }
+
+  float m = kNegInf, l = 0.f;
+  float acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
+
+  const int kend = CAUSAL ? min(q0 + kWideBQ, Skv) : Skv;
+  for (int k0 = 0; k0 < kend; k0 += kWideBK) {
+    __syncthreads();  // the previous tile's K/V reads are done
+    for (int i = tid; i < kWideBK * D; i += kWideThreads) {
+      const int rr = i / D, d = i % D;
+      const int g = k0 + rr;
+      const bool in = g < Skv;
+      const size_t at = kbase + static_cast<size_t>(g) * D + d;
+      sK[rr * DP + d] = in ? wide_f(k[at]) : 0.f;
+      sV[rr * DP + d] = in ? wide_f(v[at]) : 0.f;
+    }
+    __syncthreads();
+
+    float sc[kWideBK / kWideTPR];
+    float tmax = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kWideBK / kWideTPR; ++j) {
+      const int c = j * kWideTPR + part;
+      const int gk = k0 + c;
+      float dot = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) dot += sQ[r * DP + d] * sK[c * DP + d];
+      dot *= scale;
+      if (CAUSAL && gk > gq) dot = kNegInf;
+      sc[j] = dot;
+      if (gk < Skv) tmax = fmaxf(tmax, dot);
+    }
+#pragma unroll
+    for (int off = 1; off < kWideTPR; off <<= 1)
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+    const float m_new = fmaxf(m, tmax);
+
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWideBK / kWideTPR; ++j) {
+      const int c = j * kWideTPR + part;
+      const float p = k0 + c < Skv ? expf(sc[j] - m_new) : 0.f;
+      psum += p;
+      sP[r * PP + c] = p;
+    }
+#pragma unroll
+    for (int off = 1; off < kWideTPR; off <<= 1)
+      psum += __shfl_xor_sync(0xffffffffu, psum, off);
+    const float alpha = expf(m - m_new);
+    l = alpha * l + psum;
+    m = m_new;
+    __syncwarp();  // a row's probabilities come from its own warp
+
+    const int cend = min(kWideBK, Skv - k0);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[j] *= alpha;
+    for (int c = 0; c < cend; ++c) {
+      const float p = sP[r * PP + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        acc[j] += p * sV[c * DP + j * kWideTPR + part];
+    }
+  }
+
+  if (gq < Sq) {
+    const float denom = fmaxf(l, 1e-30f);
+    const size_t at = qbase + static_cast<size_t>(gq) * D;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      o[at + j * kWideTPR + part] = wide_t<T>(acc[j] / denom);
+    if (LSE && part == 0)
+      lse[static_cast<size_t>(bh) * Sq + gq] = m + logf(l);
+  }
+}
+
+template <typename T, int D, bool CAUSAL, bool LSE>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int Sq, int Skv, float scale,
+                cudaStream_t stream) {
+  constexpr size_t bytes = wide_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      sdpa_fwd_wide_kernel<T, D, CAUSAL, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + kWideBQ - 1) / kWideBQ, bh);
+  sdpa_fwd_wide_kernel<T, D, CAUSAL, LSE>
+      <<<grid, kWideThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, scale, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -235,11 +397,11 @@ constexpr size_t mma_smem_bytes() {
 
 // grid (BH, ceil(Sq / kMmaBQ)), block kMmaThreads. Warp w owns q rows
 // q0 + 16w .. q0 + 16w + 15; lane (g, t) holds rows g and g + 8 of them.
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(kMmaThreads) sdpa_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int Sq, int Skv, float scale) {
+    int Sq, int Skv, float scale, float* __restrict__ lse) {
   using namespace attn_mma;
   constexpr int BK = mma_bk<D>();  // keys per tile
   constexpr int KD = D / 16;       // k-steps over the head dim
@@ -372,10 +534,19 @@ __global__ void __launch_bounds__(kMmaThreads) sdpa_fwd_mma_kernel(
     }
   }
 
-  // O = acc / max(l, 1e-30), one cast; rows past Sq are not stored
+  // O = acc / max(l, 1e-30), one cast; rows past Sq are not stored; the
+  // LSE variant also stores m + log(l) of rows g and g + 8
   float den[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) den[i] = fmaxf(quad_sum(l[i]), 1e-30f);
+  for (int i = 0; i < 2; ++i) {
+    const float lt = quad_sum(l[i]);
+    den[i] = fmaxf(lt, 1e-30f);
+    if (LSE) {
+      const int row = wrow + g + 8 * i;
+      if (t == 0 && row < Sq)
+        lse[static_cast<size_t>(bh) * Sq + row] = m[i] + logf(lt);
+    }
+  }
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd) {
     acc[nd][0] /= den[0];
@@ -386,73 +557,110 @@ __global__ void __launch_bounds__(kMmaThreads) sdpa_fwd_mma_kernel(
   store_rows<D>(o + qbase, acc, wrow, Sq, lane, 1.f, 1.f);
 }
 
-template <int D, bool CAUSAL>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
-               int Sq, int Skv, float scale, cudaStream_t stream) {
+template <int D, bool CAUSAL, bool LSE>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int Sq, int Skv, float scale,
+               cudaStream_t stream) {
   constexpr size_t bytes = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      sdpa_fwd_mma_kernel<D, CAUSAL>,
+      sdpa_fwd_mma_kernel<D, CAUSAL, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(bh, (Sq + kMmaBQ - 1) / kMmaBQ);
-  sdpa_fwd_mma_kernel<D, CAUSAL><<<grid, kMmaThreads, bytes, stream>>>(
+  sdpa_fwd_mma_kernel<D, CAUSAL, LSE><<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Skv, scale);
+      Sq, Skv, scale, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype 0: the fp32 FMA design; 1: mma.sync
+// dtype 0: the fp32 FMA design; 1: mma.sync; the LSE variant when lse is
+// given
 template <int D, bool CAUSAL>
 int launch_dtype(const void* q, const void* k, const void* v, void* o,
-                 int dtype, int bh, int Sq, int Skv, float scale,
+                 float* lse, int dtype, int bh, int Sq, int Skv, float scale,
                  cudaStream_t stream) {
   if (dtype == 0)
-    return launch_fma<float, D, CAUSAL>(q, k, v, o, bh, Sq, Skv, scale,
-                                        stream);
+    return lse ? launch_fma<float, D, CAUSAL, true>(q, k, v, o, lse, bh, Sq,
+                                                    Skv, scale, stream)
+               : launch_fma<float, D, CAUSAL, false>(q, k, v, o, lse, bh, Sq,
+                                                     Skv, scale, stream);
   if (dtype == 1)
-    return launch_mma<D, CAUSAL>(q, k, v, o, bh, Sq, Skv, scale, stream);
+    return lse ? launch_mma<D, CAUSAL, true>(q, k, v, o, lse, bh, Sq, Skv,
+                                             scale, stream)
+               : launch_mma<D, CAUSAL, false>(q, k, v, o, lse, bh, Sq, Skv,
+                                              scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// head dims over 256, both dtypes: the wide design
+template <int D, bool CAUSAL>
+int launch_wide_dtype(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int dtype, int bh, int Sq, int Skv,
+                      float scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return lse ? launch_wide<float, D, CAUSAL, true>(q, k, v, o, lse, bh, Sq,
+                                                     Skv, scale, stream)
+               : launch_wide<float, D, CAUSAL, false>(q, k, v, o, lse, bh,
+                                                      Sq, Skv, scale, stream);
+  if (dtype == 1)
+    return lse ? launch_wide<__nv_bfloat16, D, CAUSAL, true>(
+                     q, k, v, o, lse, bh, Sq, Skv, scale, stream)
+               : launch_wide<__nv_bfloat16, D, CAUSAL, false>(
+                     q, k, v, o, lse, bh, Sq, Skv, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
 int launch_causal(const void* q, const void* k, const void* v, void* o,
-                  int dtype, int bh, int Sq, int Skv, int causal, float scale,
-                  cudaStream_t stream) {
-  if (causal) {
-    if (Sq != Skv) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_dtype<D, true>(q, k, v, o, dtype, bh, Sq, Skv, scale,
-                                 stream);
+                  float* lse, int dtype, int bh, int Sq, int Skv, int causal,
+                  float scale, cudaStream_t stream) {
+  if (causal && Sq != Skv) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (D <= 256) {
+    if (causal)
+      return launch_dtype<D, true>(q, k, v, o, lse, dtype, bh, Sq, Skv, scale,
+                                   stream);
+    return launch_dtype<D, false>(q, k, v, o, lse, dtype, bh, Sq, Skv, scale,
+                                  stream);
+  } else {
+    if (causal)
+      return launch_wide_dtype<D, true>(q, k, v, o, lse, dtype, bh, Sq, Skv,
+                                        scale, stream);
+    return launch_wide_dtype<D, false>(q, k, v, o, lse, dtype, bh, Sq, Skv,
+                                       scale, stream);
   }
-  return launch_dtype<D, false>(q, k, v, o, dtype, bh, Sq, Skv, scale,
-                                stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (the fp32 FMA design), 1 = bfloat16 (mma.sync).
-// q/o [bh, Sq, head_dim] and k/v [bh, Skv, head_dim], contiguous (16-byte
-// aligned for bf16); head_dim 64, 128, 192 or 256; causal only at Sq ==
-// Skv. Returns the launch's cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. q/o [bh, Sq, head_dim] and k/v [bh,
+// Skv, head_dim], contiguous (16-byte aligned for bf16); head_dim a
+// multiple of 64 up to 512 (64-256: the FMA design for float32 and
+// mma.sync for bfloat16; 320-512: the wide design for both); causal only
+// at Sq == Skv. lse NULL: the inference instance, no LSE; else [bh, Sq]
+// fp32, m + log(l) of each row. Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int sdpa_forward(const void* q, const void* k, const void* v,
-                            void* o, int dtype, int bh, int Sq, int Skv,
-                            int head_dim, int causal, float scale,
+                            void* o, void* lse, int dtype, int bh, int Sq,
+                            int Skv, int head_dim, int causal, float scale,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (head_dim) {
-    case 64:
-      return launch_causal<64>(q, k, v, o, dtype, bh, Sq, Skv, causal, scale,
-                               st);
-    case 128:
-      return launch_causal<128>(q, k, v, o, dtype, bh, Sq, Skv, causal,
-                                scale, st);
-    case 192:
-      return launch_causal<192>(q, k, v, o, dtype, bh, Sq, Skv, causal,
-                                scale, st);
-    case 256:
-      return launch_causal<256>(q, k, v, o, dtype, bh, Sq, Skv, causal,
-                                scale, st);
+#define SDPA_FWD_CASE(D)                                                    \
+    case D:                                                                 \
+      return launch_causal<D>(q, k, v, o, l, dtype, bh, Sq, Skv, causal,    \
+                              scale, st);
+    SDPA_FWD_CASE(64)
+    SDPA_FWD_CASE(128)
+    SDPA_FWD_CASE(192)
+    SDPA_FWD_CASE(256)
+    SDPA_FWD_CASE(320)
+    SDPA_FWD_CASE(384)
+    SDPA_FWD_CASE(448)
+    SDPA_FWD_CASE(512)
+#undef SDPA_FWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

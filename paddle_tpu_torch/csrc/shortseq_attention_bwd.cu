@@ -84,7 +84,7 @@ shortseq_dkdv_mma_kernel(
     const float* __restrict__ mask, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int S, int heads_per_row, float scale) {
   attn_bwd::dkdv_mma<D, false, MASKED>(q, k, v, dout, lse, delta, mask, dk,
-                                       dv, S, heads_per_row, scale);
+                                       dv, S, S, heads_per_row, scale);
 }
 
 template <int D, bool MASKED>
@@ -96,7 +96,7 @@ shortseq_dq_mma_kernel(
     const float* __restrict__ mask, bf16* __restrict__ dq, int S,
     int heads_per_row, float scale) {
   attn_bwd::dq_mma<D, false, MASKED>(q, k, v, dout, lse, delta, mask, dq, S,
-                                     heads_per_row, scale);
+                                     S, heads_per_row, scale);
 }
 
 template <int D, bool MASKED>

@@ -21,14 +21,18 @@ Counterpart of paddle_tpu/ops/pallas/flash_attention.py:
   (B6, through `pallas_sdpa_forward`), and also serves `flash_attention`'s
   library route, the shapes a TPU hands to jax's library flash kernel.
   Its bfloat16 path runs on the tensor cores, its float32 path in fp32
-  FMA;
+  FMA, head dims over 256 in a wide fp32 FMA design; its LSE variant
+  feeds the library route's backward, `csrc/sdpa_backward.cu` (the
+  backward of jax's library kernel, which has no Pallas counterpart),
+  joined to it by `_LibraryAttention`;
 - `flash_attention` ports the routing.
 
 Each kernel wrapper takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors; it never falls back. It counts its kernel
 launches in `.launches` and every call of its plain version, on any
 device, in `.plain_calls`; the shortseq wrappers count launches of their
-masked variant apart, in `.masked_launches`.
+masked variant apart, in `.masked_launches`, and B6 its LSE variant in
+`.lse_launches`.
 
 Layouts: `[BH, S, D]` at the kernels, `[B, S, H, D]` (paddle layout) at
 `chunked_causal_attention`, `shortseq_attention`, `pallas_sdpa_forward`
@@ -52,7 +56,8 @@ __all__ = ["causal_attention_fwd", "causal_attention_plain",
            "chunked_causal_attention", "shortseq_attention_fwd",
            "shortseq_attention_plain", "shortseq_attention_bwd",
            "shortseq_attention_bwd_plain", "shortseq_attention",
-           "sdpa_forward", "sdpa_forward_plain", "pallas_sdpa_forward",
+           "sdpa_forward", "sdpa_forward_plain", "sdpa_backward",
+           "sdpa_backward_plain", "pallas_sdpa_forward",
            "dense_attention", "flash_attention"]
 
 _NEG_INF = -1e30
@@ -287,8 +292,8 @@ def _shapes_ok_for_causal(Sq, Skv, D):
 def _shapes_ok_for_lib(Sq, Skv, D):
     """The shapes the JAX package hands to jax's library flash kernel on a
     TPU (`_shapes_ok_for_lib`). The port gives their forward to B6
-    (`sdpa_forward`, the port of `_sdpa_fwd_kernel`), which takes head
-    dims up to 256; their backward is still to port."""
+    (`sdpa_forward`, the port of `_sdpa_fwd_kernel`) and their backward to
+    `sdpa_backward`, which take head dims up to 512."""
     return (Sq >= 128 and Sq % 128 == 0 and Skv >= 128 and Skv % 128 == 0
             and D % 64 == 0)
 
@@ -462,14 +467,23 @@ def shortseq_attention(q, k, v, scale=None, key_mask=None):
 
 
 # ---------------------------------------------------------------------------
-# the flash forward (B6)
+# the flash forward (B6) and the library route's backward
 # ---------------------------------------------------------------------------
-_SDPA_HEAD_DIMS = (64, 128, 192, 256)
+#: the largest head dim the kernels of the library route take
+_SDPA_MAX_HEAD_DIM = 512
+_SDPA_HEAD_DIMS = tuple(range(64, _SDPA_MAX_HEAD_DIM + 1, 64))
 
 
-def sdpa_forward_plain(q, k, v, scale, causal=False):
+def _sdpa_logits(q, k, scale, causal):
+    return (_causal_logits(q, k, scale) if causal
+            else _key_logits(q, k, scale, None))
+
+
+def sdpa_forward_plain(q, k, v, scale, causal=False, return_lse=False):
     """Plain PyTorch version of the flash forward kernel B6: q `[BH, Sq,
-    D]` x k, v `[BH, Skv, D]` -> O `[BH, Sq, D]` in q's dtype, no LSE.
+    D]` x k, v `[BH, Skv, D]` -> O `[BH, Sq, D]` in q's dtype, and with
+    `return_lse` also the LSE `[BH, Sq]` fp32 (m + log(l): the row's max
+    and its sum of exp(s - m)).
 
     `_sdpa_fwd_kernel`'s arithmetic: q, k and v cast to fp32; s = q k^T *
     scale; when causal (Sq == Skv), -1e30 where the key comes after the
@@ -482,54 +496,140 @@ def sdpa_forward_plain(q, k, v, scale, causal=False):
     the kernel's m is that max, its l the row's sum of exp(s - m) and its
     acc the matching sum of p v, up to the order of fp32 sums."""
     sdpa_forward.plain_calls += 1
-    s = (_causal_logits(q, k, scale) if causal
-         else _key_logits(q, k, scale, None))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+    s = _sdpa_logits(q, k, scale, causal)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    return (torch.matmul(p, v.float()) / l.clamp_min(1e-30)).to(q.dtype)
+    o = (torch.matmul(p, v.float()) / l.clamp_min(1e-30)).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l))[..., 0]
+    return o
 
 
-def sdpa_forward(q, k, v, scale=None, causal=False):
+def _check_sdpa_args(fn_name, q_side, k_side):
+    """B6's and the library backward's inputs: `q_side` the (name, tensor)
+    pairs of q's shape `[BH, Sq, D]`, `k_side` those of k's `[BH, Skv,
+    D]`; one BH, D and dtype, Sq and Skv > 0, D a multiple of 64 up to
+    `_SDPA_MAX_HEAD_DIM` (512), which the error names."""
+    q, k = q_side[0][1], k_side[0][1]
+    D = q.shape[-1]
+    _check_kernel_args(fn_name, q_side, _SDPA_HEAD_DIMS)
+    _check_kernel_args(fn_name, k_side, _SDPA_HEAD_DIMS)
+    if k.dtype != q.dtype or k.shape[0] != q.shape[0] or k.shape[2] != D \
+            or q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError(f"{fn_name}: q [BH, Sq, D] and k, v [BH, Skv, D] "
+                         "must share BH, D and dtype, with Sq, Skv > 0")
+
+
+def sdpa_forward(q, k, v, scale=None, causal=False, return_lse=False):
     """Flash attention forward, q `[BH, Sq, D]` x k, v `[BH, Skv, D]` -> O
-    `[BH, Sq, D]` in the input dtype. CPU tensors take
-    `sdpa_forward_plain`; CUDA tensors launch B6 (any Sq and Skv, causal
-    only at Sq == Skv; D 64, 128, 192 or 256; float32 or bfloat16;
-    contiguous) or raise. Causal with Sq != Skv raises on every device:
-    the TPU kernel takes only Sq == Skv."""
+    `[BH, Sq, D]` in the input dtype, and with `return_lse` also the LSE
+    `[BH, Sq]` fp32 (the kernel's LSE variant, which the library route's
+    backward reads; its launches also count in `.lse_launches`). CPU
+    tensors take `sdpa_forward_plain`; CUDA tensors launch B6 (any Sq and
+    Skv, causal only at Sq == Skv; D a multiple of 64 up to 512: the
+    tensor cores for bfloat16 and fp32 FMA for float32 up to 256, the wide
+    FMA design for both above; contiguous) or raise. Causal with Sq != Skv
+    raises on every device: the TPU kernel takes only Sq == Skv."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"sdpa_forward: causal needs Sq == Skv, got "
                          f"{q.shape[1]} and {k.shape[1]}")
     if q.device.type == "cpu":
-        return sdpa_forward_plain(q, k, v, scale, causal)
-    D = q.shape[-1]
-    if D > _SDPA_HEAD_DIMS[-1]:
-        raise ValueError(f"sdpa_forward: head_dim {D} is over the kernel's "
-                         f"limit of {_SDPA_HEAD_DIMS[-1]}")
-    _check_kernel_args("sdpa_forward", (("q", q),), _SDPA_HEAD_DIMS)
-    _check_kernel_args("sdpa_forward", (("k", k), ("v", v)),
-                       _SDPA_HEAD_DIMS)
-    BH, Sq, _ = q.shape
-    Skv = k.shape[1]
-    if k.dtype != q.dtype or k.shape[0] != BH or k.shape[2] != D \
-            or Sq == 0 or Skv == 0:
-        raise ValueError("sdpa_forward: q [BH, Sq, D] and k, v [BH, Skv, D] "
-                         "must share BH, D and dtype, with Sq, Skv > 0")
+        return sdpa_forward_plain(q, k, v, scale, causal, return_lse)
+    _check_sdpa_args("sdpa_forward", (("q", q),), (("k", k), ("v", v)))
+    BH, Sq, D = q.shape
     o = torch.empty_like(q)
-    fn = _bind("sdpa_forward", "sdpa_forward", 4, 6)
+    lse = (torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    fn = _bind("sdpa_forward", "sdpa_forward", 5, 6)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sdpa_forward.launches += 1
+    sdpa_forward.lse_launches += int(return_lse)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _DTYPE_CODE[q.dtype], BH, Sq, Skv, D, int(causal), float(scale),
-             stream)
+             None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype],
+             BH, Sq, k.shape[1], D, int(causal), float(scale), stream)
     if err:
         raise RuntimeError(f"sdpa_forward kernel launch failed: CUDA error "
                            f"{err}")
-    return o
+    return (o, lse) if return_lse else o
 
 
 sdpa_forward.launches = 0
+sdpa_forward.lse_launches = 0
 sdpa_forward.plain_calls = 0
+
+
+def sdpa_backward_plain(q, k, v, o, do, lse, scale, causal=False):
+    """Plain PyTorch version of the library route's backward kernel: the
+    gradient of `sdpa_forward_plain` from its output O and LSE, in fp32,
+    with the causal backward's rounding points (`_bwd_from_logits`): p =
+    exp(s - lse); dv = p_b^T do with p rounded to v's dtype; dp = do v^T
+    and delta = rowsum(do * o) in fp32; ds = p * (dp - delta) * scale
+    rounded to q's dtype; dq = ds k, dk = ds^T q. For float32 inputs that
+    is the exact gradient. Returns (dq, dk, dv) in q's dtype."""
+    sdpa_backward.plain_calls += 1
+    return _bwd_from_logits(_sdpa_logits(q, k, scale, causal), q, k, v, o,
+                            do, lse, scale)
+
+
+def sdpa_backward(q, k, v, o, do, lse, scale=None, causal=False):
+    """The library route's attention backward: q, O, dO `[BH, Sq, D]`, k, v
+    `[BH, Skv, D]` and B6's LSE `[BH, Sq]` fp32 -> (dq, dk, dv) in the
+    input dtype. CPU tensors take `sdpa_backward_plain`; CUDA tensors
+    launch the kernel (B6's shapes and dtypes: any Sq and Skv, causal only
+    at Sq == Skv, D a multiple of 64 up to 512; the tensor cores for
+    bfloat16 up to D 256, fp32 FMA otherwise; all contiguous and 16-byte
+    aligned) or raise."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"sdpa_backward: causal needs Sq == Skv, got "
+                         f"{q.shape[1]} and {k.shape[1]}")
+    if q.device.type == "cpu":
+        return sdpa_backward_plain(q, k, v, o, do, lse, scale, causal)
+    _check_sdpa_args("sdpa_backward", (("q", q), ("o", o), ("do", do)),
+                     (("k", k), ("v", v)))
+    _check_lse("sdpa_backward", lse, q)
+    BH, Sq, D = q.shape
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    fn = _bind("sdpa_backward", "sdpa_backward", 10, 6)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sdpa_backward.launches += 1
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], BH, Sq,
+             k.shape[1], D, int(causal), float(scale), stream)
+    if err:
+        raise RuntimeError(f"sdpa_backward kernel launch failed: CUDA error "
+                           f"{err}")
+    return dq, dk, dv
+
+
+sdpa_backward.launches = 0
+sdpa_backward.plain_calls = 0
+
+
+class _LibraryAttention(torch.autograd.Function):
+    """`[BH, S, D]` attention at the library route's shapes whose forward is
+    B6 with its LSE and whose backward is `sdpa_backward` from the saved q,
+    k, v, O and LSE: the port of jax's library flash kernel and its
+    backward, which the JAX package takes there on a TPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        o, lse = sdpa_forward(q, k, v, scale, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = sdpa_backward(q, k, v, o, do.contiguous(), lse,
+                                   ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def pallas_sdpa_forward(q, k, v, causal=True, scale=None, block_q=256,
@@ -585,10 +685,9 @@ def flash_attention(q, k, v, causal=True, scale=None):
     - shapes that a TPU hands to jax's library kernel
       (`_shapes_ok_for_lib`, non-causal or causal Sq == Skv): when no
       gradient is needed (grad mode off, or no input requires grad), B6
-      (`sdpa_forward`: the kernel on the card, its plain version on the
-      CPU). When a gradient is needed they raise on the card, since the
-      library route's backward is still to port, and are computed densely
-      on the CPU, as JAX computes them there;
+      (`sdpa_forward`); when one is, `_LibraryAttention` (B6 with its LSE,
+      then `sdpa_backward`): the kernels on the card, their plain versions
+      on the CPU;
     - every other shape (causal Sq != Skv, head dims or lengths no kernel
       takes, such as a causal head dim of 16) is dense on every device, as
       in JAX (`dense_attention`).
@@ -599,16 +698,14 @@ def flash_attention(q, k, v, causal=True, scale=None):
     if causal and _shapes_ok_for_causal(Sq, Skv, D):
         return chunked_causal_attention(q, k, v, scale)
     if _shapes_ok_for_lib(Sq, Skv, D) and (not causal or Sq == Skv):
-        if not (torch.is_grad_enabled()
-                and any(t.requires_grad for t in (q, k, v))):
-            o = sdpa_forward(_to_bh(q), _to_bh(k), _to_bh(v), scale, causal)
-            return _from_bh(o, q.shape[0])
-        if q.device.type == "cuda":
-            raise NotImplementedError(
-                f"flash_attention(causal={causal}) with Sq={Sq}, Skv={Skv}, "
-                f"D={D} and a gradient needs the library route's backward, "
-                "which the port has not ported yet (B6, sdpa_forward, is "
-                "forward only)")
+        qh, kh, vh = _to_bh(q), _to_bh(k), _to_bh(v)
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            s = scale if scale is not None else 1.0 / math.sqrt(D)
+            o = _LibraryAttention.apply(qh, kh, vh, s, causal)
+        else:
+            o = sdpa_forward(qh, kh, vh, scale, causal)
+        return _from_bh(o, q.shape[0])
     flash_attention.dense_calls += 1
     return dense_attention(q, k, v, causal, scale)
 

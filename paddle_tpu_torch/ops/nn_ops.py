@@ -1,7 +1,7 @@
-"""Attention entry point, dropout, the cross-entropy losses and the ops a
-ResNet needs: counterparts of `scaled_dot_product_attention`,
-`dropout`, `softmax_with_cross_entropy`, `cross_entropy`, `conv2d`,
-`batch_norm` (both forms), `max_pool2d` and `adaptive_avg_pool2d` in
+"""Attention entry point, dropout, the cross-entropy and squared-error
+losses and the ops a ResNet needs: counterparts of `scaled_dot_product_attention`,
+`dropout`, `softmax_with_cross_entropy`, `cross_entropy`, `mse_loss`,
+`conv2d`, `batch_norm` (both forms), `max_pool2d` and `adaptive_avg_pool2d` in
 paddle_tpu/ops/nn_ops.py. The conv, BatchNorm and pooling ops take
 NCHW, as the paddle API does, in any memory format torch accepts,
 `channels_last` included; NHWC `data_format` is not ported.
@@ -18,8 +18,8 @@ from .flash_attention import (_shapes_ok_for_shortseq, dense_attention,
                               flash_attention, shortseq_attention)
 
 __all__ = ["scaled_dot_product_attention", "dropout",
-           "softmax_with_cross_entropy", "cross_entropy", "conv2d",
-           "batch_norm", "update_running_stats", "max_pool2d",
+           "softmax_with_cross_entropy", "cross_entropy", "mse_loss",
+           "conv2d", "batch_norm", "update_running_stats", "max_pool2d",
            "adaptive_avg_pool2d"]
 
 
@@ -100,6 +100,23 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
     ll = torch.gather(logp, axis, torch.where(keep, idx, 0))
     loss = torch.where(keep, -ll, torch.zeros((), device=ll.device))
     return loss.to(logits.dtype)
+
+
+def _reduce_loss(loss, reduction):
+    """`mean` or `sum` of `loss`; any other reduction leaves it as it is
+    (the JAX package's `_reduce_loss`)."""
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def mse_loss(input, label, reduction="mean"):
+    """Squared error (input - label)^2 in the inputs' dtype, reduced by
+    `reduction` (mean, sum, anything else: none), as the JAX package's
+    `mse_loss` computes it."""
+    return _reduce_loss(torch.square(input - label), reduction)
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,

@@ -1,16 +1,21 @@
 """Optimizer base: counterpart of paddle_tpu/optimizer/optimizer.py (analog of
 python/paddle/optimizer/optimizer.py).
 
-The update runs eagerly in place, parameter by parameter, in fp32 where
-the JAX package computes in fp32; the accumulators are plain tensors on
-each parameter's device. `step` clips the grads with `grad_clip` first,
-then applies `_single_update` to every parameter that has a grad, then
-counts the step.
+The update runs eagerly in place, in fp32 where the JAX package computes
+in fp32; the accumulators are plain tensors on each parameter's device.
+`step` clips the grads with `grad_clip` first, then updates every
+parameter that has a grad, then counts the step. The parameters are
+updated in groups of one device and one dtype through
+`ops.optimizer_update`: on the card one kernel launch a group applies
+`_single_update`'s arithmetic to all of them in one pass (the JAX
+package's one fused program), on the CPU the plain version loops over
+`_single_update`.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.optimizer_update import optimizer_update
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -50,6 +55,14 @@ class Optimizer:
         count `step`."""
         raise NotImplementedError
 
+    def _kernel_spec(self, lr, step):
+        """What the one-pass kernel needs to apply `_single_update`: the
+        rule (`kind`, a key of `ops.optimizer_update.KINDS`), the names of
+        the one or two fp32 accumulators, the scalars (`hyper`) and, for
+        AdamW, the per-parameter `decay`."""
+        raise NotImplementedError(f"{type(self).__name__} has no one-pass "
+                                  "kernel on the card yet")
+
     # -- public api ----------------------------------------------------------
     def get_lr(self) -> float:
         if isinstance(self._learning_rate, LRScheduler):
@@ -74,12 +87,19 @@ class Optimizer:
         if all(g is None for _, g in pg):
             return
         lr = self.get_lr()
-        for i, (p, g) in enumerate(pg):
-            if g is None:
-                continue
-            acc = {k: v[i] for k, v in self._accumulators.items()}
-            self._single_update(i, p, g, acc, lr, self._step_count)
+        for group in self._groups(pg):
+            optimizer_update(self, group, lr, self._step_count)
         self._step_count += 1
+
+    @staticmethod
+    def _groups(pg):
+        """The parameters with a grad as lists of (index, parameter, grad),
+        one list per (device, dtype), in order of first appearance."""
+        groups = {}
+        for i, (p, g) in enumerate(pg):
+            if g is not None:
+                groups.setdefault((p.device, p.dtype), []).append((i, p, g))
+        return list(groups.values())
 
     def clear_grad(self):
         for p in self._parameter_list:
@@ -113,6 +133,8 @@ class Optimizer:
 
     # -- helpers --------------------------------------------------------------
     def _fp32_zeros_like_params(self):
-        return [torch.zeros_like(p, dtype=torch.float32,
-                                 memory_format=torch.contiguous_format)
+        """fp32 zeros in each parameter's shape and layout (a channels_last
+        weight gets channels_last accumulators), as the one-pass kernel
+        walks them."""
+        return [torch.zeros_like(p, dtype=torch.float32)
                 for p in self._parameter_list]

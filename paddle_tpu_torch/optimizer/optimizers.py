@@ -2,7 +2,10 @@
 paddle_tpu/optimizer/optimizers.py (analogs of
 python/paddle/optimizer/{momentum,adam,adamw}.py).
 
-The update follows the JAX package's `_single_update` op for op, in fp32:
+The update follows the JAX package's `_single_update` op for op, in fp32
+(on the CPU this loop runs; on the card `ops.optimizer_update`'s kernel
+applies the same ops, with the same roundings, to a whole group in one
+pass, from `_kernel_spec`):
 the grad and the parameter are read in fp32, Momentum's velocity and
 Adam's moments are kept,
 updated and bias-corrected in fp32 (the JAX package's
@@ -46,6 +49,12 @@ class Momentum(Optimizer):
         upd = g + self._momentum * v if self._nesterov else v
         p.copy_(pf - lr * upd)
 
+    def _kernel_spec(self, lr, step):
+        return {"kind": "momentum", "accumulators": ("velocity",),
+                "hyper": {"lr": lr, "mom": self._momentum,
+                          "wd": self._weight_decay or 0.0,
+                          "nesterov": int(bool(self._nesterov))}}
+
 
 class Adam(Optimizer):
     """Adam; a `weight_decay` float is an L2 term added to the grad."""
@@ -62,18 +71,35 @@ class Adam(Optimizer):
         return {"moment1": self._fp32_zeros_like_params(),
                 "moment2": self._fp32_zeros_like_params()}
 
+    def _corrections(self, step):
+        """The bias corrections 1 - beta1**t and 1 - beta2**t at t = step
+        + 1, taken in fp32 as the JAX package takes them (Python floats
+        holding fp32 values)."""
+        t = np.float32(step + 1)
+        return tuple(float(np.float32(1) - np.power(np.float32(b), t))
+                     for b in (self._beta1, self._beta2))
+
     def _moments(self, g, acc, step):
         """New moments (stored back into `acc`) and their bias-corrected
-        values, all fp32. The corrections 1 - beta**t are taken in fp32,
-        as the JAX package takes them."""
-        t = np.float32(step + 1)
+        values, all fp32."""
+        c1, c2 = self._corrections(step)
         m = self._beta1 * acc["moment1"] + (1 - self._beta1) * g
         v = self._beta2 * acc["moment2"] + (1 - self._beta2) * torch.square(g)
         acc["moment1"].copy_(m)
         acc["moment2"].copy_(v)
-        mhat = m / float(np.float32(1) - np.power(np.float32(self._beta1), t))
-        vhat = v / float(np.float32(1) - np.power(np.float32(self._beta2), t))
-        return mhat, vhat
+        return m / c1, v / c2
+
+    def _kernel_spec(self, lr, step):
+        # a CUDA tensor divided by a Python scalar is a multiply by the
+        # scalar's fp32 reciprocal: the kernel multiplies by these
+        inv = [float(np.float32(1) / np.float32(c))
+               for c in self._corrections(step)]
+        return {"kind": "adam", "accumulators": ("moment1", "moment2"),
+                "hyper": {"b1": self._beta1, "omb1": 1 - self._beta1,
+                          "b2": self._beta2, "omb2": 1 - self._beta2,
+                          "inv_c1": inv[0], "inv_c2": inv[1],
+                          "eps": self._epsilon, "lr": lr,
+                          "wd": self._weight_decay or 0.0}}
 
     def _single_update(self, i, p, g, acc, lr, step):
         g = g.float()
@@ -109,3 +135,8 @@ class AdamW(Adam):
         mhat, vhat = self._moments(g, acc, step)
         p.copy_(pf - lr * (mhat / (torch.sqrt(vhat) + self._epsilon)
                            + self._decay[i] * pf))
+
+    def _kernel_spec(self, lr, step):
+        spec = super()._kernel_spec(lr, step)
+        spec.update(kind="adamw", decay=self._decay)
+        return spec

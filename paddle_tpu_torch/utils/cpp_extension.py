@@ -44,6 +44,9 @@ KERNEL_SOURCES = {
     "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",
                                "attention_bwd.cuh", "attention_mma.cuh"),
     "sdpa_forward": ("sdpa_forward.cu", "attention_mma.cuh"),
+    "sdpa_backward": ("sdpa_backward.cu", "attention_bwd.cuh",
+                      "attention_mma.cuh"),
+    "optimizer_update": ("optimizer_update.cu",),
     "conv_bn_relu": ("conv_bn_relu.cu", "conv_common.cuh", "conv_mma.cuh",
                      "attention_mma.cuh"),
     "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh",

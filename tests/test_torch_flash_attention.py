@@ -280,12 +280,12 @@ def test_masked_sdpa_matches_jax():
 def test_causal_flash_attention_routes_like_jax():
     """Causal Sq == Skv in JAX's order (ROADMAP Queue C 8): head dims 64
     and 128 take `chunked_causal_attention` (its plain version here); a
-    library shape (S 128, D 192) with a gradient needed, as here, and
-    every other head dim (16, 32, 80) are dense, counted in
-    `flash_attention.dense_calls`, as JAX computes them off a TPU; the
-    library shape without a gradient takes B6 (`sdpa_forward`, its plain
-    version here). Outputs, and the gradients of the dense routes through
-    autograd, match JAX's `flash_attention` and `jax.grad` of it."""
+    library shape (S 128, D 192) with a gradient needed, as here, takes
+    `_LibraryAttention` (B6 with its LSE and the library backward, their
+    plain versions here), with or without one B6; every other head dim
+    (16, 32, 80) is dense, counted in `flash_attention.dense_calls`, as
+    JAX computes them off a TPU. Outputs and gradients match JAX's
+    `flash_attention` and `jax.grad` of it."""
     cases = [(64, 64, 1), (32, 128, 1), (128, 192, 0), (48, 16, 0),
              (40, 32, 0), (24, 80, 0)]
     for S, D, to_kernel in cases:
@@ -299,12 +299,17 @@ def test_causal_flash_attention_routes_like_jax():
         tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
         dense = tfa.flash_attention.dense_calls
         plain = tfa.causal_attention_fwd.plain_calls
+        lib = tfa.sdpa_forward.plain_calls, tfa.sdpa_backward.plain_calls
         got = tfa.flash_attention(tq, tk, tv, causal=True)
+        to_lib = int(D == 192)
         assert tfa.causal_attention_fwd.plain_calls - plain == to_kernel
-        assert tfa.flash_attention.dense_calls - dense == 1 - to_kernel
+        assert tfa.sdpa_forward.plain_calls - lib[0] == to_lib
+        assert tfa.flash_attention.dense_calls - dense == \
+            1 - to_kernel - to_lib
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    atol=1e-5, rtol=0, err_msg=str((S, D)))
         got.backward(torch.from_numpy(do))
+        assert tfa.sdpa_backward.plain_calls - lib[1] == to_lib
         for t, j in zip((tq, tk, tv), jgrads):
             np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
                                        atol=1e-4, rtol=0,

@@ -7,7 +7,9 @@ listed for that library, so that a change to the header changes the
 library's hash and rebuilds it. The causal (B2) and shortseq (B13)
 backwards share one source, `attention_bwd.cuh`: each `.cu` keeps only
 thin kernels over its bodies, and `chip_smoke.py`'s profile families
-still tell the two apart by their kernels' names."""
+still tell the two apart by their kernels' names. The library route's
+backward (`sdpa_backward.cu`) runs the header's tensor-core bodies too,
+beside a design of its own, and its profile family is its own."""
 import importlib.util
 import re
 from pathlib import Path
@@ -30,6 +32,8 @@ def _chip_smoke():
 CHIP_SMOKE = _chip_smoke()
 MMA_KERNELS = CHIP_SMOKE.MMA_KERNELS
 BWD_LIBS = ("causal_attention_bwd", "shortseq_attention_bwd")
+# every library that includes attention_bwd.cuh
+HEADER_LIBS = BWD_LIBS + ("sdpa_backward",)
 # the `__device__` bodies of the attention backward, in attention_bwd.cuh
 BWD_BODIES = ("delta_fma", "dkdv_fma", "dq_fma", "delta_mma", "dkdv_mma",
               "dq_mma")
@@ -99,7 +103,7 @@ def test_attention_bwd_header_serves_both_backward_libraries():
              if "attention_bwd.cuh" in _included(lib)}
     listed = {lib for lib, srcs in KERNEL_SOURCES.items()
               if "attention_bwd.cuh" in srcs}
-    assert users == listed == set(BWD_LIBS)
+    assert users == listed == set(HEADER_LIBS)
 
 
 @pytest.mark.parametrize("lib", BWD_LIBS)
@@ -124,7 +128,9 @@ def test_backward_bodies_live_in_the_shared_header_alone(lib):
 # every kernel of the two attention backwards and of the conv backward, as
 # torch.profiler names it, against the family chip_smoke.py files it under
 FAMILY_OF_LIB = {"causal_attention_bwd": "causal_bwd_kernels",
-                 "shortseq_attention_bwd": "shortseq_bwd_kernels"}
+                 "shortseq_attention_bwd": "shortseq_bwd_kernels",
+                 "sdpa_backward": "sdpa_bwd_kernels",
+                 "optimizer_update": "optimizer_update_kernel"}
 
 
 def _profiled_name(kernel):

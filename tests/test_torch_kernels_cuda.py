@@ -22,8 +22,17 @@ The flash forward B6 (`sdpa_forward`): against `sdpa_forward_plain` at each
 dtype and head dim (64 to 256), causal and not, Sq == Skv and Sq != Skv,
 ragged lengths; with peaked logits and a ragged key tail, where a wrong
 online rescale or an unmasked tail key shows; its refusals; `flash_attention`'s library route (B6 with
-no gradient, a raise naming the backward with one); a Transformer on the
-card against the same Transformer on the CPU.
+no gradient, B6's LSE variant and the library backward with one); a
+Transformer on the card against the same Transformer on the CPU. B6's LSE
+variant and the library route's backward (`sdpa_backward`, bf16 on the
+tensor cores to D 256, the wide FMA design for f32 and D 320-512) against
+their plain versions at every head dim to 512, ragged Sq != Skv both
+ways and causal, at B2's bars; a Transformer train step through them.
+
+The one-pass optimizer update against the per-parameter loop it replaces
+(run on the same card): AdamW with a parameter that does not decay, Adam
+with and without L2, Momentum with and without Nesterov and weight decay,
+f32, bf16 and both in one optimizer, bit for bit over three steps.
 
 Conv kernels (B7, B8; bf16 on the tensor cores, f32 in fp32 FMA): against
 `conv_bn_relu_plain` on the card with TF32 off, max |kernel - plain|
@@ -59,7 +68,9 @@ from paddle_tpu_torch.ops.flash_attention import (
     causal_attention_plain, shortseq_attention, shortseq_attention_bwd,
     shortseq_attention_bwd_plain, shortseq_attention_fwd,
     shortseq_attention_plain, flash_attention, pallas_sdpa_forward,
-    sdpa_forward, sdpa_forward_plain)
+    sdpa_backward, sdpa_backward_plain, sdpa_forward, sdpa_forward_plain)
+from paddle_tpu_torch.ops.optimizer_update import (optimizer_update,
+                                                   optimizer_update_plain)
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops.conv import (
     conv1x1_bn_relu, conv1x1_bwd, conv1x1_bwd_plain, conv1x1_train,
@@ -697,10 +708,260 @@ def test_pallas_sdpa_forward_on_the_card(card):
         pallas_sdpa_forward(q, k, v, block_q=96)
 
 
+SDPA_BWD_SHAPES = [(1, 1, True), (63, 63, True), (130, 130, True),
+                   (512, 512, True), (64, 300, False), (257, 128, False),
+                   (128, 384, False), (384, 128, False), (300, 700, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 192, 256, 320, 384, 448, 512])
+@pytest.mark.parametrize("Sq,Skv,causal", SDPA_BWD_SHAPES)
+def test_sdpa_lse_variant_matches_plain(card, dtype, D, Sq, Skv, causal):
+    """B6's LSE variant: the LSE against the plain version's (fp32 from the
+    same products: 1e-3 in bf16, where exp2f and the tile order enter, as
+    the causal forward's LSE; 1e-5 in f32), and O the same bits as the
+    inference instance's; head dims over 256 take the wide design, whose O
+    is held to SDPA_TOL. One launch a call, each counted once more in
+    `.lse_launches`."""
+    q = torch.randn((2, Sq, D), generator=card, device="cuda").to(dtype)
+    k, v = (torch.randn((2, Skv, D), generator=card, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(D)
+    o_ref, l_ref = sdpa_forward_plain(q, k, v, scale, causal,
+                                      return_lse=True)
+    counts = sdpa_forward.launches, sdpa_forward.lse_launches
+    o, lse = sdpa_forward(q, k, v, scale, causal, return_lse=True)
+    o_inf = sdpa_forward(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert (sdpa_forward.launches - counts[0],
+            sdpa_forward.lse_launches - counts[1]) == (2, 1)
+    assert lse.shape == (2, Sq) and lse.dtype == torch.float32
+    lse_tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    assert (lse - l_ref).abs().max().item() <= lse_tol
+    assert torch.equal(o, o_inf)
+    assert sdpa_within_tol(o, o_ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 192, 256, 320, 384, 448, 512])
+@pytest.mark.parametrize("Sq,Skv,causal", SDPA_BWD_SHAPES)
+def test_sdpa_backward_kernel_matches_plain(card, dtype, D, Sq, Skv, causal):
+    """The library route's backward against its plain version from the same
+    forward O and LSE (B6's LSE variant): BWD_TOL, B2's and B13's bars;
+    ragged Sq != Skv both ways, causal up to 512 rows at every head dim
+    (the bf16 tensor-core design up to 256, its dK/dV and dQ in column
+    chunks at 192 and 256; the wide FMA design above and in f32); one
+    launch a call, no plain call, the same bits on a rerun (no
+    atomics)."""
+    q, do = (torch.randn((2, Sq, D), generator=card, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((2, Skv, D), generator=card, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(D)
+    o, lse = sdpa_forward(q, k, v, scale, causal, return_lse=True)
+    ref = sdpa_backward_plain(q, k, v, o, do, lse, scale, causal)
+    launches, plain = sdpa_backward.launches, sdpa_backward.plain_calls
+    got = sdpa_backward(q, k, v, o, do, lse, scale, causal)
+    again = sdpa_backward(q, k, v, o, do, lse, scale, causal)
+    torch.cuda.synchronize()
+    assert (sdpa_backward.launches - launches,
+            sdpa_backward.plain_calls - plain) == (2, 0)
+    assert [(x.dtype, x.shape) for x in got] == [
+        (dtype, q.shape), (dtype, k.shape), (dtype, v.shape)]
+    assert bwd_within_tol(got, ref, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_sdpa_backward_refuses_what_it_does_not_take(card):
+    z = torch.zeros((2, 128, 64), device="cuda")
+    lse = torch.zeros((2, 128), device="cuda")
+    big = torch.zeros((2, 128, 576), device="cuda")
+    with pytest.raises(ValueError, match="512"):
+        sdpa_backward(big, big, big, big, big, lse)
+    with pytest.raises(ValueError, match="lse"):
+        sdpa_backward(z, z, z, z, z, lse[:, :64].contiguous())
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        k = torch.zeros((2, 256, 64), device="cuda")
+        sdpa_backward(z, k, k, z, z, lse, causal=True)
+    with pytest.raises(ValueError, match="share"):
+        sdpa_backward(z, z.bfloat16(), z, z, z, lse)
+
+
+def test_transformer_trains_on_the_card_through_the_library_route(card):
+    """A 1 + 1 layer Transformer (d_model 128, 2 heads: head dim 64) with
+    residual dropout 0.1 and no attention or activation dropout, source
+    640 and target 128 under the causal mask, through TrainStep with AdamW
+    and mse_loss: each step launches B6 with its LSE and the library
+    backward twice (the encoder's self-attention and the cross-attention),
+    the one-pass update once, and no plain version; the decoder's masked
+    self-attention is dense. The losses are finite."""
+    from torch import nn
+
+    from paddle_tpu_torch import AdamW, Transformer, TrainStep
+    from paddle_tpu_torch.ops.nn_ops import mse_loss
+
+    class Seq2Seq(nn.Module):
+        def __init__(self, model, mask):
+            super().__init__()
+            self.model, self.mask = model, mask
+
+        def forward(self, src, tgt):
+            return self.model(src, tgt, tgt_mask=self.mask)
+
+    model = Transformer(128, 2, 1, 1, 256, dropout=0.1, attn_dropout=0.0,
+                        act_dropout=0.0, device="cuda", generator=card)
+    net = Seq2Seq(model.train(),
+                  Transformer.generate_square_subsequent_mask(128))
+    step = TrainStep(net, AdamW(1e-3, parameters=net.parameters()), mse_loss)
+    src, tgt, label = (torch.randn(shape, generator=card, device="cuda")
+                       for shape in ((2, 640, 128), (2, 128, 128),
+                                     (2, 128, 128)))
+    wrappers = (sdpa_forward, sdpa_backward, optimizer_update)
+    before = [(w.launches, w.plain_calls) for w in wrappers]
+    lse = sdpa_forward.lse_launches
+    dense = flash_attention.dense_calls
+    losses = [float(step(src, tgt, label)) for _ in range(2)]
+    assert [(w.launches - a, w.plain_calls - b)
+            for w, (a, b) in zip(wrappers, before)] == [(4, 0), (4, 0),
+                                                         (2, 0)]
+    assert sdpa_forward.lse_launches - lse == 4
+    assert flash_attention.dense_calls == dense
+    assert all(math.isfinite(x) for x in losses)
+
+
+OPT_SIZES = (1, 7, 4097, 2 ** 20 + 3, 5)
+
+
+def _optimizer(kind, params):
+    from paddle_tpu_torch import Adam, AdamW, Momentum
+
+    named = [(f"p{i}", p) for i, p in enumerate(params)]
+    if kind == "adamw":   # parameter p1 does not decay
+        return AdamW(1e-3, parameters=named, weight_decay=0.01,
+                     apply_decay_param_fun=lambda n: n != "p1")
+    if kind == "adam":
+        return Adam(1e-3, parameters=named)
+    if kind == "adam_l2":
+        return Adam(1e-3, parameters=named, weight_decay=0.01)
+    return Momentum(0.1, 0.9, parameters=named,
+                    use_nesterov=kind.startswith("nesterov"),
+                    weight_decay=0.01 if kind.endswith("_wd") else None)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adam", "adam_l2", "momentum",
+                                  "momentum_wd", "nesterov", "nesterov_wd"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
+def test_optimizer_update_is_bitwise_the_loop(card, kind, dtype,
+                                              monkeypatch):
+    """The one-pass kernel against the per-parameter loop (its plain
+    version, run on the same card): parameters and accumulators the same
+    bits after each of three steps, at sizes 1, 7, 4097 and 2^20 + 3,
+    with one parameter's grad None at the second step; one launch a step
+    for each (device, dtype) group, no plain update."""
+    from paddle_tpu_torch.optimizer import optimizer as opt_mod
+
+    dtypes = ([getattr(torch, dtype)] * len(OPT_SIZES) if dtype != "mixed"
+              else [torch.float32, torch.bfloat16] * 3)[:len(OPT_SIZES)]
+    got = [(torch.randn(n, generator=card, device="cuda") * 0.5).to(dt)
+           for n, dt in zip(OPT_SIZES, dtypes)]
+    want = [p.clone() for p in got]
+    opt_k, opt_p = _optimizer(kind, got), _optimizer(kind, want)
+    groups = len(set(dtypes))
+    for step in range(3):
+        grads = [None if (step == 1 and i == 2) else
+                 torch.randn(p.shape, generator=card, device="cuda").to(p.dtype)
+                 for i, p in enumerate(got)]
+        for a, b, g in zip(got, want, grads):
+            a.grad, b.grad = g, None if g is None else g.clone()
+        counts = optimizer_update.launches, optimizer_update.plain_calls
+        opt_k.step()
+        assert (optimizer_update.launches - counts[0],
+                optimizer_update.plain_calls - counts[1]) == (groups, 0)
+        with monkeypatch.context() as m:
+            m.setattr(opt_mod, "optimizer_update", optimizer_update_plain)
+            opt_p.step()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b)), (kind, step)
+        for name, lst in opt_k._accumulators.items():
+            for a, b in zip(lst, opt_p._accumulators[name]):
+                assert torch.equal(_bits(a), _bits(b)), (kind, name, step)
+        opt_k.clear_grad()
+        opt_p.clear_grad()
+
+
+@pytest.mark.parametrize("kind", ["adamw", "nesterov_wd"])
+def test_optimizer_update_takes_any_dense_layout(card, kind, monkeypatch):
+    """Parameters in channels_last and transposed layouts: the kernel
+    against the loop, bitwise, over three steps. The first step's grads
+    are contiguous (copied into the parameters' layout); before the third,
+    one parameter turns contiguous after its accumulators were made
+    (they are laid out anew). A parameter that is not dense raises."""
+    from paddle_tpu_torch.optimizer import optimizer as opt_mod
+
+    def params():
+        g = torch.Generator("cuda").manual_seed(5)
+        w = torch.randn((16, 8, 3, 3), generator=g, device="cuda")
+        t = torch.randn((64, 33), generator=g, device="cuda")
+        return [w.to(torch.bfloat16, memory_format=torch.channels_last),
+                t.to(torch.bfloat16).t(),
+                torch.randn(7, generator=g, device="cuda").to(torch.bfloat16)]
+
+    got, want = params(), params()
+    opt_k, opt_p = _optimizer(kind, got), _optimizer(kind, want)
+    for step in range(3):
+        if step == 2:
+            for ps in (got, want):
+                ps[0].data = ps[0].data.contiguous()
+        for a, b in zip(got, want):
+            g = torch.randn(a.shape, generator=card,
+                            device="cuda").to(a.dtype)
+            if step:
+                g = torch.empty_like(a).copy_(g)
+            a.grad, b.grad = g, g.clone()
+        launches = optimizer_update.launches
+        opt_k.step()
+        assert optimizer_update.launches == launches + 1
+        with monkeypatch.context() as m:
+            m.setattr(opt_mod, "optimizer_update", optimizer_update_plain)
+            opt_p.step()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b)), (kind, step)
+        for name, lst in opt_k._accumulators.items():
+            for a, b, p in zip(lst, opt_p._accumulators[name], got):
+                assert a.stride() == p.stride(), (kind, name, step)
+                assert torch.equal(_bits(a), _bits(b)), (kind, name, step)
+    gap = torch.zeros((8, 16), device="cuda")[:, ::2]
+    gap.grad = torch.zeros_like(gap)
+    with pytest.raises(ValueError, match="dense"):
+        _optimizer(kind, [gap]).step()
+
+
+def test_optimizer_update_refuses_what_it_does_not_take(card):
+    from paddle_tpu_torch import AdamW
+
+    p = torch.zeros(8, device="cuda")
+    opt = AdamW(1e-3, parameters=[p])
+    opt._ensure_state()
+    for g in (torch.zeros(8, device="cuda", dtype=torch.bfloat16),
+              torch.zeros(9, device="cuda")):
+        with pytest.raises(ValueError, match="grad"):
+            optimizer_update(opt, [(0, p, g)], 1e-3, 0)
+    h = torch.zeros(8, device="cuda", dtype=torch.float16)
+    h.grad = torch.zeros_like(h)
+    with pytest.raises(ValueError, match="dtype"):
+        AdamW(1e-3, parameters=[h]).step()
+
+
 def test_sdpa_forward_refuses_what_it_does_not_take(card):
     z = torch.zeros((2, 128, 64), device="cuda")
     for q, k, match in (
-            (torch.zeros((2, 128, 320), device="cuda"),) * 2 + ("256",),
+            (torch.zeros((2, 128, 576), device="cuda"),) * 2 + ("512",),
             (torch.zeros((2, 128, 96), device="cuda"),) * 2 + ("head_dim",),
             (z.half(), z.half(), "dtype"),
             (z.transpose(0, 1), z.transpose(0, 1), "contiguous"),
@@ -716,9 +977,11 @@ def test_sdpa_forward_refuses_what_it_does_not_take(card):
 
 def test_flash_attention_routes_on_the_card(card):
     """Non-causal shortseq shapes launch the shortseq kernel; non-causal
-    library shapes launch B6 when no gradient is needed and raise naming
-    the library route's backward when one is; head dim 320 raises naming
-    B6's limit; shapes no kernel takes are dense."""
+    library shapes launch B6 when no gradient is needed, and B6 with its
+    LSE then the library backward when one is (gradients as the CPU's
+    plain versions give them); head dim 320 runs the same way; head dim
+    576 raises naming the kernels' limit of 512; shapes no kernel takes
+    are dense."""
     x = torch.randn((2, 256, 2, 64), generator=card, device="cuda")
     before = shortseq_attention_fwd.launches
     flash_attention(x, x, x, causal=False)
@@ -729,15 +992,28 @@ def test_flash_attention_routes_on_the_card(card):
     assert sdpa_forward.launches == launches + 1
     assert (got.cpu() - flash_attention(z.cpu(), z.cpu(), z.cpu(),
                                         causal=False)).abs().max() <= 1e-5
-    zg = z.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(zg, zg, zg, causal=False)
+    for shape in ((1, 1024, 2, 64), (1, 128, 1, 320)):
+        zg = torch.randn(shape, generator=card,
+                         device="cuda").requires_grad_()
+        do = torch.randn(shape, generator=card, device="cuda")
+        counts = (sdpa_forward.lse_launches, sdpa_backward.launches,
+                  sdpa_backward.plain_calls)
+        grads = torch.autograd.grad(flash_attention(zg, zg, zg,
+                                                    causal=False),
+                                    zg, do)[0]
+        assert (sdpa_forward.lse_launches - counts[0],
+                sdpa_backward.launches - counts[1],
+                sdpa_backward.plain_calls - counts[2]) == (1, 1, 0)
+        zc = zg.detach().cpu().requires_grad_()
+        want = torch.autograd.grad(flash_attention(zc, zc, zc, causal=False),
+                                   zc, do.cpu())[0]
+        assert (grads.cpu() - want).abs().max().item() <= 1e-4
     with torch.no_grad():
         flash_attention(zg, zg, zg, causal=False)
-    assert sdpa_forward.launches == launches + 2
-    z320 = torch.zeros((1, 128, 1, 320), device="cuda")
-    with pytest.raises(ValueError, match="256"):
-        flash_attention(z320, z320, z320, causal=False)
+    assert sdpa_forward.launches == launches + 4
+    z576 = torch.zeros((1, 128, 1, 576), device="cuda")
+    with pytest.raises(ValueError, match="512"):
+        flash_attention(z576, z576, z576, causal=False)
     dense = flash_attention.dense_calls
     z = torch.zeros((1, 96, 2, 64), device="cuda")
     assert flash_attention(z, z, z, causal=False).shape == z.shape
@@ -997,9 +1273,9 @@ def test_causal_flash_attention_routes_on_the_card(card):
     """Causal self-attention in JAX's order (ROADMAP Queue C 8): head dim
     64 launches the causal kernel; head dim 16 computes densely instead of
     raising (dense_attention's result, counted); a library shape (S 128, D
-    192) launches B6 without a gradient and raises naming the backward
-    with one; a tiny GPT (head dim 16) takes a train step on the card with
-    a finite loss."""
+    192) launches B6 without a gradient, and B6 with its LSE then the
+    library backward with one; a tiny GPT (head dim 16) takes a train step
+    on the card with a finite loss."""
     from paddle_tpu_torch import AdamW, GPTConfig, GPTForCausalLM, TrainStep
     from paddle_tpu_torch.ops.flash_attention import dense_attention
 
@@ -1021,8 +1297,10 @@ def test_causal_flash_attention_routes_on_the_card(card):
     assert (got.cpu() - flash_attention(z.cpu(), z.cpu(), z.cpu(),
                                         causal=True)).abs().max() <= 1e-5
     zg = z.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(zg, zg, zg, causal=True)
+    bwd = sdpa_backward.launches
+    flash_attention(zg, zg, zg, causal=True).sum().backward()
+    assert sdpa_backward.launches == bwd + 1
+    assert zg.grad.shape == z.shape and bool(torch.isfinite(zg.grad).all())
     model = GPTForCausalLM(GPTConfig.tiny(vocab=61, hidden=32, heads=2),
                            device="cuda", generator=card)
     step = TrainStep(model, AdamW(1e-3, parameters=model.parameters()),

@@ -8,8 +8,9 @@ port's library route hands it (Sq != Skv, head dims 128 to 256), against
 the dense `_xla_attention`. The port's `pallas_sdpa_forward` keeps JAX's
 block assert. `flash_attention`'s library route is held to JAX's output,
 and its CPU routing is counted: B6's plain version when no gradient is
-needed, the dense route (counted) when one is; GPT and BERT shapes keep
-their kernels' routes. Same seeded numpy inputs to both packages; fp32;
+needed, `_LibraryAttention`'s plain versions (B6 with its LSE, then the
+library backward) when one is; GPT and BERT shapes keep their kernels'
+routes. Same seeded numpy inputs to both packages; fp32;
 within 1e-5 (fp32 sums in another order).
 
 The bf16 design of the CUDA kernel keeps P at fp32 precision on the
@@ -161,29 +162,35 @@ def test_library_route_routes_like_jax_without_a_gradient(shape, causal,
     (((1, 128, 1, 192), (1, 128, 1, 192)), True),
 ])
 def test_library_route_with_a_gradient_is_dense_on_the_cpu(shape, causal):
-    """When an input requires grad under grad mode, a library shape is
-    computed densely on the CPU (counted), as JAX computes it there; its
-    gradients match `jax.grad`. Grad mode off runs B6's plain version on
-    the same inputs."""
+    """When an input requires grad under grad mode, a library shape takes
+    `_LibraryAttention` on every device: on the CPU B6's plain version
+    with its LSE, then the library backward's plain version (each counted;
+    nothing dense), where JAX computes it densely. Its output matches JAX's
+    `flash_attention` and its gradients `jax.grad`. Grad mode off runs
+    B6's plain version alone on the same inputs. (The name is the test's
+    from before the library route had a backward, when this shape was
+    dense here.)"""
     qs, kvs = shape
     q, k, v = _rand(3 * sum(qs), qs, kvs, kvs)
     do, = _rand(4, qs)
     tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
     before = _counts()
+    bwd = tfa.sdpa_backward.plain_calls
     got = tfa.flash_attention(tq, tk, tv, causal=causal)
-    assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 0, 0, 1)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 0, 0)
     want = np.asarray(jfa.flash_attention(q, k, v, causal=causal))
     np.testing.assert_allclose(got.detach().numpy(), want, atol=ATOL, rtol=0)
     jgrads = jax.grad(lambda a, b, c: jnp.sum(
         jfa.flash_attention(a, b, c, causal=causal) * do),
         argnums=(0, 1, 2))(q, k, v)
     got.backward(torch.from_numpy(do))
+    assert tfa.sdpa_backward.plain_calls == bwd + 1
     for t, j in zip((tq, tk, tv), jgrads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=1e-4,
                                    rtol=0)
     with torch.no_grad():
         tfa.flash_attention(tq, tk, tv, causal=causal)
-    assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 0, 1)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (2, 0, 0, 0)
 
 
 # the split's bar: hi + lo carries p to about 2^-16 relative, and fp32

@@ -240,7 +240,9 @@ def test_flash_attention_routes_like_jax():
     """Non-causal shortseq shapes take `shortseq_attention` (its plain
     version here); non-causal shapes JAX hands to the library kernel on a
     TPU (S 1024) take B6 (`sdpa_forward`, its plain version here) when no
-    gradient is needed, as here, and are dense with one; every other
+    gradient is needed, as here, and `_LibraryAttention` with one (B6 with
+    its LSE, then the library backward, their plain versions here, nothing
+    dense); every other
     non-causal shape (S 96, D 32) is dense on the CPU, as JAX computes it
     there; causal Sq == Skv takes the causal route. Each output matches
     JAX's `flash_attention`. Counts: (shortseq, causal, dense, B6)."""
@@ -262,8 +264,11 @@ def test_flash_attention_routes_like_jax():
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _bshd(21, 1, 1024, 1, 64))
     dense = tfa.flash_attention.dense_calls
-    tfa.flash_attention(q, k, v, causal=False)
-    assert tfa.flash_attention.dense_calls == dense + 1
+    lib = tfa.sdpa_forward.plain_calls, tfa.sdpa_backward.plain_calls
+    tfa.flash_attention(q, k, v, causal=False).sum().backward()
+    assert tfa.flash_attention.dense_calls == dense
+    assert (tfa.sdpa_forward.plain_calls - lib[0],
+            tfa.sdpa_backward.plain_calls - lib[1]) == (1, 1)
 
 
 def test_sdpa_key_mask_route_and_dense_route_match_jax():

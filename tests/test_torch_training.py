@@ -33,7 +33,7 @@ from paddle_tpu.nn import clip as jclip
 from paddle_tpu.optimizer import Adam as JAdam
 from paddle_tpu.optimizer import AdamW as JAdamW
 from paddle_tpu.optimizer import lr as jlr
-from paddle_tpu_torch import (Adam, AdamW, ClipGradByGlobalNorm,
+from paddle_tpu_torch import (Adam, AdamW, ClipGradByGlobalNorm, Momentum,
                               ClipGradByNorm, ClipGradByValue, GPTConfig,
                               GPTForCausalLM, TrainStep,
                               load_paddle_tpu_state)
@@ -198,6 +198,35 @@ def test_optimizer_surface():
     assert plain.get_lr() == 0.2
     with pytest.raises(ValueError, match="parameters"):
         Adam()
+
+
+@pytest.mark.parametrize("make", [
+    lambda ps: AdamW(1e-2, parameters=ps, weight_decay=0.05),
+    lambda ps: Momentum(0.1, 0.9, parameters=ps, use_nesterov=True,
+                        weight_decay=0.01)], ids=["adamw", "momentum"])
+def test_optimizer_accumulators_follow_the_parameter_layout(make):
+    """A channels_last weight and a transposed matrix get accumulators in
+    their own layout, and two steps leave the same values as on the same
+    parameters laid out contiguously."""
+    rng = np.random.default_rng(6)
+    w, t = (rng.standard_normal(s).astype(np.float32)
+            for s in ((4, 3, 3, 3), (5, 6)))
+    laid = [torch.from_numpy(w).to(memory_format=torch.channels_last),
+            torch.from_numpy(t).t()]
+    flat = [torch.from_numpy(w), torch.from_numpy(t.T.copy())]
+    opts = [make(ps) for ps in (laid, flat)]
+    for step in range(2):
+        for ps in (laid, flat):
+            for p, s in zip(ps, (w, t.T)):
+                p.grad = torch.from_numpy(
+                    np.ascontiguousarray(s) * (step + 1.5))
+        for opt in opts:
+            opt.step()
+    for a, b in zip(laid, flat):
+        assert torch.equal(a, b)
+    for name, lst in opts[0]._accumulators.items():
+        for a, p, b in zip(lst, laid, opts[1]._accumulators[name]):
+            assert a.stride() == p.stride() and torch.equal(a, b), name
 
 
 # ---------------------------------------------------------------------------
