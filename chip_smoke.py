@@ -14,6 +14,8 @@ resnet_train_parity
 transformer_parity
     python3 chip_smoke.py --phases build,sdpa_bwd,optimizer_update,\
 transformer_train,transformer_train_parity
+    python3 chip_smoke.py --phases build,optimizer_update,train_accum,\
+train_accum_parity,bert_lamb
 
 Phases, each printing one JSON line:
 
@@ -27,8 +29,9 @@ Phases, each printing one JSON line:
    fails if one has none, if a library of them holds an atomic, if ptxas
    reports a spill in any mma kernel or in any kernel of the library
    route's backward, or if the paged decode or verify library (the split
-   walk and its combine, fp32 FMA) or the one-pass optimizer update holds
-   an atomic or spills.
+   walk and its combine, fp32 FMA), the one-pass optimizer update (with
+   Lars' and Lamb's norm pass) or gradient merge's library holds an atomic
+   or spills.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16
@@ -213,7 +216,22 @@ Phases, each printing one JSON line:
    parameters and accumulators; its device time (torch.profiler) against
    the bytes bound (22 and 14 bytes a parameter), the loop's, and
    torch.optim's (AdamW fused, SGD with momentum) as a yardstick, and the
-   whole step on the host's clock.
+   whole step on the host's clock. Then, over GPT-1.3B's parameters and
+   likewise bitwise: SGD (6 bytes), Adagrad (14), RMSProp (22), centered
+   RMSProp with momentum 0.9 (30, three accumulators), Adadelta (22) and
+   AdamW with bf16 moments (14), beside torch.optim's foreach optimizers;
+   Lamb (lr 0.1, so that the new weights depend on the trust ratio) over
+   GPT-1.3B's parameters (22) and Lars (its velocity drawn below its step,
+   so that the new velocity depends on the norms) over ResNet-50's with
+   biases and BatchNorm excluded from decay (14), within NORM_RULE_TOL of
+   the loop and bitwise equal across two launches from one state, the
+   norm pass alone against its plain version within NORM_PASS_TOL, timed
+   (12 and 4 bytes) and run twice to the same bits, torch._foreach_norm
+   beside Lars'; and gradient merge's kernels over
+   GPT-1.3B-sized bf16 grads, bitwise against their plain versions: the
+   merge (10 bytes an element, beside torch._foreach_add_), the finish
+   (6) and the unscale (4, beside torch's multiply-based
+   _amp_foreach_non_finite_check_and_unscale_).
 29. transformer_train: nn.Transformer() at its defaults (the base model)
    with the paper's dropout (residual 0.1, no attention or activation
    dropout), bf16, AdamW(7e-4, the paper's peak rate) through TrainStep
@@ -231,9 +249,43 @@ Phases, each printing one JSON line:
    AdamW steps; the losses, the gradients and the change of the
    parameters within TRANSFORMER_TRAIN_PARITY_TOL, the CPU's own noise
    beside them.
+31. train_accum: GPT-1.3B in bench.py's training configuration (bf16,
+   AdamW(1e-4), micro-batch 2, seq 2048) through TrainStep with
+   accumulate_steps=4 and GradScaler(2**15): two timed windows of four
+   random micro-batches (after one untimed forward and backward); ms a
+   window and a micro-step, tokens/s, the FLOP share, peak memory beside
+   train's (the fp32 merge buffers add 4 bytes a parameter); the losses
+   finite, no window skipped (the scale still 2**15, two steps counted),
+   exactly 8 merge, 2 finish and 2 update launches, no unscale; then the
+   first window's micro-batches fed again three times, whose mean loss
+   must fall.
+32. train_accum_parity: f32 at train_parity's depth (2 layers, batch 1,
+   seq 256), the same steps on the card and on the CPU, each run from the
+   same weights, with GradScaler(2**15): Momentum(0.1, 0.9), whose step
+   is lr times the grad, over one window of four and then one step with
+   the scaler and no merge (the unscale), the losses and the change of
+   the parameters within TRAIN_PARITY_TOL; then AdamW(1e-4) over two
+   windows of four and two scaler steps, within TRAIN_ACCUM_PARITY_TOL
+   (TRAIN_PARITY_TOL, the change of the parameters held to ten times the
+   CPU's own noise, the same steps from weights 1e-7 apart, at least). Then a window at a scale of 1e38 (the
+   loss times 1e3, so that the scaled grads overflow for certain) must
+   skip: the parameters and AdamW's moments bitwise kept, the scale
+   halved, no finish or update launched; and a ResNet-18 (64 x 64, seeded BatchNorm,
+   Momentum, far mse targets so that the scaled grads overflow for
+   certain) keeps its running statistics, parameters and velocity bitwise
+   through a skipped window.
+33. bert_lamb: BertForPretraining at BERT-base width (bench.py's row 2
+   shape: batch 64, seq 512, bf16, dropouts 0, 15 % of positions
+   labelled) with Lamb(1e-3, lamb_weight_decay=0.01) through TrainStep
+   without a loss_fn (the model returns the MLM + NSP loss; a trailing
+   placeholder is dropped as the label, as in the JAX package): 2 warm-up
+   and 5 timed steps on one batch; ms/step, tokens/s, the FLOP share, peak
+   memory; the losses finite and falling; a step launches the mask-free
+   shortseq kernels 12 times each, Lamb's norm pass once and the update
+   once.
 
-Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 and 30 are
-the main path, in twenty-two runs:
+Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26 and 29 to 33 are
+the main path, in thirty runs:
 the bf16 engine, the bf16 generate(), the f32 engine, the f32 generate(),
 the bf16 train steps, the f32 train steps, the bf16 speculative engine,
 the three f32 engines of spec_parity, the int8 engine, the int8
@@ -241,8 +293,10 @@ speculative engine, BERT's mask-free and padded bf16 train steps, its
 padded eval forwards and its f32 padded steps, the timed bf16 ResNet-50
 forwards, the f32 ResNet-50 forward, the timed bf16 ResNet-50 train steps,
 the f32 ResNet-50 train steps, the timed bf16 Transformer forwards, the
-f32 Transformer forward, the timed bf16 Transformer train steps and the
-f32 Transformer train steps. Kernel counts are set to 0
+f32 Transformer forward, the timed bf16 Transformer train steps, the
+f32 Transformer train steps, the bf16 merge windows, the f32 merge
+windows and scaler steps (Momentum and AdamW), the two skipped windows (GPT and ResNet-18) and the BERT
+Lamb steps. Kernel counts are set to 0
 just before each run and read just after it; each run must launch every
 kernel it takes (PATH_KERNEL: the engine the paged decode kernel,
 generate() the causal forward, training the causal forward and backward,
@@ -255,7 +309,9 @@ kernel 16 times, a ResNet-50 train step the 1x1 and 3x3 train forwards
 eval kernel 16 times as the dX walk, a Transformer forward the flash
 forward B6 12 times, a Transformer train step B6's LSE variant and the
 library route's backward 12 times each; every train step the one-pass
-optimizer update once) and call no plain version.
+optimizer update once; a merge window the merge kernel once a micro-step
+and the finish and the update once; a scaler step without merge the
+unscale once; a Lamb step the norm pass once) and call no plain version.
 `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
 one GPT train step, of one BERT train step, of one bf16 ResNet-50
@@ -292,7 +348,8 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "resnet_train", "resnet_train_parity", "sdpa_fwd",
           "transformer_infer", "transformer_parity", "sdpa_bwd",
           "optimizer_update", "transformer_train",
-          "transformer_train_parity")
+          "transformer_train_parity", "train_accum", "train_accum_parity",
+          "bert_lamb")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -315,6 +372,23 @@ BWD_TOL = {"bfloat16": (1e-2, 1e-5), "float32": (0.0, 1e-5)}
 # (steps * lr).
 TRAIN_PARITY_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-3,
                     "key_bias_step": 1.01}
+# train_accum_parity's AdamW runs (two merge windows; two scaler steps)
+# in TRAIN_PARITY_TOL's terms, the change of the parameters held, as the
+# Transformer's, to "update_noise_x" times the CPU's own noise (the same
+# steps from weights 1e-7 apart), with `update` as its floor: after one or
+# two AdamW steps, m / sqrt(v) is about the sign of each grad, so a grad
+# near zero flips its step on rounding noise. On an H100 the windows read
+# 9.73e-4 and the scaler steps 9.42e-4 against CPU noise of 1.01e-4 and
+# 1.22e-4 (bars 1.01e-3 and 1.22e-3); an earlier run, whose card and CPU
+# models did not start from the same weights, read 2.2e-3. The phase's
+# Momentum runs, whose step is lr times the grad, are held to
+# TRAIN_PARITY_TOL itself.
+TRAIN_ACCUM_PARITY_TOL = dict(TRAIN_PARITY_TOL, update_noise_x=10.0)
+# their learning rate: a step moves a LayerNorm weight (1.0, an fp32 ulp
+# of 1.2e-7) by about 1e-3, so that rounding p - lr * v to fp32 adds
+# little to the change's error (the CPU's own noise read 1.9e-5 and
+# 3.7e-5 at lr 0.1 against 3.7e-4 at 0.01, width 512)
+MOMENTUM_PARITY_LR = 0.1
 # shortseq backward, per sequence (per [S, D] slab of bh): max |kernel -
 # plain| <= rel * max |plain| + abs over the slab. bf16 as BWD_TOL. f32
 # relative: an all-padding sequence has p = 1 on every key, so its
@@ -423,6 +497,8 @@ C9A, C9B = "conv1x1_train", "conv3x3_train"
 C10, C11 = "conv1x1_bwd", "conv3x3_dw"
 SDPA, SBWD = "sdpa_forward", "sdpa_backward"
 OPT = "optimizer_update"
+NORMS = "optimizer_norms"
+MERGE, FINISH, UNSCALE = "grad_merge", "grad_finish", "grad_unscale"
 # the masked variants' launches, counted apart on the same wrappers, and
 # B6's LSE variant's
 SSFM, SSBM = SSF + "_masked", SSB + "_masked"
@@ -451,7 +527,15 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "transformer_infer_bf16": (SDPA,),
                "transformer_f32": (SDPA,),
                "transformer_train_bf16": (SDPA, SDPA_LSE, SBWD, OPT),
-               "transformer_train_f32": (SDPA, SDPA_LSE, SBWD, OPT)}
+               "transformer_train_f32": (SDPA, SDPA_LSE, SBWD, OPT),
+               "train_accum_bf16": (FWD, BWD, MERGE, FINISH, OPT),
+               "train_accum_f32": (FWD, BWD, MERGE, FINISH, OPT),
+               "train_scaler_f32": (FWD, BWD, UNSCALE, OPT),
+               "train_accum_momentum_f32": (FWD, BWD, MERGE, FINISH, OPT),
+               "train_scaler_momentum_f32": (FWD, BWD, UNSCALE, OPT),
+               "train_accum_skip_f32": (FWD, BWD, MERGE),
+               "resnet_accum_skip_f32": (MERGE,),
+               "bert_lamb_bf16": (SSF, SSB, NORMS, OPT)}
 # peak device memory (GB) of the bf16 train phases with the per-parameter
 # optimizer loop, before the update became one pass (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W); each phase fails more than
@@ -459,6 +543,17 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
 LOOP_PEAK_GB = {"train": 21.633068544, "bert_train": 11.866654208,
                 "resnet_train": 13.296258048}
 PEAK_SLACK_GB = 0.5
+# Lars and Lamb on the card against the per-parameter loop on the card, max
+# |kernel - loop| / max |loop| per parameter and accumulator: the norm pass
+# sums in a fixed order that is not torch.sum's, so the norms differ in
+# their last fp32 bits, and a bf16 parameter on a rounding boundary may
+# round the other way: at most one bf16 ulp, 2^-7 of the value
+NORM_RULE_TOL = 2.0 ** -7
+# the norm pass against its plain version on the same inputs, per norm
+# |kernel - plain| / |plain|: both sum the same fp32 squares, in other
+# orders, and take the same square root; the card test's bar
+# (tests/test_torch_kernels_cuda.py), here at the main path's shapes
+NORM_PASS_TOL = 1e-5
 # bench.py's BERT row: batch, heads, seq, head dim
 BERT_SHAPE = (64, 12, 512, 64)
 SPEC_K = 4
@@ -486,9 +581,11 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                                     "conv1x1_bwd_dw_mma_kernel")}
 # libraries without tensor-core kernels held to no atomic (each result the
 # same from run to run) and no spill in any kernel: the split walk of the
-# decode and verify kernels (csrc/paged_split.cuh) and the one-pass
-# optimizer update
-FMA_LIBS = ("paged_verify", "paged_decode", "optimizer_update")
+# decode and verify kernels (csrc/paged_split.cuh), the one-pass
+# optimizer update (with Lars' and Lamb's norm pass, whose sums run in a
+# fixed order) and gradient merge's kernels
+FMA_LIBS = ("paged_verify", "paged_decode", "optimizer_update",
+            "grad_merge")
 # libraries held to no spill in any kernel, not only the mma ones: those,
 # and the library route's backward (its wide FMA design too)
 SPILL_FREE_LIBS = FMA_LIBS + ("sdpa_backward",)
@@ -515,7 +612,12 @@ DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "paged_verify": "split walk, fp32 FMA",
           "paged_verify_int8": "split walk, fp32 FMA",
           "sdpa_bwd": "mma.sync bf16 (D <= 256), wide fp32 FMA",
-          "optimizer_update": "one pass over a device table, fp32"}
+          "optimizer_update": "one pass over a device table, fp32",
+          "optimizer_norms": "per-block sums, then one CTA a parameter in "
+                             "a fixed order, fp32",
+          "grad_merge": "one pass over a device table, fp32",
+          "grad_finish": "one pass over a device table, fp32",
+          "grad_unscale": "one pass over a device table, fp32"}
 # a device-time family of the profiles, by a substring of the kernel's
 # name in lower case, first match wins: the port's conv kernels before
 # cuDNN's (whose names may hold "conv2d"), and the shortseq backward's
@@ -531,7 +633,8 @@ KERNEL_FAMILIES = (
     ("sum_rows_kernel", ("sum_rows",)),
     ("sdpa_fwd_kernel", ("sdpa_fwd",)),
     ("sdpa_bwd_kernels", ("sdpa_delta", "sdpa_dkdv", "sdpa_dq")),
-    ("optimizer_update_kernel", ("optimizer_update",)),
+    ("optimizer_update_kernel", ("optimizer_update", "optimizer_norms")),
+    ("grad_merge_kernels", ("grad_merge", "grad_finish", "grad_unscale")),
     ("cudnn conv", ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
                     "conv2d", "convolve")),
     ("paged_verify_kernel", ("paged_verify",)),
@@ -1270,6 +1373,7 @@ def phase_train(torch, ctx, seed):
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "losses": losses, "refeed_losses": refeed_losses,
            "kernel_counts": counts}
+    ctx["train_peak_gb"] = res["peak_memory_gb"]
     per_step = {k: counts[k]["launches"] / timed for k in (FWD, BWD)}
     res["launches_per_step"] = per_step
     res["optimizer_launches_per_step"] = counts[OPT]["launches"] / timed
@@ -3528,18 +3632,49 @@ def _device_ms(torch, fn, iters, name):
     return _device_breakdown(prof, name)["device_busy_ms"] / iters
 
 
+def _states(opt, params):
+    """The parameters and every accumulator of `opt`, as one list."""
+    return list(params) + [a for k in sorted(opt._accumulators)
+                           for a in opt._accumulators[k]]
+
+
+def _max_rel_err(got, want):
+    """max over tensors of max |got - want| / max |want|; inf where either
+    holds a NaN (Python's max would drop it)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        top = b.float().abs().max().item() if b.numel() else 0.0
+        d = (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+        e = d / top if top else d
+        if math.isnan(e) or math.isnan(top):
+            return math.inf
+        worst = max(worst, e)
+    return worst
+
+
+def _max_abs_err(torch, got, want):
+    """max over tensors of max |got - want|, NaN where either holds one."""
+    errs = [(a.float() - b.float()).abs().max() for a, b in zip(got, want)
+            if a.numel()]
+    return torch.stack(errs).max().item() if errs else 0.0
+
+
 def _update_case(torch, ctx, name, params, make, moments, seed, nbytes,
-                 library):
+                 library, tol=None):
     """One step of the optimizer `make(params)` over `params` (bf16, on the
     card) with grads and accumulators drawn from `seed`: the one-pass
     kernel against the per-parameter loop (the plain version, run on the
-    card on a copy), bitwise over parameters and accumulators; then the
-    kernel's device time against the bytes bound, the loop's and
-    `library`'s (a `torch.optim` optimizer over the same tensors, as a
-    yardstick), each without the host's gaps, and the whole step() of
-    the kernel on the host's clock (the table built and uploaded)."""
+    card on a copy), bitwise over parameters and accumulators, or with
+    `tol` (Lars and Lamb, whose norms sum in another order) within `tol`
+    relative, and then bitwise equal to a second launch from the same
+    state; then the kernel's device time against the bytes bound, the
+    loop's and `library`'s (a `torch.optim` optimizer over the same
+    tensors, as a yardstick; None: no PyTorch call computes it), each
+    without the host's gaps, and the whole step() of the kernel on the
+    host's clock (the table built and uploaded)."""
     from paddle_tpu_torch.ops.optimizer_update import (
-        optimizer_update, optimizer_update_plain)
+        optimizer_norms, optimizer_norms_plain, optimizer_update,
+        optimizer_update_plain)
     from paddle_tpu_torch.optimizer import optimizer as opt_mod
 
     g = torch.Generator("cuda").manual_seed(seed)
@@ -3556,7 +3691,9 @@ def _update_case(torch, ctx, name, params, make, moments, seed, nbytes,
             b.copy_(a)
     for p, c, gr in zip(params, copies, grads):
         p.grad, c.grad = gr, gr
-    launches = optimizer_update.launches
+    start = ([t.clone() for t in _states(opt_k, params)]
+             if tol is not None else None)
+    launches = optimizer_update.launches, optimizer_norms.launches
     opt_k.step()
     saved = opt_mod.optimizer_update
     opt_mod.optimizer_update = optimizer_update_plain
@@ -3565,11 +3702,31 @@ def _update_case(torch, ctx, name, params, make, moments, seed, nbytes,
     finally:
         opt_mod.optimizer_update = saved
     torch.cuda.synchronize()
-    bitwise = (_bitwise_equal(torch, params, copies)
-               and all(_bitwise_equal(torch, opt_k._accumulators[k],
-                                      opt_p._accumulators[k])
-                       for k in opt_k._accumulators))
-    one_launch = optimizer_update.launches == launches + 1
+    got, want = _states(opt_k, params), _states(opt_p, copies)
+    res = {"case": name, "finite": bool(all(
+        torch.isfinite(t).all().item() for t in got))}
+    if tol is None:
+        ok = _bitwise_equal(torch, got, want)
+        res["bitwise_equal_to_the_loop"] = bool(ok)
+        res["max_abs_err"] = 0.0 if ok else None
+    else:
+        err = _max_rel_err(got, want)
+        res.update(max_rel_err_to_the_loop=err, tol=tol,
+                   max_abs_err=_max_abs_err(torch, got, want))
+        first = [t.clone() for t in got]
+        for t, s0 in zip(got, start):
+            t.copy_(s0)
+        opt_k._step_count -= 1
+        opt_k.step()
+        torch.cuda.synchronize()
+        again = _bitwise_equal(torch, _states(opt_k, params), first)
+        res["bitwise_equal_across_two_launches"] = bool(again)
+        ok = err <= tol and again
+        del first, start
+    norm_launches = optimizer_norms.launches - launches[1]
+    one_launch = (optimizer_update.launches
+                  == launches[0] + (1 if tol is None else 2)
+                  and norm_launches == (0 if tol is None else 2))
     del opt_p, copies
     torch.cuda.empty_cache()
     n = sum(p.numel() for p in params)
@@ -3581,25 +3738,129 @@ def _update_case(torch, ctx, name, params, make, moments, seed, nbytes,
         pms = _device_ms(torch, opt_k.step, 2, f"{name}_plain")
     finally:
         opt_mod.optimizer_update = saved
-    lib = library(params)
-    lms = _device_ms(torch, lib.step, 5, f"{name}_library")
-    del lib
+    lms = None
+    if library is not None:
+        lib = library(params)
+        lms = _device_ms(torch, lib.step, 5, f"{name}_library")
+        del lib
     b, by = bound_ms(nbytes * n, 0, "bfloat16")
+    res.update({"params": n, "tensors": len(params),
+                "one_launch": bool(one_launch), "kernel_ms": kms,
+                "step_ms": step_ms, "plain_ms": pms, "library_ms": lms,
+                "bound_ms": b, "bound_by": by, "bytes_per_param": nbytes,
+                "share_of_bound": b / kms,
+                "ok": bool(ok and one_launch and res["finite"])})
+    if tol is not None:
+        group = [(i, p, p.grad) for i, p in enumerate(params)]
+        lr = opt_k.get_lr()
+        norms = [optimizer_norms(opt_k, group, lr, 0) for _ in range(2)]
+        res["norm_pass_bitwise_across_two_launches"] = bool(
+            torch.equal(norms[0], norms[1]))
+        res["ok"] &= res["norm_pass_bitwise_across_two_launches"]
+        plain = optimizer_norms_plain(opt_k, group, lr, 0)
+        diff = (norms[0] - plain).abs()
+        res["norm_pass_max_abs_err"] = diff.max().item()
+        res["norm_pass_max_rel_err"] = (
+            diff / plain.abs().clamp_min(1e-30)).max().item()
+        res["norm_pass_tol"] = NORM_PASS_TOL
+        res["ok"] &= bool(norms[0].shape == plain.shape
+                          and res["norm_pass_max_rel_err"] <= NORM_PASS_TOL)
+        res["norm_pass_ms"] = _device_ms(
+            torch, lambda: optimizer_norms(opt_k, group, lr, 0), 5,
+            f"{name}_norms")
+        res["norm_pass_plain_ms"] = _device_ms(
+            torch, lambda: optimizer_norms_plain(opt_k, group, lr, 0), 2,
+            f"{name}_norms_plain")
+        # the pass reads p and g (Lars, 4 bytes a bf16 parameter), or p, g
+        # and the two fp32 moments (Lamb, 12), and writes a few floats
+        res["norm_pass_bytes_per_param"] = 12 if "lamb" in name else 4
+        res["norm_pass_bound_ms"] = bound_ms(
+            res["norm_pass_bytes_per_param"] * n, 0, "bfloat16")[0]
+        del norms, plain
     for p in params:
         p.grad = None
+    del opt_k
     torch.cuda.empty_cache()
-    return {"case": name, "params": n, "tensors": len(params),
-            "bitwise_equal_to_the_loop": bool(bitwise),
-            "one_launch": bool(one_launch), "kernel_ms": kms,
-            "step_ms": step_ms, "plain_ms": pms, "library_ms": lms,
-            "bound_ms": b,
-            "bound_by": by, "bytes_per_param": nbytes,
-            "share_of_bound": b / kms,
-            "ok": bool(bitwise and one_launch)}
+    return res
+
+
+def _merge_cases(torch, ctx, params, seed):
+    """Gradient merge's kernels over grads of `params`' shapes (bf16) and
+    fp32 buffers, each against its plain version on the card, bitwise:
+    the merge (K1, a micro-step after the first), the finish (K2, scale
+    2^15, K 4) and the unscale (K2, 2^15); device times against the bytes
+    bound (10, 6 and 4 bytes an element), the plain version and, where one
+    PyTorch call computes the same function, the library's
+    (`torch._foreach_add_` for the merge)."""
+    from paddle_tpu_torch.ops.grad_merge import (
+        grad_finish, grad_finish_plain, grad_merge, grad_merge_plain,
+        grad_unscale, grad_unscale_plain)
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    grads = [torch.randn(p.shape, generator=g, device="cuda").to(p.dtype)
+             for p in params]
+    bufs = [torch.randn(p.shape, generator=g, device="cuda") for p in params]
+    n = sum(p.numel() for p in params)
+    cases = []
+
+    def case(name, wrapper, kernel, plain, states, nbytes, library=None,
+             library_note=None):
+        ref = [t.clone() for t in states]
+        work = [t.clone() for t in states]
+        counts = wrapper.launches, wrapper.plain_calls
+        kernel(work)
+        plain(ref)
+        torch.cuda.synchronize()
+        bitwise = _bitwise_equal(torch, work, ref)
+        one = (wrapper.launches - counts[0],
+               wrapper.plain_calls - counts[1]) == (1, 1)
+        del ref
+        kms = _device_ms(torch, lambda: kernel(work), 5, f"{name}_kernel")
+        pms = _device_ms(torch, lambda: plain(work), 2, f"{name}_plain")
+        lms = (_device_ms(torch, lambda: library(work), 5,
+                          f"{name}_library") if library else None)
+        b, by = bound_ms(nbytes * n, 0, "bfloat16")
+        del work
+        torch.cuda.empty_cache()
+        res = {"case": name, "elements": n, "tensors": len(params),
+               "bitwise_equal_to_the_plain_version": bool(bitwise),
+               "one_launch": bool(one), "kernel_ms": kms, "plain_ms": pms,
+               "library_ms": lms, "library_note": library_note,
+               "bound_ms": b, "bound_by": by, "bytes_per_element": nbytes,
+               "share_of_bound": b / kms, "max_abs_err": 0.0 if bitwise
+               else None, "shape": "GPT-1.3B's grads", "dtype": "bfloat16",
+               "ok": bool(bitwise and one)}
+        cases.append(res)
+        return res
+
+    ctx[MERGE] = case(
+        "grad_merge_gpt_1p3b_bf16", grad_merge,
+        lambda b: grad_merge(grads, b, False),
+        lambda b: grad_merge_plain(grads, b, False), bufs, 10,
+        lambda b: torch._foreach_add_(b, grads), "torch._foreach_add_")
+    ctx[FINISH] = case(
+        "grad_finish_gpt_1p3b_bf16", grad_finish,
+        lambda o: grad_finish(o, bufs, 2.0 ** 15, 4),
+        lambda o: grad_finish_plain(o, bufs, 2.0 ** 15, 4), grads, 6)
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    # torch's own unscale (_amp_foreach_non_finite_check_and_unscale_)
+    # multiplies by the reciprocal, a different function, and takes no
+    # bf16 grads: none beside it
+    ctx[UNSCALE] = case(
+        "grad_unscale_gpt_1p3b_bf16", grad_unscale,
+        lambda gs: grad_unscale(gs, 2.0 ** 15, flag),
+        lambda gs: grad_unscale_plain(gs, 2.0 ** 15, flag), grads, 4)
+    ctx[UNSCALE]["flag_after"] = int(flag)
+    ctx[UNSCALE]["ok"] &= int(flag) == 0
+    del grads, bufs
+    torch.cuda.empty_cache()
+    return cases
 
 
 def phase_optimizer_update(torch, ctx, seed):
-    from paddle_tpu_torch import AdamW, GPTForCausalLM, Momentum, resnet50
+    from paddle_tpu_torch import (SGD, Adadelta, Adagrad, AdamW,
+                                  GPTForCausalLM, Lamb, Lars, Momentum,
+                                  RMSProp, resnet50)
 
     res = {"phase": "optimizer_update", "nvidia_smi": ctx.get("smi"),
            "cases": []}
@@ -3608,40 +3869,131 @@ def phase_optimizer_update(torch, ctx, seed):
                          dtype=torch.bfloat16, generator=g)
     named = [(n, p.detach()) for n, p in gpt.named_parameters()]
     del gpt
+    names = [n for n, _ in named]
+    params = [p for _, p in named]
+    # every case starts from the same weights (each runs a dozen steps)
+    init = [p.clone() for p in params]
+
+    def fresh():
+        for p, p0 in zip(params, init):
+            p.copy_(p0)
+        return params
+
+    def no_decay(n):
+        return not (n.endswith("bias") or "norm" in n)
 
     def adamw(ps):
         # biases and norms do not decay: a mixed decay
-        return AdamW(1e-4, parameters=list(zip([n for n, _ in named], ps)),
-                     weight_decay=0.01, apply_decay_param_fun=lambda n: not (
-                         n.endswith("bias") or "norm" in n))
+        return AdamW(1e-4, parameters=list(zip(names, ps)),
+                     weight_decay=0.01, apply_decay_param_fun=no_decay)
 
     gpt_case = _update_case(
-        torch, ctx, "gpt_1p3b_adamw_bf16", [p for _, p in named], adamw,
+        torch, ctx, "gpt_1p3b_adamw_bf16", fresh(), adamw,
         {"moment1": (1e-3, False), "moment2": (1e-6, True)}, seed + 30, 22,
         lambda ps: torch.optim.AdamW(ps, lr=1e-4, fused=True))
     res["cases"].append(gpt_case)
-    ctx["optimizer_update"] = dict(
-        gpt_case, max_abs_err=0.0 if gpt_case["bitwise_equal_to_the_loop"]
-        else None, shape="GPT-1.3B AdamW", dtype="bfloat16")
-    del named
+    ctx["optimizer_update"] = dict(gpt_case, shape="GPT-1.3B AdamW",
+                                   dtype="bfloat16")
+    torch.cuda.empty_cache()
+    # the other elementwise rules over the same parameters, bitwise
+    elementwise = (
+        ("gpt_1p3b_sgd_bf16", lambda ps: SGD(1e-2, parameters=ps), {}, 6,
+         lambda ps: torch.optim.SGD(ps, lr=1e-2, foreach=True)),
+        ("gpt_1p3b_adagrad_bf16",
+         lambda ps: Adagrad(1e-2, parameters=ps,
+                            initial_accumulator_value=0.1),
+         {"moment": (1.0, True)}, 14,
+         lambda ps: torch.optim.Adagrad(ps, lr=1e-2, foreach=True)),
+        ("gpt_1p3b_rmsprop_bf16", lambda ps: RMSProp(1e-3, parameters=ps),
+         {"mean_square": (1.0, True), "momentum": (1e-3, False)}, 22,
+         lambda ps: torch.optim.RMSprop(ps, lr=1e-3, alpha=0.95,
+                                        foreach=True)),
+        ("gpt_1p3b_rmsprop_centered_bf16",
+         lambda ps: RMSProp(1e-3, momentum=0.9, centered=True,
+                            parameters=ps),
+         # mean_grad at 1e-4: mean_square - mean_grad^2 stays above
+         # -eps after the step, where sqrt would give NaN
+         {"mean_square": (1.0, True), "momentum": (1e-3, False),
+          "mean_grad": (1e-4, False)}, 30,
+         lambda ps: torch.optim.RMSprop(ps, lr=1e-3, alpha=0.95,
+                                        momentum=0.9, centered=True,
+                                        foreach=True)),
+        ("gpt_1p3b_adadelta_bf16", lambda ps: Adadelta(1.0, parameters=ps),
+         {"avg_squared_grad": (1.0, True),
+          "avg_squared_update": (1e-6, True)}, 22,
+         lambda ps: torch.optim.Adadelta(ps, lr=1.0, rho=0.95,
+                                         foreach=True)),
+        ("gpt_1p3b_adamw_bf16_moments",
+         lambda ps: AdamW(1e-4, parameters=list(zip(names, ps)),
+                          weight_decay=0.01, apply_decay_param_fun=no_decay,
+                          multi_precision=False),
+         {"moment1": (1e-3, False), "moment2": (1e-6, True)}, 14,
+         lambda ps: torch.optim.AdamW(ps, lr=1e-4, fused=True)))
+    for k, (name, make, moments, nbytes, library) in enumerate(elementwise):
+        res["cases"].append(_update_case(torch, ctx, name, fresh(), make,
+                                         moments, seed + 32 + k, nbytes,
+                                         library))
+        torch.cuda.empty_cache()
+    # lr 0.1: a step moves each weight about a tenth of its size, some 25
+    # bf16 ulps, so the new parameters depend on the trust ratio (at 1e-3
+    # most steps are below half an ulp, and the moments do not depend on
+    # the norms)
+    lamb = _update_case(
+        torch, ctx, "gpt_1p3b_lamb_bf16", fresh(),
+        lambda ps: Lamb(0.1, lamb_weight_decay=0.01, parameters=ps),
+        {"moment1": (1e-3, False), "moment2": (1e-6, True)}, seed + 40, 22,
+        None, tol=NORM_RULE_TOL)
+    res["cases"].append(lamb)
+    ctx[NORMS] = {"kernel_ms": lamb["norm_pass_ms"],
+                  "bound_ms": lamb["norm_pass_bound_ms"], "bound_by":
+                  "bytes", "plain_ms": lamb["norm_pass_plain_ms"],
+                  "library_ms": None,
+                  "max_abs_err": lamb["norm_pass_max_abs_err"],
+                  "shape": "GPT-1.3B Lamb", "dtype": "bfloat16"}
+    torch.cuda.empty_cache()
+    res["cases"] += _merge_cases(torch, ctx, params, seed + 41)
+    del named, params, init
     torch.cuda.empty_cache()
     g = torch.Generator("cuda").manual_seed(seed)
     rn = resnet50(num_classes=1000, device="cuda", generator=g).to(
         torch.bfloat16)
-    params = [p.detach() for p in rn.parameters()]
+    rnamed = [(n, p.detach()) for n, p in rn.named_parameters()]
     del rn
+    params = [p for _, p in rnamed]
     res["cases"].append(_update_case(
         torch, ctx, "resnet50_momentum_bf16", params,
         lambda ps: Momentum(0.1, 0.9, parameters=ps),
         {"velocity": (1e-2, False)}, seed + 31, 14,
         lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9)))
-    del params
+    # Lars, biases and BatchNorm excluded from decay by name; the velocity
+    # drawn at 1e-6, below the step lr * local_lr * g (about 6e-6 for a
+    # conv weight), so that the new velocity follows the norms
+    lars = _update_case(
+        torch, ctx, "resnet50_lars_bf16", params,
+        lambda ps: Lars(0.1, 0.9, parameters=list(zip(
+            [n for n, _ in rnamed], ps)),
+            exclude_from_weight_decay=["bias", "bn"]),
+        {"velocity": (1e-6, False)}, seed + 42, 14, None,
+        tol=NORM_RULE_TOL)
+    # torch._foreach_norm computes Lars' two norms a tensor in one call
+    for p in params:
+        p.grad = torch.randn_like(p)
+    lars["norm_pass_library_ms"] = _device_ms(
+        torch, lambda: torch._foreach_norm(params + [p.grad for p in params]),
+        5, "lars_norms_library")
+    lars["norm_pass_library"] = "torch._foreach_norm over p and g"
+    for p in params:
+        p.grad = None
+    res["cases"].append(lars)
+    del params, rnamed
     torch.cuda.empty_cache()
+    ctx[NORMS]["library_lars_ms"] = lars["norm_pass_library_ms"]
     res["ok"] = bool(all(c["ok"] for c in res["cases"]))
     emit(res)
     if not res["ok"]:
-        raise AssertionError("the one-pass optimizer update differs from "
-                             "the per-parameter loop")
+        raise AssertionError("the one-pass optimizer update or gradient "
+                             "merge's kernels differ from their plain "
+                             "versions")
 
 
 def _fp32_mse(out, label):
@@ -3854,6 +4206,309 @@ def phase_transformer_train_parity(torch, ctx, seed):
                              "from the CPU")
 
 
+def phase_train_accum(torch, ctx, seed):
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+    from paddle_tpu_torch.amp import GradScaler
+
+    cfg = _bench_config()
+    batch, seq, K, windows, refeed = 2, 2048, 4, 2, 3
+    g = torch.Generator("cuda").manual_seed(seed)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=g).train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15)
+    step = TrainStep(model, opt, model.loss_fn, accumulate_steps=K,
+                     scaler=scaler)
+    rng = np.random.RandomState(seed + 50)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (windows * K, batch, seq))
+                           .astype(np.int64)).cuda()
+    # warm the forward and backward (no step) and make AdamW's moments,
+    # then two timed windows of K micro-batches each, one random batch a
+    # micro-step, each window timed on its own (the first also allocates
+    # the fp32 merge buffers)
+    model(ids[0], labels=ids[0]).backward()
+    model.zero_grad(set_to_none=True)
+    opt._ensure_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+
+    def timed_windows():
+        out = []
+        for w in range(windows):
+            t0 = time.perf_counter()
+            out += [step(x, x) for x in ids[w * K:(w + 1) * K]]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return out
+
+    losses = _counted(torch, ctx, "train_accum_bf16", timed_windows,
+                      exact={MERGE: windows * K, FINISH: windows,
+                             OPT: windows, UNSCALE: 0})
+    wall = walls[-1]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    steps_done, scale = opt._step_count, scaler.get_scale()
+    # the first window's micro-batches fed again: the window's mean loss
+    # must fall
+    refed = [[float(step(x, x)) for x in ids[:K]] for _ in range(refeed)]
+    means = [sum(w) / K for w in refed]
+    n = model.num_params()
+    res = {"phase": "train_accum", "config": "bench.py gpt_1p3b train "
+           "(vocab 32768, hidden 2048, 24 layers, 16 heads, seq 2048, "
+           "dropout 0), bf16 params, AdamW(1e-4), micro-batch 2, "
+           "accumulate_steps 4, GradScaler(2**15)", "params": n,
+           "windows": windows, "micro_steps": windows * K,
+           "ms_by_window": [w * 1e3 for w in walls],
+           "ms_per_micro_step_last_window": wall / K * 1e3,
+           "tokens_per_s_last_window": batch * seq * K / wall,
+           "model_flop_share_of_989tflops_last_window":
+               model.flops_per_token(seq) * batch * seq * K / wall
+               / PEAK_FLOPS["bfloat16"],
+           "peak_memory_gb": peak,
+           "peak_memory_gb_of_train": ctx.get("train_peak_gb"),
+           "merge_buffers_gb": 4 * n / 1e9, "losses": losses,
+           "step_count_after_the_timed_windows": steps_done,
+           "scale_after_the_timed_windows": scale,
+           "refeed_window_mean_losses": means,
+           "kernel_counts": ctx["paths"]["train_accum_bf16"],
+           "nvidia_smi": ctx.get("smi")}
+    res["ok"] = bool(all(math.isfinite(x) for x in losses + sum(refed, []))
+                     and steps_done == windows and scale == 2.0 ** 15
+                     and means[-1] < means[0])
+    emit(res)
+    del step, model, opt
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("train_accum phase failed its checks")
+
+
+def phase_train_accum_parity(torch, ctx, seed):
+    from paddle_tpu_torch import (AdamW, GPTForCausalLM, Momentum,
+                                  TrainStep, resnet18)
+    from paddle_tpu_torch.amp import GradScaler
+
+    cfg = _bench_config()
+    cfg.num_layers = 2
+    K, windows, batch, seq, lr = 4, 2, 1, 256, 1e-4
+    g = torch.Generator("cuda").manual_seed(seed)
+    card = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                          generator=g).train()
+    host = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32).train()
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.RandomState(seed + 51)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (windows * K, batch, seq))
+                           .astype(np.int64))
+
+    def run(model, x, k, n, make, rate):
+        """`n` calls of a TrainStep with `accumulate_steps=k`, the
+        optimizer `make(parameters, rate)` and a GradScaler(2**15) over
+        the batches `x`: (losses, parameter changes, the step)."""
+        before = {m: p.detach().clone() for m, p in model.named_parameters()}
+        step = TrainStep(model, make(model.parameters(), rate),
+                         model.loss_fn, accumulate_steps=k,
+                         scaler=GradScaler(init_loss_scaling=2.0 ** 15))
+        losses = [float(step(b, b)) for b in x[:n]]
+        return losses, {m: p.detach() - before[m]
+                        for m, p in model.named_parameters()}, step
+
+    def adamw(ps, rate):
+        return AdamW(learning_rate=rate, parameters=ps)
+
+    def momentum(ps, rate):
+        return Momentum(learning_rate=rate, momentum=0.9, parameters=ps)
+
+    res = {"phase": "train_accum_parity", "dtype": "float32", "config":
+           "bench widths, 2 layers, batch 1, seq 256, GradScaler(2**15); "
+           f"Momentum({MOMENTUM_PARITY_LR}, 0.9), then AdamW({lr})",
+           "tol": TRAIN_PARITY_TOL, "adamw_tol": TRAIN_ACCUM_PARITY_TOL,
+           "nvidia_smi": ctx.get("smi")}
+    start = {k: v.detach().cpu().clone() for k, v in
+             card.state_dict().items()}
+    # the CPU's own noise: the same steps from weights 1e-7 apart
+    nudged = {k: v * (1 + 1e-7) for k, v in start.items()}
+    ok = True
+    # Momentum first, held to TRAIN_PARITY_TOL: its step is lr times the
+    # grad, so a grad off by K or by the scale moves the change by that
+    # factor (AdamW's m / sqrt(v) would hide it): one window of four, then
+    # one scaler step without merge (the unscale). Then AdamW as
+    # train_accum runs it, held to TRAIN_ACCUM_PARITY_TOL: two windows of
+    # four, then two scaler steps. Each run from the same weights
+    for key, k, n, make, rate, tol, exact in (
+            ("train_accum_momentum_f32", K, K, momentum,
+             MOMENTUM_PARITY_LR, TRAIN_PARITY_TOL,
+             {MERGE: K, FINISH: 1, OPT: 1}),
+            ("train_scaler_momentum_f32", 1, 1, momentum,
+             MOMENTUM_PARITY_LR, TRAIN_PARITY_TOL,
+             {UNSCALE: 1, OPT: 1, MERGE: 0}),
+            ("train_accum_f32", K, windows * K, adamw, lr,
+             TRAIN_ACCUM_PARITY_TOL,
+             {MERGE: windows * K, FINISH: windows, OPT: windows}),
+            ("train_scaler_f32", 1, 2, adamw, lr, TRAIN_ACCUM_PARITY_TOL,
+             {UNSCALE: 2, OPT: 2, MERGE: 0})):
+        card.load_state_dict(start)
+        host.load_state_dict(start)
+        got, d_card, cstep = _counted(
+            torch, ctx, key,
+            lambda: run(card, ids.cuda(), k, n, make, rate), exact=exact)
+        want, d_host, _ = run(host, ids, k, n, make, rate)
+        bar, noise_part = tol, None
+        if "update_noise_x" in tol:
+            host.load_state_dict(nudged)
+            n_losses, d_noise, _ = run(host, ids, k, n, make, rate)
+            noise = _update_errs(torch, d_noise, d_host, tol, rate, n // k)
+            bar = dict(tol, update=max(tol["update"], tol["update_noise_x"]
+                                       * noise["update_rel_err"]))
+            noise_part = {
+                "loss_max_abs_diff": max(abs(a - b) for a, b in
+                                         zip(n_losses, want)),
+                "update_rel_err": noise["update_rel_err"],
+                "update_worst_leaf": noise["update_worst_leaf"]}
+        diffs = [abs(a - b) for a, b in zip(got, want)]
+        upd = _update_errs(torch, d_card, d_host, bar, rate, n // k)
+        part = {"card_losses": got, "cpu_losses": want,
+                "loss_max_abs_diff": max(diffs), **upd,
+                "update_bar": bar["update"], "cpu_noise": noise_part,
+                "step_count": cstep.optimizer._step_count,
+                "kernel_counts": ctx["paths"][key]}
+        part["ok"] = bool(max(diffs) <= tol["loss"] and upd["update_ok"]
+                          and all(math.isfinite(x) for x in got)
+                          and cstep.optimizer._step_count == n // k)
+        res[key] = part
+        ok &= part["ok"]
+    # a window at a scale that overflows: skipped, the parameters and the
+    # accumulators (the scaler run's moments) bitwise kept, the scale
+    # halved. The loss times 1e3, as the JAX package's test of the skip
+    # makes its loss large, so that the scaled grads overflow for certain
+    # (cross entropy's grads at 1e38 need not: the card's did not)
+    opt = cstep.optimizer
+    scaler = GradScaler(init_loss_scaling=1e38, decr_every_n_nan_or_inf=1)
+    skip = TrainStep(card, opt, lambda out, y: card.loss_fn(out, y) * 1e3,
+                     accumulate_steps=K, scaler=scaler)
+    kept = [t.clone() for t in _states(opt, opt._parameter_list)]
+    xs = ids.cuda()
+    _counted(torch, ctx, "train_accum_skip_f32",
+             lambda: [skip(b, b) for b in xs[:K]],
+             exact={MERGE: K, FINISH: 0, OPT: 0})
+    gpt_kept = _bitwise_equal(torch, _states(opt, opt._parameter_list), kept)
+    res["skip"] = {"params_and_accumulators_bitwise_kept": bool(gpt_kept),
+                   "scale_after": scaler.get_scale(),
+                   "step_count": opt._step_count}
+    ok &= gpt_kept and scaler.get_scale() == 0.5e38 and \
+        opt._step_count == 2
+    del card, host, kept, opt, cstep, skip
+    torch.cuda.empty_cache()
+    # and a BatchNorm model's running statistics
+    g = torch.Generator("cuda").manual_seed(seed)
+    net = resnet18(num_classes=10, device="cuda", generator=g).train()
+    _seed_bn(torch, net, seed + 52)
+    mom = Momentum(0.1, 0.9, parameters=net.parameters())
+    scaler = GradScaler(init_loss_scaling=1e38, decr_every_n_nan_or_inf=1)
+    # far targets, as the JAX package's test of the skip: its scaled grads
+    # overflow for certain (cross entropy at 1e38 need not)
+    bn_step = TrainStep(net, mom, _fp32_mse, accumulate_steps=2,
+                        scaler=scaler)
+    x = torch.rand((2, 2, 3, 64, 64), generator=g, device="cuda") * 2 - 1
+    y = torch.full((2, 2, 10), 1e3, device="cuda")
+    mom._ensure_state()
+    kept = [t.clone() for t in list(net.buffers())
+            + _states(mom, mom._parameter_list)]
+    _counted(torch, ctx, "resnet_accum_skip_f32",
+             lambda: [bn_step(a, b) for a, b in zip(x, y)],
+             exact={MERGE: 2, FINISH: 0, OPT: 0})
+    bn_kept = _bitwise_equal(torch, list(net.buffers())
+                             + _states(mom, mom._parameter_list), kept)
+    res["skip"].update(
+        resnet18_running_stats_params_and_velocity_bitwise_kept=bool(
+            bn_kept), resnet18_scale_after=scaler.get_scale(),
+        resnet18_buffers=len(list(net.buffers())))
+    ok &= bn_kept and scaler.get_scale() == 0.5e38
+    res["ok"] = bool(ok)
+    emit(res)
+    del net, mom, bn_step, kept
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("train_accum_parity phase failed its checks")
+
+
+def phase_bert_lamb(torch, ctx, seed):
+    from paddle_tpu_torch import (BertConfig, BertForPretraining, Lamb,
+                                  TrainStep)
+
+    cfg = BertConfig.bert_base()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    batch, _, seq, _ = BERT_SHAPE
+    warm, timed, L = 2, 5, cfg.num_layers
+    g = torch.Generator("cuda").manual_seed(seed)
+    model = BertForPretraining(cfg, device="cuda", dtype=torch.bfloat16,
+                               generator=g).eval()
+    opt = Lamb(learning_rate=1e-3, lamb_weight_decay=0.01,
+               parameters=model.parameters())
+    # no loss_fn: the model returns the MLM + NSP loss
+    step = TrainStep(model, opt)
+    rng = np.random.RandomState(seed + 53)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq))
+                           .astype(np.int64)).cuda()
+    mlm = torch.full((batch, seq), -100, dtype=torch.int64)
+    picked = torch.from_numpy(rng.rand(batch, seq) < 0.15)
+    mlm[picked] = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, int(picked.sum())).astype(np.int64))
+    mlm = mlm.cuda()
+    nsp = torch.from_numpy(rng.randint(0, 2, batch).astype(np.int64)).cuda()
+
+    def call():
+        # the trailing positional is split off as the label and dropped,
+        # as in the JAX package: the model gets (ids, token types, mask,
+        # mlm labels, nsp labels) and nsp is repeated as the placeholder
+        return step(ids, None, None, mlm, nsp, nsp)
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(call()) for _ in range(warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed_losses = _counted(torch, ctx, "bert_lamb_bf16",
+                            lambda: [call() for _ in range(timed)],
+                            exact={SSF: L * timed, SSB: L * timed,
+                                   SSFM: 0, SSBM: 0, NORMS: timed,
+                                   OPT: timed})
+    wall = time.perf_counter() - t0
+    losses += [float(x) for x in timed_losses]
+    emb = model.bert.embeddings
+    n_embed = sum(e.weight.numel() for e in (
+        emb.word_embeddings, emb.position_embeddings,
+        emb.token_type_embeddings))
+    n = sum(p.numel() for p in model.parameters())
+    # 6 N over the matmul parameters, the tied MLM decoder (vocab x
+    # hidden, a matmul over the word embeddings) and the attention
+    fpt = (6 * (n - n_embed) + 6 * cfg.vocab_size * cfg.hidden_size
+           + 12 * L * cfg.hidden_size * seq)
+    tok_s = batch * seq * timed / wall
+    res = {"phase": "bert_lamb", "config": "BertForPretraining at "
+           "BertConfig.bert_base() (vocab 30522, hidden 768, 12 layers, 12 "
+           "heads, FFN 3072), dropouts 0, eval mode, bf16 params, "
+           "Lamb(1e-3, lamb_weight_decay=0.01), TrainStep without loss_fn "
+           "(the model's MLM + NSP loss), batch 64 x seq 512, 15 % of "
+           "positions labelled", "params": n, "flops_per_token": fpt,
+           "warmup_steps": warm, "timed_steps": timed,
+           "ms_per_step": wall / timed * 1e3, "tokens_per_s": tok_s,
+           "model_flop_share_of_989tflops": fpt * tok_s
+           / PEAK_FLOPS["bfloat16"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "step_count": opt._step_count,
+           "kernel_counts": ctx["paths"]["bert_lamb_bf16"],
+           "nvidia_smi": ctx.get("smi")}
+    res["ok"] = bool(all(math.isfinite(x) for x in losses)
+                     and losses[-1] < losses[0]
+                     and opt._step_count == warm + timed)
+    emit(res)
+    del step, model, opt
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("bert_lamb phase failed its checks")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3888,7 +4543,10 @@ def main(argv=None):
     from paddle_tpu_torch.ops.flash_attention import (
         causal_attention_bwd, causal_attention_fwd, sdpa_backward,
         sdpa_forward, shortseq_attention_bwd, shortseq_attention_fwd)
-    from paddle_tpu_torch.ops.optimizer_update import optimizer_update
+    from paddle_tpu_torch.ops.grad_merge import (grad_finish, grad_merge,
+                                                 grad_unscale)
+    from paddle_tpu_torch.ops.optimizer_update import (optimizer_norms,
+                                                       optimizer_update)
     from paddle_tpu_torch.ops.paged_decode import (
         paged_decode_attention, paged_decode_attention_int8)
     from paddle_tpu_torch.ops.paged_verify import (
@@ -3904,7 +4562,8 @@ def main(argv=None):
                         shortseq_attention_bwd, conv1x1_bn_relu,
                         conv3x3_bn_relu, conv1x1_train, conv3x3_train,
                         conv1x1_bwd, conv3x3_dw, sdpa_forward,
-                        sdpa_backward, optimizer_update)}
+                        sdpa_backward, optimizer_update, optimizer_norms,
+                        grad_merge, grad_finish, grad_unscale)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -3967,8 +4626,14 @@ def main(argv=None):
                 phase_optimizer_update(torch, ctx, SEED)
             elif name == "transformer_train":
                 phase_transformer_train(torch, ctx, SEED)
-            else:
+            elif name == "transformer_train_parity":
                 phase_transformer_train_parity(torch, ctx, SEED)
+            elif name == "train_accum":
+                phase_train_accum(torch, ctx, SEED)
+            elif name == "train_accum_parity":
+                phase_train_accum_parity(torch, ctx, SEED)
+            else:
+                phase_bert_lamb(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -4029,7 +4694,19 @@ def main(argv=None):
              "paddle_tpu/ops/pallas/flash_attention.py:712"),
             ("optimizer_update", OPT,
              "paddle_tpu_torch/csrc/optimizer_update.cu",
-             "paddle_tpu/optimizer/optimizer.py:71")):
+             "paddle_tpu/optimizer/optimizer.py:71"),
+            # no Pallas counterpart either: Lars' and Lamb's norms
+            # (optimizers.py:258 and :298, the pass on the main path is
+            # Lamb's), and gradient merge's elementwise work, which XLA
+            # fuses into the compiled steps
+            (NORMS, NORMS, "paddle_tpu_torch/csrc/optimizer_update.cu",
+             "paddle_tpu/optimizer/optimizers.py:298"),
+            (MERGE, MERGE, "paddle_tpu_torch/csrc/grad_merge.cu",
+             "paddle_tpu/jit/api.py:634"),
+            (FINISH, FINISH, "paddle_tpu_torch/csrc/grad_merge.cu",
+             "paddle_tpu/jit/api.py:625"),
+            (UNSCALE, UNSCALE, "paddle_tpu_torch/csrc/grad_merge.cu",
+             "paddle_tpu/jit/api.py:528")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

@@ -15,6 +15,12 @@ Ported so far:
 - training of the GPT: `jit.TrainStep` over the model's loss, AdamW or
   Adam (`optimizer`), LR schedulers (`optimizer.lr`) and gradient
   clipping (`nn`), with the causal attention backward kernel;
+- the rest of training's surface: gradient merge
+  (`TrainStep(accumulate_steps=)`), loss scaling (`amp.GradScaler`, eager
+  and inside `TrainStep(scaler=)`), `with_outputs`, a model that returns
+  its own loss, and SGD, Adagrad, RMSProp, Adadelta, Lars and Lamb, with
+  the merge, unscale and norm kernels (`ops.grad_merge`,
+  `ops.optimizer_update`);
 - speculative decoding (`spec_decode_k`) and int8 KV pools on the engine,
   with the paged verify kernel and the int8 paged kernels;
 - the encoder path: BERT/ERNIE (`models.bert`) through
@@ -34,7 +40,7 @@ Ported so far:
   cross-attention take the flash forward kernel B6
   (`ops.flash_attention.sdpa_forward`, also behind `pallas_sdpa_forward`).
 """
-from . import optimizer, vision
+from . import amp, optimizer, vision
 from .device import resolve_device
 from .inference.engine import GenerationEngine, PagedKVCache, Request
 from .jit import TrainStep
@@ -47,15 +53,17 @@ from .nn import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                  MultiHeadAttention, Transformer, TransformerDecoder,
                  TransformerDecoderLayer, TransformerEncoder,
                  TransformerEncoderLayer)
-from .optimizer import Adam, AdamW, Momentum
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, AdamW, Lamb, Lars,
+                        Momentum, RMSProp)
 from .vision.models import resnet18, resnet34, resnet50, resnet101, resnet152
 
 __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "GPTConfig", "GPTForCausalLM", "BertConfig", "BertModel",
            "ErnieModel", "BertForSequenceClassification",
            "BertForPretraining", "load_paddle_tpu_state",
-           "paddle_tpu_state", "TrainStep", "Momentum", "Adam", "AdamW",
-           "optimizer",
+           "paddle_tpu_state", "TrainStep", "SGD", "Momentum", "Adam",
+           "AdamW", "Adagrad", "RMSProp", "Adadelta", "Lars", "Lamb",
+           "optimizer", "amp",
            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
            "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",

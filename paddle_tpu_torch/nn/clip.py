@@ -57,10 +57,12 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """All grads together: scaled by clip_norm / max(global norm,
-    clip_norm)."""
+    clip_norm). `group_name` is kept and has no effect on one device, as in
+    the JAX package."""
 
-    def __init__(self, clip_norm):
+    def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
+        self.group_name = group_name
 
     def _clip(self, grads):
         sq = [_sq_norm(g) for g in grads if g is not None]

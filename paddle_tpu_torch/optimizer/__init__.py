@@ -1,7 +1,9 @@
-"""Optimizers of the port: the base, Momentum, Adam and AdamW, and the LR schedulers
-(`optimizer.lr`)."""
+"""Optimizers of the port: the base, SGD, Momentum, Adam, AdamW, Adagrad,
+RMSProp, Adadelta, Lars and Lamb, and the LR schedulers (`optimizer.lr`)."""
 from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW, Momentum
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, AdamW, Lamb, Lars,
+                         Momentum, RMSProp)
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "RMSProp", "Adadelta", "Lars", "Lamb", "lr"]

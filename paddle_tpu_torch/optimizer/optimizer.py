@@ -4,7 +4,8 @@ python/paddle/optimizer/optimizer.py).
 The update runs eagerly in place, in fp32 where the JAX package computes
 in fp32; the accumulators are plain tensors on each parameter's device.
 `step` clips the grads with `grad_clip` first, then updates every
-parameter that has a grad, then counts the step. The parameters are
+parameter that has a grad, then counts the step; `TrainStep` hands its own
+grads to the same update (`_update`). The parameters are
 updated in groups of one device and one dtype through
 `ops.optimizer_update`: on the card one kernel launch a group applies
 `_single_update`'s arithmetic to all of them in one pass (the JAX
@@ -26,10 +27,11 @@ class Optimizer:
     such as `model.named_parameters()`; the names are what a per-parameter
     rule (AdamW's `apply_decay_param_fun`) sees, and are '' for bare
     tensors. `learning_rate` is a float or an `LRScheduler`, which the
-    optimizer calls and never steps."""
+    optimizer calls and never steps. `name` is accepted and has no effect,
+    as in the JAX package."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None):
+                 weight_decay=None, grad_clip=None, name=None):
         if parameters is None:
             raise ValueError("parameters must be provided")
         named = [item if isinstance(item, tuple) else ("", item)
@@ -58,8 +60,9 @@ class Optimizer:
     def _kernel_spec(self, lr, step):
         """What the one-pass kernel needs to apply `_single_update`: the
         rule (`kind`, a key of `ops.optimizer_update.KINDS`), the names of
-        the one or two fp32 accumulators, the scalars (`hyper`) and, for
-        AdamW, the per-parameter `decay`."""
+        its accumulators (none to three, in the kernel's order), the
+        scalars (`hyper`) and, for AdamW and Lars, the per-parameter
+        `decay`."""
         raise NotImplementedError(f"{type(self).__name__} has no one-pass "
                                   "kernel on the card yet")
 
@@ -80,8 +83,14 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
+        self._update([(p, p.grad) for p in self._parameter_list])
+
+    @torch.no_grad()
+    def _update(self, pg):
+        """Clip and apply one step to `pg`, the (parameter, grad or None)
+        pairs aligned with the parameter list; parameters whose grad is
+        None are left alone. Counts the step unless every grad is None."""
         self._ensure_state()
-        pg = [(p, p.grad) for p in self._parameter_list]
         if self._grad_clip is not None:
             pg = self._grad_clip(pg)
         if all(g is None for _, g in pg):
@@ -90,6 +99,15 @@ class Optimizer:
         for group in self._groups(pg):
             optimizer_update(self, group, lr, self._step_count)
         self._step_count += 1
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """`loss.backward()`, `step()`, `clear_grad()`; the other arguments
+        are accepted and unused, as in the JAX package."""
+        loss.backward()
+        self.step()
+        self.clear_grad()
+        return None, None
 
     @staticmethod
     def _groups(pg):
@@ -101,9 +119,13 @@ class Optimizer:
                 groups.setdefault((p.device, p.dtype), []).append((i, p, g))
         return list(groups.values())
 
-    def clear_grad(self):
+    def clear_grad(self, set_to_zero=False):
+        """Drop every parameter's grad. `set_to_zero` is accepted and has
+        no effect: the JAX package drops the grads either way."""
         for p in self._parameter_list:
             p.grad = None
+
+    clear_gradients = clear_grad
 
     # -- state dict -----------------------------------------------------------
     def state_dict(self):
@@ -132,9 +154,10 @@ class Optimizer:
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
 
     # -- helpers --------------------------------------------------------------
-    def _fp32_zeros_like_params(self):
-        """fp32 zeros in each parameter's shape and layout (a channels_last
-        weight gets channels_last accumulators), as the one-pass kernel
-        walks them."""
-        return [torch.zeros_like(p, dtype=torch.float32)
+    def _full_like_params(self, value=0.0, dtype=torch.float32):
+        """`value` (zeros by default) in each parameter's shape and layout
+        (a channels_last weight gets channels_last accumulators, as the
+        one-pass kernel walks them), fp32 or, with `dtype` None, in the
+        parameter's own dtype."""
+        return [torch.full_like(p, value, dtype=dtype or p.dtype)
                 for p in self._parameter_list]

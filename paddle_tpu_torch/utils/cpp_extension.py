@@ -46,7 +46,8 @@ KERNEL_SOURCES = {
     "sdpa_forward": ("sdpa_forward.cu", "attention_mma.cuh"),
     "sdpa_backward": ("sdpa_backward.cu", "attention_bwd.cuh",
                       "attention_mma.cuh"),
-    "optimizer_update": ("optimizer_update.cu",),
+    "optimizer_update": ("optimizer_update.cu", "table_walk.cuh"),
+    "grad_merge": ("grad_merge.cu", "table_walk.cuh"),
     "conv_bn_relu": ("conv_bn_relu.cu", "conv_common.cuh", "conv_mma.cuh",
                      "attention_mma.cuh"),
     "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh",

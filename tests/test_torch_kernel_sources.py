@@ -130,7 +130,8 @@ def test_backward_bodies_live_in_the_shared_header_alone(lib):
 FAMILY_OF_LIB = {"causal_attention_bwd": "causal_bwd_kernels",
                  "shortseq_attention_bwd": "shortseq_bwd_kernels",
                  "sdpa_backward": "sdpa_bwd_kernels",
-                 "optimizer_update": "optimizer_update_kernel"}
+                 "optimizer_update": "optimizer_update_kernel",
+                 "grad_merge": "grad_merge_kernels"}
 
 
 def _profiled_name(kernel):
@@ -242,3 +243,68 @@ def test_split_ranges_cover_the_table(bs):
     for maxb in (1, 7, 8, 2048 // bs, 4096 // bs + 1):
         nr = split_ranges(maxb, bs)
         assert (nr - 1) * RANGE_KEYS < maxb * bs <= nr * RANGE_KEYS
+
+
+@pytest.mark.parametrize("lib,kernels", [
+    ("grad_merge", {"grad_merge_kernel", "grad_finish_kernel",
+                    "grad_unscale_kernel"}),
+    ("optimizer_update", {"optimizer_update_kernel", "optimizer_norms_kernel",
+                          "optimizer_norms_reduce_kernel"})])
+def test_training_libraries_are_held_to_no_atomic_and_no_spill(lib, kernels):
+    """Gradient merge's library and the one-pass update (with Lars' and
+    Lamb's norm pass) share one header, the table walk, and are in
+    `FMA_LIBS` (the build phase fails on an atomic or a spill in them);
+    their sources hold no atomic (the flag is a plain store of 1, the
+    norms sum in a fixed order) and every kernel the wrappers launch."""
+    assert KERNEL_SOURCES[lib] == (f"{lib}.cu", "table_walk.cuh")
+    assert _included(lib) == {"table_walk.cuh"}
+    assert lib in CHIP_SMOKE.FMA_LIBS and lib in CHIP_SMOKE.SPILL_FREE_LIBS
+    for src in KERNEL_SOURCES[lib]:
+        text = (Path(CSRC) / src).read_text()
+        assert not re.search(r"\batomic\w*\s*\(", text)
+    assert kernels <= _globals(lib)
+
+
+def test_table_walk_row_is_the_wrappers():
+    """The table's row as the kernels walk it (table_walk.cuh) is the row
+    the host builds (`_rows`, for `_Table`): kRow int64, the count at
+    kNumel, the first block at kFirst, the word at kWord, up to five
+    pointers around them; and neither library redefines the walk's
+    constants."""
+    from paddle_tpu_torch.ops.optimizer_update import _rows
+
+    text = (Path(CSRC) / "table_walk.cuh").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"\b(k\w+) = (\d+)[,;]", text)}
+    assert (consts["kRow"], consts["kNumel"], consts["kFirst"],
+            consts["kWord"]) == (8, 4, 5, 6)
+    for lib in ("optimizer_update", "grad_merge"):
+        src = (Path(CSRC) / f"{lib}.cu").read_text()
+        assert not re.search(r"constexpr int k(Row|Chunk|Threads|Unroll)\b",
+                             src), f"{lib} redefines the walk's constants"
+    rows, blocks = _rows([(5000, [11, 12, 13], 7), (0, [21, 22], 0),
+                          (2048, [31, 32, 33, 34, 35], 9)], 2048)
+    assert rows == [[11, 12, 13, 0, 5000, 0, 7, 0],
+                    [31, 32, 33, 34, 2048, 3, 9, 35]]
+    assert blocks == 4
+    assert all(len(r) == consts["kRow"] for r in rows)
+
+
+def test_optimizer_wrapper_and_kernel_agree_on_rules_and_scalars():
+    """The kernel's `Kind` enumeration and `Hyper` fields are the
+    wrapper's `KINDS` and `_HYPER`, in order."""
+    from paddle_tpu_torch.ops import optimizer_update as ou
+
+    text = (Path(CSRC) / "optimizer_update.cu").read_text()
+    enum = re.search(r"enum Kind \{([^}]*)\}", text).group(1)
+    codes = dict((k.strip(), int(v)) for k, v in
+                 re.findall(r"(k\w+)\s*=\s*(\d+)", enum))
+    assert sorted(codes.values()) == sorted(ou.KINDS.values())
+    names = {"adamw": "kAdamW", "adam": "kAdam", "momentum": "kMomentum",
+             "sgd": "kSgd", "adagrad": "kAdagrad", "rmsprop": "kRmsprop",
+             "adadelta": "kAdadelta", "lars": "kLars", "lamb": "kLamb"}
+    assert {k: codes[names[k]] for k in ou.KINDS} == ou.KINDS
+    body = re.search(r"struct Hyper \{(.*?)\};", text, re.S).group(1)
+    fields = re.findall(r"(\w+)[,;]", re.sub(r"//[^\n]*", "", body))
+    assert tuple(f for f in fields if f != "flag") == ou._HYPER
+    assert re.search(rf"constexpr int kHyper = {len(ou._HYPER)};", text)

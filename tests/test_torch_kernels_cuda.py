@@ -32,7 +32,13 @@ ways and causal, at B2's bars; a Transformer train step through them.
 The one-pass optimizer update against the per-parameter loop it replaces
 (run on the same card): AdamW with a parameter that does not decay, Adam
 with and without L2, Momentum with and without Nesterov and weight decay,
-f32, bf16 and both in one optimizer, bit for bit over three steps.
+SGD, Adagrad, RMSProp (centered too), Adadelta, Adam and AdamW with bf16
+moments, f32, bf16 and both in one optimizer, bit for bit over three
+steps; Lars and Lamb (the norm pass, then the update) within a tolerance
+and bitwise deterministic. Gradient merge's kernels (merge, finish,
+unscale) bit for bit against their plain versions, flags included, their
+refusals, and a TrainStep with merge and a scaler counting their
+launches.
 
 Conv kernels (B7, B8; bf16 on the tensor cores, f32 in fp32 FMA): against
 `conv_bn_relu_plain` on the card with TF32 off, max |kernel - plain|
@@ -833,16 +839,36 @@ OPT_SIZES = (1, 7, 4097, 2 ** 20 + 3, 5)
 
 
 def _optimizer(kind, params):
-    from paddle_tpu_torch import Adam, AdamW, Momentum
+    from paddle_tpu_torch import (SGD, Adadelta, Adagrad, Adam, AdamW, Lamb,
+                                  Lars, Momentum, RMSProp)
 
     named = [(f"p{i}", p) for i, p in enumerate(params)]
-    if kind == "adamw":   # parameter p1 does not decay
+    if kind.startswith("adamw"):   # parameter p1 does not decay
         return AdamW(1e-3, parameters=named, weight_decay=0.01,
-                     apply_decay_param_fun=lambda n: n != "p1")
-    if kind == "adam":
-        return Adam(1e-3, parameters=named)
-    if kind == "adam_l2":
-        return Adam(1e-3, parameters=named, weight_decay=0.01)
+                     apply_decay_param_fun=lambda n: n != "p1",
+                     multi_precision=not kind.endswith("_bf16m"))
+    if kind.startswith("adam"):
+        return Adam(1e-3, parameters=named,
+                    weight_decay=0.01 if "_l2" in kind else None,
+                    multi_precision=not kind.endswith("_bf16m"))
+    if kind.startswith("sgd"):
+        return SGD(0.1, parameters=named,
+                   weight_decay=0.01 if kind.endswith("_wd") else None)
+    if kind == "adagrad":
+        return Adagrad(0.1, parameters=named, weight_decay=0.01,
+                       initial_accumulator_value=0.1)
+    if kind.startswith("rmsprop"):
+        centered = kind.endswith("_centered")
+        return RMSProp(1e-3, rho=0.9, momentum=0.9 if centered else 0.0,
+                       centered=centered, parameters=named,
+                       weight_decay=0.01 if centered else None)
+    if kind == "adadelta":
+        return Adadelta(1.0, rho=0.9, parameters=named, weight_decay=0.01)
+    if kind == "lars":    # parameter p1 does not decay
+        return Lars(0.1, 0.9, lars_coeff=0.01, lars_weight_decay=0.05,
+                    parameters=named, exclude_from_weight_decay=["p1"])
+    if kind == "lamb":
+        return Lamb(1e-3, lamb_weight_decay=0.01, parameters=named)
     return Momentum(0.1, 0.9, parameters=named,
                     use_nesterov=kind.startswith("nesterov"),
                     weight_decay=0.01 if kind.endswith("_wd") else None)
@@ -852,8 +878,13 @@ def _bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-@pytest.mark.parametrize("kind", ["adamw", "adam", "adam_l2", "momentum",
-                                  "momentum_wd", "nesterov", "nesterov_wd"])
+ELEMENTWISE_KINDS = ["adamw", "adam", "adam_l2", "momentum", "momentum_wd",
+                     "nesterov", "nesterov_wd", "sgd", "sgd_wd", "adagrad",
+                     "rmsprop", "rmsprop_centered", "adadelta",
+                     "adam_l2_bf16m", "adamw_bf16m"]
+
+
+@pytest.mark.parametrize("kind", ELEMENTWISE_KINDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
 def test_optimizer_update_is_bitwise_the_loop(card, kind, dtype,
                                               monkeypatch):
@@ -861,7 +892,11 @@ def test_optimizer_update_is_bitwise_the_loop(card, kind, dtype,
     version, run on the same card): parameters and accumulators the same
     bits after each of three steps, at sizes 1, 7, 4097 and 2^20 + 3,
     with one parameter's grad None at the second step; one launch a step
-    for each (device, dtype) group, no plain update."""
+    for each (device, dtype) group, no plain update. Every elementwise
+    rule: AdamW, Adam (with and without L2), Momentum (Nesterov, L2), SGD,
+    Adagrad, RMSProp (plain, and centered with momentum: three
+    accumulators), Adadelta, and Adam and AdamW with moments in the
+    parameter's dtype (`_bf16m`: bf16 moments for bf16 parameters)."""
     from paddle_tpu_torch.optimizer import optimizer as opt_mod
 
     dtypes = ([getattr(torch, dtype)] * len(OPT_SIZES) if dtype != "mixed"
@@ -956,6 +991,279 @@ def test_optimizer_update_refuses_what_it_does_not_take(card):
     h.grad = torch.zeros_like(h)
     with pytest.raises(ValueError, match="dtype"):
         AdamW(1e-3, parameters=[h]).step()
+
+
+def test_optimizer_update_refuses_a_mixed_group_and_wrong_accumulators(card):
+    """A group of two dtypes, an accumulator of another dtype than the rule
+    keeps (an fp32 moment under multi_precision=False, a bf16 velocity)
+    raise before any launch."""
+    from paddle_tpu_torch import Adam, Momentum
+
+    p = torch.zeros(8, device="cuda")
+    q = torch.zeros(8, device="cuda", dtype=torch.bfloat16)
+    opt = Momentum(0.1, parameters=[p, q])
+    opt._ensure_state()
+    launches = optimizer_update.launches
+    with pytest.raises(ValueError, match="one device and one dtype"):
+        optimizer_update(opt, [(0, p, torch.zeros_like(p)),
+                               (1, q, torch.zeros_like(q))], 0.1, 0)
+    opt._accumulators["velocity"][0] = torch.zeros(
+        8, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="accumulator velocity"):
+        optimizer_update(opt, [(0, p, torch.zeros_like(p))], 0.1, 0)
+    low = Adam(1e-3, parameters=[q], multi_precision=False)
+    low._ensure_state()
+    low._accumulators["moment1"][0] = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="accumulator moment1"):
+        optimizer_update(low, [(0, q, torch.zeros_like(q))], 1e-3, 0)
+    assert optimizer_update.launches == launches
+
+
+# Lars and Lamb against the loop: norms summed in another order than
+# torch.sum's (per block, then per parameter, in a fixed order), so the
+# parameters and accumulators are held to a tolerance, max |kernel - loop|
+# <= NORM_RULE_TOL * (max |loop| + 1e-30) per tensor, and a rerun from the
+# same state gives the same bits
+NORM_RULE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("kind", ["lars", "lamb"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_rules_match_the_loop_and_repeat_bitwise(card, kind, dtype,
+                                                      monkeypatch):
+    """Three steps of Lars (p1 excluded from decay) and Lamb, the kernel
+    (the norm pass, then the update: one update launch and one norm pass a
+    step) against the loop on the card, within NORM_RULE_TOL; the norm pass
+    against its plain version; and the same step twice from one state
+    gives the same bits."""
+    from paddle_tpu_torch.ops.optimizer_update import (optimizer_norms,
+                                                       optimizer_norms_plain)
+    from paddle_tpu_torch.optimizer import optimizer as opt_mod
+
+    def fresh():
+        g = torch.Generator("cuda").manual_seed(3)
+        return [(torch.randn(n, generator=g, device="cuda") * 0.5).to(dtype)
+                for n in OPT_SIZES]
+
+    got, want, again = fresh(), fresh(), fresh()
+    opts = [_optimizer(kind, ps) for ps in (got, want, again)]
+    for step in range(3):
+        grads = [torch.randn(p.shape, generator=card, device="cuda").to(dtype)
+                 for p in got]
+        for ps in (got, want, again):
+            for p, g in zip(ps, grads):
+                p.grad = g.clone()
+        group = [(i, p, p.grad) for i, p in enumerate(got)]
+        opts[0]._ensure_state()
+        norms = optimizer_norms(opts[0], group, 0.1, step)
+        plain = optimizer_norms_plain(opts[0], group, 0.1, step)
+        torch.testing.assert_close(norms, plain, rtol=1e-5, atol=1e-30)
+        counts = (optimizer_update.launches, optimizer_norms.launches)
+        opts[0].step()
+        assert (optimizer_update.launches - counts[0],
+                optimizer_norms.launches - counts[1]) == (1, 1)
+        opts[2].step()
+        with monkeypatch.context() as m:
+            m.setattr(opt_mod, "optimizer_update", optimizer_update_plain)
+            opts[1].step()
+        torch.cuda.synchronize()
+        tol = NORM_RULE_TOL[dtype]
+        pairs = list(zip(got, want)) + [
+            (a, b) for name, lst in opts[0]._accumulators.items()
+            for a, b in zip(lst, opts[1]._accumulators[name])]
+        for a, b in pairs:
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= tol * (b.float().abs().max().item() + 1e-30), \
+                (kind, step, err)
+        for a, b in zip(got, again):
+            assert torch.equal(_bits(a), _bits(b)), (kind, step)
+        for name, lst in opts[0]._accumulators.items():
+            for a, b in zip(lst, opts[2]._accumulators[name]):
+                assert torch.equal(_bits(a), _bits(b)), (kind, name, step)
+        for o in opts:
+            o.clear_grad()
+
+
+MERGE_SIZES = (1, 7, 2048, 4097, 2 ** 20 + 3)
+
+
+def _merge_case(card, dtype, bad=False):
+    """Grads of MERGE_SIZES in `dtype` (one inf and one nan in the last
+    when `bad`) and fp32 buffers, on the card."""
+    grads = [(torch.randn(n, generator=card, device="cuda") * 3).to(dtype)
+             for n in MERGE_SIZES]
+    if bad:
+        grads[-1][5] = float("inf")
+        grads[-1][9] = float("nan")
+    grads[0][0] = -0.0
+    bufs = [torch.randn(n, generator=card, device="cuda")
+            for n in MERGE_SIZES]
+    return grads, bufs
+
+
+def _same(a, b):
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("bad", [False, True])
+def test_grad_merge_is_bitwise_its_plain_version(card, dtype, first, bad):
+    """K1: one launch over the group, buffers the plain version's bits
+    (at a window's first micro-step `0 + g`, -0 turned to +0 as the add to
+    a zero buffer turns it), both flags raised exactly when a grad is not
+    finite; without flags, nothing else written."""
+    from paddle_tpu_torch.ops.grad_merge import grad_merge, grad_merge_plain
+
+    grads, bufs = _merge_case(card, dtype, bad)
+    ref = [b.clone() for b in bufs]
+    flags = [torch.zeros(1, dtype=torch.int32, device="cuda")
+             for _ in range(4)]
+    launches = grad_merge.launches
+    grad_merge(grads, bufs, first, flags[:2])
+    grad_merge_plain(grads, ref, first, flags[2:])
+    assert grad_merge.launches == launches + 1
+    torch.cuda.synchronize()
+    assert _same(bufs, ref)
+    assert [int(f) for f in flags] == [int(bad)] * 4
+    if first:
+        assert _bits(bufs[0])[0].item() == 0          # +0, not -0
+    grad_merge(grads, bufs, False)
+    grad_merge_plain(grads, ref, False)
+    assert _same(bufs, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [None, 65536.0, 3.0e38])
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_grad_finish_is_bitwise_its_plain_version(card, dtype, scale, k):
+    """K2's finish: `b / scale` (a divide: at 3e38 the fp32 reciprocal is
+    subnormal) then times fp32(1/K), rounded into the grads, the plain
+    version's bits."""
+    from paddle_tpu_torch.ops.grad_merge import (grad_finish,
+                                                 grad_finish_plain)
+
+    grads, bufs = _merge_case(card, dtype)
+    bufs = [b * 1e30 if scale and scale > 1e30 else b for b in bufs]
+    ref = [torch.empty_like(g) for g in grads]
+    launches = grad_finish.launches
+    grad_finish(grads, bufs, scale, k)
+    grad_finish_plain(ref, bufs, scale, k)
+    assert grad_finish.launches == launches + 1
+    torch.cuda.synchronize()
+    assert _same(grads, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bad", [False, True])
+def test_grad_unscale_is_bitwise_its_plain_version(card, dtype, bad):
+    """K2's unscale: the flag over the scaled grads, then each grad
+    divided by the scale in place, the plain version's bits."""
+    from paddle_tpu_torch.ops.grad_merge import (grad_unscale,
+                                                 grad_unscale_plain)
+
+    grads, _ = _merge_case(card, dtype, bad)
+    ref = [g.clone() for g in grads]
+    flags = [torch.zeros(1, dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    launches = grad_unscale.launches
+    grad_unscale(grads, 3.0e38, flags[0])
+    grad_unscale_plain(ref, 3.0e38, flags[1])
+    assert grad_unscale.launches == launches + 1
+    torch.cuda.synchronize()
+    assert _same(grads, ref)
+    assert [int(f) for f in flags] == [int(bad)] * 2
+
+
+def test_grad_merge_refuses_what_it_does_not_take(card):
+    """A grad that is not dense, a group of two dtypes, a buffer that is
+    not fp32 (or not in its grad's layout) raise before any launch."""
+    from paddle_tpu_torch.ops.grad_merge import (grad_finish, grad_merge,
+                                                 grad_unscale)
+
+    g = torch.zeros(8, device="cuda")
+    b = torch.zeros(8, device="cuda")
+    gap = torch.zeros((8, 16), device="cuda")[:, ::2]
+    counts = [w.launches for w in (grad_merge, grad_finish, grad_unscale)]
+    with pytest.raises(ValueError, match="dense"):
+        grad_unscale([gap], 2.0, torch.zeros(1, dtype=torch.int32,
+                                             device="cuda"))
+    with pytest.raises(ValueError, match="one device and one dtype"):
+        grad_merge([g, g.to(torch.bfloat16)], [b, b.clone()], True)
+    with pytest.raises(ValueError, match="float32"):
+        grad_merge([g], [b.to(torch.bfloat16)], False)
+    with pytest.raises(ValueError, match="layout"):
+        grad_finish([torch.zeros(4, 6, device="cuda")],
+                    [torch.zeros(6, 4, device="cuda").t()], None, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        grad_merge([g.half()], [b], True)
+    assert counts == [w.launches for w in (grad_merge, grad_finish,
+                                           grad_unscale)]
+
+
+def test_trainstep_merge_and_scaler_launch_the_kernels(card):
+    """A small bf16 MLP with an unreached Linear: TrainStep with
+    accumulate_steps=3 and a GradScaler launches the merge once a
+    micro-step, the finish and the update once a window (the zero grads in
+    the group), no plain version; at a scale that overflows the window is
+    skipped: no finish, no update, parameters and accumulators bitwise
+    kept, the scale halved. Without merge, the unscale launches once a
+    step. A BatchNorm model's running statistics survive a skipped step."""
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nn.norm import BatchNorm2D
+    from paddle_tpu_torch.ops.grad_merge import (grad_finish, grad_merge,
+                                                 grad_unscale)
+    from paddle_tpu_torch.ops.nn_ops import mse_loss
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc = torch.nn.Linear(64, 64)
+            self.off = torch.nn.Linear(64, 64)
+            self.bn = BatchNorm2D(4)
+
+        def forward(self, x):
+            return self.bn(self.fc(x).reshape(-1, 4, 4, 4)).reshape(-1, 64)
+
+    torch.manual_seed(0)
+    net = Net().to("cuda", torch.bfloat16)
+    # a decay of 1 % a step, so that the unreached weight moves in bf16
+    opt = AdamW(1e-2, parameters=net.parameters(), weight_decay=1.0)
+    scaler = GradScaler(init_loss_scaling=2.0 ** 10,
+                        decr_every_n_nan_or_inf=1)
+    step = TrainStep(net, opt, mse_loss, accumulate_steps=3, scaler=scaler)
+    x = torch.randn(8, 64, generator=card, device="cuda").to(torch.bfloat16)
+    y = torch.randn(8, 64, generator=card, device="cuda").to(torch.bfloat16)
+    wrappers = (grad_merge, grad_finish, grad_unscale, optimizer_update)
+    before = [(w.launches, w.plain_calls) for w in wrappers]
+    off = net.off.weight.detach().clone()
+    losses = [float(step(x, y)) for _ in range(6)]
+    assert all(math.isfinite(v) for v in losses)
+    assert [(w.launches - a, w.plain_calls - b)
+            for w, (a, b) in zip(wrappers, before)] == [(6, 0), (2, 0),
+                                                        (0, 0), (2, 0)]
+    assert opt._step_count == 2 and scaler.get_scale() == 2.0 ** 10
+    assert not torch.equal(net.off.weight, off)      # decayed
+    kept = [t.clone() for t in list(net.parameters()) + list(net.buffers())
+            + [a for lst in opt._accumulators.values() for a in lst]]
+    scaler._scale = 3.0e38
+    counts = [w.launches for w in wrappers]
+    for _ in range(3):
+        step(x, y * 1e4)
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == [3, 0, 0, 0]
+    now = (list(net.parameters()) + list(net.buffers())
+           + [a for lst in opt._accumulators.values() for a in lst])
+    assert len(now) == len(kept)
+    # the window skipped: parameters and accumulators kept; the buffers
+    # too, each micro-step having overflowed
+    assert _same(now, kept)
+    assert opt._step_count == 2 and scaler.get_scale() == 1.5e38
+    one = TrainStep(net, opt, mse_loss,
+                    scaler=GradScaler(init_loss_scaling=2.0 ** 10))
+    counts = [w.launches for w in wrappers]
+    one(x, y)
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == [0, 0, 1, 1]
 
 
 def test_sdpa_forward_refuses_what_it_does_not_take(card):

@@ -37,9 +37,10 @@ from paddle_tpu_torch import (Adam, AdamW, ClipGradByGlobalNorm, Momentum,
                               ClipGradByNorm, ClipGradByValue, GPTConfig,
                               GPTForCausalLM, TrainStep,
                               load_paddle_tpu_state)
+from paddle_tpu_torch.amp import GradScaler
 from paddle_tpu_torch.models.convert import _linear_weights
 from paddle_tpu_torch.ops import flash_attention as tfa
-from paddle_tpu_torch.ops.nn_ops import (cross_entropy, dropout,
+from paddle_tpu_torch.ops.nn_ops import (cross_entropy, dropout, mse_loss,
                                          softmax_with_cross_entropy)
 from paddle_tpu_torch.optimizer import lr as tlr
 
@@ -430,8 +431,9 @@ def test_tiny_gpt_trainstep_losses_match_jax_trainstep():
 
 def test_trainstep_loops_and_refusals():
     """run_scan and run_repeat are loops over the step (a run_scan over two
-    batches equals two calls on a twin model); scaler, gradient merge,
-    with_outputs and telemetry raise."""
+    batches equals two calls on a twin model); as in the JAX package,
+    telemetry raises, and so do with_outputs with gradient merge and the
+    loops with a scaler or gradient merge."""
     _, a = _pair(seed=2)
     _, b = _pair(seed=2)
     xs = torch.from_numpy(np.random.RandomState(8).randint(
@@ -445,10 +447,86 @@ def test_trainstep_loops_and_refusals():
                                rtol=0, atol=0)
     rep = sa.run_repeat(xs[0], xs[0], 3)
     assert rep.shape == (3,) and float(rep[-1]) < float(rep[0])
-    for kw in ({"scaler": object()}, {"accumulate_steps": 2},
-               {"with_outputs": True}, {"telemetry": object()}):
+    for kw in ({"telemetry": object()},
+               {"with_outputs": True, "accumulate_steps": 2}):
         with pytest.raises(NotImplementedError):
             TrainStep(a, sa.optimizer, a.loss_fn, **kw)
+    for kw in ({"scaler": GradScaler()}, {"accumulate_steps": 2}):
+        step = TrainStep(a, sa.optimizer, a.loss_fn, **kw)
+        with pytest.raises(NotImplementedError, match="run_scan"):
+            step.run_scan(xs, xs)
+        with pytest.raises(NotImplementedError, match="run_repeat"):
+            step.run_repeat(xs[0], xs[0], 2)
+
+
+class _JTwoHeads(paddle.nn.Layer):
+    """Two Linears; the loss reaches only the first."""
+
+    def __init__(self):
+        super().__init__()
+        self.used = paddle.nn.Linear(6, 3)
+        self.unused = paddle.nn.Linear(6, 3)
+
+    def forward(self, x):
+        return self.used(x)
+
+
+class _TwoHeads(torch.nn.Module):
+    def __init__(self, jm):
+        super().__init__()
+        self.used = torch.nn.Linear(6, 3)
+        self.unused = torch.nn.Linear(6, 3)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                a = np.asarray(dict(jm.named_parameters())[name]._array)
+                p.copy_(torch.from_numpy(a.T.copy() if a.ndim == 2 else a))
+
+    def forward(self, x):
+        return self.used(x)
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adam_l2", "momentum_l2"])
+def test_trainstep_updates_a_parameter_the_loss_does_not_reach(kind):
+    """JAX's compiled step traces every trainable parameter the optimizer
+    holds and gives one the loss does not reach a zero grad, so decay and
+    momentum still move it; the port's TrainStep does the same. Three
+    steps at lr 0.1: every parameter, reached or not, within 1e-6 of JAX's
+    jit.TrainStep, and the unreached weight moved. The eager step() still
+    skips a parameter without a grad (test_optimizer_surface)."""
+    from paddle_tpu.optimizer import Momentum as JMomentum
+
+    paddle.seed(21)
+    jm = _JTwoHeads()
+    tm = _TwoHeads(jm)
+    rng = np.random.RandomState(9)
+    xs = rng.randn(3, 4, 6).astype(np.float32)
+    ys = rng.randn(3, 4, 3).astype(np.float32)
+    make = {"adamw": lambda m, ps: m.AdamW(0.1, parameters=ps),
+            "adam_l2": lambda m, ps: m.Adam(0.1, parameters=ps,
+                                            weight_decay=0.01),
+            "momentum_l2": lambda m, ps: m.Momentum(
+                0.1, 0.9, parameters=ps, weight_decay=0.01)}[kind]
+
+    class J:
+        AdamW, Adam, Momentum = JAdamW, JAdam, JMomentum
+
+    class T:
+        AdamW, Adam, Momentum = AdamW, Adam, Momentum
+
+    jstep = jjit.TrainStep(jm, make(J, jm.parameters()), JF.mse_loss)
+    tstep = TrainStep(tm, make(T, tm.parameters()), mse_loss)
+    before = tm.unused.weight.detach().clone()
+    for x, y in zip(xs, ys):
+        jstep(Tensor._wrap(jnp.asarray(x)), Tensor._wrap(jnp.asarray(y)))
+        tstep(torch.from_numpy(x), torch.from_numpy(y))
+    assert tstep.optimizer._step_count == 3
+    moved = (tm.unused.weight.detach() - before).abs().max().item()
+    assert moved > 1e-4
+    for name, p in jm.named_parameters():
+        a = np.asarray(p._array)
+        got = dict(tm.named_parameters())[name].detach().numpy()
+        np.testing.assert_allclose(got.T if a.ndim == 2 else got, a,
+                                   atol=1e-6, rtol=0, err_msg=name)
 
 
 def test_num_params_and_flops_per_token_match_jax():
