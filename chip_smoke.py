@@ -16,6 +16,8 @@ transformer_parity
 transformer_train,transformer_train_parity
     python3 chip_smoke.py --phases build,optimizer_update,train_accum,\
 train_accum_parity,bert_lamb
+    python3 chip_smoke.py --phases build,sampling,int8_linear,\
+engine_sampled,engine_wint8
 
 Phases, each printing one JSON line:
 
@@ -25,13 +27,13 @@ Phases, each printing one JSON line:
    the HMMA (tensor-core) instructions of each bf16 mma kernel (the causal
    pair, the shortseq forward and backward, the flash forward B6 and the
    library route's backward, the 3x3 conv B8, the 1x1 conv B7, the train
-   forwards B9a and B9b, the 1x1 backward B10, the 3x3 dWeight B11), and
-   fails if one has none, if a library of them holds an atomic, if ptxas
-   reports a spill in any mma kernel or in any kernel of the library
-   route's backward, or if the paged decode or verify library (the split
-   walk and its combine, fp32 FMA), the one-pass optimizer update (with
-   Lars' and Lamb's norm pass) or gradient merge's library holds an atomic
-   or spills.
+   forwards B9a and B9b, the 1x1 backward B10, the 3x3 dWeight B11, the
+   int8-weight linear), and fails if one has none, if a library of them
+   holds an atomic, if ptxas reports a spill in any mma kernel or in any
+   kernel of the library route's backward, or if the paged decode or
+   verify library (the split walk and its combine, fp32 FMA), the
+   one-pass optimizer update (with Lars' and Lamb's norm pass), gradient
+   merge's library or the sampler's draws hold an atomic or spill.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16
@@ -283,9 +285,37 @@ Phases, each printing one JSON line:
    memory; the losses finite and falling; a step launches the mask-free
    shortseq kernels 12 times each, Lamb's norm pass once and the update
    once.
+34. sampling: the draw kernels (csrc/sampling.cu) against their plain
+   versions at the engine's rows (N 8, the decode step; N 40, the verify
+   step at K=4) over V 50,304 masked logits (temperature 0.8, top_k 50,
+   top_p 0.9): tokens identical with and without excluded indices, each
+   row's uniform bitwise; a chi-square of 4,096 draws of one row against
+   the numpy oracle `oracle_probs`; timings against the bytes bound (the
+   logits read once), the plain version (its kernel launches counted with
+   torch.profiler) and torch.multinomial of the row softmax, a different
+   function, as the yardstick.
+35. int8_linear: the int8-weight linear (csrc/int8_linear.cu) against its
+   plain version at GPT-1.3B's four projections (qkv, out, fc1, fc2) at M
+   8, 40 and 128, bf16 and f32 (INT8_LINEAR_TOL); bf16 timings against the
+   bytes bound, the plain version and torch.matmul over the dequantized
+   bf16 weight as the yardstick, and the decode step's whole weight read
+   (24 layers at M 8) against its int8 and bf16 bounds.
+36. engine_sampled: phase 5's trace with sampling=True, five requests
+   sampled (SAMPLED_LANES: temperature 0.7 or 1.0, top_k 50, top_p 0.9,
+   seeds from the phase seed) and the rest greedy, at K=0 and at K=4 with
+   the n-gram drafter: greedy lanes token-identical to the sampling=False
+   run of the same trace, a second run with the same seeds
+   token-identical, one draw launch a decode or verify step and a final
+   prefill chunk and one uniform launch a verify step, tokens/s.
+37. engine_wint8: phase 5's trace with weight_dtype="int8" (K=0), and
+   again with kv_dtype="int8" too: tokens within TOKEN_PARITY_MIN of the
+   bf16 run's, exactly four int8_linear launches a layer a step, the
+   snapshot's int8 bytes (WINT8_SNAPSHOT_BYTES), tokens/s; then an f32
+   model at full width and 2 layers, whose int8-weight engine's greedy
+   tokens on the card must equal the CPU's from the same weights.
 
-Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26 and 29 to 33 are
-the main path, in thirty runs:
+Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36 and
+37 are the main path, in thirty-five runs:
 the bf16 engine, the bf16 generate(), the f32 engine, the f32 generate(),
 the bf16 train steps, the f32 train steps, the bf16 speculative engine,
 the three f32 engines of spec_parity, the int8 engine, the int8
@@ -295,8 +325,9 @@ forwards, the f32 ResNet-50 forward, the timed bf16 ResNet-50 train steps,
 the f32 ResNet-50 train steps, the timed bf16 Transformer forwards, the
 f32 Transformer forward, the timed bf16 Transformer train steps, the
 f32 Transformer train steps, the bf16 merge windows, the f32 merge
-windows and scaler steps (Momentum and AdamW), the two skipped windows (GPT and ResNet-18) and the BERT
-Lamb steps. Kernel counts are set to 0
+windows and scaler steps (Momentum and AdamW), the two skipped windows (GPT and ResNet-18), the BERT
+Lamb steps, the sampled engines at K=0 and K=4, the int8-weight engines
+with bf16 and int8 pools and the f32 int8-weight engine. Kernel counts are set to 0
 just before each run and read just after it; each run must launch every
 kernel it takes (PATH_KERNEL: the engine the paged decode kernel,
 generate() the causal forward, training the causal forward and backward,
@@ -311,7 +342,9 @@ forward B6 12 times, a Transformer train step B6's LSE variant and the
 library route's backward 12 times each; every train step the one-pass
 optimizer update once; a merge window the merge kernel once a micro-step
 and the finish and the update once; a scaler step without merge the
-unscale once; a Lamb step the norm pass once) and call no plain version.
+unscale once; a Lamb step the norm pass once; a sampled engine the draw
+kernel, and at K=4 the uniform kernel; an int8-weight engine the
+int8-weight linear four times a layer a step) and call no plain version.
 `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
 one GPT train step, of one BERT train step, of one bf16 ResNet-50
@@ -349,7 +382,8 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "transformer_infer", "transformer_parity", "sdpa_bwd",
           "optimizer_update", "transformer_train",
           "transformer_train_parity", "train_accum", "train_accum_parity",
-          "bert_lamb")
+          "bert_lamb", "sampling", "int8_linear", "engine_sampled",
+          "engine_wint8")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -499,6 +533,7 @@ SDPA, SBWD = "sdpa_forward", "sdpa_backward"
 OPT = "optimizer_update"
 NORMS = "optimizer_norms"
 MERGE, FINISH, UNSCALE = "grad_merge", "grad_finish", "grad_unscale"
+DRAW, UNIF, W8 = "sample_draw", "sample_uniform", "int8_linear"
 # the masked variants' launches, counted apart on the same wrappers, and
 # B6's LSE variant's
 SSFM, SSBM = SSF + "_masked", SSB + "_masked"
@@ -535,7 +570,12 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "train_scaler_momentum_f32": (FWD, BWD, UNSCALE, OPT),
                "train_accum_skip_f32": (FWD, BWD, MERGE),
                "resnet_accum_skip_f32": (MERGE,),
-               "bert_lamb_bf16": (SSF, SSB, NORMS, OPT)}
+               "bert_lamb_bf16": (SSF, SSB, NORMS, OPT),
+               "engine_sampled_bf16": (DEC, DRAW),
+               "engine_sampled_spec_bf16": (VER, DRAW, UNIF),
+               "engine_wint8_bf16": (DEC, W8),
+               "engine_wint8_kv8_bf16": (DEC8, W8),
+               "wint8_f32": (DEC, W8)}
 # peak device memory (GB) of the bf16 train phases with the per-parameter
 # optimizer loop, before the update became one pass (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W); each phase fails more than
@@ -560,6 +600,23 @@ SPEC_K = 4
 # the JAX package's int8 KV budget: generated tokens equal to the fp
 # engine's (tests/test_engine_quantized.py:41)
 TOKEN_PARITY_MIN = 0.90
+# the draw kernels' rows: the decode step's slots and the verify step's
+# slots x (K + 1)
+SAMPLING_ROWS = (8, 8 * (SPEC_K + 1))
+# int8_linear's rows: the decode step, the verify step at K=4, the prefill
+# chunk
+W8_ROWS = (8, 8 * (SPEC_K + 1), 128)
+# int8_linear against its plain version, max |kernel - plain| / max
+# |plain|: both sum exact fp32 products of the same dequantized weights in
+# fp32, in other orders; a bf16 output may then round the other way (one
+# bf16 ulp, at most 2^-7 of max |plain|; the bias adds the same second
+# rounding in both); f32 as the other kernels' f32 bars
+INT8_LINEAR_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# the trace's sampled requests in phase engine_sampled
+SAMPLED_LANES = (0, 2, 5, 8, 11)
+# GPT-1.3B's int8 snapshot: 24 layers x (qkv 6144 + out 2048 + fc1 8192 +
+# fc2 2048 rows of 2048 codes)
+WINT8_SNAPSHOT_BYTES = 24 * 2048 * (6144 + 2048 + 8192 + 8192)
 
 
 # the bf16 kernels of each library that must run on the tensor cores
@@ -578,14 +635,16 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
                                 "conv1x1_train_mma_kernel"),
                "conv_bn_relu_bwd": ("conv3x3_dw_mma_kernel",
                                     "conv1x1_bwd_dx_mma_kernel",
-                                    "conv1x1_bwd_dw_mma_kernel")}
+                                    "conv1x1_bwd_dw_mma_kernel"),
+               "int8_linear": ("w8_linear_mma_kernel",)}
 # libraries without tensor-core kernels held to no atomic (each result the
 # same from run to run) and no spill in any kernel: the split walk of the
 # decode and verify kernels (csrc/paged_split.cuh), the one-pass
 # optimizer update (with Lars' and Lamb's norm pass, whose sums run in a
-# fixed order) and gradient merge's kernels
+# fixed order), gradient merge's kernels and the sampler's draws (their
+# argmax reduced in a fixed order)
 FMA_LIBS = ("paged_verify", "paged_decode", "optimizer_update",
-            "grad_merge")
+            "grad_merge", "sampling")
 # libraries held to no spill in any kernel, not only the mma ones: those,
 # and the library route's backward (its wide FMA design too)
 SPILL_FREE_LIBS = FMA_LIBS + ("sdpa_backward",)
@@ -617,7 +676,11 @@ DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
                              "a fixed order, fp32",
           "grad_merge": "one pass over a device table, fp32",
           "grad_finish": "one pass over a device table, fp32",
-          "grad_unscale": "one pass over a device table, fp32"}
+          "grad_unscale": "one pass over a device table, fp32",
+          "sample_draw": "one CTA a row: threefry, Gumbel, argmax in a "
+                         "fixed order",
+          "sample_uniform": "one thread a row: threefry",
+          "int8_linear": "mma.sync bf16, codes dequantized in registers"}
 # a device-time family of the profiles, by a substring of the kernel's
 # name in lower case, first match wins: the port's conv kernels before
 # cuDNN's (whose names may hold "conv2d"), and the shortseq backward's
@@ -635,6 +698,8 @@ KERNEL_FAMILIES = (
     ("sdpa_bwd_kernels", ("sdpa_delta", "sdpa_dkdv", "sdpa_dq")),
     ("optimizer_update_kernel", ("optimizer_update", "optimizer_norms")),
     ("grad_merge_kernels", ("grad_merge", "grad_finish", "grad_unscale")),
+    ("sampling_kernels", ("sample_draw", "sample_uniform")),
+    ("int8_linear_kernel", ("w8_linear",)),
     ("cudnn conv", ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
                     "conv2d", "convolve")),
     ("paged_verify_kernel", ("paged_verify",)),
@@ -1186,19 +1251,26 @@ def _engine_trace(V, seed):
     return rng, dict(first=first, later=later, repeat=repeat, shared=shared)
 
 
-def _serve_trace(eng, trace, finish=None):
+def _serve_trace(eng, trace, finish=None, params_of=None):
     """Serve `trace` on `eng`: the first requests, steps until the repeated
     prompt and the shared prefix are cached, then the later ones; `finish`
-    (drain() by default: the leak check) runs the rest. Returns (request
-    ids, results)."""
-    ids = [eng.add_request(p, n) for p, n in trace["first"]]
+    (drain() by default: the leak check) runs the rest; `params_of(i)`, when
+    given, is request i's SamplingParams or None. Returns (request ids,
+    results)."""
+    def add(i, p, n):
+        sp = None if params_of is None else params_of(i)
+        return eng.add_request(p, n) if sp is None else \
+            eng.add_request(p, n, sampling_params=sp)
+
+    first = len(trace["first"])
+    ids = [add(i, p, n) for i, (p, n) in enumerate(trace["first"])]
     while (eng.cache.warm_prefix_tokens(trace["repeat"])
            < len(trace["repeat"])
            or eng.cache.warm_prefix_tokens(trace["shared"])
            < len(trace["shared"])):
         if eng.step() == 0:
             raise AssertionError("trace ended before its prefixes cached")
-    ids += [eng.add_request(p, n) for p, n in trace["later"]]
+    ids += [add(first + i, p, n) for i, (p, n) in enumerate(trace["later"])]
     return ids, (finish or (lambda e: e.drain()))(eng)
 
 
@@ -4509,13 +4581,415 @@ def phase_bert_lamb(torch, ctx, seed):
         raise AssertionError("bert_lamb phase failed its checks")
 
 
+# ---------------------------------------------------------------------------
+# sampled serving and int8 weights
+# ---------------------------------------------------------------------------
+
+def _chi2_vs_oracle(counts, probs, n):
+    """(statistic, degrees of freedom, critical value at alpha 1e-3, draws
+    on zero-probability tokens) of draw counts against oracle
+    probabilities, bins expecting fewer than 5 draws pooled into one."""
+    from scipy import stats
+
+    exp = probs * n
+    keep = exp > 0
+    big = exp >= 5
+    obs = list(counts[big]) + [counts[keep & ~big].sum()]
+    want = list(exp[big]) + [exp[keep & ~big].sum()]
+    if want[-1] == 0:
+        obs, want = obs[:-1], want[:-1]
+    stat = float(sum((o - e) ** 2 / e for o, e in zip(obs, want)))
+    dof = len(want) - 1
+    return stat, dof, float(stats.chi2.isf(1e-3, dof)), \
+        int(counts[~keep].sum())
+
+
+def _plain_launches(torch, fn, name):
+    """Kernels the card ran for one call of `fn` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _device_breakdown(prof, name)["kernel_launches"]
+
+
+def phase_sampling(torch, ctx):
+    from paddle_tpu_torch.inference.sampling import (SamplingParams,
+                                                     key_row, oracle_probs)
+    from paddle_tpu_torch.ops.sampling import (masked_logits, sample_draw,
+                                               sample_draw_plain,
+                                               sample_uniform,
+                                               sample_uniform_plain)
+
+    V = 50304
+    g = torch.Generator("cuda").manual_seed(2)
+    res = {"phase": "sampling", "vocab": V, "cases": []}
+    ok = True
+    p = SamplingParams(temperature=0.8, top_k=50, top_p=0.9)
+    for N in SAMPLING_ROWS:
+        raw = torch.randn((N, V), generator=g, device="cuda") * 3
+        lg = masked_logits(raw, torch.full((N,), p.temperature,
+                                           device="cuda"),
+                           torch.full((N,), p.top_k, dtype=torch.int32,
+                                      device="cuda"),
+                           torch.full((N,), p.top_p, device="cuda"))
+        keys = torch.stack([key_row(SEED + i) for i in range(N)]).cuda()
+        pos = torch.randint(0, 2048, (N,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        ex = torch.where(torch.arange(N, device="cuda") % 2 == 0,
+                         lg.argmax(-1), -1).to(torch.int32)
+        got = [sample_draw(lg, keys, pos, 0), sample_draw(lg, keys, pos, 0,
+                                                          ex)]
+        unif = sample_uniform(keys, pos, 1)
+        torch.cuda.synchronize()
+        want = [sample_draw_plain(lg, keys, pos, 0),
+                sample_draw_plain(lg, keys, pos, 0, ex)]
+        uwant = sample_uniform_plain(keys, pos, 1)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        ubits = bool(torch.equal(unif.view(torch.int32),
+                                 uwant.view(torch.int32)))
+        case = {"rows": N, "tokens_identical": same,
+                "uniform_bitwise": ubits}
+        ok &= same and ubits
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+        kms = cuda_ms(torch, lambda: sample_draw(lg, keys, pos, 0), 50,
+                      flush)
+        pms = cuda_ms(torch, lambda: sample_draw_plain(lg, keys, pos, 0), 5,
+                      flush, warmup=1)
+        lms = cuda_ms(torch, lambda: torch.multinomial(
+            torch.softmax(lg, -1), 1), 50, flush)
+        ums = cuda_ms(torch, lambda: sample_uniform(keys, pos, 1), 50,
+                      flush)
+        upms = cuda_ms(torch, lambda: sample_uniform_plain(keys, pos, 1), 5,
+                       flush, warmup=1)
+        del flush
+        b, by = bound_ms(N * V * 4 + N * (16 + 4 + 4), 0, "float32")
+        ub, uby = bound_ms(N * (16 + 4 + 4), 0, "float32")
+        case.update(
+            kernel_ms=kms, plain_ms=pms, bound_ms=b, bound_by=by,
+            library_ms=lms,
+            library_call="torch.multinomial(torch.softmax(logits), 1): "
+                         "a different function (torch's own random draw)",
+            plain_launches=_plain_launches(
+                torch, lambda: sample_draw_plain(lg, keys, pos, 0),
+                f"sample_draw_plain_{N}"),
+            uniform_kernel_ms=ums, uniform_plain_ms=upms,
+            uniform_bound_ms=ub,
+            uniform_plain_launches=_plain_launches(
+                torch, lambda: sample_uniform_plain(keys, pos, 1),
+                f"sample_uniform_plain_{N}"))
+        res["cases"].append(case)
+        if N == SAMPLING_ROWS[0]:
+            ctx["sample_draw"] = dict(
+                max_abs_err=0.0 if same else None, kernel_ms=kms,
+                plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
+                shape=f"N {N} V {V} (decode step)", dtype="float32")
+            ctx["sample_uniform"] = dict(
+                max_abs_err=(unif - uwant).abs().max().item(),
+                kernel_ms=ums, plain_ms=upms, bound_ms=ub, bound_by=uby,
+                library_ms=None, shape=f"N {N}", dtype="float32")
+    # the distribution: 4,096 draws of one row against the numpy oracle
+    n = 4096
+    row = (torch.randn(V, generator=g, device="cuda") * 3)
+    lg = masked_logits(row.expand(n, V).contiguous(),
+                       torch.full((n,), p.temperature, device="cuda"),
+                       torch.full((n,), p.top_k, dtype=torch.int32,
+                                  device="cuda"),
+                       torch.full((n,), p.top_p, device="cuda"))
+    keys = torch.stack([key_row(SEED * 7919 + i) for i in range(n)]).cuda()
+    toks = sample_draw(lg, keys, torch.zeros(n, dtype=torch.int32,
+                                             device="cuda"), 0)
+    oracle = oracle_probs(row.cpu().numpy(), p)
+    stat, dof, crit, off = _chi2_vs_oracle(
+        np.bincount(toks.cpu().numpy(), minlength=V), oracle, n)
+    res["chi_square"] = {"draws": n, "params": "temperature 0.8, top_k 50, "
+                         "top_p 0.9", "statistic": stat, "dof": dof,
+                         "critical_1e-3": crit,
+                         "draws_on_zero_probability": off}
+    ok &= stat < crit and off == 0
+    # no fallback: what the kernel does not take raises
+    try:
+        sample_draw(lg.bfloat16(), keys, keys[:, 0].int(), 0)
+        res["bf16_logits_raise"] = False
+    except ValueError:
+        res["bf16_logits_raise"] = True
+    ok &= res["bf16_logits_raise"]
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("sampling kernels disagree with their plain "
+                             "versions or the oracle")
+
+
+# GPT-1.3B's four projections: (name, K, N)
+W8_SHAPES = (("qkv", 2048, 6144), ("out", 2048, 2048), ("fc1", 2048, 8192),
+             ("fc2", 8192, 2048))
+
+
+def phase_int8_linear(torch, ctx):
+    from paddle_tpu_torch.ops.int8_linear import (int8_linear,
+                                                  int8_linear_plain)
+    from paddle_tpu_torch.quantization import dequantize, quantize_absmax
+
+    g = torch.Generator("cuda").manual_seed(3)
+    res = {"phase": "int8_linear", "cases": [], "tol": {
+        "bfloat16": INT8_LINEAR_TOL["bfloat16"],
+        "float32": INT8_LINEAR_TOL["float32"]}}
+    ok = True
+    step = {"kernel_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "bf16_bound_ms": 0.0}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    for name, K, N in W8_SHAPES:
+        w = torch.randn((N, K), generator=g, device="cuda") * 0.02
+        for dtype in (torch.bfloat16, torch.float32):
+            q, s = quantize_absmax(w.to(dtype), axis=0)
+            b = (torch.randn(N, generator=g, device="cuda") * 0.1).to(dtype)
+            wdq = dequantize(q, s, dtype)
+            for M in W8_ROWS:
+                x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+                got = int8_linear(x, q, s, b)
+                want = int8_linear_plain(x, q, s, b)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ref = want.float().abs().max().item()
+                dn = dname(torch, dtype)
+                case = {"shape": name, "M": M, "N": N, "K": K, "dtype": dn,
+                        "max_abs_err": err, "max_abs_plain": ref}
+                ok &= math.isfinite(err) and err <= INT8_LINEAR_TOL[dn] * ref
+                if dtype == torch.bfloat16:
+                    kms = cuda_ms(torch, lambda: int8_linear(x, q, s, b),
+                                  50, flush)
+                    pms = cuda_ms(torch, lambda: int8_linear_plain(
+                        x, q, s, b), 20, flush)
+                    lms = cuda_ms(torch, lambda: torch.matmul(x, wdq.t()),
+                                  50, flush)
+                    nbytes = N * K + 2 * M * K + 2 * M * N + 4 * N
+                    bnd, by = bound_ms(nbytes, 2 * M * N * K, dn)
+                    bf16_bnd, _ = bound_ms(2 * N * K + 2 * M * K + 2 * M * N,
+                                           2 * M * N * K, dn)
+                    case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
+                                bound_ms=bnd, bound_by=by,
+                                bf16_weight_bound_ms=bf16_bnd,
+                                share_of_bound=bnd / kms)
+                    if M == W8_ROWS[0]:
+                        step["kernel_ms"] += kms
+                        step["bound_ms"] += bnd
+                        step["library_ms"] += lms
+                        step["bf16_bound_ms"] += bf16_bnd
+                    if name == "fc1" and M == W8_ROWS[0]:
+                        ctx["int8_linear"] = dict(
+                            max_abs_err=err, kernel_ms=kms, plain_ms=pms,
+                            bound_ms=bnd, bound_by=by, library_ms=lms,
+                            shape=f"M {M} N {N} K {K} (fc1, decode step)",
+                            dtype=dn)
+                res["cases"].append(case)
+    del flush
+    L = 24
+    res["decode_step_weights_ms"] = {
+        "rows": W8_ROWS[0], "layers": L,
+        "int8_kernel_ms": L * step["kernel_ms"],
+        "int8_bound_ms": L * step["bound_ms"],
+        "bf16_matmul_ms": L * step["library_ms"],
+        "bf16_bound_ms": L * step["bf16_bound_ms"]}
+    try:
+        x = torch.zeros((8, 24), dtype=torch.bfloat16, device="cuda")
+        int8_linear(x, torch.zeros((64, 24), dtype=torch.int8,
+                                   device="cuda"),
+                    torch.ones((64, 1), dtype=torch.bfloat16, device="cuda"))
+        res["k_not_of_16_raises"] = False
+    except ValueError:
+        res["k_not_of_16_raises"] = True
+    ok &= res["k_not_of_16_raises"]
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("int8_linear kernel disagrees with its plain "
+                             "version")
+
+
+def _sampled_params(seed):
+    """The sampled lanes of the engine trace: five requests, temperature
+    0.7 or 1.0, top_k 50, top_p 0.9, seeds from the phase seed."""
+    from paddle_tpu_torch.inference import SamplingParams
+
+    return {i: SamplingParams(temperature=(0.7, 1.0)[j % 2], top_k=50,
+                              top_p=0.9, seed=seed * 1000 + i)
+            for j, i in enumerate(SAMPLED_LANES)}
+
+
+def phase_engine_sampled(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+
+    model = _model(torch, torch.bfloat16, seed)
+    V = model.config.vocab_size
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    params = _sampled_params(seed)
+    res = {"phase": "engine_sampled", "config": "gpt_1p3b bf16, 8 slots, "
+           "block 16, sampling=True; requests "
+           f"{sorted(params)} sampled (temperature 0.7 or 1.0, top_k 50, "
+           "top_p 0.9), the rest greedy", "runs": {}}
+    ok = True
+    for path, K in (("engine_sampled_bf16", 0),
+                    ("engine_sampled_spec_bf16", SPEC_K)):
+        kw = dict(num_slots=8, block_size=16, spec_decode_k=K)
+        if K == 0 and "engine_tokens" in ctx:
+            plain = ctx["engine_tokens"]
+        else:
+            eng = GenerationEngine(model, **kw)
+            ids, out = _serve_trace(eng, trace)
+            plain = [out[r] for r in ids]
+            del eng
+        outs = []
+        for rep in range(2):
+            eng = GenerationEngine(model, sampling=True, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = lambda: _serve_trace(
+                eng, trace, _drain_profiled(torch, ctx, path)
+                if rep == 0 else None, params_of=params.get)
+            ids, out = (_counted(torch, ctx, path, run) if rep == 0
+                        else run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            outs.append([out[r] for r in ids])
+            if rep == 0:
+                draws = ctx["paths"][path][DRAW]["launches"]
+                unifs = ctx["paths"][path][UNIF]["launches"]
+                run_res = {
+                    "spec_decode_k": K, "wall_s": wall,
+                    "tokens_generated": eng.tokens_generated,
+                    "tokens_per_s": eng.tokens_generated / wall,
+                    "sampled_tokens": eng.sampled_tokens,
+                    "decode_steps": eng.decode_steps,
+                    "prefill_first_tokens": eng.prefill_first_tokens,
+                    "draw_launches": draws, "uniform_launches": unifs,
+                    "outputs_ok": _outputs_ok(ids, out, reqs, V),
+                    "leak_check": "passed",
+                    "kernel_counts": ctx["paths"][path]}
+                if K:
+                    run_res.update(accepted=eng.spec_accepted_tokens,
+                                   rejected=eng.spec_rejected_tokens)
+                # one draw a decode or verify step and one a final prefill
+                # chunk; one uniform a verify step
+                run_res["launches_per_step_ok"] = bool(
+                    draws == eng.decode_steps + eng.prefill_first_tokens
+                    and unifs == (eng.decode_steps if K else 0))
+            del eng
+        greedy = [i for i in range(len(reqs)) if i not in params]
+        run_res["greedy_lanes_identical_to_sampling_off"] = all(
+            outs[0][i] == plain[i] for i in greedy)
+        run_res["sampled_lanes_differ_from_greedy"] = sum(
+            outs[0][i] != plain[i] for i in params)
+        run_res["second_run_identical"] = outs[0] == outs[1]
+        ok &= (run_res["outputs_ok"] and run_res["launches_per_step_ok"]
+               and run_res["greedy_lanes_identical_to_sampling_off"]
+               and run_res["second_run_identical"]
+               and run_res["sampled_lanes_differ_from_greedy"] > 0
+               and run_res["sampled_tokens"] > 0)
+        res["runs"][path] = run_res
+        torch.cuda.empty_cache()
+    res["ok"] = bool(ok)
+    emit(res)
+    del model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("engine_sampled phase failed its checks")
+
+
+def phase_engine_wint8(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+
+    model = _model(torch, torch.bfloat16, seed)
+    V, L = model.config.vocab_size, model.config.num_layers
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    if "engine_tokens" not in ctx:                 # phase 5 did not run
+        eng = GenerationEngine(model, num_slots=8, block_size=16)
+        ids, out = _serve_trace(eng, trace)
+        ctx["engine_tokens"] = [out[r] for r in ids]
+        del eng
+    res = {"phase": "engine_wint8", "config": "gpt_1p3b bf16 model, int8 "
+           "weights (qkv, out, fc1, fc2), 8 slots, block 16", "runs": {},
+           "token_parity_min": TOKEN_PARITY_MIN}
+    ok = True
+    for path, kv in (("engine_wint8_bf16", None),
+                     ("engine_wint8_kv8_bf16", "int8")):
+        eng = GenerationEngine(model, num_slots=8, block_size=16,
+                               weight_dtype="int8", kv_dtype=kv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, out = _counted(torch, ctx, path,
+                            lambda: _serve_trace(eng, trace, _drain_profiled(
+                                torch, ctx, path)))
+        wall = time.perf_counter() - t0
+        outs = [out[r] for r in ids]
+        steps = eng.prefill_chunks + eng.decode_steps
+        launches = ctx["paths"][path][W8]["launches"]
+        share = _token_match_fraction(ctx["engine_tokens"], outs)
+        run = {"kv_dtype": kv, "wall_s": wall,
+               "tokens_generated": eng.tokens_generated,
+               "tokens_per_s": eng.tokens_generated / wall,
+               "weight_snapshot_int8_bytes": eng.weight_snapshot_nbytes(),
+               "steps": steps, "int8_linear_launches": launches,
+               "four_a_layer_a_step": launches == 4 * L * steps,
+               "token_match_fraction": share,
+               "generated_share_equal_to_bf16_k0": _token_share(
+                   outs, ctx["engine_tokens"], reqs),
+               "outputs_ok": _outputs_ok(ids, out, reqs, V),
+               "leak_check": "passed", "kernel_counts": ctx["paths"][path]}
+        ok &= (run["outputs_ok"] and share >= TOKEN_PARITY_MIN
+               and run["four_a_layer_a_step"]
+               and run["weight_snapshot_int8_bytes"] == WINT8_SNAPSHOT_BYTES)
+        res["runs"][path] = run
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    # f32 at full width, 2 layers: the card's int8-weight engine against
+    # the CPU's, from the same weights
+    cfg = GPTConfig.gpt_1p3b()
+    cfg.num_layers = 2
+    g = torch.Generator("cuda").manual_seed(seed)
+    card = GPTForCausalLM(cfg, device="cuda", generator=g).eval()
+    host = GPTForCausalLM(cfg, device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.RandomState(seed + 1)
+    prompts = [rng.randint(0, V, 256), rng.randint(0, V, 300)]
+
+    def serve(m, dev):
+        eng = GenerationEngine(m, device=dev, num_slots=2, block_size=16,
+                               weight_dtype="int8")
+        ids = [eng.add_request(p, 16) for p in prompts]
+        out = eng.drain()
+        return [out[r] for r in ids]
+
+    with torch.no_grad():
+        got = _counted(torch, ctx, "wint8_f32", lambda: serve(card, "cuda"))
+        want = serve(host, "cpu")
+    res["f32_2_layers"] = {"identical_to_cpu": got == want,
+                           "kernel_counts": ctx["paths"]["wint8_f32"]}
+    ok &= got == want
+    res["ok"] = bool(ok)
+    emit(res)
+    del card, host
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("engine_wint8 phase failed its checks")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="profile the engine runs (phases engine, "
-                    "engine_spec, engine_int8) after their prefixes are "
+                    "engine_spec, engine_int8, engine_sampled, "
+                    "engine_wint8) after their prefixes are "
                     "cached, one GPT train step, one BERT train step, one "
                     "ResNet-50 forward and one ResNet-50 train step on "
                     "each route, one Transformer forward and one "
@@ -4545,6 +5019,8 @@ def main(argv=None):
         sdpa_forward, shortseq_attention_bwd, shortseq_attention_fwd)
     from paddle_tpu_torch.ops.grad_merge import (grad_finish, grad_merge,
                                                  grad_unscale)
+    from paddle_tpu_torch.ops.int8_linear import int8_linear
+    from paddle_tpu_torch.ops.sampling import sample_draw, sample_uniform
     from paddle_tpu_torch.ops.optimizer_update import (optimizer_norms,
                                                        optimizer_update)
     from paddle_tpu_torch.ops.paged_decode import (
@@ -4563,7 +5039,8 @@ def main(argv=None):
                         conv3x3_bn_relu, conv1x1_train, conv3x3_train,
                         conv1x1_bwd, conv3x3_dw, sdpa_forward,
                         sdpa_backward, optimizer_update, optimizer_norms,
-                        grad_merge, grad_finish, grad_unscale)}
+                        grad_merge, grad_finish, grad_unscale, sample_draw,
+                        sample_uniform, int8_linear)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -4632,8 +5109,16 @@ def main(argv=None):
                 phase_train_accum(torch, ctx, SEED)
             elif name == "train_accum_parity":
                 phase_train_accum_parity(torch, ctx, SEED)
-            else:
+            elif name == "bert_lamb":
                 phase_bert_lamb(torch, ctx, SEED)
+            elif name == "sampling":
+                phase_sampling(torch, ctx)
+            elif name == "int8_linear":
+                phase_int8_linear(torch, ctx)
+            elif name == "engine_sampled":
+                phase_engine_sampled(torch, ctx, SEED)
+            else:
+                phase_engine_wint8(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -4706,7 +5191,15 @@ def main(argv=None):
             (FINISH, FINISH, "paddle_tpu_torch/csrc/grad_merge.cu",
              "paddle_tpu/jit/api.py:625"),
             (UNSCALE, UNSCALE, "paddle_tpu_torch/csrc/grad_merge.cu",
-             "paddle_tpu/jit/api.py:528")):
+             "paddle_tpu/jit/api.py:528"),
+            # no Pallas counterpart: the draws and the int8 weights'
+            # dequantize that XLA fuses into the JAX engine's steps
+            (DRAW, DRAW, "paddle_tpu_torch/csrc/sampling.cu",
+             "paddle_tpu/ops/sampling.py:107"),
+            (UNIF, UNIF, "paddle_tpu_torch/csrc/sampling.cu",
+             "paddle_tpu/ops/sampling.py:119"),
+            (W8, W8, "paddle_tpu_torch/csrc/int8_linear.cu",
+             "paddle_tpu/inference/engine.py:1296")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

@@ -38,7 +38,13 @@ Ported so far:
 - inference of the encoder-decoder Transformer (`nn.Transformer` and its
   layers), whose encoder self-attention over long sources and decoder
   cross-attention take the flash forward kernel B6
-  (`ops.flash_attention.sdpa_forward`, also behind `pallas_sdpa_forward`).
+  (`ops.flash_attention.sdpa_forward`, also behind `pallas_sdpa_forward`);
+- every loss of the JAX package (`ops.nn_ops`, the layers in `nn`);
+- sampled serving (`GenerationEngine(sampling=True)`,
+  `inference.SamplingParams`, `best_of_n`) on jax's own threefry keys and
+  bits (`ops.threefry`), with the draw kernels (`ops.sampling`), and int8
+  weights (`weight_dtype="int8"`, `quantization`) through the int8-weight
+  linear kernel (`ops.int8_linear`).
 """
 from . import amp, optimizer, vision
 from .device import resolve_device

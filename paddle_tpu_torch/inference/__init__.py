@@ -1,6 +1,7 @@
 """Serving tier of the port (counterpart of paddle_tpu/inference)."""
 from .engine import (PRIORITY_CLASSES, GenerationEngine, PagedKVCache,
                      Request, iter_prefix_key, prefix_key)
+from .sampling import SamplingParams
 
 __all__ = ["GenerationEngine", "PagedKVCache", "Request", "PRIORITY_CLASSES",
-           "prefix_key", "iter_prefix_key"]
+           "prefix_key", "iter_prefix_key", "SamplingParams"]

@@ -1,6 +1,6 @@
 """Continuous-batching generation engine over a paged KV cache: counterpart
-of paddle_tpu/inference/engine.py (greedy, fp or int8 pools, speculative
-decoding, one device, serial core).
+of paddle_tpu/inference/engine.py (greedy or sampled lanes, fp or int8
+pools, int8 weights, speculative decoding, one device, serial core).
 
 - `PagedKVCache`: pools `[layers, num_blocks, block_size, heads, head_dim]`
   on the device plus a host-side allocator with per-block refcounts and a
@@ -22,18 +22,33 @@ decoding, one device, serial core).
   not advance past them and attention is bounded by position.
 - int8 KV (`kv_dtype="int8"`): int8 pools plus a `[layers, num_blocks, 2]`
   f32 per-block K/V scale array, quantized on every write.
+- sampling (`sampling=True`): `add_request(sampling_params=SamplingParams(
+  temperature, top_k, top_p, seed))` per request; each step passes per-row
+  temperature, top-k, top-p and key rows, greedy lanes take the argmax (bit
+  for bit a `sampling=False` engine's), sampled lanes one draw under
+  `fold_in(fold_in(key_row(seed), position), salt)`: jax's keys and bits,
+  so a stream is the JAX engine's token for token (`ops.sampling`). Under
+  K > 0 the verify step runs the rejection-sampling acceptance
+  (`verify_window`); `best_of_n` fans one prompt into n seeded candidates
+  that share its cached prompt blocks.
+- int8 weights (`weight_dtype="int8"`): an int8 snapshot of the qkv, out,
+  fc1 and fc2 weights, per-output-channel scales
+  (`quantization.quantize_absmax`), which the paged forwards read through
+  `ops.int8_linear`; embeddings, norms, biases and the tied head stay fp.
+  `refresh_weights()` re-quantizes after a weight edit.
 - the attention backend (`attention_backend`, or the environment's
   `PADDLE_PAGED_ATTENTION_BACKEND`, which wins): `auto`/`dense`/`pallas`
   resolved once by `ops.paged_attention.resolve_backend`; `pallas` runs
   the paged kernels, `dense` their plain versions on every device.
 - the deploy switches, resolved as the JAX engine resolves them: the
   environment wins over the argument and an empty value means unset.
-  `PADDLE_SPEC_DECODE_K` over `spec_decode_k` and `PADDLE_SERVE_KV_DTYPE`
-  over `kv_dtype` (unset or `int8`). The switches of features not ported
-  yet are parsed by JAX's rules and raise `NotImplementedError` when they
-  ask for their feature, never serving without it: `PADDLE_SERVE_MP` > 1,
-  `PADDLE_SERVE_WEIGHT_DTYPE=int8`, and `PADDLE_SERVE_SAMPLING`,
-  `PADDLE_SERVE_TRACING` or `PADDLE_SERVE_ASYNC` on.
+  `PADDLE_SPEC_DECODE_K` over `spec_decode_k`, `PADDLE_SERVE_KV_DTYPE`
+  over `kv_dtype` and `PADDLE_SERVE_WEIGHT_DTYPE` over `weight_dtype`
+  (unset or `int8`), `PADDLE_SERVE_SAMPLING` over `sampling`. The
+  switches of features not ported yet are parsed by JAX's rules and raise
+  `NotImplementedError` when they ask for their feature, never serving
+  without it: `PADDLE_SERVE_MP` > 1, and `PADDLE_SERVE_TRACING` or
+  `PADDLE_SERVE_ASYNC` on.
 - prefill: chunked, `prefill_chunk="auto"` (the default) being
   `min(128, max_model_len)` as in JAX. JAX's bucketed prefill
   (`prefill_chunk=None` or `prefill_buckets=`) raises
@@ -44,11 +59,11 @@ eager: there is no compiled step, no donation, no trace count). Greedy
 output matches `GPTForCausalLM.generate(use_cache=True)` per request, with
 or without speculation; int8 pools hold to the JAX int8 engine instead.
 
-Left for later slices (ROADMAP Queue A): bucketed prefill, sampled
-acceptance and the async drafter thread, tensor parallelism, int8
-weights, adapters, sampling, the metrics registry, tracing and the flight
-recorder, the async core and the fleet handoff. Plain counters stand in
-for the metrics.
+Left for later slices (ROADMAP Queue A): bucketed prefill, the async
+drafter thread, tensor parallelism, adapters, the metrics registry,
+tracing and the flight recorder, the async core and the fleet handoff
+(with the fleet's `best_of_n` and `adopt_request`). Plain counters stand
+in for the metrics.
 """
 from __future__ import annotations
 
@@ -64,6 +79,9 @@ import torch
 from ..device import resolve_device
 from ..ops.paged_attention import (KV_QUANT_EPS, copy_pool_block,
                                    resolve_backend)
+from ..ops.sampling import sample_token, verify_window
+from ..quantization import quantize_absmax
+from .sampling import SamplingParams, key_row
 from .speculative import NgramDrafter, draft_window
 
 __all__ = ["PagedKVCache", "GenerationEngine", "Request", "PRIORITY_CLASSES",
@@ -92,6 +110,62 @@ def iter_prefix_key(tokens, block_size, adapter_id=0):
             h + tokens[i * bs:(i + 1) * bs].tobytes(),
             digest_size=16).digest()
         yield h
+
+
+# copied from paddle_tpu/inference/engine.py: best-of-n's intake checks
+# and its fan-out loop
+def _best_of_n_intake(eng, sampling_params, n, counter):
+    """Shared best-of-n validation + None-seed RANGE claim. `eng` is the
+    serving engine, `counter` the caller's deterministic seed counter.
+    Returns (params, base, advanced counter); advancing by one instead of
+    n would hand seeds base+1..base+n-1 out again to later None-seed
+    requests, replaying candidates."""
+    if n < 1:
+        raise ValueError(f"need n >= 1 candidates, got {n}")
+    if not eng.sampling:
+        raise ValueError(
+            "best_of_n needs sampling=True engines "
+            "(GenerationEngine(sampling=True); fleets pass it in "
+            "engine_options) — n greedy lanes would be n identical "
+            "candidates")
+    if not eng.enable_prefix_cache:
+        raise ValueError(
+            "best_of_n needs the prefix cache (chunked prefill) — "
+            "without it every candidate re-prefills the prompt")
+    params = eng._check_sampling(
+        sampling_params if sampling_params is not None
+        else SamplingParams())
+    if params.greedy:
+        raise ValueError(
+            "best_of_n needs temperature > 0 — greedy candidates "
+            "would all be the same continuation")
+    if params.seed is None:
+        return params, counter, counter + int(n)
+    return params, params.seed, counter
+
+
+def _best_of_n_fanout(add, run, params, n, base):
+    """The best-of-n candidate loop: candidate 0 is served to completion
+    FIRST — its prefill writes and registers the prompt's full blocks
+    once — then candidates 1..n-1 admit against the warm prefix, seeds
+    `base..base+n-1`. Returns (candidates in seed order, bystander
+    finishes the two run() calls collected along the way)."""
+    ids = [add(params.with_seed(base))]
+    stash = run()
+    for i in range(1, int(n)):
+        ids.append(add(params.with_seed(base + i)))
+    stash.update(run())
+    out = [stash.pop(i) for i in ids]
+    if any(c is None for c in out):
+        # a candidate was load-shed at admission (max_queue pressure
+        # with no lower-priority victim) — a silent None in the
+        # returned list would violate the n-candidates contract
+        raise RuntimeError(
+            f"best_of_n: {sum(c is None for c in out)} of {n} "
+            "candidates were shed at admission under max_queue "
+            "pressure — serve best_of_n with queue headroom for n "
+            "candidates (or raise max_queue)")
+    return out, stash
 
 
 def prefix_key(tokens, block_size, adapter_id=0):
@@ -350,12 +424,7 @@ def _refuse_unported_switches():
         raise NotImplementedError(
             f"PADDLE_SERVE_MP={mp}: tensor-parallel serving is not ported "
             "yet (ROADMAP Queue A 10)")
-    if _resolve_dtype_knob("PADDLE_SERVE_WEIGHT_DTYPE", None):
-        raise NotImplementedError(
-            "PADDLE_SERVE_WEIGHT_DTYPE=int8: int8 weights are not ported "
-            "yet (ROADMAP Queue A 7)")
-    for name, item in (("PADDLE_SERVE_SAMPLING", "6"),
-                       ("PADDLE_SERVE_TRACING", "11"),
+    for name, item in (("PADDLE_SERVE_TRACING", "11"),
                        ("PADDLE_SERVE_ASYNC", "11")):
         if _resolve_bool_knob(name, None):
             raise NotImplementedError(
@@ -376,6 +445,9 @@ class Request:
     max_new_tokens: int
     eos_token_id: int = None
     priority: str = "standard"         # one of PRIORITY_CLASSES
+    # the request's SamplingParams (seed resolved at intake), or None for
+    # the greedy contract
+    sampling: object = None
 
 
 @dataclass(eq=False)
@@ -387,6 +459,11 @@ class _Slot:
     generated: list = field(default_factory=list)
     prefill_pos: int = 0               # next prompt position to prefill
     admit_seq: int = 0                 # admission order tiebreak
+    # per-slot sampling state (greedy lanes: 0 / 0 / 1.0 / no key row)
+    temp: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    key_row: object = None             # [2] int64 tensor of uint32 values
 
     @property
     def prefilling(self):
@@ -419,22 +496,29 @@ class GenerationEngine:
     turns each decode step into a K-token verify step over drafts from
     `drafter` (an `NgramDrafter` when None); K=0 is plain decoding.
     `PADDLE_SPEC_DECODE_K` and `PADDLE_SERVE_KV_DTYPE` win over those two
-    arguments. `prefill_chunk` is `"auto"` (`min(128, max_model_len)`) or
-    an int; `None` and `prefill_buckets` (bucketed prefill) raise.
+    arguments. `weight_dtype="int8"` (or `PADDLE_SERVE_WEIGHT_DTYPE`)
+    serves the qkv, out, fc1 and fc2 weights from an int8 snapshot;
+    `sampling=True` (or `PADDLE_SERVE_SAMPLING`) takes per-request
+    `SamplingParams`. `prefill_chunk` is `"auto"` (`min(128,
+    max_model_len)`) or an int; `None` and `prefill_buckets` (bucketed
+    prefill) raise.
     `attention_backend` (`auto` by default) is resolved once into
     `attention_backend` (`dense` or `pallas`); `auto` is dense at head dims
     and block sizes the kernels do not take. Counters: `tokens_generated`,
     `prefix_hit_tokens`, `cow_copies`, `prefill_chunks`, `decode_steps`
     (verify steps when K > 0), `stalls` by path (`prefill`, `decode`, and
     `spec_degrade`: a lane that shed its draft under pool pressure and
-    still ran), `shed`, `spec_accepted_tokens` and `spec_rejected_tokens`.
+    still ran), `shed`, `spec_accepted_tokens`, `spec_rejected_tokens`,
+    `sampled_tokens` (tokens of temperature > 0 lanes) and
+    `prefill_first_tokens` (first tokens a final prefill chunk yielded).
     """
 
     def __init__(self, model, num_slots=8, block_size=16, num_blocks=None,
                  max_model_len=None, eos_token_id=None, prefill_chunk="auto",
                  enable_prefix_cache=True, max_queue=None, device=None,
                  spec_decode_k=0, drafter=None, kv_dtype=None,
-                 attention_backend=None, prefill_buckets=None):
+                 attention_backend=None, prefill_buckets=None,
+                 weight_dtype=None, sampling=None):
         cfg = model.config
         if model.training and cfg.dropout > 0:
             raise ValueError("GenerationEngine decodes deterministically "
@@ -498,6 +582,15 @@ class GenerationEngine:
             if k > 0 else None
         self.kv_dtype = _resolve_dtype_knob("PADDLE_SERVE_KV_DTYPE",
                                             kv_dtype)
+        self.weight_dtype = _resolve_dtype_knob("PADDLE_SERVE_WEIGHT_DTYPE",
+                                                weight_dtype)
+        self.sampling = _resolve_bool_knob("PADDLE_SERVE_SAMPLING",
+                                           sampling)
+        self._seed_counter = 0
+        # int8 weights: the snapshot the paged forwards read, one dict a
+        # layer; None serves the live weights
+        self._qweights = None
+        self.quantize_weights()
         # default pool: every slot at full context (+ the null block)
         self.cache = PagedKVCache(
             cfg.num_layers,
@@ -520,14 +613,112 @@ class GenerationEngine:
         self.shed = 0
         self.spec_accepted_tokens = 0
         self.spec_rejected_tokens = 0
+        self.sampled_tokens = 0
+        self.prefill_first_tokens = 0
+
+    # -- int8 weight serving -----------------------------------------------
+    def _weight_quant_plan(self):
+        """The weights served int8, one dict a layer of name -> Linear:
+        the attention's qkv and out and the MLP's fc1 and fc2 (the
+        per-step weight read). Embeddings, norms, biases and the tied
+        head stay fp."""
+        return [{"qkv_proj": b.attn.qkv_proj, "out_proj": b.attn.out_proj,
+                 "fc1": b.mlp.fc1, "fc2": b.mlp.fc2}
+                for b in self.model.gpt.blocks]
+
+    def _build_quant_state(self):
+        """The int8 snapshot: each planned weight as (codes, per-output-
+        channel scale) from `quantize_absmax` over torch's `[out, in]`
+        (JAX's `axis=1` over its `[in, out]`)."""
+        with torch.no_grad():
+            return [{name: quantize_absmax(lin.weight.detach(), axis=0)
+                     for name, lin in layer.items()}
+                    for layer in self._weight_quant_plan()]
+
+    def quantize_weights(self):
+        """(Re)build the int8 weight snapshot under `weight_dtype="int8"`;
+        a no-op for the fp engine, which reads the live weights."""
+        if self.weight_dtype == "int8":
+            self._qweights = self._build_quant_state()
+
+    def refresh_weights(self):
+        """Re-quantize the snapshot from the live parameters: call after
+        a weight update (an fp engine never needs it)."""
+        self.quantize_weights()
+
+    def weight_snapshot_nbytes(self):
+        """Bytes of the int8 snapshot's codes (0 for an fp engine)."""
+        return sum(q.numel() * q.element_size()
+                   for layer in self._qweights or ()
+                   for q, _ in layer.values())
+
+    # -- per-slot sampling ---------------------------------------------------
+    def _check_sampling(self, params):
+        """Validate intake sampling params: None always passes (the greedy
+        contract); anything else needs `sampling=True`. Returns the params
+        unchanged (the seed may still be None)."""
+        if params is None:
+            return None
+        if not isinstance(params, SamplingParams):
+            raise TypeError(
+                "sampling_params takes a SamplingParams, got "
+                f"{type(params).__name__}")
+        if not self.sampling:
+            raise ValueError(
+                "sampling_params needs GenerationEngine(sampling=True) "
+                "— this engine decodes greedily")
+        return params
+
+    def _resolve_seed(self, params):
+        """Pin a request's seed: explicit seeds pass through, None draws
+        from the engine's deterministic counter (same admission order,
+        same seeds, same tokens)."""
+        if params is None or params.seed is not None:
+            return params
+        seed = self._seed_counter
+        self._seed_counter += 1
+        return params.with_seed(seed)
+
+    @staticmethod
+    def _slot_sampling_fields(req):
+        """The per-slot sampling state a request seats with: greedy (or
+        param-less) lanes keep the inert defaults."""
+        p = req.sampling
+        if p is None or p.greedy:
+            return {}
+        return dict(temp=float(p.temperature), top_k=int(p.top_k),
+                    top_p=float(p.top_p), key_row=key_row(p.seed))
+
+    def _sampling_rows(self, slots):
+        """The per-row sampling tensors of one step over `slots` (None for
+        an idle lane) on the device: temperature, top-k, top-p `[rows]`
+        and the key rows `[rows, 2]`. Idle and greedy lanes ride
+        temperature 0 and zero keys: their draws are never selected."""
+        n = len(slots)
+        temps = np.zeros(n, np.float32)
+        tks = np.zeros(n, np.int32)
+        tps = np.ones(n, np.float32)
+        keys = np.zeros((n, 2), np.int64)
+        for i, slot in enumerate(slots):
+            if slot is None or slot.key_row is None:
+                continue
+            temps[i], tks[i], tps[i] = slot.temp, slot.top_k, slot.top_p
+            keys[i] = slot.key_row.numpy()
+        return [torch.from_numpy(a).to(self.device)
+                for a in (temps, tks, tps, keys)]
 
     # -- request intake ----------------------------------------------------
     def add_request(self, prompt, max_new_tokens, eos_token_id=None,
-                    req_id=None, priority="standard"):
+                    req_id=None, priority="standard", sampling_params=None):
         """Queue a request; it is admitted into a free lane between steps
         (may be called while `run`/`step` is mid-stream). With `max_queue`
         set and the queue full, the lowest-priority loser is shed: its
-        result is None. Returns the request id."""
+        result is None. `sampling_params` (a `SamplingParams`; needs
+        `sampling=True`) samples the request; None and temperature 0 keep
+        the greedy contract. A None seed is drawn here from the engine's
+        deterministic counter. Returns the request id."""
+        sampling_params = self._resolve_seed(
+            self._check_sampling(sampling_params))
         if self._draining:
             raise RuntimeError("engine is draining — admissions are closed")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -554,7 +745,7 @@ class GenerationEngine:
                              "decoding, or awaiting collection")
         eos = self.eos_token_id if eos_token_id is None else eos_token_id
         req = Request(req_id, prompt, int(max_new_tokens), eos,
-                      priority=priority)
+                      priority=priority, sampling=sampling_params)
         if self.max_queue is not None \
                 and self.num_pending >= self.max_queue:
             victim = self._shed_victim(priority)
@@ -603,9 +794,11 @@ class GenerationEngine:
         EOS or the request's budget; retire the lane if either was hit."""
         slot = self._slots[i]
         req = slot.req
+        sampled = req.sampling is not None and not req.sampling.greedy
         for tok in toks:
             slot.generated.append(tok)
             self.tokens_generated += 1
+            self.sampled_tokens += sampled
             if (req.eos_token_id is not None and tok == req.eos_token_id) \
                     or len(slot.generated) >= req.max_new_tokens:
                 self._finish(i)
@@ -625,7 +818,8 @@ class GenerationEngine:
                 blocks, hit = self.cache.match_prefix(req.prompt)
                 self.prefix_hit_tokens += hit
             slot = _Slot(req=req, blocks=list(blocks), prefill_pos=hit,
-                         admit_seq=self._admit_counter)
+                         admit_seq=self._admit_counter,
+                         **self._slot_sampling_fields(req))
             self._admit_counter += 1
             self._slots[self._slots.index(None)] = slot
             admitted += 1
@@ -667,14 +861,23 @@ class GenerationEngine:
             with torch.no_grad():
                 hidden = self.model.gpt.forward_prefill_chunk(
                     self._device_int32(tokens), start, c.kpool, c.vpool,
-                    self._device_int32(row), plen, c.scales)
+                    self._device_int32(row), plen, c.scales, self._qweights)
                 self.prefill_chunks += 1
                 slot.prefill_pos = end
                 if end < plen:
                     return 1
                 # the last real prompt position's logits: first token
                 logits = self.model._logits_of(hidden[0, plen - 1 - start])
-                first = int(logits.argmax(-1))
+                if self.sampling:
+                    # it lands at position plen, so its draw folds plen - 1,
+                    # the key a full-prefix-hit decode would fold for it
+                    first = int(sample_token(
+                        logits[None], *self._sampling_rows([slot]),
+                        self._device_int32(np.asarray([plen - 1],
+                                                      np.int32)))[0])
+                else:
+                    first = int(logits.argmax(-1))
+            self.prefill_first_tokens += 1
             if self.enable_prefix_cache:
                 # the prompt's KV is fully written: publish its full blocks
                 self.cache.register_prefix(req.prompt, slot.blocks)
@@ -746,12 +949,20 @@ class GenerationEngine:
             tables[i, :len(slot.blocks)] = slot.blocks
         c = self.cache
         with torch.no_grad():
+            pos = self._device_int32(positions)
             hidden = self.model.gpt.forward_decode_paged(
-                self._device_int32(tokens), self._device_int32(positions),
-                c.kpool, c.vpool, self._device_int32(tables), c.scales,
-                self.attention_backend)
-            nxt = self.model._logits_of(hidden)[:, 0].argmax(-1).cpu() \
-                .numpy()
+                self._device_int32(tokens), pos, c.kpool, c.vpool,
+                self._device_int32(tables), c.scales, self.attention_backend,
+                self._qweights)
+            logits = self.model._logits_of(hidden)[:, 0]
+            if self.sampling:
+                # greedy rows take the argmax, sampled rows one draw keyed
+                # by (seed, the feed position)
+                nxt = sample_token(logits, *self._sampling_rows(self._slots),
+                                   pos)
+            else:
+                nxt = logits.argmax(-1)
+            nxt = nxt.cpu().numpy()
         self.decode_steps += 1
         for i in runnable:
             self._emit(i, [int(nxt[i])])
@@ -827,9 +1038,10 @@ class GenerationEngine:
 
     def _spec_dispatch(self, runnable, drafts):
         """Score all K+1 window positions of every runnable lane in one
-        verify pass; returns the target's argmax per row, `[slots, K+1]`.
-        Idle and stalled lanes ride (token 0, position 0, draft length 0,
-        all-zero table)."""
+        verify pass; returns the target's argmax per row, `[slots, K+1]`,
+        or under sampling `verify_window`'s (choices, accepts). Idle and
+        stalled lanes ride (token 0, position 0, draft length 0, all-zero
+        table)."""
         W = self.spec_decode_k + 1
         tokens = np.zeros((self.num_slots, W), np.int32)
         positions = np.zeros(self.num_slots, np.int32)
@@ -845,27 +1057,47 @@ class GenerationEngine:
             tables[i, :len(slot.blocks)] = slot.blocks
         c = self.cache
         with torch.no_grad():
+            toks, pos, dl = (self._device_int32(a)
+                             for a in (tokens, positions, dlens))
             hidden = self.model.gpt.forward_verify_paged(
-                self._device_int32(tokens), self._device_int32(positions),
-                self._device_int32(dlens), c.kpool, c.vpool,
-                self._device_int32(tables), c.scales, self.attention_backend)
-            nxt = self.model._logits_of(hidden).argmax(-1).cpu().numpy()
+                toks, pos, dl, c.kpool, c.vpool,
+                self._device_int32(tables), c.scales, self.attention_backend,
+                self._qweights)
+            logits = self.model._logits_of(hidden)
+            if self.sampling:
+                # rejection-sampling acceptance over the window: per-row
+                # coins and the residual or bonus draws
+                out = verify_window(logits, toks, dl,
+                                    *self._sampling_rows(self._slots), pos)
+                out = tuple(t.cpu().numpy() for t in out)
+            else:
+                out = logits.argmax(-1).cpu().numpy()
         self.decode_steps += 1
-        return nxt
+        return out
 
     def _spec_complete(self, runnable, drafts, nxt):
         """Exact greedy acceptance per lane: the target's own next token,
         then every draft token that equals the target's argmax at its
-        position (each match validates the next column); emission stops at
-        the first EOS or at the request's budget."""
+        position (each match validates the next column). Under sampling
+        (`nxt` the (choices, accepts) pair): the longest draft prefix whose
+        coins passed, then the stop row's choice, which for greedy lanes
+        is the same stream. Emission stops at the first EOS or at the
+        request's budget."""
         for i in runnable:
             d = drafts[i]
-            out = nxt[i]
-            acc = [int(out[0])]
-            for j, dj in enumerate(d):
-                if dj != int(out[j]):
-                    break
-                acc.append(int(out[j + 1]))
+            if self.sampling:
+                choices, accepts = nxt
+                n = 0
+                while n < len(d) and accepts[i, n]:
+                    n += 1
+                acc = [int(t) for t in d[:n]] + [int(choices[i, n])]
+            else:
+                out = nxt[i]
+                acc = [int(out[0])]
+                for j, dj in enumerate(d):
+                    if dj != int(out[j]):
+                        break
+                    acc.append(int(out[j + 1]))
             self.spec_accepted_tokens += len(acc) - 1
             self.spec_rejected_tokens += len(d) - (len(acc) - 1)
             self._emit(i, acc)
@@ -887,6 +1119,29 @@ class GenerationEngine:
     @property
     def num_pending(self):
         return sum(len(self._queues[p]) for p in PRIORITY_CLASSES)
+
+    def best_of_n(self, prompt, n, max_new_tokens, sampling_params=None,
+                  eos_token_id=None, priority="standard"):
+        """Fan ONE prompt into `n` sampled candidates sharing its
+        prefix-cache blocks: candidate 0 is served first (its prefill
+        writes and registers the prompt's full blocks once), then
+        candidates 1..n-1 admit with a full-prefix hit, the shared blocks
+        seated read-only (copy-on-write keeps decode writes private).
+        Candidate i samples under seed `base + i` (base from
+        `sampling_params.seed`, or the engine counter when None), so a
+        fixed base replays all n candidates token for token. Drives
+        `run()`; other queued work is served along the way and its
+        finishes stay collectable. Returns the n candidate token lists
+        (prompt + generated), in seed order."""
+        params, base, self._seed_counter = _best_of_n_intake(
+            self, sampling_params, n, self._seed_counter)
+        out, stash = _best_of_n_fanout(
+            lambda p: self.add_request(
+                prompt, max_new_tokens, eos_token_id=eos_token_id,
+                priority=priority, sampling_params=p),
+            self.run, params, n, base)
+        self._results.update(stash)
+        return out
 
     def pop_results(self):
         """{req_id: tokens} finished since the last pop (None = shed)."""

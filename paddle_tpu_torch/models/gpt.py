@@ -12,7 +12,11 @@ labels and `loss_fn`, dropout where the JAX model applies it, backward
 through the causal attention kernels, `num_params`, `flops_per_token`).
 Tensor parallelism and LoRA are later slices. The paged paths update the
 pools (and, with `kv_scales`, the `[layers, num_blocks, 2]` scale array)
-IN PLACE and return only the hidden states.
+IN PLACE and return only the hidden states. They also take `qweights`, the
+serving engine's int8 weight snapshot (one dict a layer: `qkv_proj`,
+`out_proj`, `fc1` and `fc2` to their int8 codes and scales), through which
+those four projections run `ops.int8_linear` instead of the live weights;
+every other parameter, and every other path, reads the live ones.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import resolve_device
+from ..ops.int8_linear import int8_linear
 from ..ops.nn_ops import cross_entropy, dropout, scaled_dot_product_attention
 from ..ops.paged_attention import (paged_attention_step,
                                    paged_prefill_chunk, paged_verify_window)
@@ -69,6 +74,15 @@ class GPTConfig:
                          num_layers=layers, num_heads=heads, max_seq_len=seq)
 
 
+def _linear(lin, x, qw, name):
+    """`lin(x)`, or with the layer's int8 snapshot `qw` the same projection
+    over its codes and scales (`ops.int8_linear`)."""
+    if qw is None:
+        return lin(x)
+    q, s = qw[name]
+    return int8_linear(x, q, s, lin.bias)
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
@@ -80,15 +94,16 @@ class GPTAttention(nn.Module):
         self.out_proj = nn.Linear(H, H, **kw)
         self.dropout = config.dropout
 
-    def _qkv_heads(self, x):
+    def _qkv_heads(self, x, qw=None):
         """Per-head q/k/v `[B, S, heads, D]` from the fused projection
         (3-major reshape)."""
         B, S, _ = x.shape
-        qkv = self.qkv_proj(x).view(B, S, 3, self.num_heads, self.head_dim)
+        qkv = _linear(self.qkv_proj, x, qw, "qkv_proj").view(
+            B, S, 3, self.num_heads, self.head_dim)
         return qkv.unbind(2)
 
-    def _attn_out(self, out, B, S):
-        return self.out_proj(out.reshape(B, S, -1))
+    def _attn_out(self, out, B, S, qw=None):
+        return _linear(self.out_proj, out.reshape(B, S, -1), qw, "out_proj")
 
     def forward(self, x, generator=None):
         """Causal self-attention; in training mode with dropout > 0 the
@@ -109,14 +124,14 @@ class GPTAttention(nn.Module):
         return self._attn_out(out, B, S), k, v
 
     def forward_prefill_chunk(self, x, kpool, vpool, layer_idx, block_row,
-                              start, plen, kv_scales=None):
+                              start, plen, kv_scales=None, qw=None):
         """Chunked prefill for ONE slot against the paged pools (updated
         in place). x `[1, C, H]`; start/plen host ints."""
         B, C, _ = x.shape
-        q, k, v = self._qkv_heads(x)
+        q, k, v = self._qkv_heads(x, qw)
         out = paged_prefill_chunk(q, k, v, kpool, vpool, layer_idx,
                                   block_row, start, plen, scales=kv_scales)
-        return self._attn_out(out, B, C)
+        return self._attn_out(out, B, C, qw)
 
     def forward_decode(self, x, kcache, vcache, pos):
         """One-token decode against a FIXED-size cache: x `[B, 1, H]`,
@@ -137,30 +152,30 @@ class GPTAttention(nn.Module):
 
     def forward_decode_paged(self, x, kpool, vpool, layer_idx,
                              block_tables, positions, kv_scales=None,
-                             backend="pallas"):
+                             backend="pallas", qw=None):
         """Batched one-token decode against the global paged pools
         (updated in place): x `[slots, 1, H]`; `backend` the paged
         attention's (`dense` or `pallas`)."""
         B = x.shape[0]
-        q, k, v = self._qkv_heads(x)
+        q, k, v = self._qkv_heads(x, qw)
         out = paged_attention_step(q, k, v, kpool, vpool, layer_idx,
                                    block_tables, positions,
                                    scales=kv_scales, backend=backend)
-        return self._attn_out(out, B, 1)
+        return self._attn_out(out, B, 1, qw)
 
     def forward_verify_paged(self, x, kpool, vpool, layer_idx,
                              block_tables, positions, draft_lens,
-                             kv_scales=None, backend="pallas"):
+                             kv_scales=None, backend="pallas", qw=None):
         """Speculative verify of a `[slots, W]` window against the global
         paged pools (updated in place): x `[slots, W, H]`; every live
         row's k/v lands through the table and each row attends causally
         up to its own position."""
         B, W, _ = x.shape
-        q, k, v = self._qkv_heads(x)
+        q, k, v = self._qkv_heads(x, qw)
         out = paged_verify_window(q, k, v, kpool, vpool, layer_idx,
                                   block_tables, positions, draft_lens,
                                   scales=kv_scales, backend=backend)
-        return self._attn_out(out, B, W)
+        return self._attn_out(out, B, W, qw)
 
 
 class GPTMLP(nn.Module):
@@ -173,8 +188,9 @@ class GPTMLP(nn.Module):
                              **kw)
         self.dropout = config.dropout
 
-    def forward(self, x, generator=None):
-        out = self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x, generator=None, qw=None):
+        h = F.gelu(_linear(self.fc1, x, qw, "fc1"), approximate="tanh")
+        out = _linear(self.fc2, h, qw, "fc2")
         return dropout(out, self.dropout, self.training, generator)
 
 
@@ -197,30 +213,35 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x)), k, v
 
     def forward_prefill_chunk(self, x, kpool, vpool, layer_idx, block_row,
-                              start, plen, kv_scales=None):
+                              start, plen, kv_scales=None, qw=None):
         x = x + self.attn.forward_prefill_chunk(
             self.ln1(x), kpool, vpool, layer_idx, block_row, start, plen,
-            kv_scales)
-        return x + self.mlp(self.ln2(x))
+            kv_scales, qw)
+        return x + self.mlp(self.ln2(x), qw=qw)
 
     def forward_decode(self, x, kcache, vcache, pos):
         x = x + self.attn.forward_decode(self.ln1(x), kcache, vcache, pos)
         return x + self.mlp(self.ln2(x))
 
     def forward_decode_paged(self, x, kpool, vpool, layer_idx, block_tables,
-                             positions, kv_scales=None, backend="pallas"):
+                             positions, kv_scales=None, backend="pallas",
+                             qw=None):
         x = x + self.attn.forward_decode_paged(
             self.ln1(x), kpool, vpool, layer_idx, block_tables, positions,
-            kv_scales, backend)
-        return x + self.mlp(self.ln2(x))
+            kv_scales, backend, qw)
+        return x + self.mlp(self.ln2(x), qw=qw)
 
     def forward_verify_paged(self, x, kpool, vpool, layer_idx, block_tables,
                              positions, draft_lens, kv_scales=None,
-                             backend="pallas"):
+                             backend="pallas", qw=None):
         x = x + self.attn.forward_verify_paged(
             self.ln1(x), kpool, vpool, layer_idx, block_tables, positions,
-            draft_lens, kv_scales, backend)
-        return x + self.mlp(self.ln2(x))
+            draft_lens, kv_scales, backend, qw)
+        return x + self.mlp(self.ln2(x), qw=qw)
+
+
+def _layer(qweights, i):
+    return None if qweights is None else qweights[i]
 
 
 class GPTModel(nn.Module):
@@ -269,12 +290,13 @@ class GPTModel(nn.Module):
         return self.ln_f(h), torch.stack(ks), torch.stack(vs)
 
     def forward_prefill_chunk(self, token_ids, start, kpool, vpool,
-                              block_row, plen, kv_scales=None):
+                              block_row, plen, kv_scales=None, qweights=None):
         """Chunked paged prefill: token_ids `[1, C]`, chunk
         `[start, start + C)` of one slot's prompt padded past `plen`
         (host ints); writes each layer's k/v through `block_row` into the
         pools IN PLACE (int8 pools: quantized, `kv_scales` updated in
-        place). Returns hidden `[1, C, H]`."""
+        place); `qweights` the int8 weight snapshot or None. Returns
+        hidden `[1, C, H]`."""
         C = token_ids.shape[1]
         # padded-tail positions clamp into the wpe table: their rows are
         # garbage the engine ignores, but the gather must stay in bounds
@@ -283,7 +305,8 @@ class GPTModel(nn.Module):
         h = self.wte(token_ids) + self.wpe(pos).unsqueeze(0)
         for i, blk in enumerate(self.blocks):
             h = blk.forward_prefill_chunk(h, kpool, vpool, i, block_row,
-                                          start, plen, kv_scales)
+                                          start, plen, kv_scales,
+                                          _layer(qweights, i))
         return self.ln_f(h)
 
     def forward_decode(self, token_ids, pos, kstack, vstack):
@@ -297,27 +320,30 @@ class GPTModel(nn.Module):
         return self.ln_f(h)
 
     def forward_decode_paged(self, token_ids, positions, kpool, vpool,
-                             block_tables, kv_scales=None, backend="pallas"):
+                             block_tables, kv_scales=None, backend="pallas",
+                             qweights=None):
         """Batched decode over the paged pools (updated IN PLACE):
         token_ids `[slots, 1]`, positions `[slots]` int32, block_tables
         `[slots, max_blocks]` int32; int8 pools with `kv_scales`; `backend`
-        the paged attention's (`dense` or `pallas`). Returns hidden
-        `[slots, 1, H]`."""
+        the paged attention's (`dense` or `pallas`); `qweights` the int8
+        weight snapshot or None. Returns hidden `[slots, 1, H]`."""
         h = self.wte(token_ids) + self.wpe(positions).unsqueeze(1)
         for i, blk in enumerate(self.blocks):
             h = blk.forward_decode_paged(h, kpool, vpool, i, block_tables,
-                                         positions, kv_scales, backend)
+                                         positions, kv_scales, backend,
+                                         _layer(qweights, i))
         return self.ln_f(h)
 
     def forward_verify_paged(self, token_ids, positions, draft_lens, kpool,
                              vpool, block_tables, kv_scales=None,
-                             backend="pallas"):
+                             backend="pallas", qweights=None):
         """Speculative verify step over the paged pools (updated IN
         PLACE): token_ids `[slots, W]` (the feed token, then up to W-1
         drafted tokens), positions `[slots]` int32 (row 0's absolute
         position), draft_lens `[slots]` int32 (rows past it are dead),
         block_tables `[slots, max_blocks]` int32; int8 pools with
-        `kv_scales`. Returns hidden `[slots, W, H]` at every window row."""
+        `kv_scales`; `qweights` the int8 weight snapshot or None. Returns
+        hidden `[slots, W, H]` at every window row."""
         W = token_ids.shape[1]
         # dead rows past a slot's draft may run beyond the position table:
         # their rows are garbage the engine ignores, but the gather must
@@ -330,7 +356,7 @@ class GPTModel(nn.Module):
         for i, blk in enumerate(self.blocks):
             h = blk.forward_verify_paged(h, kpool, vpool, i, block_tables,
                                          positions, draft_lens, kv_scales,
-                                         backend)
+                                         backend, _layer(qweights, i))
         return self.ln_f(h)
 
 

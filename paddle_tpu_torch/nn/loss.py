@@ -1,0 +1,130 @@
+"""Loss layers: counterparts of the ten layers of paddle_tpu/nn/loss.py,
+from `CrossEntropyLoss` to `HingeEmbeddingLoss`. Each holds its options
+and calls its function of `ops.nn_ops`; `name` is accepted and unused,
+as in JAX."""
+from __future__ import annotations
+
+from torch import nn
+
+from ..ops import nn_ops
+
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
+           "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
+           "MarginRankingLoss", "HingeEmbeddingLoss"]
+
+
+class CrossEntropyLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1, use_softmax=True,
+                 label_smoothing=0.0, name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+        self.soft_label = soft_label
+        self.axis = axis
+        self.use_softmax = use_softmax
+        self.label_smoothing = label_smoothing
+
+    def forward(self, input, label):
+        return nn_ops.cross_entropy(
+            input, label, weight=self.weight, ignore_index=self.ignore_index,
+            reduction=self.reduction, soft_label=self.soft_label,
+            axis=self.axis, use_softmax=self.use_softmax,
+            label_smoothing=self.label_smoothing)
+
+
+class MSELoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return nn_ops.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(nn.Module):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return nn_ops.l1_loss(input, label, self.reduction)
+
+
+class SmoothL1Loss(nn.Module):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return nn_ops.smooth_l1_loss(input, label, self.reduction,
+                                     self.delta)
+
+
+class NLLLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return nn_ops.nll_loss(input, label, self.weight, self.ignore_index,
+                               self.reduction)
+
+
+class BCELoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return nn_ops.bce_loss(input, label, self.weight, self.reduction)
+
+
+class BCEWithLogitsLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return nn_ops.bce_with_logits(logit, label, self.weight,
+                                      self.reduction, self.pos_weight)
+
+
+class KLDivLoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return nn_ops.kl_div(input, label, self.reduction)
+
+
+class MarginRankingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return nn_ops.margin_ranking_loss(input, other, label, self.margin,
+                                          self.reduction)
+
+
+class HingeEmbeddingLoss(nn.Module):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return nn_ops.hinge_embedding_loss(input, label, self.margin,
+                                           self.reduction)

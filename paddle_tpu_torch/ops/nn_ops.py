@@ -1,6 +1,7 @@
-"""Attention entry point, dropout, the cross-entropy and squared-error
-losses and the ops a ResNet needs: counterparts of `scaled_dot_product_attention`,
-`dropout`, `softmax_with_cross_entropy`, `cross_entropy`, `mse_loss`,
+"""Attention entry point, dropout, the losses and the ops a ResNet needs:
+counterparts of `scaled_dot_product_attention`, `dropout`, the losses
+(`softmax_with_cross_entropy`, `cross_entropy` with every option, `mse_loss`,
+`l1_loss` through `hinge_embedding_loss`, `log_loss` through `ctc_loss`),
 `conv2d`, `batch_norm` (both forms), `max_pool2d` and `adaptive_avg_pool2d` in
 paddle_tpu/ops/nn_ops.py. The conv, BatchNorm and pooling ops take
 NCHW, as the paddle API does, in any memory format torch accepts,
@@ -19,6 +20,11 @@ from .flash_attention import (_shapes_ok_for_shortseq, dense_attention,
 
 __all__ = ["scaled_dot_product_attention", "dropout",
            "softmax_with_cross_entropy", "cross_entropy", "mse_loss",
+           "l1_loss", "smooth_l1_loss", "nll_loss", "bce_loss",
+           "bce_with_logits", "kl_div", "margin_ranking_loss",
+           "hinge_embedding_loss", "log_loss", "sigmoid_focal_loss",
+           "dice_loss", "npair_loss", "triplet_margin_loss",
+           "cosine_embedding_loss", "margin_cross_entropy", "ctc_loss",
            "conv2d", "batch_norm", "update_running_stats", "max_pool2d",
            "adaptive_avg_pool2d"]
 
@@ -87,15 +93,16 @@ def _hard_labels(label, ndim, axis):
 
 def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
                                ignore_index=-100):
-    """Hard-label softmax cross entropy, per token, keeping `axis` with size
-    1: fp32 `log_softmax`, -log p[label], 0 where the label is
-    `ignore_index`, cast back to the logits' dtype. Soft labels are not
-    ported and raise."""
-    if soft_label:
-        raise NotImplementedError("soft_label=True is not ported yet")
+    """Softmax cross entropy per token, keeping `axis` with size 1, over
+    an fp32 `log_softmax`. Hard labels: -log p[label], 0 where the label
+    is `ignore_index`, cast back to the logits' dtype. Soft labels
+    (`label` a distribution over `axis`): -sum(label * log p), left in
+    the promoted dtype, as the JAX package leaves it."""
     axis = axis % logits.dim()
-    idx = _hard_labels(label, logits.dim(), axis).unsqueeze(axis).long()
     logp = torch.log_softmax(logits.float(), dim=axis)
+    if soft_label:
+        return -(label * logp).sum(axis, keepdim=True)
+    idx = _hard_labels(label, logits.dim(), axis).unsqueeze(axis).long()
     keep = idx != ignore_index
     ll = torch.gather(logp, axis, torch.where(keep, idx, 0))
     loss = torch.where(keep, -ll, torch.zeros((), device=ll.device))
@@ -119,30 +126,277 @@ def mse_loss(input, label, reduction="mean"):
     return _reduce_loss(torch.square(input - label), reduction)
 
 
+def _log_floor(p):
+    """log(max(p, 1e-30)) in fp32: the probabilities' log of
+    `use_softmax=False`."""
+    return torch.log(torch.clamp_min(p.float(), 1e-30))
+
+
+def _class_weights(weight, hard, ignore_index):
+    """Each label's class weight, 0 where the label is ignored."""
+    ignored = hard == ignore_index
+    w = torch.as_tensor(weight, device=hard.device)
+    return torch.where(ignored, torch.zeros((), dtype=w.dtype,
+                                            device=w.device),
+                       w[torch.where(ignored, 0, hard).long()])
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Hard-label cross entropy over `axis` with `ignore_index` and
-    `reduction` in none / sum / mean; mean is over the labels that are not
-    ignored (paddle semantics). `weight`, soft labels, `label_smoothing`
-    and `use_softmax=False` are not ported and raise."""
-    if weight is not None or soft_label or label_smoothing > 0.0 \
-            or not use_softmax:
-        raise NotImplementedError(
-            "cross_entropy: weight, soft_label, label_smoothing and "
-            "use_softmax=False are not ported yet")
+    """Cross entropy over `axis` with the JAX package's semantics
+    (paddle's): hard or soft labels; `label_smoothing` turns hard labels
+    into `onehot * (1 - eps) + eps / C` and then zeroes ignored rows;
+    `use_softmax=False` takes `input` as probabilities (log of max(p,
+    1e-30), no softmax); `weight` scales each hard label's loss by its
+    class weight. `reduction` is none, sum or mean; mean is over the
+    labels that are not ignored, or over the sum of the selected weights
+    with `weight` (soft labels: the plain mean). A weight with soft labels
+    raises, as in JAX."""
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be none, sum or mean, got "
                          f"{reduction!r}")
     axis = axis % input.dim()
-    loss = softmax_with_cross_entropy(input, label, axis=axis,
-                                      ignore_index=ignore_index).squeeze(axis)
+    hard = None if soft_label else _hard_labels(label, input.dim(), axis)
+    smoothed = label_smoothing > 0.0 and not soft_label
+    if smoothed:
+        C = input.shape[axis]
+        onehot = F.one_hot(torch.where(hard == ignore_index, 0, hard).long(),
+                           C).float() * (hard != ignore_index).unsqueeze(-1)
+        label = (onehot * (1 - label_smoothing) + label_smoothing / C) \
+            .movedim(-1, axis)
+        soft_label = True
+    if use_softmax:
+        loss = softmax_with_cross_entropy(input, label, soft_label, axis,
+                                          ignore_index)
+    elif soft_label:
+        loss = -(label * _log_floor(input)).sum(axis, keepdim=True)
+    else:
+        idx = hard.unsqueeze(axis).long()
+        keep = idx != ignore_index
+        ll = torch.gather(_log_floor(input), axis, torch.where(keep, idx, 0))
+        loss = torch.where(keep, -ll, torch.zeros((), device=ll.device)) \
+            .to(input.dtype)
+    if smoothed:
+        # the soft path has no ignore_index: zero ignored rows so the
+        # valid-count mean stays right
+        loss = torch.where((hard != ignore_index).unsqueeze(axis), loss,
+                           torch.zeros((), dtype=loss.dtype,
+                                       device=loss.device))
+    wsel = None
+    if weight is not None:
+        if hard is None:
+            raise ValueError(
+                "weight with soft_label=True is not supported (pass hard "
+                "labels, optionally with label_smoothing)")
+        wsel = _class_weights(weight, hard, ignore_index)
+        loss = loss * wsel.unsqueeze(axis).to(loss.dtype)
+    loss = loss.squeeze(axis)
     if reduction == "none":
         return loss
-    if reduction == "sum":
-        return loss.sum()
-    valid = (_hard_labels(label, input.dim(), axis) != ignore_index).float()
+    if reduction == "sum" or hard is None:
+        return _reduce_loss(loss, reduction)
+    if wsel is not None:
+        return loss.sum() / wsel.sum().clamp_min(1e-12)
+    valid = (hard != ignore_index).float()
     return loss.sum() / valid.sum().clamp_min(1.0)
+
+
+def l1_loss(input, label, reduction="mean"):
+    return _reduce_loss(torch.abs(input - label), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    d = torch.abs(input - label)
+    return _reduce_loss(torch.where(d < delta, 0.5 * d * d / delta,
+                                    d - 0.5 * delta), reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean"):
+    """NLL over log-probs, the class axis 1: input `[N, C]` or `[N, C, d1,
+    ...]` with label `[N]` or `[N, d1, ...]`; mean over the labels not
+    ignored, or over the selected weights with `weight`."""
+    idx = label.unsqueeze(1).long()
+    keep = idx != ignore_index
+    ll = torch.gather(input, 1, torch.where(keep, idx, 0))
+    loss = torch.where(keep, -ll, torch.zeros((), dtype=input.dtype,
+                                              device=input.device)) \
+        .squeeze(1)
+    if weight is not None:
+        wsel = _class_weights(weight, label, ignore_index)
+        loss = loss * wsel
+        if reduction == "mean":
+            return loss.sum() / wsel.sum().clamp_min(1e-12)
+    elif reduction == "mean":
+        return loss.sum() / keep.squeeze(1).to(loss.dtype).sum() \
+            .clamp_min(1.0)
+    return _reduce_loss(loss, reduction)
+
+
+def bce_loss(input, label, weight=None, reduction="mean"):
+    eps = 1e-12
+    loss = -(label * torch.log(input + eps)
+             + (1 - label) * torch.log(1 - input + eps))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+def bce_with_logits(logit, label, weight=None, reduction="mean",
+                    pos_weight=None):
+    loss = torch.clamp_min(logit, 0) - logit * label \
+        + torch.log1p(torch.exp(-torch.abs(logit)))
+    if pos_weight is not None:
+        loss = loss * (label * (pos_weight - 1) + 1)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean"):
+    return _reduce_loss(
+        label * (torch.log(torch.clamp_min(label, 1e-12)) - input),
+        reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
+    return _reduce_loss(torch.clamp_min(-label * (input - other) + margin,
+                                        0.0), reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
+    return _reduce_loss(torch.where(label == 1.0, input,
+                                    torch.clamp_min(margin - input, 0.0)),
+                        reduction)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return -label * torch.log(input + epsilon) \
+        - (1.0 - label) * torch.log(1.0 - input + epsilon)
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    """Focal loss on logits, divided by `normalizer` when given."""
+    p = torch.sigmoid(logit)
+    ce = torch.clamp_min(logit, 0) - logit * label \
+        + torch.log1p(torch.exp(-torch.abs(logit)))
+    p_t = p * label + (1 - p) * (1 - label)
+    a_t = alpha * label + (1 - alpha) * (1 - label)
+    loss = a_t * ((1 - p_t) ** gamma) * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce_loss(loss, reduction)
+
+
+def dice_loss(input, label, epsilon=1e-5, name=None):
+    """1 - the Dice coefficient over the trailing class dim: input `[N,
+    ..., C]` probabilities, label `[N, ..., 1]` int."""
+    oh = F.one_hot(label.squeeze(-1).long(), input.shape[-1]) \
+        .to(input.dtype)
+    red = tuple(range(1, input.dim()))
+    inter = (input * oh).sum(red)
+    union = input.sum(red) + oh.sum(red)
+    return (1.0 - (2.0 * inter + epsilon) / (union + epsilon)).mean()
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    """Multi-class n-pair loss; the l2 term weighted by 0.25, as the
+    reference weights it."""
+    sim = anchor @ positive.T
+    same = (labels[:, None] == labels[None, :]).to(anchor.dtype)
+    same = same / same.sum(1, keepdim=True)
+    xent = (-same * torch.log_softmax(sim, 1)).sum(1).mean()
+    reg = l2_reg * ((anchor * anchor).sum(1).mean()
+                    + (positive * positive).sum(1).mean()) * 0.25
+    return xent + reg
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean",
+                        name=None):
+    """max(d(a, pos) - d(a, neg) + margin, 0), d the p-norm distance with
+    `epsilon` added once per distance, under the p-th root."""
+    def dist(u, v):
+        return ((torch.abs(u - v) ** p).sum(-1) + epsilon) ** (1 / p)
+
+    dp, dn = dist(input, positive), dist(input, negative)
+    if swap:
+        dn = torch.minimum(dn, dist(positive, negative))
+    return _reduce_loss(torch.clamp_min(dp - dn + margin, 0.0), reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean", name=None):
+    """label 1: 1 - cos; label -1: max(cos - margin, 0)."""
+    cos = (input1 * input2).sum(-1) / torch.clamp_min(
+        torch.linalg.vector_norm(input1, dim=-1)
+        * torch.linalg.vector_norm(input2, dim=-1), 1e-12)
+    return _reduce_loss(torch.where(label > 0, 1.0 - cos,
+                                    torch.clamp_min(cos - margin, 0.0)),
+                        reduction)
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """ArcFace-family margin softmax: `logits` are cosines, the target
+    class's angle gets cos(m1 * theta + m2) - m3 before the scaled
+    softmax cross entropy. `group` (model-parallel sharding) is not
+    read, as in JAX."""
+    oh = F.one_hot(label.long(), logits.shape[-1]).to(logits.dtype)
+    theta = torch.arccos(torch.clamp(logits, -1.0 + 1e-7, 1.0 - 1e-7))
+    target = torch.cos(margin1 * theta + margin2) - margin3
+    adj = logits * (1 - oh) + target * oh
+    logp = torch.log_softmax(scale * adj, -1)
+    loss = _reduce_loss(-(oh * logp).sum(-1), reduction)
+    if return_softmax:
+        return loss, torch.exp(logp)
+    return loss
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC loss by the log-domain forward algorithm, the JAX package's
+    `lax.scan` over time as a loop: log_probs `[T, B, C]` (time-major; a
+    log_softmax is applied, idempotent on log-probs), labels `[B, S]`.
+    Returns the negative log-likelihood per sample, reduced; mean divides
+    each sample by its label length first."""
+    lp = torch.log_softmax(log_probs, -1)
+    T, B, _ = lp.shape
+    S = labels.shape[1]
+    L = 2 * S + 1
+    NEG = -1e30
+    dev = lp.device
+    in_len = torch.as_tensor(input_lengths, device=dev)
+    lab_len = torch.as_tensor(label_lengths, device=dev)
+    ext = torch.full((B, L), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels.long()
+    ext_prev2 = F.pad(ext, (2, 0), value=blank)[:, :L]
+    can_skip = (ext != blank) & (ext != ext_prev2)
+    neg = torch.full((), NEG, dtype=lp.dtype, device=dev)
+    alpha = torch.full((B, L), NEG, dtype=lp.dtype, device=dev)
+    alpha = torch.cat([lp[0].gather(1, ext[:, :1]),
+                       torch.where(lab_len[:, None] > 0,
+                                   lp[0].gather(1, ext[:, 1:2]), neg),
+                       alpha[:, 2:]], 1)
+    for t in range(1, T):
+        prev1 = F.pad(alpha, (1, 0), value=NEG)[:, :L]
+        prev2 = F.pad(alpha, (2, 0), value=NEG)[:, :L]
+        merged = torch.logaddexp(alpha, prev1)
+        merged = torch.where(can_skip, torch.logaddexp(merged, prev2),
+                             merged)
+        new = merged + lp[t].gather(1, ext)
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+    last = (2 * lab_len).long()
+    a_n = alpha.gather(1, last[:, None])[:, 0]
+    a_n1 = alpha.gather(1, torch.clamp_min(last - 1, 0)[:, None])[:, 0]
+    nll = -torch.logaddexp(a_n, torch.where(lab_len > 0, a_n1, neg))
+    if norm_by_times:
+        nll = nll / in_len.to(nll.dtype)
+    if reduction == "mean":
+        return (nll / torch.clamp_min(lab_len, 1).to(nll.dtype)).mean()
+    return _reduce_loss(nll, reduction)
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):

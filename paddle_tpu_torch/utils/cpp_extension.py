@@ -52,6 +52,8 @@ KERNEL_SOURCES = {
                      "attention_mma.cuh"),
     "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh",
                          "conv_mma.cuh", "attention_mma.cuh"),
+    "sampling": ("sampling.cu",),
+    "int8_linear": ("int8_linear.cu", "attention_mma.cuh"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

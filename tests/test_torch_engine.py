@@ -350,8 +350,20 @@ def test_bucketed_prefill_raises_instead_of_chunking(models, no_switches, kw,
 def test_unported_switch_raises_rather_than_serving_without_it(
         models, no_switches, var, value, item):
     """A deploy switch of a feature the port lacks raises when it asks for
-    the feature, naming the ROADMAP item that ports it."""
+    the feature, naming the ROADMAP item that ports it. The switches of
+    the items ported since (6, sampling; 7, int8 weights) turn their
+    feature on instead, as in JAX."""
     no_switches.setenv(var, value)
+    ported = {"PADDLE_SERVE_SAMPLING": ("sampling", True),
+              "PADDLE_SERVE_WEIGHT_DTYPE": ("weight_dtype", "int8")}
+    if var in ported:
+        attr, on = ported[var]
+        jm, tm = models
+        teng = GenerationEngine(tm, device="cpu", num_slots=2, block_size=4)
+        jeng = JEngine(jm, attention_backend="dense", num_slots=2,
+                       block_size=4)
+        assert getattr(teng, attr) == getattr(jeng, attr) == on
+        return
     with pytest.raises(NotImplementedError, match=item):
         GenerationEngine(models[1], device="cpu", num_slots=2, block_size=4)
 

@@ -169,7 +169,11 @@ def test_profile_family_of_attention_backward_kernels(lib, kernel):
     ("paged_decode_combine_kernel", "paged_decode_kernel"),
     ("sum_rows_kernel", "sum_rows_kernel"),
     ("shortseq_fwd_mma_kernel", "shortseq_fwd_kernel"),
-    ("causal_fwd_mma_kernel", "causal_fwd_kernel")])
+    ("causal_fwd_mma_kernel", "causal_fwd_kernel"),
+    ("sample_draw_kernel", "sampling_kernels"),
+    ("sample_uniform_kernel", "sampling_kernels"),
+    ("w8_linear_mma_kernel", "int8_linear_kernel"),
+    ("w8_linear_fma_kernel", "int8_linear_kernel")])
 def test_profile_family_of_conv_and_forward_kernels(kernel, family):
     defined = set()
     for path in Path(CSRC).iterdir():
@@ -308,3 +312,22 @@ def test_optimizer_wrapper_and_kernel_agree_on_rules_and_scalars():
     fields = re.findall(r"(\w+)[,;]", re.sub(r"//[^\n]*", "", body))
     assert tuple(f for f in fields if f != "flag") == ou._HYPER
     assert re.search(rf"constexpr int kHyper = {len(ou._HYPER)};", text)
+
+
+def test_sampler_and_int8_weight_libraries():
+    """The draw kernels and the int8-weight linear are built from their own
+    sources: `sampling` from `sampling.cu` alone, held to no atomic and no
+    spill (`FMA_LIBS`: its argmax is reduced in a fixed order), and
+    `int8_linear` from `int8_linear.cu` over `attention_mma.cuh`'s
+    fragments, whose bf16 kernel must run on the tensor cores
+    (`MMA_KERNELS`)."""
+    assert KERNEL_SOURCES["sampling"] == ("sampling.cu",)
+    assert _globals("sampling") == {"sample_draw_kernel",
+                                    "sample_uniform_kernel"}
+    assert "sampling" in CHIP_SMOKE.FMA_LIBS
+    assert _included("int8_linear") == {"attention_mma.cuh"}
+    assert set(KERNEL_SOURCES["int8_linear"]) == {"int8_linear.cu",
+                                                  "attention_mma.cuh"}
+    assert _globals("int8_linear") == {"w8_linear_mma_kernel",
+                                       "w8_linear_fma_kernel"}
+    assert MMA_KERNELS["int8_linear"] == ("w8_linear_mma_kernel",)

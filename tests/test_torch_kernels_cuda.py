@@ -55,6 +55,14 @@ walk) against their plain versions over dtype x stride x shape, the training
 op's gradients through the kernels against autograd through the plain
 composition, and a ResNet-50 train step on the card against the CPU.
 
+The sampler's draws (`sample_draw`, `sample_uniform`): tokens and uniforms
+bit for bit the plain versions' on the card, at the serving shapes and at
+odd N and V tails, with and without excluded indices; the sampled engine
+on the card emitting the CPU engine's streams. The int8-weight linear
+(`int8_linear`, bf16 on the tensor cores, f32 in fp32 FMA) against its
+plain version at odd M, N and K tails and GPT-1.3B's shapes, its
+refusals, and the int8-weight engine launching it four times a layer.
+
 Paged kernels: pools must be bit-identical to the plain version's outside
 the null block 0, and outputs within tolerance on the live rows of live
 slots. The decode and verify kernels on bf16 and int8 pools (the split
@@ -91,6 +99,11 @@ from paddle_tpu_torch.ops.paged_verify import (paged_verify_attention,
                                                paged_verify_attention_int8,
                                                paged_verify_int8_plain,
                                                paged_verify_plain)
+from paddle_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
+from paddle_tpu_torch.ops.sampling import (sample_draw, sample_draw_plain,
+                                           sample_uniform,
+                                           sample_uniform_plain)
+from paddle_tpu_torch.quantization import quantize_absmax
 
 pytestmark = pytest.mark.cuda
 
@@ -2108,3 +2121,177 @@ def test_transformer_on_the_card_matches_the_cpu(card):
                 flash_attention.dense_calls - dense) == (4, 0, 0)
         ref = host(src.cpu(), tgt.cpu(), tgt_mask=mask.cpu())
     assert ((got.cpu() - ref).norm() / ref.norm()).item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the sampler's draws and the int8-weight linear
+# ---------------------------------------------------------------------------
+def _draw_case(card, N, V):
+    lg = torch.randn((N, V), generator=card, device="cuda") * 3
+    lg[:, ::7] = -torch.inf                     # masked entries
+    keys = torch.randint(0, 2**32, (N, 2), generator=card, device="cuda",
+                         dtype=torch.int64)
+    pos = torch.randint(0, 2048, (N,), generator=card, device="cuda",
+                        dtype=torch.int32)
+    return lg, keys, pos
+
+
+@pytest.mark.parametrize("N,V", [(8, 50304), (40, 50304), (1, 1), (3, 5),
+                                 (13, 333), (40, 1000), (7, 50257)])
+@pytest.mark.parametrize("exclude", [False, True])
+def test_sample_draw_kernel_matches_plain(card, N, V, exclude):
+    lg, keys, pos = _draw_case(card, N, V)
+    ex = None
+    if exclude:
+        ex = lg.argmax(-1).to(torch.int32)
+        ex[::2] = -1
+    launches = sample_draw.launches
+    got = sample_draw(lg, keys, pos, 0, ex)
+    torch.cuda.synchronize()
+    assert sample_draw.launches == launches + 1
+    want = sample_draw_plain(lg, keys, pos, 0, ex)
+    assert torch.equal(got, want)
+    assert torch.equal(sample_draw(lg, keys, pos, 0, ex), got)
+    if exclude and V > 1:
+        live = ex >= 0
+        assert (got[live] != ex[live]).all()
+
+
+def test_sample_draw_ties_take_the_lowest_index(card):
+    """An all -inf row (top-k 1 with its token excluded) draws index 0, as
+    jnp.argmax does; a row with one finite entry draws it."""
+    N, V = 4, 300
+    lg = torch.full((N, V), -torch.inf, device="cuda")
+    lg[1, 77] = 0.0
+    keys = torch.zeros((N, 2), dtype=torch.int64, device="cuda")
+    pos = torch.arange(N, dtype=torch.int32, device="cuda")
+    got = sample_draw(lg, keys, pos, 0)
+    assert got.tolist() == [0, 77, 0, 0]
+    assert torch.equal(got, sample_draw_plain(lg, keys, pos, 0))
+
+
+@pytest.mark.parametrize("N", [1, 8, 40, 129])
+@pytest.mark.parametrize("salt", [0, 1])
+def test_sample_uniform_kernel_bitwise_plain(card, N, salt):
+    _, keys, pos = _draw_case(card, N, 1)
+    got = sample_uniform(keys, pos, salt)
+    want = sample_uniform_plain(keys, pos, salt)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert ((got >= 0) & (got < 1)).all()
+
+
+def test_sampling_kernels_refuse_what_they_do_not_take(card):
+    lg, keys, pos = _draw_case(card, 4, 64)
+    for bad in (dict(lg=lg.bfloat16()), dict(lg=lg[:, ::2]),
+                dict(keys=keys.int()), dict(pos=pos.long()),
+                dict(keys=keys[:3])):
+        a = dict(lg=lg, keys=keys, pos=pos, **bad)
+        with pytest.raises(ValueError):
+            sample_draw(a["lg"], a["keys"], a["pos"], 0)
+    with pytest.raises(ValueError, match="exclude"):
+        sample_draw(lg, keys, pos, 0, torch.zeros(4, device="cuda"))
+    with pytest.raises(ValueError):
+        sample_uniform(keys, pos.long(), 1)
+
+
+def test_sampled_engine_on_the_card_matches_the_cpu(card):
+    """A tiny f32 GPT with greedy and sampled lanes, K=0 and K=2: the card's
+    engine (the draw kernels, one draw a decode step, a draw and a uniform
+    a verify step, no plain call) emits the CPU engine's streams."""
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.inference import SamplingParams
+
+    cfg = GPTConfig.tiny(vocab=96, hidden=64, layers=2, heads=4, seq=64)
+    model = GPTForCausalLM(cfg, device="cuda", generator=card).eval()
+    host = GPTForCausalLM(cfg, device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, 96, (n,), generator=rng).tolist()
+               for n in (5, 17, 9, 12)]
+
+    def serve(m, dev, K):
+        eng = GenerationEngine(m, device=dev, num_slots=3, block_size=8,
+                               sampling=True, spec_decode_k=K)
+        ids = [eng.add_request(p, 10, sampling_params=None if i % 2 else
+                               SamplingParams(0.8, 20, 0.9, seed=i))
+               for i, p in enumerate(prompts)]
+        out = eng.run()
+        return [out[r] for r in ids], eng
+
+    for K in (0, 2):
+        counts = [(w.launches, w.plain_calls)
+                  for w in (sample_draw, sample_uniform)]
+        got, eng = serve(model, "cuda", K)
+        torch.cuda.synchronize()
+        (d0, dp), (u0, up) = counts
+        assert sample_draw.plain_calls == dp
+        assert sample_uniform.plain_calls == up
+        assert sample_draw.launches - d0 == \
+            eng.decode_steps + eng.prefill_first_tokens
+        assert sample_uniform.launches - u0 == (eng.decode_steps if K else 0)
+        assert got == serve(host, "cpu", K)[0]
+
+
+INT8_LINEAR_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def _int8_linear_case(card, dtype, M, N, K):
+    w = torch.randn((N, K), generator=card, device="cuda") * 0.02
+    q, s = quantize_absmax(w.to(dtype), axis=0)
+    x = torch.randn((M, K), generator=card, device="cuda").to(dtype)
+    b = (torch.randn((N,), generator=card, device="cuda") * 0.1).to(dtype)
+    return x, q, s, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,N,K", [(1, 64, 64), (8, 200, 48), (40, 72, 80),
+                                   (17, 1, 16), (128, 130, 272),
+                                   (130, 6144, 2048), (8, 2048, 8192)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_int8_linear_kernel_matches_plain(card, dtype, M, N, K, bias):
+    """max |kernel - plain| relative to max |plain|: both sum exact fp32
+    products of the same dequantized weights in fp32, in other orders; a
+    bf16 output may then round the other way (2^-7 of max |plain|), and
+    the bias adds one bf16 rounding in both; f32 as the other kernels'."""
+    x, q, s, b = _int8_linear_case(card, dtype, M, N, K)
+    b = b if bias else None
+    launches = int8_linear.launches
+    got = int8_linear(x, q, s, b)
+    torch.cuda.synchronize()
+    assert int8_linear.launches == launches + 1
+    want = int8_linear_plain(x, q, s, b)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= INT8_LINEAR_TOL[dtype] * want.float().abs().max().item()
+    assert torch.equal(int8_linear(x, q, s, b), got)
+
+
+def test_int8_linear_takes_leading_dims_and_refuses_the_rest(card):
+    x, q, s, b = _int8_linear_case(card, torch.bfloat16, 10, 48, 32)
+    got = int8_linear(x.view(2, 5, 32), q, s, b)
+    assert got.shape == (2, 5, 48)
+    assert torch.equal(got.view(10, 48), int8_linear(x, q, s, b))
+    for args in ((x[:, :24], q[:, :24], s, b),            # K not of 16
+                 (x.half(), q, s.half(), b.half()),
+                 (x, q.float(), s, b), (x, q, s.float(), b),
+                 (x, q, s, b.float()), (x, q[:, ::2], s, b)):
+        with pytest.raises(ValueError):
+            int8_linear(*args)
+
+
+def test_int8_weight_engine_launches_four_a_layer(card):
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig.tiny(vocab=96, hidden=64, layers=3, heads=4, seq=64)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=card).eval()
+    eng = GenerationEngine(model, num_slots=2, block_size=8,
+                           weight_dtype="int8")
+    launches, plain = int8_linear.launches, int8_linear.plain_calls
+    eng.add_request(list(range(1, 12)), 6)
+    out = eng.run()
+    torch.cuda.synchronize()
+    steps = eng.prefill_chunks + eng.decode_steps
+    assert int8_linear.launches - launches == 4 * 3 * steps
+    assert int8_linear.plain_calls == plain
+    assert len(next(iter(out.values()))) == 17

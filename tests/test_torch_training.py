@@ -84,12 +84,28 @@ def test_softmax_with_cross_entropy_matches_jax_and_refuses_the_rest():
     np.testing.assert_allclose(got.numpy(), np.asarray(want._array),
                                atol=1e-6, rtol=0)
     x, y = torch.from_numpy(logits), torch.from_numpy(labels)
-    for kw in ({"soft_label": True}, {"weight": torch.ones(9)},
-               {"label_smoothing": 0.1}, {"use_softmax": False}):
-        with pytest.raises(NotImplementedError):
-            cross_entropy(x, y, **kw)
-    with pytest.raises(NotImplementedError):
-        softmax_with_cross_entropy(x, y, soft_label=True)
+    soft = np.full((5, 9), 1 / 9, np.float32)
+    for kw, lab in (({"soft_label": True}, soft),
+                    ({"weight": np.ones(9, np.float32)}, labels),
+                    ({"label_smoothing": 0.1}, labels),
+                    ({"use_softmax": False}, labels)):
+        want = JF.cross_entropy(Tensor._wrap(jnp.asarray(logits)), lab,
+                                **kw)
+        got = cross_entropy(x, torch.from_numpy(lab), **{
+            k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            for k, v in kw.items()})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want._array),
+                                   atol=1e-6, rtol=1e-6)
+    got = softmax_with_cross_entropy(x, torch.from_numpy(soft),
+                                     soft_label=True)
+    want = JF.softmax_with_cross_entropy(Tensor._wrap(jnp.asarray(logits)),
+                                         Tensor._wrap(jnp.asarray(soft)),
+                                         soft_label=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want._array),
+                               atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="soft_label"):
+        cross_entropy(x, torch.from_numpy(soft), soft_label=True,
+                      weight=torch.ones(9))
     with pytest.raises(ValueError, match="reduction"):
         cross_entropy(x, y, reduction="max")
 
