@@ -18,6 +18,8 @@ transformer_train,transformer_train_parity
 train_accum_parity,bert_lamb
     python3 chip_smoke.py --phases build,sampling,int8_linear,\
 engine_sampled,engine_wint8
+    python3 chip_smoke.py --phases build,lora,engine,engine_bucketed,\
+engine_lora
 
 Phases, each printing one JSON line:
 
@@ -33,7 +35,8 @@ Phases, each printing one JSON line:
    kernel of the library route's backward, or if the paged decode or
    verify library (the split walk and its combine, fp32 FMA), the
    one-pass optimizer update (with Lars' and Lamb's norm pass), gradient
-   merge's library or the sampler's draws hold an atomic or spill.
+   merge's library, the sampler's draws or the batched LoRA kernel hold an
+   atomic or spill.
 2. paged_decode: the paged decode kernel against its plain PyTorch version
    on the card (8 slots, block 16, 16 heads, D 128, 2 layers; an idle lane,
    block-boundary positions, two slots sharing blocks read-only), bf16
@@ -313,9 +316,40 @@ Phases, each printing one JSON line:
    snapshot's int8 bytes (WINT8_SNAPSHOT_BYTES), tokens/s; then an f32
    model at full width and 2 layers, whose int8-weight engine's greedy
    tokens on the card must equal the CPU's from the same weights.
+38. lora: the batched LoRA kernel (csrc/lora.cu) against its plain version
+   at GPT-1.3B's four sites (qkv head-grouped, out, fc1, fc2) at 8 rows (8
+   slots, the decode step), 40 (8 slots x 5, the verify step) and 128 (one
+   slot, the prefill chunk), max_rank 4, 16 and 64, pages mixed with the
+   null page 0, ranks padded with zero rows: the kernel's fp32 delta (its
+   f32 instance on the bf16 values, over a zero base) within
+   LORA_DELTA_TOL of the largest |delta|, the bf16 result bitwise the
+   plain version's wherever the two fp32 deltas round to the same bf16,
+   page-0 rows bitwise the base, a rerun the same bits; at rank 16 with 8
+   distinct pages, device times (20 calls in a CUDA graph, L2 warm)
+   against the bytes bound, the plain version and the gathered factors
+   through two torch.bmm (no single PyTorch call computes the function),
+   and one eager call's time with the wrapper's host time in it.
+39. engine_bucketed: phase 5's trace on GPT-1.3B bf16 with
+   prefill_chunk=None (buckets 16 ... 2048, no prefix cache): the causal
+   kernel exactly 24 times an admission and no plain call, no prefix hit,
+   tokens within TOKEN_PARITY_MIN of the chunked run's (phase 5), and the
+   same at kv_dtype="int8", tokens/s; the causal kernel against its plain
+   version at the short buckets (S 16, 32, 48), bf16 and f32; then f32 at
+   full width and 2 layers: the card's bucketed engine token-identical to
+   the CPU's and to the card's generate(use_cache=True) (a difference only
+   at a near tie, as generate_parity).
+40. engine_lora: GPT-1.3B bf16, 8 slots, six adapters of ranks 4-16
+   (max_rank 16; two of them one rank group) in a 1 + 4 page pool, phase
+   5's trace with adapter ids mixed, 0 included: the LoRA kernel exactly
+   four times a layer a step, swap-ins and evictions, drain()'s audit of
+   blocks and pages; each request's tokens equal to a dedicated engine's
+   that serves only its adapter; the trace with every id 0 bitwise phase
+   5's tokens; tokens/s with adapters, with id 0 only and without
+   adapters; then f32 at full width and 2 layers, chunked and bucketed, K=0
+   and K=4: the card's mixed-tenant tokens equal to the CPU's.
 
-Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36 and
-37 are the main path, in thirty-five runs:
+Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36,
+37, 39 and 40 are the main path, in forty-one runs:
 the bf16 engine, the bf16 generate(), the f32 engine, the f32 generate(),
 the bf16 train steps, the f32 train steps, the bf16 speculative engine,
 the three f32 engines of spec_parity, the int8 engine, the int8
@@ -327,7 +361,10 @@ f32 Transformer forward, the timed bf16 Transformer train steps, the
 f32 Transformer train steps, the bf16 merge windows, the f32 merge
 windows and scaler steps (Momentum and AdamW), the two skipped windows (GPT and ResNet-18), the BERT
 Lamb steps, the sampled engines at K=0 and K=4, the int8-weight engines
-with bf16 and int8 pools and the f32 int8-weight engine. Kernel counts are set to 0
+with bf16 and int8 pools, the f32 int8-weight engine, the bucketed engines
+with bf16 and int8 pools, the f32 bucketed engine, the mixed-tenant and
+the all-null-adapter LoRA engines and the f32 LoRA engines. Kernel counts
+are set to 0
 just before each run and read just after it; each run must launch every
 kernel it takes (PATH_KERNEL: the engine the paged decode kernel,
 generate() the causal forward, training the causal forward and backward,
@@ -344,7 +381,9 @@ optimizer update once; a merge window the merge kernel once a micro-step
 and the finish and the update once; a scaler step without merge the
 unscale once; a Lamb step the norm pass once; a sampled engine the draw
 kernel, and at K=4 the uniform kernel; an int8-weight engine the
-int8-weight linear four times a layer a step) and call no plain version.
+int8-weight linear four times a layer a step; a bucketed engine the causal
+forward 24 times an admission; a LoRA engine the batched LoRA kernel four
+times a layer a step) and call no plain version.
 `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
 one GPT train step, of one BERT train step, of one bf16 ResNet-50
@@ -383,7 +422,7 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "optimizer_update", "transformer_train",
           "transformer_train_parity", "train_accum", "train_accum_parity",
           "bert_lamb", "sampling", "int8_linear", "engine_sampled",
-          "engine_wint8")
+          "engine_wint8", "lora", "engine_bucketed", "engine_lora")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -534,6 +573,7 @@ OPT = "optimizer_update"
 NORMS = "optimizer_norms"
 MERGE, FINISH, UNSCALE = "grad_merge", "grad_finish", "grad_unscale"
 DRAW, UNIF, W8 = "sample_draw", "sample_uniform", "int8_linear"
+LORA = "batched_lora"
 # the masked variants' launches, counted apart on the same wrappers, and
 # B6's LSE variant's
 SSFM, SSBM = SSF + "_masked", SSB + "_masked"
@@ -575,7 +615,13 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "engine_sampled_spec_bf16": (VER, DRAW, UNIF),
                "engine_wint8_bf16": (DEC, W8),
                "engine_wint8_kv8_bf16": (DEC8, W8),
-               "wint8_f32": (DEC, W8)}
+               "wint8_f32": (DEC, W8),
+               "engine_bucketed_bf16": (FWD, DEC),
+               "engine_bucketed_kv8_bf16": (FWD, DEC8),
+               "bucketed_f32": (FWD, DEC),
+               "engine_lora_bf16": (DEC, LORA),
+               "engine_lora_null_bf16": (DEC, LORA),
+               "lora_f32": (FWD, DEC, VER, LORA)}
 # peak device memory (GB) of the bf16 train phases with the per-parameter
 # optimizer loop, before the update became one pass (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W); each phase fails more than
@@ -617,6 +663,19 @@ SAMPLED_LANES = (0, 2, 5, 8, 11)
 # GPT-1.3B's int8 snapshot: 24 layers x (qkv 6144 + out 2048 + fc1 8192 +
 # fc2 2048 rows of 2048 codes)
 WINT8_SNAPSHOT_BYTES = 24 * 2048 * (6144 + 2048 + 8192 + 8192)
+# the batched LoRA kernel's fp32 delta against its plain version's, max
+# |kernel - plain| / max |plain|: both sum exact fp32 products of the same
+# values in fp32, in other orders (the shrink over up to 8192 inputs)
+LORA_DELTA_TOL = 2e-6
+# the LoRA kernel's rows (the decode step, the verify step at K=4, the
+# prefill chunk) as (slots, rows a slot), and its ranks
+LORA_ROWS = ((8, 1), (8, SPEC_K + 1), (1, 128))
+LORA_RANKS = (4, 16, 64)
+# engine_lora's adapters 1-6: their ranks (max_rank 16), 5 and 6 one rank
+# group; the trace's adapter ids (phase 5's first and later requests: the
+# repeated prompt and the shared prefix under the base model, id 0)
+ENGINE_LORA_RANKS = (4, 8, 12, 16, 16, 8)
+ENGINE_LORA_IDS = (1, 2, 3, 0, 4, 0, 0, 5, 6, 0, 2, 5, 1)
 
 
 # the bf16 kernels of each library that must run on the tensor cores
@@ -644,7 +703,7 @@ MMA_KERNELS = {"causal_attention": ("causal_fwd_mma_kernel",),
 # fixed order), gradient merge's kernels and the sampler's draws (their
 # argmax reduced in a fixed order)
 FMA_LIBS = ("paged_verify", "paged_decode", "optimizer_update",
-            "grad_merge", "sampling")
+            "grad_merge", "sampling", "lora")
 # libraries held to no spill in any kernel, not only the mma ones: those,
 # and the library route's backward (its wide FMA design too)
 SPILL_FREE_LIBS = FMA_LIBS + ("sdpa_backward",)
@@ -680,7 +739,10 @@ DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "sample_draw": "one CTA a row: threefry, Gumbel, argmax in a "
                          "fixed order",
           "sample_uniform": "one thread a row: threefry",
-          "int8_linear": "mma.sync bf16, codes dequantized in registers"}
+          "int8_linear": "mma.sync bf16, codes dequantized in registers",
+          "lora": "one CTA a slot's row tile and column tile: the shrink "
+                  "into shared memory, then the expand and the add, fp32 "
+                  "FMA"}
 # a device-time family of the profiles, by a substring of the kernel's
 # name in lower case, first match wins: the port's conv kernels before
 # cuDNN's (whose names may hold "conv2d"), and the shortseq backward's
@@ -700,6 +762,7 @@ KERNEL_FAMILIES = (
     ("grad_merge_kernels", ("grad_merge", "grad_finish", "grad_unscale")),
     ("sampling_kernels", ("sample_draw", "sample_uniform")),
     ("int8_linear_kernel", ("w8_linear",)),
+    ("lora_kernel", ("lora_shrink_expand",)),
     ("cudnn conv", ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
                     "conv2d", "convolve")),
     ("paged_verify_kernel", ("paged_verify",)),
@@ -1251,23 +1314,27 @@ def _engine_trace(V, seed):
     return rng, dict(first=first, later=later, repeat=repeat, shared=shared)
 
 
-def _serve_trace(eng, trace, finish=None, params_of=None):
+def _serve_trace(eng, trace, finish=None, params_of=None, adapter_of=None):
     """Serve `trace` on `eng`: the first requests, steps until the repeated
-    prompt and the shared prefix are cached, then the later ones; `finish`
-    (drain() by default: the leak check) runs the rest; `params_of(i)`, when
-    given, is request i's SamplingParams or None. Returns (request ids,
-    results)."""
+    prompt and the shared prefix are cached (the prompts of `trace["wait"]`
+    when given; with the prefix cache off, until the first requests are
+    all seated), then the later ones; `finish` (drain() by default: the
+    leak check) runs the rest; `params_of(i)` and `adapter_of(i)`, when
+    given, are request i's SamplingParams (or None) and adapter id.
+    Returns (request ids, results)."""
     def add(i, p, n):
-        sp = None if params_of is None else params_of(i)
-        return eng.add_request(p, n) if sp is None else \
-            eng.add_request(p, n, sampling_params=sp)
+        kw = {}
+        if params_of is not None and params_of(i) is not None:
+            kw["sampling_params"] = params_of(i)
+        if adapter_of is not None:
+            kw["adapter_id"] = adapter_of(i)
+        return eng.add_request(p, n, **kw)
 
     first = len(trace["first"])
     ids = [add(i, p, n) for i, (p, n) in enumerate(trace["first"])]
-    while (eng.cache.warm_prefix_tokens(trace["repeat"])
-           < len(trace["repeat"])
-           or eng.cache.warm_prefix_tokens(trace["shared"])
-           < len(trace["shared"])):
+    wait = trace.get("wait", (trace["repeat"], trace["shared"]))
+    while (any(eng.cache.warm_prefix_tokens(w) < len(w) for w in wait)
+           if eng.enable_prefix_cache else eng.num_pending):
         if eng.step() == 0:
             raise AssertionError("trace ended before its prefixes cached")
     ids += [add(first + i, p, n) for i, (p, n) in enumerate(trace["later"])]
@@ -4908,11 +4975,7 @@ def phase_engine_wint8(torch, ctx, seed):
     V, L = model.config.vocab_size, model.config.num_layers
     _, trace = _engine_trace(V, seed)
     reqs = trace["first"] + trace["later"]
-    if "engine_tokens" not in ctx:                 # phase 5 did not run
-        eng = GenerationEngine(model, num_slots=8, block_size=16)
-        ids, out = _serve_trace(eng, trace)
-        ctx["engine_tokens"] = [out[r] for r in ids]
-        del eng
+    _engine_tokens(torch, ctx, model, trace)
     res = {"phase": "engine_wint8", "config": "gpt_1p3b bf16 model, int8 "
            "weights (qkv, out, fc1, fc2), 8 slots, block 16", "runs": {},
            "token_parity_min": TOKEN_PARITY_MIN}
@@ -4982,6 +5045,483 @@ def phase_engine_wint8(torch, ctx, seed):
         raise AssertionError("engine_wint8 phase failed its checks")
 
 
+# GPT-1.3B's LoRA sites: (name, in, out, heads of the head-grouped B or 0)
+LORA_SITES_1P3B = (("qkv", 2048, 6144, 16), ("out", 2048, 2048, 0),
+                   ("fc1", 2048, 8192, 0), ("fc2", 8192, 2048, 0))
+
+
+def _lora_pool(torch, g, site, R, dtype, pages=9, layers=2):
+    """One site's A and B pools `[pages, layers, R, ...]` (page p's rank
+    rows past 1 + p % R zero, page 0 all zero) and scalings (page 0 at
+    0)."""
+    _, n_in, n_out, heads = site
+    a = torch.randn((pages, layers, R, n_in), generator=g, device="cuda") \
+        / math.sqrt(n_in)
+    b = torch.randn((pages, layers, R, n_out), generator=g,
+                    device="cuda") * 0.1
+    for p in range(pages):
+        r = 0 if p == 0 else 1 + (p * 5) % R
+        a[p, :, r:] = 0
+        b[p, :, r:] = 0
+    if heads:
+        b = b.view(pages, layers, R, heads, 3, n_out // (3 * heads))
+    sc = torch.rand((pages,), generator=g, device="cuda") + 0.5
+    sc[0] = 0
+    return a.to(dtype).contiguous(), b.to(dtype).contiguous(), sc
+
+
+def _graph_ms(torch, fn, reps=20):
+    """Device time in ms of one call of `fn`: `reps` calls captured in one
+    CUDA graph, its replays timed with CUDA events (`cuda_ms`) over
+    `reps`, so that neither the host's time in a wrapper nor the gaps
+    between launches enter. The L2 cache stays warm across the calls."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(torch, graph.replay, 10) / reps
+    del graph
+    return ms
+
+
+def _lora_bound(B, S, R, n_in, n_out, pages, isz, dname_):
+    """x and the base read once, the base written once, each distinct
+    page's A and B rows of the layer read once."""
+    M = B * S
+    nbytes = (M * n_in + 2 * M * n_out + pages * R * (n_in + n_out)) * isz \
+        + 4 * B + 4 * pages
+    return bound_ms(nbytes, 2 * M * R * (n_in + n_out), dname_)
+
+
+def phase_lora(torch, ctx):
+    from paddle_tpu_torch.ops.lora import (LORA_MAX_RANK, batched_lora,
+                                           batched_lora_plain)
+
+    g = torch.Generator("cuda").manual_seed(5)
+    res = {"phase": "lora", "delta_tol": LORA_DELTA_TOL, "cases": []}
+    ok = True
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    layer = 1
+    for site in LORA_SITES_1P3B:
+        name, n_in, n_out, _ = site
+        for R in LORA_RANKS:
+            a16, b16, sc = _lora_pool(torch, g, site, R, torch.bfloat16)
+            a32, b32 = a16.float(), b16.float()
+            for B, S in LORA_ROWS:
+                rows = torch.tensor(([3, 0, 1, 5, 0, 7, 2, 8] if B == 8
+                                     else [4]), dtype=torch.int32,
+                                    device="cuda")
+                x = torch.randn((B, S, n_in), generator=g,
+                                device="cuda").to(torch.bfloat16)
+                base = torch.randn((B, S, n_out), generator=g,
+                                   device="cuda").to(torch.bfloat16)
+                # the fp32 deltas: the kernel's f32 instance on the bf16
+                # values over a zero base, and the plain version's
+                zero = torch.zeros((B, S, n_out), device="cuda")
+                dk = batched_lora(zero, x.float(), a32, b32, rows, sc, layer)
+                dp = batched_lora_plain(torch.zeros_like(zero), x.float(),
+                                        a32, b32, rows, sc, layer)
+                got = batched_lora(base.clone(), x, a16, b16, rows, sc,
+                                   layer)
+                again = batched_lora(base.clone(), x, a16, b16, rows, sc,
+                                     layer)
+                want = batched_lora_plain(base.clone(), x, a16, b16, rows,
+                                          sc, layer)
+                torch.cuda.synchronize()
+                ref = dp.abs().max().item()
+                err = (dk - dp).abs().max().item()
+                alike = dk.to(torch.bfloat16) == dp.to(torch.bfloat16)
+                null = (rows == 0)[:, None, None].expand_as(base)
+                case = {"site": name, "rank": R, "slots": B, "rows_a_slot": S,
+                        "delta_max_abs_err": err, "delta_max_abs": ref,
+                        "bf16_bitwise_where_alike": bool(torch.equal(
+                            got[alike], want[alike])),
+                        "share_rounding_alike": alike.float().mean().item(),
+                        "null_rows_bitwise_base": bool(torch.equal(
+                            got[null], base[null])),
+                        "rerun_same_bits": bool(torch.equal(got, again))}
+                ok &= (math.isfinite(err) and err <= LORA_DELTA_TOL * ref
+                       and ref > 0 and case["bf16_bitwise_where_alike"]
+                       and case["null_rows_bitwise_base"]
+                       and case["rerun_same_bits"])
+                if R == 16:
+                    rows8 = torch.arange(1, B + 1, dtype=torch.int32,
+                                         device="cuda") if B == 8 else rows
+                    pages = int(rows8.unique().numel())
+                    kms = _graph_ms(torch, lambda: batched_lora(
+                        base, x, a16, b16, rows8, sc, layer))
+                    pms = _graph_ms(torch, lambda: batched_lora_plain(
+                        base, x, a16, b16, rows8, sc, layer))
+                    # one eager call, the wrapper's host time included
+                    call = cuda_ms(torch, lambda: batched_lora(
+                        base, x, a16, b16, rows8, sc, layer), 50, flush)
+
+                    def bmm_route():
+                        r = rows8.long()
+                        al = a16[r, layer]
+                        bl = b16[r, layer].reshape(B, R, n_out)
+                        xr = torch.bmm(x, al.transpose(1, 2))
+                        return base + torch.bmm(xr, bl) * \
+                            sc[r].to(torch.bfloat16)[:, None, None]
+
+                    lms = _graph_ms(torch, bmm_route)
+                    bnd, by = _lora_bound(B, S, R, n_in, n_out, pages, 2,
+                                          "bfloat16")
+                    case.update(distinct_pages=pages, kernel_ms=kms,
+                                plain_ms=pms, library_ms=lms, bound_ms=bnd,
+                                bound_by=by, share_of_bound=bnd / kms,
+                                eager_call_ms=call)
+                    if name == "fc1" and B * S == 8:
+                        ctx["lora"] = dict(
+                            max_abs_err=err, kernel_ms=kms, plain_ms=pms,
+                            bound_ms=bnd, bound_by=by, library_ms=lms,
+                            shape="fc1 (2048 -> 8192), 8 slots x 1 row, "
+                                  "rank 16, 8 pages (decode step)",
+                            dtype="bfloat16")
+                res["cases"].append(case)
+    del flush
+    steps = {}
+    for (B, S) in LORA_ROWS:
+        cs = [c for c in res["cases"] if c["rank"] == 16 and c["slots"] == B
+              and c["rows_a_slot"] == S]
+        steps[f"{B}x{S}"] = {
+            k: 24 * sum(c[k] for c in cs)
+            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                      "eager_call_ms")}
+    res["four_sites_24_layers_ms"] = steps
+    x = torch.zeros((1, 1, 16), device="cuda")
+    try:
+        R = LORA_MAX_RANK + 1
+        batched_lora(torch.zeros((1, 1, 16), device="cuda"), x,
+                     torch.zeros((2, 1, R, 16), device="cuda"),
+                     torch.zeros((2, 1, R, 16), device="cuda"),
+                     torch.ones(1, dtype=torch.int32, device="cuda"),
+                     torch.ones(2, device="cuda"), 0)
+        res["rank_above_64_raises"] = False
+    except ValueError:
+        res["rank_above_64_raises"] = True
+    ok &= res["rank_above_64_raises"]
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise AssertionError("batched LoRA kernel disagrees with its plain "
+                             "version")
+
+
+def _engine_tokens(torch, ctx, model, trace):
+    """Phase 5's bf16 tokens (served here when phase 5 did not run)."""
+    from paddle_tpu_torch import GenerationEngine
+
+    if "engine_tokens" not in ctx:
+        eng = GenerationEngine(model, num_slots=8, block_size=16)
+        ids, out = _serve_trace(eng, trace)
+        ctx["engine_tokens"] = [out[r] for r in ids]
+        del eng
+        torch.cuda.empty_cache()
+    return ctx["engine_tokens"]
+
+
+def _f32_2_layers(torch, seed):
+    """GPT-1.3B's widths at 2 layers in f32, on the card and on the CPU
+    from the same weights, and generate_parity's prompts."""
+    from paddle_tpu_torch import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig.gpt_1p3b()
+    cfg.num_layers = 2
+    g = torch.Generator("cuda").manual_seed(seed)
+    card = GPTForCausalLM(cfg, device="cuda", generator=g).eval()
+    host = GPTForCausalLM(cfg, device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.RandomState(seed + 1)
+    prompts = [rng.randint(0, cfg.vocab_size, 256),
+               rng.randint(0, cfg.vocab_size, 300)]
+    return card, host, prompts
+
+
+def phase_engine_bucketed(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+    from paddle_tpu_torch.ops.flash_attention import (causal_attention_fwd,
+                                                      causal_attention_plain)
+
+    res = {"phase": "engine_bucketed", "config": "gpt_1p3b bf16, 8 slots, "
+           "block 16, prefill_chunk=None (buckets 16 ... 2048)", "runs": {},
+           "token_parity_min": TOKEN_PARITY_MIN, "short_buckets": []}
+    ok = True
+    # the causal kernel at the ladder's short buckets
+    g = torch.Generator("cuda").manual_seed(6)
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (16, 32, 48):
+            q, k, v = (torch.randn((16, S, 128), generator=g,
+                                   device="cuda").to(dtype) for _ in range(3))
+            o_ref, l_ref = causal_attention_plain(q, k, v, 128 ** -0.5)
+            o, lse = causal_attention_fwd(q, k, v, 128 ** -0.5)
+            o2, _ = causal_attention_fwd(q, k, v, 128 ** -0.5)
+            torch.cuda.synchronize()
+            dn = dname(torch, dtype)
+            case = {"dtype": dn, "S": S,
+                    "max_abs_err": (o.float() - o_ref.float()).abs().max()
+                    .item(), "lse_max_abs_err": (lse - l_ref).abs().max()
+                    .item(), "rerun_same_bits": bool(torch.equal(o, o2))}
+            ok &= (case["max_abs_err"] <= TOL[dn]
+                   and case["lse_max_abs_err"] <= LSE_TOL[dn]
+                   and case["rerun_same_bits"])
+            res["short_buckets"].append(case)
+    model = _model(torch, torch.bfloat16, seed)
+    V, L = model.config.vocab_size, model.config.num_layers
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    chunked = _engine_tokens(torch, ctx, model, trace)
+    for path, kv in (("engine_bucketed_bf16", None),
+                     ("engine_bucketed_kv8_bf16", "int8")):
+        eng = GenerationEngine(model, num_slots=8, block_size=16,
+                               prefill_chunk=None, kv_dtype=kv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, out = _counted(torch, ctx, path, lambda: _serve_trace(
+            eng, trace, _drain_profiled(torch, ctx, path)))
+        wall = time.perf_counter() - t0
+        outs = [out[r] for r in ids]
+        fwd = ctx["paths"][path][FWD]["launches"]
+        share = _token_match_fraction(chunked, outs)
+        run = {"kv_dtype": kv, "wall_s": wall,
+               "buckets": list(eng.prefill_buckets),
+               "tokens_generated": eng.tokens_generated,
+               "tokens_per_s": eng.tokens_generated / wall,
+               "admissions": eng.admissions,
+               "decode_steps": eng.decode_steps,
+               "causal_fwd_launches": fwd,
+               "causal_fwd_24_an_admission": fwd == L * eng.admissions,
+               "prefix_hit_tokens": eng.prefix_hit_tokens,
+               "stalls": eng.stalls,
+               "token_match_fraction_vs_chunked": share,
+               "generated_share_equal_to_chunked": _token_share(
+                   outs, chunked, reqs),
+               "outputs_ok": _outputs_ok(ids, out, reqs, V),
+               "leak_check": "passed", "kernel_counts": ctx["paths"][path]}
+        ok &= (run["outputs_ok"] and run["causal_fwd_24_an_admission"]
+               and eng.admissions == len(reqs)
+               and eng.prefix_hit_tokens == 0 and share >= TOKEN_PARITY_MIN)
+        res["runs"][path] = run
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    # f32 at full width, 2 layers: card against CPU and against generate()
+    card, host, prompts = _f32_2_layers(torch, seed)
+    new = 16
+
+    def serve(m, dev):
+        eng = GenerationEngine(m, device=dev, num_slots=2, block_size=16,
+                               prefill_chunk=None)
+        ids = [eng.add_request(p, new) for p in prompts]
+        out = eng.drain()
+        return [out[r] for r in ids]
+
+    with torch.no_grad():
+        got = _counted(torch, ctx, "bucketed_f32",
+                       lambda: serve(card, "cuda"))
+        want = serve(host, "cpu")
+        gens = [card.generate(torch.from_numpy(p.astype(np.int32))[None]
+                              .cuda(), max_length=len(p) + new,
+                              use_cache=True)[0].cpu().numpy()
+                for p in prompts]
+    f32 = {"identical_to_cpu": got == want, "cases": [],
+           "kernel_counts": ctx["paths"]["bucketed_f32"]}
+    ok &= got == want
+    for tok, ref in zip(got, gens):
+        tok = np.asarray(tok)
+        case = {"identical_to_generate": bool(np.array_equal(tok, ref))}
+        if not case["identical_to_generate"]:
+            at = int(np.nonzero(tok != ref)[0][0])
+            with torch.no_grad():
+                logits = card(torch.from_numpy(ref[:at].astype(np.int32))
+                              [None].cuda())[0, -1]
+            top2 = torch.topk(logits, 2).values
+            case.update(first_diff=at, top2_gap=float(top2[0] - top2[1]))
+            ok &= case["top2_gap"] <= 1e-3
+        f32["cases"].append(case)
+    res["f32_2_layers"] = f32
+    res["ok"] = bool(ok)
+    emit(res)
+    del card, host
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("engine_bucketed phase failed its checks")
+
+
+def _lora_registry(cfg, seed):
+    """engine_lora's adapters 1-6 (ENGINE_LORA_RANKS, max_rank 16, 5 and 6
+    one rank group): A rows of unit norm in expectation, B at 0.1, scaling
+    1, so that each adapter's delta is a few tenths of its projection's
+    output, which moves greedy tokens."""
+    from paddle_tpu_torch.adapters import AdapterRegistry
+
+    reg = AdapterRegistry(cfg, max_rank=16)
+    rng = np.random.default_rng(seed + 7)
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    for aid, r in enumerate(ENGINE_LORA_RANKS, start=1):
+        w = {}
+        for site, (i_d, o_d) in (("qkv", (H, 3 * H)), ("out", (H, H)),
+                                 ("fc1", (H, I)), ("fc2", (I, H))):
+            w[site] = [(rng.standard_normal((r, i_d), dtype=np.float32)
+                        / np.float32(math.sqrt(i_d)),
+                        rng.standard_normal((o_d, r), dtype=np.float32)
+                        * np.float32(0.1)) for _ in range(L)]
+        reg.register(aid, w, scaling=1.0,
+                     group="tenant5" if aid in (5, 6) else None)
+    return reg
+
+
+def _trace_subset(trace, keep):
+    """The trace's requests whose index is in `keep`, first and later kept
+    apart, waiting for the cached prompts that remain."""
+    n = len(trace["first"])
+    first = [r for i, r in enumerate(trace["first"]) if i in keep]
+    later = [r for i, r in enumerate(trace["later"]) if n + i in keep]
+    prompts = [p for p, _ in first]
+    wait = [w for w in (trace["repeat"], trace["shared"])
+            if any(len(p) >= len(w) and np.array_equal(p[:len(w)], w)
+                   for p in prompts)]
+    return dict(trace, first=first, later=later, wait=wait)
+
+
+def phase_engine_lora(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+
+    model = _model(torch, torch.bfloat16, seed)
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_layers
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    ids_of = ENGINE_LORA_IDS
+    t0 = time.perf_counter()
+    reg = _lora_registry(cfg, seed)
+    res = {"phase": "engine_lora", "config": "gpt_1p3b bf16, 8 slots, "
+           "block 16, max_rank 16, adapters 1-6 of ranks "
+           f"{list(ENGINE_LORA_RANKS)} (5 and 6 one rank group), a 1 + 4 "
+           "page pool", "adapter_ids": list(ids_of),
+           "registry_build_s": time.perf_counter() - t0, "runs": {}}
+    ok = True
+    plain = _engine_tokens(torch, ctx, model, trace)
+
+    def engine(**kw):
+        return GenerationEngine(model, num_slots=8, block_size=16,
+                                adapters=reg, adapter_pool_pages=5, **kw)
+
+    def run(path, eng, tr, adapter_of):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn = lambda: _serve_trace(eng, tr, path and _drain_profiled(
+            torch, ctx, path), adapter_of=adapter_of)
+        ids, out = _counted(torch, ctx, path, fn) if path else fn()
+        wall = time.perf_counter() - t0
+        return [out[r] for r in ids], wall
+
+    # without adapters, in this call, for the tokens/s beside
+    eng = GenerationEngine(model, num_slots=8, block_size=16)
+    _, wall = run(None, eng, trace, None)
+    res["runs"]["no_adapters"] = {"tokens_per_s": eng.tokens_generated / wall,
+                                  "wall_s": wall}
+    del eng
+    # every request on the null adapter: phase 5's tokens, bitwise
+    eng = engine()
+    outs, wall = run("engine_lora_null_bf16", eng, trace, lambda i: 0)
+    steps = eng.prefill_chunks + eng.decode_steps
+    launches = ctx["paths"]["engine_lora_null_bf16"][LORA]["launches"]
+    null = {"tokens_per_s": eng.tokens_generated / wall, "wall_s": wall,
+            "identical_to_no_adapter_tokens": outs == plain,
+            "lora_launches": launches, "steps": steps,
+            "four_a_layer_a_step": launches == 4 * L * steps,
+            "swapins": eng.adapter_swapins}
+    ok &= (null["identical_to_no_adapter_tokens"]
+           and null["four_a_layer_a_step"] and null["swapins"] == 0)
+    res["runs"]["engine_lora_null_bf16"] = null
+    del eng
+    # the mixed-tenant trace
+    eng = engine()
+    outs, wall = run("engine_lora_bf16", eng, trace, lambda i: ids_of[i])
+    steps = eng.prefill_chunks + eng.decode_steps
+    launches = ctx["paths"]["engine_lora_bf16"][LORA]["launches"]
+    mixed = {"tokens_per_s": eng.tokens_generated / wall, "wall_s": wall,
+             "tokens_generated": eng.tokens_generated,
+             "lora_launches": launches, "steps": steps,
+             "four_a_layer_a_step": launches == 4 * L * steps,
+             "swapins": eng.adapter_swapins,
+             "evictions": eng.adapter_evictions, "stalls": eng.stalls,
+             "prefix_hit_tokens": eng.prefix_hit_tokens,
+             "cow_copies": eng.cow_copies,
+             "pool_bytes": eng.adapter_pool.pool_nbytes(),
+             "leak_check": "passed (blocks and adapter pages)",
+             "outputs_ok": _outputs_ok(range(len(outs)), dict(
+                 enumerate(outs)), reqs, V),
+             "requests_differing_from_base": sum(
+                 o != p for o, p, a in zip(outs, plain, ids_of) if a),
+             "kernel_counts": ctx["paths"]["engine_lora_bf16"]}
+    ok &= (mixed["outputs_ok"] and mixed["four_a_layer_a_step"]
+           and mixed["swapins"] > 0 and mixed["evictions"] > 0
+           and mixed["requests_differing_from_base"] > 0)
+    del eng
+    # each adapter's requests alone on a dedicated engine
+    dedicated = {}
+    for aid in sorted(set(ids_of)):
+        keep = {i for i, a in enumerate(ids_of) if a == aid}
+        sub = _trace_subset(trace, keep)
+        eng = engine()
+        got, _ = run(None, eng, sub, lambda i, a=aid: a)
+        want = [outs[i] for i in sorted(keep)]
+        dedicated[str(aid)] = got == want
+        del eng
+    mixed["identical_to_dedicated_engines"] = dedicated
+    ok &= all(dedicated.values())
+    res["runs"]["engine_lora_bf16"] = mixed
+    res["tokens_per_s_ratio_mixed_to_no_adapters"] = \
+        mixed["tokens_per_s"] / res["runs"]["no_adapters"]["tokens_per_s"]
+    del model, reg
+    torch.cuda.empty_cache()
+    # f32 at full width, 2 layers: the card's mixed tenants against the CPU
+    card, host, prompts = _f32_2_layers(torch, seed)
+    reg2 = _lora_registry(card.config, seed)
+    aids = (1, 5, 0)
+    prompts = prompts + [prompts[0][:100]]
+    f32 = {}
+
+    def serve(m, dev, **kw):
+        eng = GenerationEngine(m, device=dev, num_slots=2, block_size=16,
+                               adapters=reg2, adapter_pool_pages=2, **kw)
+        ids = [eng.add_request(p, 16, adapter_id=a)
+               for p, a in zip(prompts, aids)]
+        out = eng.drain()
+        return [out[r] for r in ids]
+
+    cells = [(pm, K) for pm in ("chunked", "bucketed") for K in (0, SPEC_K)]
+
+    def card_cells():
+        return [serve(card, "cuda", spec_decode_k=K, prefill_chunk=(
+            "auto" if pm == "chunked" else None)) for pm, K in cells]
+
+    with torch.no_grad():
+        got = _counted(torch, ctx, "lora_f32", card_cells)
+        for (pm, K), g in zip(cells, got):
+            want = serve(host, "cpu", spec_decode_k=K, prefill_chunk=(
+                "auto" if pm == "chunked" else None))
+            f32[f"{pm}_K{K}"] = g == want
+    ok &= all(f32.values())
+    res["f32_2_layers_identical_to_cpu"] = f32
+    res["f32_kernel_counts"] = ctx["paths"]["lora_f32"]
+    res["ok"] = bool(ok)
+    emit(res)
+    del card, host
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("engine_lora phase failed its checks")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4989,7 +5529,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile the engine runs (phases engine, "
                     "engine_spec, engine_int8, engine_sampled, "
-                    "engine_wint8) after their prefixes are "
+                    "engine_wint8, engine_bucketed, engine_lora) after "
+                    "their prefixes are "
                     "cached, one GPT train step, one BERT train step, one "
                     "ResNet-50 forward and one ResNet-50 train step on "
                     "each route, one Transformer forward and one "
@@ -5020,6 +5561,7 @@ def main(argv=None):
     from paddle_tpu_torch.ops.grad_merge import (grad_finish, grad_merge,
                                                  grad_unscale)
     from paddle_tpu_torch.ops.int8_linear import int8_linear
+    from paddle_tpu_torch.ops.lora import batched_lora
     from paddle_tpu_torch.ops.sampling import sample_draw, sample_uniform
     from paddle_tpu_torch.ops.optimizer_update import (optimizer_norms,
                                                        optimizer_update)
@@ -5040,7 +5582,7 @@ def main(argv=None):
                         conv1x1_bwd, conv3x3_dw, sdpa_forward,
                         sdpa_backward, optimizer_update, optimizer_norms,
                         grad_merge, grad_finish, grad_unscale, sample_draw,
-                        sample_uniform, int8_linear)}
+                        sample_uniform, int8_linear, batched_lora)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -5117,8 +5659,14 @@ def main(argv=None):
                 phase_int8_linear(torch, ctx)
             elif name == "engine_sampled":
                 phase_engine_sampled(torch, ctx, SEED)
-            else:
+            elif name == "engine_wint8":
                 phase_engine_wint8(torch, ctx, SEED)
+            elif name == "lora":
+                phase_lora(torch, ctx)
+            elif name == "engine_bucketed":
+                phase_engine_bucketed(torch, ctx, SEED)
+            else:
+                phase_engine_lora(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -5199,7 +5747,11 @@ def main(argv=None):
             (UNIF, UNIF, "paddle_tpu_torch/csrc/sampling.cu",
              "paddle_tpu/ops/sampling.py:119"),
             (W8, W8, "paddle_tpu_torch/csrc/int8_linear.cu",
-             "paddle_tpu/inference/engine.py:1296")):
+             "paddle_tpu/inference/engine.py:1296"),
+            # no Pallas counterpart: the per-slot LoRA delta XLA fuses
+            # into the JAX engine's steps
+            ("lora", LORA, "paddle_tpu_torch/csrc/lora.cu",
+             "paddle_tpu/ops/lora.py:53")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

@@ -44,7 +44,12 @@ Ported so far:
   `inference.SamplingParams`, `best_of_n`) on jax's own threefry keys and
   bits (`ops.threefry`), with the draw kernels (`ops.sampling`), and int8
   weights (`weight_dtype="int8"`, `quantization`) through the int8-weight
-  linear kernel (`ops.int8_linear`).
+  linear kernel (`ops.int8_linear`);
+- bucketed prefill (`GenerationEngine(prefill_chunk=None)` or
+  `prefill_buckets=`) through the causal attention forward, and
+  multi-tenant LoRA serving (`adapters`: the registry and the paged pool;
+  `GenerationEngine(adapters=)`, `add_request(adapter_id=)`) with the
+  batched LoRA kernel (`ops.lora`).
 """
 from . import amp, optimizer, vision
 from .device import resolve_device

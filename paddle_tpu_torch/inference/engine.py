@@ -1,6 +1,7 @@
 """Continuous-batching generation engine over a paged KV cache: counterpart
 of paddle_tpu/inference/engine.py (greedy or sampled lanes, fp or int8
-pools, int8 weights, speculative decoding, one device, serial core).
+pools, int8 weights, speculative decoding, chunked or bucketed prefill,
+multi-tenant LoRA adapters, one device, serial core).
 
 - `PagedKVCache`: pools `[layers, num_blocks, block_size, heads, head_dim]`
   on the device plus a host-side allocator with per-block refcounts and a
@@ -49,21 +50,37 @@ pools, int8 weights, speculative decoding, one device, serial core).
   `NotImplementedError` when they ask for their feature, never serving
   without it: `PADDLE_SERVE_MP` > 1, and `PADDLE_SERVE_TRACING` or
   `PADDLE_SERVE_ASYNC` on.
-- prefill: chunked, `prefill_chunk="auto"` (the default) being
-  `min(128, max_model_len)` as in JAX. JAX's bucketed prefill
-  (`prefill_chunk=None` or `prefill_buckets=`) raises
-  `NotImplementedError`.
+- prefill, resolved as in JAX: chunked (`prefill_chunk="auto"`, the
+  default, being `min(128, max_model_len)`, or an int), or bucketed
+  (`prefill_chunk=None`, or `prefill_buckets=` with `"auto"`): each
+  admission pads its whole prompt to the smallest bucket of the ladder
+  (16, 32, ... up to `max_model_len` by default) that holds it, runs it
+  through `GPTModel.forward_prefill` (causal attention: the causal kernel
+  on the card) and writes its KV into freshly allocated blocks with
+  `ops.paged_attention.paged_prefill_write`. The prefix cache follows the
+  strategy (`enable_prefix_cache=None`); it needs chunked prefill.
+- multi-tenant adapters (`adapters=`, an `adapters.AdapterRegistry` or a
+  prebuilt `adapters.PagedAdapterPool`): `add_request(adapter_id=)`
+  serves each request under its tenant's LoRA adapter. The pool pages
+  adapters as the cache pages blocks (`1 + num_slots` pages by default,
+  `adapter_pool_pages=`); a lane takes its page after its KV blocks and
+  stalls (`stalls["adapter"]`) when none is free; every step passes the
+  per-slot page row (idle lanes the null page 0) to the model, whose four
+  projections a layer add their delta through `ops.lora.batched_lora`.
+  The prefix cache's chains are salted with the adapter id, and `drain()`
+  audits the pool's pages too.
 
 The pools (and scales) are updated IN PLACE by every step (PyTorch is
 eager: there is no compiled step, no donation, no trace count). Greedy
 output matches `GPTForCausalLM.generate(use_cache=True)` per request, with
 or without speculation; int8 pools hold to the JAX int8 engine instead.
 
-Left for later slices (ROADMAP Queue A): bucketed prefill, the async
-drafter thread, tensor parallelism, adapters, the metrics registry,
-tracing and the flight recorder, the async core and the fleet handoff
-(with the fleet's `best_of_n` and `adopt_request`). Plain counters stand
-in for the metrics.
+Left for later slices (ROADMAP Queue A): the async drafter thread,
+tensor parallelism, the metrics registry (with the adapter gauges and the
+adapter-labelled TTFT/TPOT histograms: `metrics_snapshot` and
+`render_prometheus` raise), tracing and the flight recorder, the async core
+(with its adapter prefetch) and the fleet handoff (with the fleet's
+`best_of_n` and `adopt_request`). Plain counters stand in for the metrics.
 """
 from __future__ import annotations
 
@@ -76,9 +93,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..adapters import AdapterRegistry, PagedAdapterPool
 from ..device import resolve_device
+from ..ops.lora import LoraState
 from ..ops.paged_attention import (KV_QUANT_EPS, copy_pool_block,
-                                   resolve_backend)
+                                   paged_prefill_write, resolve_backend)
 from ..ops.sampling import sample_token, verify_window
 from ..quantization import quantize_absmax
 from .sampling import SamplingParams, key_row
@@ -320,12 +339,13 @@ class PagedKVCache:
         (a slot or the prefix cache) reads."""
         return self._ref[block] > 1 or block in self._hash_of
 
-    def match_prefix(self, tokens):
-        """Longest cached block-aligned prefix of `tokens`: takes a
-        reference on every hit (reviving evictable ones) and returns
-        (blocks, hit_tokens)."""
+    def match_prefix(self, tokens, adapter_id=0):
+        """Longest cached block-aligned prefix of `tokens` under
+        `adapter_id`'s salted chain: takes a reference on every hit
+        (reviving evictable ones) and returns (blocks, hit_tokens). A
+        different adapter's chain never aliases it."""
         blocks = []
-        for h in iter_prefix_key(tokens, self.block_size):
+        for h in iter_prefix_key(tokens, self.block_size, adapter_id):
             b = self._block_of.get(h)
             if b is None:
                 break
@@ -335,21 +355,25 @@ class PagedKVCache:
             blocks.append(b)
         return blocks, len(blocks) * self.block_size
 
-    def warm_prefix_tokens(self, tokens):
+    def warm_prefix_tokens(self, tokens, keys=None, adapter_id=0):
         """Prompt tokens a `match_prefix` would serve right now: a
-        read-only peek (no references taken)."""
+        read-only peek (no references taken). `keys` lets a caller that
+        probes several caches hash the prompt once (`prefix_key`)."""
         hit = 0
-        for h in iter_prefix_key(tokens, self.block_size):
+        for h in (keys if keys is not None
+                  else iter_prefix_key(tokens, self.block_size, adapter_id)):
             if h not in self._block_of:
                 break
             hit += self.block_size
         return hit
 
-    def register_prefix(self, tokens, blocks):
-        """Publish a fully prefilled prompt's FULL blocks (first writer
-        wins). Returns the number of blocks newly cached."""
+    def register_prefix(self, tokens, blocks, adapter_id=0):
+        """Publish a fully prefilled prompt's FULL blocks under
+        `adapter_id`'s salted chain (first writer wins). Returns the number
+        of blocks newly cached."""
         added = 0
-        for h, blk in zip(iter_prefix_key(tokens, self.block_size), blocks):
+        keys = iter_prefix_key(tokens, self.block_size, adapter_id)
+        for h, blk in zip(keys, blocks):
             b = int(blk)
             if h in self._block_of or b in self._hash_of:
                 continue
@@ -448,6 +472,7 @@ class Request:
     # the request's SamplingParams (seed resolved at intake), or None for
     # the greedy contract
     sampling: object = None
+    adapter_id: int = 0                # tenant adapter (0: the base model)
 
 
 @dataclass(eq=False)
@@ -459,6 +484,7 @@ class _Slot:
     generated: list = field(default_factory=list)
     prefill_pos: int = 0               # next prompt position to prefill
     admit_seq: int = 0                 # admission order tiebreak
+    adapter_page: int = 0              # the request's adapter pool page
     # per-slot sampling state (greedy lanes: 0 / 0 / 1.0 / no key row)
     temp: float = 0.0
     top_k: int = 0
@@ -500,25 +526,35 @@ class GenerationEngine:
     serves the qkv, out, fc1 and fc2 weights from an int8 snapshot;
     `sampling=True` (or `PADDLE_SERVE_SAMPLING`) takes per-request
     `SamplingParams`. `prefill_chunk` is `"auto"` (`min(128,
-    max_model_len)`) or an int; `None` and `prefill_buckets` (bucketed
-    prefill) raise.
+    max_model_len)`, or bucketed prefill when `prefill_buckets` is given),
+    an int, or None (bucketed prefill over `prefill_buckets`, by default
+    16, 32, ... up to `max_model_len`); `enable_prefix_cache=None` turns
+    the prefix cache on with chunked prefill and off with bucketed.
+    `adapters` (an `AdapterRegistry`, or a `PagedAdapterPool` no other
+    engine pages for) turns on multi-tenant LoRA serving over a pool of
+    `adapter_pool_pages` pages (`1 + num_slots` by default), in the
+    model's dtype.
     `attention_backend` (`auto` by default) is resolved once into
     `attention_backend` (`dense` or `pallas`); `auto` is dense at head dims
     and block sizes the kernels do not take. Counters: `tokens_generated`,
-    `prefix_hit_tokens`, `cow_copies`, `prefill_chunks`, `decode_steps`
-    (verify steps when K > 0), `stalls` by path (`prefill`, `decode`, and
-    `spec_degrade`: a lane that shed its draft under pool pressure and
-    still ran), `shed`, `spec_accepted_tokens`, `spec_rejected_tokens`,
-    `sampled_tokens` (tokens of temperature > 0 lanes) and
-    `prefill_first_tokens` (first tokens a final prefill chunk yielded).
+    `admissions`, `prefix_hit_tokens`, `cow_copies`, `prefill_chunks`,
+    `decode_steps` (verify steps when K > 0), `stalls` by path (`prefill`,
+    `decode`, `admit`: a bucketed admission without its blocks, `adapter`:
+    an admission without an adapter page, and `spec_degrade`: a lane that
+    shed its draft under pool pressure and still ran), `shed`,
+    `spec_accepted_tokens`, `spec_rejected_tokens`, `sampled_tokens`
+    (tokens of temperature > 0 lanes), `prefill_first_tokens` (first
+    tokens a prefill yielded: a final chunk or a bucketed prefill), and
+    the adapter pool's `adapter_swapins` and `adapter_evictions`.
     """
 
     def __init__(self, model, num_slots=8, block_size=16, num_blocks=None,
                  max_model_len=None, eos_token_id=None, prefill_chunk="auto",
-                 enable_prefix_cache=True, max_queue=None, device=None,
+                 enable_prefix_cache=None, max_queue=None, device=None,
                  spec_decode_k=0, drafter=None, kv_dtype=None,
                  attention_backend=None, prefill_buckets=None,
-                 weight_dtype=None, sampling=None):
+                 weight_dtype=None, sampling=None, adapters=None,
+                 adapter_pool_pages=None):
         cfg = model.config
         if model.training and cfg.dropout > 0:
             raise ValueError("GenerationEngine decodes deterministically "
@@ -548,21 +584,26 @@ class GenerationEngine:
             block_size=self.block_size)
         self.eos_token_id = eos_token_id
         self.max_queue = None if max_queue is None else int(max_queue)
-        # chunked prefill only: JAX's "auto" resolves to a chunk, and its
-        # bucketed prefill (a None chunk, or buckets) is not ported
-        if prefill_chunk == "auto" and prefill_buckets is None:
-            prefill_chunk = min(128, self.max_model_len)
-        elif prefill_chunk not in (None, "auto") \
-                and prefill_buckets is not None:
+        # prefill strategy, as JAX resolves it: chunked (a fixed chunk a
+        # step) or bucketed (the whole prompt, padded to a bucket, at
+        # admission); "auto" with buckets means bucketed
+        if prefill_chunk == "auto":
+            prefill_chunk = None if prefill_buckets is not None \
+                else min(128, self.max_model_len)
+        elif prefill_chunk is not None and prefill_buckets is not None:
             raise ValueError("prefill_chunk and prefill_buckets are "
                              "mutually exclusive prefill strategies")
-        if prefill_chunk in (None, "auto"):
-            raise NotImplementedError(
-                "bucketed prefill (prefill_chunk=None or prefill_buckets=) "
-                "is not ported yet (ROADMAP Queue A 8); the port runs "
-                "chunked prefill: pass prefill_chunk='auto' or an int")
-        self.prefill_chunk = max(1, min(int(prefill_chunk),
-                                        self.max_model_len))
+        self.prefill_chunk = None if prefill_chunk is None \
+            else max(1, min(int(prefill_chunk), self.max_model_len))
+        self.chunked_prefill = self.prefill_chunk is not None
+        # the prefix cache reuses blocks by content and prefills the tail
+        # only, which only the chunked path can do
+        if enable_prefix_cache is None:
+            enable_prefix_cache = self.chunked_prefill
+        if enable_prefix_cache and not self.chunked_prefill:
+            raise ValueError("the prefix cache needs chunked prefill "
+                             "(bucketed prefill always recomputes from "
+                             "position 0)")
         self.enable_prefix_cache = bool(enable_prefix_cache)
         # speculative decoding and int8 KV: the environment wins, as the
         # deploy-time switches of the JAX engine
@@ -598,6 +639,17 @@ class GenerationEngine:
             self.block_size, cfg.num_heads,
             cfg.hidden_size // cfg.num_heads, dtype=wte.dtype,
             device=self.device, kv_dtype=self.kv_dtype)
+        self._resolve_adapters(adapters, adapter_pool_pages, cfg, wte.dtype)
+        if self.chunked_prefill:
+            self.prefill_buckets = ()
+        else:
+            self.prefill_buckets = tuple(sorted(
+                prefill_buckets or self._default_buckets()))
+            if self.prefill_buckets[-1] < self.max_model_len:
+                raise ValueError("largest prefill bucket "
+                                 f"({self.prefill_buckets[-1]}) must "
+                                 "cover max_model_len="
+                                 f"{self.max_model_len}")
         self._queues = {p: deque() for p in PRIORITY_CLASSES}
         self._slots = [None] * self.num_slots
         self._results = {}
@@ -605,16 +657,147 @@ class GenerationEngine:
         self._auto_id = 0
         self._admit_counter = 0
         self.tokens_generated = 0
+        self.admissions = 0
         self.prefix_hit_tokens = 0
         self.cow_copies = 0
         self.prefill_chunks = 0
         self.decode_steps = 0
-        self.stalls = {"prefill": 0, "decode": 0, "spec_degrade": 0}
+        self.stalls = {"prefill": 0, "decode": 0, "admit": 0, "adapter": 0,
+                       "spec_degrade": 0}
         self.shed = 0
         self.spec_accepted_tokens = 0
         self.spec_rejected_tokens = 0
         self.sampled_tokens = 0
         self.prefill_first_tokens = 0
+
+    # -- multi-tenant adapter serving (paged batched LoRA) -----------------
+    def _resolve_adapters(self, adapters, pages, cfg, dtype):
+        """Wire the paged adapter pool: an AdapterRegistry builds a pool on
+        the engine's device in the model's dtype (`adapter_pool_pages`
+        pages, 1 + num_slots by default, so that a full batch of distinct
+        tenants never stalls); a prebuilt PagedAdapterPool is adopted after
+        a device, owner and geometry check. None turns the subsystem
+        off."""
+        if adapters is None:
+            if pages is not None:
+                raise ValueError(
+                    "adapter_pool_pages needs adapters= (a registry "
+                    "or pool) — pages of nothing would be a no-op")
+            self.adapter_pool = None
+            return
+        if isinstance(adapters, PagedAdapterPool):
+            if pages is not None:
+                raise ValueError("adapter_pool_pages conflicts with a "
+                                 "prebuilt PagedAdapterPool")
+            if adapters.device != self.device:
+                raise ValueError(
+                    f"the prebuilt adapter pool lives on {adapters.device}, "
+                    f"the engine on {self.device} — build it on the "
+                    "engine's device (or pass the registry and let the "
+                    "engine build the pool)")
+            if adapters._owner is not None \
+                    and adapters._owner is not self:
+                raise ValueError(
+                    "this PagedAdapterPool already pages for another "
+                    "engine — paging state (refcounts/LRU/gauges) is "
+                    "per-engine. Pass the AdapterRegistry instead and "
+                    "let each engine build its own pool (the registry "
+                    "is safely shared).")
+            pool, reg = adapters, adapters.registry
+        elif isinstance(adapters, AdapterRegistry):
+            reg = adapters
+            pool = PagedAdapterPool(
+                reg, num_pages=int(pages) if pages is not None
+                else 1 + self.num_slots, dtype=dtype, device=self.device)
+        else:
+            raise TypeError(
+                "adapters= takes an AdapterRegistry or a "
+                f"PagedAdapterPool, got {type(adapters).__name__}")
+        for name, want in (("num_layers", cfg.num_layers),
+                           ("hidden_size", cfg.hidden_size),
+                           ("intermediate_size", cfg.intermediate_size),
+                           ("num_heads", cfg.num_heads)):
+            if getattr(reg, name) != want:
+                raise ValueError(
+                    f"adapter registry {name}={getattr(reg, name)} "
+                    f"does not match the served model's {want}")
+        pool._owner = self
+        self.adapter_pool = pool
+
+    def _check_adapter(self, adapter_id):
+        """Validate an intake adapter id: 0 always passes (null/base);
+        anything else needs the adapter subsystem on and the id
+        registered."""
+        aid = int(adapter_id)
+        if aid == 0:
+            return 0
+        if self.adapter_pool is None:
+            raise ValueError(
+                f"adapter_id={aid} needs GenerationEngine("
+                "adapters=...) — this engine serves the base model "
+                "only")
+        if not self.adapter_pool.registry.has(aid):
+            raise ValueError(f"adapter {aid} is not registered")
+        return aid
+
+    def adapter_page_available(self, adapter_id):
+        """True when seating a request under `adapter_id` would not stall
+        on an adapter page right now (a placement probe, as `num_free`
+        is for blocks)."""
+        return self.adapter_pool is None or int(adapter_id) == 0 \
+            or self.adapter_pool.can_acquire(adapter_id)
+
+    @property
+    def adapter_swapins(self):
+        """Pages the adapter pool swapped in (0 without adapters)."""
+        return 0 if self.adapter_pool is None else self.adapter_pool.swapins
+
+    @property
+    def adapter_evictions(self):
+        """Warm pages the adapter pool evicted (0 without adapters)."""
+        return 0 if self.adapter_pool is None \
+            else self.adapter_pool.evictions
+
+    def _acquire_adapter(self, req):
+        """Take the adapter-page reference a request's lane needs (the null
+        adapter is page 0, never paged). Returns the page, or None under
+        adapter-pool pressure (a stall; the caller requeues and
+        retries)."""
+        if self.adapter_pool is None or not req.adapter_id:
+            return 0
+        page = self.adapter_pool.acquire(req.adapter_id)
+        if page is None:
+            self.stalls["adapter"] += 1
+        return page
+
+    def _release_adapter(self, slot):
+        """Return a vacating lane's adapter-page reference (the page parks
+        warm in the pool's LRU at refcount zero)."""
+        if self.adapter_pool is not None and slot.req.adapter_id:
+            self.adapter_pool.release(slot.req.adapter_id)
+
+    def _lora(self, slots):
+        """The step's `LoraState` over `slots` (None for an idle lane,
+        which rides the null page 0), or None without adapters."""
+        if self.adapter_pool is None:
+            return None
+        pages = np.asarray([0 if s is None else s.adapter_page
+                            for s in slots], np.int32)
+        return LoraState(self.adapter_pool.arrays(),
+                         self._device_int32(pages))
+
+    def metrics_snapshot(self):
+        """Not ported: the metrics registry (with the adapter gauges and
+        the adapter-labelled TTFT/TPOT histograms) is ROADMAP Queue A 11.
+        The engine's plain counters stand in."""
+        raise NotImplementedError(
+            "the metrics registry is not ported yet (ROADMAP Queue A 11); "
+            "read the engine's counters (tokens_generated, stalls, "
+            "adapter_swapins, ...)")
+
+    def render_prometheus(self):
+        """Not ported, as `metrics_snapshot` (ROADMAP Queue A 11)."""
+        return self.metrics_snapshot()
 
     # -- int8 weight serving -----------------------------------------------
     def _weight_quant_plan(self):
@@ -709,14 +892,18 @@ class GenerationEngine:
 
     # -- request intake ----------------------------------------------------
     def add_request(self, prompt, max_new_tokens, eos_token_id=None,
-                    req_id=None, priority="standard", sampling_params=None):
+                    req_id=None, priority="standard", sampling_params=None,
+                    adapter_id=0):
         """Queue a request; it is admitted into a free lane between steps
         (may be called while `run`/`step` is mid-stream). With `max_queue`
         set and the queue full, the lowest-priority loser is shed: its
         result is None. `sampling_params` (a `SamplingParams`; needs
         `sampling=True`) samples the request; None and temperature 0 keep
         the greedy contract. A None seed is drawn here from the engine's
-        deterministic counter. Returns the request id."""
+        deterministic counter. `adapter_id` is the tenant adapter the
+        request decodes under (needs `adapters=`; 0, the default, is the
+        base model). Returns the request id."""
+        adapter_id = self._check_adapter(adapter_id)
         sampling_params = self._resolve_seed(
             self._check_sampling(sampling_params))
         if self._draining:
@@ -745,7 +932,8 @@ class GenerationEngine:
                              "decoding, or awaiting collection")
         eos = self.eos_token_id if eos_token_id is None else eos_token_id
         req = Request(req_id, prompt, int(max_new_tokens), eos,
-                      priority=priority, sampling=sampling_params)
+                      priority=priority, sampling=sampling_params,
+                      adapter_id=adapter_id)
         if self.max_queue is not None \
                 and self.num_pending >= self.max_queue:
             victim = self._shed_victim(priority)
@@ -775,11 +963,17 @@ class GenerationEngine:
         ids.update(self._results)
         return ids
 
-    def _pop_request(self):
+    def _peek_request(self):
         for p in PRIORITY_CLASSES:
             if self._queues[p]:
-                return self._queues[p].popleft()
+                return self._queues[p][0]
         return None
+
+    def _pop_request(self):
+        req = self._peek_request()
+        if req is not None:
+            self._queues[req.priority].popleft()
+        return req
 
     # -- scheduler ---------------------------------------------------------
     def _finish(self, i):
@@ -787,6 +981,7 @@ class GenerationEngine:
         self._results[slot.req.req_id] = \
             list(map(int, slot.req.prompt)) + slot.generated
         self.cache.free(slot.blocks)
+        self._release_adapter(slot)
         self._slots[i] = None
 
     def _emit(self, i, toks):
@@ -813,17 +1008,102 @@ class GenerationEngine:
             req = self._pop_request()
             if req is None:
                 break
+            page = self._acquire_adapter(req)
+            if page is None:
+                # every adapter page is referenced by a live lane: requeue
+                # at the front and retry when a lane vacates
+                self._queues[req.priority].appendleft(req)
+                break
             blocks, hit = [], 0
             if self.enable_prefix_cache:
-                blocks, hit = self.cache.match_prefix(req.prompt)
+                blocks, hit = self.cache.match_prefix(
+                    req.prompt, adapter_id=req.adapter_id)
                 self.prefix_hit_tokens += hit
             slot = _Slot(req=req, blocks=list(blocks), prefill_pos=hit,
-                         admit_seq=self._admit_counter,
+                         admit_seq=self._admit_counter, adapter_page=page,
                          **self._slot_sampling_fields(req))
             self._admit_counter += 1
             self._slots[self._slots.index(None)] = slot
+            self.admissions += 1
             admitted += 1
         return admitted
+
+    def _default_buckets(self):
+        """JAX's ladder: 16, 32, 64, ... below `max_model_len`, then
+        `max_model_len` itself."""
+        b, out = 16, []
+        while b < self.max_model_len:
+            out.append(b)
+            b *= 2
+        out.append(self.max_model_len)
+        return out
+
+    def _bucket_for(self, plen):
+        for b in self.prefill_buckets:
+            if b >= plen:
+                return b
+        raise AssertionError("unreachable: last bucket covers "
+                             "max_model_len")
+
+    def _admit(self):
+        """Bucketed admission: fill free lanes from the queue (priority
+        order), each taking its prompt's blocks, then its adapter page (a
+        block stall must not burn a swap-in), then running the whole
+        prompt padded to its bucket through `forward_prefill`; the KV
+        lands in the blocks (`paged_prefill_write`), the last real
+        position's logits give the first generated token, and the slot
+        enters decode."""
+        admitted = 0
+        while None in self._slots:
+            req = self._peek_request()
+            if req is None:
+                break
+            plen = int(req.prompt.size)
+            need = math.ceil(plen / self.block_size)
+            blocks = self.cache.allocate(need)
+            if blocks is None:
+                self.stalls["admit"] += 1
+                break                      # pool pressure: retry later
+            page = self._acquire_adapter(req)
+            if page is None:
+                self.cache.free(blocks)    # fresh, unhashed: free list
+                break                      # adapter pressure: retry later
+            self._pop_request()
+            bucket = self._bucket_for(plen)
+            slot = _Slot(req=req, blocks=blocks, prefill_pos=plen,
+                         admit_seq=self._admit_counter, adapter_page=page,
+                         **self._slot_sampling_fields(req))
+            self._admit_counter += 1
+            i = self._slots.index(None)
+            self._slots[i] = slot
+            self.admissions += 1
+            admitted += 1
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :plen] = req.prompt
+            row = np.zeros(self.max_blocks, np.int32)
+            row[:need] = blocks
+            c = self.cache
+            with torch.no_grad():
+                hidden, ks, vs = self.model.gpt.forward_prefill(
+                    self._device_int32(tokens), self._qweights,
+                    self._lora([slot]))
+                paged_prefill_write(c.kpool, c.vpool, ks, vs,
+                                    self._device_int32(row), plen, c.scales)
+                first = self._first_of(hidden[0, plen - 1], slot, plen)
+            self._emit(i, [first])
+        return admitted
+
+    def _first_of(self, h_last, slot, plen):
+        """A prompt's first generated token from its last real position's
+        hidden state: the argmax, or under sampling a draw that folds
+        `plen - 1` (the key a full-prefix-hit decode would fold for it)."""
+        logits = self.model._logits_of(h_last)
+        self.prefill_first_tokens += 1
+        if not self.sampling:
+            return int(logits.argmax(-1))
+        return int(sample_token(
+            logits[None], *self._sampling_rows([slot]),
+            self._device_int32(np.asarray([plen - 1], np.int32)))[0])
 
     def _device_int32(self, arr):
         return torch.from_numpy(arr).to(self.device)
@@ -861,26 +1141,20 @@ class GenerationEngine:
             with torch.no_grad():
                 hidden = self.model.gpt.forward_prefill_chunk(
                     self._device_int32(tokens), start, c.kpool, c.vpool,
-                    self._device_int32(row), plen, c.scales, self._qweights)
+                    self._device_int32(row), plen, c.scales, self._qweights,
+                    self._lora([slot]))
                 self.prefill_chunks += 1
                 slot.prefill_pos = end
                 if end < plen:
                     return 1
-                # the last real prompt position's logits: first token
-                logits = self.model._logits_of(hidden[0, plen - 1 - start])
-                if self.sampling:
-                    # it lands at position plen, so its draw folds plen - 1,
-                    # the key a full-prefix-hit decode would fold for it
-                    first = int(sample_token(
-                        logits[None], *self._sampling_rows([slot]),
-                        self._device_int32(np.asarray([plen - 1],
-                                                      np.int32)))[0])
-                else:
-                    first = int(logits.argmax(-1))
-            self.prefill_first_tokens += 1
+                # the last real prompt position gives the first token
+                first = self._first_of(hidden[0, plen - 1 - start], slot,
+                                       plen)
             if self.enable_prefix_cache:
                 # the prompt's KV is fully written: publish its full blocks
-                self.cache.register_prefix(req.prompt, slot.blocks)
+                # under the request's adapter-salted chain
+                self.cache.register_prefix(req.prompt, slot.blocks,
+                                           adapter_id=req.adapter_id)
             self._emit(i, [first])
             return 1
         return 0
@@ -925,6 +1199,12 @@ class GenerationEngine:
             runnable.append(i)
         return runnable
 
+    def _lane_slots(self, runnable):
+        """Each lane's slot if it runs this step, else None (idle and
+        stalled lanes ride the null adapter page)."""
+        run = set(runnable)
+        return [s if i in run else None for i, s in enumerate(self._slots)]
+
     def _decode_step(self):
         """One batched decode step over the runnable lanes. Idle and
         stalled lanes ride token 0, position 0 and an all-zero table: they
@@ -953,7 +1233,7 @@ class GenerationEngine:
             hidden = self.model.gpt.forward_decode_paged(
                 self._device_int32(tokens), pos, c.kpool, c.vpool,
                 self._device_int32(tables), c.scales, self.attention_backend,
-                self._qweights)
+                self._qweights, self._lora(self._lane_slots(runnable)))
             logits = self.model._logits_of(hidden)[:, 0]
             if self.sampling:
                 # greedy rows take the argmax, sampled rows one draw keyed
@@ -1062,7 +1342,7 @@ class GenerationEngine:
             hidden = self.model.gpt.forward_verify_paged(
                 toks, pos, dl, c.kpool, c.vpool,
                 self._device_int32(tables), c.scales, self.attention_backend,
-                self._qweights)
+                self._qweights, self._lora(self._lane_slots(runnable)))
             logits = self.model._logits_of(hidden)
             if self.sampling:
                 # rejection-sampling acceptance over the window: per-row
@@ -1107,8 +1387,11 @@ class GenerationEngine:
         """One scheduler iteration: admit queued requests into free lanes,
         run at most one prefill chunk, then one batched decode step.
         Returns the number of admissions/chunks/lanes that progressed."""
-        progressed = self._admit_chunked()
-        progressed += self._prefill_step()
+        if self.chunked_prefill:
+            progressed = self._admit_chunked()
+            progressed += self._prefill_step()
+        else:
+            progressed = self._admit()
         progressed += self._decode_step()
         return progressed
 
@@ -1121,7 +1404,7 @@ class GenerationEngine:
         return sum(len(self._queues[p]) for p in PRIORITY_CLASSES)
 
     def best_of_n(self, prompt, n, max_new_tokens, sampling_params=None,
-                  eos_token_id=None, priority="standard"):
+                  eos_token_id=None, priority="standard", adapter_id=0):
         """Fan ONE prompt into `n` sampled candidates sharing its
         prefix-cache blocks: candidate 0 is served first (its prefill
         writes and registers the prompt's full blocks once), then
@@ -1129,16 +1412,16 @@ class GenerationEngine:
         seated read-only (copy-on-write keeps decode writes private).
         Candidate i samples under seed `base + i` (base from
         `sampling_params.seed`, or the engine counter when None), so a
-        fixed base replays all n candidates token for token. Drives
-        `run()`; other queued work is served along the way and its
-        finishes stay collectable. Returns the n candidate token lists
-        (prompt + generated), in seed order."""
+        fixed base replays all n candidates token for token; all of them
+        under `adapter_id`. Drives `run()`; other queued work is served
+        along the way and its finishes stay collectable. Returns the n
+        candidate token lists (prompt + generated), in seed order."""
         params, base, self._seed_counter = _best_of_n_intake(
             self, sampling_params, n, self._seed_counter)
         out, stash = _best_of_n_fanout(
             lambda p: self.add_request(
                 prompt, max_new_tokens, eos_token_id=eos_token_id,
-                priority=priority, sampling_params=p),
+                priority=priority, sampling_params=p, adapter_id=adapter_id),
             self.run, params, n, base)
         self._results.update(stash)
         return out
@@ -1150,8 +1433,10 @@ class GenerationEngine:
 
     def drain(self):
         """Close admissions, run every queued and live request to the end,
-        then audit the pool: every non-null block must be free or a
-        refcount-zero cached block. Returns run()'s results."""
+        then audit the pools: every non-null block must be free or a
+        refcount-zero cached block, and every non-null adapter page free or
+        parked warm, no rank group holding two. Returns run()'s
+        results."""
         self._draining = True
         out = self.run()
         leaked = self.cache.leak_check()
@@ -1159,6 +1444,14 @@ class GenerationEngine:
             raise RuntimeError(
                 f"drain leak check failed: block(s) {leaked} neither "
                 "free nor prefix-cached after all lanes finished")
+        if self.adapter_pool is not None:
+            leaked = self.adapter_pool.leak_check()
+            if leaked:
+                raise RuntimeError(
+                    f"drain leak check failed: adapter page(s) {leaked} "
+                    "still referenced after all lanes finished — a "
+                    "scheduler path vacated a lane without releasing its "
+                    "adapter page")
         return out
 
     def run(self):

@@ -10,13 +10,17 @@ Ported: what serving runs (`forward`, the prefill and decode paths of
 KV scales those paths thread) and what training runs (`forward` with
 labels and `loss_fn`, dropout where the JAX model applies it, backward
 through the causal attention kernels, `num_params`, `flops_per_token`).
-Tensor parallelism and LoRA are later slices. The paged paths update the
-pools (and, with `kv_scales`, the `[layers, num_blocks, 2]` scale array)
-IN PLACE and return only the hidden states. They also take `qweights`, the
-serving engine's int8 weight snapshot (one dict a layer: `qkv_proj`,
-`out_proj`, `fc1` and `fc2` to their int8 codes and scales), through which
-those four projections run `ops.int8_linear` instead of the live weights;
-every other parameter, and every other path, reads the live ones.
+Tensor parallelism is a later slice. The paged paths update the pools
+(and, with `kv_scales`, the `[layers, num_blocks, 2]` scale array) IN PLACE
+and return only the hidden states. The serving forwards (`forward_prefill`
+and the paged paths) also take `qweights`, the serving engine's int8 weight
+snapshot (one dict a layer: `qkv_proj`, `out_proj`, `fc1` and `fc2` to
+their int8 codes and scales), through which those four projections run
+`ops.int8_linear` instead of the live weights (every other parameter, and
+every other path, reads the live ones), and `lora`, an `ops.lora.LoraState`
+(multi-tenant adapter serving), whose per-slot low-rank delta each of those
+four projections adds to its output (`ops.lora.batched_lora`); a slot on
+the null adapter's page adds exact zeros.
 """
 from __future__ import annotations
 
@@ -74,13 +78,23 @@ class GPTConfig:
                          num_layers=layers, num_heads=heads, max_seq_len=seq)
 
 
-def _linear(lin, x, qw, name):
+# the adapter site of each projection
+_LORA_SITE = {"qkv_proj": "qkv", "out_proj": "out", "fc1": "fc1",
+              "fc2": "fc2"}
+
+
+def _linear(lin, x, qw, name, lora=None, layer=None):
     """`lin(x)`, or with the layer's int8 snapshot `qw` the same projection
-    over its codes and scales (`ops.int8_linear`)."""
+    over its codes and scales (`ops.int8_linear`); with `lora` the slots'
+    adapter delta of x at `layer` added to it."""
     if qw is None:
-        return lin(x)
-    q, s = qw[name]
-    return int8_linear(x, q, s, lin.bias)
+        y = lin(x)
+    else:
+        q, s = qw[name]
+        y = int8_linear(x, q, s, lin.bias)
+    if lora is not None:
+        y = lora.add(_LORA_SITE[name], y, x, layer)
+    return y
 
 
 class GPTAttention(nn.Module):
@@ -94,16 +108,17 @@ class GPTAttention(nn.Module):
         self.out_proj = nn.Linear(H, H, **kw)
         self.dropout = config.dropout
 
-    def _qkv_heads(self, x, qw=None):
+    def _qkv_heads(self, x, qw=None, lora=None, layer=None):
         """Per-head q/k/v `[B, S, heads, D]` from the fused projection
-        (3-major reshape)."""
+        (3-major reshape), the adapter delta added before the unbind."""
         B, S, _ = x.shape
-        qkv = _linear(self.qkv_proj, x, qw, "qkv_proj").view(
+        qkv = _linear(self.qkv_proj, x, qw, "qkv_proj", lora, layer).view(
             B, S, 3, self.num_heads, self.head_dim)
         return qkv.unbind(2)
 
-    def _attn_out(self, out, B, S, qw=None):
-        return _linear(self.out_proj, out.reshape(B, S, -1), qw, "out_proj")
+    def _attn_out(self, out, B, S, qw=None, lora=None, layer=None):
+        return _linear(self.out_proj, out.reshape(B, S, -1), qw, "out_proj",
+                       lora, layer)
 
     def forward(self, x, generator=None):
         """Causal self-attention; in training mode with dropout > 0 the
@@ -116,22 +131,23 @@ class GPTAttention(nn.Module):
             training=self.training, generator=generator)
         return self._attn_out(out, B, S)
 
-    def forward_prefill(self, x):
+    def forward_prefill(self, x, qw=None, lora=None, layer=None):
         """Causal forward that also returns this layer's k/v."""
         B, S, _ = x.shape
-        q, k, v = self._qkv_heads(x)
+        q, k, v = self._qkv_heads(x, qw, lora, layer)
         out = scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self._attn_out(out, B, S), k, v
+        return self._attn_out(out, B, S, qw, lora, layer), k, v
 
     def forward_prefill_chunk(self, x, kpool, vpool, layer_idx, block_row,
-                              start, plen, kv_scales=None, qw=None):
+                              start, plen, kv_scales=None, qw=None,
+                              lora=None):
         """Chunked prefill for ONE slot against the paged pools (updated
         in place). x `[1, C, H]`; start/plen host ints."""
         B, C, _ = x.shape
-        q, k, v = self._qkv_heads(x, qw)
+        q, k, v = self._qkv_heads(x, qw, lora, layer_idx)
         out = paged_prefill_chunk(q, k, v, kpool, vpool, layer_idx,
                                   block_row, start, plen, scales=kv_scales)
-        return self._attn_out(out, B, C, qw)
+        return self._attn_out(out, B, C, qw, lora, layer_idx)
 
     def forward_decode(self, x, kcache, vcache, pos):
         """One-token decode against a FIXED-size cache: x `[B, 1, H]`,
@@ -152,30 +168,32 @@ class GPTAttention(nn.Module):
 
     def forward_decode_paged(self, x, kpool, vpool, layer_idx,
                              block_tables, positions, kv_scales=None,
-                             backend="pallas", qw=None):
+                             backend="pallas", qw=None, lora=None):
         """Batched one-token decode against the global paged pools
         (updated in place): x `[slots, 1, H]`; `backend` the paged
         attention's (`dense` or `pallas`)."""
         B = x.shape[0]
-        q, k, v = self._qkv_heads(x, qw)
+        q, k, v = self._qkv_heads(x, qw, lora, layer_idx)
         out = paged_attention_step(q, k, v, kpool, vpool, layer_idx,
                                    block_tables, positions,
                                    scales=kv_scales, backend=backend)
-        return self._attn_out(out, B, 1, qw)
+        return self._attn_out(out, B, 1, qw, lora, layer_idx)
 
     def forward_verify_paged(self, x, kpool, vpool, layer_idx,
                              block_tables, positions, draft_lens,
-                             kv_scales=None, backend="pallas", qw=None):
+                             kv_scales=None, backend="pallas", qw=None,
+                             lora=None):
         """Speculative verify of a `[slots, W]` window against the global
         paged pools (updated in place): x `[slots, W, H]`; every live
         row's k/v lands through the table and each row attends causally
-        up to its own position."""
+        up to its own position; each slot's adapter page serves its W
+        rows."""
         B, W, _ = x.shape
-        q, k, v = self._qkv_heads(x, qw)
+        q, k, v = self._qkv_heads(x, qw, lora, layer_idx)
         out = paged_verify_window(q, k, v, kpool, vpool, layer_idx,
                                   block_tables, positions, draft_lens,
                                   scales=kv_scales, backend=backend)
-        return self._attn_out(out, B, W, qw)
+        return self._attn_out(out, B, W, qw, lora, layer_idx)
 
 
 class GPTMLP(nn.Module):
@@ -188,9 +206,12 @@ class GPTMLP(nn.Module):
                              **kw)
         self.dropout = config.dropout
 
-    def forward(self, x, generator=None, qw=None):
-        h = F.gelu(_linear(self.fc1, x, qw, "fc1"), approximate="tanh")
-        out = _linear(self.fc2, h, qw, "fc2")
+    def forward(self, x, generator=None, qw=None, lora=None, layer=None):
+        """fc1, tanh GELU, fc2; `lora` adds the fc1 delta before the
+        activation and the fc2 delta after fc2."""
+        h = F.gelu(_linear(self.fc1, x, qw, "fc1", lora, layer),
+                   approximate="tanh")
+        out = _linear(self.fc2, h, qw, "fc2", lora, layer)
         return dropout(out, self.dropout, self.training, generator)
 
 
@@ -207,17 +228,18 @@ class GPTBlock(nn.Module):
         x = x + self.attn(self.ln1(x), generator)
         return x + self.mlp(self.ln2(x), generator)
 
-    def forward_prefill(self, x):
-        a, k, v = self.attn.forward_prefill(self.ln1(x))
+    def forward_prefill(self, x, qw=None, lora=None, layer=None):
+        a, k, v = self.attn.forward_prefill(self.ln1(x), qw, lora, layer)
         x = x + a
-        return x + self.mlp(self.ln2(x)), k, v
+        return x + self.mlp(self.ln2(x), qw=qw, lora=lora, layer=layer), k, v
 
     def forward_prefill_chunk(self, x, kpool, vpool, layer_idx, block_row,
-                              start, plen, kv_scales=None, qw=None):
+                              start, plen, kv_scales=None, qw=None,
+                              lora=None):
         x = x + self.attn.forward_prefill_chunk(
             self.ln1(x), kpool, vpool, layer_idx, block_row, start, plen,
-            kv_scales, qw)
-        return x + self.mlp(self.ln2(x), qw=qw)
+            kv_scales, qw, lora)
+        return x + self.mlp(self.ln2(x), qw=qw, lora=lora, layer=layer_idx)
 
     def forward_decode(self, x, kcache, vcache, pos):
         x = x + self.attn.forward_decode(self.ln1(x), kcache, vcache, pos)
@@ -225,19 +247,19 @@ class GPTBlock(nn.Module):
 
     def forward_decode_paged(self, x, kpool, vpool, layer_idx, block_tables,
                              positions, kv_scales=None, backend="pallas",
-                             qw=None):
+                             qw=None, lora=None):
         x = x + self.attn.forward_decode_paged(
             self.ln1(x), kpool, vpool, layer_idx, block_tables, positions,
-            kv_scales, backend, qw)
-        return x + self.mlp(self.ln2(x), qw=qw)
+            kv_scales, backend, qw, lora)
+        return x + self.mlp(self.ln2(x), qw=qw, lora=lora, layer=layer_idx)
 
     def forward_verify_paged(self, x, kpool, vpool, layer_idx, block_tables,
                              positions, draft_lens, kv_scales=None,
-                             backend="pallas", qw=None):
+                             backend="pallas", qw=None, lora=None):
         x = x + self.attn.forward_verify_paged(
             self.ln1(x), kpool, vpool, layer_idx, block_tables, positions,
-            draft_lens, kv_scales, backend, qw)
-        return x + self.mlp(self.ln2(x), qw=qw)
+            draft_lens, kv_scales, backend, qw, lora)
+        return x + self.mlp(self.ln2(x), qw=qw, lora=lora, layer=layer_idx)
 
 
 def _layer(qweights, i):
@@ -276,27 +298,33 @@ class GPTModel(nn.Module):
             h = blk(h, g)
         return self.ln_f(h)
 
-    def forward_prefill(self, input_ids):
+    def forward_prefill(self, input_ids, qweights=None, lora=None):
         """Causal forward over the prompt collecting every layer's k/v,
-        stacked `[layers, B, S, heads, D]`."""
+        stacked `[layers, B, S, heads, D]`; `qweights` the serving engine's
+        int8 weight snapshot or None, `lora` the slots' adapter pages
+        (`ops.lora.LoraState`) or None. Positions past the position table
+        (a bucket wider than it, whose padded tail the engine ignores)
+        clamp into it."""
         S = input_ids.shape[1]
-        h = self.wte(input_ids) + self.wpe(
-            torch.arange(S, device=input_ids.device))
+        pos = torch.clamp(torch.arange(S, device=input_ids.device), 0,
+                          self.config.max_seq_len - 1)
+        h = self.wte(input_ids) + self.wpe(pos)
         ks, vs = [], []
-        for blk in self.blocks:
-            h, k, v = blk.forward_prefill(h)
+        for i, blk in enumerate(self.blocks):
+            h, k, v = blk.forward_prefill(h, _layer(qweights, i), lora, i)
             ks.append(k)
             vs.append(v)
         return self.ln_f(h), torch.stack(ks), torch.stack(vs)
 
     def forward_prefill_chunk(self, token_ids, start, kpool, vpool,
-                              block_row, plen, kv_scales=None, qweights=None):
+                              block_row, plen, kv_scales=None, qweights=None,
+                              lora=None):
         """Chunked paged prefill: token_ids `[1, C]`, chunk
         `[start, start + C)` of one slot's prompt padded past `plen`
         (host ints); writes each layer's k/v through `block_row` into the
         pools IN PLACE (int8 pools: quantized, `kv_scales` updated in
-        place); `qweights` the int8 weight snapshot or None. Returns
-        hidden `[1, C, H]`."""
+        place); `qweights` the int8 weight snapshot or None, `lora` the
+        slot's adapter page or None. Returns hidden `[1, C, H]`."""
         C = token_ids.shape[1]
         # padded-tail positions clamp into the wpe table: their rows are
         # garbage the engine ignores, but the gather must stay in bounds
@@ -306,7 +334,7 @@ class GPTModel(nn.Module):
         for i, blk in enumerate(self.blocks):
             h = blk.forward_prefill_chunk(h, kpool, vpool, i, block_row,
                                           start, plen, kv_scales,
-                                          _layer(qweights, i))
+                                          _layer(qweights, i), lora)
         return self.ln_f(h)
 
     def forward_decode(self, token_ids, pos, kstack, vstack):
@@ -321,29 +349,31 @@ class GPTModel(nn.Module):
 
     def forward_decode_paged(self, token_ids, positions, kpool, vpool,
                              block_tables, kv_scales=None, backend="pallas",
-                             qweights=None):
+                             qweights=None, lora=None):
         """Batched decode over the paged pools (updated IN PLACE):
         token_ids `[slots, 1]`, positions `[slots]` int32, block_tables
         `[slots, max_blocks]` int32; int8 pools with `kv_scales`; `backend`
         the paged attention's (`dense` or `pallas`); `qweights` the int8
-        weight snapshot or None. Returns hidden `[slots, 1, H]`."""
+        weight snapshot or None; `lora` the slots' adapter pages or None.
+        Returns hidden `[slots, 1, H]`."""
         h = self.wte(token_ids) + self.wpe(positions).unsqueeze(1)
         for i, blk in enumerate(self.blocks):
             h = blk.forward_decode_paged(h, kpool, vpool, i, block_tables,
                                          positions, kv_scales, backend,
-                                         _layer(qweights, i))
+                                         _layer(qweights, i), lora)
         return self.ln_f(h)
 
     def forward_verify_paged(self, token_ids, positions, draft_lens, kpool,
                              vpool, block_tables, kv_scales=None,
-                             backend="pallas", qweights=None):
+                             backend="pallas", qweights=None, lora=None):
         """Speculative verify step over the paged pools (updated IN
         PLACE): token_ids `[slots, W]` (the feed token, then up to W-1
         drafted tokens), positions `[slots]` int32 (row 0's absolute
         position), draft_lens `[slots]` int32 (rows past it are dead),
         block_tables `[slots, max_blocks]` int32; int8 pools with
-        `kv_scales`; `qweights` the int8 weight snapshot or None. Returns
-        hidden `[slots, W, H]` at every window row."""
+        `kv_scales`; `qweights` the int8 weight snapshot or None; `lora`
+        the slots' adapter pages or None. Returns hidden `[slots, W, H]`
+        at every window row."""
         W = token_ids.shape[1]
         # dead rows past a slot's draft may run beyond the position table:
         # their rows are garbage the engine ignores, but the gather must
@@ -356,7 +386,7 @@ class GPTModel(nn.Module):
         for i, blk in enumerate(self.blocks):
             h = blk.forward_verify_paged(h, kpool, vpool, i, block_tables,
                                          positions, draft_lens, kv_scales,
-                                         backend, _layer(qweights, i))
+                                         backend, _layer(qweights, i), lora)
         return self.ln_f(h)
 
 

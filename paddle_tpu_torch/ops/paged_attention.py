@@ -18,8 +18,10 @@ PyTorch writes them directly).
   take `backend`: `pallas` goes through the kernels' wrappers, `dense`
   calls the plain versions (the JAX package's dense paths) on every
   device, counted in each step's `.dense_calls`.
-- `paged_prefill_chunk`: one chunk of chunked prefill for one slot. The JAX
-  package runs it outside Pallas, so it stays plain PyTorch here.
+- `paged_prefill_chunk`: one chunk of chunked prefill for one slot, and
+  `paged_prefill_write`: a bucketed prefill's k/v written in one scatter.
+  The JAX package runs both outside Pallas, so they stay plain PyTorch
+  here.
 - `copy_pool_block`: the engine's copy-on-write step.
 - `dense_gather_reference`: a parity probe reassembling one slot's rows.
 
@@ -52,8 +54,8 @@ from .paged_verify import (paged_verify_attention,
                            paged_verify_int8_plain, paged_verify_plain)
 
 __all__ = ["PAGED_BACKENDS", "resolve_backend", "paged_attention_step",
-           "paged_verify_window",
-           "paged_prefill_chunk", "copy_pool_block",
+           "paged_verify_window", "paged_prefill_chunk",
+           "paged_prefill_write", "copy_pool_block",
            "dense_gather_reference", "KV_QUANT_EPS"]
 
 #: Scale floor of the int8 per-block-quantized KV cache (the JAX package's
@@ -365,6 +367,59 @@ def _prefill_chunk_int8(q, k, v, kpool, vpool, scales, layer, block_row,
     acc = torch.einsum("hck,khd->hcd", p * vs, vals)
     out = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
     return out.transpose(0, 1)[None]                       # [1, C, heads, d]
+
+
+def paged_prefill_write(kpool, vpool, kstack, vstack, block_row, plen,
+                        scales=None):
+    """Scatter a bucketed prefill's per-layer k/v into the pools, IN PLACE
+    (the port of `paged_prefill_write`, plain torch as JAX computes it in
+    XLA).
+
+    kstack/vstack `[layers, 1, S, heads, head_dim]` from
+    `GPTModel.forward_prefill` over the bucket-padded prompt; block_row
+    `[max_blocks]` int32 (the slot's table, on the pools' device); plen
+    the true prompt length, a host int. Positions `>= plen` (bucket
+    padding) land in the null block 0. With `scales` (int8 pools) each
+    written block's grid is the order-independent max of its scale, the
+    floor and the amax of the rows landing in it (the bucketed path
+    writes only freshly allocated blocks, whose grids the allocator reset
+    to the floor, so nothing already written needs requantizing); then the
+    rows are quantized onto their block's grid."""
+    S = kstack.shape[2]
+    bs = kpool.shape[2]
+    maxb = block_row.shape[0]
+    dev = kpool.device
+    row = block_row.long()
+    pos = torch.arange(S, device=dev)
+    valid = pos < plen
+    bid = torch.where(valid, row[torch.clamp_max(pos // bs, maxb - 1)],
+                      torch.zeros_like(pos))
+    off = pos % bs
+    ks, vs = kstack[:, 0], vstack[:, 0]                # [L, S, heads, D]
+    if scales is None:
+        kpool[:, bid, off] = ks.to(kpool.dtype)
+        vpool[:, bid, off] = vs.to(vpool.dtype)
+        return
+    L = ks.shape[0]
+    nb = (S - 1) // bs + 1                             # the bucket's blocks
+    seg = pos // bs
+
+    def need(x):                       # per-block amax of the valid rows
+        rows = torch.where(valid, _row_absmax(x, (2, 3)), 0.0)    # [L, S]
+        return torch.zeros((L, nb), dtype=torch.float32, device=dev) \
+            .scatter_reduce(1, seg[None].expand(L, S), rows, reduce="amax")
+
+    amax = torch.stack([need(ks), need(vs)], -1) * _INV127       # [L, nb, 2]
+    # a segment without valid rows names the null block, a no-op max there
+    cand = torch.arange(nb, device=dev)
+    bids = torch.where(cand * bs < plen, row[torch.clamp_max(cand, maxb - 1)],
+                       torch.zeros_like(cand))
+    s_fin = torch.clamp_min(torch.maximum(scales[:, bids], amax),
+                            KV_QUANT_EPS)
+    scales[:, bids] = torch.maximum(scales[:, bids], s_fin)
+    s_row = s_fin[:, seg]                                        # [L, S, 2]
+    kpool[:, bid, off] = _quant_rows(ks, s_row[..., 0, None, None])
+    vpool[:, bid, off] = _quant_rows(vs, s_row[..., 1, None, None])
 
 
 def copy_pool_block(kpool, vpool, src, dst, scales=None):

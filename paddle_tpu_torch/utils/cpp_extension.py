@@ -54,6 +54,7 @@ KERNEL_SOURCES = {
                          "conv_mma.cuh", "attention_mma.cuh"),
     "sampling": ("sampling.cu",),
     "int8_linear": ("int8_linear.cu", "attention_mma.cuh"),
+    "lora": ("lora.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -316,29 +316,34 @@ def test_prefill_chunk_auto_is_jax_chunk(models, no_switches, max_model_len):
 
 
 @pytest.mark.parametrize("kw,raises", [
-    (dict(prefill_chunk=None), NotImplementedError),
-    (dict(prefill_buckets=(16, 64)), NotImplementedError),
-    (dict(prefill_chunk="auto", prefill_buckets=(16, 64)),
-     NotImplementedError),
+    (dict(prefill_chunk=None), None),
+    (dict(prefill_buckets=(16, 64)), None),
+    (dict(prefill_chunk="auto", prefill_buckets=(16, 64)), None),
     (dict(prefill_chunk=8, prefill_buckets=(16, 64)), ValueError),
     (dict(prefill_chunk="eight"), ValueError)])
 def test_bucketed_prefill_raises_instead_of_chunking(models, no_switches, kw,
                                                      raises):
-    """JAX's bucketed prefill (`prefill_chunk=None` or `prefill_buckets=`)
-    is not ported: the port raises naming ROADMAP Queue A 8 and never
-    runs chunked prefill in its place. A chunk beside buckets, or a chunk
-    that is not an int, raises JAX's ValueError."""
+    """The prefill strategy resolves as JAX resolves it: a None chunk, or
+    buckets with the chunk left at "auto", select bucketed prefill (the
+    same buckets, no chunk, no prefix cache) and never chunked prefill in
+    its place; a chunk beside buckets, or a chunk that is not an int,
+    raises JAX's ValueError."""
     jm, tm = models
     got = _raised(lambda: GenerationEngine(tm, device="cpu", num_slots=2,
                                            block_size=4, **kw))
-    assert got is not None and got[0] is raises
-    if raises is NotImplementedError:
-        assert "Queue A 8" in got[1]
-        JEngine(jm, attention_backend="dense", num_slots=2, block_size=4,
-                **kw)                          # JAX builds a bucketed engine
+    want = _raised(lambda: JEngine(jm, attention_backend="dense",
+                                   num_slots=2, block_size=4, **kw))
+    assert got == want
+    if raises is None:
+        teng = GenerationEngine(tm, device="cpu", num_slots=2, block_size=4,
+                                **kw)
+        jeng = JEngine(jm, attention_backend="dense", num_slots=2,
+                       block_size=4, **kw)
+        assert teng.prefill_chunk is None and not teng.chunked_prefill
+        assert teng.prefill_buckets == jeng.prefill_buckets
+        assert teng.enable_prefix_cache is jeng.enable_prefix_cache is False
     else:
-        assert got == _raised(lambda: JEngine(
-            jm, attention_backend="dense", num_slots=2, block_size=4, **kw))
+        assert got is not None and got[0] is raises
 
 
 @pytest.mark.parametrize("var,value,item", [

@@ -173,7 +173,8 @@ def test_profile_family_of_attention_backward_kernels(lib, kernel):
     ("sample_draw_kernel", "sampling_kernels"),
     ("sample_uniform_kernel", "sampling_kernels"),
     ("w8_linear_mma_kernel", "int8_linear_kernel"),
-    ("w8_linear_fma_kernel", "int8_linear_kernel")])
+    ("w8_linear_fma_kernel", "int8_linear_kernel"),
+    ("lora_shrink_expand_kernel", "lora_kernel")])
 def test_profile_family_of_conv_and_forward_kernels(kernel, family):
     defined = set()
     for path in Path(CSRC).iterdir():
@@ -331,3 +332,16 @@ def test_sampler_and_int8_weight_libraries():
     assert _globals("int8_linear") == {"w8_linear_mma_kernel",
                                        "w8_linear_fma_kernel"}
     assert MMA_KERNELS["int8_linear"] == ("w8_linear_mma_kernel",)
+
+
+def test_lora_library_is_one_hand_written_kernel():
+    """`csrc/lora.cu` is the lora library's only source, includes no header
+    from csrc/, and holds one kernel that computes both low-rank products
+    itself: no library GEMM."""
+    assert KERNEL_SOURCES["lora"] == ("lora.cu",)
+    assert _included("lora") == set()
+    assert _globals("lora") == {"lora_shrink_expand_kernel"}
+    text = (Path(CSRC) / "lora.cu").read_text()
+    for mark in ("cublas", "cutlass", "#include <torch"):
+        assert mark not in text.lower()
+    assert "lora" in CHIP_SMOKE.FMA_LIBS

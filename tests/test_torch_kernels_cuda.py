@@ -63,6 +63,16 @@ on the card emitting the CPU engine's streams. The int8-weight linear
 plain version at odd M, N and K tails and GPT-1.3B's shapes, its
 refusals, and the int8-weight engine launching it four times a layer.
 
+The batched LoRA kernel (`batched_lora`, fp32 FMA): its fp32 delta (the
+f32 instance over a zero base) against the plain version's, the bf16 result
+bitwise the plain version's wherever the two fp32 deltas round to the same
+bf16, null-page rows bitwise the base, a rerun the same bits, at ranks 1 to
+64, the qkv site's head-grouped pages at 1 and 4 heads, ragged row and
+column tiles; its refusals; a LoRA engine on the card emitting the CPU
+engine's tokens and launching the kernel four times a layer a step. The
+causal kernel B1 at the bucket ladder's short buckets (S 16, 32, 48) and a
+bucketed engine launching it once a layer an admission.
+
 Paged kernels: pools must be bit-identical to the plain version's outside
 the null block 0, and outputs within tolerance on the live rows of live
 slots. The decode and verify kernels on bf16 and int8 pools (the split
@@ -100,6 +110,8 @@ from paddle_tpu_torch.ops.paged_verify import (paged_verify_attention,
                                                paged_verify_int8_plain,
                                                paged_verify_plain)
 from paddle_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
+from paddle_tpu_torch.ops.lora import (LORA_MAX_RANK, batched_lora,
+                                       batched_lora_plain)
 from paddle_tpu_torch.ops.sampling import (sample_draw, sample_draw_plain,
                                            sample_uniform,
                                            sample_uniform_plain)
@@ -2185,7 +2197,7 @@ def test_sampling_kernels_refuse_what_they_do_not_take(card):
     for bad in (dict(lg=lg.bfloat16()), dict(lg=lg[:, ::2]),
                 dict(keys=keys.int()), dict(pos=pos.long()),
                 dict(keys=keys[:3])):
-        a = dict(lg=lg, keys=keys, pos=pos, **bad)
+        a = {**dict(lg=lg, keys=keys, pos=pos), **bad}
         with pytest.raises(ValueError):
             sample_draw(a["lg"], a["keys"], a["pos"], 0)
     with pytest.raises(ValueError, match="exclude"):
@@ -2295,3 +2307,178 @@ def test_int8_weight_engine_launches_four_a_layer(card):
     assert int8_linear.launches - launches == 4 * 3 * steps
     assert int8_linear.plain_calls == plain
     assert len(next(iter(out.values()))) == 17
+
+
+# ---------------------------------------------------------------------------
+# bucketed prefill and the batched LoRA kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [16, 32, 48])
+def test_causal_kernel_at_the_short_buckets(card, dtype, S):
+    """B1 at the engine's shape (16 heads, D 128) and the bucket ladder's
+    short lengths, which the engine's bucketed prefill hands it."""
+    q, k, v = (torch.randn((16, S, 128), generator=card,
+                           device="cuda").to(dtype) for _ in range(3))
+    o_ref, l_ref = causal_attention_plain(q, k, v, 128 ** -0.5)
+    o, lse = causal_attention_fwd(q, k, v, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype]
+    lse_tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    assert (lse - l_ref).abs().max().item() <= lse_tol
+
+
+def test_bucketed_engine_launches_the_causal_kernel_a_layer(card):
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig.tiny(vocab=96, hidden=256, layers=3, heads=2, seq=64)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=card).eval()
+    eng = GenerationEngine(model, num_slots=2, block_size=16,
+                           prefill_chunk=None)
+    launches = causal_attention_fwd.launches
+    plain = causal_attention_fwd.plain_calls
+    for n in (5, 17, 40):
+        eng.add_request(list(range(1, n + 1)), 4)
+    out = eng.run()
+    torch.cuda.synchronize()
+    assert causal_attention_fwd.launches - launches == 3 * eng.admissions == 9
+    assert causal_attention_fwd.plain_calls == plain
+    assert sorted(len(t) for t in out.values()) == [9, 21, 44]
+
+
+# (in, out, heads of a head-grouped B or 0)
+LORA_SHAPES = [(48, 80, 0), (64, 96, 2), (96, 3 * 64, 4), (2048, 6144, 16),
+               (8192, 2048, 0), (40, 1030, 0)]
+
+
+def _lora_case(card, n_in, n_out, heads, R, B, S, dtype, pages=5):
+    """Pools of `pages` pages over 2 layers (page p's rank rows past
+    1 + p % R zero, page 0 zero, scaling 0), x and a base; slots on pages
+    cycling through 0..pages-1."""
+    a = torch.randn((pages, 2, R, n_in), generator=card, device="cuda") \
+        / math.sqrt(n_in)
+    b = torch.randn((pages, 2, R, n_out), generator=card, device="cuda")
+    for p in range(pages):
+        r = 0 if p == 0 else 1 + p % R
+        a[p, :, r:] = 0
+        b[p, :, r:] = 0
+    if heads:
+        b = b.view(pages, 2, R, heads, 3, n_out // (3 * heads))
+    sc = torch.rand((pages,), generator=card, device="cuda") + 0.5
+    sc[0] = 0
+    rows = torch.tensor([(i * 3 + 1) % pages for i in range(B)],
+                        dtype=torch.int32, device="cuda")
+    x = torch.randn((B, S, n_in), generator=card, device="cuda")
+    base = torch.randn((B, S, n_out), generator=card, device="cuda")
+    return (a.to(dtype).contiguous(), b.to(dtype).contiguous(), sc, rows,
+            x.to(dtype), base.to(dtype))
+
+
+@pytest.mark.parametrize("n_in,n_out,heads", LORA_SHAPES)
+@pytest.mark.parametrize("R", [1, 4, 16, 64])
+@pytest.mark.parametrize("B,S", [(8, 1), (8, 5), (1, 128), (3, 9)])
+def test_lora_kernel_matches_plain(card, n_in, n_out, heads, R, B, S):
+    """max |kernel delta - plain delta| within 2e-6 of max |plain delta|
+    at 2048 inputs (fp32 sums of the same exact products in other orders),
+    a bar that grows with the square root of the shrink's length (a sum of
+    8192 products read 2.4e-6 of it on an H100); the bf16 result bitwise
+    the plain version's where the fp32 deltas round to the same bf16; null
+    rows bitwise the base."""
+    a, b, sc, rows, x, base = _lora_case(card, n_in, n_out, heads, R, B, S,
+                                         torch.bfloat16)
+    a32, b32 = a.float(), b.float()
+    zero = torch.zeros((B, S, n_out), device="cuda")
+    launches = batched_lora.launches
+    dk = batched_lora(zero, x.float(), a32, b32, rows, sc, 1)
+    dp = batched_lora_plain(torch.zeros_like(zero), x.float(), a32, b32,
+                            rows, sc, 1)
+    got = batched_lora(base.clone(), x, a, b, rows, sc, 1)
+    want = batched_lora_plain(base.clone(), x, a, b, rows, sc, 1)
+    torch.cuda.synchronize()
+    assert batched_lora.launches == launches + 2 and dk is zero
+    tol = 2e-6 * max(1.0, math.sqrt(n_in / 2048))
+    assert (dk - dp).abs().max().item() <= tol * dp.abs().max().item()
+    alike = dk.to(torch.bfloat16) == dp.to(torch.bfloat16)
+    assert alike.float().mean().item() > 0.99
+    assert torch.equal(got[alike], want[alike])
+    null = (rows == 0)[:, None, None].expand_as(base)
+    assert torch.equal(got[null], base[null])
+    assert torch.equal(batched_lora(base.clone(), x, a, b, rows, sc, 1), got)
+
+
+def test_lora_kernel_rows_do_not_depend_on_other_slots(card):
+    """A slot's rows come out the same bits whatever pages the other slots
+    hold (a mixed-tenant batch gives each request its dedicated bits)."""
+    a, b, sc, rows, x, base = _lora_case(card, 2048, 6144, 16, 16, 8, 5,
+                                         torch.bfloat16, pages=9)
+    got = batched_lora(base.clone(), x, a, b, rows, sc, 0)
+    other = rows.clone()
+    other[1:] = torch.tensor([8, 7, 6, 5, 4, 3, 2], dtype=torch.int32)
+    alone = batched_lora(base.clone(), x, a, b, other, sc, 0)
+    assert torch.equal(got[0], alone[0])
+
+
+def test_lora_kernel_refuses_what_it_does_not_take(card):
+    a, b, sc, rows, x, base = _lora_case(card, 48, 80, 0, 4, 2, 3,
+                                         torch.bfloat16)
+    R = LORA_MAX_RANK + 1
+    wide = torch.zeros((5, 2, R, 48), dtype=torch.bfloat16, device="cuda")
+    for args in ((base, x.float(), a, b, rows, sc, 1),     # dtypes differ
+                 (base.half(), x.half(), a.half(), b.half(), rows, sc, 1),
+                 (base, x, a, b, rows.long(), sc, 1),
+                 (base, x, a, b, rows, sc.double(), 1),
+                 (base, x, a, b, rows, sc, 2),              # no layer 2
+                 (base[:, :, :40], x, a, b, rows, sc, 1),
+                 (base, x, wide, wide[..., :1].expand(5, 2, R, 80)
+                  .contiguous(), rows, sc, 1),
+                 (base, x.transpose(1, 2).contiguous().transpose(1, 2), a,
+                  b, rows, sc, 1)):
+        with pytest.raises(ValueError):
+            batched_lora(*args)
+
+
+def test_lora_engine_on_the_card_matches_the_cpu(card):
+    """Mixed tenants through a f32 engine on the card (the kernel) and on
+    the CPU (its plain version) from the same weights and adapters, chunked
+    and bucketed: the same tokens, four launches a layer a step."""
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.adapters import AdapterRegistry
+
+    cfg = GPTConfig.tiny(vocab=96, hidden=128, layers=2, heads=2, seq=64)
+    model = GPTForCausalLM(cfg, device="cuda", generator=card).eval()
+    host = GPTForCausalLM(cfg, device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.RandomState(0)
+    reg = AdapterRegistry(cfg, max_rank=8)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    for aid, r in ((1, 4), (2, 8)):
+        reg.register(aid, {site: [(rng.randn(r, i).astype(np.float32) * 0.1,
+                                   rng.randn(o, r).astype(np.float32) * 0.1)
+                                  for _ in range(cfg.num_layers)]
+                           for site, (i, o) in (("qkv", (H, 3 * H)),
+                                                ("out", (H, H)),
+                                                ("fc1", (H, I)),
+                                                ("fc2", (I, H)))},
+                     scaling=0.5)
+    reqs = [(rng.randint(0, 96, n), m, a) for n, m, a in
+            ((7, 5, 1), (20, 4, 0), (12, 6, 2), (30, 3, 1))]
+
+    def serve(m, dev, **kw):
+        eng = GenerationEngine(m, device=dev, num_slots=2, block_size=16,
+                               adapters=reg, **kw)
+        ids = [eng.add_request(p, n, adapter_id=a) for p, n, a in reqs]
+        out = eng.drain()
+        return [out[i] for i in ids], eng
+
+    for kw in (dict(prefill_chunk=8), dict(prefill_chunk=None)):
+        launches = batched_lora.launches
+        got, eng = serve(model, "cuda", **kw)
+        torch.cuda.synchronize()
+        # a forward a prefill chunk, a bucketed admission, a decode step
+        steps = eng.prefill_chunks + eng.decode_steps + (
+            0 if eng.chunked_prefill else eng.admissions)
+        assert batched_lora.launches - launches == 4 * 2 * steps
+        assert got == serve(host, "cpu", **kw)[0]
