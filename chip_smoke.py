@@ -20,6 +20,7 @@ train_accum_parity,bert_lamb
 engine_sampled,engine_wint8
     python3 chip_smoke.py --phases build,lora,engine,engine_bucketed,\
 engine_lora
+    python3 chip_smoke.py --phases build,tp_parity,engine_tp
 
 Phases, each printing one JSON line:
 
@@ -42,9 +43,11 @@ Phases, each printing one JSON line:
    block-boundary positions, two slots sharing blocks read-only), bf16
    (the split walk) and f32 (the first design): outputs within tolerance,
    pools bit-identical; timings, with the split walk's ranges (its grid's
-   and those walked).
+   and those walked); then bf16 at a tensor-parallel shard's 8 and 4
+   heads (SHARD_HEADS) against the plain version on the same inputs.
 3. causal_fwd: the causal attention kernel against its plain version at
-   B1 H16 S2048 D128 and at a ragged S=300, bf16 and f32, a rerun giving
+   B1 H16 S2048 D128 and at a ragged S=300, bf16 and f32, and bf16 at a
+   shard's 8 and 4 heads (bucketed prefill at mp 2 and 4), a rerun giving
    the same bits; bf16 timings at B1 H16 S2048 D128, L2 flushed, with the
    achieved TFLOP/s and the share of the bound, and torch's
    scaled_dot_product_attention timed as the library yardstick;
@@ -90,12 +93,14 @@ Phases, each printing one JSON line:
    the table's last position, two slots sharing blocks read-only), bf16
    (the split walk) and f32 (the first design): outputs on live rows
    within tolerance, pools bit-identical outside the null block 0;
-   timings, with the split walk's ranges (its grid's and those walked).
+   timings, with the split walk's ranges (its grid's and those walked);
+   bf16 at a shard's 8 and 4 heads.
 10. paged_int8: the int8 decode and verify kernels against their plain
    versions at the same shapes over int8 pools (normal rows quantized on
    per-block grids), the quantization run once in plain torch before
    both: outputs within tolerance, codes bit-identical outside block 0,
-   scales untouched; timings, with the split walk's ranges.
+   scales untouched; timings, with the split walk's ranges; bf16 at a
+   shard's 8 and 4 heads.
 11. engine_spec: phase 5's trace plus one request whose prompt tiles a
    64-token motif 8 times, served by GenerationEngine(spec_decode_k=4)
    with the n-gram drafter (bf16): tokens/s, verify steps, accepted and
@@ -302,7 +307,9 @@ Phases, each printing one JSON line:
    8, 40 and 128, bf16 and f32 (INT8_LINEAR_TOL); bf16 timings against the
    bytes bound, the plain version and torch.matmul over the dequantized
    bf16 weight as the yardstick, and the decode step's whole weight read
-   (24 layers at M 8) against its int8 and bf16 bounds.
+   (24 layers at M 8) against its int8 and bf16 bounds; then, bf16, every
+   shard's N / mp output columns at mp 2 and 4 against the plain version
+   (and beside the whole launch's columns, reported).
 36. engine_sampled: phase 5's trace with sampling=True, five requests
    sampled (SAMPLED_LANES: temperature 0.7 or 1.0, top_k 50, top_p 0.9,
    seeds from the phase seed) and the rest greedy, at K=0 and at K=4 with
@@ -328,7 +335,11 @@ Phases, each printing one JSON line:
    distinct pages, device times (20 calls in a CUDA graph, L2 warm)
    against the bytes bound, the plain version and the gathered factors
    through two torch.bmm (no single PyTorch call computes the function),
-   and one eager call's time with the wrapper's host time in it.
+   and one eager call's time with the wrapper's host time in it; then
+   every tensor-parallel shard's B pages at the four sites, mp 2 and 4,
+   rank 16, each row shape (out / mp columns; qkv the shard's heads of the
+   head-grouped pages over the head-grouped base), held as the whole
+   launch and bitwise the whole launch's columns.
 39. engine_bucketed: phase 5's trace on GPT-1.3B bf16 with
    prefill_chunk=None (buckets 16 ... 2048, no prefix cache): the causal
    kernel exactly 24 times an admission and no plain call, no prefix hit,
@@ -347,43 +358,74 @@ Phases, each printing one JSON line:
    5's tokens; tokens/s with adapters, with id 0 only and without
    adapters; then f32 at full width and 2 layers, chunked and bucketed, K=0
    and K=4: the card's mixed-tenant tokens equal to the CPU's.
+41. tp_parity: tensor-parallel serving on a virtual mesh of the card
+   (serving_mesh(mp, devices=["cuda"] * mp): every shard's work, kernels
+   and gathers on the one card), f32 at GPT-1.3B's widths and 2 layers, 2
+   slots, phase 6's prompts: mp 1, 2 and 4, chunked and bucketed, K=0 and
+   K=4, and int8 pools chunked at K=0, on the card, and mp 2 on the CPU
+   (plain versions, outside the counted run). Each engine's served logits
+   are kept (each generated token's row as the engine scored it). Tokens
+   equal mp=1's, a difference allowed only at a near tie (mp=1's served
+   top-2 gap at most TP_TIE_F32), reported with the first differing
+   position; each shard's paged kernel (B3, B4, B5a) once a layer a step
+   and B1 once a layer an admission, exactly; the largest served logit
+   difference of mp 2 and 4 (and the CPU) from mp 1 on the first step.
+42. engine_tp: GPT-1.3B bf16 at full width and depth, phase 5's trace, at
+   mp 1, 2 and 4 on a virtual mesh of the card: chunked K=0; bucketed K=4
+   with int8 KV; and at mp 1 and 2 int8 weights with engine_lora's six
+   adapters in a 1 + 4 page pool and two sampled requests. Exact launch
+   counts (each shard's paged kernel 24 times a step, B1 24 times an
+   admission, the int8 linear and the LoRA kernel four times a layer a
+   step, the draws once a step and a final prefill chunk, on the gathered
+   logits), no plain call, each pool shard mp=1's bytes / mp, drain()'s
+   leak check; the served logits of mp=N within TP_BF16_REL_TOL (relative
+   L2 a row) of mp=1's at every generated index where both fed the same
+   prefix; tokens equal the same features' mp=1 run but at near ties,
+   each differing request reported with its first differing position,
+   the mp=1 served top-2 gap there and delta (the rows' largest |logit|
+   difference there); a near tie: the gap at most twice the run's noise
+   (the largest served |logit| difference where both runs agreed on the
+   prefix and the token), over the lane's temperature; tokens/s at each
+   mp, not gated, with the card's name and power limit.
 
-Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36,
-37, 39 and 40 are the main path, in forty-one runs:
-the bf16 engine, the bf16 generate(), the f32 engine, the f32 generate(),
-the bf16 train steps, the f32 train steps, the bf16 speculative engine,
-the three f32 engines of spec_parity, the int8 engine, the int8
-speculative engine, BERT's mask-free and padded bf16 train steps, its
-padded eval forwards and its f32 padded steps, the timed bf16 ResNet-50
-forwards, the f32 ResNet-50 forward, the timed bf16 ResNet-50 train steps,
-the f32 ResNet-50 train steps, the timed bf16 Transformer forwards, the
-f32 Transformer forward, the timed bf16 Transformer train steps, the
-f32 Transformer train steps, the bf16 merge windows, the f32 merge
-windows and scaler steps (Momentum and AdamW), the two skipped windows (GPT and ResNet-18), the BERT
-Lamb steps, the sampled engines at K=0 and K=4, the int8-weight engines
-with bf16 and int8 pools, the f32 int8-weight engine, the bucketed engines
-with bf16 and int8 pools, the f32 bucketed engine, the mixed-tenant and
-the all-null-adapter LoRA engines and the f32 LoRA engines. Kernel counts
-are set to 0
-just before each run and read just after it; each run must launch every
-kernel it takes (PATH_KERNEL: the engine the paged decode kernel,
-generate() the causal forward, training the causal forward and backward,
-24 times a step at 1.3B, the speculative engine the verify kernel, the
-int8 engines their int8 kernels, BERT's mask-free steps the mask-free
-shortseq kernels 12 times a step each and its padded runs the masked
-variants alone, a ResNet-50 forward the 1x1 kernel 36 times and the 3x3
-kernel 16 times, a ResNet-50 train step the 1x1 and 3x3 train forwards
-36 and 16 times, the 1x1 backward 36, the 3x3 dWeight 16 and the 3x3
-eval kernel 16 times as the dX walk, a Transformer forward the flash
-forward B6 12 times, a Transformer train step B6's LSE variant and the
-library route's backward 12 times each; every train step the one-pass
-optimizer update once; a merge window the merge kernel once a micro-step
-and the finish and the update once; a scaler step without merge the
-unscale once; a Lamb step the norm pass once; a sampled engine the draw
-kernel, and at K=4 the uniform kernel; an int8-weight engine the
-int8-weight linear four times a layer a step; a bucketed engine the causal
-forward 24 times an admission; a LoRA engine the batched LoRA kernel four
-times a layer a step) and call no plain version.
+Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36, 37,
+39, 40, 41 and 42 are the main path, in fifty runs: the bf16 engine, the
+bf16 generate(), the f32 engine, the f32 generate(), the bf16 train steps,
+the f32 train steps, the bf16 speculative engine, the three f32 engines of
+spec_parity, the int8 engine, the int8 speculative engine, BERT's
+mask-free and padded bf16 train steps, its padded eval forwards and its
+f32 padded steps, the timed bf16 ResNet-50 forwards, the f32 ResNet-50
+forward, the timed bf16 ResNet-50 train steps, the f32 ResNet-50 train
+steps, the timed bf16 Transformer forwards, the f32 Transformer forward,
+the timed bf16 Transformer train steps, the f32 Transformer train steps,
+the bf16 merge windows, the f32 merge windows and scaler steps (Momentum
+and AdamW), the two skipped windows (GPT and ResNet-18), the BERT Lamb
+steps, the sampled engines at K=0 and K=4, the int8-weight engines with
+bf16 and int8 pools, the f32 int8-weight engine, the bucketed engines with
+bf16 and int8 pools, the f32 bucketed engine, the mixed-tenant and the
+all-null-adapter LoRA engines, the f32 LoRA engines, the f32
+tensor-parallel engines on the card, and engine_tp's eight engines (three
+configurations at mp 1, 2 and 4, the adapter one at mp 1 and 2). Kernel
+counts are set to 0 just before each run and read just after it; each run
+must launch every kernel it takes (PATH_KERNEL: the engine the paged
+decode kernel, generate() the causal forward, training the causal forward
+and backward, 24 times a step at 1.3B, the speculative engine the verify
+kernel, the int8 engines their int8 kernels, BERT's mask-free steps the
+mask-free shortseq kernels 12 times a step each and its padded runs the
+masked variants alone, a ResNet-50 forward the 1x1 kernel 36 times and the
+3x3 kernel 16 times, a ResNet-50 train step the 1x1 and 3x3 train forwards
+36 and 16 times, the 1x1 backward 36, the 3x3 dWeight 16 and the 3x3 eval
+kernel 16 times as the dX walk, a Transformer forward the flash forward B6
+12 times, a Transformer train step B6's LSE variant and the library
+route's backward 12 times each; every train step the one-pass optimizer
+update once; a merge window the merge kernel once a micro-step and the
+finish and the update once; a scaler step without merge the unscale once;
+a Lamb step the norm pass once; a sampled engine the draw kernel, and at
+K=4 the uniform kernel; an int8-weight engine the int8-weight linear four
+times a layer a step; a bucketed engine the causal forward 24 times an
+admission; a LoRA engine the batched LoRA kernel four times a layer a
+step; at mp N each of these N times, once a shard, the draws once) and
+call no plain version.
 `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
 one GPT train step, of one BERT train step, of one bf16 ResNet-50
@@ -422,7 +464,8 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "optimizer_update", "transformer_train",
           "transformer_train_parity", "train_accum", "train_accum_parity",
           "bert_lamb", "sampling", "int8_linear", "engine_sampled",
-          "engine_wint8", "lora", "engine_bucketed", "engine_lora")
+          "engine_wint8", "lora", "engine_bucketed", "engine_lora",
+          "tp_parity", "engine_tp")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -621,7 +664,14 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "bucketed_f32": (FWD, DEC),
                "engine_lora_bf16": (DEC, LORA),
                "engine_lora_null_bf16": (DEC, LORA),
-               "lora_f32": (FWD, DEC, VER, LORA)}
+               "lora_f32": (FWD, DEC, VER, LORA),
+               "tp_f32": (FWD, DEC, VER, DEC8),
+               **{f"engine_tp_chunked_mp{mp}_bf16": (DEC,)
+                  for mp in (1, 2, 4)},
+               **{f"engine_tp_bucketed_kv8_k4_mp{mp}_bf16": (FWD, VER8)
+                  for mp in (1, 2, 4)},
+               **{f"engine_tp_lora_wint8_sampled_mp{mp}_bf16": (
+                   DEC, W8, LORA, DRAW) for mp in (1, 2)}}
 # peak device memory (GB) of the bf16 train phases with the per-parameter
 # optimizer loop, before the update became one pass (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W); each phase fails more than
@@ -676,6 +726,22 @@ LORA_RANKS = (4, 16, 64)
 # repeated prompt and the shared prefix under the base model, id 0)
 ENGINE_LORA_RANKS = (4, 8, 12, 16, 16, 8)
 ENGINE_LORA_IDS = (1, 2, 3, 0, 4, 0, 0, 5, 6, 0, 2, 5, 1)
+# tensor-parallel serving: the mesh degrees, on a virtual mesh of the one
+# card; tp_parity's f32 near-tie bound (generate_parity's and
+# spec_parity's); engine_tp's sampled requests in its adapter run
+TP_DEGREES = (2, 4)
+# the paged kernels' and B1's heads on a shard: GPT-1.3B's 16 over mp 2, 4
+SHARD_HEADS = tuple(16 // mp for mp in TP_DEGREES)
+TP_TIE_F32 = 1e-3
+# engine_tp (bf16) holds the mp=N engine's served logits to mp=1's at each
+# generated index where both fed the same prefix: relative L2 over the row
+# within TRANSFORMER_BF16_REL_TOL, a bf16 forward against the f32 one. The
+# shards' GEMMs sum in other orders, so a bf16 output on a rounding
+# boundary rounds the other way and the difference grows over the layers;
+# two bf16 runs that differ only there differ less than bf16 does from
+# f32, while a head or a column out of place moves a row by its own size.
+TP_BF16_REL_TOL = TRANSFORMER_BF16_REL_TOL
+TP_SAMPLED_LANES = (0, 5)
 
 
 # the bf16 kernels of each library that must run on the tensor cores
@@ -1010,6 +1076,9 @@ def phase_paged_decode(torch, ctx):
             ctx["paged_decode"] = dict(case, shape="slots8 bs16 H16 D128 "
                                        "positions " + str(c["pos_list"]))
         res["cases"].append(case)
+    res["shard_cases"], shard_ok = _shard_head_cases(
+        torch, g, 1, paged_decode_attention, paged_decode_plain, False)
+    ok &= shard_ok
     # no fallback: a CUDA tensor the kernel cannot take raises
     q96 = torch.zeros((2, 1, 2, 96), device="cuda")
     pool96 = torch.zeros((1, 4, 16, 2, 96), device="cuda")
@@ -1042,47 +1111,52 @@ def phase_causal_fwd(torch, ctx):
     g = torch.Generator("cuda").manual_seed(2)
     res = {"phase": "causal_fwd", "cases": []}
     ok = True
-    for dtype in (torch.bfloat16, torch.float32):
-        for S in (2048, 300):
-            BH, D = 16, 128
-            q, k, v = (torch.randn((BH, S, D), generator=g,
-                                   device="cuda").to(dtype)
-                       for _ in range(3))
-            scale = 1.0 / math.sqrt(D)
-            o_ref, l_ref = causal_attention_plain(q, k, v, scale)
-            o, lse = causal_attention_fwd(q, k, v, scale)
-            o2, lse2 = causal_attention_fwd(q, k, v, scale)
-            torch.cuda.synchronize()
-            err = (o.float() - o_ref.float()).abs().max().item()
-            lerr = (lse - l_ref).abs().max().item()
-            same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
-            name = dname(torch, dtype)
-            case = {"dtype": name, "S": S, "max_abs_err": err,
-                    "lse_max_abs_err": lerr, "tol": TOL[name],
-                    "lse_tol": LSE_TOL[name], "rerun_same_bits": same}
-            ok &= err <= TOL[name] and lerr <= LSE_TOL[name] and same
-            if dtype == torch.bfloat16 and S == 2048:
-                flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
-                                    device="cuda")
-                kms = cuda_ms(torch, lambda: causal_attention_fwd(
-                    q, k, v, scale), 20, flush)
-                pms = cuda_ms(torch, lambda: causal_attention_plain(
-                    q, k, v, scale), 5, flush)
-                q4, k4, v4 = (x.view(1, BH, S, D) for x in (q, k, v))
-                lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, scale=scale), 20, flush)
-                del flush
-                isz = q.element_size()
-                nbytes = 4 * BH * S * D * isz + BH * S * 4
-                flops = 2 * BH * D * S * (S + 1)
-                b, by = bound_ms(nbytes, flops, name)
-                case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
-                            bound_ms=b, bound_by=by,
-                            tflops=flops / kms / 1e9,
-                            library_tflops=flops / lms / 1e9,
-                            share_of_bound=b / kms)
-                ctx["causal_fwd"] = dict(case, shape="B1 H16 S2048 D128")
-            res["cases"].append(case)
+    # (dtype, S, BH): one prompt's 16 heads, then a tensor-parallel shard's
+    # (bucketed prefill at mp 2 and 4), bf16
+    cases = [(dt, S, 16) for dt in (torch.bfloat16, torch.float32)
+             for S in (2048, 300)]
+    cases += [(torch.bfloat16, S, BH) for BH in SHARD_HEADS
+              for S in (2048, 300)]
+    for dtype, S, BH in cases:
+        D = 128
+        q, k, v = (torch.randn((BH, S, D), generator=g,
+                               device="cuda").to(dtype)
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(D)
+        o_ref, l_ref = causal_attention_plain(q, k, v, scale)
+        o, lse = causal_attention_fwd(q, k, v, scale)
+        o2, lse2 = causal_attention_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = (o.float() - o_ref.float()).abs().max().item()
+        lerr = (lse - l_ref).abs().max().item()
+        same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+        name = dname(torch, dtype)
+        case = {"dtype": name, "S": S, "BH": BH, "max_abs_err": err,
+                "lse_max_abs_err": lerr, "tol": TOL[name],
+                "lse_tol": LSE_TOL[name], "rerun_same_bits": same}
+        ok &= err <= TOL[name] and lerr <= LSE_TOL[name] and same
+        if dtype == torch.bfloat16 and S == 2048 and BH == 16:
+            flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                                device="cuda")
+            kms = cuda_ms(torch, lambda: causal_attention_fwd(
+                q, k, v, scale), 20, flush)
+            pms = cuda_ms(torch, lambda: causal_attention_plain(
+                q, k, v, scale), 5, flush)
+            q4, k4, v4 = (x.view(1, BH, S, D) for x in (q, k, v))
+            lms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, scale=scale), 20, flush)
+            del flush
+            isz = q.element_size()
+            nbytes = 4 * BH * S * D * isz + BH * S * 4
+            flops = 2 * BH * D * S * (S + 1)
+            b, by = bound_ms(nbytes, flops, name)
+            case.update(kernel_ms=kms, plain_ms=pms, library_ms=lms,
+                        bound_ms=b, bound_by=by,
+                        tflops=flops / kms / 1e9,
+                        library_tflops=flops / lms / 1e9,
+                        share_of_bound=b / kms)
+            ctx["causal_fwd"] = dict(case, shape="B1 H16 S2048 D128")
+        res["cases"].append(case)
     # the shapes a TPU hands to jax's library kernel, causal or not: B6
     # without a gradient; with one B6's LSE variant, then the library
     # route's backward (no fallback)
@@ -1663,9 +1737,10 @@ def phase_train_parity(torch, ctx, seed):
 # outputs on the live rows of live slots only.
 # ---------------------------------------------------------------------------
 
-def _window_case(torch, g, W, dtype, int8):
-    """Pools and inputs at the engine's shapes: 8 slots, bs 16, 16 heads, D
-    128, 2 layers, W rows per slot (W 1 is the decode step). Decode's
+def _window_case(torch, g, W, dtype, int8, heads=16):
+    """Pools and inputs at the engine's shapes: 8 slots, bs 16, `heads`
+    heads (16, or a tensor-parallel shard's), D 128, 2 layers, W rows per
+    slot (W 1 is the decode step). Decode's
     position mix with draft lengths 0-4: slot 0 idle; slot 1's window
     starts in its first block and crosses into the second; windows at
     511 and 1023 cross a block; slot 5's ends at position 2047, the
@@ -1673,7 +1748,7 @@ def _window_case(torch, g, W, dtype, int8):
     normal rows quantized on per-block grids 0.7-1.3x absmax / 127."""
     from paddle_tpu_torch.ops.paged_attention import _quant_rows
 
-    slots, bs, heads, D, L = 8, 16, 16, 128, 2
+    slots, bs, D, L = 8, 16, 128, 2
     if W == 1:
         positions, dlens = [0, 15, 16, 511, 1023, 2047, 700, 1300], [0] * 8
     else:
@@ -1804,6 +1879,26 @@ def _time_paged(torch, kernel, plain, kargs, pargs):
     return kms, pms
 
 
+def _shard_head_cases(torch, g, W, kernel, plain, int8):
+    """A paged kernel at a tensor-parallel shard's heads (SHARD_HEADS, bf16,
+    the engine's shapes otherwise) against its plain version on the same
+    inputs, as the 16-head case is held. Returns (cases, all passed)."""
+    cases, ok = [], True
+    for heads in SHARD_HEADS:
+        c = _window_case(torch, g, W, torch.bfloat16, int8, heads=heads)
+        err, pools, scales, _ = _kernel_vs_plain(torch, c, kernel, plain,
+                                                 int8)
+        tol = TOL["bfloat16"]
+        good = math.isfinite(err) and err <= tol and pools and scales
+        cases.append({"kernel": kernel.__name__, "heads": heads,
+                      "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
+                      "pools_bit_identical_outside_block0": pools,
+                      "scales_untouched": scales, "ok": bool(good)})
+        ok &= good
+        del c
+    return cases, ok
+
+
 def phase_paged_verify(torch, ctx):
     from paddle_tpu_torch.ops.paged_verify import (paged_verify_attention,
                                                    paged_verify_plain)
@@ -1830,6 +1925,10 @@ def phase_paged_verify(torch, ctx):
                 f"slots8 W{SPEC_K + 1} bs16 H16 D128 positions "
                 f"{c['pos_list']} draft_lens {c['dlen_list']}"))
         res["cases"].append(case)
+    res["shard_cases"], shard_ok = _shard_head_cases(
+        torch, g, SPEC_K + 1, paged_verify_attention, paged_verify_plain,
+        False)
+    ok &= shard_ok
     # no fallback: a window the kernel cannot take raises on the card
     q = torch.zeros((2, 10, 2, 64), device="cuda")
     pool = torch.zeros((1, 4, 16, 2, 64), device="cuda")
@@ -1884,6 +1983,9 @@ def phase_paged_int8(torch, ctx):
                     f"positions {c['pos_list']} draft_lens "
                     f"{c['dlen_list']}"))
             res["cases"].append(case)
+        shard, shard_ok = _shard_head_cases(torch, g, W, kernel, plain, True)
+        res.setdefault("shard_cases", []).extend(shard)
+        ok &= shard_ok
     res["ok"] = bool(ok)
     emit(res)
     if not ok:
@@ -4803,7 +4905,7 @@ def phase_int8_linear(torch, ctx):
     from paddle_tpu_torch.quantization import dequantize, quantize_absmax
 
     g = torch.Generator("cuda").manual_seed(3)
-    res = {"phase": "int8_linear", "cases": [], "tol": {
+    res = {"phase": "int8_linear", "cases": [], "shard_cases": [], "tol": {
         "bfloat16": INT8_LINEAR_TOL["bfloat16"],
         "float32": INT8_LINEAR_TOL["float32"]}}
     ok = True
@@ -4854,6 +4956,35 @@ def phase_int8_linear(torch, ctx):
                             shape=f"M {M} N {N} K {K} (fc1, decode step)",
                             dtype=dn)
                 res["cases"].append(case)
+        # a tensor-parallel shard's output columns (N / mp rows of codes
+        # and scales, as the engine's int8 state splits them), bf16:
+        # against the plain version, and beside the whole launch's columns
+        dtype = torch.bfloat16
+        q, s = quantize_absmax(w.to(dtype), axis=0)
+        b = (torch.randn(N, generator=g, device="cuda") * 0.1).to(dtype)
+        for M in W8_ROWS:
+            x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+            whole = int8_linear(x, q, s, b)
+            for mp in TP_DEGREES:
+                n = N // mp
+                for r in range(mp):
+                    cols = slice(r * n, (r + 1) * n)
+                    qs, ss, bs = q[cols].contiguous(), s[cols].contiguous(), \
+                        b[cols].contiguous()
+                    got = int8_linear(x, qs, ss, bs)
+                    want = int8_linear_plain(x, qs, ss, bs)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    ref = want.float().abs().max().item()
+                    good = math.isfinite(err) and \
+                        err <= INT8_LINEAR_TOL["bfloat16"] * ref
+                    res["shard_cases"].append({
+                        "shape": name, "mp": mp, "shard": r, "M": M, "N": n,
+                        "K": K, "dtype": "bfloat16", "max_abs_err": err,
+                        "max_abs_plain": ref, "ok": bool(good),
+                        "bitwise_whole_launch_columns": bool(torch.equal(
+                            got, whole[:, cols]))})
+                    ok &= good
     del flush
     L = 24
     res["decode_step_weights_ms"] = {
@@ -5099,6 +5230,81 @@ def _lora_bound(B, S, R, n_in, n_out, pages, isz, dname_):
     return bound_ms(nbytes, 2 * M * R * (n_in + n_out), dname_)
 
 
+def _lora_shard(b, base, heads, mp, r):
+    """Shard r of mp's B pages and base columns, as the engine hands them
+    to the kernel: `out / mp` columns, or at the qkv site the shard's heads
+    of the head-grouped pages, flattened, over the head-grouped base."""
+    n = base.shape[-1] // mp
+    if not heads:
+        return b[..., r * n:(r + 1) * n].contiguous(), \
+            base[..., r * n:(r + 1) * n]
+    lh = heads // mp
+    B, S = base.shape[:2]
+    grouped = base.view(B, S, 3, heads, -1).permute(0, 1, 3, 2, 4)
+    return b[:, :, :, r * lh:(r + 1) * lh].contiguous().flatten(3), \
+        grouped[:, :, r * lh:(r + 1) * lh].reshape(B, S, n)
+
+
+def _lora_shard_cases(torch, g, batched_lora, batched_lora_plain, layer):
+    """The kernel on a tensor-parallel shard's B pages at GPT-1.3B's four
+    sites, mp 2 and 4, rank 16, each LORA_ROWS shape, held as the whole
+    launch is (the fp32 delta within LORA_DELTA_TOL of the plain version's,
+    bf16 bitwise where the deltas round alike, null rows the base), and
+    bitwise the whole launch's columns. Returns (cases, all passed)."""
+    cases, ok, R = [], True, 16
+    for site in LORA_SITES_1P3B:
+        name, n_in, n_out, heads = site
+        a16, b16, sc = _lora_pool(torch, g, site, R, torch.bfloat16)
+        a32, b32 = a16.float(), b16.float()
+        for B, S in LORA_ROWS:
+            rows = torch.tensor(([3, 0, 1, 5, 0, 7, 2, 8] if B == 8
+                                 else [4]), dtype=torch.int32, device="cuda")
+            x = torch.randn((B, S, n_in), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            base = torch.randn((B, S, n_out), generator=g,
+                               device="cuda").to(torch.bfloat16)
+            whole = batched_lora(base.clone(), x, a16, b16, rows, sc, layer)
+            for mp in TP_DEGREES:
+                for r in range(mp):
+                    bs, part = _lora_shard(b16, base, heads, mp, r)
+                    bs32, _ = _lora_shard(b32, base, heads, mp, r)
+                    _, want = _lora_shard(b16, whole, heads, mp, r)
+                    zero = torch.zeros(part.shape, device="cuda")
+                    dk = batched_lora(zero, x.float(), a32, bs32, rows, sc,
+                                      layer)
+                    dp = batched_lora_plain(torch.zeros_like(zero),
+                                            x.float(), a32, bs32, rows, sc,
+                                            layer)
+                    got = batched_lora(part.clone(), x, a16, bs, rows, sc,
+                                       layer)
+                    plain = batched_lora_plain(part.clone(), x, a16, bs,
+                                               rows, sc, layer)
+                    torch.cuda.synchronize()
+                    ref = dp.abs().max().item()
+                    err = (dk - dp).abs().max().item()
+                    alike = dk.to(torch.bfloat16) == dp.to(torch.bfloat16)
+                    null = (rows == 0)[:, None, None].expand_as(part)
+                    case = {
+                        "site": name, "mp": mp, "shard": r, "rank": R,
+                        "slots": B, "rows_a_slot": S,
+                        "columns": part.shape[-1],
+                        "delta_max_abs_err": err, "delta_max_abs": ref,
+                        "bf16_bitwise_where_alike": bool(torch.equal(
+                            got[alike], plain[alike])),
+                        "null_rows_bitwise_base": bool(torch.equal(
+                            got[null], part[null])),
+                        "bitwise_whole_launch_columns": bool(torch.equal(
+                            got, want))}
+                    case["ok"] = bool(
+                        math.isfinite(err) and err <= LORA_DELTA_TOL * ref
+                        and ref > 0 and case["bf16_bitwise_where_alike"]
+                        and case["null_rows_bitwise_base"]
+                        and case["bitwise_whole_launch_columns"])
+                    ok &= case["ok"]
+                    cases.append(case)
+    return cases, ok
+
+
 def phase_lora(torch, ctx):
     from paddle_tpu_torch.ops.lora import (LORA_MAX_RANK, batched_lora,
                                            batched_lora_plain)
@@ -5195,6 +5401,9 @@ def phase_lora(torch, ctx):
             for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                       "eager_call_ms")}
     res["four_sites_24_layers_ms"] = steps
+    res["shard_cases"], shard_ok = _lora_shard_cases(
+        torch, g, batched_lora, batched_lora_plain, layer)
+    ok &= shard_ok
     x = torch.zeros((1, 1, 16), device="cuda")
     try:
         R = LORA_MAX_RANK + 1
@@ -5522,6 +5731,343 @@ def phase_engine_lora(torch, ctx, seed):
         raise AssertionError("engine_lora phase failed its checks")
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving on a virtual mesh of the one card
+# ---------------------------------------------------------------------------
+
+def _tp_mesh(mp, device="cuda"):
+    """A virtual mesh: `device` named mp times (None at mp 1)."""
+    from paddle_tpu_torch.distributed import serving_mesh
+
+    return None if mp == 1 else serving_mesh(mp, devices=[device] * mp)
+
+
+class _ServedLogits:
+    """The logits `eng` served, keyed by (request id, index): the row at
+    index i scores the token at index i of the request's prompt +
+    generated tokens, as the argmax, the acceptance walk or the draw read
+    it (the first token's row from the prefill, the others from decode or
+    verify steps). A row computed under a prefix the engine did not keep
+    (a verify row past the accepted drafts, a stalled lane's) is
+    overwritten by the step that emits the token. The rows stay on their
+    device, views of each step's logits; the hooks add no launch.
+    `close()` gives `eng` and its model their own methods back."""
+
+    def __init__(self, eng):
+        self.rows, self._first, self._eng = {}, None, eng
+        logits_of, first_of = eng.model._logits_of, eng._first_of
+
+        def first(h_last, slot, plen):
+            self._first = (slot.req.req_id, plen)
+            try:
+                return first_of(h_last, slot, plen)
+            finally:
+                self._first = None
+
+        def served(hidden, tp=None):
+            out = logits_of(hidden, tp)
+            self._keep(out)
+            return out
+
+        eng._first_of, eng.model._logits_of = first, served
+
+    def _keep(self, out):
+        if out.dim() == 1:
+            self.rows[self._first] = out
+            return
+        for i, s in enumerate(self._eng._slots):
+            if s is None or s.prefilling:
+                continue
+            for w in range(out.shape[1]):
+                self.rows[(s.req.req_id, s.feed_pos + 1 + w)] = out[i, w]
+
+    def close(self):
+        del self._eng.model._logits_of, self._eng._first_of
+        self._eng = None
+
+    def stack(self, torch, rid, start, end):
+        """Request `rid`'s rows at indices start .. end - 1, fp32, as one
+        `[end - start, V]` tensor on the card."""
+        return torch.stack([self.rows[(rid, i)].float().to("cuda")
+                            for i in range(start, end)])
+
+
+def _draw_scores(torch, logits, params, pos):
+    """What a lane picks the argmax of at position `pos`: the logits, or
+    for a sampled lane the Gumbel-perturbed masked logits of its draw."""
+    if params is None or params.greedy:
+        return logits
+    from paddle_tpu_torch.inference.sampling import key_row
+    from paddle_tpu_torch.ops.sampling import (SALT_SAMPLE, _row_keys,
+                                               masked_logits)
+    from paddle_tpu_torch.ops.threefry import gumbel
+
+    dev = logits.device
+    lg = masked_logits(
+        logits[None], torch.tensor([params.temperature], device=dev),
+        torch.tensor([params.top_k], dtype=torch.int32, device=dev),
+        torch.tensor([params.top_p], device=dev))
+    key = _row_keys(key_row(params.seed)[None].to(dev),
+                    torch.tensor([pos], device=dev), SALT_SAMPLE)
+    return (gumbel(key, lg.shape[1]) + lg)[0]
+
+
+def _first_mismatch(got, ref):
+    """The first index where two token lists differ (None if equal)."""
+    n = min(len(got), len(ref))
+    at = np.nonzero(np.asarray(got[:n]) != np.asarray(ref[:n]))[0]
+    if at.size:
+        return int(at[0])
+    return None if len(got) == len(ref) else n
+
+
+def _tp_served(torch, run1, run, got, ref, plen, params=None):
+    """One request's served rows in the mp=1 run and a sharded run (each
+    (`_ServedLogits`, the request's id there)), at the generated indices
+    where both fed the same prefix
+    (up to the first differing token, that one included): `rel_l2`, the
+    largest ||l_N - l_1|| / ||l_1|| of a row; `noise`, the largest |logit|
+    difference where they also emitted the same token; `first_step`, the
+    largest at the first generated token. Where the tokens differ, the
+    first differing index, `delta` (the rows' largest difference there),
+    and mp=1's top-2 gap of what it picks from there (`_draw_scores`),
+    with `scale` the lane's 1 / temperature (1 for a greedy lane): what
+    its choice moves by a logit's difference."""
+    at = _first_mismatch(got, ref)
+    end = len(ref) if at is None else at + 1
+    l1 = run1[0].stack(torch, run1[1], plen, end)
+    ln = run[0].stack(torch, run[1], plen, end)
+    d = (ln - l1).abs()
+    same = d[:-1] if at is not None else d
+    out = {"rel_l2": float(((ln - l1).norm(dim=1) / l1.norm(dim=1)).max()),
+           "noise": float(same.max()) if same.numel() else 0.0,
+           "first_step": float(d[0].max())}
+    if at is not None:
+        top2 = torch.topk(_draw_scores(torch, l1[-1], params, at - 1),
+                          2).values
+        out.update(first_diff=at, first_diff_generated=at - plen,
+                   top2_gap=float(top2[0] - top2[1]), delta=float(d[-1].max()),
+                   scale=1.0 if params is None or params.greedy
+                   else 1.0 / params.temperature)
+    return out
+
+
+def _tp_verdict(served, bound=None, rel_tol=None):
+    """A sharded run's requests (`_tp_served`) against mp=1's: `noise` and
+    `rel_l2` over the run; each request that differs, a near tie when
+    mp=1's top-2 gap there is at most `bound`, or without one at most
+    twice the run's noise (times the lane's scale); with `rel_tol`, every
+    agreed row's relative difference within it. Returns the report."""
+    noise = max(r["noise"] for r in served.values())
+    rel = max(r["rel_l2"] for r in served.values())
+    rep = {"noise": noise, "rel_l2": rel, "rel_l2_tol": rel_tol,
+           "first_step_max_abs_logit_diff": max(
+               r["first_step"] for r in served.values()),
+           "identical_to_mp1": all("first_diff" not in r
+                                   for r in served.values()),
+           "diverged": []}
+    ok = rel_tol is None or rel <= rel_tol
+    for i, r in served.items():
+        if "first_diff" in r:
+            lim = bound if bound is not None else 2.0 * noise * r["scale"]
+            tie = dict(request=i, near_tie_bound=lim,
+                       near_tie=r["top2_gap"] <= lim,
+                       **{k: r[k] for k in ("first_diff",
+                                            "first_diff_generated",
+                                            "top2_gap", "delta")})
+            rep["diverged"].append(tie)
+            ok &= tie["near_tie"]
+    rep["ok"] = bool(ok)
+    return rep
+
+
+def phase_tp_parity(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+
+    card, host, prompts = _f32_2_layers(torch, seed)
+    L = card.config.num_layers
+    new = 16
+    # (prefill, K, pools): fp pools chunked and bucketed at K 0 and 4, and
+    # int8 pools chunked at K 0 (B5a on each shard's heads)
+    cells = [(pm, K, "fp") for pm in ("chunked", "bucketed")
+             for K in (0, SPEC_K)] + [("chunked", 0, "int8")]
+
+    def engine(m, dev, mp, pm, K, kv):
+        return GenerationEngine(
+            m, device=dev, mesh=_tp_mesh(mp, dev), num_slots=2,
+            block_size=16, spec_decode_k=K,
+            kv_dtype="int8" if kv == "int8" else None,
+            prefill_chunk="auto" if pm == "chunked" else None)
+
+    def serve(eng):
+        """The prompts' (ids, tokens), and the logits `eng` served."""
+        rec = _ServedLogits(eng)
+        try:
+            ids = [eng.add_request(p, new) for p in prompts]
+            out = eng.drain()
+        finally:
+            rec.close()
+        return ids, [out[r] for r in ids], rec
+
+    engines, runs = {}, {}
+
+    def card_runs():
+        for mp in (1,) + TP_DEGREES:
+            for cell in cells:
+                eng = engine(card, "cuda", mp, *cell)
+                runs[(mp,) + cell] = serve(eng)
+                engines[(mp,) + cell] = eng
+
+    with torch.no_grad():
+        _counted(torch, ctx, "tp_f32", card_runs)
+        for cell in cells:
+            eng = engine(host, "cpu", 2, *cell)
+            runs[("cpu",) + cell] = serve(eng)
+    counts = ctx["paths"]["tp_f32"]
+    # each shard's kernels once a layer a step: decode (K 0; int8 pools
+    # B5a), verify (K 4), B1 once a layer an admission (bucketed)
+    want = {DEC: 0, VER: 0, FWD: 0, DEC8: 0}
+    for (mp, pm, K, kv), eng in engines.items():
+        paged = (DEC8 if kv == "int8" else DEC) if K == 0 else VER
+        want[paged] += L * mp * eng.decode_steps
+        if pm == "bucketed":
+            want[FWD] += L * mp * eng.admissions
+    launches = {k: counts[k]["launches"] for k in want}
+    res = {"phase": "tp_parity", "dtype": "float32",
+           "config": "gpt_1p3b widths (hidden 2048, 16 heads, vocab 50304), "
+           "2 layers, 2 slots, block 16, phase 6's prompts, 16 new tokens; "
+           "mp 1, 2, 4 on a virtual mesh of the card, chunked and bucketed, "
+           f"K 0 and {SPEC_K}, and int8 pools chunked at K 0; mp 2 on the "
+           "CPU (plain versions)",
+           "near_tie_bound": TP_TIE_F32,
+           "served_logits": "each generated token's row as the engine "
+           "scored it, against the mp=1 card run's at the same index",
+           "launches": launches, "launches_expected": want, "cells": {},
+           "kernel_counts": counts}
+    ok = launches == want
+    first = {}
+    for (mp, pm, K, kv), (ids, got, rec) in runs.items():
+        if mp == 1:
+            continue
+        ids1, ref, rec1 = runs[(1, pm, K, kv)]
+        served = {i: _tp_served(torch, (rec1, ids1[i]), (rec, ids[i]), g, r,
+                                len(p))
+                  for i, (g, r, p) in enumerate(zip(got, ref, prompts))}
+        cell = _tp_verdict(served, bound=TP_TIE_F32)
+        ok &= cell["ok"]
+        name = (f"{'cpu_mp2' if mp == 'cpu' else f'mp{mp}'}_{pm}_K{K}"
+                + ("_kv8" if kv == "int8" else ""))
+        res["cells"][name] = cell
+        first[name] = cell["first_step_max_abs_logit_diff"]
+    # the largest logit difference from mp=1 on the first step (each
+    # prompt's first generated token, as served)
+    res["first_step_max_abs_logit_diff"] = first
+    res["ok"] = bool(ok)
+    emit(res)
+    del engines, runs, card, host
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("tp_parity: tokens differ from mp=1 beyond a "
+                             "near tie, or launch counts are off")
+
+
+def phase_engine_tp(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+    from paddle_tpu_torch.inference import SamplingParams
+
+    model = _model(torch, torch.bfloat16, seed)
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_layers
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    reg = _lora_registry(cfg, seed)
+    sampled = {i: SamplingParams(temperature=0.8, top_k=50, top_p=0.9,
+                                 seed=seed * 1000 + i)
+               for i in TP_SAMPLED_LANES}
+    configs = (
+        ("chunked", dict(), None, None, (1,) + TP_DEGREES),
+        ("bucketed_kv8_k4", dict(prefill_chunk=None, kv_dtype="int8",
+                                 spec_decode_k=SPEC_K), None, None,
+         (1,) + TP_DEGREES),
+        ("lora_wint8_sampled", dict(weight_dtype="int8", sampling=True,
+                                    adapters=reg, adapter_pool_pages=5),
+         lambda i: ENGINE_LORA_IDS[i], sampled.get, (1, 2)))
+    res = {"phase": "engine_tp", "card": nvidia_smi_line(),
+           "config": "gpt_1p3b bf16, 8 slots, block 16, phase 5's trace, "
+           "on a virtual mesh of the one card (mp 1, 2, 4): chunked K=0; "
+           f"bucketed K={SPEC_K} with int8 KV; int8 weights with six "
+           f"adapters (1 + 4 pages) and sampled requests "
+           f"{list(TP_SAMPLED_LANES)} (mp 1, 2)", "runs": {},
+           "rel_l2_tol": TP_BF16_REL_TOL,
+           "near_tie": "mp=1's top-2 gap at the first differing token at "
+           "most 2 * noise (/ temperature): noise the largest |logit| "
+           "difference of the mp=1 and mp=N served rows where both fed the "
+           "same prefix and emitted the same token"}
+    ok = True
+    for name, kw, adapter_of, params_of, mps in configs:
+        ref = rec1 = ids1 = None
+        for mp in mps:
+            path = f"engine_tp_{name}_mp{mp}_bf16"
+            eng = GenerationEngine(model, num_slots=8, block_size=16,
+                                   mesh=_tp_mesh(mp), **kw)
+            rec = _ServedLogits(eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                ids, out = _counted(torch, ctx, path, lambda: _serve_trace(
+                    eng, trace, _drain_profiled(torch, ctx, path),
+                    params_of=params_of, adapter_of=adapter_of))
+            finally:
+                rec.close()
+            wall = time.perf_counter() - t0
+            outs = [out[r] for r in ids]
+            counts = ctx["paths"][path]
+            steps = eng.decode_steps
+            want = {VER8: L * mp * steps, FWD: L * mp * eng.admissions} \
+                if name.startswith("bucketed") else {DEC: L * mp * steps}
+            if name.startswith("lora"):
+                fwd = eng.prefill_chunks + steps
+                want.update({W8: 4 * L * mp * fwd, LORA: 4 * L * mp * fwd,
+                             DRAW: steps + eng.prefill_first_tokens})
+            launches = {k: counts[k]["launches"] for k in want}
+            c = eng.cache
+            plane = c.kpools[0].numel() * c.kpools[0].element_size()
+            run = {"mp": mp, "wall_s": wall,
+                   "tokens_generated": eng.tokens_generated,
+                   "tokens_per_s": eng.tokens_generated / wall,
+                   "decode_steps": steps, "prefill_chunks": eng.prefill_chunks,
+                   "admissions": eng.admissions,
+                   "launches": launches, "launches_expected": want,
+                   "pool_shard_bytes": plane, "pool_nbytes": c.pool_nbytes(),
+                   "weight_snapshot_nbytes": eng.weight_snapshot_nbytes(),
+                   "outputs_ok": _outputs_ok(ids, out, reqs, V),
+                   "leak_check": "passed", "kernel_counts": counts}
+            ok &= run["outputs_ok"] and launches == want
+            if mp == 1:
+                ref, rec1, ids1, plane1 = outs, rec, ids, plane
+            else:
+                run["pool_shard_is_mp1_over_mp"] = plane * mp == plane1
+                served = {i: _tp_served(
+                    torch, (rec1, ids1[i]), (rec, ids[i]), o, r, len(p),
+                    params=params_of(i) if params_of else None)
+                    for i, (o, r, (p, _)) in enumerate(zip(outs, ref, reqs))}
+                run.update(_tp_verdict(served, rel_tol=TP_BF16_REL_TOL))
+                ok &= run["ok"] and run["pool_shard_is_mp1_over_mp"]
+            del eng, rec
+            torch.cuda.empty_cache()
+            res["runs"][path] = run
+        del rec1
+        torch.cuda.empty_cache()
+    res["tokens_per_s"] = {p: r["tokens_per_s"]
+                           for p, r in res["runs"].items()}
+    res["ok"] = bool(ok)
+    emit(res)
+    del model, reg
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("engine_tp phase failed its checks")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5529,7 +6075,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile the engine runs (phases engine, "
                     "engine_spec, engine_int8, engine_sampled, "
-                    "engine_wint8, engine_bucketed, engine_lora) after "
+                    "engine_wint8, engine_bucketed, engine_lora, "
+                    "engine_tp) after "
                     "their prefixes are "
                     "cached, one GPT train step, one BERT train step, one "
                     "ResNet-50 forward and one ResNet-50 train step on "
@@ -5665,8 +6212,12 @@ def main(argv=None):
                 phase_lora(torch, ctx)
             elif name == "engine_bucketed":
                 phase_engine_bucketed(torch, ctx, SEED)
-            else:
+            elif name == "engine_lora":
                 phase_engine_lora(torch, ctx, SEED)
+            elif name == "tp_parity":
+                phase_tp_parity(torch, ctx, SEED)
+            else:
+                phase_engine_tp(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,

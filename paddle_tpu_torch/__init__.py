@@ -49,9 +49,13 @@ Ported so far:
   `prefill_buckets=`) through the causal attention forward, and
   multi-tenant LoRA serving (`adapters`: the registry and the paged pool;
   `GenerationEngine(adapters=)`, `add_request(adapter_id=)`) with the
-  batched LoRA kernel (`ops.lora`).
+  batched LoRA kernel (`ops.lora`);
+- tensor-parallel serving (`GenerationEngine(mp_degree=N)`, `mesh=` a
+  `distributed.serving_mesh`, `PADDLE_SERVE_MP`): head-sharded paged pools
+  and a column-parallel weight snapshot under one scheduler, each shard
+  running the kernels above at its shapes.
 """
-from . import amp, optimizer, vision
+from . import amp, distributed, optimizer, vision
 from .device import resolve_device
 from .inference.engine import GenerationEngine, PagedKVCache, Request
 from .jit import TrainStep
@@ -74,7 +78,7 @@ __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "BertForPretraining", "load_paddle_tpu_state",
            "paddle_tpu_state", "TrainStep", "SGD", "Momentum", "Adam",
            "AdamW", "Adagrad", "RMSProp", "Adadelta", "Lars", "Lamb",
-           "optimizer", "amp",
+           "optimizer", "amp", "distributed",
            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
            "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",

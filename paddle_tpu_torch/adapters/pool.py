@@ -17,8 +17,14 @@ cast to the pool's dtype (the JAX package writes the page with a donated
 tensors, so a swap-in between steps changes nothing else. Rank rows past
 an adapter's rank stay exact zeros.
 
-There is no mesh: tensor-parallel serving, which shards the B stacks'
-output layout (`shard_axis` in the spec), is not ported yet.
+Under tensor parallel (`mesh=`, a `distributed.ServingMesh`) the B stacks
+shard their OUTPUT layout over the mesh (`shard_axis` in the spec: `b_qkv`
+on its heads axis, the engine's qkv grouping, and the linear sites on
+their column axis), one contiguous tensor a shard on its device, while the
+A stacks and the scalings are replicated, one tensor a distinct device.
+Each shard computes exactly its own slice of every delta with full-length
+dots, so the batched LoRA at mp=N adds no collective. A swap-in writes
+each shard's slice.
 """
 from __future__ import annotations
 
@@ -85,9 +91,12 @@ class PagedAdapterPool:
     at `1 + num_slots`, so a full batch of distinct tenants never stalls;
     smaller pools trade device memory for swap-in traffic and ride the
     stall/retry path under pressure. `dtype` is the factors' (the
-    registry's when None); `device=None` means the CUDA card."""
+    registry's when None); `device=None` means the CUDA card. With `mesh`
+    the pool lives on the mesh's devices (its first is `device`) and
+    `arrays(shard)` gives each shard's tensors."""
 
-    def __init__(self, registry, num_pages=None, dtype=None, device=None):
+    def __init__(self, registry, num_pages=None, dtype=None, device=None,
+                 mesh=None):
         if not isinstance(registry, AdapterRegistry):
             raise TypeError(
                 "PagedAdapterPool takes an AdapterRegistry (the "
@@ -102,13 +111,30 @@ class PagedAdapterPool:
         self.max_rank = registry.max_rank
         self.dtype = _torch_dtype(dtype if dtype is not None
                                   else registry.dtype)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            mp = mesh.shape["mp"]
+            for name, dim in (("num_heads", registry.num_heads),
+                              ("hidden_size", registry.hidden_size),
+                              ("intermediate_size",
+                               registry.intermediate_size)):
+                if dim % mp:
+                    raise ValueError(
+                        f"{name}={dim} not divisible by mp degree "
+                        f"{mp} — cannot column-shard the adapter B "
+                        "pages")
+            self.device = mesh.devices[0]
+            if device is not None and \
+                    torch.device(device).type != self.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"{self.device}")
         self._spec = adapter_pool_spec(
             self.num_pages, registry.num_layers, registry.max_rank,
             registry.hidden_size, registry.intermediate_size,
             registry.num_heads, self.dtype)
-        self._arrays = [torch.zeros(shape, dtype=dt, device=self.device)
-                        for shape, dt, _ in self._spec.values()]
+        self._shards = self._build_arrays()
         # paging state: the PagedKVCache's, page-sized
         self._free = list(range(self.num_pages - 1, 0, -1))
         self._ref = [0] * self.num_pages
@@ -127,28 +153,59 @@ class PagedAdapterPool:
         """This pool's `adapter_pool_spec` layout table."""
         return self._spec
 
-    def arrays(self):
-        """The pool tensors in `LoraState` order."""
-        return tuple(self._arrays)
+    def _build_arrays(self):
+        """Each shard's tensors in spec order: a sharded B stack's slice
+        of `shard_axis` on the shard's device, a replicated tensor once a
+        distinct device (one shard without a mesh)."""
+        devices = (self.device,) if self.mesh is None else self.mesh.devices
+        mp = len(devices)
+        shards = [[] for _ in devices]
+        for shape, dt, axis in self._spec.values():
+            if axis is None or mp == 1:
+                rep = {d: torch.zeros(shape, dtype=dt, device=d)
+                       for d in dict.fromkeys(devices)}
+                for r, d in enumerate(devices):
+                    shards[r].append(rep[d])
+                continue
+            part = list(shape)
+            part[axis] //= mp
+            for r, d in enumerate(devices):
+                shards[r].append(torch.zeros(part, dtype=dt, device=d))
+        return [tuple(a) for a in shards]
+
+    def arrays(self, shard=0):
+        """The pool tensors in `LoraState` order (shard `shard`'s under a
+        mesh)."""
+        return self._shards[shard]
 
     def pool_nbytes(self):
-        return sum(a.numel() * a.element_size() for a in self._arrays)
+        """Bytes the pool holds on its devices, every shard's."""
+        held = {id(a): a for arrs in self._shards for a in arrs}
+        return sum(a.numel() * a.element_size() for a in held.values())
 
     # -- swap-in ----------------------------------------------------------
     def _write_page(self, page, stacks, scaling):
         """Copy one adapter's host stacks onto `page`, IN PLACE, cast to
         the pool's dtype."""
-        for arr, (name, (shape, _, _)) in zip(self._arrays,
-                                              self._spec.items()):
+        mp = len(self._shards)
+        for i, (name, (shape, _, axis)) in enumerate(self._spec.items()):
+            held = [arrs[i] for arrs in self._shards]
             if name == "scaling":
-                arr[page] = float(np.float32(scaling))
+                for arr in {id(a): a for a in held}.values():
+                    arr[page] = float(np.float32(scaling))
                 continue
             rows = np.ascontiguousarray(stacks[name])
             if rows.shape != shape[1:]:
                 raise ValueError(
                     f"adapter stack {name} has shape {rows.shape}, pool "
                     f"page wants {shape[1:]}")
-            arr[page].copy_(torch.from_numpy(rows))
+            if axis is None or mp == 1:
+                for arr in {id(a): a for a in held}.values():
+                    arr[page].copy_(torch.from_numpy(rows))
+                continue
+            parts = np.split(rows, mp, axis=axis - 1)
+            for arr, part in zip(held, parts):
+                arr[page].copy_(torch.from_numpy(np.ascontiguousarray(part)))
 
     # -- paging -----------------------------------------------------------
     @property

@@ -6,9 +6,11 @@ state: a device is resolved per object and passed down explicitly.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "on_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,3 +30,12 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but no CUDA "
                            "device is available")
     return dev
+
+
+def on_device(t):
+    """A context that makes `t`'s card the current one (the hand-written
+    kernels launch on the current device), or nothing for a CPU tensor: a
+    tensor-parallel shard on another card of its mesh launches there."""
+    if t.device.type == "cuda":
+        return torch.cuda.device(t.device)
+    return contextlib.nullcontext()

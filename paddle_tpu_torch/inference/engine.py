@@ -1,7 +1,8 @@
 """Continuous-batching generation engine over a paged KV cache: counterpart
 of paddle_tpu/inference/engine.py (greedy or sampled lanes, fp or int8
 pools, int8 weights, speculative decoding, chunked or bucketed prefill,
-multi-tenant LoRA adapters, one device, serial core).
+multi-tenant LoRA adapters, tensor-parallel serving over a mesh, serial
+core).
 
 - `PagedKVCache`: pools `[layers, num_blocks, block_size, heads, head_dim]`
   on the device plus a host-side allocator with per-block refcounts and a
@@ -45,11 +46,11 @@ multi-tenant LoRA adapters, one device, serial core).
   environment wins over the argument and an empty value means unset.
   `PADDLE_SPEC_DECODE_K` over `spec_decode_k`, `PADDLE_SERVE_KV_DTYPE`
   over `kv_dtype` and `PADDLE_SERVE_WEIGHT_DTYPE` over `weight_dtype`
-  (unset or `int8`), `PADDLE_SERVE_SAMPLING` over `sampling`. The
+  (unset or `int8`), `PADDLE_SERVE_SAMPLING` over `sampling`,
+  `PADDLE_SERVE_MP` over `mp_degree` (and it must agree with `mesh`). The
   switches of features not ported yet are parsed by JAX's rules and raise
   `NotImplementedError` when they ask for their feature, never serving
-  without it: `PADDLE_SERVE_MP` > 1, and `PADDLE_SERVE_TRACING` or
-  `PADDLE_SERVE_ASYNC` on.
+  without it: `PADDLE_SERVE_TRACING` or `PADDLE_SERVE_ASYNC` on.
 - prefill, resolved as in JAX: chunked (`prefill_chunk="auto"`, the
   default, being `min(128, max_model_len)`, or an int), or bucketed
   (`prefill_chunk=None`, or `prefill_buckets=` with `"auto"`): each
@@ -69,14 +70,29 @@ multi-tenant LoRA adapters, one device, serial core).
   projections a layer add their delta through `ops.lora.batched_lora`.
   The prefix cache's chains are salted with the adapter id, and `drain()`
   audits the pool's pages too.
+- tensor-parallel serving (`mp_degree=N`, `mesh=distributed.serving_mesh(
+  N, ...)` or `PADDLE_SERVE_MP=N`): one scheduler, as in JAX (its steps are
+  one SPMD program over an `('mp',)` mesh; here the engine runs each
+  shard's work in turn). The pools are head-sharded (`[layers, blocks,
+  block_size, heads / N, head_dim]` a shard on its device, the block
+  tables, allocator, prefix cache, COW and QoS unchanged), the weights a
+  column-parallel snapshot (`_tp_plan`, `_build_tp_state`; int8 codes and
+  scales quantized on the original layout, then regrouped and sharded),
+  the adapter pool's B pages sharded alike; int8 KV grids stay global
+  (each write folds the shards' absmax). The greedy argmax, the acceptance
+  walk and the draws run once, on the gathered logits on the first
+  shard's device. A mesh may name one device N times (a virtual mesh: the
+  same per-shard work on one card, or on the CPU), as JAX's CPU tests run
+  its meshes on faked host devices. `refresh_weights()` re-shards after a
+  weight edit.
 
 The pools (and scales) are updated IN PLACE by every step (PyTorch is
 eager: there is no compiled step, no donation, no trace count). Greedy
 output matches `GPTForCausalLM.generate(use_cache=True)` per request, with
 or without speculation; int8 pools hold to the JAX int8 engine instead.
 
-Left for later slices (ROADMAP Queue A): the async drafter thread,
-tensor parallelism, the metrics registry (with the adapter gauges and the
+Left for later slices (ROADMAP Queue A): the async drafter thread, the
+metrics registry (with the mesh gauges, the adapter gauges and the
 adapter-labelled TTFT/TPOT histograms: `metrics_snapshot` and
 `render_prometheus` raise), tracing and the flight recorder, the async core
 (with its adapter prefetch) and the fleet handoff (with the fleet's
@@ -95,9 +111,13 @@ import torch
 
 from ..adapters import AdapterRegistry, PagedAdapterPool
 from ..device import resolve_device
+from ..distributed import serving_mesh
+from ..models.gpt import TensorParallel
 from ..ops.lora import LoraState
 from ..ops.paged_attention import (KV_QUANT_EPS, copy_pool_block,
-                                   paged_prefill_write, resolve_backend)
+                                   paged_prefill_write,
+                                   paged_prefill_write_shards,
+                                   resolve_backend)
 from ..ops.sampling import sample_token, verify_window
 from ..quantization import quantize_absmax
 from .sampling import SamplingParams, key_row
@@ -220,10 +240,19 @@ class PagedKVCache:
     `[layers, num_blocks, 2]` f32 holds each block's K (column 0) and V
     (column 1) grid, filled with `KV_QUANT_EPS`; `dtype` stays the model
     dtype the attention output casts back to. Without it `scales` is
-    None."""
+    None.
+
+    `mesh` (a `distributed.ServingMesh`) head-shards the pools: `kpools`
+    and `vpools` hold one `shard_spec()` plane a shard, on its device, and
+    `scale_shards` the int8 scales a shard (replicated: one tensor a
+    distinct device, shards on one device share it; `scales` is the first
+    shard's). `pool_spec()` stays the logical whole; the block tables,
+    allocator, refcounts and prefix cache do not depend on the mesh.
+    Without a mesh `kpools == [kpool]`."""
 
     def __init__(self, num_layers, num_blocks, block_size, num_heads,
-                 head_dim, dtype=torch.float32, device=None, kv_dtype=None):
+                 head_dim, dtype=torch.float32, device=None, kv_dtype=None,
+                 mesh=None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null "
                              "block)")
@@ -238,15 +267,37 @@ class PagedKVCache:
         self.head_dim = int(head_dim)
         self.kv_dtype = kv_dtype
         self.dtype = dtype
-        self.device = resolve_device(device)
-        shape, dt = self.pool_spec()
-        self.kpool = torch.zeros(shape, dtype=dt, device=self.device)
-        self.vpool = torch.zeros(shape, dtype=dt, device=self.device)
-        self.scales = None
+        # tensor-parallel serving: the pools sharded on the HEADS axis (one
+        # plane pair a shard); the block tables stay host-side and
+        # replicated, so the allocator, prefix cache and COW below do not
+        # depend on the mesh
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            devices = (self.device,)
+        else:
+            mp = mesh.shape["mp"]
+            if self.num_heads % mp:
+                raise ValueError(
+                    f"num_heads={num_heads} not divisible by mp "
+                    f"degree {mp} — cannot head-shard the KV pools")
+            devices = mesh.devices
+            self.device = devices[0]
+        shape, dt = self.shard_spec()
+        self.kpools = [torch.zeros(shape, dtype=dt, device=d)
+                       for d in devices]
+        self.vpools = [torch.zeros(shape, dtype=dt, device=d)
+                       for d in devices]
+        self.scale_shards = self.scales = None
         if kv_dtype == "int8":
             shape, dt = self.scale_spec()
-            self.scales = torch.full(shape, KV_QUANT_EPS, dtype=dt,
-                                     device=self.device)
+            # the per-(layer, block) grids are GLOBAL across the
+            # head-sharded pools (every write folds the shards' absmax), so
+            # the array replicates
+            reps = {d: torch.full(shape, KV_QUANT_EPS, dtype=dt, device=d)
+                    for d in dict.fromkeys(devices)}
+            self.scale_shards = [reps[d] for d in devices]
+            self.scales = self.scale_shards[0]
         # LIFO free list: recently-freed blocks are reused first
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._ref = [0] * self.num_blocks
@@ -256,11 +307,39 @@ class PagedKVCache:
         self._evictable = OrderedDict()   # refcount-0 cached, oldest first
 
     def pool_spec(self):
-        """`([layers, blocks, block_size, heads, head_dim], dtype)`: int8
-        under `kv_dtype="int8"`."""
+        """The ONE source of truth for a pool plane's logical `([layers,
+        blocks, block_size, heads, head_dim], dtype)`: int8 under
+        `kv_dtype="int8"`. The shards' planes derive from it
+        (`shard_spec`)."""
         dt = torch.int8 if self.kv_dtype == "int8" else self.dtype
         return ((self.num_layers, self.num_blocks, self.block_size,
                  self.num_heads, self.head_dim), dt)
+
+    @property
+    def mp_degree(self):
+        return 1 if self.mesh is None else self.mesh.shape["mp"]
+
+    def shard_spec(self):
+        """One shard's plane: `pool_spec()` with `heads / mp` heads."""
+        (L, nb, bs, heads, d), dt = self.pool_spec()
+        return (L, nb, bs, heads // self.mp_degree, d), dt
+
+    def _one(self, planes, name):
+        if len(planes) != 1:
+            raise AttributeError(
+                f"the pools are head-sharded over {len(planes)} shards: "
+                f"read {name}s (a plane a shard)")
+        return planes[0]
+
+    @property
+    def kpool(self):
+        """The K pool (one device; under a mesh see `kpools`)."""
+        return self._one(self.kpools, "kpool")
+
+    @property
+    def vpool(self):
+        """The V pool (one device; under a mesh see `vpools`)."""
+        return self._one(self.vpools, "vpool")
 
     def scale_spec(self):
         """`([layers, blocks, 2], float32)` for int8 pools, else None."""
@@ -269,12 +348,11 @@ class PagedKVCache:
         return ((self.num_layers, self.num_blocks, 2), torch.float32)
 
     def pool_nbytes(self):
-        """Bytes of the paged KV state: both pools plus the scales."""
-        n = sum(t.numel() * t.element_size()
-                for t in (self.kpool, self.vpool))
-        if self.scales is not None:
-            n += self.scales.numel() * self.scales.element_size()
-        return n
+        """Bytes of the paged KV state: both pools of every shard plus the
+        scales (each replica the mesh holds)."""
+        held = {id(t): t for t in self.kpools + self.vpools
+                + (self.scale_shards or [])}
+        return sum(t.numel() * t.element_size() for t in held.values())
 
     @property
     def num_free(self):
@@ -302,10 +380,19 @@ class PagedKVCache:
             self._ref[b] = 1
         if got and self.scales is not None:
             # a recycled block's grid belongs to its previous tenant: reset
-            # it to the floor so the new owner's first write sets a fresh
-            # grid
-            self.scales[:, got] = KV_QUANT_EPS
+            # it to the floor (in every replica) so the new owner's first
+            # write sets a fresh grid
+            for sc in {id(t): t for t in self.scale_shards}.values():
+                sc[:, got] = KV_QUANT_EPS
         return got
+
+    def copy_block(self, src, dst):
+        """Copy block `src` to `dst` on every shard, the int8 grid rows
+        riding along (the engine's copy-on-write)."""
+        for i, (kp, vp) in enumerate(zip(self.kpools, self.vpools)):
+            copy_pool_block(kp, vp, src, dst,
+                            None if self.scales is None
+                            else self.scale_shards[i])
 
     def free(self, blocks):
         """Drop one reference per block, deepest first; recycle at zero
@@ -424,30 +511,10 @@ def _resolve_bool_knob(env_name, requested):
     return bool(requested) if requested is not None else False
 
 
-def _resolve_env_mp():
-    """`PADDLE_SERVE_MP` as `_resolve_mesh` parses it: None when unset,
-    else an int >= 1."""
-    env = os.environ.get("PADDLE_SERVE_MP")
-    if env in (None, ""):
-        return None
-    try:
-        mp = int(env)
-    except ValueError:
-        raise ValueError(f"PADDLE_SERVE_MP={env!r} is not an integer")
-    if mp < 1:
-        raise ValueError(f"mp degree must be >= 1, got {mp}")
-    return mp
-
-
 def _refuse_unported_switches():
     """Raise NotImplementedError when a deploy switch of a feature the
     port lacks asks for it, naming the ROADMAP Queue A item that ports
     it; a bad value raises JAX's ValueError. Off and unset pass."""
-    mp = _resolve_env_mp()
-    if mp is not None and mp > 1:
-        raise NotImplementedError(
-            f"PADDLE_SERVE_MP={mp}: tensor-parallel serving is not ported "
-            "yet (ROADMAP Queue A 10)")
     for name, item in (("PADDLE_SERVE_TRACING", "11"),
                        ("PADDLE_SERVE_ASYNC", "11")):
         if _resolve_bool_knob(name, None):
@@ -534,6 +601,12 @@ class GenerationEngine:
     engine pages for) turns on multi-tenant LoRA serving over a pool of
     `adapter_pool_pages` pages (`1 + num_slots` by default), in the
     model's dtype.
+    `mp_degree=N` (or `mesh=`, a `distributed.serving_mesh(N, ...)`; or
+    `PADDLE_SERVE_MP`, which wins) serves tensor-parallel over N shards:
+    the default mesh is the host's first N cards (or the CPU N times for
+    `device="cpu"`); a virtual mesh on one card is passed as
+    `mesh=serving_mesh(N, devices=["cuda"] * N)`. `mp_degree` and `mesh`
+    (None at 1) read back what was resolved.
     `attention_backend` (`auto` by default) is resolved once into
     `attention_backend` (`dense` or `pallas`); `auto` is dense at head dims
     and block sizes the kernels do not take. Counters: `tokens_generated`,
@@ -554,13 +627,16 @@ class GenerationEngine:
                  spec_decode_k=0, drafter=None, kv_dtype=None,
                  attention_backend=None, prefill_buckets=None,
                  weight_dtype=None, sampling=None, adapters=None,
-                 adapter_pool_pages=None):
+                 adapter_pool_pages=None, mesh=None, mp_degree=None):
         cfg = model.config
         if model.training and cfg.dropout > 0:
             raise ValueError("GenerationEngine decodes deterministically "
                              "(no dropout) — call model.eval() first")
         _refuse_unported_switches()
         self.device = resolve_device(device)
+        self._resolve_mesh(mesh, mp_degree, cfg)
+        if self.mesh is not None:
+            self.device = self.mesh.devices[0]
         wte = model.gpt.wte.weight
         if wte.device.type != self.device.type:
             raise ValueError(f"the model lives on {wte.device}, the engine "
@@ -629,8 +705,10 @@ class GenerationEngine:
                                            sampling)
         self._seed_counter = 0
         # int8 weights: the snapshot the paged forwards read, one dict a
-        # layer; None serves the live weights
+        # layer; None serves the live weights. Under a mesh the
+        # tensor-parallel snapshot (`TensorParallel`, int8 or fp) instead
         self._qweights = None
+        self._tp = None
         self.quantize_weights()
         # default pool: every slot at full context (+ the null block)
         self.cache = PagedKVCache(
@@ -638,7 +716,7 @@ class GenerationEngine:
             int(num_blocks or 1 + self.num_slots * self.max_blocks),
             self.block_size, cfg.num_heads,
             cfg.hidden_size // cfg.num_heads, dtype=wte.dtype,
-            device=self.device, kv_dtype=self.kv_dtype)
+            device=self.device, kv_dtype=self.kv_dtype, mesh=self.mesh)
         self._resolve_adapters(adapters, adapter_pool_pages, cfg, wte.dtype)
         if self.chunked_prefill:
             self.prefill_buckets = ()
@@ -670,6 +748,152 @@ class GenerationEngine:
         self.sampled_tokens = 0
         self.prefill_first_tokens = 0
 
+    # -- tensor-parallel serving (mesh) --------------------------------------
+    def _resolve_mesh(self, mesh, mp_degree, cfg):
+        """Resolve (mesh, mp_degree, env) to the serving mesh, as JAX's
+        `_resolve_mesh`: `PADDLE_SERVE_MP` wins; an explicit mesh must
+        agree with it and must carry an 'mp' axis; degree 1 means one
+        device (no mesh). The default mesh is `serving_mesh(N)` on the
+        engine's device type. Validates the Megatron divisibility
+        constraints up front."""
+        env = os.environ.get("PADDLE_SERVE_MP")
+        env_mp = None
+        if env not in (None, ""):
+            try:
+                env_mp = int(env)
+            except ValueError:
+                raise ValueError(
+                    f"PADDLE_SERVE_MP={env!r} is not an integer")
+        requested = env_mp if env_mp is not None else \
+            (int(mp_degree) if mp_degree is not None else None)
+        if mesh is not None:
+            if "mp" not in getattr(mesh, "axis_names", ()):
+                raise ValueError(
+                    "serving mesh needs an 'mp' axis — build one with "
+                    "distributed.serving_mesh(mp)")
+            mesh_mp = mesh.shape["mp"]
+            if requested is not None and requested != mesh_mp:
+                raise ValueError(
+                    f"mesh mp axis has {mesh_mp} devices but "
+                    + ("PADDLE_SERVE_MP" if env_mp is not None
+                       else "mp_degree")
+                    + f"={requested} — drop one of the two")
+            self.mp_degree = int(mesh_mp)
+            self.mesh = mesh if self.mp_degree > 1 else None
+        else:
+            self.mp_degree = 1 if requested is None else int(requested)
+            if self.mp_degree < 1:
+                raise ValueError(
+                    f"mp degree must be >= 1, got {self.mp_degree}")
+            self.mesh = None if self.mp_degree == 1 else serving_mesh(
+                self.mp_degree, devices=[self.device] * self.mp_degree
+                if self.device.type == "cpu" else None)
+        if self.mp_degree > 1:
+            # fail HERE with the shape story, not deep in a per-shard
+            # reshape (the serving_mesh contract, re-checked for an
+            # explicitly passed mesh too)
+            serving_mesh(self.mp_degree, num_heads=cfg.num_heads,
+                         vocab_size=cfg.vocab_size,
+                         devices=self.mesh.devices)
+            if cfg.intermediate_size % self.mp_degree:
+                raise ValueError(
+                    f"intermediate_size={cfg.intermediate_size} is not "
+                    f"divisible by mp degree {self.mp_degree} — cannot "
+                    "column-shard the MLP")
+            kinds = {d.type for d in self.mesh.devices}
+            if kinds != {self.device.type}:
+                raise ValueError(
+                    f"the mesh's devices {sorted(kinds)} are not the "
+                    f"engine's {self.device.type}")
+
+    def _tp_plan(self):
+        """id(parameter) -> (transform, shard axis 0): the Megatron
+        column-parallel serving layout in torch's `[out, in]` terms. The
+        qkv weight regroups head-major (`[heads, 3, D, H]`, its bias
+        `[heads, 3, D]`) so that a contiguous heads slice holds complete
+        (q, k, v) triples for ITS heads; out_proj, fc1 and fc2 shard
+        their output rows (full-length dots, gathered activations: exact
+        against mp=1, DESIGN_DECISIONS r12); wte shards its vocab rows.
+        The layer norms and wpe replicate."""
+        D = self.model.config.hidden_size // self.model.config.num_heads
+
+        def qkv_w(w):                  # [3H, in] -> [heads, 3, D, in]
+            return w.reshape(3, -1, D, w.shape[1]).permute(1, 0, 2, 3)
+
+        def qkv_b(b):                  # [3H] -> [heads, 3, D]
+            return b.reshape(3, -1, D).permute(1, 0, 2)
+
+        gpt = self.model.gpt
+        plan = {id(gpt.wte.weight): (None, 0)}
+        for blk in gpt.blocks:
+            attn, mlp = blk.attn, blk.mlp
+            plan[id(attn.qkv_proj.weight)] = (qkv_w, 0)
+            if attn.qkv_proj.bias is not None:
+                plan[id(attn.qkv_proj.bias)] = (qkv_b, 0)
+            for lin in (attn.out_proj, mlp.fc1, mlp.fc2):
+                plan[id(lin.weight)] = (None, 0)
+                if lin.bias is not None:
+                    plan[id(lin.bias)] = (None, 0)
+        return plan
+
+    def _build_tp_state(self):
+        """The tensor-parallel snapshot (`models.gpt.TensorParallel`): each
+        parameter of `_tp_plan` transformed, split on its shard axis and
+        copied to each shard's device in torch's serving layout (a
+        weight's `[out / mp, in]` rows, a bias's `[out / mp]`); under
+        `weight_dtype="int8"` each served weight is quantized per output
+        channel on its ORIGINAL layout first, and its codes and scales
+        take the weight's transform and split. The layer norms and wpe are
+        copied once to each distinct device."""
+        mesh, model = self.mesh, self.model
+        mp = mesh.shape["mp"]
+        plan = self._tp_plan()
+        quant = {id(lin.weight) for layer in self._weight_quant_plan()
+                 for lin in layer.values()} \
+            if self.weight_dtype == "int8" else set()
+
+        def copy(t, dev):
+            return torch.empty(t.shape, dtype=t.dtype,
+                               device=dev).copy_(t)
+
+        def split(t, transform):
+            g = t if transform is None else transform(t)
+            n = g.shape[0] // mp
+            return [copy(g[r * n:(r + 1) * n].reshape(-1, *t.shape[1:]),
+                         dev) for r, dev in enumerate(mesh.devices)]
+
+        def entries(lin):
+            w, b = lin.weight.detach(), lin.bias
+            t_w = plan[id(lin.weight)][0]
+            bs = [None] * mp if b is None \
+                else split(b.detach(), plan[id(b)][0])
+            if id(lin.weight) not in quant:
+                return list(zip(split(w, t_w), bs))
+            q, sc = quantize_absmax(w, axis=0)
+            return list(zip(split(q, t_w), split(sc, t_w), bs))
+
+        gpt = model.gpt
+        with torch.no_grad():
+            wte = split(gpt.wte.weight.detach(), None)
+            layers = [{name: entries(lin) for name, lin in layer.items()}
+                      for layer in self._weight_quant_plan()]
+            shards = [{"wte": wte[r],
+                       "layers": [{name: e[r] for name, e in lay.items()}
+                                  for lay in layers]}
+                      for r in range(mp)]
+            eps = model.config.layer_norm_epsilon
+
+            def norm(ln, dev):
+                return (copy(ln.weight.detach(), dev),
+                        copy(ln.bias.detach(), dev))
+
+            replicas = {dev: {"wpe": copy(gpt.wpe.weight.detach(), dev),
+                              "ln1": [norm(b.ln1, dev) for b in gpt.blocks],
+                              "ln2": [norm(b.ln2, dev) for b in gpt.blocks],
+                              "ln_f": norm(gpt.ln_f, dev), "eps": eps}
+                        for dev in mesh.distinct}
+        return TensorParallel(mesh, shards, replicas)
+
     # -- multi-tenant adapter serving (paged batched LoRA) -----------------
     def _resolve_adapters(self, adapters, pages, cfg, dtype):
         """Wire the paged adapter pool: an AdapterRegistry builds a pool on
@@ -689,6 +913,12 @@ class GenerationEngine:
             if pages is not None:
                 raise ValueError("adapter_pool_pages conflicts with a "
                                  "prebuilt PagedAdapterPool")
+            if adapters.mesh != self.mesh:
+                raise ValueError(
+                    "the prebuilt adapter pool's mesh differs from "
+                    "the engine's — build it with the engine's mesh "
+                    "(or pass the registry and let the engine build "
+                    "the pool)")
             if adapters.device != self.device:
                 raise ValueError(
                     f"the prebuilt adapter pool lives on {adapters.device}, "
@@ -708,7 +938,8 @@ class GenerationEngine:
             reg = adapters
             pool = PagedAdapterPool(
                 reg, num_pages=int(pages) if pages is not None
-                else 1 + self.num_slots, dtype=dtype, device=self.device)
+                else 1 + self.num_slots, dtype=dtype, device=self.device,
+                mesh=self.mesh)
         else:
             raise TypeError(
                 "adapters= takes an AdapterRegistry or a "
@@ -778,13 +1009,17 @@ class GenerationEngine:
 
     def _lora(self, slots):
         """The step's `LoraState` over `slots` (None for an idle lane,
-        which rides the null page 0), or None without adapters."""
+        which rides the null page 0), or None without adapters; under a
+        mesh one a shard, over its B columns."""
         if self.adapter_pool is None:
             return None
         pages = np.asarray([0 if s is None else s.adapter_page
                             for s in slots], np.int32)
-        return LoraState(self.adapter_pool.arrays(),
-                         self._device_int32(pages))
+        if self._tp is None:
+            return LoraState(self.adapter_pool.arrays(),
+                             self._device_int32(pages))
+        return [LoraState(self.adapter_pool.arrays(r), rows, head_major=True)
+                for r, rows in enumerate(self._tp.put(pages))]
 
     def metrics_snapshot(self):
         """Not ported: the metrics registry (with the adapter gauges and
@@ -804,7 +1039,9 @@ class GenerationEngine:
         """The weights served int8, one dict a layer of name -> Linear:
         the attention's qkv and out and the MLP's fc1 and fc2 (the
         per-step weight read). Embeddings, norms, biases and the tied
-        head stay fp."""
+        head stay fp. Under a mesh their codes and per-output-channel
+        scales take the weight's `_tp_plan` grouping (qkv head-major) and
+        split, so scales shard exactly like their rows."""
         return [{"qkv_proj": b.attn.qkv_proj, "out_proj": b.attn.out_proj,
                  "fc1": b.mlp.fc1, "fc2": b.mlp.fc2}
                 for b in self.model.gpt.blocks]
@@ -819,18 +1056,30 @@ class GenerationEngine:
                     for layer in self._weight_quant_plan()]
 
     def quantize_weights(self):
-        """(Re)build the int8 weight snapshot under `weight_dtype="int8"`;
-        a no-op for the fp engine, which reads the live weights."""
-        if self.weight_dtype == "int8":
+        """(Re)build the served weight snapshot: the tensor-parallel one
+        under a mesh (fp or int8), else the int8 one under
+        `weight_dtype="int8"`; a no-op for the fp engine on one device,
+        which reads the live weights."""
+        if self.mesh is not None:
+            self._tp = self._build_tp_state()
+        elif self.weight_dtype == "int8":
             self._qweights = self._build_quant_state()
 
     def refresh_weights(self):
-        """Re-quantize the snapshot from the live parameters: call after
-        a weight update (an fp engine never needs it)."""
+        """Re-snapshot (re-shard and/or re-quantize) the served weights
+        from the live parameters: call after a weight update (an fp engine
+        on one device never needs it)."""
         self.quantize_weights()
 
     def weight_snapshot_nbytes(self):
-        """Bytes of the int8 snapshot's codes (0 for an fp engine)."""
+        """Bytes of the snapshot's weight matrices: the int8 codes on one
+        device; under a mesh every shard's qkv, out, fc1 and fc2 rows
+        (codes or fp) and wte rows. 0 for an fp engine on one device."""
+        if self._tp is not None:
+            return sum(t.numel() * t.element_size()
+                       for sh in self._tp.shards
+                       for t in [sh["wte"]] + [e[0] for lay in sh["layers"]
+                                               for e in lay.values()])
         return sum(q.numel() * q.element_size()
                    for layer in self._qweights or ()
                    for q, _ in layer.values())
@@ -1082,14 +1331,16 @@ class GenerationEngine:
             tokens[0, :plen] = req.prompt
             row = np.zeros(self.max_blocks, np.int32)
             row[:need] = blocks
-            c = self.cache
+            kp, vp, sc = self._pools()
             with torch.no_grad():
                 hidden, ks, vs = self.model.gpt.forward_prefill(
-                    self._device_int32(tokens), self._qweights,
-                    self._lora([slot]))
-                paged_prefill_write(c.kpool, c.vpool, ks, vs,
-                                    self._device_int32(row), plen, c.scales)
-                first = self._first_of(hidden[0, plen - 1], slot, plen)
+                    self._put(tokens), self._qweights, self._lora([slot]),
+                    tp=self._tp)
+                (paged_prefill_write if self._tp is None
+                 else paged_prefill_write_shards)(
+                    kp, vp, ks, vs, self._put(row), plen, sc)
+                first = self._first_of(self._row(hidden, (0, plen - 1)),
+                                       slot, plen)
             self._emit(i, [first])
         return admitted
 
@@ -1097,7 +1348,7 @@ class GenerationEngine:
         """A prompt's first generated token from its last real position's
         hidden state: the argmax, or under sampling a draw that folds
         `plen - 1` (the key a full-prefix-hit decode would fold for it)."""
-        logits = self.model._logits_of(h_last)
+        logits = self.model._logits_of(h_last, self._tp)
         self.prefill_first_tokens += 1
         if not self.sampling:
             return int(logits.argmax(-1))
@@ -1107,6 +1358,30 @@ class GenerationEngine:
 
     def _device_int32(self, arr):
         return torch.from_numpy(arr).to(self.device)
+
+    def _put(self, arr):
+        """A host array as the model's forwards take it: on the engine's
+        device, or under a mesh on every shard's (a per-shard list)."""
+        if self._tp is None:
+            return self._device_int32(arr)
+        return self._tp.put(arr)
+
+    def _pools(self):
+        """The cache's (K pools, V pools, scales) as the forwards take
+        them: tensors, or under a mesh per-shard lists."""
+        c = self.cache
+        if self._tp is None:
+            return c.kpool, c.vpool, c.scales
+        return c.kpools, c.vpools, c.scale_shards
+
+    def _row(self, hidden, index):
+        """`hidden[index]`, of every shard's replica under a mesh."""
+        if self._tp is None:
+            return hidden[index]
+        return [h[index] for h in hidden]
+
+    def _first_shard(self, t):
+        return t if self._tp is None else t[0]
 
     def _prefill_step(self):
         """Run at most ONE prefill chunk: the neediest prefilling lane
@@ -1137,19 +1412,18 @@ class GenerationEngine:
             tokens[0, :end - start] = req.prompt[start:end]
             row = np.zeros(self.max_blocks, np.int32)
             row[:len(slot.blocks)] = slot.blocks
-            c = self.cache
+            kp, vp, sc = self._pools()
             with torch.no_grad():
                 hidden = self.model.gpt.forward_prefill_chunk(
-                    self._device_int32(tokens), start, c.kpool, c.vpool,
-                    self._device_int32(row), plen, c.scales, self._qweights,
-                    self._lora([slot]))
+                    self._put(tokens), start, kp, vp, self._put(row), plen,
+                    sc, self._qweights, self._lora([slot]), tp=self._tp)
                 self.prefill_chunks += 1
                 slot.prefill_pos = end
                 if end < plen:
                     return 1
                 # the last real prompt position gives the first token
-                first = self._first_of(hidden[0, plen - 1 - start], slot,
-                                       plen)
+                first = self._first_of(
+                    self._row(hidden, (0, plen - 1 - start)), slot, plen)
             if self.enable_prefix_cache:
                 # the prompt's KV is fully written: publish its full blocks
                 # under the request's adapter-salted chain
@@ -1171,9 +1445,8 @@ class GenerationEngine:
                 self.stalls["decode"] += 1
             return False
         src, dst = slot.blocks[bi], got[0]
-        # int8 pools: the block's grid rides the copy
-        copy_pool_block(self.cache.kpool, self.cache.vpool, src, dst,
-                        self.cache.scales)
+        # every shard's rows; int8 pools: the block's grid rides the copy
+        self.cache.copy_block(src, dst)
         self.cache.free([src])         # drop our shared reference
         slot.blocks[bi] = dst
         self.cow_copies += 1
@@ -1227,19 +1500,19 @@ class GenerationEngine:
             tokens[i, 0] = slot.feed_token
             positions[i] = slot.feed_pos
             tables[i, :len(slot.blocks)] = slot.blocks
-        c = self.cache
+        kp, vp, sc = self._pools()
         with torch.no_grad():
-            pos = self._device_int32(positions)
+            pos = self._put(positions)
             hidden = self.model.gpt.forward_decode_paged(
-                self._device_int32(tokens), pos, c.kpool, c.vpool,
-                self._device_int32(tables), c.scales, self.attention_backend,
-                self._qweights, self._lora(self._lane_slots(runnable)))
-            logits = self.model._logits_of(hidden)[:, 0]
+                self._put(tokens), pos, kp, vp, self._put(tables), sc,
+                self.attention_backend, self._qweights,
+                self._lora(self._lane_slots(runnable)), tp=self._tp)
+            logits = self.model._logits_of(hidden, self._tp)[:, 0]
             if self.sampling:
                 # greedy rows take the argmax, sampled rows one draw keyed
                 # by (seed, the feed position)
                 nxt = sample_token(logits, *self._sampling_rows(self._slots),
-                                   pos)
+                                   self._first_shard(pos))
             else:
                 nxt = logits.argmax(-1)
             nxt = nxt.cpu().numpy()
@@ -1335,20 +1608,21 @@ class GenerationEngine:
             positions[i] = slot.feed_pos
             dlens[i] = len(d)
             tables[i, :len(slot.blocks)] = slot.blocks
-        c = self.cache
+        kp, vp, sc = self._pools()
         with torch.no_grad():
-            toks, pos, dl = (self._device_int32(a)
-                             for a in (tokens, positions, dlens))
+            toks, pos, dl = (self._put(a) for a in (tokens, positions, dlens))
             hidden = self.model.gpt.forward_verify_paged(
-                toks, pos, dl, c.kpool, c.vpool,
-                self._device_int32(tables), c.scales, self.attention_backend,
-                self._qweights, self._lora(self._lane_slots(runnable)))
-            logits = self.model._logits_of(hidden)
+                toks, pos, dl, kp, vp, self._put(tables), sc,
+                self.attention_backend, self._qweights,
+                self._lora(self._lane_slots(runnable)), tp=self._tp)
+            logits = self.model._logits_of(hidden, self._tp)
             if self.sampling:
                 # rejection-sampling acceptance over the window: per-row
                 # coins and the residual or bonus draws
-                out = verify_window(logits, toks, dl,
-                                    *self._sampling_rows(self._slots), pos)
+                first = self._first_shard
+                out = verify_window(logits, first(toks), first(dl),
+                                    *self._sampling_rows(self._slots),
+                                    first(pos))
                 out = tuple(t.cpu().numpy() for t in out)
             else:
                 out = logits.argmax(-1).cpu().numpy()

@@ -10,7 +10,7 @@ Ported: what serving runs (`forward`, the prefill and decode paths of
 KV scales those paths thread) and what training runs (`forward` with
 labels and `loss_fn`, dropout where the JAX model applies it, backward
 through the causal attention kernels, `num_params`, `flops_per_token`).
-Tensor parallelism is a later slice. The paged paths update the pools
+The paged paths update the pools
 (and, with `kv_scales`, the `[layers, num_blocks, 2]` scale array) IN PLACE
 and return only the hidden states. The serving forwards (`forward_prefill`
 and the paged paths) also take `qweights`, the serving engine's int8 weight
@@ -21,6 +21,20 @@ every other path, reads the live ones), and `lora`, an `ops.lora.LoraState`
 (multi-tenant adapter serving), whose per-slot low-rank delta each of those
 four projections adds to its output (`ops.lora.batched_lora`); a slot on
 the null adapter's page adds exact zeros.
+
+Tensor-parallel serving (the serving forwards' `tp`, a `TensorParallel`
+built by the engine: the counterpart of JAX's `mp_axis` and the engine's
+`_tp_arrays`): Megatron column parallelism, never a sum of partial
+products. Each shard holds the qkv weight head-grouped (its heads' q, k
+and v rows together), out_proj, fc1 and fc2 by output columns and wte by
+vocab rows; its dots stay full length over the gathered activation, and
+`_mp_all_gather` puts the columns back together, four times a layer; the
+embedding is vocab-parallel (`_vocab_parallel_embed`) and the logits are
+gathered once. Norms, residuals and wpe are replicated, computed once per
+distinct device of the mesh. Sharded activations are lists of per-shard
+tensors in mesh order, and so are the replicated ones (shards on one
+device share one tensor). Without `tp` the forwards are the single-device
+ones, unchanged.
 """
 from __future__ import annotations
 
@@ -31,14 +45,18 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..ops.int8_linear import int8_linear
 from ..ops.nn_ops import cross_entropy, dropout, scaled_dot_product_attention
 from ..ops.paged_attention import (paged_attention_step,
-                                   paged_prefill_chunk, paged_verify_window)
+                                   paged_attention_step_shards,
+                                   paged_prefill_chunk,
+                                   paged_prefill_chunk_shards,
+                                   paged_verify_window,
+                                   paged_verify_window_shards)
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "GPTBlock",
-           "GPTAttention", "GPTMLP"]
+           "GPTAttention", "GPTMLP", "TensorParallel"]
 
 
 @dataclass
@@ -97,6 +115,105 @@ def _linear(lin, x, qw, name, lora=None, layer=None):
     return y
 
 
+# -- tensor parallel (the serving forwards' `tp`) ----------------------------
+
+def _mp_gather_to(parts, device):
+    return torch.cat([p.to(device) for p in parts], dim=-1)
+
+
+def _mp_all_gather(parts, mesh):
+    """Concatenate a column-parallel activation's shards (a list in mesh
+    order) along the LAST axis and place the result on every shard's
+    device, computed once per distinct device: the tiled all-gather of
+    JAX's `_mp_all_gather`. Mesh order is the engine's head and column
+    order, and gathering is pure data movement, so the result is the
+    unsharded activation bit for bit."""
+    on = {dev: _mp_gather_to(parts, dev) for dev in mesh.distinct}
+    return [on[d] for d in mesh.devices]
+
+
+def _vocab_parallel_embed(weights, token_ids, mesh):
+    """Embedding lookup over a vocab-sharded table (JAX's
+    `_vocab_parallel_embed`): `weights` each shard's `[V/mp, H]` rows,
+    `token_ids` each shard's copy of the ids. Each shard gathers the rows
+    it owns and zeroes the rows of ids it does not own; the shards' rows
+    are then summed in mesh order on every distinct device. Every id hits
+    exactly one shard, so the sum adds exact zeros: the unsharded gather,
+    bit for bit."""
+    rows = []
+    for r, (w, ids) in enumerate(zip(weights, token_ids)):
+        vl = w.shape[0]
+        loc = ids.long() - r * vl
+        inb = (loc >= 0) & (loc < vl)
+        got = F.embedding(torch.clamp(loc, 0, vl - 1), w)
+        rows.append(torch.where(inb[..., None], got,
+                                torch.zeros((), dtype=w.dtype,
+                                            device=w.device)))
+    out = {}
+    for dev in mesh.distinct:
+        total = rows[0].to(dev)
+        for x in rows[1:]:
+            total = total + x.to(dev)
+        out[dev] = total
+    return [out[d] for d in mesh.devices]
+
+
+class TensorParallel:
+    """The tensor-parallel context of the serving forwards: `mesh` (a
+    `distributed.ServingMesh`), `shards` (one dict a shard, in mesh order:
+    `"wte"` its `[V/mp, H]` vocab rows, `"layers"` one dict a layer of
+    `qkv_proj`, `out_proj`, `fc1` and `fc2` to `(weight, bias)` or, int8,
+    `(codes, scale, bias)`, torch's `[out, in]` layout over the shard's
+    output columns, qkv head-grouped) and `replicas` (one dict a distinct
+    device: `"wpe"`, `"ln1"` and `"ln2"` a `(weight, bias)` a layer,
+    `"ln_f"`, `"eps"`). The serving engine builds it (`_build_tp_state`)
+    on each shard's device."""
+
+    def __init__(self, mesh, shards, replicas):
+        self.mesh = mesh
+        self.shards = shards
+        self.replicas = replicas
+
+    def put(self, t):
+        """A host tensor (or numpy array) copied to every shard's device,
+        once per distinct device: a per-shard list."""
+        if not torch.is_tensor(t):
+            t = torch.from_numpy(t)
+        on = {dev: t.to(dev) for dev in self.mesh.distinct}
+        return [on[d] for d in self.mesh.devices]
+
+    def rep(self, fn, *xs):
+        """Replicated work: `fn(replica, *args)` once per distinct device,
+        on the first shard of that device's arguments of the per-shard
+        lists `xs`; returns a per-shard list."""
+        out = {}
+        for r, dev in enumerate(self.mesh.devices):
+            if dev not in out:
+                out[dev] = fn(self.replicas[dev], *(x[r] for x in xs))
+        return [out[d] for d in self.mesh.devices]
+
+    def layer_norm(self, h, name, layer=None):
+        def ln(rep, x):
+            w, b = rep[name] if layer is None else rep[name][layer]
+            return F.layer_norm(x, (x.shape[-1],), w, b, rep["eps"])
+        return self.rep(ln, h)
+
+    def add(self, a, b):
+        return self.rep(lambda _, x, y: x + y, a, b)
+
+    def linear(self, r, layer, name, x, lora=None):
+        """Shard r's columns of projection `name` at `layer` over the
+        full-length input x, its adapter delta added when `lora` (the
+        per-shard `LoraState` list) is given."""
+        w = self.shards[r]["layers"][layer][name]
+        with on_device(x):
+            y = F.linear(x, w[0], w[1]) if len(w) == 2 \
+                else int8_linear(x, *w)
+            if lora is not None:
+                y = lora[r].add(_LORA_SITE[name], y, x, layer)
+        return y
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
@@ -108,15 +225,37 @@ class GPTAttention(nn.Module):
         self.out_proj = nn.Linear(H, H, **kw)
         self.dropout = config.dropout
 
-    def _qkv_heads(self, x, qw=None, lora=None, layer=None):
+    def _qkv_heads(self, x, qw=None, lora=None, layer=None, tp=None):
         """Per-head q/k/v `[B, S, heads, D]` from the fused projection
-        (3-major reshape), the adapter delta added before the unbind."""
+        (3-major reshape), the adapter delta added before the unbind.
+        Under `tp`: x the per-shard list of the replicated input; each
+        shard's qkv weight is head-grouped (`[heads/mp * 3 * D, H]`, JAX's
+        `[H, heads/mp, 3, D]`), so the same full-length dots give just its
+        heads, as per-shard lists of `[B, S, heads/mp, D]`; its adapter B
+        pages are head-sharded alike."""
+        if tp is not None:
+            B, S, _ = x[0].shape
+            qkv = [tp.linear(r, layer, "qkv_proj", xr, lora).view(
+                B, S, -1, 3, self.head_dim).unbind(3)
+                for r, xr in enumerate(x)]
+            return tuple(list(t) for t in zip(*qkv))
         B, S, _ = x.shape
         qkv = _linear(self.qkv_proj, x, qw, "qkv_proj", lora, layer).view(
             B, S, 3, self.num_heads, self.head_dim)
         return qkv.unbind(2)
 
-    def _attn_out(self, out, B, S, qw=None, lora=None, layer=None):
+    def _attn_out(self, out, B, S, qw=None, lora=None, layer=None,
+                  tp=None):
+        """Merge heads and apply the output projection. Under `tp` the
+        shards' heads are all-gathered to the full `[B, S, H]` input
+        first, each shard projects its output columns (its adapter delta
+        added), and a second gather assembles them."""
+        if tp is not None:
+            full = _mp_all_gather([o.reshape(B, S, -1) for o in out],
+                                  tp.mesh)
+            return _mp_all_gather(
+                [tp.linear(r, layer, "out_proj", xr, lora)
+                 for r, xr in enumerate(full)], tp.mesh)
         return _linear(self.out_proj, out.reshape(B, S, -1), qw, "out_proj",
                        lora, layer)
 
@@ -206,9 +345,20 @@ class GPTMLP(nn.Module):
                              **kw)
         self.dropout = config.dropout
 
-    def forward(self, x, generator=None, qw=None, lora=None, layer=None):
+    def forward(self, x, generator=None, qw=None, lora=None, layer=None,
+                tp=None):
         """fc1, tanh GELU, fc2; `lora` adds the fc1 delta before the
-        activation and the fc2 delta after fc2."""
+        activation and the fc2 delta after fc2. Under `tp` (serving, no
+        dropout) each shard computes its fc1 columns and their GELU, a
+        gather assembles the hidden activation, each shard computes its
+        fc2 columns over it and a second gather assembles them."""
+        if tp is not None:
+            h = _mp_all_gather(
+                [F.gelu(tp.linear(r, layer, "fc1", xr, lora),
+                        approximate="tanh") for r, xr in enumerate(x)],
+                tp.mesh)
+            return _mp_all_gather([tp.linear(r, layer, "fc2", hr, lora)
+                                   for r, hr in enumerate(h)], tp.mesh)
         h = F.gelu(_linear(self.fc1, x, qw, "fc1", lora, layer),
                    approximate="tanh")
         out = _linear(self.fc2, h, qw, "fc2", lora, layer)
@@ -227,6 +377,18 @@ class GPTBlock(nn.Module):
     def forward(self, x, generator=None):
         x = x + self.attn(self.ln1(x), generator)
         return x + self.mlp(self.ln2(x), generator)
+
+    def _forward_tp(self, h, layer, attend, lora, tp):
+        """One layer under tensor parallel: h the per-shard list of the
+        replicated residual stream; `attend(layer, q, k, v)` the paged (or
+        causal) attention over the per-shard heads."""
+        B, S = h[0].shape[:2]
+        x = tp.layer_norm(h, "ln1", layer)
+        q, k, v = self.attn._qkv_heads(x, lora=lora, layer=layer, tp=tp)
+        h = tp.add(h, self.attn._attn_out(attend(layer, q, k, v), B, S,
+                                          lora=lora, layer=layer, tp=tp))
+        x = tp.layer_norm(h, "ln2", layer)
+        return tp.add(h, self.mlp(x, lora=lora, layer=layer, tp=tp))
 
     def forward_prefill(self, x, qw=None, lora=None, layer=None):
         a, k, v = self.attn.forward_prefill(self.ln1(x), qw, lora, layer)
@@ -298,13 +460,55 @@ class GPTModel(nn.Module):
             h = blk(h, g)
         return self.ln_f(h)
 
-    def forward_prefill(self, input_ids, qweights=None, lora=None):
+    def _embed(self, token_ids, tp=None):
+        """Token embedding; under `tp` the vocab-parallel lookup over the
+        shards' wte rows (token_ids per-shard copies)."""
+        if tp is None:
+            return self.wte(token_ids)
+        return _vocab_parallel_embed([s["wte"] for s in tp.shards],
+                                     token_ids, tp.mesh)
+
+    def _embed_tp(self, token_ids, pos_of, tp):
+        """`_embed` plus wpe under `tp`: `pos_of(device)` the positions
+        on a device, looked up once per distinct device."""
+        return tp.rep(lambda rep, e: e + F.embedding(pos_of(e.device),
+                                                     rep["wpe"]),
+                      self._embed(token_ids, tp))
+
+    def _forward_tp(self, h, attend, lora, tp):
+        for i, blk in enumerate(self.blocks):
+            h = blk._forward_tp(h, i, attend, lora, tp)
+        return tp.layer_norm(h, "ln_f")
+
+    def forward_prefill(self, input_ids, qweights=None, lora=None, tp=None):
         """Causal forward over the prompt collecting every layer's k/v,
         stacked `[layers, B, S, heads, D]`; `qweights` the serving engine's
         int8 weight snapshot or None, `lora` the slots' adapter pages
         (`ops.lora.LoraState`) or None. Positions past the position table
         (a bucket wider than it, whose padded tail the engine ignores)
-        clamp into it."""
+        clamp into it. Under `tp` (input_ids, lora per-shard lists) the
+        stacks are per-shard lists of each shard's heads."""
+        if tp is not None:
+            S = input_ids[0].shape[1]
+            ks, vs = [[] for _ in tp.shards], [[] for _ in tp.shards]
+
+            def attend(layer, q, k, v):
+                for r in range(len(q)):
+                    ks[r].append(k[r])
+                    vs[r].append(v[r])
+                out = []
+                for a, b, c in zip(q, k, v):
+                    with on_device(a):
+                        out.append(scaled_dot_product_attention(
+                            a, b, c, is_causal=True))
+                return out
+
+            h = self._embed_tp(input_ids, lambda dev: torch.clamp(
+                torch.arange(S, device=dev), 0, self.config.max_seq_len - 1),
+                tp)
+            h = self._forward_tp(h, attend, lora, tp)
+            return (h, [torch.stack(k) for k in ks],
+                    [torch.stack(v) for v in vs])
         S = input_ids.shape[1]
         pos = torch.clamp(torch.arange(S, device=input_ids.device), 0,
                           self.config.max_seq_len - 1)
@@ -318,13 +522,27 @@ class GPTModel(nn.Module):
 
     def forward_prefill_chunk(self, token_ids, start, kpool, vpool,
                               block_row, plen, kv_scales=None, qweights=None,
-                              lora=None):
+                              lora=None, tp=None):
         """Chunked paged prefill: token_ids `[1, C]`, chunk
         `[start, start + C)` of one slot's prompt padded past `plen`
         (host ints); writes each layer's k/v through `block_row` into the
         pools IN PLACE (int8 pools: quantized, `kv_scales` updated in
         place); `qweights` the int8 weight snapshot or None, `lora` the
-        slot's adapter page or None. Returns hidden `[1, C, H]`."""
+        slot's adapter page or None. Returns hidden `[1, C, H]`. Under
+        `tp` every tensor argument is a per-shard list (the pools each
+        shard's planes, `kv_scales` the replicas) and so is the result."""
+        if tp is not None:
+            C = token_ids[0].shape[1]
+
+            def attend(layer, q, k, v):
+                return paged_prefill_chunk_shards(
+                    q, k, v, kpool, vpool, layer, block_row, start, plen,
+                    scales=kv_scales)
+
+            h = self._embed_tp(token_ids, lambda dev: torch.clamp(
+                start + torch.arange(C, device=dev), 0,
+                self.config.max_seq_len - 1).unsqueeze(0), tp)
+            return self._forward_tp(h, attend, lora, tp)
         C = token_ids.shape[1]
         # padded-tail positions clamp into the wpe table: their rows are
         # garbage the engine ignores, but the gather must stay in bounds
@@ -349,13 +567,24 @@ class GPTModel(nn.Module):
 
     def forward_decode_paged(self, token_ids, positions, kpool, vpool,
                              block_tables, kv_scales=None, backend="pallas",
-                             qweights=None, lora=None):
+                             qweights=None, lora=None, tp=None):
         """Batched decode over the paged pools (updated IN PLACE):
         token_ids `[slots, 1]`, positions `[slots]` int32, block_tables
         `[slots, max_blocks]` int32; int8 pools with `kv_scales`; `backend`
         the paged attention's (`dense` or `pallas`); `qweights` the int8
         weight snapshot or None; `lora` the slots' adapter pages or None.
-        Returns hidden `[slots, 1, H]`."""
+        Returns hidden `[slots, 1, H]`. Under `tp` as
+        `forward_prefill_chunk`."""
+        if tp is not None:
+            def attend(layer, q, k, v):
+                return paged_attention_step_shards(
+                    q, k, v, kpool, vpool, layer, block_tables, positions,
+                    scales=kv_scales, backend=backend)
+
+            pos = dict(zip(tp.mesh.devices, positions))
+            h = self._embed_tp(token_ids,
+                               lambda dev: pos[dev].unsqueeze(1), tp)
+            return self._forward_tp(h, attend, lora, tp)
         h = self.wte(token_ids) + self.wpe(positions).unsqueeze(1)
         for i, blk in enumerate(self.blocks):
             h = blk.forward_decode_paged(h, kpool, vpool, i, block_tables,
@@ -365,7 +594,8 @@ class GPTModel(nn.Module):
 
     def forward_verify_paged(self, token_ids, positions, draft_lens, kpool,
                              vpool, block_tables, kv_scales=None,
-                             backend="pallas", qweights=None, lora=None):
+                             backend="pallas", qweights=None, lora=None,
+                             tp=None):
         """Speculative verify step over the paged pools (updated IN
         PLACE): token_ids `[slots, W]` (the feed token, then up to W-1
         drafted tokens), positions `[slots]` int32 (row 0's absolute
@@ -373,7 +603,21 @@ class GPTModel(nn.Module):
         block_tables `[slots, max_blocks]` int32; int8 pools with
         `kv_scales`; `qweights` the int8 weight snapshot or None; `lora`
         the slots' adapter pages or None. Returns hidden `[slots, W, H]`
-        at every window row."""
+        at every window row. Under `tp` as `forward_prefill_chunk`."""
+        if tp is not None:
+            W = token_ids[0].shape[1]
+
+            def attend(layer, q, k, v):
+                return paged_verify_window_shards(
+                    q, k, v, kpool, vpool, layer, block_tables, positions,
+                    draft_lens, scales=kv_scales, backend=backend)
+
+            pos = dict(zip(tp.mesh.devices, positions))
+            h = self._embed_tp(token_ids, lambda dev: torch.clamp(
+                pos[dev][:, None] + torch.arange(
+                    W, device=dev, dtype=pos[dev].dtype)[None],
+                0, self.config.max_seq_len - 1), tp)
+            return self._forward_tp(h, attend, lora, tp)
         W = token_ids.shape[1]
         # dead rows past a slot's draft may run beyond the position table:
         # their rows are garbage the engine ignores, but the gather must
@@ -454,8 +698,16 @@ class GPTForCausalLM(nn.Module):
         s = seq_len or c.max_seq_len
         return 6 * self.num_params() + 12 * c.num_layers * c.hidden_size * s
 
-    def _logits_of(self, hidden):
-        """Tied-embedding logits: hidden @ wte^T."""
+    def _logits_of(self, hidden, tp=None):
+        """Tied-embedding logits: hidden @ wte^T. Under `tp` (hidden the
+        per-shard list) each shard computes its vocab columns with
+        full-length dots over its wte rows, and one gather assembles the
+        full logits on the first shard's device, where the engine's
+        argmax, acceptance walk and draws run."""
+        if tp is not None:
+            return _mp_gather_to([torch.matmul(h, s["wte"].t())
+                                  for h, s in zip(hidden, tp.shards)],
+                                 tp.mesh.devices[0])
         return torch.matmul(hidden, self.gpt.wte.weight.t())
 
     @torch.no_grad()

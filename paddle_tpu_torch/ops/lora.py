@@ -29,7 +29,9 @@ adds `delta.astype(dtype)` to its base.
   pool, or raises. It counts `.launches` and `.plain_calls`.
 - `LoraState`: one step's view of the pool, the pool tensors plus the
   per-slot `[slots]` int32 page row; the model's serving forwards call
-  `add` per site and layer.
+  `add` per site and layer. Under tensor parallel each shard has its own
+  (`head_major=True`), over its B columns: the kernel launches once a
+  shard a site.
 """
 from __future__ import annotations
 
@@ -173,16 +175,24 @@ class LoraState:
     """One step's view of the adapter pool: the pool tensors (in
     `adapters.adapter_pool_spec` order) plus the per-slot `[B]` int32 page
     row, on the pool's device. Each of the B slots' pages repeats over the
-    S rows of its slot (the verify window, a prefill's positions)."""
+    S rows of its slot (the verify window, a prefill's positions).
 
-    def __init__(self, arrays, rows):
+    `head_major=True` is one tensor-parallel shard's view: its B pages are
+    the shard's output columns, and its qkv base is head-grouped
+    (`[B, S, heads/mp * 3 * D]`, the engine's qkv grouping), the layout of
+    its `b_qkv` slice, so that `add` takes the qkv site as a linear one
+    over the flattened pages (JAX's `lora_qkv_delta(head_major=True)`)."""
+
+    def __init__(self, arrays, rows, head_major=False):
         (self.a_qkv, self.b_qkv, self.a_out, self.b_out,
          self.a_fc1, self.b_fc1, self.a_fc2, self.b_fc2,
          self.scaling) = arrays
         self.rows = rows
+        self.head_major = head_major
 
     def _factors(self, site):
-        return {"qkv": (self.a_qkv, self.b_qkv),
+        b_qkv = self.b_qkv.flatten(3) if self.head_major else self.b_qkv
+        return {"qkv": (self.a_qkv, b_qkv),
                 "out": (self.a_out, self.b_out),
                 "fc1": (self.a_fc1, self.b_fc1),
                 "fc2": (self.a_fc2, self.b_fc2)}[site]

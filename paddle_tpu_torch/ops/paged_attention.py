@@ -35,9 +35,19 @@ rows land), scale rows reset to `KV_QUANT_EPS` when the allocator hands a
 block out. Only the written (engine-guaranteed private) blocks change.
 The decode and verify steps then hand the quantized rows and this layer's
 `[num_blocks, 2]` plane to their int8 kernels (`_decode_kernel_int8`,
-`_verify_kernel_int8`), which dequantize per streamed block. The
-tensor-parallel absmax fold (`_fold_amax`) is the identity on one device
-and is not ported.
+`_verify_kernel_int8`), which dequantize per streamed block.
+
+Tensor-parallel serving (the `*_shards` editions of the steps): the pools
+are head-sharded, one `[layers, num_blocks, block_size, heads / mp,
+head_dim]` plane pair a shard on its device, and each edition takes
+per-shard lists in mesh order (q/k/v, pools, block tables, positions)
+and returns the per-shard outputs. The block tables are the same on every
+shard. Under int8 the per-block grids stay GLOBAL: the scale array is
+replicated (one per distinct device; shards on one device share it), and
+every write folds the shards' absmax candidates with one max over the
+shards in mesh order (`_fold_amax`, exact), so each shard grows and
+requantizes its own heads on the grid mp=1 would choose. One shard is the
+single-device path, bit for bit.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import on_device
 from .paged_decode import (_BLOCK_SIZES, _HEAD_DIMS, paged_decode_attention,
                            paged_decode_attention_int8,
                            paged_decode_int8_plain, paged_decode_plain)
@@ -55,7 +66,9 @@ from .paged_verify import (paged_verify_attention,
 
 __all__ = ["PAGED_BACKENDS", "resolve_backend", "paged_attention_step",
            "paged_verify_window", "paged_prefill_chunk",
-           "paged_prefill_write", "copy_pool_block",
+           "paged_prefill_write", "paged_attention_step_shards",
+           "paged_verify_window_shards", "paged_prefill_chunk_shards",
+           "paged_prefill_write_shards", "copy_pool_block",
            "dense_gather_reference", "KV_QUANT_EPS"]
 
 #: Scale floor of the int8 per-block-quantized KV cache (the JAX package's
@@ -83,19 +96,44 @@ def _quant_rows(rows, s):
         .to(torch.int8)
 
 
-def _grow_blocks(kpool, vpool, scales, layer, bids, amax):
+def _to(t, dev):
+    return t if t.device == dev else t.to(dev)
+
+
+def _distinct(tensors):
+    """Each tensor once (by identity), in order: the scale replicas of a
+    mesh whose shards share a device are one tensor."""
+    return list({id(t): t for t in tensors}.values())
+
+
+def _fold_amax(amaxes):
+    """Per-block scale candidates must cover ALL heads; under a
+    head-sharded mesh each shard sees only its own, so the shards'
+    candidates fold with one max in mesh order, on the first shard's
+    device (exact: max is associative and commutative). One shard's
+    candidates pass through."""
+    out = amaxes[0]
+    for a in amaxes[1:]:
+        out = torch.maximum(out, _to(a, out.device))
+    return out
+
+
+def _grow_blocks(kpools, vpools, scales, layer, bids, amax):
     """Grow the grids of blocks `bids` (any shape) to cover `amax`
-    (`bids.shape + (2,)`, already divided by 127), requantize their rows
-    IN PLACE and store the new scale rows; returns the new scales."""
-    s_old = scales[layer, bids]
+    (`bids.shape + (2,)`, already divided by 127 and folded), requantize
+    every shard's rows of them IN PLACE and store the new scale rows in
+    every replica; returns the new scales (on the first shard's
+    device)."""
+    s_old = scales[0][layer, bids]
     s_new = torch.clamp_min(torch.maximum(s_old, amax), KV_QUANT_EPS)
     fac = s_old / s_new
     tail = (None,) * 3                       # over [bs, heads, D]
-    kpool[layer, bids] = _requant_grow(kpool[layer, bids],
-                                       fac[(..., 0) + tail])
-    vpool[layer, bids] = _requant_grow(vpool[layer, bids],
-                                       fac[(..., 1) + tail])
-    scales[layer, bids] = s_new
+    for kpool, vpool in zip(kpools, vpools):
+        b, f = _to(bids, kpool.device), _to(fac, kpool.device)
+        kpool[layer, b] = _requant_grow(kpool[layer, b], f[(..., 0) + tail])
+        vpool[layer, b] = _requant_grow(vpool[layer, b], f[(..., 1) + tail])
+    for sc in _distinct(scales):
+        sc[layer, _to(bids, sc.device)] = _to(s_new, sc.device)
     return s_new
 
 
@@ -103,35 +141,49 @@ def _row_absmax(x, dims):
     return x.float().abs().amax(dim=dims)
 
 
-def _quant_write_decode(kpool, vpool, scales, k, v, block_tables, positions,
-                        layer):
+def _quant_write_decode_shards(kpools, vpools, scales, ks, vs, block_tables,
+                               positions, layer):
     """Quant-on-write bookkeeping for one decode row per slot (the port of
-    `_quant_write_decode`): grow + requantize each slot's write block and
-    update its scale row, IN PLACE. Returns the quantized new rows
-    `(kq, vq)`, `[slots, heads, D]` int8, not yet written (the kernel
-    lands them)."""
-    bs = kpool.shape[2]
+    `_quant_write_decode`) over a mesh's shards: grow + requantize each
+    slot's write block on every shard and update its scale row, IN PLACE.
+    `block_tables`, `positions`: the first shard's. Returns each shard's
+    quantized new rows `(kq, vq)`, `[slots, heads, D]` int8, not yet
+    written (the kernel lands them)."""
+    bs = kpools[0].shape[2]
     pos = positions.long()
     bid_w = block_tables.long().gather(1, (pos // bs)[:, None])[:, 0]
-    amax = torch.stack([_row_absmax(k[:, 0], (1, 2)),
-                        _row_absmax(v[:, 0], (1, 2))], -1) * _INV127
-    s_new = _grow_blocks(kpool, vpool, scales, layer, bid_w, amax)
-    return (_quant_rows(k[:, 0], s_new[:, 0, None, None]),
-            _quant_rows(v[:, 0], s_new[:, 1, None, None]))
+    amax = _fold_amax([torch.stack([_row_absmax(k[:, 0], (1, 2)),
+                                    _row_absmax(v[:, 0], (1, 2))], -1)
+                       * _INV127 for k, v in zip(ks, vs)])
+    s_new = _grow_blocks(kpools, vpools, scales, layer, bid_w, amax)
+    out = []
+    for k, v in zip(ks, vs):
+        s = _to(s_new, k.device)
+        out.append((_quant_rows(k[:, 0], s[:, 0, None, None]),
+                    _quant_rows(v[:, 0], s[:, 1, None, None])))
+    return out
 
 
-def _quant_write_window(kpool, vpool, scales, k, v, block_tables, positions,
-                        draft_lens, layer):
+def _quant_write_decode(kpool, vpool, scales, k, v, block_tables, positions,
+                        layer):
+    """One device's `_quant_write_decode_shards`: returns `(kq, vq)`."""
+    return _quant_write_decode_shards([kpool], [vpool], [scales], [k], [v],
+                                      block_tables, positions, layer)[0]
+
+
+def _quant_write_window_shards(kpools, vpools, scales, ks, vs, block_tables,
+                               positions, draft_lens, layer):
     """Window edition (the port of `_quant_write_window`): W contiguous
     write positions per slot span a fixed number of candidate table slots,
     `(W - 1) // bs + 2`; dead rows (i > draft_len) stay out of the absmax.
     Candidates past the table route to the null block, so a clamped index
-    never races the real last block's grid. Returns `(kq, vq)`,
-    `[slots, W, heads, D]` int8."""
-    B, W = k.shape[:2]
-    bs = kpool.shape[2]
+    never races the real last block's grid. Index tensors: the first
+    shard's. Returns each shard's `(kq, vq)`, `[slots, W, heads, D]`
+    int8."""
+    B, W = ks[0].shape[:2]
+    bs = kpools[0].shape[2]
     maxb = block_tables.shape[1]
-    dev = k.device
+    dev = block_tables.device
     nb = (W - 1) // bs + 2
     bt = block_tables.long()
     pos = positions.long()
@@ -146,15 +198,29 @@ def _quant_write_window(kpool, vpool, scales, k, v, block_tables, positions,
                        torch.zeros_like(cand))              # [B, nb]
 
     def need(x):                       # per-candidate absmax of live rows
-        rows = torch.where(live, _row_absmax(x, (2, 3)), 0.0)
-        return torch.zeros((B, nb), dtype=torch.float32, device=dev) \
-            .scatter_reduce(1, seg, rows, reduce="amax")
+        lv, sg = _to(live, x.device), _to(seg, x.device)
+        rows = torch.where(lv, _row_absmax(x, (2, 3)), 0.0)
+        return torch.zeros((B, nb), dtype=torch.float32, device=x.device) \
+            .scatter_reduce(1, sg, rows, reduce="amax")
 
-    amax = torch.stack([need(k), need(v)], -1) * _INV127   # [B, nb, 2]
-    s_new = _grow_blocks(kpool, vpool, scales, layer, bids, amax)
+    amax = _fold_amax([torch.stack([need(k), need(v)], -1) * _INV127
+                       for k, v in zip(ks, vs)])            # [B, nb, 2]
+    s_new = _grow_blocks(kpools, vpools, scales, layer, bids, amax)
     s_row = s_new.gather(1, seg[..., None].expand(B, W, 2))
-    return (_quant_rows(k, s_row[..., 0, None, None]),
-            _quant_rows(v, s_row[..., 1, None, None]))
+    out = []
+    for k, v in zip(ks, vs):
+        s = _to(s_row, k.device)
+        out.append((_quant_rows(k, s[..., 0, None, None]),
+                    _quant_rows(v, s[..., 1, None, None])))
+    return out
+
+
+def _quant_write_window(kpool, vpool, scales, k, v, block_tables, positions,
+                        draft_lens, layer):
+    """One device's `_quant_write_window_shards`: returns `(kq, vq)`."""
+    return _quant_write_window_shards([kpool], [vpool], [scales], [k], [v],
+                                      block_tables, positions, draft_lens,
+                                      layer)[0]
 
 
 PAGED_BACKENDS = ("auto", "dense", "pallas")
@@ -178,6 +244,13 @@ def resolve_backend(backend, head_dim, block_size):
             and block_size in _BLOCK_SIZES):
         return "pallas"
     return "dense"
+
+
+def _on(t, fn, *args):
+    """`fn(*args)` with `t`'s card current (a shard's kernels launch on
+    its own card; nothing for a CPU tensor)."""
+    with on_device(t):
+        return fn(*args)
 
 
 def _dense(step, backend):
@@ -205,19 +278,36 @@ def paged_attention_step(q, k, v, kpool, vpool, layer, block_tables,
     kernel's wrapper, "dense" its plain version. Returns
     `out [slots, 1, heads, head_dim]`.
     """
+    return paged_attention_step_shards(
+        [q], [k], [v], [kpool], [vpool], layer, [block_tables], [positions],
+        scale, None if scales is None else [scales], backend)[0]
+
+
+def paged_attention_step_shards(qs, ks, vs, kpools, vpools, layer,
+                                block_tables, positions, scale=None,
+                                scales=None, backend="pallas"):
+    """`paged_attention_step` over a mesh's shards: every argument but
+    `layer`, `scale` and `backend` a per-shard list in mesh order (each
+    shard's heads, pools and copies of the tables and positions on its
+    device; `scales` the replicas). Each shard runs the step on its heads
+    (the kernel once a shard); int8 writes fold the shards' absmax first.
+    Returns the per-shard outputs."""
     dense = _dense(paged_attention_step, backend)
     if scales is None:
-        return (paged_decode_plain if dense else paged_decode_attention)(
-            q.contiguous(), k.contiguous(), v.contiguous(), kpool, vpool,
-            layer, block_tables, positions, scale)
+        fn = paged_decode_plain if dense else paged_decode_attention
+        return [_on(kp, fn, q.contiguous(), k.contiguous(), v.contiguous(),
+                     kp, vp, layer, bt, pos, scale)
+                for q, k, v, kp, vp, bt, pos in zip(
+                    qs, ks, vs, kpools, vpools, block_tables, positions)]
     if scale is not None:
         raise ValueError("int8 pools take the default softmax scale")
-    kq, vq = _quant_write_decode(kpool, vpool, scales, k, v, block_tables,
-                                 positions, layer)
-    return (paged_decode_int8_plain if dense
-            else paged_decode_attention_int8)(
-        q.contiguous(), kq[:, None].contiguous(), vq[:, None].contiguous(),
-        kpool, vpool, scales[layer], layer, block_tables, positions)
+    rows = _quant_write_decode_shards(kpools, vpools, scales, ks, vs,
+                                      block_tables[0], positions[0], layer)
+    fn = paged_decode_int8_plain if dense else paged_decode_attention_int8
+    return [_on(kp, fn, q.contiguous(), kq[:, None].contiguous(),
+                 vq[:, None].contiguous(), kp, vp, sc[layer], layer, bt, pos)
+            for q, (kq, vq), kp, vp, sc, bt, pos in zip(
+                qs, rows, kpools, vpools, scales, block_tables, positions)]
 
 
 paged_attention_step.dense_calls = 0
@@ -240,20 +330,48 @@ def paged_verify_window(q, k, v, kpool, vpool, layer, block_tables,
     quant-on-write, then the int8 kernel). `backend` as
     `paged_attention_step`. Returns `out [slots, W, heads, head_dim]`;
     dead rows' outputs are garbage."""
+    return paged_verify_window_shards(
+        [q], [k], [v], [kpool], [vpool], layer, [block_tables], [positions],
+        [draft_lens], None if scales is None else [scales], backend)[0]
+
+
+def paged_verify_window_shards(qs, ks, vs, kpools, vpools, layer,
+                               block_tables, positions, draft_lens,
+                               scales=None, backend="pallas"):
+    """`paged_verify_window` over a mesh's shards, in the terms of
+    `paged_attention_step_shards`."""
     dense = _dense(paged_verify_window, backend)
     if scales is None:
-        return (paged_verify_plain if dense else paged_verify_attention)(
-            q.contiguous(), k.contiguous(), v.contiguous(), kpool, vpool,
-            layer, block_tables, positions, draft_lens)
-    kq, vq = _quant_write_window(kpool, vpool, scales, k, v, block_tables,
-                                 positions, draft_lens, layer)
-    return (paged_verify_int8_plain if dense
-            else paged_verify_attention_int8)(
-        q.contiguous(), kq, vq, kpool, vpool, scales[layer], layer,
-        block_tables, positions, draft_lens)
+        fn = paged_verify_plain if dense else paged_verify_attention
+        return [_on(kp, fn, q.contiguous(), k.contiguous(), v.contiguous(),
+                     kp, vp, layer, bt, pos, dl)
+                for q, k, v, kp, vp, bt, pos, dl in zip(
+                    qs, ks, vs, kpools, vpools, block_tables, positions,
+                    draft_lens)]
+    rows = _quant_write_window_shards(kpools, vpools, scales, ks, vs,
+                                      block_tables[0], positions[0],
+                                      draft_lens[0], layer)
+    fn = paged_verify_int8_plain if dense else paged_verify_attention_int8
+    return [_on(kp, fn, q.contiguous(), kq, vq, kp, vp, sc[layer], layer, bt,
+                 pos, dl)
+            for q, (kq, vq), kp, vp, sc, bt, pos, dl in zip(
+                qs, rows, kpools, vpools, scales, block_tables, positions,
+                draft_lens)]
 
 
 paged_verify_window.dense_calls = 0
+
+
+def _chunk_rows(block_row, start, plen, C, bs):
+    """A prefill chunk's absolute positions, and the pool block and offset
+    each lands in (positions `>= plen` land in the null block)."""
+    maxb = block_row.shape[0]
+    row = block_row.long()
+    pos = start + torch.arange(C, device=block_row.device)
+    valid = pos < plen
+    bid = torch.where(valid, row[torch.clamp_max(pos // bs, maxb - 1)],
+                      torch.zeros_like(pos))
+    return row, pos, valid, bid, pos % bs
 
 
 def paged_prefill_chunk(q, k, v, kpool, vpool, layer, block_row, start,
@@ -275,21 +393,33 @@ def paged_prefill_chunk(q, k, v, kpool, vpool, layer, block_row, start,
     at fp32). Same numerics policy otherwise: q rounded to the pool dtype,
     probabilities to the V dtype, fp32 logits and accumulation, one cast.
     With `scales` (int8 pools) see `_prefill_chunk_int8`."""
+    return paged_prefill_chunk_shards(
+        [q], [k], [v], [kpool], [vpool], layer, [block_row], start, plen,
+        scale, None if scales is None else [scales])[0]
+
+
+def paged_prefill_chunk_shards(qs, ks, vs, kpools, vpools, layer,
+                               block_rows, start, plen, scale=None,
+                               scales=None):
+    """`paged_prefill_chunk` over a mesh's shards, in the terms of
+    `paged_attention_step_shards` (start, plen host ints)."""
     if scales is not None:
         if scale is not None:
             raise ValueError("int8 pools take the default softmax scale")
-        return _prefill_chunk_int8(q, k, v, kpool, vpool, scales, layer,
-                                   block_row, start, plen)
+        return _prefill_chunk_int8(qs, ks, vs, kpools, vpools, scales, layer,
+                                   block_rows, start, plen)
+    return [_prefill_chunk_fp(q, k, v, kp, vp, layer, row, start, plen,
+                              scale)
+            for q, k, v, kp, vp, row in zip(qs, ks, vs, kpools, vpools,
+                                            block_rows)]
+
+
+def _prefill_chunk_fp(q, k, v, kpool, vpool, layer, block_row, start, plen,
+                      scale):
     C, heads, d = q.shape[1], q.shape[2], q.shape[3]
     bs = kpool.shape[2]
-    maxb = block_row.shape[0]
     dev = kpool.device
-    row = block_row.long()
-    pos = start + torch.arange(C, device=dev)
-    valid = pos < plen
-    bid = torch.where(valid, row[torch.clamp_max(pos // bs, maxb - 1)],
-                      torch.zeros_like(pos))
-    off = pos % bs
+    row, pos, _, bid, off = _chunk_rows(block_row, start, plen, C, bs)
     kpool[layer, bid, off] = k[0].to(kpool.dtype)
     vpool[layer, bid, off] = v[0].to(vpool.dtype)
     s = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -312,24 +442,23 @@ def paged_prefill_chunk(q, k, v, kpool, vpool, layer, block_row, start,
     return out.transpose(0, 1)[None]                       # [1, C, heads, d]
 
 
-def _prefill_chunk_int8(q, k, v, kpool, vpool, scales, layer, block_row,
-                        start, plen):
-    """The int8 branch of `paged_prefill_chunk` (JAX `fnq`): a chunk may
-    finish a block an earlier chunk started, so each candidate block the
-    chunk spans grows its grid and requantizes (candidates without valid
+def _prefill_chunk_int8(qs, ks, vs, kpools, vpools, scales, layer,
+                        block_rows, start, plen):
+    """The int8 branch of `paged_prefill_chunk` (JAX `fnq`) over a mesh's
+    shards: a chunk may finish a block an earlier chunk started, so each
+    candidate block the chunk spans grows its grid, on the shards' folded
+    absmax, and every shard requantizes its rows (candidates without valid
     rows keep their scale: factor 1, exact; candidates past the table
-    route to the null block); then the chunk's rows land quantized and
-    the queries attend as the fp branch does, gathered and with one masked
-    softmax, over dequantized keys: logits `(q.k) * s * ks`, probabilities
-    not rounded, each key's `p * vs` before PV."""
-    C, heads, d = q.shape[1], q.shape[2], q.shape[3]
-    bs = kpool.shape[2]
-    maxb = block_row.shape[0]
-    dev = kpool.device
-    row = block_row.long()
+    route to the null block); then each shard's chunk rows land quantized
+    and its queries attend as the fp branch does, gathered and with one
+    masked softmax, over dequantized keys: logits `(q.k) * s * ks`,
+    probabilities not rounded, each key's `p * vs` before PV."""
+    C = qs[0].shape[1]
+    bs = kpools[0].shape[2]
+    maxb = block_rows[0].shape[0]
     nb = (C - 1) // bs + 2
-    pos = start + torch.arange(C, device=dev)
-    valid = pos < plen
+    row, pos, valid, _, _ = _chunk_rows(block_rows[0], start, plen, C, bs)
+    dev = row.device
     first = start // bs
     seg = torch.clamp(pos // bs - first, 0, nb - 1)
     cand = first + torch.arange(nb, device=dev)
@@ -337,18 +466,33 @@ def _prefill_chunk_int8(q, k, v, kpool, vpool, scales, layer, block_row,
                        torch.zeros_like(cand))
 
     def need(x):
-        rows = torch.where(valid, _row_absmax(x[0], (1, 2)), 0.0)
-        return torch.zeros(nb, dtype=torch.float32, device=dev) \
-            .scatter_reduce(0, seg, rows, reduce="amax")
+        vl, sg = _to(valid, x.device), _to(seg, x.device)
+        rows = torch.where(vl, _row_absmax(x[0], (1, 2)), 0.0)
+        return torch.zeros(nb, dtype=torch.float32, device=x.device) \
+            .scatter_reduce(0, sg, rows, reduce="amax")
 
-    amax = torch.stack([need(k), need(v)], -1) * _INV127   # [nb, 2]
-    s_new = _grow_blocks(kpool, vpool, scales, layer, bids, amax)
+    amax = _fold_amax([torch.stack([need(k), need(v)], -1) * _INV127
+                       for k, v in zip(ks, vs)])            # [nb, 2]
+    s_new = _grow_blocks(kpools, vpools, scales, layer, bids, amax)
     s_row = s_new[seg]                                     # [C, 2]
-    bid = torch.where(valid, row[torch.clamp_max(pos // bs, maxb - 1)],
-                      torch.zeros_like(pos))
-    off = pos % bs
-    kpool[layer, bid, off] = _quant_rows(k[0], s_row[:, 0, None, None])
-    vpool[layer, bid, off] = _quant_rows(v[0], s_row[:, 1, None, None])
+    outs = []
+    for q, k, v, kpool, vpool, sc, brow in zip(qs, ks, vs, kpools, vpools,
+                                               scales, block_rows):
+        d = q.shape[3]
+        row, pos, _, bid, off = _chunk_rows(brow, start, plen, C, bs)
+        sr = _to(s_row, kpool.device)
+        kpool[layer, bid, off] = _quant_rows(k[0], sr[:, 0, None, None])
+        vpool[layer, bid, off] = _quant_rows(v[0], sr[:, 1, None, None])
+        outs.append(_chunk_attend_int8(q, kpool, vpool, sc, layer, row, pos,
+                                       start, plen))
+    return outs
+
+
+def _chunk_attend_int8(q, kpool, vpool, scales, layer, row, pos, start,
+                       plen):
+    """A chunk's queries over its slot's int8 context (one shard)."""
+    C, heads, d = q.shape[1], q.shape[2], q.shape[3]
+    bs = kpool.shape[2]
     s = 1.0 / math.sqrt(d)
     end = min(start + C, plen)
     hw = max(end - 1, 0) // bs + 1
@@ -358,7 +502,8 @@ def _prefill_chunk_int8(q, k, v, kpool, vpool, scales, layer, block_row,
     ks = scales[layer, blocks, 0].repeat_interleave(bs)    # per key
     vs = scales[layer, blocks, 1].repeat_interleave(bs)
     logits = torch.einsum("chd,khd->hck", q[0].float(), keys) * s * ks
-    allowed = torch.arange(hw * bs, device=dev)[None, :] <= pos[:, None]
+    allowed = torch.arange(hw * bs, device=kpool.device)[None, :] \
+        <= pos[:, None]
     logits = torch.where(allowed[None], logits,
                          torch.full_like(logits, -1e30))
     m = logits.amax(-1, keepdim=True)
@@ -385,41 +530,61 @@ def paged_prefill_write(kpool, vpool, kstack, vstack, block_row, plen,
     writes only freshly allocated blocks, whose grids the allocator reset
     to the floor, so nothing already written needs requantizing); then the
     rows are quantized onto their block's grid."""
-    S = kstack.shape[2]
-    bs = kpool.shape[2]
-    maxb = block_row.shape[0]
-    dev = kpool.device
-    row = block_row.long()
-    pos = torch.arange(S, device=dev)
-    valid = pos < plen
-    bid = torch.where(valid, row[torch.clamp_max(pos // bs, maxb - 1)],
-                      torch.zeros_like(pos))
-    off = pos % bs
-    ks, vs = kstack[:, 0], vstack[:, 0]                # [L, S, heads, D]
+    paged_prefill_write_shards([kpool], [vpool], [kstack], [vstack],
+                               [block_row], plen,
+                               None if scales is None else [scales])
+
+
+def paged_prefill_write_shards(kpools, vpools, kstacks, vstacks, block_rows,
+                               plen, scales=None):
+    """`paged_prefill_write` over a mesh's shards (each shard's heads of
+    the stacks into its pools); int8 grids from the shards' folded
+    absmax."""
+    S = kstacks[0].shape[2]
+    bs = kpools[0].shape[2]
+    maxb = block_rows[0].shape[0]
+
+    def rows_of(block_row):
+        row, pos, valid, bid, off = _chunk_rows(block_row, 0, plen, S, bs)
+        return row, pos, valid, bid, off
+
     if scales is None:
-        kpool[:, bid, off] = ks.to(kpool.dtype)
-        vpool[:, bid, off] = vs.to(vpool.dtype)
+        for kpool, vpool, kstack, vstack, brow in zip(
+                kpools, vpools, kstacks, vstacks, block_rows):
+            _, _, _, bid, off = rows_of(brow)
+            kpool[:, bid, off] = kstack[:, 0].to(kpool.dtype)
+            vpool[:, bid, off] = vstack[:, 0].to(vpool.dtype)
         return
-    L = ks.shape[0]
+    row, pos, valid, _, _ = rows_of(block_rows[0])
+    dev = row.device
+    L = kstacks[0].shape[0]
     nb = (S - 1) // bs + 1                             # the bucket's blocks
     seg = pos // bs
 
     def need(x):                       # per-block amax of the valid rows
-        rows = torch.where(valid, _row_absmax(x, (2, 3)), 0.0)    # [L, S]
-        return torch.zeros((L, nb), dtype=torch.float32, device=dev) \
-            .scatter_reduce(1, seg[None].expand(L, S), rows, reduce="amax")
+        vl, sg = _to(valid, x.device), _to(seg, x.device)
+        rows = torch.where(vl, _row_absmax(x, (2, 3)), 0.0)      # [L, S]
+        return torch.zeros((L, nb), dtype=torch.float32, device=x.device) \
+            .scatter_reduce(1, sg[None].expand(L, S), rows, reduce="amax")
 
-    amax = torch.stack([need(ks), need(vs)], -1) * _INV127       # [L, nb, 2]
+    amax = _fold_amax([torch.stack([need(ks[:, 0]), need(vs[:, 0])], -1)
+                       * _INV127 for ks, vs in zip(kstacks, vstacks)])
     # a segment without valid rows names the null block, a no-op max there
     cand = torch.arange(nb, device=dev)
     bids = torch.where(cand * bs < plen, row[torch.clamp_max(cand, maxb - 1)],
                        torch.zeros_like(cand))
-    s_fin = torch.clamp_min(torch.maximum(scales[:, bids], amax),
+    s_fin = torch.clamp_min(torch.maximum(scales[0][:, bids], amax),
                             KV_QUANT_EPS)
-    scales[:, bids] = torch.maximum(scales[:, bids], s_fin)
+    for sc in _distinct(scales):
+        b = _to(bids, sc.device)
+        sc[:, b] = torch.maximum(sc[:, b], _to(s_fin, sc.device))
     s_row = s_fin[:, seg]                                        # [L, S, 2]
-    kpool[:, bid, off] = _quant_rows(ks, s_row[..., 0, None, None])
-    vpool[:, bid, off] = _quant_rows(vs, s_row[..., 1, None, None])
+    for kpool, vpool, kstack, vstack, brow in zip(
+            kpools, vpools, kstacks, vstacks, block_rows):
+        _, _, _, bid, off = rows_of(brow)
+        sr = _to(s_row, kpool.device)
+        kpool[:, bid, off] = _quant_rows(kstack[:, 0], sr[..., 0, None, None])
+        vpool[:, bid, off] = _quant_rows(vstack[:, 0], sr[..., 1, None, None])
 
 
 def copy_pool_block(kpool, vpool, src, dst, scales=None):

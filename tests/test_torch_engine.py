@@ -27,16 +27,20 @@ from paddle_tpu_torch.ops.paged_decode import paged_decode_attention
 VOCAB = 61
 
 
-@pytest.fixture(scope="module")
-def models():
+def _models(vocab=VOCAB):
     paddle.seed(0)
-    kw = dict(vocab=VOCAB, hidden=32, layers=2, heads=2, seq=64)
+    kw = dict(vocab=vocab, hidden=32, layers=2, heads=2, seq=64)
     jm = JGPT(JConfig.tiny(**kw))
     jm.eval()
     tm = GPTForCausalLM(GPTConfig.tiny(**kw), device="cpu")
     load_paddle_tpu_state(tm, {k: np.asarray(v._array)
                                for k, v in jm.state_dict().items()})
     return jm, tm.eval()
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models()
 
 
 def _engines(models, **kw):
@@ -356,18 +360,34 @@ def test_unported_switch_raises_rather_than_serving_without_it(
         models, no_switches, var, value, item):
     """A deploy switch of a feature the port lacks raises when it asks for
     the feature, naming the ROADMAP item that ports it. The switches of
-    the items ported since (6, sampling; 7, int8 weights) turn their
-    feature on instead, as in JAX."""
+    the items ported since (6, sampling; 7, int8 weights; 10, tensor
+    parallel, on a model whose vocab 2 divides) turn their feature on
+    instead, as in JAX."""
     no_switches.setenv(var, value)
     ported = {"PADDLE_SERVE_SAMPLING": ("sampling", True),
-              "PADDLE_SERVE_WEIGHT_DTYPE": ("weight_dtype", "int8")}
+              "PADDLE_SERVE_WEIGHT_DTYPE": ("weight_dtype", "int8"),
+              "PADDLE_SERVE_MP": ("mp_degree", 2)}
     if var in ported:
         attr, on = ported[var]
         jm, tm = models
+        if var == "PADDLE_SERVE_MP":
+            # vocab 61 cannot be sharded: both packages refuse it alike
+            assert _raised(lambda: GenerationEngine(
+                tm, device="cpu", num_slots=2, block_size=4)) == _raised(
+                lambda: JEngine(jm, num_slots=2, block_size=4))
+            jm, tm = _models(vocab=64)
         teng = GenerationEngine(tm, device="cpu", num_slots=2, block_size=4)
         jeng = JEngine(jm, attention_backend="dense", num_slots=2,
                        block_size=4)
         assert getattr(teng, attr) == getattr(jeng, attr) == on
+        if var == "PADDLE_SERVE_MP":
+            assert len(teng.cache.kpools) == 2
+            rng = np.random.RandomState(3)
+            reqs = [(rng.randint(0, 64, n).astype(np.int32), 4)
+                    for n in (3, 9)]
+            assert _drive(teng, [r + ({},) for r in reqs], [], 0,
+                          lambda e: e.drain()) == _drive(
+                jeng, [r + ({},) for r in reqs], [], 0, lambda e: e.run())
         return
     with pytest.raises(NotImplementedError, match=item):
         GenerationEngine(models[1], device="cpu", num_slots=2, block_size=4)

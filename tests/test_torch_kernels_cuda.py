@@ -237,7 +237,7 @@ def test_paged_decode_kernel_matches_plain(card, dtype, D, bs):
     assert torch.equal(k0, k1) and torch.equal(v0, v1)
 
 
-def window_case(g, W, bs, D, dtype, int8):
+def window_case(g, W, bs, D, dtype, int8, heads=3):
     """Six slots over tables of 8 blocks, 3 heads, 2 layers: an idle lane;
     a window starting in the slot's first block and crossing into the
     second; draft length 0; a dead last row; a window ending at the
@@ -247,7 +247,7 @@ def window_case(g, W, bs, D, dtype, int8):
     hold normal rows quantized on per-block grids 0.7-1.3x absmax/127.
     Returns (q, knew, vnew, kpool, vpool, scales or None, tables,
     positions, draft_lens, live rows)."""
-    slots, heads, L, maxb = 6, 3, 2, 8
+    slots, L, maxb = 6, 2, 8
     K = W - 1
     last = maxb * bs - 1
     pos = [0, bs - 2, bs + 3, 3 * bs + 1, last - min(2, K), 4 * bs - 1]
@@ -493,6 +493,72 @@ def test_paged_decode_split_walk_refuses_a_misaligned_view(card):
     with pytest.raises(ValueError, match="16-byte aligned"):
         paged_decode_attention(q, kn, vn, shifted, vp, 1, tb, pos)
     assert paged_decode_attention.launches == launches
+
+
+# the paged kernels of a tensor-parallel shard: (wrapper, plain version,
+# window rows, int8)
+SHARD_PAGED = {"decode": (paged_decode_attention, paged_decode_plain, 1,
+                          False),
+               "verify": (paged_verify_attention, paged_verify_plain, 5,
+                          False),
+               "decode_int8": (paged_decode_attention_int8,
+                               paged_decode_int8_plain, 1, True),
+               "verify_int8": (paged_verify_attention_int8,
+                               paged_verify_int8_plain, 5, True)}
+
+
+@pytest.mark.parametrize("kind", list(SHARD_PAGED))
+@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_at_a_shards_heads(card, kind, heads, dtype):
+    """GPT-1.3B's 16 heads over mp 2 and 4: each paged kernel at 8 and 4
+    heads a shard, D 128, block 16, against its plain version."""
+    kernel, plain, W, int8 = SHARD_PAGED[kind]
+    c = window_case(card, W, 16, 128, dtype, int8, heads=heads)
+    err, pools, scales = _paged_kernel_vs_plain(kernel, plain, c, int8)
+    assert err <= TOL[dtype] and pools and scales
+
+
+def _heads(t, r, mp, dim):
+    n = t.shape[dim] // mp
+    return t.narrow(dim, r * n, n).contiguous()
+
+
+@pytest.mark.parametrize("kind", list(SHARD_PAGED))
+@pytest.mark.parametrize("mp", [2, 4])
+def test_sharded_paged_steps_are_the_whole_steps_heads(card, kind, mp):
+    """The tensor-parallel step editions on a virtual mesh of the card
+    (every shard on it): each shard's output and pools are the 16-head
+    step's heads, bit for bit, and under int8 the shared scales are the
+    16-head step's (the folded absmax), bf16, D 128, block 16."""
+    _, _, W, int8 = SHARD_PAGED[kind]
+    q, kn, vn, kp, vp, sc, tb, pos, dl, live = window_case(
+        card, W, 16, 128, torch.bfloat16, int8, heads=16)
+    shard_sc = None if sc is None else sc.clone()
+    kps = [_heads(kp, r, mp, 3) for r in range(mp)]
+    vps = [_heads(vp, r, mp, 3) for r in range(mp)]
+    qs, ks, vs = ([_heads(t, r, mp, 2) for r in range(mp)]
+                  for t in (q, kn, vn))
+    rep = [tb] * mp, [pos] * mp
+    if W == 1:
+        whole = tpa.paged_attention_step(q, kn, vn, kp, vp, 1, tb, pos,
+                                         scales=sc)
+        outs = tpa.paged_attention_step_shards(
+            qs, ks, vs, kps, vps, 1, *rep,
+            scales=None if sc is None else [shard_sc] * mp)
+    else:
+        whole = tpa.paged_verify_window(q, kn, vn, kp, vp, 1, tb, pos, dl,
+                                        scales=sc)
+        outs = tpa.paged_verify_window_shards(
+            qs, ks, vs, kps, vps, 1, *rep, [dl] * mp,
+            scales=None if sc is None else [shard_sc] * mp)
+    torch.cuda.synchronize()
+    for r in range(mp):
+        got, want = outs[r], _heads(whole, r, mp, 2)
+        assert torch.equal(got[live], want[live])
+        assert torch.equal(kps[r][:, 1:], _heads(kp, r, mp, 3)[:, 1:])
+        assert torch.equal(vps[r][:, 1:], _heads(vp, r, mp, 3)[:, 1:])
+    assert sc is None or torch.equal(shard_sc, sc)
 
 
 # the causal kernels' lengths: the tile edges of the bf16 design (16-row
@@ -2436,6 +2502,156 @@ def test_lora_kernel_refuses_what_it_does_not_take(card):
                   b, rows, sc, 1)):
         with pytest.raises(ValueError):
             batched_lora(*args)
+
+
+# GPT-1.3B's LoRA sites (in, out, heads of the head-grouped B or 0)
+LORA_SITES_1P3B = {"qkv": (2048, 6144, 16), "out": (2048, 2048, 0),
+                   "fc1": (2048, 8192, 0), "fc2": (8192, 2048, 0)}
+
+
+@pytest.mark.parametrize("site", list(LORA_SITES_1P3B))
+@pytest.mark.parametrize("mp", [2, 4])
+@pytest.mark.parametrize("B,S", [(8, 1), (8, 5)])
+def test_lora_kernel_on_a_b_shard(card, site, mp, B, S):
+    """A tensor-parallel shard's launch over its B columns (`out / mp`:
+    512 at out and fc2 at mp 4; qkv head-major, its heads' [3, D] rows, the
+    shard's pages flattened) gives the whole launch's columns bit for bit,
+    bf16 at rank 16, and matches its plain version."""
+    n_in, n_out, heads = LORA_SITES_1P3B[site]
+    a, b, sc, rows, x, base = _lora_case(card, n_in, n_out, heads, 16, B,
+                                         S, torch.bfloat16, pages=9)
+    whole = batched_lora(base.clone(), x, a, b, rows, sc, 1)
+    n = n_out // mp
+    for r in range(mp):
+        if heads:
+            lh, D = heads // mp, n_out // (3 * heads)
+            bs = b[:, :, :, r * lh:(r + 1) * lh].contiguous().flatten(3)
+            # the 3-major base regrouped head-major: the shard's columns
+            grouped = base.view(B, S, 3, heads, D).permute(0, 1, 3, 2, 4)
+            part = grouped[:, :, r * lh:(r + 1) * lh].reshape(B, S, n)
+            want = whole.view(B, S, 3, heads, D).permute(0, 1, 3, 2, 4)[
+                :, :, r * lh:(r + 1) * lh].reshape(B, S, n)
+        else:
+            bs = b[..., r * n:(r + 1) * n].contiguous()
+            part = base[..., r * n:(r + 1) * n]
+            want = whole[..., r * n:(r + 1) * n]
+        launches = batched_lora.launches
+        got = batched_lora(part.clone(), x, a, bs, rows, sc, 1)
+        plain = batched_lora_plain(part.clone(), x, a, bs, rows, sc, 1)
+        torch.cuda.synchronize()
+        assert batched_lora.launches == launches + 1
+        assert torch.equal(got, want)
+        assert (got.float() - plain.float()).abs().max().item() \
+            <= 2.0 ** -7 * plain.float().abs().max().item()
+
+
+def test_tp_engine_on_a_virtual_mesh_of_the_card_matches_the_cpu(card):
+    """f32 engines at mp 2 and 4 on a virtual mesh of the card (the paged
+    kernels at the shard's heads, B1 at bucketed admissions, the LoRA
+    kernel on B shards) and on the CPU (their plain versions) from the
+    same weights and adapters: the same tokens, each kernel once a shard."""
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.adapters import AdapterRegistry
+    from paddle_tpu_torch.distributed import serving_mesh
+
+    cfg = GPTConfig.tiny(vocab=96, hidden=256, layers=2, heads=4, seq=128)
+    model = GPTForCausalLM(cfg, device="cuda", generator=card).eval()
+    host = GPTForCausalLM(cfg, device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.RandomState(0)
+    reg = AdapterRegistry(cfg, max_rank=8)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    reg.register(1, {site: [(rng.randn(4, i).astype(np.float32) * 0.1,
+                             rng.randn(o, 4).astype(np.float32) * 0.1)
+                            for _ in range(cfg.num_layers)]
+                     for site, (i, o) in (("qkv", (H, 3 * H)),
+                                          ("out", (H, H)), ("fc1", (H, I)),
+                                          ("fc2", (I, H)))}, scaling=0.5)
+    reqs = [(rng.randint(0, 96, n), m, a) for n, m, a in
+            ((7, 5, 1), (40, 4, 0), (19, 6, 1))]
+
+    def serve(m, mesh, **kw):
+        eng = GenerationEngine(m, device=mesh.devices[0].type, mesh=mesh,
+                               num_slots=2, block_size=16, adapters=reg,
+                               **kw)
+        ids = [eng.add_request(p, n, adapter_id=a) for p, n, a in reqs]
+        out = eng.drain()
+        return [out[i] for i in ids], eng
+
+    for mp in (2, 4):
+        for kw in (dict(spec_decode_k=2), dict(prefill_chunk=None)):
+            before = {f: f.launches for f in (paged_decode_attention,
+                                              paged_verify_attention,
+                                              causal_attention_fwd,
+                                              batched_lora)}
+            got, eng = serve(model, serving_mesh(mp, devices=["cuda"] * mp),
+                             **kw)
+            torch.cuda.synchronize()
+            want, _ = serve(host, serving_mesh(mp, devices=["cpu"] * mp), **kw)
+            assert got == want
+            ran = {f: f.launches - n for f, n in before.items()}
+            paged = paged_verify_attention if kw.get("spec_decode_k") \
+                else paged_decode_attention
+            assert ran[paged] == 2 * mp * eng.decode_steps
+            fwd = eng.prefill_chunks + eng.decode_steps
+            if "prefill_chunk" in kw:
+                assert ran[causal_attention_fwd] == 2 * mp * eng.admissions
+                fwd += eng.admissions
+            assert ran[batched_lora] == 4 * 2 * mp * fwd
+
+
+def test_tp_engine_across_cards_matches_a_virtual_mesh(card):
+    """On a host with several cards: the mesh `cuda:0 .. cuda:mp-1` (each
+    shard's kernels on its own card, the gathers across cards) serves the
+    tokens of the same mesh run virtually on one card, f32, at mp 2 and 4
+    (as the host has cards), fp and int8 pools, with adapters and a
+    sampled lane; the kernels launch once a shard."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards, the host has {n}")
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.adapters import AdapterRegistry
+    from paddle_tpu_torch.distributed import serving_mesh
+    from paddle_tpu_torch.inference import SamplingParams
+
+    cfg = GPTConfig.tiny(vocab=96, hidden=256, layers=2, heads=4, seq=128)
+    model = GPTForCausalLM(cfg, device="cuda:0", generator=card).eval()
+    rng = np.random.RandomState(0)
+    reg = AdapterRegistry(cfg, max_rank=8)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    reg.register(1, {site: [(rng.randn(4, i).astype(np.float32) * 0.1,
+                             rng.randn(o, 4).astype(np.float32) * 0.1)
+                            for _ in range(cfg.num_layers)]
+                     for site, (i, o) in (("qkv", (H, 3 * H)),
+                                          ("out", (H, H)), ("fc1", (H, I)),
+                                          ("fc2", (I, H)))}, scaling=0.5)
+    reqs = [(rng.randint(0, 96, n_), m, a) for n_, m, a in
+            ((7, 5, 1), (40, 4, 0), (19, 6, 1))]
+    sp = SamplingParams(temperature=0.8, top_k=20, seed=5)
+
+    def serve(mesh, **kw):
+        eng = GenerationEngine(model, mesh=mesh, num_slots=2, block_size=16,
+                               adapters=reg, sampling=True, **kw)
+        ids = [eng.add_request(p, m, adapter_id=a,
+                               sampling_params=sp if i == 2 else None)
+               for i, (p, m, a) in enumerate(reqs)]
+        out = eng.drain()
+        return [out[i] for i in ids]
+
+    for mp in [m for m in (2, 4) if m <= n]:
+        for kw in (dict(spec_decode_k=2), dict(kv_dtype="int8",
+                                                prefill_chunk=None)):
+            launches = batched_lora.launches
+            cards = serve(serving_mesh(mp), **kw)
+            across = batched_lora.launches - launches
+            launches = batched_lora.launches
+            virtual = serve(serving_mesh(mp, devices=["cuda:0"] * mp), **kw)
+            assert cards == virtual
+            assert across == batched_lora.launches - launches
 
 
 def test_lora_engine_on_the_card_matches_the_cpu(card):
