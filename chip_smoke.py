@@ -465,7 +465,8 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "transformer_train_parity", "train_accum", "train_accum_parity",
           "bert_lamb", "sampling", "int8_linear", "engine_sampled",
           "engine_wint8", "lora", "engine_bucketed", "engine_lora",
-          "tp_parity", "engine_tp")
+          "tp_parity", "engine_tp", "engine_async", "engine_observed",
+          "train_telemetry")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -671,7 +672,21 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                **{f"engine_tp_bucketed_kv8_k4_mp{mp}_bf16": (FWD, VER8)
                   for mp in (1, 2, 4)},
                **{f"engine_tp_lora_wint8_sampled_mp{mp}_bf16": (
-                   DEC, W8, LORA, DRAW) for mp in (1, 2)}}
+                   DEC, W8, LORA, DRAW) for mp in (1, 2)},
+               **{f"engine_async_{name}_{mode}_bf16": ks
+                  for name, ks in (("chunked_k0", (DEC,)),
+                                   ("chunked_k4", (VER,)),
+                                   ("kv8_k0", (DEC8,)),
+                                   ("bucketed_kv8_k4", (FWD, VER8)),
+                                   ("sampled_k4", (VER, DRAW, UNIF)),
+                                   ("lora_wint8", (DEC, W8, LORA)),
+                                   ("chunked_k0_mp2", (DEC,)))
+                  for mode in ("serial", "async")},
+               **{f"engine_observed_k{K}_{t}_bf16": (DEC,) if K == 0
+                  else (VER,) for K in (0, 4)         # 4: SPEC_K
+                  for t in ("off", "on")},
+               "train_telemetry_off_bf16": (FWD, BWD, OPT, MERGE, FINISH),
+               "train_telemetry_bf16": (FWD, BWD, OPT, MERGE, FINISH)}
 # peak device memory (GB) of the bf16 train phases with the per-parameter
 # optimizer loop, before the update became one pass (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W); each phase fails more than
@@ -6068,6 +6083,381 @@ def phase_engine_tp(torch, ctx, seed):
         raise AssertionError("engine_tp phase failed its checks")
 
 
+# ---------------------------------------------------------------------------
+# engine observability and the async core
+# ---------------------------------------------------------------------------
+
+# the async core's stages after its dispatch: each must make no host sync
+ASYNC_POST_DISPATCH = ("_dispatch_ahead", "_prefetch_ahead",
+                       "_end_of_step_gauges", "_flush_step_phases")
+# engine_async's tenants: the first eight requests (the lanes' first
+# occupants) on adapters 1 and 2 and the base, the later arrivals on 3-6
+# (the repeated prompt, 5 and 9, and the shared prefix, 6, on the base, as
+# the trace's waits and its COW need), so that a later arrival waits at
+# the queue head while pages are free (the async core prefetches its
+# page) and the pool then evicts
+ASYNC_LORA_IDS = (1, 2, 1, 2, 0, 0, 0, 1, 3, 0, 4, 5, 6)
+
+
+def _no_sync_after_dispatch(torch, eng):
+    """Run the async core's post-dispatch stages of `eng` under
+    `torch.cuda.set_sync_debug_mode("error")`: a host sync in any of them
+    raises. The engine itself never sets the mode. The wrappers go with
+    `_unwrap` (they hold the engine: a cycle keeps its pools alive)."""
+    for name in ASYNC_POST_DISPATCH:
+        def wrapped(*a, _fn=getattr(eng, name), **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        setattr(eng, name, wrapped)
+
+
+def _unwrap(eng):
+    """Drop the instance wrappers of `_no_sync_after_dispatch` and
+    `_pending_at_return`."""
+    for name in ASYNC_POST_DISPATCH + ("step",):
+        eng.__dict__.pop(name, None)
+
+
+def _pipeline_check(flight, steps):
+    """The flight recorder's async events: every `async_dispatch(s)`
+    before its `async_complete(s)`, never two steps in flight, every
+    dispatch completed, one a step."""
+    inflight, dispatched, completed, ok = None, 0, 0, True
+    for e in flight:
+        if e["event"] == "async_dispatch":
+            ok &= inflight is None
+            inflight = e["seq"]
+            dispatched += 1
+        elif e["event"] == "async_complete":
+            ok &= inflight == e["seq"]
+            inflight = None
+            completed += 1
+    return {"dispatched": dispatched, "completed": completed,
+            "ok": bool(ok and inflight is None
+                       and dispatched == completed == steps)}
+
+
+def _pending_at_return(eng):
+    """Count, after each `step()` of an async engine, whether the step it
+    left in flight was still running on the card: the host got ahead."""
+    seen = {"steps": 0, "pending": 0}
+    step = eng.step
+
+    def counted():
+        out = step()
+        if eng._inflight is not None:
+            seen["steps"] += 1
+            seen["pending"] += not eng._inflight.event.query()
+        return out
+    eng.step = counted
+    return seen
+
+
+def phase_engine_async(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+    from paddle_tpu_torch.utils import cpp_extension
+
+    cpp_extension.build()          # no build inside a timed serial run
+    model = _model(torch, torch.bfloat16, seed)
+    cfg = model.config
+    V = cfg.vocab_size
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    reg = _lora_registry(cfg, seed)
+    configs = (
+        ("chunked_k0", dict(), None, None),
+        ("chunked_k4", dict(spec_decode_k=SPEC_K), None, None),
+        ("kv8_k0", dict(kv_dtype="int8"), None, None),
+        ("bucketed_kv8_k4", dict(prefill_chunk=None, kv_dtype="int8",
+                                 spec_decode_k=SPEC_K), None, None),
+        ("sampled_k4", dict(sampling=True, spec_decode_k=SPEC_K), None,
+         _sampled_params(seed).get),
+        ("lora_wint8", dict(weight_dtype="int8", adapters=reg,
+                            adapter_pool_pages=5),
+         lambda i: ASYNC_LORA_IDS[i], None),
+        ("chunked_k0_mp2", dict(mesh=_tp_mesh(2)), None, None))
+    res = {"phase": "engine_async", "card": nvidia_smi_line(),
+           "config": "gpt_1p3b bf16, 8 slots, block 16, phase 5's trace, "
+           "serial then async_core=True per configuration: chunked K=0; "
+           f"chunked K={SPEC_K} (n-gram drafter on the helper thread); "
+           f"int8 KV K=0; bucketed int8 KV K={SPEC_K}; sampled requests "
+           f"{list(SAMPLED_LANES)} at K={SPEC_K}; six adapters with int8 "
+           f"weights in a 1 + 4 page pool (ids {list(ASYNC_LORA_IDS)}); "
+           "chunked K=0 at mp 2 on a virtual "
+           "mesh. The async runs' post-dispatch stages "
+           f"{list(ASYNC_POST_DISPATCH)} under "
+           "set_sync_debug_mode('error')", "runs": {}}
+    ok = True
+    for name, kw, adapter_of, params_of in configs:
+        run = {}
+        for mode in ("serial", "async"):
+            path = f"engine_async_{name}_{mode}_bf16"
+            eng = GenerationEngine(model, num_slots=8, block_size=16,
+                                   async_core=mode == "async",
+                                   flight_capacity=1 << 16, **kw)
+            if mode == "async":
+                _no_sync_after_dispatch(torch, eng)
+                pending = _pending_at_return(eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, out = _counted(torch, ctx, path, lambda: _serve_trace(
+                eng, trace, params_of=params_of, adapter_of=adapter_of))
+            wall = time.perf_counter() - t0
+            r = {"wall_s": wall, "tokens_generated": eng.tokens_generated,
+                 "tokens_per_s": eng.tokens_generated / wall,
+                 "decode_steps": eng.decode_steps,
+                 "outputs_ok": _outputs_ok(ids, out, reqs, V),
+                 "tokens": [out[i] for i in ids],
+                 "kernel_counts": ctx["paths"][path]}
+            if eng.spec_decode_k:
+                r.update(accepted=eng.spec_accepted_tokens,
+                         rejected=eng.spec_rejected_tokens)
+            if eng.adapter_pool is not None:
+                r.update(swapins=eng.adapter_swapins,
+                         evictions=eng.adapter_evictions)
+            if mode == "async":
+                flight = eng.dump_flight_recorder()
+                r["pipeline"] = _pipeline_check(flight, eng.decode_steps)
+                r["in_flight_step_still_running_at_return"] = pending
+                r["prefetches"] = sum(e["event"] == "adapter_prefetch"
+                                      for e in flight)
+            run[mode] = r
+            _unwrap(eng)
+            del eng
+            torch.cuda.empty_cache()
+        s, a = run["serial"], run["async"]
+        got = {"tokens_bitwise_serial": a.pop("tokens") == s.pop("tokens"),
+               "launches_equal": a["kernel_counts"] == s["kernel_counts"],
+               "async_over_serial_tokens_per_s":
+                   a["tokens_per_s"] / s["tokens_per_s"]}
+        if "accepted" in s:
+            got["drafts_equal"] = (a["accepted"], a["rejected"]) == (
+                s["accepted"], s["rejected"])
+        if "swapins" in s:
+            got["prefetched"] = a["prefetches"] > 0 and a["evictions"] > 0
+        run["gates"] = got
+        ok &= bool(s["outputs_ok"] and a["outputs_ok"]
+                   and a["pipeline"]["ok"]
+                   and all(v for k, v in got.items()
+                           if not k.endswith("tokens_per_s")))
+        res["runs"][name] = run
+    res["tokens_per_s"] = {n: {m: r[m]["tokens_per_s"]
+                               for m in ("serial", "async")}
+                           for n, r in res["runs"].items()}
+    res["ok"] = bool(ok)
+    emit(res)
+    del model, reg
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("engine_async phase failed its checks")
+
+
+def _series(snap, name):
+    fam = snap.get(name)
+    return [] if fam is None else fam["series"]
+
+
+def _one(snap, name, **labels):
+    """The value (or histogram count) of the series of `name` carrying
+    `labels` (0 when absent)."""
+    for s in _series(snap, name):
+        if all(s["labels"].get(k) == v for k, v in labels.items()):
+            return s.get("value", s.get("count"))
+    return 0
+
+
+def _observed_gates(eng, snap, text, trace_path, reqs):
+    """engine_observed's checks of one traced or untraced run."""
+    from paddle_tpu_torch.observability import STEP_PHASES, parse_prometheus
+
+    n = len(reqs)
+    ttft = sum(s["count"] for s in _series(snap, "engine_ttft_seconds"))
+    tpot = sum(s["count"] for s in _series(snap, "engine_tpot_seconds"))
+    stalls = {s["labels"]["path"]: s["value"]
+              for s in _series(snap, "engine_block_stalls_total")}
+    g = {"tokens": _one(snap, "engine_tokens_generated_total")
+         == eng.tokens_generated,
+         "admissions": _one(snap, "engine_admissions_total")
+         == eng.admissions == n,
+         "stalls_by_path": all(stalls.get(p, 0) == v
+                               for p, v in eng.stalls.items()),
+         "prefix_hit_tokens": _one(
+             snap, "engine_prefix_cache_hit_tokens_total")
+         == eng.prefix_hit_tokens > 0,
+         "cow_copies": _one(snap, "engine_cow_copies_total")
+         == eng.cow_copies >= 1,
+         "spec_accepted": _one(snap, "engine_spec_draft_tokens_total",
+                               result="accepted")
+         == eng.spec_accepted_tokens,
+         "spec_rejected": _one(snap, "engine_spec_draft_tokens_total",
+                               result="rejected")
+         == eng.spec_rejected_tokens,
+         "ttft_count_is_requests": ttft == n,
+         # every token but each request's first (no request of the trace
+         # finishes on its first token)
+         "tpot_count_is_decode_emissions": tpot
+         == eng.tokens_generated - n}
+    parsed = parse_prometheus(text)
+    g["prometheus_round_trip"] = set(parsed["types"]) == set(snap) and (
+        "engine_tokens_generated_total", {}, float(eng.tokens_generated)) \
+        in parsed["samples"]
+    phases = {s["labels"]["phase"]
+              for s in _series(snap, "engine_step_host_gap_seconds")}
+    g["phases_in_step_phases"] = bool(phases) \
+        and phases <= set(STEP_PHASES)
+    frac = _one(snap, "engine_step_device_fraction")
+    g["device_fraction_in_0_1"] = 0.0 <= frac <= 1.0
+    if trace_path is not None:
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        by_req = {}
+        for e in events:
+            a = e.get("args", {})
+            if "req_id" in a:
+                by_req.setdefault(a["req_id"], set()).add(a.get("trace_id"))
+        g["trace_ids_one_a_request"] = len(by_req) == n and all(
+            len(t) == 1 and None not in t for t in by_req.values())
+    return g, sorted(phases), frac
+
+
+def phase_engine_observed(torch, ctx, seed):
+    from paddle_tpu_torch import GenerationEngine
+
+    model = _model(torch, torch.bfloat16, seed)
+    V = model.config.vocab_size
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "paddle_tpu_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    res = {"phase": "engine_observed", "card": nvidia_smi_line(),
+           "config": "gpt_1p3b bf16, 8 slots, block 16, phase 5's trace, "
+           f"K=0 and K={SPEC_K}, tracing off then on", "runs": {}}
+    ok = True
+    for K in (0, SPEC_K):
+        toks = {}
+        for tracing in (False, True):
+            tag = f"k{K}_{'on' if tracing else 'off'}"
+            path = f"engine_observed_{tag}_bf16"
+            eng = GenerationEngine(model, num_slots=8, block_size=16,
+                                   spec_decode_k=K, tracing=tracing,
+                                   trace_capacity=1 << 16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, out = _counted(torch, ctx, path,
+                                lambda: _serve_trace(eng, trace))
+            wall = time.perf_counter() - t0
+            toks[tracing] = [out[i] for i in ids]
+            trace_path = None
+            if tracing:
+                trace_path = os.path.join(out_dir, f"engine_{tag}.json")
+                n_events = eng.export_trace(trace_path)
+            gates, phases, frac = _observed_gates(
+                eng, eng.metrics_snapshot(), eng.render_prometheus(),
+                trace_path, reqs)
+            r = {"wall_s": wall, "tokens_generated": eng.tokens_generated,
+                 "tokens_per_s": eng.tokens_generated / wall,
+                 "host_gap_phases": phases, "device_fraction_last": frac,
+                 "gates": gates, "outputs_ok": _outputs_ok(ids, out, reqs, V),
+                 "kernel_counts": ctx["paths"][path]}
+            if tracing:
+                r["trace_events"] = n_events
+            ok &= r["outputs_ok"] and all(gates.values())
+            res["runs"][path] = r
+            del eng
+            torch.cuda.empty_cache()
+        off, on = (res["runs"][f"engine_observed_k{K}_{t}_bf16"]
+                   for t in ("off", "on"))
+        same = {"tokens_bitwise": toks[True] == toks[False],
+                "launches_equal": on["kernel_counts"] == off["kernel_counts"]}
+        on["tracing_on_vs_off"] = same
+        ok &= all(same.values())
+    res["tokens_per_s"] = {p: r["tokens_per_s"]
+                           for p, r in res["runs"].items()}
+    res["ok"] = bool(ok)
+    emit(res)
+    del model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("engine_observed phase failed its checks")
+
+
+def phase_train_telemetry(torch, ctx, seed):
+    from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.observability import (MetricsRegistry,
+                                                TrainingTelemetry)
+
+    cfg = _bench_config()
+    batch, seq, steps, K = 2, 2048, 3, 4
+    rng = np.random.RandomState(seed + 70)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (steps + K, batch, seq))
+                           .astype(np.int64)).cuda()
+
+    def train(tel):
+        g = torch.Generator("cuda").manual_seed(seed)
+        model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                               generator=g).train()
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        plain = TrainStep(model, opt, model.loss_fn, telemetry=tel)
+        merged = TrainStep(model, opt, model.loss_fn, accumulate_steps=K,
+                           scaler=GradScaler(init_loss_scaling=2.0 ** 15),
+                           telemetry=tel)
+        losses = [plain(x, x) for x in ids[:steps]]
+        losses += [merged(x, x) for x in ids[steps:]]
+        peak = torch.cuda.max_memory_allocated()
+        params = [p.detach().clone() for p in model.parameters()]
+        del plain, merged, opt, model
+        return torch.stack(losses), params, peak
+
+    off_losses, off_params, _ = _counted(
+        torch, ctx, "train_telemetry_off_bf16", lambda: train(None))
+    torch.cuda.empty_cache()
+    reg = MetricsRegistry()
+    tel = TrainingTelemetry(registry=reg, tokens_per_step=batch * seq,
+                            memory_every=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, params, peak = _counted(torch, ctx, "train_telemetry_bf16",
+                                    lambda: train(tel))
+    wall = time.perf_counter() - t0
+    snap = reg.snapshot()
+    gauge_peak = _one(snap, "train_device_memory_bytes", kind="peak")
+    res = {"phase": "train_telemetry", "card": nvidia_smi_line(),
+           "config": "bench.py gpt_1p3b train (bf16, AdamW(1e-4), batch 2, "
+           f"seq 2048): {steps} steps, then one accumulate_steps={K} window "
+           "with GradScaler(2**15), TrainingTelemetry(tokens_per_step=B*S, "
+           "memory_every=1); the same steps without telemetry first",
+           "wall_s": wall,
+           "losses": [float(x) for x in losses],
+           "losses_bitwise": bool(torch.equal(losses, off_losses)),
+           "params_bitwise": all(torch.equal(p, q)
+                                 for p, q in zip(params, off_params)),
+           "train_steps_total": _one(snap, "train_steps_total"),
+           "step_seconds": {"count": _one(snap, "train_step_seconds"),
+                            "sum": _series(snap, "train_step_seconds")[0][
+                                "sum"]},
+           "tokens_per_second_last": _one(snap, "train_tokens_per_second"),
+           "loss_gauge": _one(snap, "train_loss"),
+           "peak_gauge_bytes": gauge_peak,
+           "max_memory_allocated_bytes": peak,
+           "kernel_counts": ctx["paths"]["train_telemetry_bf16"]}
+    res["ok"] = bool(res["losses_bitwise"] and res["params_bitwise"]
+                     and res["train_steps_total"] == steps + 1
+                     and res["step_seconds"]["count"] == steps + 1
+                     and gauge_peak == peak
+                     and all(math.isfinite(x) for x in res["losses"]))
+    emit(res)
+    del params, off_params
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        raise AssertionError("train_telemetry phase failed its checks")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6216,8 +6606,14 @@ def main(argv=None):
                 phase_engine_lora(torch, ctx, SEED)
             elif name == "tp_parity":
                 phase_tp_parity(torch, ctx, SEED)
-            else:
+            elif name == "engine_tp":
                 phase_engine_tp(torch, ctx, SEED)
+            elif name == "engine_async":
+                phase_engine_async(torch, ctx, SEED)
+            elif name == "engine_observed":
+                phase_engine_observed(torch, ctx, SEED)
+            else:
+                phase_train_telemetry(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,

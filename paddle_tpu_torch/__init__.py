@@ -53,9 +53,14 @@ Ported so far:
 - tensor-parallel serving (`GenerationEngine(mp_degree=N)`, `mesh=` a
   `distributed.serving_mesh`, `PADDLE_SERVE_MP`): head-sharded paged pools
   and a column-parallel weight snapshot under one scheduler, each shard
-  running the kernels above at its shapes.
+  running the kernels above at its shapes;
+- the observability tier (`observability`: the metrics registry, the
+  Prometheus exposition and server, request tracing, the flight recorder,
+  `TrainingTelemetry`) and the profiler's host half (`profiler`); the
+  engine's metrics, tracing and flight recorder, its dispatch-ahead async
+  core (`async_core=True`), and `TrainStep(telemetry=)`.
 """
-from . import amp, distributed, optimizer, vision
+from . import amp, distributed, observability, optimizer, profiler, vision
 from .device import resolve_device
 from .inference.engine import GenerationEngine, PagedKVCache, Request
 from .jit import TrainStep

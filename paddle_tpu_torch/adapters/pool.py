@@ -184,15 +184,27 @@ class PagedAdapterPool:
         return sum(a.numel() * a.element_size() for a in held.values())
 
     # -- swap-in ----------------------------------------------------------
-    def _write_page(self, page, stacks, scaling):
+    def _write_page(self, page, stacks, scaling, non_blocking=False):
         """Copy one adapter's host stacks onto `page`, IN PLACE, cast to
-        the pool's dtype."""
+        the pool's dtype. `non_blocking` stages the rows in pinned host
+        memory and copies them without a wait (the async core's prefetch:
+        a copy from pageable memory would wait on the step in flight); the
+        page's bytes are the same."""
         mp = len(self._shards)
+
+        def put(arr, rows):
+            src = torch.from_numpy(rows)
+            if non_blocking and arr.device.type == "cuda":
+                arr.copy_(src.pin_memory(), non_blocking=True)
+            else:
+                arr.copy_(src)
         for i, (name, (shape, _, axis)) in enumerate(self._spec.items()):
             held = [arrs[i] for arrs in self._shards]
             if name == "scaling":
+                # a fill: assigning a Python scalar to one element copies
+                # it from the host, which waits on the stream
                 for arr in {id(a): a for a in held}.values():
-                    arr[page] = float(np.float32(scaling))
+                    arr[page].fill_(float(np.float32(scaling)))
                 continue
             rows = np.ascontiguousarray(stacks[name])
             if rows.shape != shape[1:]:
@@ -201,11 +213,11 @@ class PagedAdapterPool:
                     f"page wants {shape[1:]}")
             if axis is None or mp == 1:
                 for arr in {id(a): a for a in held}.values():
-                    arr[page].copy_(torch.from_numpy(rows))
+                    put(arr[page], rows)
                 continue
             parts = np.split(rows, mp, axis=axis - 1)
             for arr, part in zip(held, parts):
-                arr[page].copy_(torch.from_numpy(np.ascontiguousarray(part)))
+                put(arr[page], np.ascontiguousarray(part))
 
     # -- paging -----------------------------------------------------------
     @property
@@ -255,13 +267,14 @@ class PagedAdapterPool:
             return self._ref[sib_page] == 0
         return self.num_free > 0
 
-    def acquire(self, adapter_id):
+    def acquire(self, adapter_id, non_blocking=False):
         """One reference on the adapter's page, swapping it in from the
         registry on a miss. Returns the page id, or None when every page
         is referenced by a live lane (the caller stalls and retries).
         Unknown ids raise. A miss whose rank-group sibling is resident and
         idle evicts the sibling and reuses its page in place (an eviction
-        and a swap-in); a miss whose sibling is referenced stalls."""
+        and a swap-in); a miss whose sibling is referenced stalls.
+        `non_blocking` as in `_write_page`."""
         aid = int(adapter_id)
         if aid == NULL_ADAPTER_ID:
             return 0
@@ -290,24 +303,26 @@ class PagedAdapterPool:
             self.evictions += 1
         else:
             return None                        # all pages referenced
-        self._write_page(page, entry, entry["scaling"])
+        self._write_page(page, entry, entry["scaling"], non_blocking)
         self.swapins += 1
         self._ref[page] = 1
         self._page_of[aid] = page
         self._adapter_of[page] = aid
         return page
 
-    def prefetch(self, adapter_id):
+    def prefetch(self, adapter_id, non_blocking=False):
         """Warm an adapter's page WITHOUT keeping a reference: swap in on a
         miss, then park it refcount-zero in the warm LRU so that the next
         `acquire` is a resident hit. Returns the page id, or None when no
-        page is obtainable right now (it never evicts a live page)."""
+        page is obtainable right now (it never evicts a live page).
+        `non_blocking` as in `_write_page`: the engine's async core
+        prefetches behind a step in flight."""
         aid = int(adapter_id)
         if aid == NULL_ADAPTER_ID:
             return 0
         if aid in self._page_of:
             return self._page_of[aid]          # already warm/live
-        page = self.acquire(aid)
+        page = self.acquire(aid, non_blocking)
         if page is None:
             return None
         self.release(aid)                      # park warm, evictable

@@ -47,10 +47,9 @@ core).
   `PADDLE_SPEC_DECODE_K` over `spec_decode_k`, `PADDLE_SERVE_KV_DTYPE`
   over `kv_dtype` and `PADDLE_SERVE_WEIGHT_DTYPE` over `weight_dtype`
   (unset or `int8`), `PADDLE_SERVE_SAMPLING` over `sampling`,
-  `PADDLE_SERVE_MP` over `mp_degree` (and it must agree with `mesh`). The
-  switches of features not ported yet are parsed by JAX's rules and raise
-  `NotImplementedError` when they ask for their feature, never serving
-  without it: `PADDLE_SERVE_TRACING` or `PADDLE_SERVE_ASYNC` on.
+  `PADDLE_SERVE_MP` over `mp_degree` (and it must agree with `mesh`),
+  `PADDLE_SERVE_TRACING` over `tracing` and `PADDLE_SERVE_ASYNC` over
+  `async_core`.
 - prefill, resolved as in JAX: chunked (`prefill_chunk="auto"`, the
   default, being `min(128, max_model_len)`, or an int), or bucketed
   (`prefill_chunk=None`, or `prefill_buckets=` with `"auto"`): each
@@ -86,24 +85,48 @@ core).
   its meshes on faked host devices. `refresh_weights()` re-shards after a
   weight edit.
 
+- observability, as in JAX: a metrics registry (`registry=`, by default
+  one per engine; `engine.metrics`, `metrics_snapshot()`,
+  `render_prometheus()`) with JAX's families, names, help strings and
+  labels (TTFT/TPOT histograms by priority and by adapter, queue, slot
+  and pool gauges with the high-water mark, the mesh and shard-labelled
+  pool gauges, finish, stall, COW, shed and prefix-hit counters, the
+  spec, sampling and adapter families), except the trace-count families
+  of JAX's compiled steps (`engine_decode_traces`, `engine_prefill_traces`,
+  `engine_decode_recompiles_total`): an eager engine does not retrace.
+  The always-on step-phase clock (`engine_step_host_gap_seconds{phase}`,
+  `engine_step_device_fraction`) and flight recorder (`flight_capacity=`,
+  `dump_flight_recorder()`; `drain()`'s leak audit attaches it), and with
+  `tracing=True` request-scoped spans (`add_request(trace_id=)`,
+  `trace_capacity=`, `export_trace(path)`). All of it is host-side: a
+  traced engine launches the same kernels, the same number of times.
+- the async core (`async_core=True`): a one-step dispatch-ahead pipeline.
+  `step()` completes the decode or verify step the previous call left in
+  flight (the pipeline's only wait: a CUDA event recorded after the
+  step's token readback into pinned host memory), proposes the next
+  drafts on a helper thread while it admits and runs a prefill chunk,
+  dispatches the next step without waiting on it (its host rows staged in
+  pinned memory, copied without a wait), then prefetches the queue head's
+  adapter page. Tokens are the serial core's; the serial core runs its
+  schedule, dispatch and complete stages in one call.
+
 The pools (and scales) are updated IN PLACE by every step (PyTorch is
 eager: there is no compiled step, no donation, no trace count). Greedy
 output matches `GPTForCausalLM.generate(use_cache=True)` per request, with
 or without speculation; int8 pools hold to the JAX int8 engine instead.
 
-Left for later slices (ROADMAP Queue A): the async drafter thread, the
-metrics registry (with the mesh gauges, the adapter gauges and the
-adapter-labelled TTFT/TPOT histograms: `metrics_snapshot` and
-`render_prometheus` raise), tracing and the flight recorder, the async core
-(with its adapter prefetch) and the fleet handoff (with the fleet's
-`best_of_n` and `adopt_request`). Plain counters stand in for the metrics.
+Left for later slices (ROADMAP Queue A): the fleet (its handoff and
+`adopt_request`, the fleet's `best_of_n`).
 """
 from __future__ import annotations
 
 import hashlib
 import math
 import os
+import threading
+import time
 from collections import OrderedDict, deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -113,15 +136,21 @@ from ..adapters import AdapterRegistry, PagedAdapterPool
 from ..device import resolve_device
 from ..distributed import serving_mesh
 from ..models.gpt import TensorParallel
+from ..observability.metrics import LATENCY_BUCKETS, MetricsRegistry
+from ..observability.tracing import (FlightRecorder, PhaseTimer,
+                                     TraceRecorder, export_timeline,
+                                     new_trace_id, now_us,
+                                     profiler_host_events)
 from ..ops.lora import LoraState
 from ..ops.paged_attention import (KV_QUANT_EPS, copy_pool_block,
                                    paged_prefill_write,
                                    paged_prefill_write_shards,
                                    resolve_backend)
 from ..ops.sampling import sample_token, verify_window
+from ..profiler import RecordEvent
 from ..quantization import quantize_absmax
 from .sampling import SamplingParams, key_row
-from .speculative import NgramDrafter, draft_window
+from .speculative import NgramDrafter, draft_thread_state, draft_window
 
 __all__ = ["PagedKVCache", "GenerationEngine", "Request", "PRIORITY_CLASSES",
            "prefix_key", "iter_prefix_key"]
@@ -305,6 +334,9 @@ class PagedKVCache:
         self._block_of = {}            # chain hash -> cached block id
         self._hash_of = {}             # cached block id -> chain hash
         self._evictable = OrderedDict()   # refcount-0 cached, oldest first
+        # optional observer called with each block id the allocator
+        # reclaims from the prefix cache (the engine's flight recorder)
+        self.on_evict = None
 
     def pool_spec(self):
         """The ONE source of truth for a pool plane's logical `([layers,
@@ -359,6 +391,11 @@ class PagedKVCache:
         """Blocks allocatable now: truly free + evictable cached."""
         return len(self._free) + len(self._evictable)
 
+    @property
+    def num_cached_blocks(self):
+        """Blocks the prefix cache can serve hits from right now."""
+        return len(self._block_of)
+
     def refcount(self, block):
         return self._ref[block]
 
@@ -376,14 +413,18 @@ class PagedKVCache:
             del self._block_of[h]
             del self._hash_of[block]
             got.append(block)
+            if self.on_evict is not None:
+                self.on_evict(block)   # a warm prefix block lost its content
         for b in got:
             self._ref[b] = 1
         if got and self.scales is not None:
             # a recycled block's grid belongs to its previous tenant: reset
             # it to the floor (in every replica) so the new owner's first
-            # write sets a fresh grid
+            # write sets a fresh grid. One fill a block: an index list
+            # would be uploaded with a host sync
             for sc in {id(t): t for t in self.scale_shards}.values():
-                sc[:, got] = KV_QUANT_EPS
+                for b in got:
+                    sc[:, b].fill_(KV_QUANT_EPS)
         return got
 
     def copy_block(self, src, dst):
@@ -511,17 +552,6 @@ def _resolve_bool_knob(env_name, requested):
     return bool(requested) if requested is not None else False
 
 
-def _refuse_unported_switches():
-    """Raise NotImplementedError when a deploy switch of a feature the
-    port lacks asks for it, naming the ROADMAP Queue A item that ports
-    it; a bad value raises JAX's ValueError. Off and unset pass."""
-    for name, item in (("PADDLE_SERVE_TRACING", "11"),
-                       ("PADDLE_SERVE_ASYNC", "11")):
-        if _resolve_bool_knob(name, None):
-            raise NotImplementedError(
-                f"{name} is on: not ported yet (ROADMAP Queue A {item})")
-
-
 # admission QoS classes, best-served first
 PRIORITY_CLASSES = ("interactive", "standard", "batch")
 
@@ -535,11 +565,15 @@ class Request:
     prompt: np.ndarray                 # int32 [plen]
     max_new_tokens: int
     eos_token_id: int = None
+    arrived_at: float = None           # perf_counter at add_request
     priority: str = "standard"         # one of PRIORITY_CLASSES
     # the request's SamplingParams (seed resolved at intake), or None for
     # the greedy contract
     sampling: object = None
     adapter_id: int = 0                # tenant adapter (0: the base model)
+    # the id every span of this request carries (None on an engine with
+    # tracing off)
+    trace_id: object = None
 
 
 @dataclass(eq=False)
@@ -549,7 +583,9 @@ class _Slot:
     req: Request
     blocks: list                       # owned/shared pool block ids
     generated: list = field(default_factory=list)
+    last_token_at: float = None        # perf_counter of the newest token
     prefill_pos: int = 0               # next prompt position to prefill
+    hit_tokens: int = 0                # prefix-cache tokens never computed
     admit_seq: int = 0                 # admission order tiebreak
     adapter_page: int = 0              # the request's adapter pool page
     # per-slot sampling state (greedy lanes: 0 / 0 / 1.0 / no key row)
@@ -573,6 +609,28 @@ class _Slot:
     def feed_token(self):
         return self.generated[-1] if self.generated \
             else int(self.req.prompt[-1])
+
+
+@dataclass(eq=False)
+class _InFlight:
+    """One dispatched decode or verify step whose tokens the host has not
+    read yet. The async core leaves one across `step()` calls (never
+    more); the serial core completes it in the same call."""
+
+    out: tuple                         # the step's token tensors (device)
+    runnable: list                     # lane indices dispatched
+    slots: list                        # their _Slot objects
+    drafts: dict = None                # lane -> draft (verify steps)
+    host: tuple = None                 # pinned copies of `out` (async, CUDA)
+    event: object = None               # recorded after those copies
+    t_dec: float = 0.0                 # perf_counter at dispatch
+    t_span: int = 0                    # now_us at dispatch start
+    seq: int = 0                       # pipeline sequence number
+
+
+def _dtype_name(dt):
+    """A torch dtype's name as numpy spells it (`float32`, `bfloat16`)."""
+    return str(dt).replace("torch.", "")
 
 
 class GenerationEngine:
@@ -618,7 +676,14 @@ class GenerationEngine:
     `spec_accepted_tokens`, `spec_rejected_tokens`, `sampled_tokens`
     (tokens of temperature > 0 lanes), `prefill_first_tokens` (first
     tokens a prefill yielded: a final chunk or a bucketed prefill), and
-    the adapter pool's `adapter_swapins` and `adapter_evictions`.
+    the adapter pool's `adapter_swapins` and `adapter_evictions`; the
+    metrics registry (`registry=`, a fresh `MetricsRegistry` by default)
+    holds the same numbers as JAX's series.
+    `tracing=True` (or `PADDLE_SERVE_TRACING`) records request-scoped
+    spans into a ring of `trace_capacity` events (`export_trace`); the
+    flight recorder keeps the last `flight_capacity` lifecycle events.
+    `async_core=True` (or `PADDLE_SERVE_ASYNC`) pipelines the decode or
+    verify step one call ahead (module docstring).
     """
 
     def __init__(self, model, num_slots=8, block_size=16, num_blocks=None,
@@ -627,12 +692,13 @@ class GenerationEngine:
                  spec_decode_k=0, drafter=None, kv_dtype=None,
                  attention_backend=None, prefill_buckets=None,
                  weight_dtype=None, sampling=None, adapters=None,
-                 adapter_pool_pages=None, mesh=None, mp_degree=None):
+                 adapter_pool_pages=None, mesh=None, mp_degree=None,
+                 registry=None, tracing=None, trace_capacity=4096,
+                 flight_capacity=256, async_core=None):
         cfg = model.config
         if model.training and cfg.dropout > 0:
             raise ValueError("GenerationEngine decodes deterministically "
                              "(no dropout) — call model.eval() first")
-        _refuse_unported_switches()
         self.device = resolve_device(device)
         self._resolve_mesh(mesh, mp_degree, cfg)
         if self.mesh is not None:
@@ -704,6 +770,25 @@ class GenerationEngine:
         self.sampling = _resolve_bool_knob("PADDLE_SERVE_SAMPLING",
                                            sampling)
         self._seed_counter = 0
+        # request-scoped tracing: host-side spans only, so a traced engine
+        # launches what an untraced one does
+        self.tracing = _resolve_bool_knob("PADDLE_SERVE_TRACING", tracing)
+        self.tracer = TraceRecorder(capacity=trace_capacity) \
+            if self.tracing else None
+        # the async core: the decode or verify step stays in flight across
+        # step() calls (one deep); its host rows ride pinned staging
+        self.async_core = _resolve_bool_knob("PADDLE_SERVE_ASYNC",
+                                             async_core)
+        self._staged = self.async_core and self.device.type == "cuda"
+        self._inflight = None          # the single in-flight step
+        self._ahead = None             # (helper thread, results dict)
+        self._next_drafts = {}         # slot -> draft from the helper
+        self._step_seq = 0
+        # the flight recorder and the step-phase clock are always on:
+        # bounded host bookkeeping that feeds the leak audit's postmortem
+        # and the host-gap histogram
+        self.flight = FlightRecorder(capacity=flight_capacity)
+        self._phases = PhaseTimer()
         # int8 weights: the snapshot the paged forwards read, one dict a
         # layer; None serves the live weights. Under a mesh the
         # tensor-parallel snapshot (`TensorParallel`, int8 or fp) instead
@@ -717,6 +802,12 @@ class GenerationEngine:
             self.block_size, cfg.num_heads,
             cfg.hidden_size // cfg.num_heads, dtype=wte.dtype,
             device=self.device, kv_dtype=self.kv_dtype, mesh=self.mesh)
+        # the hook holds the recorder, not the engine: a cycle through the
+        # engine would keep its pools and model alive after the last
+        # reference goes, until a full garbage collection
+        flight = self.flight
+        self.cache.on_evict = lambda b: flight.record("prefix_evict",
+                                                      block=b)
         self._resolve_adapters(adapters, adapter_pool_pages, cfg, wte.dtype)
         if self.chunked_prefill:
             self.prefill_buckets = ()
@@ -747,6 +838,11 @@ class GenerationEngine:
         self.spec_rejected_tokens = 0
         self.sampled_tokens = 0
         self.prefill_first_tokens = 0
+        # serving telemetry: a registry of its own by default, so counts
+        # stay exact with several engines in one process
+        self.metrics = registry if registry is not None \
+            else MetricsRegistry()
+        self._init_metrics()
 
     # -- tensor-parallel serving (mesh) --------------------------------------
     def _resolve_mesh(self, mesh, mp_degree, cfg):
@@ -996,9 +1092,19 @@ class GenerationEngine:
         retries)."""
         if self.adapter_pool is None or not req.adapter_id:
             return 0
-        page = self.adapter_pool.acquire(req.adapter_id)
+        with self._phase("adapter_swap"):
+            swapins = self.adapter_pool.swapins
+            page = self.adapter_pool.acquire(req.adapter_id)
         if page is None:
-            self.stalls["adapter"] += 1
+            self._stall(req, "adapter")
+            return None
+        if self.adapter_pool.swapins > swapins:
+            # a cold page: the acquire copied the registry's stacks in
+            self.flight.record("adapter_swap_in", req.req_id,
+                               adapter=int(req.adapter_id), page=page)
+            self._trace_instant("adapter.swap_in", req,
+                                adapter=int(req.adapter_id), page=page)
+        self._update_adapter_gauges()
         return page
 
     def _release_adapter(self, slot):
@@ -1006,6 +1112,7 @@ class GenerationEngine:
         warm in the pool's LRU at refcount zero)."""
         if self.adapter_pool is not None and slot.req.adapter_id:
             self.adapter_pool.release(slot.req.adapter_id)
+            self._update_adapter_gauges()
 
     def _lora(self, slots):
         """The step's `LoraState` over `slots` (None for an idle lane,
@@ -1017,22 +1124,370 @@ class GenerationEngine:
                             for s in slots], np.int32)
         if self._tp is None:
             return LoraState(self.adapter_pool.arrays(),
-                             self._device_int32(pages))
+                             self._to_device(pages))
         return [LoraState(self.adapter_pool.arrays(r), rows, head_major=True)
-                for r, rows in enumerate(self._tp.put(pages))]
+                for r, rows in enumerate(self._put(pages))]
+
+    # -- serving telemetry ---------------------------------------------------
+    def _init_metrics(self):
+        """JAX's engine families (`_init_metrics` there), under its names,
+        help strings (verbatim, so the two snapshots compare) and labels,
+        but for the trace-count families of its
+        compiled steps (`engine_decode_traces`, `engine_prefill_traces`,
+        `engine_decode_recompiles_total`): an eager engine never
+        retraces."""
+        m = self.metrics
+        self._m_ttft = m.histogram(
+            "engine_ttft_seconds",
+            "Request arrival to first generated token (includes queue "
+            "wait and prefill), labeled by QoS priority class.",
+            labelnames=("priority",), buckets=LATENCY_BUCKETS)
+        self._m_tpot = m.histogram(
+            "engine_tpot_seconds",
+            "Per-output-token latency, labeled by QoS priority class: "
+            "time since the slot's PREVIOUS token, so block-stall "
+            "waits show up (not just the producing iteration's wall "
+            "time). A request that only ever produces one token "
+            "records that token's producing-step latency instead of "
+            "staying invisible.",
+            labelnames=("priority",), buckets=LATENCY_BUCKETS)
+        self._m_queue = m.gauge(
+            "engine_queue_depth", "Requests waiting for a slot.")
+        self._m_active = m.gauge(
+            "engine_active_slots", "Decode lanes currently occupied.")
+        self._m_admissions = m.counter(
+            "engine_admissions_total", "Requests admitted into a lane.")
+        self._m_finished = m.counter(
+            "engine_finished_total",
+            "Requests finished (lane vacated).", labelnames=("reason",))
+        # pool series carry this process's shard id, as JAX's carry
+        # jax.process_index(), so per-rank snapshots merge side by side
+        dist = torch.distributed
+        self._shard = str(dist.get_rank()) if dist.is_available() \
+            and dist.is_initialized() else "0"
+        self._m_stalls = m.counter(
+            "engine_block_stalls_total",
+            "Iterations a lane/admission skipped for want of a pool "
+            "block (path=spec_degrade: a speculative lane shed its "
+            "draft window instead of skipping), labeled by engine "
+            "shard.",
+            labelnames=("path", "shard"))
+        self._m_tokens = m.counter(
+            "engine_tokens_generated_total", "New tokens emitted.")
+        self._m_pool_used = m.gauge(
+            "engine_pool_used_blocks",
+            "KV pool blocks in use, by engine shard.",
+            labelnames=("shard",)).labels(shard=self._shard)
+        kv_name = self.kv_dtype or _dtype_name(self.cache.pool_spec()[1])
+        self._m_pool_util = m.gauge(
+            "engine_pool_utilization",
+            "Used fraction of allocatable KV pool blocks, by engine "
+            "shard and pool dtype (int8 = quantized KV serving).",
+            labelnames=("shard", "kv_dtype")).labels(
+                shard=self._shard, kv_dtype=kv_name)
+        self._m_pool_bytes = m.gauge(
+            "engine_pool_bytes",
+            "Total bytes of the paged KV state (both pool planes plus "
+            "the int8 per-block scale array when quantized), by shard "
+            "and pool dtype — the capacity-claim number: int8 pools "
+            "must come in at <= 0.55x their fp16/bf16 size.",
+            labelnames=("shard", "kv_dtype")).labels(
+                shard=self._shard, kv_dtype=kv_name)
+        self._m_kv_dtype = m.gauge(
+            "engine_kv_dtype_info",
+            "Paged KV cache storage dtype this engine serves with "
+            "(1 = selected).", labelnames=("kv_dtype",))
+        self._m_kv_dtype.labels(kv_dtype=kv_name).set(1)
+        w_name = self.weight_dtype or _dtype_name(
+            self.model.gpt.wte.weight.dtype)
+        self._m_weight_dtype = m.gauge(
+            "engine_weight_dtype_info",
+            "Served matmul-weight storage dtype (int8 = qkv/out/fc1/"
+            "fc2 ride the compiled steps quantized; 1 = selected).",
+            labelnames=("weight_dtype",))
+        self._m_weight_dtype.labels(weight_dtype=w_name).set(1)
+        self._m_pool_hw = m.gauge(
+            "engine_pool_used_high_water_blocks",
+            "High-water mark of KV pool blocks in use, by engine "
+            "shard.",
+            labelnames=("shard",)).labels(shard=self._shard)
+        self._m_prefill_chunks = m.counter(
+            "engine_prefill_chunks_total",
+            "Compiled prefill-chunk dispatches (prefix-cache hits "
+            "shrink this: hit tokens skip prefill compute).")
+        self._m_hit_tokens = m.counter(
+            "engine_prefix_cache_hit_tokens_total",
+            "Prompt tokens served from the prefix cache instead of "
+            "being recomputed.")
+        self._m_cached_blocks = m.gauge(
+            "engine_prefix_cached_blocks",
+            "Pool blocks the prefix cache can currently serve hits "
+            "from (live + evictable).")
+        self._m_cow = m.counter(
+            "engine_cow_copies_total",
+            "Copy-on-write block promotions: a decode write landed in "
+            "a shared/cached block and got a private copy first.")
+        self._m_shed = m.counter(
+            "engine_shed_total",
+            "Requests shed at saturation (max_queue exceeded), by "
+            "priority class.", labelnames=("priority",))
+        self._m_spec_accepted = m.histogram(
+            "engine_spec_accepted_tokens",
+            "Tokens emitted per speculative verify step per lane "
+            "(1 = no draft token survived; K+1 = the whole window "
+            "accepted).",
+            buckets=(1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 12.0, 16.0))
+        self._m_spec_hit_rate = m.gauge(
+            "engine_spec_draft_hit_rate",
+            "Fraction of drafted tokens the target model confirmed "
+            "(exact-acceptance matches / proposals) since the last "
+            "registry reset.")
+        # the hit rate's numerator and denominator live in the registry,
+        # so a metrics.reset() restarts the rate
+        spec_drafted = m.counter(
+            "engine_spec_draft_tokens_total",
+            "Drafted tokens offered to the verify step, by whether "
+            "the target's argmax confirmed them.",
+            labelnames=("result",))
+        self._m_spec_ok = spec_drafted.labels(result="accepted")
+        self._m_spec_rej = spec_drafted.labels(result="rejected")
+        self._m_sampling = m.gauge(
+            "engine_sampling_info",
+            "Probabilistic serving state (1 = this engine threads "
+            "per-slot sampling params through its compiled steps; "
+            "greedy-only engines run the pre-sampling programs "
+            "byte-identically).", labelnames=("enabled",))
+        self._m_sampling.labels(
+            enabled="1" if self.sampling else "0").set(1)
+        # registered only when the subsystem is on, as in JAX
+        self._m_sampled_tokens = None
+        if self.sampling:
+            self._m_sampled_tokens = m.counter(
+                "engine_sampled_tokens_total",
+                "Tokens emitted by sampled (temperature > 0) lanes — "
+                "greedy lanes count only in "
+                "engine_tokens_generated_total.")
+        self._m_backend = m.gauge(
+            "engine_attention_backend_info",
+            "Paged-attention kernel backend the compiled decode step "
+            "dispatches to (1 = selected).", labelnames=("backend",))
+        self._m_backend.labels(backend=self.attention_backend).set(1)
+        self._m_mesh = m.gauge(
+            "engine_mesh_info",
+            "Serving mesh the compiled steps span (1 = this "
+            "configuration): tensor-parallel degree and device count.",
+            labelnames=("mp_degree", "devices"))
+        self._m_mesh.labels(
+            mp_degree=str(self.mp_degree),
+            devices=str(len(self.mesh.devices) if self.mesh is not None
+                        else 1)).set(1)
+        self._m_decode_seconds = m.histogram(
+            "engine_decode_step_seconds",
+            "Wall time of one compiled decode dispatch, labeled by "
+            "paged-attention backend.", labelnames=("backend",),
+            buckets=LATENCY_BUCKETS).labels(
+                backend=self.attention_backend)
+        # the host work of one step by named phase (always on)
+        self._m_host_gap = m.histogram(
+            "engine_step_host_gap_seconds",
+            "Exclusive wall time one engine.step() spent in each named "
+            "host phase (device_wait is the block_until_ready wait — "
+            "the only phase that is device time; everything else is "
+            "the serial host gap ROADMAP item 3 wants overlapped).",
+            labelnames=("phase",), buckets=LATENCY_BUCKETS)
+        self._m_device_fraction = m.gauge(
+            "engine_step_device_fraction",
+            "Fraction of the last step's wall time spent waiting on "
+            "the device (device_wait / step wall): 1.0 = device-bound "
+            "(host gap hidden), small = host-serial tax dominates.")
+        # registered only with tracing on, as in JAX
+        self._m_trace_spans = None
+        if self.tracing:
+            self._m_trace_spans = m.counter(
+                "engine_trace_spans_total",
+                "Spans/instants this engine's trace ring recorded "
+                "(ring-bounded retention; see "
+                "engine_trace_dropped_total).")
+            self._m_trace_dropped = m.counter(
+                "engine_trace_dropped_total",
+                "Trace events evicted by the bounded span ring — "
+                "nonzero means the exported timeline is a tail, not "
+                "the full history.")
+            self._trace_spans_seen = self._trace_dropped_seen = 0
+        # per-tenant latency and adapter-pool paging, registered only with
+        # adapters on, as in JAX
+        self._m_a_ttft = self._m_a_tpot = None
+        if self.adapter_pool is not None:
+            self._m_a_ttft = m.histogram(
+                "engine_adapter_ttft_seconds",
+                "Request arrival to first token, labeled by tenant "
+                "adapter id (0 = the null/base adapter) — the "
+                "per-tenant SLO view of engine_ttft_seconds.",
+                labelnames=("adapter",), buckets=LATENCY_BUCKETS)
+            self._m_a_tpot = m.histogram(
+                "engine_adapter_tpot_seconds",
+                "Per-output-token latency by tenant adapter id — the "
+                "per-tenant SLO view of engine_tpot_seconds.",
+                labelnames=("adapter",), buckets=LATENCY_BUCKETS)
+            self._m_a_pages = m.gauge(
+                "engine_adapter_pool_pages",
+                "Device-resident adapter pool pages (page 0 is the "
+                "permanently-held null adapter).")
+            self._m_a_pages.set(self.adapter_pool.num_pages)
+            self._m_a_used = m.gauge(
+                "engine_adapter_pool_used_pages",
+                "Adapter pages referenced by live lanes (warm "
+                "refcount-zero pages count as free capacity, like "
+                "evictable KV blocks).")
+            self._m_a_resident = m.gauge(
+                "engine_adapter_pool_resident",
+                "Adapters currently materialized on a page (live + "
+                "warm LRU).")
+            self._m_a_swapins = m.counter(
+                "engine_adapter_swapins_total",
+                "Host->device adapter page loads (an acquire missed "
+                "the pool and copied the registry's stacks in).")
+            self._m_a_evictions = m.counter(
+                "engine_adapter_evictions_total",
+                "Warm adapter pages evicted to make room for another "
+                "tenant (LRU, refcount-zero only).")
+            self._a_swapins_seen = self._a_evictions_seen = 0
+            self._update_adapter_gauges()
+
+    def _obs_ttft(self, req, v):
+        """One TTFT observation on the priority-labelled series and, with
+        adapters, the tenant-labelled one."""
+        self._m_ttft.labels(priority=req.priority).observe(v)
+        if self._m_a_ttft is not None:
+            self._m_a_ttft.labels(adapter=str(req.adapter_id)).observe(v)
+
+    def _obs_tpot(self, req, v):
+        self._m_tpot.labels(priority=req.priority).observe(v)
+        if self._m_a_tpot is not None:
+            self._m_a_tpot.labels(adapter=str(req.adapter_id)).observe(v)
+
+    def _update_adapter_gauges(self):
+        pool = self.adapter_pool
+        if pool is None:
+            return
+        # the static pages gauge too: a metrics.reset() must not leave it
+        # at 0
+        self._m_a_pages.set(pool.num_pages)
+        self._m_a_used.set(pool.num_pages - 1 - pool.num_free)
+        self._m_a_resident.set(pool.num_resident)
+        if pool.swapins > self._a_swapins_seen:
+            self._m_a_swapins.inc(pool.swapins - self._a_swapins_seen)
+            self._a_swapins_seen = pool.swapins
+        if pool.evictions > self._a_evictions_seen:
+            self._m_a_evictions.inc(pool.evictions - self._a_evictions_seen)
+            self._a_evictions_seen = pool.evictions
+
+    def _update_pool_gauges(self):
+        # "used" = referenced blocks; refcount-zero cached blocks are
+        # reclaimable on demand, so they count as free capacity
+        used = self.cache.num_blocks - 1 - self.cache.num_free
+        self._m_pool_used.set(used)
+        self._m_pool_util.set(used / max(self.cache.num_blocks - 1, 1))
+        self._m_pool_bytes.set(self.cache.pool_nbytes())
+        self._m_pool_hw.set_max(used)
+        self._m_cached_blocks.set(self.cache.num_cached_blocks)
+
+    def _end_of_step_gauges(self):
+        self._m_active.set(self.num_active)
+        self._m_queue.set(self.num_pending)
+        self._update_pool_gauges()
+        self._update_adapter_gauges()
+        if self._m_trace_spans is not None:
+            total = self.tracer.total_recorded
+            self._m_trace_spans.inc(total - self._trace_spans_seen)
+            self._trace_spans_seen = total
+            dropped = self.tracer.dropped
+            self._m_trace_dropped.inc(dropped - self._trace_dropped_seen)
+            self._trace_dropped_seen = dropped
 
     def metrics_snapshot(self):
-        """Not ported: the metrics registry (with the adapter gauges and
-        the adapter-labelled TTFT/TPOT histograms) is ROADMAP Queue A 11.
-        The engine's plain counters stand in."""
-        raise NotImplementedError(
-            "the metrics registry is not ported yet (ROADMAP Queue A 11); "
-            "read the engine's counters (tokens_generated, stalls, "
-            "adapter_swapins, ...)")
+        """JSON-able snapshot of this engine's serving metrics."""
+        return self.metrics.snapshot()
 
     def render_prometheus(self):
-        """Not ported, as `metrics_snapshot` (ROADMAP Queue A 11)."""
-        return self.metrics_snapshot()
+        """This engine's metrics in the Prometheus text format."""
+        return self.metrics.render_prometheus()
+
+    # -- request-scoped tracing, step phases, flight recorder ----------------
+    def _phase(self, name):
+        """Enter one named host phase of the current step (exclusive
+        accounting: a nested phase pauses the enclosing one) and, with
+        tracing on, record it as a span."""
+        if self.tracer is None:
+            return self._phases.phase(name)
+        return self._traced_phase(name)
+
+    @contextmanager
+    def _traced_phase(self, name):
+        t0 = now_us()
+        with self._phases.phase(name):
+            yield
+        self.tracer.add_span("phase." + name, t0, now_us(), cat="phase")
+
+    def _trace_span(self, name, start_us, req=None, tid=0, cat="request",
+                    **attrs):
+        """Close a request-scoped span started at `start_us` (a no-op
+        with tracing off)."""
+        if self.tracer is None:
+            return
+        self.tracer.add_span(
+            name, start_us, now_us(), tid=tid, cat=cat,
+            trace_id=None if req is None else req.trace_id,
+            args={"req_id": str(req.req_id), **attrs} if req is not None
+            else (attrs or None))
+
+    def _trace_instant(self, name, req=None, **attrs):
+        if self.tracer is None:
+            return
+        self.tracer.add_instant(
+            name, cat="request",
+            trace_id=None if req is None else req.trace_id,
+            args={"req_id": str(req.req_id), **attrs} if req is not None
+            else (attrs or None))
+
+    def _flush_step_phases(self, wall):
+        """Fold the finished step's phase clock into the host-gap
+        histogram and the device-fraction gauge."""
+        totals = self._phases.reset()
+        if not totals:
+            return
+        for phase, dt in totals.items():
+            self._m_host_gap.labels(phase=phase).observe(dt)
+        dev = totals.get("device_wait", 0.0)
+        self._m_device_fraction.set(
+            min(dev / wall, 1.0) if wall > 0 else 0.0)
+
+    def dump_flight_recorder(self):
+        """The bounded ring of recent request-lifecycle events (oldest
+        first, JSON-able): the postmortem `drain()`'s leak audit
+        attaches."""
+        return self.flight.dump()
+
+    def _audit_error(self, msg):
+        """A drain-audit failure with the flight recorder's history
+        attached."""
+        return RuntimeError(msg + "\n" + self.flight.format(limit=64))
+
+    def export_trace(self, path, include_profiler=True):
+        """Write this engine's span ring as one Chrome trace-event /
+        Perfetto JSON timeline, merged (same monotonic clock) with the
+        spans the port's profiler has buffered. Returns the event
+        count written."""
+        if self.tracer is None:
+            raise RuntimeError(
+                "tracing is off — build the engine with tracing=True "
+                "(or PADDLE_SERVE_TRACING=1) to record spans")
+        groups = [("engine", self.tracer.snapshot())]
+        if include_profiler:
+            ev = profiler_host_events()
+            if ev:
+                groups.append(("profiler", ev))
+        return export_timeline(path, groups)
 
     # -- int8 weight serving -----------------------------------------------
     def _weight_quant_plan(self):
@@ -1136,13 +1591,12 @@ class GenerationEngine:
                 continue
             temps[i], tks[i], tps[i] = slot.temp, slot.top_k, slot.top_p
             keys[i] = slot.key_row.numpy()
-        return [torch.from_numpy(a).to(self.device)
-                for a in (temps, tks, tps, keys)]
+        return [self._to_device(a) for a in (temps, tks, tps, keys)]
 
     # -- request intake ----------------------------------------------------
     def add_request(self, prompt, max_new_tokens, eos_token_id=None,
                     req_id=None, priority="standard", sampling_params=None,
-                    adapter_id=0):
+                    adapter_id=0, trace_id=None):
         """Queue a request; it is admitted into a free lane between steps
         (may be called while `run`/`step` is mid-stream). With `max_queue`
         set and the queue full, the lowest-priority loser is shed: its
@@ -1151,7 +1605,8 @@ class GenerationEngine:
         the greedy contract. A None seed is drawn here from the engine's
         deterministic counter. `adapter_id` is the tenant adapter the
         request decodes under (needs `adapters=`; 0, the default, is the
-        base model). Returns the request id."""
+        base model). `trace_id` names the request's spans (with tracing
+        on, a fresh one when None). Returns the request id."""
         adapter_id = self._check_adapter(adapter_id)
         sampling_params = self._resolve_seed(
             self._check_sampling(sampling_params))
@@ -1180,9 +1635,16 @@ class GenerationEngine:
             raise ValueError(f"req_id {req_id!r} is already queued, "
                              "decoding, or awaiting collection")
         eos = self.eos_token_id if eos_token_id is None else eos_token_id
+        if self.tracing and trace_id is None:
+            trace_id = new_trace_id()
         req = Request(req_id, prompt, int(max_new_tokens), eos,
-                      priority=priority, sampling=sampling_params,
-                      adapter_id=adapter_id)
+                      arrived_at=time.perf_counter(), priority=priority,
+                      sampling=sampling_params, adapter_id=adapter_id,
+                      trace_id=trace_id)
+        self.flight.record("queued", req_id, priority=priority,
+                           plen=int(prompt.size), adapter=int(adapter_id))
+        self._trace_instant("request.queued", req, priority=priority,
+                            plen=int(prompt.size))
         if self.max_queue is not None \
                 and self.num_pending >= self.max_queue:
             victim = self._shed_victim(priority)
@@ -1191,6 +1653,7 @@ class GenerationEngine:
                 return req_id
             self._shed(victim)
         self._queues[priority].append(req)
+        self._m_queue.set(self.num_pending)
         return req_id
 
     def _shed_victim(self, incoming_priority):
@@ -1205,6 +1668,10 @@ class GenerationEngine:
     def _shed(self, req):
         self._results[req.req_id] = None
         self.shed += 1
+        self._m_shed.labels(priority=req.priority).inc()
+        self._m_queue.set(self.num_pending)
+        self.flight.record("shed", req.req_id, priority=req.priority)
+        self._trace_instant("request.shed", req, priority=req.priority)
 
     def _in_flight(self):
         ids = {r.req_id for p in PRIORITY_CLASSES for r in self._queues[p]}
@@ -1225,56 +1692,104 @@ class GenerationEngine:
         return req
 
     # -- scheduler ---------------------------------------------------------
-    def _finish(self, i):
-        slot = self._slots[i]
-        self._results[slot.req.req_id] = \
-            list(map(int, slot.req.prompt)) + slot.generated
+    def _note_tokens(self, req, n=1):
+        """Account `n` freshly emitted tokens: the counters and series,
+        sampled (temperature > 0) lanes' apart too."""
+        self.tokens_generated += n
+        self._m_tokens.inc(n)
+        if req.sampling is not None and not req.sampling.greedy:
+            self.sampled_tokens += n
+            self._m_sampled_tokens.inc(n)
+
+    def _stall(self, req, path):
+        """Count a stall of `req` on `path`: the plain counter, the series
+        and the flight recorder."""
+        self.stalls[path] += 1
+        self._m_stalls.labels(path=path, shard=self._shard).inc()
+        self.flight.record("stall", req.req_id, path=path)
+
+    def _finish(self, slot, reason):
+        """Retire a lane's request: its result, its blocks back to the
+        pool, its adapter page released. The caller vacates the lane."""
+        req = slot.req
+        self._results[req.req_id] = \
+            list(map(int, req.prompt)) + slot.generated
         self.cache.free(slot.blocks)
         self._release_adapter(slot)
-        self._slots[i] = None
+        self._m_finished.labels(reason=reason).inc()
+        self.flight.record("finish", req.req_id, reason=reason,
+                           tokens=len(slot.generated))
+        self._trace_instant("request.finish", req, reason=reason,
+                            tokens=len(slot.generated))
 
-    def _emit(self, i, toks):
-        """Append generated tokens to lane i up to and including the first
-        EOS or the request's budget; retire the lane if either was hit."""
-        slot = self._slots[i]
+    def _first_token(self, slot, first, t_step):
+        """Seat a request's first generated token (from the final prefill
+        chunk or a bucketed prefill): TTFT, token accounting, prefix-cache
+        publication, and retirement of an instant finisher. Returns False
+        when the lane was vacated."""
         req = slot.req
-        sampled = req.sampling is not None and not req.sampling.greedy
-        for tok in toks:
-            slot.generated.append(tok)
-            self.tokens_generated += 1
-            self.sampled_tokens += sampled
-            if (req.eos_token_id is not None and tok == req.eos_token_id) \
-                    or len(slot.generated) >= req.max_new_tokens:
-                self._finish(i)
-                return
+        now = time.perf_counter()
+        slot.generated.append(first)
+        slot.last_token_at = now
+        self._note_tokens(req)
+        self.flight.record("first_token", req.req_id)
+        self._trace_instant("request.first_token", req)
+        if req.arrived_at is not None:
+            self._obs_ttft(req, now - req.arrived_at)
+        if self.enable_prefix_cache:
+            # the prompt's KV is fully written: publish its full blocks
+            # under the request's adapter-salted chain
+            self.cache.register_prefix(req.prompt, slot.blocks,
+                                       adapter_id=req.adapter_id)
+        done_eos = (req.eos_token_id is not None
+                    and first == req.eos_token_id)
+        if done_eos or req.max_new_tokens == 1:
+            # an instant finisher's only token still lands in the TPOT
+            # histogram (the producing step's latency)
+            self._obs_tpot(req, now - t_step)
+            self._finish(slot, "eos" if done_eos else "length")
+            self._slots[self._slots.index(slot)] = None
+            return False
+        return True
 
     def _admit_chunked(self):
         """Seat queued requests into free lanes: match the longest cached
         block-aligned prefix (read-only references) and leave the tail to
         the chunked prefill. A full-prefix hit enters decode directly."""
         admitted = 0
-        while None in self._slots:
-            req = self._pop_request()
-            if req is None:
-                break
-            page = self._acquire_adapter(req)
-            if page is None:
-                # every adapter page is referenced by a live lane: requeue
-                # at the front and retry when a lane vacates
-                self._queues[req.priority].appendleft(req)
-                break
-            blocks, hit = [], 0
-            if self.enable_prefix_cache:
-                blocks, hit = self.cache.match_prefix(
-                    req.prompt, adapter_id=req.adapter_id)
-                self.prefix_hit_tokens += hit
-            slot = _Slot(req=req, blocks=list(blocks), prefill_pos=hit,
-                         admit_seq=self._admit_counter, adapter_page=page,
-                         **self._slot_sampling_fields(req))
-            self._admit_counter += 1
-            self._slots[self._slots.index(None)] = slot
-            self.admissions += 1
-            admitted += 1
+        with self._phase("schedule"):
+            while None in self._slots:
+                req = self._pop_request()
+                if req is None:
+                    break
+                page = self._acquire_adapter(req)
+                if page is None:
+                    # every adapter page is referenced by a live lane:
+                    # requeue at the front and retry when a lane vacates
+                    self._queues[req.priority].appendleft(req)
+                    break
+                blocks, hit = [], 0
+                if self.enable_prefix_cache:
+                    with self._phase("prefix_lookup"):
+                        blocks, hit = self.cache.match_prefix(
+                            req.prompt, adapter_id=req.adapter_id)
+                    if hit:
+                        self.prefix_hit_tokens += hit
+                        self._m_hit_tokens.inc(hit)
+                slot = _Slot(req=req, blocks=list(blocks), prefill_pos=hit,
+                             hit_tokens=hit, admit_seq=self._admit_counter,
+                             adapter_page=page,
+                             **self._slot_sampling_fields(req))
+                self._admit_counter += 1
+                self._slots[self._slots.index(None)] = slot
+                self.admissions += 1
+                self._m_admissions.inc()
+                self.flight.record("admitted", req.req_id, hit_tokens=hit)
+                self._trace_instant("request.admitted", req,
+                                    hit_tokens=hit)
+                self._update_pool_gauges()
+                admitted += 1
+        self._m_queue.set(self.num_pending)
         return admitted
 
     def _default_buckets(self):
@@ -1308,14 +1823,17 @@ class GenerationEngine:
             if req is None:
                 break
             plen = int(req.prompt.size)
-            need = math.ceil(plen / self.block_size)
-            blocks = self.cache.allocate(need)
+            with self._phase("schedule"):
+                need = math.ceil(plen / self.block_size)
+                blocks = self.cache.allocate(need)
             if blocks is None:
-                self.stalls["admit"] += 1
+                self._stall(req, "admit")
                 break                      # pool pressure: retry later
+            self._update_pool_gauges()     # the high-water sees the peak
             page = self._acquire_adapter(req)
             if page is None:
                 self.cache.free(blocks)    # fresh, unhashed: free list
+                self._update_pool_gauges()
                 break                      # adapter pressure: retry later
             self._pop_request()
             bucket = self._bucket_for(plen)
@@ -1323,48 +1841,68 @@ class GenerationEngine:
                          admit_seq=self._admit_counter, adapter_page=page,
                          **self._slot_sampling_fields(req))
             self._admit_counter += 1
-            i = self._slots.index(None)
-            self._slots[i] = slot
+            self._slots[self._slots.index(None)] = slot
             self.admissions += 1
+            self._m_admissions.inc()
+            self.flight.record("admitted", req.req_id, bucket=bucket)
+            self._trace_instant("request.admitted", req, bucket=bucket)
             admitted += 1
-            tokens = np.zeros((1, bucket), np.int32)
-            tokens[0, :plen] = req.prompt
-            row = np.zeros(self.max_blocks, np.int32)
-            row[:need] = blocks
-            kp, vp, sc = self._pools()
-            with torch.no_grad():
-                hidden, ks, vs = self.model.gpt.forward_prefill(
-                    self._put(tokens), self._qweights, self._lora([slot]),
-                    tp=self._tp)
-                (paged_prefill_write if self._tp is None
-                 else paged_prefill_write_shards)(
-                    kp, vp, ks, vs, self._put(row), plen, sc)
-                first = self._first_of(self._row(hidden, (0, plen - 1)),
-                                       slot, plen)
-            self._emit(i, [first])
+            t_span = now_us()
+            with self._phase("dispatch"):
+                tokens = np.zeros((1, bucket), np.int32)
+                tokens[0, :plen] = req.prompt
+                row = np.zeros(self.max_blocks, np.int32)
+                row[:need] = blocks
+                kp, vp, sc = self._pools()
+                with RecordEvent("engine.prefill"), torch.no_grad():
+                    t0 = time.perf_counter()
+                    hidden, ks, vs = self.model.gpt.forward_prefill(
+                        self._put(tokens), self._qweights,
+                        self._lora([slot]), tp=self._tp)
+                    (paged_prefill_write if self._tp is None
+                     else paged_prefill_write_shards)(
+                        kp, vp, ks, vs, self._put(row), plen, sc)
+                    first = self._first_of(self._row(hidden, (0, plen - 1)),
+                                           slot, plen)
+                    with self._phase("device_wait"):
+                        first = int(first)     # sync: the first token
+            self._trace_span("prefill.bucketed", t_span, req=req,
+                             bucket=bucket)
+            with self._phase("finish"):
+                self._first_token(slot, first, t0)
+        self._m_queue.set(self.num_pending)
         return admitted
 
     def _first_of(self, h_last, slot, plen):
-        """A prompt's first generated token from its last real position's
-        hidden state: the argmax, or under sampling a draw that folds
-        `plen - 1` (the key a full-prefix-hit decode would fold for it)."""
+        """A prompt's first generated token, on the device, from its last
+        real position's hidden state: the argmax, or under sampling a draw
+        that folds `plen - 1` (the key a full-prefix-hit decode would fold
+        for it)."""
         logits = self.model._logits_of(h_last, self._tp)
         self.prefill_first_tokens += 1
         if not self.sampling:
-            return int(logits.argmax(-1))
-        return int(sample_token(
+            return logits.argmax(-1)
+        return sample_token(
             logits[None], *self._sampling_rows([slot]),
-            self._device_int32(np.asarray([plen - 1], np.int32)))[0])
+            self._to_device(np.asarray([plen - 1], np.int32)))[0]
 
-    def _device_int32(self, arr):
-        return torch.from_numpy(arr).to(self.device)
+    def _to_device(self, arr):
+        """A host array on the engine's device: one copy that waits, in
+        the serial core; in the async core on a card, a copy from pinned
+        staging issued without a wait, so that no host sync lands behind
+        a step in flight (the caching host allocator keeps the staging
+        block until the copy has run)."""
+        t = torch.from_numpy(arr)
+        if self._staged:
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def _put(self, arr):
         """A host array as the model's forwards take it: on the engine's
         device, or under a mesh on every shard's (a per-shard list)."""
         if self._tp is None:
-            return self._device_int32(arr)
-        return self._tp.put(arr)
+            return self._to_device(arr)
+        return self._tp.put(arr, non_blocking=self._staged)
 
     def _pools(self):
         """The cache's (K pools, V pools, scales) as the forwards take
@@ -1389,47 +1927,56 @@ class GenerationEngine:
         pushes `prefill_chunk` prompt positions through the model; the
         final chunk yields the first generated token. A lane that cannot
         get blocks stalls and the next candidate gets the chunk."""
-        cands = sorted(
-            (i for i, s in enumerate(self._slots)
-             if s is not None and s.prefilling),
-            key=lambda i: (PRIORITY_CLASSES.index(
-                self._slots[i].req.priority), self._slots[i].admit_seq))
+        with self._phase("schedule"):
+            cands = [s for s in self._slots
+                     if s is not None and s.prefilling]
+            cands.sort(key=lambda s: (
+                PRIORITY_CLASSES.index(s.req.priority), s.admit_seq))
         C = self.prefill_chunk
-        for i in cands:
-            slot = self._slots[i]
+        for slot in cands:
             req = slot.req
             plen = int(req.prompt.size)
             start = slot.prefill_pos
             end = min(start + C, plen)
-            need = math.ceil(end / self.block_size) - len(slot.blocks)
-            if need > 0:
-                got = self.cache.allocate(need)
-                if got is None:
-                    self.stalls["prefill"] += 1
-                    continue           # pool pressure: next candidate
-                slot.blocks.extend(got)
-            tokens = np.zeros((1, C), np.int32)
-            tokens[0, :end - start] = req.prompt[start:end]
-            row = np.zeros(self.max_blocks, np.int32)
-            row[:len(slot.blocks)] = slot.blocks
-            kp, vp, sc = self._pools()
-            with torch.no_grad():
-                hidden = self.model.gpt.forward_prefill_chunk(
-                    self._put(tokens), start, kp, vp, self._put(row), plen,
-                    sc, self._qweights, self._lora([slot]), tp=self._tp)
-                self.prefill_chunks += 1
-                slot.prefill_pos = end
-                if end < plen:
-                    return 1
-                # the last real prompt position gives the first token
-                first = self._first_of(
-                    self._row(hidden, (0, plen - 1 - start)), slot, plen)
-            if self.enable_prefix_cache:
-                # the prompt's KV is fully written: publish its full blocks
-                # under the request's adapter-salted chain
-                self.cache.register_prefix(req.prompt, slot.blocks,
-                                           adapter_id=req.adapter_id)
-            self._emit(i, [first])
+            with self._phase("schedule"):
+                need = math.ceil(end / self.block_size) - len(slot.blocks)
+                if need > 0:
+                    got = self.cache.allocate(need)
+                    if got is None:
+                        self._stall(req, "prefill")
+                        continue       # pool pressure: next candidate
+                    slot.blocks.extend(got)
+                    self._update_pool_gauges()
+            t_span = now_us()
+            with self._phase("dispatch"):
+                tokens = np.zeros((1, C), np.int32)
+                tokens[0, :end - start] = req.prompt[start:end]
+                row = np.zeros(self.max_blocks, np.int32)
+                row[:len(slot.blocks)] = slot.blocks
+                kp, vp, sc = self._pools()
+                with RecordEvent("engine.prefill"), torch.no_grad():
+                    t0 = time.perf_counter()
+                    hidden = self.model.gpt.forward_prefill_chunk(
+                        self._put(tokens), start, kp, vp, self._put(row),
+                        plen, sc, self._qweights, self._lora([slot]),
+                        tp=self._tp)
+                    self.prefill_chunks += 1
+                    self._m_prefill_chunks.inc()
+                    slot.prefill_pos = end
+                    if end < plen:     # mid-prompt: nothing to read
+                        self._trace_span("prefill.chunk", t_span, req=req,
+                                         start=start, end=end)
+                        return 1
+                    # the last real prompt position gives the first token
+                    first = self._first_of(
+                        self._row(hidden, (0, plen - 1 - start)), slot,
+                        plen)
+                    with self._phase("device_wait"):
+                        first = int(first)     # sync: the first token
+            self._trace_span("prefill.chunk", t_span, req=req, start=start,
+                             end=end, final=True)
+            with self._phase("finish"):
+                self._first_token(slot, first, t0)
             return 1
         return 0
 
@@ -1442,34 +1989,59 @@ class GenerationEngine:
         got = self.cache.allocate(1)
         if got is None:
             if count_stall:
-                self.stalls["decode"] += 1
+                self._stall(slot.req, "decode")
             return False
         src, dst = slot.blocks[bi], got[0]
-        # every shard's rows; int8 pools: the block's grid rides the copy
-        self.cache.copy_block(src, dst)
+        with self._phase("cow"), RecordEvent("engine.cow"):
+            # every shard's rows; int8 pools: the block's grid rides along
+            self.cache.copy_block(src, dst)
         self.cache.free([src])         # drop our shared reference
         slot.blocks[bi] = dst
         self.cow_copies += 1
+        self._m_cow.inc()
+        self._update_pool_gauges()
         return True
 
+    def _decode_step(self):
+        """One batched decode step over the runnable lanes, serial core:
+        schedule, dispatch and complete in this one call. Idle and stalled
+        lanes ride token 0, position 0 and an all-zero table: they write
+        the null block and their tokens are discarded. With K > 0 the step
+        is the speculative verify step. The async core drives the same
+        stages through `_dispatch_ahead` and `_complete_inflight`."""
+        if self.spec_decode_k:
+            runnable, drafts = self._spec_schedule()
+            if not runnable:
+                return 0
+            inflight = self._spec_dispatch(runnable, drafts)
+            return self._spec_complete(inflight, synced=False)
+        runnable = self._plain_schedule()
+        if not runnable:
+            return 0
+        inflight = self._plain_dispatch(runnable)
+        return self._plain_complete(inflight, synced=False)
+
     def _plain_schedule(self):
-        """On-demand block growth + copy-on-write per decode-phase lane;
-        returns the runnable lane indices."""
+        """Schedule stage of a decode step: on-demand block growth +
+        copy-on-write per decode-phase lane; returns the runnable lane
+        indices."""
         runnable = []
-        for i, slot in enumerate(self._slots):
-            if slot is None or slot.prefilling:
-                continue
-            bi = slot.feed_pos // self.block_size
-            if bi >= len(slot.blocks):
-                got = self.cache.allocate(1)
-                if got is None:
-                    self.stalls["decode"] += 1
-                    continue           # stalled this iteration
-                slot.blocks.extend(got)
-            elif self.cache.needs_cow(slot.blocks[bi]):
-                if not self._cow_promote(slot, bi):
+        with self._phase("schedule"):
+            for i, slot in enumerate(self._slots):
+                if slot is None or slot.prefilling:
                     continue
-            runnable.append(i)
+                bi = slot.feed_pos // self.block_size
+                if bi >= len(slot.blocks):
+                    got = self.cache.allocate(1)
+                    if got is None:
+                        self._stall(slot.req, "decode")
+                        continue       # stalled this iteration
+                    slot.blocks.extend(got)
+                    self._update_pool_gauges()
+                elif self.cache.needs_cow(slot.blocks[bi]):
+                    if not self._cow_promote(slot, bi):
+                        continue
+                runnable.append(i)
         return runnable
 
     def _lane_slots(self, runnable):
@@ -1478,103 +2050,176 @@ class GenerationEngine:
         run = set(runnable)
         return [s if i in run else None for i, s in enumerate(self._slots)]
 
-    def _decode_step(self):
-        """One batched decode step over the runnable lanes. Idle and
-        stalled lanes ride token 0, position 0 and an all-zero table: they
-        write the null block and their tokens are discarded. With K > 0
-        the step is the speculative verify step."""
-        if self.spec_decode_k:
-            runnable, drafts = self._spec_schedule()
-            if not runnable:
-                return 0
-            return self._spec_complete(runnable, drafts,
-                                       self._spec_dispatch(runnable, drafts))
-        runnable = self._plain_schedule()
-        if not runnable:
-            return 0
-        tokens = np.zeros((self.num_slots, 1), np.int32)
-        positions = np.zeros(self.num_slots, np.int32)
-        tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
-        for i in runnable:
-            slot = self._slots[i]
-            tokens[i, 0] = slot.feed_token
-            positions[i] = slot.feed_pos
-            tables[i, :len(slot.blocks)] = slot.blocks
-        kp, vp, sc = self._pools()
-        with torch.no_grad():
-            pos = self._put(positions)
-            hidden = self.model.gpt.forward_decode_paged(
-                self._put(tokens), pos, kp, vp, self._put(tables), sc,
-                self.attention_backend, self._qweights,
-                self._lora(self._lane_slots(runnable)), tp=self._tp)
-            logits = self.model._logits_of(hidden, self._tp)[:, 0]
-            if self.sampling:
-                # greedy rows take the argmax, sampled rows one draw keyed
-                # by (seed, the feed position)
-                nxt = sample_token(logits, *self._sampling_rows(self._slots),
-                                   self._first_shard(pos))
-            else:
-                nxt = logits.argmax(-1)
-            nxt = nxt.cpu().numpy()
+    def _readback(self, outs):
+        """Start reading a step's token tensors back. The async core on a
+        card copies them into pinned host memory without a wait and
+        records an event after the copies, on the device that holds them
+        (the gathered logits' under a mesh): `(host copies, event)`. Else
+        `(None, None)`: the complete stage reads them itself."""
+        if not self._staged:
+            return None, None
+        host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                     for o in outs)
+        for h, o in zip(host, outs):
+            h.copy_(o, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(outs[0].device))
+        return host, event
+
+    def _host_tokens(self, inflight, synced):
+        """A dispatched step's token outputs as numpy arrays. Serial core
+        (`synced=False`): the copy to the host is the device wait,
+        clocked as `device_wait`. Async core: `_complete_inflight` has
+        already waited on the step's event, and this is a host read."""
+        if synced:
+            return [t.numpy() for t in (inflight.host or inflight.out)]
+        with self._phase("device_wait"):
+            return [t.cpu().numpy() for t in inflight.out]
+
+    def _plain_dispatch(self, runnable):
+        """Dispatch stage of a decode step: the host rows to the device,
+        the forward and the pick, and the start of the token readback,
+        without waiting on the device. Returns the `_InFlight` record the
+        complete stage takes."""
+        t_span = now_us()
+        with self._phase("dispatch"):
+            tokens = np.zeros((self.num_slots, 1), np.int32)
+            positions = np.zeros(self.num_slots, np.int32)
+            tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
+            for i in runnable:
+                slot = self._slots[i]
+                tokens[i, 0] = slot.feed_token
+                positions[i] = slot.feed_pos
+                tables[i, :len(slot.blocks)] = slot.blocks
+            kp, vp, sc = self._pools()
+            with RecordEvent("engine.decode"), torch.no_grad():
+                t_dec = time.perf_counter()
+                pos = self._put(positions)
+                hidden = self.model.gpt.forward_decode_paged(
+                    self._put(tokens), pos, kp, vp, self._put(tables), sc,
+                    self.attention_backend, self._qweights,
+                    self._lora(self._lane_slots(runnable)), tp=self._tp)
+                logits = self.model._logits_of(hidden, self._tp)[:, 0]
+                if self.sampling:
+                    # greedy rows take the argmax, sampled rows one draw
+                    # keyed by (seed, the feed position)
+                    nxt = sample_token(logits,
+                                       *self._sampling_rows(self._slots),
+                                       self._first_shard(pos))
+                else:
+                    nxt = logits.argmax(-1)
+                host, event = self._readback((nxt,))
         self.decode_steps += 1
-        for i in runnable:
-            self._emit(i, [int(nxt[i])])
-        return len(runnable)
+        self._step_seq += 1
+        return _InFlight(out=(nxt,), runnable=runnable,
+                         slots=[self._slots[i] for i in runnable],
+                         host=host, event=event, t_dec=t_dec,
+                         t_span=t_span, seq=self._step_seq)
+
+    def _plain_complete(self, inflight, synced):
+        """Complete stage of a decode step: the token readback (see
+        `_host_tokens`), then the per-lane emission, latency accounting
+        and retirement."""
+        nxt, = self._host_tokens(inflight, synced)
+        self._m_decode_seconds.observe(time.perf_counter() - inflight.t_dec)
+        self._trace_span("decode.step", inflight.t_span, cat="engine",
+                         lanes=len(inflight.runnable))
+        t_dec = inflight.t_dec
+        now = time.perf_counter()
+        with self._phase("finish"):
+            for i, slot in zip(inflight.runnable, inflight.slots):
+                tok = int(nxt[i])
+                is_first = not slot.generated   # a full-prefix-hit lane
+                slot.generated.append(tok)
+                req = slot.req
+                self._note_tokens(req)
+                if is_first:
+                    # this decode gave the request's first token (its whole
+                    # prompt came from the prefix cache)
+                    if req.arrived_at is not None:
+                        self._obs_ttft(req, now - req.arrived_at)
+                    self.flight.record("first_token", req.req_id)
+                    self._trace_instant("request.first_token", req)
+                elif slot.last_token_at is not None:
+                    # the lane's own gap, stalled iterations included
+                    self._obs_tpot(req, now - slot.last_token_at)
+                slot.last_token_at = now
+                done_eos = req.eos_token_id is not None \
+                    and tok == req.eos_token_id
+                if done_eos or len(slot.generated) >= req.max_new_tokens:
+                    if is_first:
+                        self._obs_tpot(req, now - t_dec)
+                    self._finish(slot, "eos" if done_eos else "length")
+                    self._slots[i] = None
+        return len(inflight.runnable)
 
     def _spec_schedule(self):
         """Schedule stage of a verify step: draft up to K tokens per
-        decode-phase lane (host-side), then grow the table to the window's
-        last write and copy-on-write every block the window writes. Under
-        pool pressure a lane sheds its draft (a `spec_degrade` stall: it
-        still runs a one-token window) before it stalls; when the COW copy
-        fails mid-window it also returns the surplus tail blocks past its
-        feed block, which only ever held rejected rows. Returns (runnable
-        lane indices, lane -> draft)."""
+        decode-phase lane (on the host, or joined from the async core's
+        drafter thread through `_next_drafts`), then grow the table to the
+        window's last write and copy-on-write every block the window
+        writes. Under pool pressure a lane sheds its draft (a
+        `spec_degrade` stall: it still runs a one-token window) before it
+        stalls; when the COW copy fails mid-window it also returns the
+        surplus tail blocks past its feed block, which only ever held
+        rejected rows. Returns (runnable lane indices, lane -> draft)."""
         K = self.spec_decode_k
         bs = self.block_size
         vocab = self.model.config.vocab_size
         runnable, drafts = [], {}
-        for i, slot in enumerate(self._slots):
-            if slot is None or slot.prefilling:
-                continue
-            req = slot.req
-            # emitted tokens cap at the request's allowance, and the last
-            # write position stays inside the model's length
-            budget = min(K, req.max_new_tokens - len(slot.generated) - 1,
-                         self.max_model_len - 1 - slot.feed_pos)
-            draft = draft_window(self.drafter, req.prompt, slot.generated,
-                                 budget, vocab)
-            stalled = False
-            while True:
-                need = (slot.feed_pos + len(draft)) // bs + 1 \
-                    - len(slot.blocks)
-                if need <= 0:
-                    break
-                got = self.cache.allocate(need)
-                if got is not None:
-                    slot.blocks.extend(got)
-                    break
-                if not draft:
-                    self.stalls["decode"] += 1
-                    stalled = True
-                    break
-                draft = []             # degrade: draftless step
-                self.stalls["spec_degrade"] += 1
-            if stalled:
-                continue
-            if not self._cow_window(slot, len(draft), count_stall=False):
-                feed_bi = slot.feed_pos // bs
-                surplus = slot.blocks[feed_bi + 1:]
-                if surplus:
-                    del slot.blocks[feed_bi + 1:]
-                    self.cache.free(surplus)
-                if draft:
-                    draft = []
-                    self.stalls["spec_degrade"] += 1
-                if not self._cow_window(slot, 0, count_stall=True):
-                    continue           # truly stalled this iteration
-            drafts[i] = draft
-            runnable.append(i)
+        with self._phase("schedule"):
+            for i, slot in enumerate(self._slots):
+                if slot is None or slot.prefilling:
+                    continue
+                req = slot.req
+                # emitted tokens cap at the request's allowance, and the
+                # last write position stays inside the model's length
+                budget = min(K, req.max_new_tokens - len(slot.generated) - 1,
+                             self.max_model_len - 1 - slot.feed_pos)
+                draft = []
+                if budget > 0:
+                    with self._phase("draft_propose"):
+                        # the helper thread proposed from the same context
+                        # (async core); lanes it did not see propose here
+                        draft = self._next_drafts.pop(slot, None)
+                        if draft is None:
+                            draft = draft_window(self.drafter, req.prompt,
+                                                 slot.generated, budget,
+                                                 vocab)
+                stalled = False
+                while True:
+                    need = (slot.feed_pos + len(draft)) // bs + 1 \
+                        - len(slot.blocks)
+                    if need <= 0:
+                        break
+                    got = self.cache.allocate(need)
+                    if got is not None:
+                        slot.blocks.extend(got)
+                        self._update_pool_gauges()
+                        break
+                    if not draft:
+                        self._stall(req, "decode")
+                        stalled = True
+                        break
+                    draft = []         # degrade: draftless step
+                    self._stall(req, "spec_degrade")
+                if stalled:
+                    continue
+                if not self._cow_window(slot, len(draft),
+                                        count_stall=False):
+                    feed_bi = slot.feed_pos // bs
+                    surplus = slot.blocks[feed_bi + 1:]
+                    if surplus:
+                        del slot.blocks[feed_bi + 1:]
+                        self.cache.free(surplus)
+                        self._update_pool_gauges()
+                    if draft:
+                        draft = []
+                        self._stall(req, "spec_degrade")
+                    if not self._cow_window(slot, 0, count_stall=True):
+                        continue       # truly stalled this iteration
+                drafts[i] = draft
+                runnable.append(i)
         return runnable, drafts
 
     def _cow_window(self, slot, k_len, count_stall):
@@ -1590,84 +2235,298 @@ class GenerationEngine:
         return True
 
     def _spec_dispatch(self, runnable, drafts):
-        """Score all K+1 window positions of every runnable lane in one
-        verify pass; returns the target's argmax per row, `[slots, K+1]`,
-        or under sampling `verify_window`'s (choices, accepts). Idle and
+        """Dispatch stage of a verify step: score all K+1 window positions
+        of every runnable lane in one pass, the target's argmax per row
+        (`[slots, K+1]`) or under sampling `verify_window`'s (choices,
+        accepts), and start their readback without waiting. Idle and
         stalled lanes ride (token 0, position 0, draft length 0, all-zero
-        table)."""
+        table). Returns the `_InFlight` record."""
         W = self.spec_decode_k + 1
-        tokens = np.zeros((self.num_slots, W), np.int32)
-        positions = np.zeros(self.num_slots, np.int32)
-        dlens = np.zeros(self.num_slots, np.int32)
-        tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
-        for i in runnable:
-            slot = self._slots[i]
-            d = drafts[i]
-            tokens[i, 0] = slot.feed_token
-            tokens[i, 1:1 + len(d)] = d
-            positions[i] = slot.feed_pos
-            dlens[i] = len(d)
-            tables[i, :len(slot.blocks)] = slot.blocks
-        kp, vp, sc = self._pools()
-        with torch.no_grad():
-            toks, pos, dl = (self._put(a) for a in (tokens, positions, dlens))
-            hidden = self.model.gpt.forward_verify_paged(
-                toks, pos, dl, kp, vp, self._put(tables), sc,
-                self.attention_backend, self._qweights,
-                self._lora(self._lane_slots(runnable)), tp=self._tp)
-            logits = self.model._logits_of(hidden, self._tp)
-            if self.sampling:
-                # rejection-sampling acceptance over the window: per-row
-                # coins and the residual or bonus draws
-                first = self._first_shard
-                out = verify_window(logits, first(toks), first(dl),
-                                    *self._sampling_rows(self._slots),
-                                    first(pos))
-                out = tuple(t.cpu().numpy() for t in out)
-            else:
-                out = logits.argmax(-1).cpu().numpy()
+        t_span = now_us()
+        with self._phase("dispatch"):
+            tokens = np.zeros((self.num_slots, W), np.int32)
+            positions = np.zeros(self.num_slots, np.int32)
+            dlens = np.zeros(self.num_slots, np.int32)
+            tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
+            for i in runnable:
+                slot = self._slots[i]
+                d = drafts[i]
+                tokens[i, 0] = slot.feed_token
+                tokens[i, 1:1 + len(d)] = d
+                positions[i] = slot.feed_pos
+                dlens[i] = len(d)
+                tables[i, :len(slot.blocks)] = slot.blocks
+            kp, vp, sc = self._pools()
+            with RecordEvent("engine.decode"), torch.no_grad():
+                t_dec = time.perf_counter()
+                toks, pos, dl = (self._put(a)
+                                 for a in (tokens, positions, dlens))
+                hidden = self.model.gpt.forward_verify_paged(
+                    toks, pos, dl, kp, vp, self._put(tables), sc,
+                    self.attention_backend, self._qweights,
+                    self._lora(self._lane_slots(runnable)), tp=self._tp)
+                logits = self.model._logits_of(hidden, self._tp)
+                if self.sampling:
+                    # rejection-sampling acceptance over the window:
+                    # per-row coins and the residual or bonus draws
+                    first = self._first_shard
+                    out = verify_window(logits, first(toks), first(dl),
+                                        *self._sampling_rows(self._slots),
+                                        first(pos))
+                else:
+                    out = (logits.argmax(-1),)
+                host, event = self._readback(out)
         self.decode_steps += 1
-        return out
+        self._step_seq += 1
+        return _InFlight(out=tuple(out), runnable=runnable,
+                         slots=[self._slots[i] for i in runnable],
+                         drafts=drafts, host=host, event=event, t_dec=t_dec,
+                         t_span=t_span, seq=self._step_seq)
 
-    def _spec_complete(self, runnable, drafts, nxt):
-        """Exact greedy acceptance per lane: the target's own next token,
-        then every draft token that equals the target's argmax at its
-        position (each match validates the next column). Under sampling
-        (`nxt` the (choices, accepts) pair): the longest draft prefix whose
+    def _spec_complete(self, inflight, synced):
+        """Complete stage of a verify step: the readback, then per lane
+        the longest draft prefix the target confirms plus its own next
+        token (exact acceptance: each draft token equal to the target's
+        argmax at its position; under sampling the longest prefix whose
         coins passed, then the stop row's choice, which for greedy lanes
-        is the same stream. Emission stops at the first EOS or at the
-        request's budget."""
-        for i in runnable:
-            d = drafts[i]
-            if self.sampling:
-                choices, accepts = nxt
-                n = 0
-                while n < len(d) and accepts[i, n]:
-                    n += 1
-                acc = [int(t) for t in d[:n]] + [int(choices[i, n])]
-            else:
-                out = nxt[i]
-                acc = [int(out[0])]
-                for j, dj in enumerate(d):
-                    if dj != int(out[j]):
+        is the same stream). Emission stops at the first EOS or at the
+        request's budget. The walks and retirement stay on the step
+        thread: they decide the next window's context, and a retired
+        lane's blocks must not return to the allocator while a dispatched
+        step can still write them."""
+        K = self.spec_decode_k
+        outs = self._host_tokens(inflight, synced)
+        self._m_decode_seconds.observe(time.perf_counter() - inflight.t_dec)
+        self._trace_span("decode.verify", inflight.t_span, cat="engine",
+                         lanes=len(inflight.runnable), k=K)
+        t_dec = inflight.t_dec
+        now = time.perf_counter()
+        with self._phase("finish"):
+            for i, slot in zip(inflight.runnable, inflight.slots):
+                req = slot.req
+                d = inflight.drafts[i]
+                if self.sampling:
+                    choices, accepts = outs
+                    with self._phase("sample_walk"):
+                        n = 0
+                        while n < len(d) and accepts[i, n]:
+                            n += 1
+                        acc = [int(t) for t in d[:n]] \
+                            + [int(choices[i, n])]
+                else:
+                    with self._phase("accept_walk"):
+                        out = outs[0][i]
+                        acc = [int(out[0])]
+                        for j, dj in enumerate(d):
+                            if dj != int(out[j]):
+                                break
+                            acc.append(int(out[j + 1]))
+                self.spec_accepted_tokens += len(acc) - 1
+                self.spec_rejected_tokens += len(d) - (len(acc) - 1)
+                self._m_spec_ok.inc(len(acc) - 1)
+                self._m_spec_rej.inc(len(d) - (len(acc) - 1))
+                emit = []
+                for t in acc:
+                    emit.append(t)
+                    if (req.eos_token_id is not None
+                            and t == req.eos_token_id) \
+                            or len(slot.generated) + len(emit) \
+                            >= req.max_new_tokens:
                         break
-                    acc.append(int(out[j + 1]))
-            self.spec_accepted_tokens += len(acc) - 1
-            self.spec_rejected_tokens += len(d) - (len(acc) - 1)
-            self._emit(i, acc)
-        return len(runnable)
+                m_tok = len(emit)
+                is_first = not slot.generated  # a full-prefix-hit lane
+                slot.generated.extend(emit)
+                self._note_tokens(req, m_tok)
+                self._m_spec_accepted.observe(m_tok)
+                proposed = self._m_spec_ok.value + self._m_spec_rej.value
+                if proposed:
+                    self._m_spec_hit_rate.set(
+                        self._m_spec_ok.value / proposed)
+                if is_first:
+                    if req.arrived_at is not None:
+                        self._obs_ttft(req, now - req.arrived_at)
+                    self.flight.record("first_token", req.req_id)
+                    self._trace_instant("request.first_token", req)
+                # every accepted token lands in TPOT against its producing
+                # step: the lane's gap amortized over the window
+                gap = now - (t_dec
+                             if is_first or slot.last_token_at is None
+                             else slot.last_token_at)
+                n_tpot = m_tok - 1 if is_first else m_tok
+                for _ in range(n_tpot):
+                    self._obs_tpot(req, gap / m_tok)
+                slot.last_token_at = now
+                done_eos = req.eos_token_id is not None \
+                    and emit[-1] == req.eos_token_id
+                if done_eos or len(slot.generated) >= req.max_new_tokens:
+                    if is_first and n_tpot == 0:
+                        self._obs_tpot(req, now - t_dec)
+                    self._finish(slot, "eos" if done_eos else "length")
+                    self._slots[i] = None
+        return len(inflight.runnable)
 
     def step(self):
         """One scheduler iteration: admit queued requests into free lanes,
         run at most one prefill chunk, then one batched decode step.
-        Returns the number of admissions/chunks/lanes that progressed."""
-        if self.chunked_prefill:
-            progressed = self._admit_chunked()
-            progressed += self._prefill_step()
+        Returns the number of admissions/chunks/lanes that progressed.
+        With the async core the same stages run one step ahead
+        (`_step_async`)."""
+        if self.async_core:
+            return self._step_async()
+        with RecordEvent("engine.step"):
+            t_wall = time.perf_counter()
+            if self.chunked_prefill:
+                progressed = self._admit_chunked()
+                progressed += self._prefill_step()
+            else:
+                progressed = self._admit()
+            progressed += self._decode_step()
+            self._flush_step_phases(time.perf_counter() - t_wall)
+            self._end_of_step_gauges()
+            return progressed
+
+    # -- async core (dispatch-ahead pipeline) --------------------------------
+    def _step_async(self):
+        """One pipelined scheduler iteration, JAX's `_step_async`:
+
+        1. complete step N, the one the previous call dispatched: wait on
+           its event (`device_wait`, the pipeline's only wait), then the
+           walks and retirement on this thread;
+        2. spawn the drafter helper over snapshots of every decode lane's
+           context;
+        3. admit and run one prefill chunk while it proposes;
+        4. schedule and dispatch step N+1 with the helper's drafts, its
+           rows from pinned staging, its readback started; it stays in
+           flight for the next call;
+        5. prefetch the queue head's adapter page behind it.
+
+        `progressed` counts admissions, prefill chunks and COMPLETED
+        decode lanes, so run totals match the serial core and `run()`'s
+        deadlock check stays sound."""
+        with RecordEvent("engine.step"):
+            t_wall = time.perf_counter()
+            progressed = self._complete_inflight()
+            self._spawn_ahead()
+            if self.chunked_prefill:
+                progressed += self._admit_chunked()
+                progressed += self._prefill_step()
+            else:
+                progressed += self._admit()
+            self._next_drafts = self._collect_ahead()
+            self._dispatch_ahead()
+            self._next_drafts = {}
+            self._prefetch_ahead()
+            self._flush_step_phases(time.perf_counter() - t_wall)
+            self._end_of_step_gauges()
+            return progressed
+
+    def _complete_inflight(self):
+        """Retire the step dispatched ahead, if one is outstanding: wait
+        for its event, then run the complete stage on this thread."""
+        inflight = self._inflight
+        if inflight is None:
+            return 0
+        self._inflight = None
+        with self._phase("device_wait"):
+            # the pipeline's only wait: the host stages since the dispatch
+            # already ran behind the device step
+            if inflight.event is not None:
+                inflight.event.synchronize()
+        self.flight.record("async_complete", seq=inflight.seq,
+                           lanes=len(inflight.runnable))
+        if self.spec_decode_k:
+            return self._spec_complete(inflight, synced=True)
+        return self._plain_complete(inflight, synced=True)
+
+    def _dispatch_ahead(self):
+        """Schedule and dispatch the next decode or verify step into the
+        in-flight slot, without a wait; the next `step()` (or `drain`)
+        completes it."""
+        if self.spec_decode_k:
+            runnable, drafts = self._spec_schedule()
+            if not runnable:
+                return
+            self._inflight = self._spec_dispatch(runnable, drafts)
         else:
-            progressed = self._admit()
-        progressed += self._decode_step()
-        return progressed
+            runnable = self._plain_schedule()
+            if not runnable:
+                return
+            self._inflight = self._plain_dispatch(runnable)
+        self.flight.record("async_dispatch", seq=self._inflight.seq,
+                           lanes=len(runnable))
+
+    def _spawn_ahead(self):
+        """Start the drafter helper thread: every decode lane's next
+        window proposed off the step thread while admissions and the
+        prefill chunk run, over a snapshot of `generated` (the live list
+        grows when lanes advance) through `draft_window`, under the
+        step thread's torch state (`draft_thread_state`). Its
+        `draft_propose` time lands on its own thread's phase clock, never
+        in the step's."""
+        if not self.spec_decode_k or self.drafter is None:
+            return
+        K = self.spec_decode_k
+        vocab = self.model.config.vocab_size
+        jobs = []
+        for slot in self._slots:
+            if slot is None or slot.prefilling:
+                continue
+            budget = min(K, slot.req.max_new_tokens - len(slot.generated) - 1,
+                         self.max_model_len - 1 - slot.feed_pos)
+            if budget > 0:
+                jobs.append((slot, slot.req.prompt, list(slot.generated),
+                             budget))
+        if not jobs:
+            return
+        out = {}
+        phases = self._phases
+        drafter = self.drafter
+        state = draft_thread_state(drafter)
+
+        def work():
+            with state():
+                for slot, prompt, generated, budget in jobs:
+                    with phases.phase("draft_propose"):
+                        out[slot] = draft_window(drafter, prompt, generated,
+                                                 budget, vocab)
+
+        t = threading.Thread(target=work, name="paddle-draft-ahead",
+                             daemon=True)
+        t.start()
+        self._ahead = (t, out)
+
+    def _collect_ahead(self):
+        """Join the drafter helper; only the step thread's residual wait
+        lands in its own `draft_propose` phase."""
+        ahead = self._ahead
+        if ahead is None:
+            return {}
+        self._ahead = None
+        t, out = ahead
+        with self._phase("draft_propose"):
+            t.join()
+        return out
+
+    def _prefetch_ahead(self):
+        """Warm the next admission's adapter page behind the step just
+        dispatched: the page copy, from pinned staging without a wait,
+        overlaps that step on the device, and a prefetch never takes a
+        reference or evicts a live page, so the next call's
+        `_acquire_adapter` finds it resident."""
+        if self.adapter_pool is None:
+            return
+        req = self._peek_request()
+        if req is None or not req.adapter_id \
+                or not self.adapter_pool.registry.has(req.adapter_id):
+            return
+        if self.adapter_pool.page_of(req.adapter_id) is not None:
+            return                     # already resident (warm or live)
+        page = self.adapter_pool.prefetch(req.adapter_id,
+                                          non_blocking=self._staged)
+        if page is not None:
+            self.flight.record("adapter_prefetch", req.req_id,
+                               adapter=int(req.adapter_id), page=page)
+            self._update_adapter_gauges()
 
     @property
     def num_active(self):
@@ -1706,26 +2565,29 @@ class GenerationEngine:
         return out
 
     def drain(self):
-        """Close admissions, run every queued and live request to the end,
-        then audit the pools: every non-null block must be free or a
-        refcount-zero cached block, and every non-null adapter page free or
-        parked warm, no rank group holding two. Returns run()'s
-        results."""
+        """Close admissions, run every queued and live request to the end
+        (the async core's step in flight included: its lanes are live
+        until it completes), then audit the pools: every non-null block
+        must be free or a refcount-zero cached block, and every non-null
+        adapter page free or parked warm, no rank group holding two. A
+        failed audit carries the flight recorder's history. Returns
+        run()'s results."""
         self._draining = True
         out = self.run()
         leaked = self.cache.leak_check()
         if leaked:
-            raise RuntimeError(
+            raise self._audit_error(
                 f"drain leak check failed: block(s) {leaked} neither "
                 "free nor prefix-cached after all lanes finished")
         if self.adapter_pool is not None:
             leaked = self.adapter_pool.leak_check()
             if leaked:
-                raise RuntimeError(
+                raise self._audit_error(
                     f"drain leak check failed: adapter page(s) {leaked} "
                     "still referenced after all lanes finished — a "
                     "scheduler path vacated a lane without releasing its "
                     "adapter page")
+        self._end_of_step_gauges()
         return out
 
     def run(self):

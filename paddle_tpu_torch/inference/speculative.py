@@ -22,16 +22,27 @@ forward under `torch.no_grad()` on the draft model's own device.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
-__all__ = ["NgramDrafter", "GptDrafter", "draft_window"]
+__all__ = ["NgramDrafter", "GptDrafter", "draft_window",
+           "draft_thread_state"]
 
 
 def draft_window(drafter, prompt, generated, budget, vocab):
     """One lane's proposal for its next verify window, junk-filtered: the
     longest prefix of in-vocab tokens of `drafter.propose(prompt,
-    generated, budget)`, capped at `budget`."""
+    generated, budget)`, capped at `budget`. The serial scheduler and the
+    async core's drafter thread share this one definition.
+
+    Thread-safety contract (JAX's): both drafters are pure functions of
+    (prompt, generated, budget) — `NgramDrafter` is numpy over a private
+    copy of the context, `GptDrafter` runs eager torch forwards with no
+    mutable state — so this may run off the step thread as long as the
+    caller passes a SNAPSHOT of `generated` (the step thread appends to
+    the live list) and enters `draft_thread_state` there."""
     draft = []
     if budget > 0:
         for t in drafter.propose(prompt, generated, budget):
@@ -40,6 +51,32 @@ def draft_window(drafter, prompt, generated, budget, vocab):
                 break                  # junk proposal: verify nothing
             draft.append(t)
     return draft
+
+
+def draft_thread_state(drafter):
+    """Capture, on the calling (step) thread, the torch state a drafter's
+    proposals run under, and return a context manager that enters it on
+    another thread. Grad mode and the current CUDA device and stream are
+    per thread in torch: a helper thread starts with grad on, device 0 and
+    the default stream. The context turns grad off and, for a drafter
+    with a model on a card, makes that card current with the caller's
+    current stream on it, so the helper's proposals are the step
+    thread's token for token."""
+    model = getattr(drafter, "model", None)
+    dev = getattr(model, "device", None)
+    dev = None if dev is None else torch.device(dev)
+    stream = torch.cuda.current_stream(dev) \
+        if dev is not None and dev.type == "cuda" else None
+
+    @contextmanager
+    def enter():
+        with torch.no_grad():
+            if stream is None:
+                yield
+                return
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                yield
+    return enter
 
 
 class NgramDrafter:

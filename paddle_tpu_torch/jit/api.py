@@ -25,8 +25,17 @@ in `grad_finish` under merge) and skips the whole update on overflow,
 leaving the parameters, the optimizer's accumulators, the model's buffers
 and the step count as they were; the host reads the flag once a step (or
 window), as the JAX package's `bool(found_inf)` does.
+
+Telemetry (`telemetry=`, an `observability.TrainingTelemetry`) records one
+observation an optimizer step, as the JAX package's `__call__` does: the
+time from the step's first call (a merge window's first micro-batch) to its
+loss on the host, one wait on the loss, and the loss. A failed call disarms
+the timer, and a window that failed part-way records nothing. It only
+observes: the update is bitwise the same with it off.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -66,16 +75,14 @@ class TrainStep:
     `accumulate_steps=K` merges K calls' grads into one update from their
     mean; `scaler` (an `amp.GradScaler`) scales the loss and skips the
     update on overflow. `with_outputs` with K > 1 raises, as in the JAX
-    package; `telemetry` raises: it needs the metrics registry
-    (observability/metrics.py), not ported yet (ROADMAP Queue A 11)."""
+    package. `telemetry` (an `observability.TrainingTelemetry`) observes
+    each optimizer step (module docstring)."""
 
     def __init__(self, model, optimizer, loss_fn=None, with_outputs=False,
                  accumulate_steps=1, scaler=None, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "TrainStep: telemetry needs the metrics registry "
-                "(observability/metrics.py), which is not ported yet "
-                "(ROADMAP Queue A 11)")
+        self.telemetry = telemetry
+        self._tel_t0 = None
+        self._tel_taint = False
         self.accumulate_steps = int(accumulate_steps)
         if with_outputs and self.accumulate_steps > 1:
             raise NotImplementedError(
@@ -181,6 +188,37 @@ class TrainStep:
         self.scaler.update()
 
     def __call__(self, *inputs, label=None):
+        if self.telemetry is None:
+            return self._call_inner(*inputs, label=label)
+        # gradient merge: the K micro-batch calls of one optimizer step
+        # record ONE observation, timed from the window's first call to the
+        # K-th call's loss, with one wait
+        if self._tel_t0 is None:
+            self._tel_t0 = time.perf_counter()
+        try:
+            out = self._call_inner(*inputs, label=label)
+        except BaseException:
+            # a failed micro-batch must not leave the timer armed; if
+            # earlier micro-batches of this window ran, the window ends
+            # with a partial timer: taint it so no skewed sample lands
+            self._tel_t0 = None
+            if self.accumulate_steps > 1 and self._accum_count != 0:
+                self._tel_taint = True
+            raise
+        if self.accumulate_steps > 1 and self._accum_count != 0:
+            return out                     # mid-window micro-batch
+        if self._tel_taint:
+            self._tel_taint = False        # tainted window: no sample
+            self._tel_t0 = None
+            return out
+        loss = (out[0] if isinstance(out, tuple) else out).cpu()  # the wait
+        dt = time.perf_counter() - self._tel_t0
+        self._tel_t0 = None
+        self.telemetry.observe_step(
+            dt, loss=float(loss) if loss.numel() == 1 else None)
+        return out
+
+    def _call_inner(self, *inputs, label=None):
         if label is None and len(inputs) >= 2:
             *inputs, label = inputs
         if self.accumulate_steps > 1:
@@ -264,7 +302,7 @@ class TrainStep:
         assert not self.with_outputs, \
             "run_scan returns losses only; use with_outputs=False"
         self._check_plain("run_scan")
-        return torch.stack([self(x, y) for x, y in
+        return torch.stack([self._call_inner(x, y) for x, y in
                             zip(inputs_stacked, labels_stacked)])
 
     def run_repeat(self, inputs, labels, steps):
@@ -273,4 +311,5 @@ class TrainStep:
         assert not self.with_outputs, \
             "run_repeat returns losses only; use with_outputs=False"
         self._check_plain("run_repeat")
-        return torch.stack([self(inputs, labels) for _ in range(steps)])
+        return torch.stack([self._call_inner(inputs, labels)
+                            for _ in range(steps)])

@@ -174,12 +174,16 @@ class TensorParallel:
         self.shards = shards
         self.replicas = replicas
 
-    def put(self, t):
+    def put(self, t, non_blocking=False):
         """A host tensor (or numpy array) copied to every shard's device,
-        once per distinct device: a per-shard list."""
+        once per distinct device: a per-shard list. `non_blocking` copies
+        from pinned staging without a wait (the engine's async core)."""
         if not torch.is_tensor(t):
             t = torch.from_numpy(t)
-        on = {dev: t.to(dev) for dev in self.mesh.distinct}
+        if non_blocking:
+            t = t.pin_memory()
+        on = {dev: t.to(dev, non_blocking=non_blocking)
+              for dev in self.mesh.distinct}
         return [on[d] for d in self.mesh.devices]
 
     def rep(self, fn, *xs):

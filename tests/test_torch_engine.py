@@ -358,39 +358,40 @@ def test_bucketed_prefill_raises_instead_of_chunking(models, no_switches, kw,
     ("PADDLE_SERVE_ASYNC", "true", "Queue A 11")])
 def test_unported_switch_raises_rather_than_serving_without_it(
         models, no_switches, var, value, item):
-    """A deploy switch of a feature the port lacks raises when it asks for
-    the feature, naming the ROADMAP item that ports it. The switches of
-    the items ported since (6, sampling; 7, int8 weights; 10, tensor
-    parallel, on a model whose vocab 2 divides) turn their feature on
-    instead, as in JAX."""
+    """Every deploy switch of the JAX engine turns its feature on in the
+    port as in JAX, now that the ROADMAP items that port them are done (6,
+    sampling; 7, int8 weights; 10, tensor parallel, on a model whose
+    vocab 2 divides; 11, tracing and the async core); none serves without
+    its feature. The engine built under the switch serves JAX's tokens."""
     no_switches.setenv(var, value)
     ported = {"PADDLE_SERVE_SAMPLING": ("sampling", True),
               "PADDLE_SERVE_WEIGHT_DTYPE": ("weight_dtype", "int8"),
-              "PADDLE_SERVE_MP": ("mp_degree", 2)}
-    if var in ported:
-        attr, on = ported[var]
-        jm, tm = models
-        if var == "PADDLE_SERVE_MP":
-            # vocab 61 cannot be sharded: both packages refuse it alike
-            assert _raised(lambda: GenerationEngine(
-                tm, device="cpu", num_slots=2, block_size=4)) == _raised(
-                lambda: JEngine(jm, num_slots=2, block_size=4))
-            jm, tm = _models(vocab=64)
-        teng = GenerationEngine(tm, device="cpu", num_slots=2, block_size=4)
-        jeng = JEngine(jm, attention_backend="dense", num_slots=2,
-                       block_size=4)
-        assert getattr(teng, attr) == getattr(jeng, attr) == on
-        if var == "PADDLE_SERVE_MP":
-            assert len(teng.cache.kpools) == 2
-            rng = np.random.RandomState(3)
-            reqs = [(rng.randint(0, 64, n).astype(np.int32), 4)
-                    for n in (3, 9)]
-            assert _drive(teng, [r + ({},) for r in reqs], [], 0,
-                          lambda e: e.drain()) == _drive(
-                jeng, [r + ({},) for r in reqs], [], 0, lambda e: e.run())
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        GenerationEngine(models[1], device="cpu", num_slots=2, block_size=4)
+              "PADDLE_SERVE_MP": ("mp_degree", 2),
+              "PADDLE_SERVE_TRACING": ("tracing", True),
+              "PADDLE_SERVE_ASYNC": ("async_core", True)}
+    attr, on = ported[var]
+    jm, tm = models
+    if var == "PADDLE_SERVE_MP":
+        # vocab 61 cannot be sharded: both packages refuse it alike
+        assert _raised(lambda: GenerationEngine(
+            tm, device="cpu", num_slots=2, block_size=4)) == _raised(
+            lambda: JEngine(jm, num_slots=2, block_size=4))
+        jm, tm = _models(vocab=64)
+    teng = GenerationEngine(tm, device="cpu", num_slots=2, block_size=4)
+    jeng = JEngine(jm, attention_backend="dense", num_slots=2,
+                   block_size=4)
+    assert getattr(teng, attr) == getattr(jeng, attr) == on, item
+    if var == "PADDLE_SERVE_MP":
+        assert len(teng.cache.kpools) == 2
+    if var in ("PADDLE_SERVE_MP", "PADDLE_SERVE_TRACING",
+               "PADDLE_SERVE_ASYNC"):
+        V = tm.config.vocab_size
+        rng = np.random.RandomState(3)
+        reqs = [(rng.randint(0, V, n).astype(np.int32), 4)
+                for n in (3, 9)]
+        assert _drive(teng, [r + ({},) for r in reqs], [], 0,
+                      lambda e: e.drain()) == _drive(
+            jeng, [r + ({},) for r in reqs], [], 0, lambda e: e.run())
 
 
 @pytest.mark.parametrize("var,value", [

@@ -71,7 +71,11 @@ bf16, null-page rows bitwise the base, a rerun the same bits, at ranks 1 to
 column tiles; its refusals; a LoRA engine on the card emitting the CPU
 engine's tokens and launching the kernel four times a layer a step. The
 causal kernel B1 at the bucket ladder's short buckets (S 16, 32, 48) and a
-bucketed engine launching it once a layer an admission.
+bucketed engine launching it once a layer an admission. The engine's async
+core on the card: its stages after the dispatch make no host sync
+(`set_sync_debug_mode("error")`), and its tokens and launches are the
+serial core's, at K=0, with sampled lanes at K=2, with int8 KV and with
+adapters that prefetch.
 
 Paged kernels: pools must be bit-identical to the plain version's outside
 the null block 0, and outputs within tolerance on the live rows of live
@@ -2698,3 +2702,82 @@ def test_lora_engine_on_the_card_matches_the_cpu(card):
             0 if eng.chunked_prefill else eng.admissions)
         assert batched_lora.launches - launches == 4 * 2 * steps
         assert got == serve(host, "cpu", **kw)[0]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(spec_decode_k=2, sampling=True), dict(kv_dtype="int8"),
+    dict(adapters=True, adapter_pool_pages=3)],
+    ids=["k0", "k2_sampled", "kv8", "adapters"])
+def test_async_core_makes_no_host_sync_after_its_dispatch(card, kw):
+    """The async core on the card: its post-dispatch stages (the dispatch
+    with its staged uploads and readback, the adapter prefetch, the end
+    of step gauges, the phase flush) run under
+    `set_sync_debug_mode("error")` without a raise, and the tokens and
+    kernel launches are the serial core's."""
+    import numpy as np
+
+    from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.adapters import AdapterRegistry
+    from paddle_tpu_torch.inference import SamplingParams
+
+    cfg = GPTConfig.tiny(vocab=96, hidden=128, layers=2, heads=2, seq=64)
+    model = GPTForCausalLM(cfg, device="cuda", generator=card).eval()
+    rng = np.random.RandomState(1)
+    ids_of = (1, 2, 0, 3, 1, 2)
+    if kw.get("adapters"):
+        reg = AdapterRegistry(cfg, max_rank=4)
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        for aid in (1, 2, 3):
+            reg.register(aid, {site: [(rng.randn(4, i).astype(np.float32)
+                                       * 0.1, rng.randn(o, 4)
+                                       .astype(np.float32) * 0.1)
+                                      for _ in range(cfg.num_layers)]
+                               for site, (i, o) in (("qkv", (H, 3 * H)),
+                                                    ("out", (H, H)),
+                                                    ("fc1", (H, I)),
+                                                    ("fc2", (I, H)))},
+                         scaling=0.5)
+        kw = dict(kw, adapters=reg)
+    reqs = [rng.randint(0, 96, n) for n in (7, 20, 12, 30, 5, 9)]
+
+    def serve(async_core):
+        eng = GenerationEngine(model, num_slots=2, block_size=16,
+                               prefill_chunk=16, async_core=async_core, **kw)
+        if async_core:
+            for name in ("_dispatch_ahead", "_prefetch_ahead",
+                         "_end_of_step_gauges", "_flush_step_phases"):
+                def wrapped(*a, _fn=getattr(eng, name), **k):
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        return _fn(*a, **k)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                setattr(eng, name, wrapped)
+        before = (paged_decode_attention.launches,
+                  paged_decode_attention_int8.launches,
+                  paged_verify_attention.launches, batched_lora.launches,
+                  sample_draw.launches)
+        ids = []
+        for i, p in enumerate(reqs):
+            extra = {}
+            if kw.get("sampling"):
+                extra["sampling_params"] = None if i % 2 else \
+                    SamplingParams(0.8, 20, 0.9, seed=i)
+            if kw.get("adapters"):
+                extra["adapter_id"] = ids_of[i]
+            ids.append(eng.add_request(p, 6, **extra))
+        out = eng.drain()
+        torch.cuda.synchronize()
+        after = (paged_decode_attention.launches,
+                 paged_decode_attention_int8.launches,
+                 paged_verify_attention.launches, batched_lora.launches,
+                 sample_draw.launches)
+        return ([out[i] for i in ids], [a - b for a, b in zip(after, before)],
+                eng)
+
+    serial, s_launches, _ = serve(False)
+    got, a_launches, eng = serve(True)
+    assert got == serial and a_launches == s_launches
+    assert sum(a_launches) > 0
+    assert {e["event"] for e in eng.dump_flight_recorder()} >= {
+        "async_dispatch", "async_complete"}

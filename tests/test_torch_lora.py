@@ -585,8 +585,9 @@ def test_engine_adapter_intake_and_wiring_as_jax(models, registries,
                                                  no_switches):
     """Intake and construction errors with JAX's types and messages; a
     prebuilt pool pages for one engine only; the default pool is 1 +
-    num_slots pages in the model's dtype; what needs the metrics registry
-    raises naming ROADMAP Queue A 11."""
+    num_slots pages in the model's dtype; over a trace that swaps and
+    evicts pages, the adapter gauges, counters and tenant-labelled
+    TTFT/TPOT counts are JAX's."""
     jm, tm = models
     base = dict(num_slots=1, block_size=4, prefill_chunk=8)
     teng = GenerationEngine(tm, device="cpu", **base)
@@ -626,9 +627,28 @@ def test_engine_adapter_intake_and_wiring_as_jax(models, registries,
                          adapter_pool_pages=3, **base)
     assert GenerationEngine(tm, device="cpu", adapters=registries[1],
                             **base).adapter_pool is not pool
-    for fn in (e1.metrics_snapshot, e1.render_prometheus):
-        with pytest.raises(NotImplementedError, match="Queue A 11"):
-            fn()
+    rng = np.random.RandomState(9)
+    for aid in (1, 2, 1, 0, 2):
+        p = rng.randint(0, VOCAB, 5).astype(np.int32)
+        for eng in (teng, jeng):
+            eng.add_request(p, 3, adapter_id=aid)
+    assert teng.run() == {k: list(map(int, v))
+                          for k, v in jeng.run().items()}
+    got, want = teng.metrics_snapshot(), jeng.metrics_snapshot()
+    assert teng.adapter_evictions == 3 and teng.adapter_swapins == 4
+    for name in ("engine_adapter_pool_pages",
+                 "engine_adapter_pool_used_pages",
+                 "engine_adapter_pool_resident",
+                 "engine_adapter_swapins_total",
+                 "engine_adapter_evictions_total"):
+        assert got[name] == want[name], name
+    for name in ("engine_adapter_ttft_seconds",
+                 "engine_adapter_tpot_seconds"):
+        assert {s["labels"]["adapter"]: s["count"]
+                for s in got[name]["series"]} == {
+            s["labels"]["adapter"]: s["count"]
+            for s in want[name]["series"]}, name
+    assert "engine_adapter_swapins_total 4" in teng.render_prometheus()
     assert cfg.num_layers == 2
 
 

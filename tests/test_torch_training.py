@@ -38,6 +38,7 @@ from paddle_tpu_torch import (Adam, AdamW, ClipGradByGlobalNorm, Momentum,
                               GPTForCausalLM, TrainStep,
                               load_paddle_tpu_state)
 from paddle_tpu_torch.amp import GradScaler
+from paddle_tpu_torch.observability import MetricsRegistry, TrainingTelemetry
 from paddle_tpu_torch.models.convert import _linear_weights
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops.nn_ops import (cross_entropy, dropout, mse_loss,
@@ -447,9 +448,11 @@ def test_tiny_gpt_trainstep_losses_match_jax_trainstep():
 
 def test_trainstep_loops_and_refusals():
     """run_scan and run_repeat are loops over the step (a run_scan over two
-    batches equals two calls on a twin model); as in the JAX package,
-    telemetry raises, and so do with_outputs with gradient merge and the
-    loops with a scaler or gradient merge."""
+    batches equals two calls on a twin model); a telemetry step observes
+    each call without moving the update (its losses and parameters are
+    bitwise the twin's) and the loops record nothing, as JAX's compiled
+    loops do; as in the JAX package, with_outputs with gradient merge and
+    the loops with a scaler or gradient merge raise."""
     _, a = _pair(seed=2)
     _, b = _pair(seed=2)
     xs = torch.from_numpy(np.random.RandomState(8).randint(
@@ -463,10 +466,22 @@ def test_trainstep_loops_and_refusals():
                                rtol=0, atol=0)
     rep = sa.run_repeat(xs[0], xs[0], 3)
     assert rep.shape == (3,) and float(rep[-1]) < float(rep[0])
-    for kw in ({"telemetry": object()},
-               {"with_outputs": True, "accumulate_steps": 2}):
-        with pytest.raises(NotImplementedError):
-            TrainStep(a, sa.optimizer, a.loss_fn, **kw)
+    tel = TrainingTelemetry(registry=MetricsRegistry())
+    _, c = _pair(seed=2)
+    sc = TrainStep(c, AdamW(1e-2, parameters=c.parameters()), c.loss_fn,
+                   telemetry=tel)
+    _, b2 = _pair(seed=2)
+    sd = TrainStep(b2, AdamW(1e-2, parameters=b2.parameters()), b2.loss_fn)
+    for x in xs:
+        assert torch.equal(sc(x, x), sd(x, x))
+    for p, q in zip(c.parameters(), b2.parameters()):
+        assert torch.equal(p, q)
+    sc.run_repeat(xs[0], xs[0], 2)
+    assert tel.registry.snapshot()["train_steps_total"]["series"][0][
+        "value"] == 2
+    with pytest.raises(NotImplementedError):
+        TrainStep(a, sa.optimizer, a.loss_fn, with_outputs=True,
+                  accumulate_steps=2)
     for kw in ({"scaler": GradScaler()}, {"accumulate_steps": 2}):
         step = TrainStep(a, sa.optimizer, a.loss_fn, **kw)
         with pytest.raises(NotImplementedError, match="run_scan"):

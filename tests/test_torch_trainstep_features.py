@@ -31,6 +31,7 @@ from paddle_tpu.optimizer import AdamW as JAdamW
 from paddle_tpu_torch import SGD, AdamW, TrainStep
 from paddle_tpu_torch.amp import GradScaler
 from paddle_tpu_torch.nn.norm import BatchNorm2D
+from paddle_tpu_torch.observability import MetricsRegistry, TrainingTelemetry
 from paddle_tpu_torch.ops import grad_merge as gm
 from paddle_tpu_torch.ops.nn_ops import mse_loss
 
@@ -412,7 +413,7 @@ def test_model_loss_without_loss_fn_drops_the_trailing_label():
 
 
 @pytest.mark.parametrize("kw,call", [
-    ({"telemetry": object()}, None),
+    ({"telemetry": "telemetry"}, None),
     ({"with_outputs": True, "accumulate_steps": 2}, None),
     ({"scaler": "scaler"}, "run_scan"),
     ({"scaler": "scaler"}, "run_repeat"),
@@ -422,6 +423,16 @@ def test_refusals(kw, call):
     _, _, tnet, topt = _mlp_pair(17)
     kw = {k: GradScaler() if v == "scaler" else v for k, v in kw.items()}
     x = torch.zeros(2, 8, 8)
+    if "telemetry" in kw:
+        # ported (ROADMAP Queue A 11): the step observes instead of
+        # refusing, one observation a call, its loss on the gauge
+        tel = TrainingTelemetry(registry=MetricsRegistry())
+        step = TrainStep(tnet, topt, mse_loss, telemetry=tel)
+        loss = step(x[0], torch.ones(8, 4))
+        snap = tel.registry.snapshot()
+        assert snap["train_steps_total"]["series"][0]["value"] == 1
+        assert snap["train_loss"]["series"][0]["value"] == float(loss)
+        return
     if call is None:
         with pytest.raises(NotImplementedError):
             TrainStep(tnet, topt, mse_loss, **kw)
