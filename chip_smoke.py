@@ -387,9 +387,37 @@ Phases, each printing one JSON line:
    (the largest served |logit| difference where both runs agreed on the
    prefix and the token), over the lane's temperature; tokens/s at each
    mp, not gated, with the card's name and power limit.
+43. engine_async: phase 5's trace serial and with async_core=True in
+   seven configurations (tokens bitwise, launches equal, one step in
+   flight, no host sync after the dispatch).
+44. engine_observed: phase 5's trace at K=0 and 4 with tracing off and
+   on (the metric gates, tokens bitwise, launches equal).
+45. fleet: phase 5's trace through ServingFleet, every replica on this
+   card: one mixed replica (tokens bitwise phase 5's), two (each request
+   phase 5's, the later shared-prefix and repeat requests routed to the
+   replica whose cache held them, affinity hit tokens), and a
+   disaggregated pair (1 prefill + 1 decode replica) at bf16 and int8
+   pools, chunked and bucketed, chunked with async_core=True, and chunked
+   on a 160-block pool without the prefix cache (freed source blocks
+   reused by the next prefill before placement, which that run requires),
+   each
+   against a colocated engine of the same configuration served in this
+   phase (tokens equal, handoffs the requests with a decode leg, every
+   exported block bitwise its source rows and every ingested block, int8
+   scale rows included, bitwise a snapshot of those source rows taken at
+   export, summed on the card, with the source blocks rewritten before
+   placement counted beside it, as are the handoff stalls; the
+   decode replica no prefill chunk and no causal launch, the prefill
+   replica one token a request, each replica's launches counted around
+   its steps; the async run's handoff stages under
+   set_sync_debug_mode("error")); at drain no leak, no parked handoff,
+   and the dropped fleet's memory back at once. tokens/s of each run, not
+   gated, with the card's name and power limit.
+46. train_telemetry: GPT-1.3B TrainStep with TrainingTelemetry bitwise
+   the same steps without it.
 
 Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36, 37,
-39, 40, 41 and 42 are the main path, in fifty runs: the bf16 engine, the
+39 to 42 and 45 are the main path, in sixty-one runs: the bf16 engine, the
 bf16 generate(), the f32 engine, the f32 generate(), the bf16 train steps,
 the f32 train steps, the bf16 speculative engine, the three f32 engines of
 spec_parity, the int8 engine, the int8 speculative engine, BERT's
@@ -405,7 +433,8 @@ bf16 and int8 pools, the f32 int8-weight engine, the bucketed engines with
 bf16 and int8 pools, the f32 bucketed engine, the mixed-tenant and the
 all-null-adapter LoRA engines, the f32 LoRA engines, the f32
 tensor-parallel engines on the card, and engine_tp's eight engines (three
-configurations at mp 1, 2 and 4, the adapter one at mp 1 and 2). Kernel
+configurations at mp 1, 2 and 4, the adapter one at mp 1 and 2), and
+fleet's eleven runs (phase 45). Kernel
 counts are set to 0 just before each run and read just after it; each run
 must launch every kernel it takes (PATH_KERNEL: the engine the paged
 decode kernel, generate() the causal forward, training the causal forward
@@ -466,7 +495,7 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "bert_lamb", "sampling", "int8_linear", "engine_sampled",
           "engine_wint8", "lora", "engine_bucketed", "engine_lora",
           "tp_parity", "engine_tp", "engine_async", "engine_observed",
-          "train_telemetry")
+          "fleet", "train_telemetry")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -624,6 +653,28 @@ SSFM, SSBM = SSF + "_masked", SSB + "_masked"
 SDPA_LSE = SDPA + "_lse"
 # extra counts some wrappers keep beside .launches: attribute -> suffix
 EXTRA_COUNTS = (("masked_launches", "_masked"), ("lse_launches", "_lse"))
+# the fleet phase's disaggregated pairs (1 prefill + 1 decode replica) and
+# their colocated engines: name -> (engine options, kernels the run takes)
+FLEET_DISAGG = {"chunked": (dict(), (DEC,)),
+                "chunked_kv8": (dict(kv_dtype="int8"), (DEC8,)),
+                "bucketed": (dict(prefill_chunk=None), (FWD, DEC)),
+                "bucketed_kv8": (dict(prefill_chunk=None, kv_dtype="int8"),
+                                 (FWD, DEC8)),
+                "chunked_async": (dict(async_core=True), (DEC,)),
+                # a tight pool without the prefix cache: a handoff's freed
+                # source blocks go straight back to the prefill replica's
+                # LIFO free list, a prompt waiting for blocks takes them at
+                # once, and the handoff waits for the decode replica's
+                # blocks: its source rows are rewritten before placement
+                # (at 1024 blocks the later prompts are seated before any
+                # handoff frees a block, and none is)
+                "chunked_tight": (dict(enable_prefix_cache=False,
+                                       num_blocks=160), (DEC,))}
+FLEET_PATHS = {"mixed1": (DEC,), "mixed2": (DEC,),
+               **{f"disagg_{name}": ks
+                  for name, (_, ks) in FLEET_DISAGG.items()},
+               **{f"colocated_{name}": ks for name, (kw, ks)
+                  in FLEET_DISAGG.items() if "async_core" not in kw}}
 # each run of the main path, and the kernels that run must launch
 PATH_KERNEL = {"engine_bf16": (DEC,),
                "generate_bf16": (FWD,),
@@ -685,6 +736,8 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                **{f"engine_observed_k{K}_{t}_bf16": (DEC,) if K == 0
                   else (VER,) for K in (0, 4)         # 4: SPEC_K
                   for t in ("off", "on")},
+               **{f"fleet_{name}_bf16": ks
+                  for name, ks in FLEET_PATHS.items()},
                "train_telemetry_off_bf16": (FWD, BWD, OPT, MERGE, FINISH),
                "train_telemetry_bf16": (FWD, BWD, OPT, MERGE, FINISH)}
 # peak device memory (GB) of the bf16 train phases with the per-parameter
@@ -6385,6 +6438,327 @@ def phase_engine_observed(torch, ctx, seed):
         raise AssertionError("engine_observed phase failed its checks")
 
 
+def _serve_fleet(fleet, trace):
+    """Serve `trace` through a fleet as `_serve_trace` serves it on one
+    engine: the first requests, fleet steps until the repeated prompt and
+    the shared prefix are cached on an intake replica (with the prefix
+    cache off, until no intake replica queues), then the later ones, then
+    `run()`. Returns (request ids, results, {prompt name: the replicas
+    whose cache held it before the later requests}, the replica each later
+    request was routed to)."""
+    intake = [r.engine for r in fleet._routable(
+        "prefill" if fleet.disaggregated else "mixed")]
+    wait = {"repeat": trace["repeat"], "shared": trace["shared"]}
+    ids = [fleet.add_request(p, n) for p, n in trace["first"]]
+
+    def waiting():
+        if not intake[0].enable_prefix_cache:
+            return any(e.num_pending for e in intake)
+        return any(all(e.cache.warm_prefix_tokens(w) < len(w)
+                       for e in intake) for w in wait.values())
+    while waiting():
+        if fleet.step() == 0:
+            raise AssertionError("trace ended before its prefixes cached")
+    owners = {k: [r.rid for r in fleet._replicas.values()
+                  if r.engine.enable_prefix_cache
+                  and r.engine.cache.warm_prefix_tokens(w) == len(w)]
+              for k, w in wait.items()}
+    later = [fleet.add_request(p, n) for p, n in trace["later"]]
+    routes = [fleet._requests[i]["replica"] for i in later]
+    return ids + later, fleet.run(), owners, routes
+
+
+def _per_replica_launches(ctx, fleet):
+    """Count each replica's kernel launches: every replica engine's
+    `step()` wrapped to read the wrappers' counts around it (the handoff's
+    copies launch no kernel of ours). The wrappers go with `_unwrap`."""
+    counts = {}
+    for rep in fleet._replicas.values():
+        eng = rep.engine
+        got = counts.setdefault(f"{rep.role}_{rep.rid}", {})
+
+        def counted(_step=eng.step, _got=got):
+            before = [w.launches for w in ctx["wrappers"]]
+            out = _step()
+            for w, b in zip(ctx["wrappers"], before):
+                if w.launches > b:
+                    _got[w.__name__] = _got.get(w.__name__, 0) \
+                        + w.launches - b
+            return out
+        eng.step = counted
+    return counts
+
+
+def _checked_transfer(torch, fleet_mod, device="cuda"):
+    """Wrap the fleet's block export and ingest. At export each payload is
+    held bitwise against its source rows, and a snapshot of those rows is
+    kept apart from the payload, keyed by the payload's identity. At ingest
+    the destination rows (and int8 scale rows, every replica) are held
+    bitwise against that snapshot, not against the payload as it is then:
+    a payload that shares storage with its source block (a view) and sees
+    the block reused before placement differs there. Each ingest also
+    counts the source blocks whose rows changed between export and
+    placement (the reuse the copy guards against; a count, not a gate).
+    Both sums stay on the device (no host wait); `restore()` puts the
+    originals back. Returns (counts, the differing elements, the source
+    blocks rewritten before placement, restore)."""
+    exp0 = fleet_mod.export_pool_block_shards
+    ing0 = fleet_mod.ingest_pool_block_shards
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    reused = torch.zeros((), dtype=torch.int64, device=device)
+    n = {"exported": 0, "ingested": 0}
+    held = {}
+
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16,
+                       torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+    def differ(a, b):
+        bad.add_((bits(a) != bits(b)).sum().to(bad.device))
+
+    def export(kps, vps, src, scs=None):
+        out = exp0(kps, vps, src, scs)
+        srcs = [p for pools in (kps, vps) for p in pools]
+        snap = [p[:, src].clone() for p in srcs]
+        for p, r, c in zip(srcs, [r for rows in out[:2] for r in rows],
+                           snap):
+            differ(c, r)
+        if scs is not None:
+            snap.append(scs[0][:, src].clone())
+            srcs.append(scs[0])
+            differ(snap[-1], out[2])
+        held[id(out[0])] = (out[0], srcs, src, snap)
+        n["exported"] += 1
+        return out
+
+    def ingest(kps, vps, kbs, vbs, dst, scs=None, srow=None):
+        ing0(kps, vps, kbs, vbs, dst, scs, srow)
+        _, srcs, src, snap = held.pop(id(kbs))
+        dsts = [p for pools in (kps, vps) for p in pools]
+        for p, c in zip(dsts, snap):
+            differ(p[:, dst], c)
+        for sc in scs or ():
+            differ(sc[:, dst], snap[-1])
+        moved = torch.stack([(bits(p[:, src]) != bits(c)).any()
+                             for p, c in zip(srcs, snap)]).any()
+        reused.add_(moved.to(reused.device, torch.int64))
+        n["ingested"] += 1
+
+    def restore():
+        fleet_mod.export_pool_block_shards = exp0
+        fleet_mod.ingest_pool_block_shards = ing0
+    fleet_mod.export_pool_block_shards = export
+    fleet_mod.ingest_pool_block_shards = ingest
+    return n, bad, reused, restore
+
+
+FLEET_HANDOFF_STAGES = ("_export_handoff", "_flush_handoffs",
+                        "_prestage_handoffs")
+
+
+def _no_sync_in_handoff(torch, fleet):
+    """Run the fleet's handoff stages (export, placement, prefetch) under
+    `torch.cuda.set_sync_debug_mode("error")`: with async-core replicas
+    they run while a dispatched step is in flight, and a host sync in any
+    of them raises. Returns the count of wrapped calls; the wrappers go
+    with `fleet.__dict__.pop` (they hold the fleet)."""
+    calls = {"n": 0}
+    for name in FLEET_HANDOFF_STAGES:
+        def wrapped(*a, _fn=getattr(fleet, name), **kw):
+            calls["n"] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        setattr(fleet, name, wrapped)
+    return calls
+
+
+def phase_fleet(torch, ctx, seed):
+    """The serving fleet over GPT-1.3B bf16, every replica on this card:
+    one and two mixed replicas against phase 5's tokens, and a
+    disaggregated pair (1 prefill + 1 decode) against a colocated engine of
+    the same configuration, at bf16 and int8 pools, chunked and bucketed,
+    chunked with the async core, and chunked on a tight pool without the
+    prefix cache (source blocks reused before their handoff is placed)."""
+    import gc
+
+    import paddle_tpu_torch.inference.fleet as fleet_mod
+    from paddle_tpu_torch import GenerationEngine
+    from paddle_tpu_torch.inference import ServingFleet
+    from paddle_tpu_torch.observability import series_total
+
+    model = _model(torch, torch.bfloat16, seed)
+    V = model.config.vocab_size
+    _, trace = _engine_trace(V, seed)
+    reqs = trace["first"] + trace["later"]
+    plain = _engine_tokens(torch, ctx, model, trace)
+    bs = 16
+    res = {"phase": "fleet", "card": nvidia_smi_line(),
+           "config": "gpt_1p3b bf16, phase 5's trace, every replica 8 "
+           "slots, block 16, on this card: 1 and 2 mixed replicas; a "
+           "disaggregated pair (1 prefill + 1 decode) beside a colocated "
+           "engine of the same configuration: bf16 and int8 pools, chunked "
+           "and bucketed prefill, chunked with async_core=True (its "
+           f"handoff stages {list(FLEET_HANDOFF_STAGES)} under "
+           "set_sync_debug_mode('error')), chunked on 160 blocks "
+           "without the prefix cache (source blocks reused before "
+           "placement)",
+           "runs": {}}
+    ok = True
+
+    def fleet_run(name, **kw):
+        """One fleet over the trace: tokens, counts, gates at drain, and
+        the fleet's memory back at once after `del`."""
+        path = f"fleet_{name}_bf16"
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        fleet = ServingFleet(model, num_slots=8, block_size=bs, **kw)
+        engines = {f"{r.role}_{r.rid}": r.engine
+                   for r in fleet._replicas.values()}
+        per_rep = _per_replica_launches(ctx, fleet)
+        unsynced = _no_sync_in_handoff(torch, fleet) \
+            if kw.get("async_core") else None
+        n, bad, reused, restore = _checked_transfer(torch, fleet_mod)
+        try:
+            t0 = time.perf_counter()
+            ids, out, owners, routes = _counted(
+                torch, ctx, path, lambda: _serve_fleet(fleet, trace))
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        snap = fleet.metrics_snapshot()
+        new = sum(len(out[i]) - len(p) for i, (p, _) in zip(ids, reqs))
+        r = {"wall_s": wall, "tokens_generated": new,
+             "tokens_per_s": new / wall,
+             "outputs_ok": _outputs_ok(ids, out, reqs, V),
+             "tokens": [out[i] for i in ids],
+             "handoffs": series_total(snap, "fleet_handoffs_total"),
+             "handoff_blocks": series_total(snap,
+                                            "fleet_handoff_blocks_total"),
+             "handoff_stalls": series_total(snap,
+                                            "fleet_handoff_stalls_total"),
+             "affinity_hit_tokens": series_total(
+                 snap, "fleet_affinity_hit_tokens_total"),
+             "routed": {f"{s['labels']['replica']}:{s['labels']['reason']}":
+                        s["value"]
+                        for s in snap["fleet_routed_total"]["series"]},
+             "owners_before_later": owners, "later_routes": routes,
+             "blocks_exported": n["exported"],
+             "blocks_ingested": n["ingested"],
+             "replicas": {k: {"tokens_generated": e.tokens_generated,
+                              "prefill_chunks": e.prefill_chunks,
+                              "decode_steps": e.decode_steps,
+                              "admissions": e.admissions,
+                              "launches": per_rep[k]}
+                          for k, e in engines.items()},
+             "kernel_counts": ctx["paths"][path]}
+        fleet.drain()
+        r["differing_transfer_elements"] = int(bad)
+        r["source_blocks_rewritten_before_placement"] = int(reused)
+        del bad, reused
+        r["leak_check"] = {k: e.cache.leak_check() for k, e in
+                           engines.items()}
+        r["parked_handoffs"] = sum(len(e._handoffs)
+                                   for e in engines.values()) \
+            + len(fleet._pending_handoffs)
+        for e in engines.values():
+            _unwrap(e)
+        for stage in FLEET_HANDOFF_STAGES:
+            fleet.__dict__.pop(stage, None)
+        gc.disable()
+        try:
+            del fleet, engines, e
+            after = torch.cuda.memory_allocated()
+            r["memory_bytes_before_after"] = [base, after]
+            r["memory_back_at_once"] = after <= base
+        finally:
+            gc.enable()
+        torch.cuda.empty_cache()
+        if unsynced is not None:
+            r["handoff_stage_calls_without_sync"] = unsynced["n"]
+        r["gates"] = g = {"outputs_ok": r["outputs_ok"],
+                          "no_leak": not any(r["leak_check"].values()),
+                          "no_parked_handoff": r["parked_handoffs"] == 0,
+                          "memory_back_at_once": r["memory_back_at_once"],
+                          "transfer_bitwise":
+                              r["differing_transfer_elements"] == 0}
+        res["runs"][name] = r
+        return r, g
+
+    # one mixed replica: bitwise phase 5; two: each request phase 5's, the
+    # later shared-prefix and repeat requests on the replica owning them
+    r1, g1 = fleet_run("mixed1", num_replicas=1)
+    g1["tokens_bitwise_phase5"] = r1.pop("tokens") == plain
+    r2, g2 = fleet_run("mixed2", num_replicas=2)
+    g2["tokens_equal_phase5"] = r2.pop("tokens") == plain
+    g2["shared_to_warm"] = (r2["later_routes"][0] in
+                            r2["owners_before_later"]["shared"])
+    g2["repeat_to_warm"] = (r2["later_routes"][1] in
+                            r2["owners_before_later"]["repeat"])
+    g2["affinity_hit_tokens"] = r2["affinity_hit_tokens"] > 0
+    g2["both_replicas_served"] = all(
+        v["tokens_generated"] > 0 for v in r2["replicas"].values())
+    for g in (g1, g2):
+        ok &= all(g.values())
+
+    coloc = {}
+    legs = sum(n > 1 for _, n in reqs)          # no eos: every max_new > 1
+    blocks = sum(-(-len(p) // bs) for p, _ in reqs)
+    for name, (kw, ks) in FLEET_DISAGG.items():
+        base_kw = {k: v for k, v in kw.items() if k != "async_core"}
+        key = tuple(sorted(base_kw.items()))
+        if key not in coloc:
+            cpath = f"fleet_colocated_{name}_bf16"
+            eng = GenerationEngine(model, num_slots=8, block_size=bs,
+                                   **base_kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, out = _counted(torch, ctx, cpath,
+                                lambda: _serve_trace(eng, trace))
+            wall = time.perf_counter() - t0
+            coloc[key] = [out[i] for i in ids]
+            res["runs"][f"colocated_{name}"] = {
+                "wall_s": wall, "tokens_generated": eng.tokens_generated,
+                "tokens_per_s": eng.tokens_generated / wall,
+                "outputs_ok": _outputs_ok(ids, out, reqs, V),
+                "kernel_counts": ctx["paths"][cpath]}
+            ok &= res["runs"][f"colocated_{name}"]["outputs_ok"]
+            del eng
+            torch.cuda.empty_cache()
+        r, g = fleet_run(f"disagg_{name}", num_replicas=1,
+                         num_prefill_replicas=1, **kw)
+        g["tokens_equal_colocated"] = r.pop("tokens") == coloc[key]
+        g["handoffs_are_decode_legs"] = r["handoffs"] == legs
+        g["handoff_blocks"] = r["handoff_blocks"] == blocks \
+            == r["blocks_exported"] == r["blocks_ingested"]
+        pre = r["replicas"]["prefill_1"]
+        dec = r["replicas"]["decode_0"]
+        g["prefill_one_token_a_request"] = pre["tokens_generated"] \
+            == len(reqs)
+        g["decode_no_prefill_chunk"] = dec["prefill_chunks"] == 0
+        g["decode_no_prefill_kernel"] = FWD not in dec["launches"]
+        g["replica_kernels_launched"] = all(
+            k == FWD and pre["launches"].get(FWD, 0) > 0
+            or k != FWD and dec["launches"].get(k, 0) > 0 for k in ks)
+        if not kw.get("enable_prefix_cache", True):
+            g["source_reused_before_placement"] = \
+                r["source_blocks_rewritten_before_placement"] > 0
+        if "handoff_stage_calls_without_sync" in r:
+            g["handoff_without_host_sync"] = \
+                r["handoff_stage_calls_without_sync"] > 0
+        ok &= all(g.values())
+    res["tokens_per_s"] = {n: r["tokens_per_s"]
+                           for n, r in res["runs"].items()}
+    res["ok"] = bool(ok)
+    emit(res)
+    del model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("fleet phase failed its checks")
+
+
 def phase_train_telemetry(torch, ctx, seed):
     from paddle_tpu_torch import AdamW, GPTForCausalLM, TrainStep
     from paddle_tpu_torch.amp import GradScaler
@@ -6612,6 +6986,8 @@ def main(argv=None):
                 phase_engine_async(torch, ctx, SEED)
             elif name == "engine_observed":
                 phase_engine_observed(torch, ctx, SEED)
+            elif name == "fleet":
+                phase_fleet(torch, ctx, SEED)
             else:
                 phase_train_telemetry(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.topology import check_mp_axis
 from .registry import NULL_ADAPTER_ID, AdapterRegistry
 
 __all__ = ["PagedAdapterPool", "adapter_pool_spec"]
@@ -93,10 +94,17 @@ class PagedAdapterPool:
     stall/retry path under pressure. `dtype` is the factors' (the
     registry's when None); `device=None` means the CUDA card. With `mesh`
     the pool lives on the mesh's devices (its first is `device`) and
-    `arrays(shard)` gives each shard's tensors."""
+    `arrays(shard)` gives each shard's tensors.
 
-    def __init__(self, registry, num_pages=None, dtype=None, device=None,
-                 mesh=None):
+    The parameters are JAX's, in JAX's order; `device` is the port's own,
+    keyword-only. `mp_axis` must be `'mp'` (the serving mesh's one axis).
+    `donate` is stored and without effect: JAX donates the page arrays to
+    its compiled swap-in, and here the swap-in writes the page in place."""
+
+    def __init__(self, registry, num_pages=None, dtype=None, mesh=None,
+                 mp_axis="mp", donate=None, *, device=None):
+        check_mp_axis(mp_axis)
+        self._donate = donate
         if not isinstance(registry, AdapterRegistry):
             raise TypeError(
                 "PagedAdapterPool takes an AdapterRegistry (the "

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ServingMesh", "serving_mesh"]
+__all__ = ["ServingMesh", "serving_mesh", "check_mp_axis"]
 
 
 def _normalize(device):
@@ -24,6 +24,15 @@ def _normalize(device):
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def check_mp_axis(mp_axis):
+    """Refuse a mesh axis name other than `'mp'`: the JAX package's pools
+    take the name of the axis their heads shard over, and a serving mesh
+    here has that one axis only."""
+    if mp_axis != "mp":
+        raise ValueError(
+            f"mp_axis={mp_axis!r}: a serving mesh has the one axis 'mp'")
 
 
 class ServingMesh:

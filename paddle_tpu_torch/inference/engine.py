@@ -109,14 +109,16 @@ core).
   pinned memory, copied without a wait), then prefetches the queue head's
   adapter page. Tokens are the serial core's; the serial core runs its
   schedule, dispatch and complete stages in one call.
+- the handoff surface of disaggregated serving (`inference.fleet`):
+  `add_request(prefill_only=True)` prefills a prompt to its first token
+  and parks its KV blocks (`take_handoff`, `release_handoff`);
+  `adopt_request` seats a request whose prompt KV was ingested into this
+  engine's pool, mid-stream; `free_lanes` is the placement probe.
 
 The pools (and scales) are updated IN PLACE by every step (PyTorch is
 eager: there is no compiled step, no donation, no trace count). Greedy
 output matches `GPTForCausalLM.generate(use_cache=True)` per request, with
 or without speculation; int8 pools hold to the JAX int8 engine instead.
-
-Left for later slices (ROADMAP Queue A): the fleet (its handoff and
-`adopt_request`, the fleet's `best_of_n`).
 """
 from __future__ import annotations
 
@@ -134,7 +136,7 @@ import torch
 
 from ..adapters import AdapterRegistry, PagedAdapterPool
 from ..device import resolve_device
-from ..distributed import serving_mesh
+from ..distributed import check_mp_axis, serving_mesh
 from ..models.gpt import TensorParallel
 from ..observability.metrics import LATENCY_BUCKETS, MetricsRegistry
 from ..observability.tracing import (FlightRecorder, PhaseTimer,
@@ -277,11 +279,16 @@ class PagedKVCache:
     distinct device, shards on one device share it; `scales` is the first
     shard's). `pool_spec()` stays the logical whole; the block tables,
     allocator, refcounts and prefix cache do not depend on the mesh.
-    Without a mesh `kpools == [kpool]`."""
+    Without a mesh `kpools == [kpool]`.
+
+    The parameters are JAX's, in JAX's order; `device` (the pools' device
+    without a mesh, the CUDA card by default) is the port's own,
+    keyword-only. `mp_axis` must be `'mp'`, the serving mesh's one axis."""
 
     def __init__(self, num_layers, num_blocks, block_size, num_heads,
-                 head_dim, dtype=torch.float32, device=None, kv_dtype=None,
-                 mesh=None):
+                 head_dim, dtype=torch.float32, mesh=None, mp_axis="mp",
+                 kv_dtype=None, *, device=None):
+        check_mp_axis(mp_axis)
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null "
                              "block)")
@@ -567,10 +574,14 @@ class Request:
     eos_token_id: int = None
     arrived_at: float = None           # perf_counter at add_request
     priority: str = "standard"         # one of PRIORITY_CLASSES
+    # disaggregated serving: the prompt runs to its first token, then its
+    # KV blocks park in the engine's handoff buffer (take_handoff) for the
+    # fleet to move into a decode replica's pool
+    prefill_only: bool = False
+    adapter_id: int = 0                # tenant adapter (0: the base model)
     # the request's SamplingParams (seed resolved at intake), or None for
     # the greedy contract
     sampling: object = None
-    adapter_id: int = 0                # tenant adapter (0: the base model)
     # the id every span of this request carries (None on an engine with
     # tracing off)
     trace_id: object = None
@@ -684,18 +695,24 @@ class GenerationEngine:
     flight recorder keeps the last `flight_capacity` lifecycle events.
     `async_core=True` (or `PADDLE_SERVE_ASYNC`) pipelines the decode or
     verify step one call ahead (module docstring).
+
+    The parameters are JAX's, in JAX's order; `device` is the port's own,
+    keyword-only. `donate` is stored and without effect: JAX donates the
+    pools to its compiled steps, and here every step writes them in place,
+    so a run without donation computes the same values.
     """
 
     def __init__(self, model, num_slots=8, block_size=16, num_blocks=None,
-                 max_model_len=None, eos_token_id=None, prefill_chunk="auto",
-                 enable_prefix_cache=None, max_queue=None, device=None,
-                 spec_decode_k=0, drafter=None, kv_dtype=None,
-                 attention_backend=None, prefill_buckets=None,
-                 weight_dtype=None, sampling=None, adapters=None,
-                 adapter_pool_pages=None, mesh=None, mp_degree=None,
-                 registry=None, tracing=None, trace_capacity=4096,
-                 flight_capacity=256, async_core=None):
+                 prefill_buckets=None, max_model_len=None, eos_token_id=None,
+                 donate=None, registry=None, attention_backend=None,
+                 prefill_chunk="auto", enable_prefix_cache=None,
+                 max_queue=None, spec_decode_k=0, drafter=None, mesh=None,
+                 mp_degree=None, kv_dtype=None, weight_dtype=None,
+                 adapters=None, adapter_pool_pages=None, sampling=None,
+                 tracing=None, trace_capacity=4096, flight_capacity=256,
+                 async_core=None, *, device=None):
         cfg = model.config
+        self._donate = donate
         if model.training and cfg.dropout > 0:
             raise ValueError("GenerationEngine decodes deterministically "
                              "(no dropout) — call model.eval() first")
@@ -801,7 +818,7 @@ class GenerationEngine:
             int(num_blocks or 1 + self.num_slots * self.max_blocks),
             self.block_size, cfg.num_heads,
             cfg.hidden_size // cfg.num_heads, dtype=wte.dtype,
-            device=self.device, kv_dtype=self.kv_dtype, mesh=self.mesh)
+            mesh=self.mesh, kv_dtype=self.kv_dtype, device=self.device)
         # the hook holds the recorder, not the engine: a cycle through the
         # engine would keep its pools and model alive after the last
         # reference goes, until a full garbage collection
@@ -822,6 +839,7 @@ class GenerationEngine:
         self._queues = {p: deque() for p in PRIORITY_CLASSES}
         self._slots = [None] * self.num_slots
         self._results = {}
+        self._handoffs = {}            # req_id -> (blocks, hit_tokens)
         self._draining = False
         self._auto_id = 0
         self._admit_counter = 0
@@ -1594,24 +1612,15 @@ class GenerationEngine:
         return [self._to_device(a) for a in (temps, tks, tps, keys)]
 
     # -- request intake ----------------------------------------------------
-    def add_request(self, prompt, max_new_tokens, eos_token_id=None,
-                    req_id=None, priority="standard", sampling_params=None,
-                    adapter_id=0, trace_id=None):
-        """Queue a request; it is admitted into a free lane between steps
-        (may be called while `run`/`step` is mid-stream). With `max_queue`
-        set and the queue full, the lowest-priority loser is shed: its
-        result is None. `sampling_params` (a `SamplingParams`; needs
-        `sampling=True`) samples the request; None and temperature 0 keep
-        the greedy contract. A None seed is drawn here from the engine's
-        deterministic counter. `adapter_id` is the tenant adapter the
-        request decodes under (needs `adapters=`; 0, the default, is the
-        base model). `trace_id` names the request's spans (with tracing
-        on, a fresh one when None). Returns the request id."""
-        adapter_id = self._check_adapter(adapter_id)
-        sampling_params = self._resolve_seed(
-            self._check_sampling(sampling_params))
+    def _intake_guard(self, prompt, max_new_tokens, priority, req_id):
+        """The admission checks and id claim both intake paths share
+        (`add_request`, `adopt_request`): the draining gate, the prompt,
+        budget, priority and length checks, and an auto id that skips
+        live ones. Returns (prompt as int32, req_id)."""
         if self._draining:
-            raise RuntimeError("engine is draining — admissions are closed")
+            raise RuntimeError(
+                "engine is draining — admissions are closed (finish "
+                "the drain, or route to another replica)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -1634,13 +1643,42 @@ class GenerationEngine:
         elif req_id in live:
             raise ValueError(f"req_id {req_id!r} is already queued, "
                              "decoding, or awaiting collection")
+        return prompt, req_id
+
+    def add_request(self, prompt, max_new_tokens, eos_token_id=None,
+                    req_id=None, priority="standard", prefill_only=False,
+                    adapter_id=0, sampling_params=None, trace_id=None):
+        """Queue a request; it is admitted into a free lane between steps
+        (may be called while `run`/`step` is mid-stream). With `max_queue`
+        set and the queue full, the lowest-priority loser is shed: its
+        result is None. `prefill_only=True` is the disaggregated intake:
+        the prompt is prefilled to its first token, and its KV blocks then
+        park for `take_handoff` instead of decoding (`max_new_tokens` must
+        be 1; the decode replica owns the rest of the budget).
+        `sampling_params` (a `SamplingParams`; needs `sampling=True`)
+        samples the request; None and temperature 0 keep the greedy
+        contract. A None seed is drawn here from the engine's
+        deterministic counter. `adapter_id` is the tenant adapter the
+        request decodes under (needs `adapters=`; 0, the default, is the
+        base model). `trace_id` names the request's spans (with tracing
+        on, a fresh one when None). Returns the request id."""
+        if prefill_only and max_new_tokens != 1:
+            raise ValueError(
+                "prefill_only requests carry max_new_tokens=1 (the "
+                "single token the final prefill chunk yields); the "
+                "decode replica owns the remaining budget")
+        adapter_id = self._check_adapter(adapter_id)
+        sampling_params = self._resolve_seed(
+            self._check_sampling(sampling_params))
+        prompt, req_id = self._intake_guard(prompt, max_new_tokens,
+                                            priority, req_id)
         eos = self.eos_token_id if eos_token_id is None else eos_token_id
         if self.tracing and trace_id is None:
             trace_id = new_trace_id()
         req = Request(req_id, prompt, int(max_new_tokens), eos,
                       arrived_at=time.perf_counter(), priority=priority,
-                      sampling=sampling_params, adapter_id=adapter_id,
-                      trace_id=trace_id)
+                      prefill_only=bool(prefill_only), adapter_id=adapter_id,
+                      sampling=sampling_params, trace_id=trace_id)
         self.flight.record("queued", req_id, priority=priority,
                            plen=int(prompt.size), adapter=int(adapter_id))
         self._trace_instant("request.queued", req, priority=priority,
@@ -1674,9 +1712,13 @@ class GenerationEngine:
         self._trace_instant("request.shed", req, priority=req.priority)
 
     def _in_flight(self):
+        """Ids a new request would collide with: queued, seated, finished
+        but not collected, or parked in the handoff buffer (a reused id
+        there would overwrite the parked entry and leak its blocks)."""
         ids = {r.req_id for p in PRIORITY_CLASSES for r in self._queues[p]}
         ids.update(s.req.req_id for s in self._slots if s is not None)
         ids.update(self._results)
+        ids.update(self._handoffs)
         return ids
 
     def _peek_request(self):
@@ -1747,10 +1789,37 @@ class GenerationEngine:
             # an instant finisher's only token still lands in the TPOT
             # histogram (the producing step's latency)
             self._obs_tpot(req, now - t_step)
-            self._finish(slot, "eos" if done_eos else "length")
+            self._retire(slot, done_eos)
             self._slots[self._slots.index(slot)] = None
             return False
         return True
+
+    def _retire(self, slot, done_eos):
+        """Retire a lane whose request is done: a prefill-only request
+        parks its blocks for the fleet (`_handoff_finish`), any other
+        finishes on "eos" or "length". The caller vacates the lane."""
+        if slot.req.prefill_only:
+            self._handoff_finish(slot)
+        else:
+            self._finish(slot, "eos" if done_eos else "length")
+
+    def _handoff_finish(self, slot):
+        """Retire a prefill-only lane WITHOUT freeing its blocks: the
+        prompt's written KV is the request's product. The blocks park in
+        the handoff buffer, still referenced (neither the allocator nor
+        eviction can recycle them), until the fleet claims them with
+        `take_handoff`, exports their rows and returns them through
+        `release_handoff`. The adapter page is released now: the decode
+        replica takes one from its own pool."""
+        req = slot.req
+        self._handoffs[req.req_id] = (list(slot.blocks), slot.hit_tokens)
+        self._results[req.req_id] = \
+            list(map(int, req.prompt)) + slot.generated
+        self._release_adapter(slot)
+        self._m_finished.labels(reason="handoff").inc()
+        self.flight.record("handoff_parked", req.req_id,
+                           blocks=len(slot.blocks))
+        self._trace_instant("request.handoff", req, blocks=len(slot.blocks))
 
     def _admit_chunked(self):
         """Seat queued requests into free lanes: match the longest cached
@@ -2149,7 +2218,9 @@ class GenerationEngine:
                 if done_eos or len(slot.generated) >= req.max_new_tokens:
                     if is_first:
                         self._obs_tpot(req, now - t_dec)
-                    self._finish(slot, "eos" if done_eos else "length")
+                    # a full-prefix-hit prefill-only lane's decode step
+                    # gave its first token: `_retire` parks the blocks
+                    self._retire(slot, done_eos)
                     self._slots[i] = None
         return len(inflight.runnable)
 
@@ -2361,7 +2432,7 @@ class GenerationEngine:
                 if done_eos or len(slot.generated) >= req.max_new_tokens:
                     if is_first and n_tpot == 0:
                         self._obs_tpot(req, now - t_dec)
-                    self._finish(slot, "eos" if done_eos else "length")
+                    self._retire(slot, done_eos)
                     self._slots[i] = None
         return len(inflight.runnable)
 
@@ -2536,6 +2607,11 @@ class GenerationEngine:
     def num_pending(self):
         return sum(len(self._queues[p]) for p in PRIORITY_CLASSES)
 
+    @property
+    def free_lanes(self):
+        """Decode lanes vacant now: the fleet's adoption headroom."""
+        return self._slots.count(None)
+
     def best_of_n(self, prompt, n, max_new_tokens, sampling_params=None,
                   eos_token_id=None, priority="standard", adapter_id=0):
         """Fan ONE prompt into `n` sampled candidates sharing its
@@ -2564,16 +2640,109 @@ class GenerationEngine:
         out, self._results = self._results, {}
         return out
 
+    # -- disaggregated prefill/decode (the fleet's handoff) ------------------
+    def take_handoff(self, req_id):
+        """Claim a finished prefill-only request's parked KV footprint:
+        (block ids, prefix-cache hit tokens). The caller owns the blocks'
+        references now: it exports their rows
+        (`ops.paged_attention.export_pool_block`), then hands them back
+        with `release_handoff`."""
+        return self._handoffs.pop(req_id)
+
+    def release_handoff(self, blocks):
+        """Return a handed-off request's source blocks once their rows are
+        exported. Prefix-cached blocks park in the evictable LRU, still
+        matchable, so the warm chain the router steers toward survives;
+        private blocks go back to the free list."""
+        self.cache.free(blocks)
+        self._update_pool_gauges()
+
+    def adopt_request(self, prompt, first_token, blocks, max_new_tokens,
+                      eos_token_id=None, req_id=None, priority="standard",
+                      arrived_at=None, adapter_id=0, sampling_params=None,
+                      trace_id=None):
+        """Seat a request whose prompt KV is ALREADY in this engine's pool:
+        the decode side of disaggregated serving. The fleet allocates
+        `blocks` from this engine's cache, ingests the prefill replica's
+        exported rows into them, then adopts: `first_token` (the token
+        the remote prefill produced) seeds the lane, and decode goes on as
+        if the prefill had run here. `max_new_tokens` is the request's
+        original budget (the first token counts against it); the first
+        token is not counted again in `tokens_generated`. Raises without a
+        free lane (`free_lanes`) or an adapter page in THIS engine's pool
+        (`adapter_page_available`). A sampled request must arrive with its
+        seed resolved, so that the lane carries the key row the colocated
+        lane would. A request already complete on arrival (EOS, or a
+        budget of 1) retires at once."""
+        adapter_id = self._check_adapter(adapter_id)
+        sampling_params = self._check_sampling(sampling_params)
+        if sampling_params is not None and not sampling_params.greedy \
+                and sampling_params.seed is None:
+            raise ValueError(
+                "adopted sampled requests need an explicit seed — "
+                "resolve it at fleet intake so the prefill replica's "
+                "key state travels with the handoff")
+        prompt, req_id = self._intake_guard(prompt, max_new_tokens,
+                                            priority, req_id)
+        need = math.ceil(prompt.size / self.block_size)
+        if len(blocks) != need:
+            raise ValueError(
+                f"adopted prompt of {prompt.size} tokens needs exactly "
+                f"{need} block(s), got {len(blocks)}")
+        if None not in self._slots:
+            raise RuntimeError(
+                "no free lane to adopt into — check free_lanes before "
+                "handing off")
+        eos = self.eos_token_id if eos_token_id is None else eos_token_id
+        if self.tracing and trace_id is None:
+            trace_id = new_trace_id()
+        req = Request(req_id, prompt, int(max_new_tokens), eos,
+                      arrived_at=arrived_at, priority=priority,
+                      adapter_id=adapter_id, sampling=sampling_params,
+                      trace_id=trace_id)
+        self.flight.record("adopted", req_id, blocks=len(blocks))
+        self._trace_instant("request.adopted", req, blocks=len(blocks))
+        page = self._acquire_adapter(req)
+        if page is None:
+            raise RuntimeError(
+                f"no free adapter page for adapter {adapter_id} — "
+                "probe adapter_page_available before adopting")
+        slot = _Slot(req=req, blocks=[int(b) for b in blocks],
+                     generated=[int(first_token)],
+                     last_token_at=time.perf_counter(),
+                     prefill_pos=int(prompt.size),
+                     admit_seq=self._admit_counter, adapter_page=page,
+                     **self._slot_sampling_fields(req))
+        self._admit_counter += 1
+        self._slots[self._slots.index(None)] = slot
+        self.admissions += 1
+        self._m_admissions.inc()
+        self._update_pool_gauges()
+        done_eos = eos is not None and int(first_token) == eos
+        if done_eos or int(max_new_tokens) <= 1:
+            # complete on arrival: retire at once, blocks back to the pool
+            self._retire(slot, done_eos)
+            self._slots[self._slots.index(slot)] = None
+        self._m_active.set(self.num_active)
+        return req_id
+
     def drain(self):
         """Close admissions, run every queued and live request to the end
         (the async core's step in flight included: its lanes are live
-        until it completes), then audit the pools: every non-null block
+        until it completes), refuse while a handoff is still parked (its
+        blocks are held on purpose: the fleet must export and release them
+        first), then audit the pools: every non-null block
         must be free or a refcount-zero cached block, and every non-null
         adapter page free or parked warm, no rank group holding two. A
         failed audit carries the flight recorder's history. Returns
         run()'s results."""
         self._draining = True
         out = self.run()
+        if self._handoffs:
+            raise self._audit_error(
+                f"{len(self._handoffs)} handoff(s) still parked — "
+                "take_handoff/release_handoff them before draining "
+                "the replica")
         leaked = self.cache.leak_check()
         if leaked:
             raise self._audit_error(

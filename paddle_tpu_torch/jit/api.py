@@ -76,10 +76,17 @@ class TrainStep:
     mean; `scaler` (an `amp.GradScaler`) scales the loss and skips the
     update on overflow. `with_outputs` with K > 1 raises, as in the JAX
     package. `telemetry` (an `observability.TrainingTelemetry`) observes
-    each optimizer step (module docstring)."""
+    each optimizer step (module docstring).
 
-    def __init__(self, model, optimizer, loss_fn=None, with_outputs=False,
-                 accumulate_steps=1, scaler=None, telemetry=None):
+    `donate` is JAX's parameter, in JAX's place, stored and without effect:
+    JAX donates the old parameter and state buffers to its compiled step,
+    and here the update already writes them in place; a step without
+    donation computes the same values."""
+
+    def __init__(self, model, optimizer, loss_fn=None, donate=True,
+                 with_outputs=False, accumulate_steps=1, scaler=None,
+                 telemetry=None):
+        self._donate = donate
         self.telemetry = telemetry
         self._tel_t0 = None
         self._tel_taint = False

@@ -23,6 +23,15 @@ PyTorch writes them directly).
   The JAX package runs both outside Pallas, so they stay plain PyTorch
   here.
 - `copy_pool_block`: the engine's copy-on-write step.
+- `export_pool_block` / `ingest_pool_block`: the disaggregated handoff's
+  transfer unit (`inference.fleet`): one block's rows of every layer (and
+  its int8 scale rows) copied out of a prefill replica's pools, then
+  written into a block of a decode replica's. Bit copies, never
+  re-quantized. The export is a copy, not a view: the source block goes
+  back to its allocator at once and may be rewritten before the payload
+  lands. JAX compiles the pair once with traced block ids and donated
+  destination pools; here both are eager PyTorch ops, ordered on the
+  current stream after the step that wrote the rows.
 - `dense_gather_reference`: a parity probe reassembling one slot's rows.
 
 int8 KV (`scales`, the engine's `[layers, num_blocks, 2]` f32 per-block
@@ -69,6 +78,8 @@ __all__ = ["PAGED_BACKENDS", "resolve_backend", "paged_attention_step",
            "paged_prefill_write", "paged_attention_step_shards",
            "paged_verify_window_shards", "paged_prefill_chunk_shards",
            "paged_prefill_write_shards", "copy_pool_block",
+           "export_pool_block", "ingest_pool_block",
+           "export_pool_block_shards", "ingest_pool_block_shards",
            "dense_gather_reference", "KV_QUANT_EPS"]
 
 #: Scale floor of the int8 per-block-quantized KV cache (the JAX package's
@@ -597,6 +608,63 @@ def copy_pool_block(kpool, vpool, src, dst, scales=None):
     vpool[:, dst] = vpool[:, src]
     if scales is not None:
         scales[:, dst] = scales[:, src]
+
+
+def export_pool_block_shards(kpools, vpools, src, scale_shards=None):
+    """Copy block `src`'s rows out of head-sharded pools, one shard after
+    another: `(k rows, v rows)`, each a list of `[layers, block_size,
+    heads / mp, head_dim]` tensors in mesh order on the shards' devices,
+    plus under int8 pools the block's `[layers, 2]` scale rows (the
+    replicated grid, read from the first shard's replica). Copies, never
+    views: the caller releases `src` at once. The block id is a host int,
+    so the read uploads no index (an upload from pageable memory would
+    wait on the stream behind a step in flight)."""
+    src = int(src)
+    ks = [kp[:, src].clone() for kp in kpools]
+    vs = [vp[:, src].clone() for vp in vpools]
+    if scale_shards is None:
+        return ks, vs
+    return ks, vs, scale_shards[0][:, src].clone()
+
+
+def ingest_pool_block_shards(kpools, vpools, kblocks, vblocks, dst,
+                             scale_shards=None, scale_row=None):
+    """Write exported rows into block `dst` of head-sharded pools IN
+    PLACE: shard i's rows land in shard i's pools, on that shard's device
+    (a copy across devices when the payload came from another card).
+    Under int8 pools the `[layers, 2]` scale row lands in every distinct
+    scale replica, so each shard dequantizes on the exported grid."""
+    dst = int(dst)
+    for kp, vp, kb, vb in zip(kpools, vpools, kblocks, vblocks):
+        kp[:, dst] = kb
+        vp[:, dst] = vb
+    if scale_shards is not None:
+        for sc in _distinct(scale_shards):
+            sc[:, dst] = scale_row
+
+
+def export_pool_block(kpool, vpool, src, scales=None):
+    """Copy block `src`'s rows out of one device's pools: the one-shard
+    `export_pool_block_shards`. Returns `(k rows, v rows)`, each
+    `[layers, block_size, heads, head_dim]`, plus the block's `[layers,
+    2]` scale rows under int8 pools, as JAX's `export_pool_block`."""
+    out = export_pool_block_shards(
+        [kpool], [vpool], src, None if scales is None else [scales])
+    return (out[0][0], out[1][0]) + tuple(out[2:])
+
+
+def ingest_pool_block(kpool, vpool, kblock, vblock, dst, scales=None,
+                      scale_row=None):
+    """Write one exported block into block `dst` of one device's pools, in
+    place (the one-shard `ingest_pool_block_shards`). Returns the pools
+    (and the scales under int8), as JAX's `ingest_pool_block` returns its
+    updated arrays."""
+    ingest_pool_block_shards([kpool], [vpool], [kblock], [vblock], dst,
+                             None if scales is None else [scales],
+                             scale_row)
+    if scales is None:
+        return kpool, vpool
+    return kpool, vpool, scales
 
 
 def dense_gather_reference(kpool, vpool, layer, block_row, length):
