@@ -1,11 +1,9 @@
 // The attention backward for Hopper (sm_90a), shared by
 // causal_attention_bwd.cu (B2, causal) and shortseq_attention_bwd.cu (B13,
 // whole-sequence, mask-free and key-masked), whose kernels take all of this
-// file, and sdpa_backward.cu (the library route's backward), whose bf16
-// kernels take the mma bodies. Each of those files keeps its own thin
-// `__global__` kernels (named apart, so a profile and the SASS tell them
-// apart) and its C entry point; the bodies are the `__device__` templates
-// here, on <D, CAUSAL, MASKED>, the mma ones also on DC (below).
+// file. Each of those files keeps its own thin `__global__` kernels (named
+// apart, so a profile and the SASS tell them apart) and its C entry point;
+// the bodies are the `__device__` templates here, on <D, CAUSAL, MASKED>.
 //
 // What it computes, per (batch*head) of [BH, S, D] inputs, from the
 // forward's output O and its per-row LSE ([BH, S] fp32):
@@ -24,9 +22,7 @@
 // LSE both round to -1e30 and P = 1 for every key, the TPU kernel's
 // result. Any S: ragged last tiles are zero-filled and masked. The mma
 // bodies take q rows Sq and keys Skv apart (B2 and B13 pass S twice;
-// CAUSAL only at Sq == Skv), and accumulate DC of the D columns of their
-// gradient a CTA (grid z): DC = D for B2 and B13, D / 2 for the library
-// backward at D 192 and 256, whose whole rows do not fit the registers.
+// CAUSAL only at Sq == Skv).
 //
 // The TPU kernels walk the q blocks of one head in order inside one
 // program and carry dK/dV in VMEM scratch across them. Blocks of a CUDA
@@ -326,29 +322,6 @@ constexpr size_t dq_mma_smem_bytes() {
          (MASKED ? 2 * kMmaB * sizeof(float) : 0);
 }
 
-// `store_rows` for DC of a row's D columns: a 16 x DC fp32 C-fragment tile
-// (rows row0 + g and row0 + g + 8) as bf16 pairs into columns c0 .. c0 +
-// DC - 1 of a [S, D] slab, rows at or past S skipped
-template <int D, int DC>
-__device__ __forceinline__ void store_cols(bf16* dst,
-                                           const float (&c)[DC / 8][4],
-                                           int row0, int c0, int S,
-                                           int lane) {
-  using attn_mma::pack_bf16x2;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = row0 + g, r_hi = r_lo + 8;
-#pragma unroll
-  for (int nd = 0; nd < DC / 8; ++nd) {
-    const int col = c0 + nd * 8 + 2 * t;
-    if (r_lo < S)
-      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r_lo) * D + col) =
-          pack_bf16x2(c[nd][0], c[nd][1]);
-    if (r_hi < S)
-      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r_hi) * D + col) =
-          pack_bf16x2(c[nd][2], c[nd][3]);
-  }
-}
-
 // delta[row] = sum_d dO[row, d] * O[row, d] in fp32, D / 8 lanes a row,
 // 8 values (16 bytes) a lane
 template <int D>
@@ -380,16 +353,12 @@ __device__ __forceinline__ void delta_mma(const bf16* __restrict__ o,
   if (c == 0 && row < rows) delta[row] = s;
 }
 
-// grid (BH, ceil(Skv / kMmaB), D / DC), block kMmaThreads; blockIdx.y is
+// grid (BH, ceil(Skv / kMmaB)), block kMmaThreads; blockIdx.y is
 // the key tile, so under CAUSAL the longest walks (key tile 0) go first.
 // Warp w owns keys k0 + 16w .. k0 + 16w + 15 (the rows of S^T); lane (g, t)
 // holds keys g and g + 8 of them and q columns 2t, 2t + 1 of each 8-column
 // block. Ragged: q rows run to Sq, keys to Skv (CAUSAL only at Sq == Skv).
-// The CTA accumulates DC of the D columns of dK and dV, columns
-// blockIdx.z * DC ..; its scores take the whole head dim, so a chunked
-// head dim recomputes them once per chunk (DC = D: no chunk, B2's and
-// B13's instances).
-template <int D, bool CAUSAL, bool MASKED, int DC = D>
+template <int D, bool CAUSAL, bool MASKED>
 __device__ __forceinline__ void dkdv_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -398,9 +367,9 @@ __device__ __forceinline__ void dkdv_mma(
     bf16* __restrict__ dv, int Sq, int Skv, int heads_per_row, float scale) {
   using namespace attn_mma;
   constexpr int KD = D / 16;                 // k-steps over the head dim
-  constexpr int ND = DC / 8;                 // 8-column blocks of dK, dV
+  constexpr int ND = D / 8;                  // 8-column blocks of dK, dV
   // q columns a step: 32 where the accumulators hold 2 x 64 fp32 a lane
-  constexpr int QS = (D == 128 || DC > 64) ? 32 : 64;
+  constexpr int QS = D >= 128 ? 32 : 64;
   constexpr int NQ = QS / 8;                 // 8-column blocks of S^T
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
@@ -413,7 +382,6 @@ __device__ __forceinline__ void dkdv_mma(
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kMmaB;
-  const int c0 = DC == D ? 0 : blockIdx.z * DC;  // the CTA's first column
   const size_t qbase = static_cast<size_t>(bh) * Sq * D;
   const size_t kbase = static_cast<size_t>(bh) * Skv * D;
   const size_t rbase = static_cast<size_t>(bh) * Sq;
@@ -523,12 +491,10 @@ __device__ __forceinline__ void dkdv_mma(
 #pragma unroll
         for (int dp = 0; dp < ND / 2; ++dp) {
           uint32_t b[4];
-          ldsm_x4_trans(b, frag_addr<D>(cDO, sub + kk * 16, c0 + dp * 16,
-                                        lane));
+          ldsm_x4_trans(b, frag_addr<D>(cDO, sub + kk * 16, dp * 16, lane));
           mma_bf16(acc_dv[2 * dp], pa, b[0], b[1]);
           mma_bf16(acc_dv[2 * dp + 1], pa, b[2], b[3]);
-          ldsm_x4_trans(b, frag_addr<D>(cQ, sub + kk * 16, c0 + dp * 16,
-                                        lane));
+          ldsm_x4_trans(b, frag_addr<D>(cQ, sub + kk * 16, dp * 16, lane));
           mma_bf16(acc_dk[2 * dp], dsa, b[0], b[1]);
           mma_bf16(acc_dk[2 * dp + 1], dsa, b[2], b[3]);
         }
@@ -536,21 +502,16 @@ __device__ __forceinline__ void dkdv_mma(
     }
   }
 
-  if constexpr (DC == D) {
-    store_rows<D>(dk + kbase, acc_dk, wkey, Skv, lane, 1.f, 1.f);
-    store_rows<D>(dv + kbase, acc_dv, wkey, Skv, lane, 1.f, 1.f);
-  } else {
-    store_cols<D, DC>(dk + kbase, acc_dk, wkey, c0, Skv, lane);
-    store_cols<D, DC>(dv + kbase, acc_dv, wkey, c0, Skv, lane);
-  }
+  store_rows<D>(dk + kbase, acc_dk, wkey, Skv, lane, 1.f, 1.f);
+  store_rows<D>(dv + kbase, acc_dv, wkey, Skv, lane, 1.f, 1.f);
 }
 
-// grid (BH, ceil(Sq / kMmaB), D / DC), block kMmaThreads; under CAUSAL the
+// grid (BH, ceil(Sq / kMmaB)), block kMmaThreads; under CAUSAL the
 // q tile is blockIdx.y reversed, so the longest walks (the last q tile) go
 // first. Warp w owns q rows q0 + 16w .. q0 + 16w + 15; lane (g, t) holds
 // rows g and g + 8 and key columns 2t, 2t + 1 of each 8-key block. Ragged
-// as dkdv_mma; the CTA accumulates the DC columns blockIdx.z * DC .. of dQ.
-template <int D, bool CAUSAL, bool MASKED, int DC = D>
+// as dkdv_mma.
+template <int D, bool CAUSAL, bool MASKED>
 __device__ __forceinline__ void dq_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -559,7 +520,7 @@ __device__ __forceinline__ void dq_mma(
     int heads_per_row, float scale) {
   using namespace attn_mma;
   constexpr int KD = D / 16;
-  constexpr int ND = DC / 8;
+  constexpr int ND = D / 8;
   constexpr int NK = kMmaB / 8;              // 8-key blocks of S
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -571,7 +532,6 @@ __device__ __forceinline__ void dq_mma(
   const int bh = blockIdx.x;
   const int qt = CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * kMmaB;
-  const int c0 = DC == D ? 0 : blockIdx.z * DC;  // the CTA's first column
   // causal: key tiles up to the diagonal's
   const int nkt = CAUSAL ? qt + 1 : (Skv + kMmaB - 1) / kMmaB;
   const size_t qbase = static_cast<size_t>(bh) * Sq * D;
@@ -674,17 +634,14 @@ __device__ __forceinline__ void dq_mma(
 #pragma unroll
       for (int d2 = 0; d2 < ND / 2; ++d2) {
         uint32_t b[4];
-        ldsm_x4_trans(b, frag_addr<D>(cK, kk * 16, c0 + d2 * 16, lane));
+        ldsm_x4_trans(b, frag_addr<D>(cK, kk * 16, d2 * 16, lane));
         mma_bf16(acc[2 * d2], dsa, b[0], b[1]);
         mma_bf16(acc[2 * d2 + 1], dsa, b[2], b[3]);
       }
     }
   }
 
-  if constexpr (DC == D)
-    store_rows<D>(dq + qbase, acc, wrow, Sq, lane, 1.f, 1.f);
-  else
-    store_cols<D, DC>(dq + qbase, acc, wrow, c0, Sq, lane);
+  store_rows<D>(dq + qbase, acc, wrow, Sq, lane, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------------

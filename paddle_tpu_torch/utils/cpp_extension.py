@@ -44,8 +44,7 @@ KERNEL_SOURCES = {
     "shortseq_attention_bwd": ("shortseq_attention_bwd.cu",
                                "attention_bwd.cuh", "attention_mma.cuh"),
     "sdpa_forward": ("sdpa_forward.cu", "attention_mma.cuh"),
-    "sdpa_backward": ("sdpa_backward.cu", "attention_bwd.cuh",
-                      "attention_mma.cuh"),
+    "sdpa_backward": ("sdpa_backward.cu", "hopper.cuh", "attention_mma.cuh"),
     "optimizer_update": ("optimizer_update.cu", "table_walk.cuh"),
     "grad_merge": ("grad_merge.cu", "table_walk.cuh"),
     "conv_bn_relu": ("conv_bn_relu.cu", "conv_common.cuh", "conv_mma.cuh",
@@ -53,7 +52,7 @@ KERNEL_SOURCES = {
     "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh",
                          "conv_mma.cuh", "attention_mma.cuh"),
     "sampling": ("sampling.cu",),
-    "int8_linear": ("int8_linear.cu", "attention_mma.cuh"),
+    "int8_linear": ("int8_linear.cu", "hopper.cuh", "attention_mma.cuh"),
     "lora": ("lora.cu",),
 }
 

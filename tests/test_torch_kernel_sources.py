@@ -8,8 +8,10 @@ library's hash and rebuilds it. The causal (B2) and shortseq (B13)
 backwards share one source, `attention_bwd.cuh`: each `.cu` keeps only
 thin kernels over its bodies, and `chip_smoke.py`'s profile families
 still tell the two apart by their kernels' names. The library route's
-backward (`sdpa_backward.cu`) runs the header's tensor-core bodies too,
-beside a design of its own, and its profile family is its own."""
+backward (`sdpa_backward.cu`) and the int8-weight linear (`int8_linear.cu`)
+build on `hopper.cuh`'s wgmma, TMA, mbarrier and cluster helpers
+(`WGMMA_KERNELS` must hold wgmma), and the backward's profile family is its
+own."""
 import importlib.util
 import re
 from pathlib import Path
@@ -31,9 +33,12 @@ def _chip_smoke():
 
 CHIP_SMOKE = _chip_smoke()
 MMA_KERNELS = CHIP_SMOKE.MMA_KERNELS
+WGMMA_KERNELS = CHIP_SMOKE.WGMMA_KERNELS
 BWD_LIBS = ("causal_attention_bwd", "shortseq_attention_bwd")
 # every library that includes attention_bwd.cuh
-HEADER_LIBS = BWD_LIBS + ("sdpa_backward",)
+HEADER_LIBS = BWD_LIBS
+# every library that includes hopper.cuh
+HOPPER_LIBS = ("int8_linear", "sdpa_backward")
 # the `__device__` bodies of the attention backward, in attention_bwd.cuh
 BWD_BODIES = ("delta_fma", "dkdv_fma", "dq_fma", "delta_mma", "dkdv_mma",
               "dq_mma")
@@ -74,6 +79,49 @@ def test_mma_kernels_are_kernels_of_their_library(lib):
     assert lib in KERNEL_SOURCES
     missing = set(MMA_KERNELS[lib]) - _globals(lib)
     assert not missing, f"{lib}: no __global__ {sorted(missing)}"
+
+
+@pytest.mark.parametrize("lib", sorted(WGMMA_KERNELS))
+def test_wgmma_kernels_are_kernels_of_their_library(lib):
+    assert lib in KERNEL_SOURCES
+    missing = set(WGMMA_KERNELS[lib]) - _globals(lib)
+    assert not missing, f"{lib}: no __global__ {sorted(missing)}"
+    assert lib not in MMA_KERNELS
+
+
+@pytest.mark.parametrize("lib", HOPPER_LIBS)
+def test_hopper_header_and_hand_written_sources(lib):
+    """The two redesigned libraries include and list `hopper.cuh`, hold no
+    atomic, are held to no spill in any kernel, and are hand-written: no
+    cuBLAS, no CUTLASS, no PyTorch header."""
+    assert "hopper.cuh" in KERNEL_SOURCES[lib]
+    assert "hopper.cuh" in _included(lib)
+    assert lib in CHIP_SMOKE.SPILL_FREE_LIBS
+    for path in _cu_sources(lib):
+        text = path.read_text()
+        assert not re.search(r"\batomic\w*\s*\(", text)
+        for mark in ("cublas", "cutlass", "#include <torch",
+                     "#include <aten", "#include <c10"):
+            assert mark not in text.lower(), (path.name, mark)
+
+
+def test_hopper_header_holds_the_helpers():
+    """`hopper.cuh` gives what the two kernels use: mbarriers, TMA copies
+    and the driver's map encoder through the runtime, the wgmma descriptor
+    and instances, cluster ranks, barriers and remote shared-memory loads,
+    and setmaxnreg."""
+    text = (Path(CSRC) / "hopper.cuh").read_text()
+    users = {lib for lib in KERNEL_SOURCES if "hopper.cuh" in _included(lib)}
+    assert users == set(HOPPER_LIBS)
+    for mark in ("mbarrier.init", "mbarrier.arrive.expect_tx",
+                 "mbarrier.try_wait.parity", "cp.async.bulk.tensor.3d", "cudaGetDriverEntryPoint",
+                 "cuTensorMapEncodeTiled", "wgmma.fence",
+                 "wgmma.commit_group", "wgmma.wait_group",
+                 "m64n64k16.f32.bf16.bf16", "m64n128k16.f32.bf16.bf16",
+                 "%%cluster_ctarank", "barrier.cluster.arrive",
+                 "barrier.cluster.wait", "mapa.shared::cluster",
+                 "ld.shared::cluster", "setmaxnreg.inc", "setmaxnreg.dec"):
+        assert mark in text, mark
 
 
 @pytest.mark.parametrize("lib", sorted(KERNEL_SOURCES))
@@ -172,6 +220,7 @@ def test_profile_family_of_attention_backward_kernels(lib, kernel):
     ("causal_fwd_mma_kernel", "causal_fwd_kernel"),
     ("sample_draw_kernel", "sampling_kernels"),
     ("sample_uniform_kernel", "sampling_kernels"),
+    ("w8_gemv_mma_kernel", "int8_linear_kernel"),
     ("w8_linear_mma_kernel", "int8_linear_kernel"),
     ("w8_linear_fma_kernel", "int8_linear_kernel"),
     ("lora_shrink_expand_kernel", "lora_kernel")])
@@ -320,18 +369,32 @@ def test_sampler_and_int8_weight_libraries():
     sources: `sampling` from `sampling.cu` alone, held to no atomic and no
     spill (`FMA_LIBS`: its argmax is reduced in a fixed order), and
     `int8_linear` from `int8_linear.cu` over `attention_mma.cuh`'s
-    fragments, whose bf16 kernel must run on the tensor cores
-    (`MMA_KERNELS`)."""
+    fragments and `hopper.cuh`'s cluster helpers, whose two bf16 kernels
+    (the weight as the A operand at M <= 16, x as the A operand above)
+    must run on the tensor cores (`MMA_KERNELS`)."""
     assert KERNEL_SOURCES["sampling"] == ("sampling.cu",)
     assert _globals("sampling") == {"sample_draw_kernel",
                                     "sample_uniform_kernel"}
     assert "sampling" in CHIP_SMOKE.FMA_LIBS
-    assert _included("int8_linear") == {"attention_mma.cuh"}
-    assert set(KERNEL_SOURCES["int8_linear"]) == {"int8_linear.cu",
-                                                  "attention_mma.cuh"}
-    assert _globals("int8_linear") == {"w8_linear_mma_kernel",
+    assert _included("int8_linear") == {"attention_mma.cuh", "hopper.cuh"}
+    assert set(KERNEL_SOURCES["int8_linear"]) == {
+        "int8_linear.cu", "hopper.cuh", "attention_mma.cuh"}
+    assert _globals("int8_linear") == {"w8_gemv_mma_kernel",
+                                       "w8_linear_mma_kernel",
                                        "w8_linear_fma_kernel"}
-    assert MMA_KERNELS["int8_linear"] == ("w8_linear_mma_kernel",)
+    assert MMA_KERNELS["int8_linear"] == ("w8_gemv_mma_kernel",
+                                          "w8_linear_mma_kernel")
+
+
+def test_library_backward_kernels_are_the_wgmma_and_wide_designs():
+    """`sdpa_backward.cu` holds the delta kernel, the bf16 wgmma pair and
+    the wide FMA pair, no longer attention_bwd.cuh's mma bodies."""
+    assert _globals("sdpa_backward") == {
+        "sdpa_delta_kernel", "sdpa_dkdv_wgmma_kernel", "sdpa_dq_wgmma_kernel",
+        "sdpa_dkdv_wide_kernel", "sdpa_dq_wide_kernel"}
+    assert _included("sdpa_backward") == {"attention_mma.cuh", "hopper.cuh"}
+    assert WGMMA_KERNELS["sdpa_backward"] == ("sdpa_dkdv_wgmma_kernel",
+                                              "sdpa_dq_wgmma_kernel")
 
 
 def test_lora_library_is_one_hand_written_kernel():

@@ -24,10 +24,11 @@ ragged lengths; with peaked logits and a ragged key tail, where a wrong
 online rescale or an unmasked tail key shows; its refusals; `flash_attention`'s library route (B6 with
 no gradient, B6's LSE variant and the library backward with one); a
 Transformer on the card against the same Transformer on the CPU. B6's LSE
-variant and the library route's backward (`sdpa_backward`, bf16 on the
-tensor cores to D 256, the wide FMA design for f32 and D 320-512) against
-their plain versions at every head dim to 512, ragged Sq != Skv both
-ways and causal, at B2's bars; a Transformer train step through them.
+variant and the library route's backward (`sdpa_backward`, bf16 on
+wgmma fed by TMA to D 256, the wide FMA design for f32 and D 320-512)
+against their plain versions at every head dim to 512, ragged Sq != Skv
+both ways and causal, and the wgmma design off its 64- and 128-row tiles
+at several heads, at B2's bars; a Transformer train step through them.
 
 The one-pass optimizer update against the per-parameter loop it replaces
 (run on the same card): AdamW with a parameter that does not decay, Adam
@@ -59,9 +60,11 @@ The sampler's draws (`sample_draw`, `sample_uniform`): tokens and uniforms
 bit for bit the plain versions' on the card, at the serving shapes and at
 odd N and V tails, with and without excluded indices; the sampled engine
 on the card emitting the CPU engine's streams. The int8-weight linear
-(`int8_linear`, bf16 on the tensor cores, f32 in fp32 FMA) against its
-plain version at odd M, N and K tails and GPT-1.3B's shapes, its
-refusals, and the int8-weight engine launching it four times a layer.
+(`int8_linear`, bf16 on the tensor cores with K split over a cluster,
+f32 in fp32 FMA) against its plain version at odd M, N and K tails and
+GPT-1.3B's shapes, every split its plan takes with each half of N bitwise
+the whole launch's columns, its refusals, and the int8-weight engine
+launching it four times a layer.
 
 The batched LoRA kernel (`batched_lora`, fp32 FMA): its fp32 delta (the
 f32 instance over a zero base) against the plain version's, the bf16 result
@@ -850,9 +853,9 @@ def test_sdpa_backward_kernel_matches_plain(card, dtype, D, Sq, Skv, causal):
     """The library route's backward against its plain version from the same
     forward O and LSE (B6's LSE variant): BWD_TOL, B2's and B13's bars;
     ragged Sq != Skv both ways, causal up to 512 rows at every head dim
-    (the bf16 tensor-core design up to 256, its dK/dV and dQ in column
-    chunks at 192 and 256; the wide FMA design above and in f32); one
-    launch a call, no plain call, the same bits on a rerun (no
+    (the bf16 wgmma design up to 256, its two consumer warpgroups splitting
+    dK/dV's columns at 192 and 256; the wide FMA design above and in f32);
+    one launch a call, no plain call, the same bits on a rerun (no
     atomics)."""
     q, do = (torch.randn((2, Sq, D), generator=card, device="cuda").to(dtype)
              for _ in range(2))
@@ -869,6 +872,35 @@ def test_sdpa_backward_kernel_matches_plain(card, dtype, D, Sq, Skv, causal):
             sdpa_backward.plain_calls - plain) == (2, 0)
     assert [(x.dtype, x.shape) for x in got] == [
         (dtype, q.shape), (dtype, k.shape), (dtype, v.shape)]
+    assert bwd_within_tol(got, ref, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# lengths off the wgmma design's tiles: 64-row q and key boxes, 128 keys a
+# dK/dV CTA and 128 q rows a dQ CTA up to D 128
+WGMMA_BWD_SHAPES = [(3, 129, 129, True), (1, 191, 191, True),
+                    (3, 65, 193, False), (2, 200, 70, False),
+                    (1, 1, 129, False), (1, 640, 640, True)]
+
+
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("BH,Sq,Skv,causal", WGMMA_BWD_SHAPES)
+def test_sdpa_backward_wgmma_off_its_tiles(card, D, BH, Sq, Skv, causal):
+    """The bf16 wgmma design where TMA zero-fills a box's tail (Sq and Skv
+    off the 64-row boxes and the 128-row CTAs, a head's tail beside the
+    next head's rows at BH > 1) and causal walks start and end mid-CTA:
+    BWD_TOL against the plain version, the same bits on a rerun."""
+    dtype = torch.bfloat16
+    q, do = (torch.randn((BH, Sq, D), generator=card,
+                         device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((BH, Skv, D), generator=card,
+                        device="cuda").to(dtype) for _ in range(2))
+    scale = 1.0 / math.sqrt(D)
+    o, lse = sdpa_forward(q, k, v, scale, causal, return_lse=True)
+    ref = sdpa_backward_plain(q, k, v, o, do, lse, scale, causal)
+    got = sdpa_backward(q, k, v, o, do, lse, scale, causal)
+    again = sdpa_backward(q, k, v, o, do, lse, scale, causal)
+    torch.cuda.synchronize()
     assert bwd_within_tol(got, ref, dtype)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -2346,6 +2378,30 @@ def test_int8_linear_kernel_matches_plain(card, dtype, M, N, K, bias):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= INT8_LINEAR_TOL[dtype] * want.float().abs().max().item()
     assert torch.equal(int8_linear(x, q, s, b), got)
+
+
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 16, 17, 40, 128])
+@pytest.mark.parametrize("N,K", [(100, 16), (200, 1040), (1000, 2064),
+                                 (330, 8192)])
+def test_int8_linear_split_plan_is_exact_and_shards_bitwise(card, M, N, K):
+    """The bf16 kernel's K split over a cluster (`_plan`: 1 to 8 ranks
+    here) at ragged N, K not of 64: within INT8_LINEAR_TOL of the
+    plain version, a rerun the same bits, and each half's launch (the
+    codes, scales and bias of N / 2 channels, as a tensor-parallel shard
+    holds them) bitwise the whole launch's columns."""
+    x, q, s, b = _int8_linear_case(card, torch.bfloat16, M, N, K)
+    got = int8_linear(x, q, s, b)
+    want = int8_linear_plain(x, q, s, b)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= INT8_LINEAR_TOL[torch.bfloat16] * \
+        want.float().abs().max().item()
+    assert torch.equal(int8_linear(x, q, s, b), got)
+    n = N // 2
+    for cols in (slice(0, n), slice(n, N)):
+        half = int8_linear(x, q[cols].contiguous(), s[cols].contiguous(),
+                           b[cols].contiguous())
+        assert torch.equal(half.view(torch.int16),
+                           got[:, cols].contiguous().view(torch.int16))
 
 
 def test_int8_linear_takes_leading_dims_and_refuses_the_rest(card):
