@@ -304,10 +304,15 @@ Phases, each printing one JSON line:
    step at K=4) over V 50,304 masked logits (temperature 0.8, top_k 50,
    top_p 0.9): tokens identical with and without excluded indices, each
    row's uniform bitwise; a chi-square of 4,096 draws of one row against
-   the numpy oracle `oracle_probs`; timings against the bytes bound (the
-   logits read once), the plain version (its kernel launches counted with
-   torch.profiler) and torch.multinomial of the row softmax, a different
-   function, as the yardstick.
+   the numpy oracle `oracle_probs`; the draw's device time (calls on
+   copies of the logits past the L2 captured in a CUDA graph, its replays
+   timed) and one eager call's time, against its bound: the larger of the
+   bytes (the logits read once) and the integer work, the integer
+   instructions of a vocabulary entry counted in the SASS of the kernel's
+   loop (`cuobjdump -sass`) over the SMs' 64 integer lanes at the card's
+   maximum SM clock (nvidia-smi); the plain version (its kernel launches
+   counted with torch.profiler) and torch.multinomial of the row softmax,
+   a different function, as the yardstick.
 35. int8_linear: the int8-weight linear (csrc/int8_linear.cu) against its
    plain version at GPT-1.3B's four projections (qkv, out, fc1, fc2) at M
    8, 40 and 128, bf16 and f32 (INT8_LINEAR_TOL); bf16 timings against the
@@ -343,10 +348,12 @@ Phases, each printing one JSON line:
    LORA_DELTA_TOL of the largest |delta|, the bf16 result bitwise the
    plain version's wherever the two fp32 deltas round to the same bf16,
    page-0 rows bitwise the base, a rerun the same bits; at rank 16 with 8
-   distinct pages, device times (20 calls in a CUDA graph, L2 warm)
-   against the bytes bound, the plain version and the gathered factors
-   through two torch.bmm (no single PyTorch call computes the function),
-   and one eager call's time with the wrapper's host time in it; then
+   distinct pages, device times (20 calls in a CUDA graph, L2 warm; and
+   calls over copies of the pool past the L2, as a decode step's layers
+   find their pages) against the bytes bound, the plain version and the
+   gathered factors through two torch.bmm (no single PyTorch call
+   computes the function), and one eager call's time with the wrapper's
+   host time in it; then
    every tensor-parallel shard's B pages at the four sites, mp 2 and 4,
    rank 16, each row shape (out / mp columns; qkv the shard's heads of the
    head-grouped pages over the head-grouped base), held as the whole
@@ -887,16 +894,23 @@ DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
           "grad_merge": "one pass over a device table, fp32",
           "grad_finish": "one pass over a device table, fp32",
           "grad_unscale": "one pass over a device table, fp32",
-          "sample_draw": "one CTA a row: threefry, Gumbel, argmax in a "
-                         "fixed order",
+          "sample_draw": "a thread-block cluster of up to 16 CTAs a row, "
+                         "each a contiguous share of the vocabulary in "
+                         "16-byte loads, four threefry hashes in flight a "
+                         "thread, the CTAs' (value, index) partials joined "
+                         "in rank order through distributed shared memory",
           "sample_uniform": "one thread a row: threefry",
           "int8_linear": "mma.sync bf16, K split over a thread-block "
                          "cluster reduced through distributed shared "
                          "memory, the weight as the A operand at M <= 16, "
                          "codes dequantized in registers",
-          "lora": "one CTA a slot's row tile and column tile: the shrink "
-                  "into shared memory, then the expand and the add, fp32 "
-                  "FMA"}
+          "lora": "a thread-block cluster of up to 8 CTAs a slot's row "
+                  "tile of up to 16 rows: A's and x's rows of each CTA's "
+                  "share of in_dim by 1-D bulk copies, the shrink once a "
+                  "row tile with its partials joined in rank order "
+                  "through distributed shared memory, then each CTA's "
+                  "columns of B (cp.async, issued before the shrink) "
+                  "expanded and added, fp32 FMA"}
 # a device-time family of the profiles, by a substring of the kernel's
 # name in lower case, first match wins: the port's conv kernels before
 # cuDNN's (whose names may hold "conv2d"), and the shortseq backward's
@@ -4911,6 +4925,75 @@ def _plain_launches(torch, fn, name):
     return _device_breakdown(prof, name)["kernel_launches"]
 
 
+# integer instructions (SASS opcodes without their suffixes): the ALU's
+# adds, logic, shifts, funnel shifts, byte permutes, compares and selects,
+# and the integer multiply-add
+SASS_INT_OPS = ("IADD3", "IADD", "IADD32I", "VIADD", "LOP3", "LOP", "LOP32I",
+                "SHF", "SHL", "SHR", "IMAD", "IMUL", "LEA", "PRMT", "ISETP",
+                "IMNMX", "VIMNMX", "IABS", "SEL", "BMSK", "BREV", "FLO",
+                "POPC")
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_]*)([^;]*);")
+INT_LANES_PER_SM = 64                # Hopper: 16 INT32 lanes a sub-core
+SMS = 132
+
+
+def sass_loop_ops(cuobjdump, lib, fn):
+    """The instructions of the largest loop (a backward branch's body) of
+    kernel `fn` in a built library, from `cuobjdump -sass`: {"body": n,
+    "int": n of SASS_INT_OPS, "opcodes": {op: n}}."""
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    code, inside = [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = fn in line
+            continue
+        m = SASS_LINE.search(line) if inside else None
+        if m:
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    best = []
+    for addr, op, rest in code:
+        t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if t and int(t.group(1), 16) < addr:
+            body = [c for c in code if int(t.group(1), 16) <= c[0] <= addr]
+            best = max(best, body, key=len)
+    ops = {}
+    for _, op, _ in best:
+        ops[op] = ops.get(op, 0) + 1
+    return {"body": len(best),
+            "int": sum(n for op, n in ops.items() if op in SASS_INT_OPS),
+            "opcodes": ops}
+
+
+def smi_clocks_mhz():
+    """(current, maximum) SM clock in MHz as nvidia-smi reports them."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    cur, top = r.stdout.strip().splitlines()[0].split(",")
+    return float(cur), float(top)
+
+
+def _draw_int_ops():
+    """The draw's integer work a vocabulary entry: the integer instructions
+    of the kernel's loop over fours of entries (its largest loop), divided
+    by 4, and the card's integer rate, 132 SMs x 64 lanes at the maximum SM
+    clock that nvidia-smi reports."""
+    from paddle_tpu_torch.utils import cpp_extension
+
+    lib = cpp_extension.build(["sampling"])["sampling"]["path"]
+    cuobjdump = os.path.join(os.path.dirname(cpp_extension.find_nvcc()),
+                             "cuobjdump")
+    loop = sass_loop_ops(cuobjdump, lib, "sample_draw_kernel")
+    cur, top = smi_clocks_mhz()
+    return {"loop_instructions": loop["body"], "loop_int": loop["int"],
+            "loop_opcodes": loop["opcodes"], "entries_a_loop": 4,
+            "per_entry": loop["int"] / 4, "sm_clock_mhz": cur,
+            "max_sm_clock_mhz": top,
+            "int_ops_per_s": SMS * INT_LANES_PER_SM * top * 1e6}
+
+
 def phase_sampling(torch, ctx):
     from paddle_tpu_torch.inference.sampling import (SamplingParams,
                                                      key_row, oracle_probs)
@@ -4921,7 +5004,9 @@ def phase_sampling(torch, ctx):
 
     V = 50304
     g = torch.Generator("cuda").manual_seed(2)
-    res = {"phase": "sampling", "vocab": V, "cases": []}
+    ops = _draw_int_ops()
+    res = {"phase": "sampling", "vocab": V, "cases": [],
+           "draw_int_ops": ops}
     ok = True
     p = SamplingParams(temperature=0.8, top_k=50, top_p=0.9)
     for N in SAMPLING_ROWS:
@@ -4950,8 +5035,15 @@ def phase_sampling(torch, ctx):
                 "uniform_bitwise": ubits}
         ok &= same and ubits
         flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-        kms = cuda_ms(torch, lambda: sample_draw(lg, keys, pos, 0), 50,
-                      flush)
+        # device time: calls on copies of the logits past the L2 in one
+        # CUDA graph, its replays timed; and one eager call, the
+        # wrapper's host time in it
+        copies = [lg.clone() for _ in range(_copies(lg.numel() * 4))]
+        kms = _graph_ms_cold(torch, [
+            (lambda c=c: sample_draw(c, keys, pos, 0)) for c in copies])
+        del copies
+        eager = cuda_ms(torch, lambda: sample_draw(lg, keys, pos, 0), 50,
+                        flush)
         pms = cuda_ms(torch, lambda: sample_draw_plain(lg, keys, pos, 0), 5,
                       flush, warmup=1)
         lms = cuda_ms(torch, lambda: torch.multinomial(
@@ -4961,11 +5053,15 @@ def phase_sampling(torch, ctx):
         upms = cuda_ms(torch, lambda: sample_uniform_plain(keys, pos, 1), 5,
                        flush, warmup=1)
         del flush
-        b, by = bound_ms(N * V * 4 + N * (16 + 4 + 4), 0, "float32")
+        bytes_ms, _ = bound_ms(N * V * 4 + N * (16 + 4 + 4), 0, "float32")
+        int_ms = N * V * ops["per_entry"] / ops["int_ops_per_s"] * 1e3
+        b, by = max(bytes_ms, int_ms), ("bytes" if bytes_ms >= int_ms
+                                        else "operations")
         ub, uby = bound_ms(N * (16 + 4 + 4), 0, "float32")
         case.update(
-            kernel_ms=kms, plain_ms=pms, bound_ms=b, bound_by=by,
-            library_ms=lms,
+            kernel_ms=kms, eager_call_ms=eager, plain_ms=pms, bound_ms=b,
+            bound_by=by, bytes_bound_ms=bytes_ms, int_ops_bound_ms=int_ms,
+            share_of_bound=b / kms, library_ms=lms,
             library_call="torch.multinomial(torch.softmax(logits), 1): "
                          "a different function (torch's own random draw)",
             plain_launches=_plain_launches(
@@ -4981,7 +5077,9 @@ def phase_sampling(torch, ctx):
             ctx["sample_draw"] = dict(
                 max_abs_err=0.0 if same else None, kernel_ms=kms,
                 plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
-                shape=f"N {N} V {V} (decode step)", dtype="float32")
+                shape=f"N {N} V {V} (decode step); ms by graph replays "
+                      f"over copies of the logits past the L2",
+                dtype="float32")
             ctx["sample_uniform"] = dict(
                 max_abs_err=(unif - uwant).abs().max().item(),
                 kernel_ms=ums, plain_ms=upms, bound_ms=ub, bound_by=uby,
@@ -5585,11 +5683,21 @@ def phase_lora(torch, ctx):
                             sc[r].to(torch.bfloat16)[:, None, None]
 
                     lms = _graph_ms(torch, bmm_route)
+                    # over copies of the pool past the L2, as each layer
+                    # of a decode step finds its pages
+                    pool = [(a16.clone(), b16.clone()) for _ in range(
+                        _copies(a16.numel() * 2 + b16.numel() * 2))]
+                    cold = _graph_ms_cold(torch, [
+                        (lambda c=c: batched_lora(base, x, c[0], c[1],
+                                                  rows8, sc, layer))
+                        for c in pool])
+                    del pool
                     bnd, by = _lora_bound(B, S, R, n_in, n_out, pages, 2,
                                           "bfloat16")
                     case.update(distinct_pages=pages, kernel_ms=kms,
-                                plain_ms=pms, library_ms=lms, bound_ms=bnd,
-                                bound_by=by, share_of_bound=bnd / kms,
+                                cold_l2_ms=cold, plain_ms=pms,
+                                library_ms=lms, bound_ms=bnd, bound_by=by,
+                                share_of_bound=bnd / kms,
                                 eager_call_ms=call)
                     if name == "fc1" and B * S == 8:
                         ctx["lora"] = dict(
@@ -5606,8 +5714,8 @@ def phase_lora(torch, ctx):
               and c["rows_a_slot"] == S]
         steps[f"{B}x{S}"] = {
             k: 24 * sum(c[k] for c in cs)
-            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                      "eager_call_ms")}
+            for k in ("kernel_ms", "cold_l2_ms", "plain_ms", "library_ms",
+                      "bound_ms", "eager_call_ms")}
     res["four_sites_24_layers_ms"] = steps
     res["shard_cases"], shard_ok = _lora_shard_cases(
         torch, g, batched_lora, batched_lora_plain, layer)
@@ -7214,7 +7322,7 @@ def main(argv=None):
             # no Pallas counterpart: the per-slot LoRA delta XLA fuses
             # into the JAX engine's steps
             ("lora", LORA, "paddle_tpu_torch/csrc/lora.cu",
-             "paddle_tpu/ops/lora.py:53")):
+             "paddle_tpu/ops/lora.py:54")):
         m = ctx.get(key, {})
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's

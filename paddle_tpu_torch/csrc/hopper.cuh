@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels
 // that use the features Hopper added: int8_linear.cu (a K split over a
-// thread-block cluster, reduced through distributed shared memory) and
+// thread-block cluster, reduced through distributed shared memory),
+// lora.cu (a slot's shrink split over a cluster, its rows brought in by
+// 1-D bulk copies), sampling.cu (a row's draw split over a cluster) and
 // sdpa_backward.cu (`wgmma` on tiles that TMA brings into shared memory,
 // one producer warp and consumer warpgroups).
 //
@@ -12,14 +14,17 @@
 //   cuTensorMapEncodeTiled through the runtime (cudaGetDriverEntryPoint),
 //   so a library built with nvcc's default link line needs no -lcuda; a
 //   map crosses to a kernel as a `const __grid_constant__ CUtensorMap`;
+//   and the 1-D `cp.async.bulk` of a contiguous run (`bulk_load`), which
+//   needs no tensor map and so no host work;
 // - wgmma: the shared-memory descriptor of a 128-byte-swizzled tile
 //   (`desc_sw128`), `wgmma.fence`, `commit_group` and `wait_group`, and
 //   the bf16 instances the kernels take: m64n64k16 and m64n128k16 with
 //   both operands in shared memory, or with A from registers and B
 //   MN-major;
 // - clusters: the CTA's rank, `barrier.cluster` arrive (release) and wait
-//   (acquire), and `mapa` with `ld.shared::cluster` to read another CTA's
-//   shared memory;
+//   (acquire), `mapa` with `ld.shared::cluster` to read another CTA's
+//   shared memory, and the host's `launch_split`, a launch in clusters
+//   along x (up to 16 CTAs, 9 to 16 with the non-portable attribute);
 // - `setmaxnreg`: a warpgroup gives up or takes registers; named barriers
 //   between warpgroups (`bar.sync`, `bar.arrive`).
 //
@@ -105,6 +110,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global memory at `src` into this CTA's
+// shared memory at `dst`, both 16-byte aligned: one contiguous run,
+// completing on `bar` as transaction bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -314,6 +332,13 @@ __device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ uint2 ld_cluster_u32x2(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared::cluster.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // register reallocation between warpgroups
 // ---------------------------------------------------------------------------
@@ -325,6 +350,42 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// host: launches in clusters
+// ---------------------------------------------------------------------------
+constexpr int kPortableCluster = 8;
+constexpr int kMaxCluster = 16;
+
+// a launch of `kernel` on grid `grid` (x a multiple of `split`) in clusters
+// of `split` CTAs along x, `smem` bytes of dynamic shared memory a CTA. The
+// attributes it needs (a cluster past the portable 8, shared memory past
+// 48 KB) are set before every launch, in the current device's context.
+template <typename... Params, typename... Args>
+cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int threads,
+                         int smem, int split, cudaStream_t s, Args... args) {
+  cudaError_t e = cudaSuccess;
+  if (split > kPortableCluster)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // ---------------------------------------------------------------------------

@@ -85,7 +85,7 @@ constexpr int kBN = 64;
 constexpr int kBK = 64;
 constexpr int kXPitch = kBK + 8;    // bf16 elements: 144-byte rows
 constexpr int kQPitch = kBK + 16;   // int8 elements: 80-byte rows
-constexpr int kMaxSplit = 8;        // the portable cluster size
+constexpr int kMaxSplit = hopper::kPortableCluster;
 
 // the share of K of each rank of a split over `split` CTAs
 __host__ __device__ __forceinline__ int k_share(int K, int split) {
@@ -471,25 +471,6 @@ __global__ void __launch_bounds__(kFmaThreads) w8_linear_fma_kernel(
   }
 }
 
-// a launch of `kernel` on grid `grid` in clusters of `split` CTAs along x
-template <typename... Params, typename... Args>
-cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int threads,
-                         int smem, int split, cudaStream_t s, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
 }  // namespace
 
 extern "C" {
@@ -529,14 +510,16 @@ int w8_linear(const void* x, const void* q, const void* scale,
   if (gemv) {
     const dim3 grid(split, (N + bn - 1) / bn);
     const int smem = gemv_smem_bytes(bn / 16, bm);
-    e = bm == 8 ? launch_split(w8_gemv_mma_kernel<8>, grid, 2 * bn, smem,
-                               split, s, xb, qb, sb, bb, yb, M, N, K, kc)
-                : launch_split(w8_gemv_mma_kernel<16>, grid, 2 * bn, smem,
-                               split, s, xb, qb, sb, bb, yb, M, N, K, kc);
+    e = bm == 8
+            ? hopper::launch_split(w8_gemv_mma_kernel<8>, grid, 2 * bn, smem,
+                                   split, s, xb, qb, sb, bb, yb, M, N, K, kc)
+            : hopper::launch_split(w8_gemv_mma_kernel<16>, grid, 2 * bn,
+                                   smem, split, s, xb, qb, sb, bb, yb, M, N,
+                                   K, kc);
   } else {
     const dim3 grid(split, (N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    e = launch_split(w8_linear_mma_kernel, grid, kThreads, 0, split, s, xb,
-                     qb, sb, bb, yb, M, N, K, kc);
+    e = hopper::launch_split(w8_linear_mma_kernel, grid, kThreads, 0, split,
+                             s, xb, qb, sb, bb, yb, M, N, K, kc);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

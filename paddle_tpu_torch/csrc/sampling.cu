@@ -9,16 +9,27 @@
 // Wrappers and plain versions: paddle_tpu_torch/ops/sampling.py and
 // paddle_tpu_torch/ops/threefry.py.
 //
-// - sample_draw_kernel: one CTA a row of the masked fp32 logits [N, V].
-//   Every thread derives the row's key fold_in(fold_in(key, pos), salt) in
-//   registers (two hashes), then walks the vocabulary at a stride of the
-//   block: the hash of (0, v) gives jax's partitionable bits (b1 ^ b2), the
-//   bits its uniform on [tiny, 1), the uniform the "low" Gumbel -log(-log
-//   u), plus the logit (-inf at the row's excluded index). Each thread
-//   keeps its best (value, index); a warp reduces with shuffles, the warps
-//   through shared memory, in a fixed order and with no atomic: the
-//   larger value wins, the lower index on a tie (jnp.argmax's rule), a NaN
-//   above every number.
+// - sample_draw_kernel: the categorical draw over the masked fp32 logits
+//   [N, V]. Each vocabulary entry v takes the hash of (0, v) under the
+//   row's key fold_in(fold_in(key, pos), salt): jax's partitionable bits
+//   (b1 ^ b2), their uniform on [tiny, 1), the "low" Gumbel -log(-log u),
+//   plus the logit (-inf at the row's excluded index); the token is the
+//   argmax, the larger value winning, the lower index on a tie (jnp.argmax's
+//   rule) and a NaN above every number. That order is total, so the token
+//   does not depend on how the entries are split or joined.
+//   Design (second): a thread-block cluster of C CTAs a row, grid (C N),
+//   256 threads a CTA. The wrapper's plan (ops/sampling.py `_draw_cluster`)
+//   takes C from N alone, about 2 x 132 / N rounded to a power of two, 1
+//   to 16: 16 at the decode step's N 8, 8 at the verify step's N 40. Rank c
+//   walks the contiguous share [c vs, (c + 1) vs) of the vocabulary, vs =
+//   ceil(V / C) rounded up to 4: 16-byte loads of the logits from the
+//   share's first 16-byte boundary, single loads before it and past its
+//   last whole four, four threefry hashes in flight a thread. Thread 0
+//   derives the row's key once a CTA (two hashes) into shared memory. Each
+//   CTA joins its threads by shuffles and shared memory; rank 0 then joins
+//   the C partial (value, index) pairs in rank order through distributed
+//   shared memory and writes the token, and the others wait at a cluster
+//   barrier until it has read them. One launch, no atomic.
 // - sample_uniform_kernel: one thread a row: the hash of (0, 0) under the
 //   row's key, jax.random.uniform's f32 on [0, 1).
 //
@@ -29,16 +40,19 @@
 // kernel's Gumbel values are the plain version's bits on the card and its
 // tokens the plain version's.
 //
-// Bound on this card: bytes, the logits read once (4 N V bytes: 0.48 us at
-// N 8 and 2.40 us at N 40, V 50,304, at 3.35 TB/s); integer work has no
-// peak in that table. The hashes are ~130 integer ops a vocab entry, about
-// 52 M at N 8: a few microseconds at the SMs' integer rate if every SM
-// took a share, but one CTA a row puts the work on N of 132 SMs, so the
-// first design is latency-bound there.
+// Bound on this card: the integer work of the hashes, not the bytes. The
+// logits are read once (4 N V bytes: 0.48 us at N 8 and 2.40 us at N 40,
+// V 50,304, at 3.35 TB/s), but every entry costs a 20-round threefry and
+// the bits' uniform, some hundred integer instructions (chip_smoke.py's
+// phase sampling counts them in the loop of the SASS), against the SMs'
+// 64 integer lanes each. The first design ran one CTA a row, N of the 132
+// SMs at work; the cluster puts every SM to work at the decode step.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -102,28 +116,21 @@ __device__ __forceinline__ bool beats(float bv, int bi, float av, int ai) {
   return bv > av || (bv == av && bi < ai);
 }
 
-__global__ void __launch_bounds__(kThreads) sample_draw_kernel(
-    const float* __restrict__ logits, const long long* __restrict__ key_rows,
-    const int* __restrict__ positions, const int* __restrict__ exclude,
-    int salt, int V, int* __restrict__ out) {
-  const int row = blockIdx.x;
-  uint32_t k1, k2;
-  row_key(key_rows, positions, salt, row, k1, k2);
-  const int skip = exclude ? exclude[row] : -1;
-  const float* lg = logits + static_cast<long long>(row) * V;
-  float best = -INFINITY;
-  int arg = 0x7FFFFFFF;
-  for (int v = threadIdx.x; v < V; v += kThreads) {
-    uint32_t a = 0u, b = static_cast<uint32_t>(v);
-    threefry2x32(k1, k2, a, b);
-    const float u = uniform_of(a ^ b, kTiny);
-    const float g = -logf(-logf(u));
-    const float val = __fadd_rn(g, v == skip ? -INFINITY : lg[v]);
-    if (beats(val, v, best, arg)) {
-      best = val;
-      arg = v;
-    }
+// the entry v of logit l under the row's key: its Gumbel plus the logit,
+// -inf at the excluded index, kept as the thread's best where it beats it
+__device__ __forceinline__ void take(uint32_t a, uint32_t b, int v, float l,
+                                     int skip, float& best, int& arg) {
+  const float u = uniform_of(a ^ b, kTiny);
+  const float g = -logf(-logf(u));
+  const float val = __fadd_rn(g, v == skip ? -INFINITY : l);
+  if (beats(val, v, best, arg)) {
+    best = val;
+    arg = v;
   }
+}
+
+// the lanes' best by a xor butterfly of shuffles: every lane ends with it
+__device__ __forceinline__ void warp_best(float& best, int& arg) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float ov = __shfl_xor_sync(0xFFFFFFFFu, best, off);
@@ -133,25 +140,120 @@ __global__ void __launch_bounds__(kThreads) sample_draw_kernel(
       arg = oi;
     }
   }
+}
+
+// grid (C N), cluster (C, 1, 1): rank c of row n's cluster walks the share
+// [c vs, (c + 1) vs) of the vocabulary
+__global__ void __launch_bounds__(kThreads) sample_draw_kernel(
+    const float* __restrict__ logits, const long long* __restrict__ key_rows,
+    const int* __restrict__ positions, const int* __restrict__ exclude,
+    int salt, int V, int vs, int* __restrict__ out) {
+  const uint32_t rank = hopper::cluster_ctarank();
+  const uint32_t ranks = hopper::cluster_nctarank();
+  const int row = blockIdx.x / ranks;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  __shared__ uint32_t s_key[2];
   __shared__ float s_val[kThreads / 32];
   __shared__ int s_idx[kThreads / 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __shared__ __align__(8) uint32_t s_best[2];   // (value bits, index)
+  if (tid == 0) {
+    uint32_t k1, k2;
+    row_key(key_rows, positions, salt, row, k1, k2);
+    s_key[0] = k1;
+    s_key[1] = k2;
+  }
+  const int skip = exclude ? exclude[row] : -1;
+  const float* lg = logits + static_cast<long long>(row) * V;
+  const int v0 = min(V, static_cast<int>(rank) * vs);
+  const int v1 = min(V, v0 + vs);
+  // [v0, vb) before the first 16-byte boundary, [vb, vt) in fours, then
+  // [vt, v1)
+  const int skew = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(lg + v0) >> 2) & 3);
+  const int vb = min(v1, v0 + ((4 - skew) & 3));
+  const int n4 = (v1 - vb) / 4;
+  const int vt = vb + 4 * n4;
+  // the logits do not wait for the key: two fours a thread in flight
+  // ahead of the one being hashed
+  const float4* lg4 = reinterpret_cast<const float4*>(lg + vb);
+  const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 next = tid < n4 ? __ldg(lg4 + tid) : none;
+  float4 after = tid + kThreads < n4 ? __ldg(lg4 + tid + kThreads) : none;
+  __syncthreads();
+  const uint32_t k1 = s_key[0], k2 = s_key[1];
+  float best = -INFINITY;
+  int arg = 0x7FFFFFFF;
+  // one iteration four entries (chip_smoke.py counts its SASS)
+#pragma unroll 1
+  for (int i = tid; i < n4; i += kThreads) {
+    const float4 l = next;
+    next = after;
+    if (i + 2 * kThreads < n4) after = __ldg(lg4 + i + 2 * kThreads);
+    const int v = vb + 4 * i;
+    uint32_t a[4], b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a[e] = 0u;
+      b[e] = static_cast<uint32_t>(v + e);
+    }
+    // four independent hashes, interleaved by the compiler
+#pragma unroll
+    for (int e = 0; e < 4; ++e) threefry2x32(k1, k2, a[e], b[e]);
+    take(a[0], b[0], v, l.x, skip, best, arg);
+    take(a[1], b[1], v + 1, l.y, skip, best, arg);
+    take(a[2], b[2], v + 2, l.z, skip, best, arg);
+    take(a[3], b[3], v + 3, l.w, skip, best, arg);
+  }
+  // the at most three entries on each side of the fours
+  if (tid < 8) {
+    const int v = tid < 4 ? v0 + tid : vt + tid - 4;
+    if (v < (tid < 4 ? vb : v1)) {
+      uint32_t a = 0u, b = static_cast<uint32_t>(v);
+      threefry2x32(k1, k2, a, b);
+      take(a, b, v, lg[v], skip, best, arg);
+    }
+  }
+  warp_best(best, arg);
   if (lane == 0) {
     s_val[warp] = best;
     s_idx[warp] = arg;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    best = s_val[0];
-    arg = s_idx[0];
-    for (int w = 1; w < kThreads / 32; ++w) {
-      if (beats(s_val[w], s_idx[w], best, arg)) {
-        best = s_val[w];
-        arg = s_idx[w];
-      }
+  if (warp == 0) {
+    best = lane < kThreads / 32 ? s_val[lane] : -INFINITY;
+    arg = lane < kThreads / 32 ? s_idx[lane] : 0x7FFFFFFF;
+    warp_best(best, arg);
+    if (lane == 0) {
+      s_best[0] = __float_as_uint(best);
+      s_best[1] = static_cast<uint32_t>(arg);
     }
+  }
+  if (ranks == 1) {
+    if (tid == 0) out[row] = arg;
+    return;
+  }
+  hopper::cluster_arrive();
+  hopper::cluster_wait();
+  if (rank == 0 && tid == 0) {
+    // every partial's load issued before the first join
+    uint2 o[hopper::kMaxCluster];
+#pragma unroll
+    for (int c = 1; c < hopper::kMaxCluster; ++c)
+      if (c < static_cast<int>(ranks))
+        o[c] = hopper::ld_cluster_u32x2(hopper::map_rank(s_best, c));
+#pragma unroll
+    for (int c = 1; c < hopper::kMaxCluster; ++c)
+      if (c < static_cast<int>(ranks) &&
+          beats(__uint_as_float(o[c].x), static_cast<int>(o[c].y), best,
+                arg)) {
+        best = __uint_as_float(o[c].x);
+        arg = static_cast<int>(o[c].y);
+      }
     out[row] = arg;
   }
+  // no CTA leaves before rank 0 has read its partial
+  hopper::cluster_arrive();
+  hopper::cluster_wait();
 }
 
 __global__ void sample_uniform_kernel(const long long* __restrict__ key_rows,
@@ -173,15 +275,24 @@ extern "C" {
 
 // One categorical draw a row of the fp32 logits [N, V] (row-major), keys
 // int64 [N, 2] holding uint32 values, positions int32 [N], exclude int32
-// [N] or null (-1 for none); out int32 [N]. Returns cudaGetLastError().
+// [N] or null (-1 for none); out int32 [N]. `cluster` CTAs share a row (1
+// to 16, the wrapper's `_draw_cluster`). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a cluster the kernel does not take.
 int sample_draw(const void* logits, const void* key_rows,
                 const void* positions, const void* exclude, int salt, int N,
-                int V, void* out, void* stream) {
-  sample_draw_kernel<<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits),
+                int V, int cluster, void* out, void* stream) {
+  if (cluster < 1 || cluster > hopper::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  // each rank's share of the vocabulary, whole fours but the last
+  const int vs = ((V + cluster - 1) / cluster + 3) / 4 * 4;
+  const cudaError_t e = hopper::launch_split(
+      sample_draw_kernel, dim3(cluster * N), kThreads, 0, cluster,
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(logits),
       static_cast<const long long*>(key_rows),
       static_cast<const int*>(positions), static_cast<const int*>(exclude),
-      salt, V, static_cast<int*>(out));
+      salt, V, vs, static_cast<int*>(out));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,9 +29,14 @@ adds `delta.astype(dtype)` to its base.
   pool, or raises. It counts `.launches` and `.plain_calls`.
 - `LoraState`: one step's view of the pool, the pool tensors plus the
   per-slot `[slots]` int32 page row; the model's serving forwards call
-  `add` per site and layer. Under tensor parallel each shard has its own
-  (`head_major=True`), over its B columns: the kernel launches once a
-  shard a site.
+  `add` per site and layer. On the card it checks the pool and the rows
+  once (`_Site`), and `add` checks only x, base and the layer. Under
+  tensor parallel each shard has its own (`head_major=True`), over its B
+  columns: the kernel launches once a shard a site.
+
+The kernel splits a slot's shrink over the CTAs of a thread-block
+cluster; `_plan` is its launch plan, here so that the CPU tests can pin
+it.
 """
 from __future__ import annotations
 
@@ -86,11 +91,44 @@ def lora_qkv_delta(x, a, b, rows, scaling, layer, head_major):
     return (d * s[:, None, None, None, None]).to(x.dtype)
 
 
+_MAX_CLUSTER = 8            # the portable cluster size
+_MIN_SHARE = 128            # inputs a rank of the cluster at least
+_MAX_TILE = 16              # rows of one slot a cluster
+_THREADS = 256
+_MAX_SEG = 32               # a warp's lanes
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(in_dim, R, S):
+    """The kernel's launch plan `(cluster, tile_rows, segments)` for x
+    `[B, S, in_dim]` under rank-R pages: `cluster` CTAs share in_dim (the
+    largest power of two up to 8 that leaves each at least 128 inputs: 8
+    at GPT-1.3B's 2048 and 8192; 16 ran slower at the decode and verify
+    steps on an H100, PERF.md), `tile_rows` of a slot a cluster (all of
+    them up to 16: the decode and verify steps' 1 and 5 rows in one tile,
+    a 128-row prefill chunk over 8 clusters, 64 CTAs), and the shrink's
+    `segments` a 4 x 4 tile of (rows, ranks) (a power of two up to 32,
+    the tiles' threads at most 256). From (in_dim, R, S) alone, never from
+    out_dim or the dtype: a
+    tensor-parallel shard (the same x and A, out / mp columns of B) then
+    sums each xr in the whole launch's order, and a bf16 launch in an f32
+    launch's."""
+    cluster = 1
+    while cluster < _MAX_CLUSTER and in_dim >= 2 * cluster * _MIN_SHARE:
+        cluster *= 2
+    tile = min(S, _MAX_TILE)
+    tiles = -(-tile // 4) * -(-R // 4)
+    seg = 1
+    while seg < _MAX_SEG and 2 * seg * tiles <= _THREADS:
+        seg *= 2
+    return cluster, tile, seg
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = cpp_extension.load("lora").batched_lora
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P]
+    fn.argtypes = [P, P, P, P, P, P] + [I] * 15 + [P]
     fn.restype = I
     return fn
 
@@ -112,6 +150,96 @@ def batched_lora_plain(base, x, a, b, rows, scaling, layer):
     return base.add_(_site_delta(x, a, b, rows, scaling, layer))
 
 
+class _Site:
+    """One site's pool tensors as the kernel takes them: checked, with
+    their pointers, the dtype's code and whether A's and B's rows allow
+    bulk and 16-byte copies, once for every call over them. A ValueError
+    for what the kernel does not take."""
+
+    def __init__(self, a, b, scaling):
+        dt = a.dtype
+        if dt not in _DTYPE_CODE:
+            raise ValueError(f"batched_lora: dtype {dt} has no kernel "
+                             "(bfloat16 or float32)")
+        if b.dtype != dt:
+            raise ValueError("batched_lora: x, base and the factors must "
+                             "share one dtype")
+        if scaling.dtype != torch.float32:
+            raise ValueError("batched_lora: scaling must be f32, rows "
+                             "int32")
+        if a.dim() != 4 or b.dim() not in (4, 6):
+            raise ValueError(f"batched_lora: shapes do not agree: a "
+                             f"{tuple(a.shape)}, b {tuple(b.shape)}")
+        P, L, R, in_dim = a.shape
+        if not 1 <= R <= LORA_MAX_RANK:
+            raise ValueError(f"batched_lora: max_rank {R} outside [1, "
+                             f"{LORA_MAX_RANK}]")
+        if b.shape[:3] != a.shape[:3] or scaling.shape != (P,):
+            raise ValueError(
+                f"batched_lora: shapes do not agree: a {tuple(a.shape)}, b "
+                f"{tuple(b.shape)}, scaling {tuple(scaling.shape)}")
+        if b.device != a.device or scaling.device != a.device:
+            raise ValueError("batched_lora: every operand on base's device")
+        if not (a.is_contiguous() and b.is_contiguous()
+                and scaling.is_contiguous()):
+            raise ValueError("batched_lora: every operand must be contiguous")
+        self.device, self.dtype, self.code = a.device, dt, _DTYPE_CODE[dt]
+        self.L, self.R, self.in_dim = L, R, in_dim
+        self.out_dim = b.numel() // (P * L * R)
+        self.heads, self.D = (b.shape[3], b.shape[5]) if b.dim() == 6 \
+            else (0, 0)
+        self.a, self.b, self.s = a.data_ptr(), b.data_ptr(), \
+            scaling.data_ptr()
+        self.index = a.device.index
+        esz = a.element_size()
+        # bulk copies of A's rows, 16-byte copies of B's
+        self.avec = in_dim % 8 == 0 and self.a % 16 == 0
+        self.bvec = int(self.out_dim * esz % 16 == 0 and self.b % 16 == 0)
+        self.fn = _kernel()
+
+    def launch(self, base, x, rows, layer):
+        """`base += delta`: one launch over x and base, whose dtypes,
+        shapes, device and layout are checked here, as is the layer; rows
+        must be the step's checked `[B]` int32 pages."""
+        if x.dtype != self.dtype or base.dtype != self.dtype:
+            raise ValueError("batched_lora: x, base and the factors must "
+                             "share one dtype")
+        if x.dim() != 3 or x.shape[2] != self.in_dim \
+                or base.shape != (*x.shape[:2], self.out_dim) \
+                or rows.shape != x.shape[:1] or not 0 <= layer < self.L:
+            raise ValueError(
+                f"batched_lora: shapes do not agree: x {tuple(x.shape)}, "
+                f"base {tuple(base.shape)}, rows {tuple(rows.shape)}, "
+                f"in {self.in_dim}, out {self.out_dim}, layer {layer} of "
+                f"{self.L}")
+        if x.device != self.device or base.device != self.device:
+            raise ValueError("batched_lora: every operand on base's device")
+        if not (x.is_contiguous() and base.is_contiguous()):
+            raise ValueError("batched_lora: every operand must be contiguous")
+        B, S = x.shape[:2]
+        xp = x.data_ptr()
+        cluster, tile, seg = _plan(self.in_dim, self.R, S)
+        batched_lora.launches += 1
+        err = self.fn(xp, self.a, self.b, rows.data_ptr(), self.s,
+                      base.data_ptr(), B, S, self.in_dim, self.out_dim,
+                      self.R, self.L, layer, self.heads, self.D, self.code,
+                      int(self.avec and xp % 16 == 0), self.bvec, cluster,
+                      tile, seg,
+                      torch._C._cuda_getCurrentRawStream(self.index))
+        if err:
+            raise RuntimeError(f"batched_lora kernel launch failed: CUDA "
+                               f"error {err}")
+        return base
+
+
+def _check_rows(rows, device):
+    if rows.dtype != torch.int32 or rows.dim() != 1 \
+            or not rows.is_contiguous():
+        raise ValueError("batched_lora: scaling must be f32, rows int32")
+    if rows.device != device:
+        raise ValueError("batched_lora: every operand on base's device")
+
+
 def batched_lora(base, x, a, b, rows, scaling, layer):
     """`base [B, S, out] += (x [B, S, in] . A^T . B^T) * scaling`, per slot
     from page `rows[slot]` of the pool at `layer`, IN PLACE; returns base.
@@ -122,49 +250,12 @@ def batched_lora(base, x, a, b, rows, scaling, layer):
     `LORA_MAX_RANK`; anything else raises a ValueError."""
     if base.device.type == "cpu":
         return batched_lora_plain(base, x, a, b, rows, scaling, layer)
-    B, S, in_dim = x.shape
-    P, L, R = a.shape[:3]
-    out_dim = base.shape[-1]
-    heads, D = (b.shape[3], b.shape[5]) if b.dim() == 6 else (0, 0)
-    dt = x.dtype
-    if dt not in _DTYPE_CODE:
-        raise ValueError(f"batched_lora: dtype {dt} has no kernel "
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"batched_lora: dtype {x.dtype} has no kernel "
                          "(bfloat16 or float32)")
-    if base.dtype != dt or a.dtype != dt or b.dtype != dt:
-        raise ValueError("batched_lora: x, base and the factors must share "
-                         "one dtype")
-    if scaling.dtype != torch.float32 or rows.dtype != torch.int32:
-        raise ValueError("batched_lora: scaling must be f32, rows int32")
-    if not 1 <= R <= LORA_MAX_RANK:
-        raise ValueError(f"batched_lora: max_rank {R} outside [1, "
-                         f"{LORA_MAX_RANK}]")
-    if (a.dim() != 4 or a.shape[3] != in_dim or b.shape[:3] != a.shape[:3]
-            or b.numel() != P * L * R * out_dim
-            or base.shape != (B, S, out_dim) or rows.shape != (B,)
-            or scaling.shape != (P,) or not 0 <= layer < L):
-        raise ValueError(
-            f"batched_lora: shapes do not agree: x {tuple(x.shape)}, base "
-            f"{tuple(base.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}, "
-            f"rows {tuple(rows.shape)}, scaling {tuple(scaling.shape)}, "
-            f"layer {layer}")
-    ts = (base, x, a, b, rows, scaling)
-    if any(t.device != base.device for t in ts):
-        raise ValueError("batched_lora: every operand on base's device")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("batched_lora: every operand must be contiguous")
-    xp, ap, bp = x.data_ptr(), a.data_ptr(), b.data_ptr()
-    # vector loads in the shrink and the expand where the rows allow them
-    vec = int(in_dim % 8 == 0 and xp % 16 == 0 and ap % 16 == 0)
-    bvec = int(out_dim % 4 == 0 and D % 4 == 0 and bp % 16 == 0)
-    batched_lora.launches += 1
-    err = _kernel()(xp, ap, bp, rows.data_ptr(), scaling.data_ptr(),
-                    base.data_ptr(), B, S, in_dim, out_dim, R, L, layer,
-                    heads, D, _DTYPE_CODE[dt], vec, bvec,
-                    torch.cuda.current_stream(base.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"batched_lora kernel launch failed: CUDA error "
-                           f"{err}")
-    return base
+    site = _Site(a, b, scaling)
+    _check_rows(rows, site.device)
+    return site.launch(base, x, rows, layer)
 
 
 batched_lora.launches = 0
@@ -189,25 +280,33 @@ class LoraState:
          self.scaling) = arrays
         self.rows = rows
         self.head_major = head_major
-
-    def _factors(self, site):
-        b_qkv = self.b_qkv.flatten(3) if self.head_major else self.b_qkv
-        return {"qkv": (self.a_qkv, b_qkv),
-                "out": (self.a_out, self.b_out),
-                "fc1": (self.a_fc1, self.b_fc1),
-                "fc2": (self.a_fc2, self.b_fc2)}[site]
+        b_qkv = self.b_qkv.flatten(3) if head_major else self.b_qkv
+        self._factors = {"qkv": (self.a_qkv, b_qkv),
+                       "out": (self.a_out, self.b_out),
+                       "fc1": (self.a_fc1, self.b_fc1),
+                       "fc2": (self.a_fc2, self.b_fc2)}
+        # on the card: the pool and the rows checked once a step, not at
+        # every one of the step's calls
+        self._sites = None
+        if rows.device.type != "cpu":
+            _check_rows(rows, rows.device)
+            self._sites = {site: _Site(a, b, self.scaling)
+                           for site, (a, b) in self._factors.items()}
 
     def qkv_delta(self, x, layer, head_major):
         return lora_qkv_delta(x, self.a_qkv, self.b_qkv, self.rows,
                               self.scaling, layer, head_major)
 
     def linear_delta(self, site, x, layer):
-        a, b = self._factors(site)
+        a, b = self._factors[site]
         return lora_linear_delta(x, a, b, self.rows, self.scaling, layer)
 
     def add(self, site, base, x, layer):
         """`base += site's delta of x` at `layer` (`batched_lora`): base
         `[B, S, out]` (qkv 3-major), x `[B, S, in]`. Returns base."""
-        a, b = self._factors(site)
-        return batched_lora(base, x.contiguous(), a, b, self.rows,
-                            self.scaling, layer)
+        x = x.contiguous()
+        if self._sites is None or base.device.type == "cpu":
+            a, b = self._factors[site]
+            return batched_lora(base, x, a, b, self.rows, self.scaling,
+                                layer)
+        return self._sites[site].launch(base, x, self.rows, layer)

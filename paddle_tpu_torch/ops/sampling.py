@@ -27,12 +27,15 @@ resample's -inf, without a second `[N, V]` tensor); `sample_uniform` is one
 U[0, 1) a row (the acceptance coin). On a CPU tensor each runs its plain
 version (`sample_draw_plain`, `sample_uniform_plain`: the same arithmetic in
 torch ops over `ops.threefry`); on a CUDA tensor it launches its kernel or
-raises. Each counts `.launches` and `.plain_calls`.
+raises. Each counts `.launches` and `.plain_calls`. The draw's kernel
+splits each row over the CTAs of a thread-block cluster; `_draw_cluster`
+is its launch plan, here so that the CPU tests can pin it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -50,13 +53,26 @@ __all__ = ["masked_logits", "sample_token", "verify_window", "SALT_SAMPLE",
 SALT_SAMPLE = 0
 SALT_ACCEPT = 1
 
+_SMS = 132                  # the H100 SXM's streaming multiprocessors
+_MAX_CLUSTER = 16           # the largest (non-portable) cluster
+
+
+@functools.lru_cache(maxsize=None)
+def _draw_cluster(N):
+    """The CTAs of the cluster that shares a row of the draw: about two
+    CTAs an SM over the N rows, `2 * 132 / N` rounded to the nearest power
+    of two, 1 to 16 (16 at the decode step's N 8, 8 at the verify step's
+    N 40). From N alone: the token never depends on it."""
+    c = 2 ** round(math.log2(2 * _SMS / max(N, 1)))
+    return max(1, min(_MAX_CLUSTER, c))
+
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
     lib = cpp_extension.load("sampling")
     P, I = ctypes.c_void_p, ctypes.c_int
     draw, unif = lib.sample_draw, lib.sample_uniform
-    draw.argtypes = [P, P, P, P, I, I, I, P, P]
+    draw.argtypes = [P, P, P, P, I, I, I, I, P, P]
     unif.argtypes = [P, P, I, I, P, P]
     draw.restype = unif.restype = I
     return draw, unif
@@ -107,9 +123,9 @@ def _launched(err, what):
 
 def sample_draw(lg, key_rows, positions, salt, exclude=None):
     """`sample_draw_plain` on a CPU tensor; on a CUDA one, one launch of
-    `sample_draw_kernel` (one CTA a row) or a ValueError for what it does
-    not take: fp32 contiguous logits `[N, V]`, int64 `[N, 2]` key rows,
-    int32 `[N]` positions and exclusions."""
+    `sample_draw_kernel` (a cluster of `_draw_cluster(N)` CTAs a row) or a
+    ValueError for what it does not take: fp32 contiguous logits `[N, V]`,
+    int64 `[N, 2]` key rows, int32 `[N]` positions and exclusions."""
     if lg.device.type == "cpu":
         return sample_draw_plain(lg, key_rows, positions, salt, exclude)
     if lg.dtype != torch.float32 or lg.dim() != 2 or not lg.is_contiguous():
@@ -127,7 +143,8 @@ def sample_draw(lg, key_rows, positions, salt, exclude=None):
     _launched(_kernels()[0](
         lg.data_ptr(), key_rows.data_ptr(), positions.data_ptr(),
         None if exclude is None else exclude.data_ptr(), int(salt), N, V,
-        out.data_ptr(), torch.cuda.current_stream(lg.device).cuda_stream),
+        _draw_cluster(N), out.data_ptr(),
+        torch.cuda.current_stream(lg.device).cuda_stream),
         "sample_draw")
     return out
 

@@ -51,9 +51,9 @@ KERNEL_SOURCES = {
                      "attention_mma.cuh"),
     "conv_bn_relu_bwd": ("conv_bn_relu_bwd.cu", "conv_common.cuh",
                          "conv_mma.cuh", "attention_mma.cuh"),
-    "sampling": ("sampling.cu",),
+    "sampling": ("sampling.cu", "hopper.cuh", "attention_mma.cuh"),
     "int8_linear": ("int8_linear.cu", "hopper.cuh", "attention_mma.cuh"),
-    "lora": ("lora.cu",),
+    "lora": ("lora.cu", "hopper.cuh", "attention_mma.cuh"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,8 +8,9 @@ library's hash and rebuilds it. The causal (B2) and shortseq (B13)
 backwards share one source, `attention_bwd.cuh`: each `.cu` keeps only
 thin kernels over its bodies, and `chip_smoke.py`'s profile families
 still tell the two apart by their kernels' names. The library route's
-backward (`sdpa_backward.cu`) and the int8-weight linear (`int8_linear.cu`)
-build on `hopper.cuh`'s wgmma, TMA, mbarrier and cluster helpers
+backward (`sdpa_backward.cu`), the int8-weight linear (`int8_linear.cu`),
+the batched LoRA delta (`lora.cu`) and the sampler's draws (`sampling.cu`)
+build on `hopper.cuh`'s wgmma, TMA, bulk-copy, mbarrier and cluster helpers
 (`WGMMA_KERNELS` must hold wgmma), and the backward's profile family is its
 own."""
 import importlib.util
@@ -38,7 +39,7 @@ BWD_LIBS = ("causal_attention_bwd", "shortseq_attention_bwd")
 # every library that includes attention_bwd.cuh
 HEADER_LIBS = BWD_LIBS
 # every library that includes hopper.cuh
-HOPPER_LIBS = ("int8_linear", "sdpa_backward")
+HOPPER_LIBS = ("int8_linear", "lora", "sampling", "sdpa_backward")
 # the `__device__` bodies of the attention backward, in attention_bwd.cuh
 BWD_BODIES = ("delta_fma", "dkdv_fma", "dq_fma", "delta_mma", "dkdv_mma",
               "dq_mma")
@@ -91,9 +92,9 @@ def test_wgmma_kernels_are_kernels_of_their_library(lib):
 
 @pytest.mark.parametrize("lib", HOPPER_LIBS)
 def test_hopper_header_and_hand_written_sources(lib):
-    """The two redesigned libraries include and list `hopper.cuh`, hold no
-    atomic, are held to no spill in any kernel, and are hand-written: no
-    cuBLAS, no CUTLASS, no PyTorch header."""
+    """The libraries redesigned on Hopper's features include and list
+    `hopper.cuh`, hold no atomic, are held to no spill in any kernel, and
+    are hand-written: no cuBLAS, no CUTLASS, no PyTorch header."""
     assert "hopper.cuh" in KERNEL_SOURCES[lib]
     assert "hopper.cuh" in _included(lib)
     assert lib in CHIP_SMOKE.SPILL_FREE_LIBS
@@ -106,21 +107,24 @@ def test_hopper_header_and_hand_written_sources(lib):
 
 
 def test_hopper_header_holds_the_helpers():
-    """`hopper.cuh` gives what the two kernels use: mbarriers, TMA copies
-    and the driver's map encoder through the runtime, the wgmma descriptor
-    and instances, cluster ranks, barriers and remote shared-memory loads,
-    and setmaxnreg."""
+    """`hopper.cuh` gives what the kernels use: mbarriers, TMA copies and
+    the driver's map encoder through the runtime, 1-D bulk copies, the
+    wgmma descriptor and instances, cluster ranks, barriers, remote
+    shared-memory loads and launches, and setmaxnreg."""
     text = (Path(CSRC) / "hopper.cuh").read_text()
     users = {lib for lib in KERNEL_SOURCES if "hopper.cuh" in _included(lib)}
     assert users == set(HOPPER_LIBS)
     for mark in ("mbarrier.init", "mbarrier.arrive.expect_tx",
-                 "mbarrier.try_wait.parity", "cp.async.bulk.tensor.3d", "cudaGetDriverEntryPoint",
+                 "mbarrier.try_wait.parity", "cp.async.bulk.tensor.3d",
+                 "cp.async.bulk.shared", "cudaGetDriverEntryPoint",
                  "cuTensorMapEncodeTiled", "wgmma.fence",
                  "wgmma.commit_group", "wgmma.wait_group",
                  "m64n64k16.f32.bf16.bf16", "m64n128k16.f32.bf16.bf16",
                  "%%cluster_ctarank", "barrier.cluster.arrive",
                  "barrier.cluster.wait", "mapa.shared::cluster",
-                 "ld.shared::cluster", "setmaxnreg.inc", "setmaxnreg.dec"):
+                 "ld.shared::cluster", "cudaLaunchAttributeClusterDimension",
+                 "cudaFuncAttributeNonPortableClusterSizeAllowed",
+                 "setmaxnreg.inc", "setmaxnreg.dec"):
         assert mark in text, mark
 
 
@@ -366,13 +370,16 @@ def test_optimizer_wrapper_and_kernel_agree_on_rules_and_scalars():
 
 def test_sampler_and_int8_weight_libraries():
     """The draw kernels and the int8-weight linear are built from their own
-    sources: `sampling` from `sampling.cu` alone, held to no atomic and no
-    spill (`FMA_LIBS`: its argmax is reduced in a fixed order), and
+    sources: `sampling` from `sampling.cu` over `hopper.cuh`'s cluster
+    helpers (the draw splits a row over a cluster), held to no atomic and
+    no spill (`FMA_LIBS`: its argmax is reduced in a fixed order), and
     `int8_linear` from `int8_linear.cu` over `attention_mma.cuh`'s
     fragments and `hopper.cuh`'s cluster helpers, whose two bf16 kernels
     (the weight as the A operand at M <= 16, x as the A operand above)
     must run on the tensor cores (`MMA_KERNELS`)."""
-    assert KERNEL_SOURCES["sampling"] == ("sampling.cu",)
+    assert _included("sampling") == {"attention_mma.cuh", "hopper.cuh"}
+    assert set(KERNEL_SOURCES["sampling"]) == {
+        "sampling.cu", "hopper.cuh", "attention_mma.cuh"}
     assert _globals("sampling") == {"sample_draw_kernel",
                                     "sample_uniform_kernel"}
     assert "sampling" in CHIP_SMOKE.FMA_LIBS
@@ -398,11 +405,14 @@ def test_library_backward_kernels_are_the_wgmma_and_wide_designs():
 
 
 def test_lora_library_is_one_hand_written_kernel():
-    """`csrc/lora.cu` is the lora library's only source, includes no header
-    from csrc/, and holds one kernel that computes both low-rank products
-    itself: no library GEMM."""
-    assert KERNEL_SOURCES["lora"] == ("lora.cu",)
-    assert _included("lora") == set()
+    """`csrc/lora.cu` is the lora library's only `.cu` source, includes
+    only `hopper.cuh` (its bulk copies, cluster barriers and distributed
+    shared memory; through it `attention_mma.cuh`'s `cp.async`), and holds
+    one kernel that computes both low-rank products itself: no library
+    GEMM, one launch a site."""
+    assert set(KERNEL_SOURCES["lora"]) == {"lora.cu", "hopper.cuh",
+                                           "attention_mma.cuh"}
+    assert _included("lora") == {"attention_mma.cuh", "hopper.cuh"}
     assert _globals("lora") == {"lora_shrink_expand_kernel"}
     text = (Path(CSRC) / "lora.cu").read_text()
     for mark in ("cublas", "cutlass", "#include <torch"):

@@ -58,7 +58,9 @@ composition, and a ResNet-50 train step on the card against the CPU.
 
 The sampler's draws (`sample_draw`, `sample_uniform`): tokens and uniforms
 bit for bit the plain versions' on the card, at the serving shapes and at
-odd N and V tails, with and without excluded indices; the sampled engine
+odd N and V tails (N 1 to 4,096, V not a multiple of four times the
+draw's cluster, rows off 16-byte boundaries), with and without excluded
+indices; the sampled engine
 on the card emitting the CPU engine's streams. The int8-weight linear
 (`int8_linear`, bf16 on the tensor cores with K split over a cluster,
 f32 in fp32 FMA) against its plain version at odd M, N and K tails and
@@ -66,12 +68,15 @@ GPT-1.3B's shapes, every split its plan takes with each half of N bitwise
 the whole launch's columns, its refusals, and the int8-weight engine
 launching it four times a layer.
 
-The batched LoRA kernel (`batched_lora`, fp32 FMA): its fp32 delta (the
-f32 instance over a zero base) against the plain version's, the bf16 result
-bitwise the plain version's wherever the two fp32 deltas round to the same
-bf16, null-page rows bitwise the base, a rerun the same bits, at ranks 1 to
-64, the qkv site's head-grouped pages at 1 and 4 heads, ragged row and
-column tiles; its refusals; a LoRA engine on the card emitting the CPU
+The batched LoRA kernel (`batched_lora`, fp32 FMA, a slot's shrink split
+over a cluster): its fp32 delta (the f32 instance over a zero base) against
+the plain version's, the bf16 result bitwise the plain version's wherever
+the two fp32 deltas round to the same bf16, null-page rows bitwise the
+base, a rerun the same bits, at ranks 1 to 64, 1 to 300 rows a slot, the
+qkv site's head-grouped pages at 1 and 4 heads, ragged row and column
+tiles, in_dim off a multiple of 8 and an unaligned x (the plain-load
+route), an all-null batch, shards bitwise the whole launch; its refusals;
+a LoRA engine on the card emitting the CPU
 engine's tokens and launching the kernel four times a layer a step. The
 causal kernel B1 at the bucket ladder's short buckets (S 16, 32, 48) and a
 bucketed engine launching it once a layer an admission. The engine's async
@@ -2251,7 +2256,9 @@ def _draw_case(card, N, V):
 
 
 @pytest.mark.parametrize("N,V", [(8, 50304), (40, 50304), (1, 1), (3, 5),
-                                 (13, 333), (40, 1000), (7, 50257)])
+                                 (13, 333), (40, 1000), (7, 50257),
+                                 (1, 50257), (8, 1003), (40, 50257),
+                                 (4096, 1003)])
 @pytest.mark.parametrize("exclude", [False, True])
 def test_sample_draw_kernel_matches_plain(card, N, V, exclude):
     lg, keys, pos = _draw_case(card, N, V)
@@ -2475,7 +2482,7 @@ def test_bucketed_engine_launches_the_causal_kernel_a_layer(card):
 
 # (in, out, heads of a head-grouped B or 0)
 LORA_SHAPES = [(48, 80, 0), (64, 96, 2), (96, 3 * 64, 4), (2048, 6144, 16),
-               (8192, 2048, 0), (40, 1030, 0)]
+               (8192, 2048, 0), (40, 1030, 0), (2052, 1030, 0)]
 
 
 def _lora_case(card, n_in, n_out, heads, R, B, S, dtype, pages=5):
@@ -2503,7 +2510,8 @@ def _lora_case(card, n_in, n_out, heads, R, B, S, dtype, pages=5):
 
 @pytest.mark.parametrize("n_in,n_out,heads", LORA_SHAPES)
 @pytest.mark.parametrize("R", [1, 4, 16, 64])
-@pytest.mark.parametrize("B,S", [(8, 1), (8, 5), (1, 128), (3, 9)])
+@pytest.mark.parametrize("B,S", [(8, 1), (8, 5), (1, 128), (3, 9), (2, 17),
+                                 (1, 300)])
 def test_lora_kernel_matches_plain(card, n_in, n_out, heads, R, B, S):
     """max |kernel delta - plain delta| within 2e-6 of max |plain delta|
     at 2048 inputs (fp32 sums of the same exact products in other orders),
@@ -2531,6 +2539,36 @@ def test_lora_kernel_matches_plain(card, n_in, n_out, heads, R, B, S):
     null = (rows == 0)[:, None, None].expand_as(base)
     assert torch.equal(got[null], base[null])
     assert torch.equal(batched_lora(base.clone(), x, a, b, rows, sc, 1), got)
+
+
+@pytest.mark.parametrize("n_in,S", [(2052, 5), (8192, 1), (2048, 128)])
+def test_lora_kernel_takes_an_unaligned_x(card, n_in, S):
+    """x off a 16-byte boundary (a contiguous view 2 bytes into its
+    buffer) takes the plain-load route to shared memory, with the bulk
+    route's bits: the sum order does not depend on the route."""
+    a, b, sc, rows, x, base = _lora_case(card, n_in, 2048, 0, 16, 4, S,
+                                         torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got = batched_lora(base.clone(), shifted, a, b, rows, sc, 1)
+    want = batched_lora(base.clone(), x, a, b, rows, sc, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_lora_kernel_all_null_batch_leaves_the_base(card):
+    """Every slot on the null page: one launch, and the base keeps its
+    bits."""
+    a, b, sc, rows, x, base = _lora_case(card, 2048, 8192, 0, 16, 8, 5,
+                                         torch.bfloat16)
+    rows.zero_()
+    launches = batched_lora.launches
+    got = batched_lora(base.clone(), x, a, b, rows, sc, 1)
+    torch.cuda.synchronize()
+    assert batched_lora.launches == launches + 1
+    assert torch.equal(got.view(torch.int16), base.view(torch.int16))
 
 
 def test_lora_kernel_rows_do_not_depend_on_other_slots(card):
@@ -2571,7 +2609,7 @@ LORA_SITES_1P3B = {"qkv": (2048, 6144, 16), "out": (2048, 2048, 0),
 
 @pytest.mark.parametrize("site", list(LORA_SITES_1P3B))
 @pytest.mark.parametrize("mp", [2, 4])
-@pytest.mark.parametrize("B,S", [(8, 1), (8, 5)])
+@pytest.mark.parametrize("B,S", [(8, 1), (8, 5), (1, 128)])
 def test_lora_kernel_on_a_b_shard(card, site, mp, B, S):
     """A tensor-parallel shard's launch over its B columns (`out / mp`:
     512 at out and fc2 at mp 4; qkv head-major, its heads' [3, D] rows, the

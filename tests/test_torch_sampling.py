@@ -18,6 +18,7 @@
   `oracle_probs`.
 """
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from paddle_tpu_torch.inference import SamplingParams
 from paddle_tpu_torch.inference.sampling import key_row, oracle_probs
 from paddle_tpu_torch.ops import sampling as tsops
 from paddle_tpu_torch.ops import threefry
+from paddle_tpu_torch.utils.cpp_extension import CSRC
 
 VOCAB = 64
 
@@ -515,3 +517,160 @@ def test_sampling_params_copied_from_jax():
                dict(temperature=0.0)):
         np.testing.assert_array_equal(oracle_probs(lg, SamplingParams(**kw)),
                                       j_oracle(lg, JParams(**kw)))
+
+
+# -- the draw kernel's split of a row over a cluster -------------------------
+# (`csrc/sampling.cu` `sample_draw_kernel`: rank c of a row's cluster walks
+# the share [c vs, (c + 1) vs) of the vocabulary; each CTA joins its 256
+# threads by shuffles and its 8 warps in shared memory, and rank 0 joins the
+# C partials in rank order. The join below repeats that tree in numpy.)
+_INT_MAX = 0x7FFFFFFF
+
+
+def _draw_shares(V, cluster):
+    """`[(begin, end)]` of each rank's share, as the kernel's `vs` cuts V:
+    ceil(V / C) rounded up to 4 a rank, the last ones to V."""
+    vs = (-(-V // cluster) + 3) // 4 * 4
+    return [(min(V, c * vs), min(V, (c + 1) * vs)) for c in range(cluster)]
+
+
+def _beats(bv, bi, av, ai):
+    """The kernel's `beats`: larger value, lower index on a tie, NaN
+    first."""
+    bn, an = np.isnan(bv), np.isnan(av)
+    if bn or an:
+        return bool(bn and (not an or bi < ai))
+    return bool(bv > av or (bv == av and bi < ai))
+
+
+def _butterfly(vals, idxs):
+    """A xor butterfly over 32 lanes, as `warp_best`: every lane ends with
+    the best pair."""
+    vals, idxs = list(vals), list(idxs)
+    off = 16
+    while off:
+        nv, ni = vals[:], idxs[:]
+        for lane in range(32):
+            o = lane ^ off
+            if _beats(vals[o], idxs[o], vals[lane], idxs[lane]):
+                nv[lane], ni[lane] = vals[o], idxs[o]
+        vals, idxs = nv, ni
+        off //= 2
+    return vals[0], idxs[0]
+
+
+def _cta_best(val, b, e, skew):
+    """One CTA's best of the entries [b, e) of `val`: thread t takes the
+    fours t, t + 256, ... from the first 16-byte boundary (`skew` entries
+    past one at b), threads 0-3 the entries before it and 4-7 those after
+    the last whole four; then its warps and its CTA."""
+    vb = min(e, b + ((4 - skew) & 3))
+    n4 = (e - vb) // 4
+    vt = vb + 4 * n4
+    best = [-np.inf] * 256
+    arg = [_INT_MAX] * 256
+
+    def take(t, v):
+        if _beats(val[v], v, best[t], arg[t]):
+            best[t], arg[t] = val[v], v
+
+    for i in range(n4):
+        for k in range(4):
+            take(i % 256, vb + 4 * i + k)
+    for t in range(8):
+        v = b + t if t < 4 else vt + t - 4
+        if v < (vb if t < 4 else e):
+            take(t, v)
+    warps = [_butterfly(best[w * 32:(w + 1) * 32], arg[w * 32:(w + 1) * 32])
+             for w in range(8)]
+    pad = [(-np.inf, _INT_MAX)] * 24
+    return _butterfly([w[0] for w in warps + pad],
+                      [w[1] for w in warps + pad])
+
+
+def _emulate_draw(g, lg, skip, cluster, row_skew=0):
+    """The kernel's token from Gumbels `g` and logits `lg` (fp32 `[V]`),
+    `skip` excluded: each rank's CTA best, joined in rank order."""
+    val = (g + np.where(np.arange(lg.size) == skip, np.float32(-np.inf),
+                        lg)).astype(np.float32)
+    best, arg = -np.inf, _INT_MAX
+    for c, (b, e) in enumerate(_draw_shares(lg.size, cluster)):
+        v, i = _cta_best(val, b, e, (row_skew + b) % 4)
+        if c == 0 or _beats(v, i, best, arg):
+            best, arg = v, i
+    return arg
+
+
+def test_draw_cluster_from_n_alone():
+    """About two CTAs an SM over the rows, a power of two from 1 to 16: 16
+    at the decode step's N 8, 8 at the verify step's N 40, 1 at 4,096."""
+    cs = [tsops._draw_cluster(n) for n in range(1, 600)]
+    assert all(1 <= c <= 16 and c & (c - 1) == 0 for c in cs)
+    assert all(a >= b for a, b in zip(cs, cs[1:]))
+    assert (tsops._draw_cluster(8), tsops._draw_cluster(40),
+            tsops._draw_cluster(4096)) == (16, 8, 1)
+
+
+@pytest.mark.parametrize("V", [1, 5, 333, 1003, 50257, 50304])
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+def test_draw_shares_cover_the_vocabulary(V, cluster):
+    """Each rank's share is whole fours but the last that holds entries;
+    together they are V, in rank order; the kernel cuts by one formula."""
+    shares = _draw_shares(V, cluster)
+    assert shares[0][0] == 0 and shares[-1][1] == V
+    for (b0, e0), (b1, _) in zip(shares, shares[1:]):
+        assert e0 == b1
+    held = [(b, e) for b, e in shares if e > b]
+    assert all((e - b) % 4 == 0 and b % 4 == 0 for b, e in held[:-1])
+    text = (Path(CSRC) / "sampling.cu").read_text()
+    assert "const int vs = ((V + cluster - 1) / cluster + 3) / 4 * 4;" in text
+
+
+def _ref_token(g, lg, skip):
+    col = torch.arange(lg.size)
+    t = torch.where(col == skip, -torch.inf, torch.from_numpy(lg)) + \
+        torch.from_numpy(g)
+    return int(torch.argmax(t))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+@pytest.mark.parametrize("row_skew", [0, 1, 3])
+@pytest.mark.parametrize("case", ["tie_across_boundary", "nan",
+                                  "excluded_at_boundary", "all_masked",
+                                  "random"])
+def test_cluster_join_is_torch_argmax(cluster, row_skew, case):
+    """The kernel's join (threads, warps, CTAs in rank order) over a row
+    split into `cluster` shares gives torch.argmax's index: a tie that
+    straddles a share boundary takes the lower index, a NaN wins over
+    every number (the first NaN), an excluded index at a boundary loses,
+    an all -inf row draws 0."""
+    V = 1003
+    rng = np.random.default_rng(cluster * 10 + row_skew)
+    g = rng.gumbel(size=V).astype(np.float32)
+    lg = (rng.standard_normal(V) * 3).astype(np.float32)
+    skip = -1
+    bounds = [b for b, e in _draw_shares(V, max(cluster, 2))[1:] if b < V]
+    edge = bounds[0]
+    if case == "tie_across_boundary":
+        g[edge - 1] = g[edge] = 0.0
+        lg[edge - 1] = lg[edge] = 50.0
+    elif case == "nan":
+        lg[edge + 1] = np.nan
+        lg[edge - 2] = np.nan
+        lg[3] = 80.0
+    elif case == "excluded_at_boundary":
+        g[edge] = 0.0
+        lg[edge] = 90.0
+        skip = edge
+    elif case == "all_masked":
+        lg[:] = -np.inf
+    got = _emulate_draw(g, lg, skip, cluster, row_skew)
+    assert got == _ref_token(g, lg, skip)
+    if case == "tie_across_boundary":
+        assert got == edge - 1
+    elif case == "nan":
+        assert got == edge - 2
+    elif case == "excluded_at_boundary":
+        assert got != edge
+    elif case == "all_masked":
+        assert got == 0

@@ -1,6 +1,6 @@
-"""Time the bf16 int8-weight linear and the library route's attention
-backward of one checkout on the card, by CUDA-graph replays, at the shapes
-of chip_smoke.py's phases int8_linear and sdpa_bwd.
+"""Time the hand-written kernels of the later redesigns of one checkout on
+the card, at the shapes of chip_smoke.py's phases int8_linear, sdpa_bwd,
+lora and sampling.
 
 Run it on two checkouts in turns within one machine (parent, change,
 change, parent) to compare two designs on one card:
@@ -10,15 +10,26 @@ change, parent) to compare two designs on one card:
 `DIR` is the root of a checkout (the repository itself by default); its
 `paddle_tpu_torch` is imported and its kernels are built into its own
 `build/`. The timing helpers are this checkout's `chip_smoke.py`'s. Prints
-one JSON object: the card's name and power limit, then for each int8 case
-(qkv, out, fc1, fc2 at M 8, 40, 128) the kernel's time over weight copies
-past the L2 cache and `torch.matmul` over the dequantized bf16 weight
-timed the same way, the decode step's sums over 24 layers at M 8, and for
-each bf16 backward case of `SDPA_BWD_SHAPES` with D <= 256 one call's
-time after an L2 flush, each of its kernels' device time from
-torch.profiler, and the host's time for one call (the wrapper's work and
-its launches, with nothing queued before it). Needs a CUDA device; imports nothing of
-JAX.
+one JSON object: the card's name and power limit, then
+- for each int8 case (qkv, out, fc1, fc2 at M 8, 40, 128) the kernel's
+  time over weight copies past the L2 cache and `torch.matmul` over the
+  dequantized bf16 weight timed the same way, the decode step's sums over
+  24 layers at M 8;
+- for each bf16 backward case of `SDPA_BWD_SHAPES` with D <= 256 one
+  call's time after an L2 flush, each of its kernels' device time from
+  torch.profiler, and the host's time for one call (the wrapper's work
+  and its launches, with nothing queued before it);
+- for each LoRA site of GPT-1.3B (qkv, out, fc1, fc2) at rank 16 and 8 x 1,
+  8 x 5 and 1 x 128 rows, the kernel's time by CUDA-graph replays with the
+  L2 warm and over copies of the pool past it, the gathered factors
+  through two `torch.bmm` timed the same way, the host's time of one
+  `LoraState.add` and of one direct `batched_lora` call, and the decode
+  step's sums over its 96 sites;
+- the categorical draw at N 8 and 40 over V 50,304: its time by graph
+  replays over copies of the logits past the L2, one call's time by
+  graph replays after an L2 flush (a graph launch's latency in it), and
+  the host's time of one call.
+Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -137,6 +148,95 @@ def time_sdpa_bwd(torch, cs):
     return {"cases": cases}
 
 
+def time_lora(torch, cs):
+    from paddle_tpu_torch.ops.lora import LoraState, batched_lora
+
+    g = torch.Generator("cuda").manual_seed(5)
+    R, layer = 16, 1
+    pools = {site[0]: cs._lora_pool(torch, g, site, R, torch.bfloat16)
+             for site in cs.LORA_SITES_1P3B}
+    sc = pools["qkv"][2]
+    arrays = [t for name in ("qkv", "out", "fc1", "fc2")
+              for t in pools[name][:2]] + [sc]
+    cases, step = [], {"ms": 0.0, "cold_l2_ms": 0.0, "bmm_ms": 0.0,
+                       "host_us_state": 0.0}
+    for B, S in cs.LORA_ROWS:
+        rows = (torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+                if B == 8 else torch.tensor([4], dtype=torch.int32,
+                                            device="cuda"))
+        state = LoraState(arrays, rows)
+        for site in cs.LORA_SITES_1P3B:
+            name, n_in, n_out, _ = site
+            a16, b16, _ = pools[name]
+            x = torch.randn((B, S, n_in), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            base = torch.randn((B, S, n_out), generator=g,
+                               device="cuda").to(torch.bfloat16)
+            call = lambda: batched_lora(base, x, a16, b16, rows, sc, layer)
+            ms = cs._graph_ms(torch, call)
+            pool = [(a16.clone(), b16.clone()) for _ in range(
+                cs._copies(2 * (a16.numel() + b16.numel())))]
+            cold = cs._graph_ms_cold(torch, [
+                (lambda c=c: batched_lora(base, x, c[0], c[1], rows, sc,
+                                          layer)) for c in pool])
+            del pool
+
+            def bmm_route():
+                r = rows.long()
+                al = a16[r, layer]
+                bl = b16[r, layer].reshape(B, R, n_out)
+                xr = torch.bmm(x, al.transpose(1, 2))
+                return base + torch.bmm(xr, bl) * \
+                    sc[r].to(torch.bfloat16)[:, None, None]
+
+            bmm = cs._graph_ms(torch, bmm_route)
+            host_state = _host_us(torch, lambda: state.add(name, base, x,
+                                                           layer))
+            host_call = _host_us(torch, call)
+            bnd, _ = cs._lora_bound(B, S, R, n_in, n_out,
+                                    int(rows.unique().numel()), 2,
+                                    "bfloat16")
+            cases.append({"site": name, "slots": B, "rows_a_slot": S,
+                          "ms": ms, "cold_l2_ms": cold, "bmm_ms": bmm,
+                          "bound_ms": bnd, "host_us_state": host_state,
+                          "host_us_call": host_call})
+            if (B, S) == cs.LORA_ROWS[0]:
+                step["ms"] += 24 * ms
+                step["cold_l2_ms"] += 24 * cold
+                step["bmm_ms"] += 24 * bmm
+                step["host_us_state"] += 24 * host_state
+    return {"cases": cases, "decode_step_96_sites": step}
+
+
+def time_draw(torch, cs):
+    from paddle_tpu_torch.inference.sampling import key_row
+    from paddle_tpu_torch.ops.sampling import masked_logits, sample_draw
+
+    V = 50304
+    g = torch.Generator("cuda").manual_seed(2)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    cases = []
+    for N in cs.SAMPLING_ROWS:
+        raw = torch.randn((N, V), generator=g, device="cuda") * 3
+        lg = masked_logits(raw, torch.full((N,), 0.8, device="cuda"),
+                           torch.full((N,), 50, dtype=torch.int32,
+                                      device="cuda"),
+                           torch.full((N,), 0.9, device="cuda"))
+        keys = torch.stack([key_row(cs.SEED + i) for i in range(N)]).cuda()
+        pos = torch.randint(0, 2048, (N,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        copies = [lg.clone() for _ in range(cs._copies(lg.numel() * 4))]
+        ms = cs._graph_ms_cold(torch, [
+            (lambda c=c: sample_draw(c, keys, pos, 0)) for c in copies])
+        del copies
+        call = lambda: sample_draw(lg, keys, pos, 0)
+        cases.append({"N": N, "V": V, "ms": ms,
+                      "one_call_flushed_ms": cs._graph_call_ms(torch, call,
+                                                               flush),
+                      "host_us": _host_us(torch, call)})
+    return {"cases": cases}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT,
@@ -157,10 +257,13 @@ def main(argv=None):
         print(f"kernel_ab: imported {cpp_extension.__file__}, not the "
               f"checkout at {tree}", file=sys.stderr)
         return 2
-    cpp_extension.build(["int8_linear", "sdpa_backward", "sdpa_forward"])
+    cpp_extension.build(["int8_linear", "sdpa_backward", "sdpa_forward",
+                         "lora", "sampling"])
     out = {"tree": args.label or tree, "nvidia_smi": cs.nvidia_smi_line()}
     out["int8_linear"] = time_int8(torch, cs)
     out["sdpa_backward"] = time_sdpa_bwd(torch, cs)
+    out["lora"] = time_lora(torch, cs)
+    out["sample_draw"] = time_draw(torch, cs)
     print(json.dumps(out), flush=True)
     return 0
 
