@@ -433,6 +433,19 @@ Phases, each printing one JSON line:
    gated, with the card's name and power limit.
 46. train_telemetry: GPT-1.3B TrainStep with TrainingTelemetry bitwise
    the same steps without it.
+47. paddle_api: the paddle API (`paddle_tpu_torch.Tensor` and the op
+   modules) on the card, f32, TF32 off: GPT-1.3B's LayerNorm and MLP
+   (hidden 2048, ffn 8192, 4 x 512 tokens) written in paddle ops against
+   the port's `nn.LayerNorm` and `GPTMLP` on the same weights, forward
+   and `paddle.grad` against `torch.autograd.grad` within TOL, a PyLayer's
+   hand-written backward against autograd; then every op of the six
+   ported modules (`tools/paddle_op_cases.py`, the cases the CPU tests
+   hold to the JAX package) on the card against the same op on the CPU,
+   gradients too: f32 within 1e-5 of the largest magnitude, the random
+   ops' float transforms within 1e-6, integers, bools and the seeded bits
+   and integer draws exactly, every result on the card; the ms of the MLP's
+   forward and backward both ways and the subclass's host microseconds an
+   op against a plain tensor's.
 
 Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36, 37,
 39 to 42 and 45 are the main path, in sixty-one runs: the bf16 engine, the
@@ -467,8 +480,9 @@ kernel 16 times as the dX walk, a Transformer forward the flash forward B6
 route's backward 12 times each; every train step the one-pass optimizer
 update once; a merge window the merge kernel once a micro-step and the
 finish and the update once; a scaler step without merge the unscale once;
-a Lamb step the norm pass once; a sampled engine the draw kernel, and at
-K=4 the uniform kernel; an int8-weight engine the int8-weight linear four
+a Lamb step the norm pass once; a sampled engine the draw kernel once a
+decode step and a final prefill chunk, and at K=4 the fused draw and
+acceptance coin once a verify step; an int8-weight engine the int8-weight linear four
 times a layer a step; a bucketed engine the causal forward 24 times an
 admission; a LoRA engine the batched LoRA kernel four times a layer a
 step; at mp N each of these N times, once a shard, the draws once) and
@@ -513,7 +527,7 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "bert_lamb", "sampling", "int8_linear", "engine_sampled",
           "engine_wint8", "lora", "engine_bucketed", "engine_lora",
           "tp_parity", "engine_tp", "engine_async", "engine_observed",
-          "fleet", "train_telemetry")
+          "fleet", "train_telemetry", "paddle_api")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2 ** 20            # the H100's L2 cache
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -665,6 +679,9 @@ OPT = "optimizer_update"
 NORMS = "optimizer_norms"
 MERGE, FINISH, UNSCALE = "grad_merge", "grad_finish", "grad_unscale"
 DRAW, UNIF, W8 = "sample_draw", "sample_uniform", "int8_linear"
+# the verify step's draw and acceptance coin in one launch: the coin
+# (UNIF) has no launch of its own
+VDRAW = "verify_draws"
 LORA = "batched_lora"
 # the masked variants' launches, counted apart on the same wrappers, and
 # B6's LSE variant's
@@ -726,7 +743,7 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "resnet_accum_skip_f32": (MERGE,),
                "bert_lamb_bf16": (SSF, SSB, NORMS, OPT),
                "engine_sampled_bf16": (DEC, DRAW),
-               "engine_sampled_spec_bf16": (VER, DRAW, UNIF),
+               "engine_sampled_spec_bf16": (VER, DRAW, VDRAW),
                "engine_wint8_bf16": (DEC, W8),
                "engine_wint8_kv8_bf16": (DEC8, W8),
                "wint8_f32": (DEC, W8),
@@ -748,7 +765,7 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                                    ("chunked_k4", (VER,)),
                                    ("kv8_k0", (DEC8,)),
                                    ("bucketed_kv8_k4", (FWD, VER8)),
-                                   ("sampled_k4", (VER, DRAW, UNIF)),
+                                   ("sampled_k4", (VER, DRAW, VDRAW)),
                                    ("lora_wint8", (DEC, W8, LORA)),
                                    ("chunked_k0_mp2", (DEC,)))
                   for mode in ("serial", "async")},
@@ -899,7 +916,14 @@ DESIGN = {"causal_fwd": "mma.sync bf16", "causal_bwd": "mma.sync bf16",
                          "16-byte loads, four threefry hashes in flight a "
                          "thread, the CTAs' (value, index) partials joined "
                          "in rank order through distributed shared memory",
-          "sample_uniform": "one thread a row: threefry",
+          "verify_draws": "sample_draw's cluster design, and in the same "
+                          "launch the acceptance coin: the last thread of "
+                          "each row's rank 0 derives the coin's key while "
+                          "thread 0 derives the draw's and hashes the coin "
+                          "after its shorter walk, three threefry hashes a "
+                          "row",
+          "sample_uniform": "no launch of its own: computed in "
+                            "verify_draws' launch (sample_draw_coin_kernel)",
           "int8_linear": "mma.sync bf16, K split over a thread-block "
                          "cluster reduced through distributed shared "
                          "memory, the weight as the A operand at M <= 16, "
@@ -928,7 +952,7 @@ KERNEL_FAMILIES = (
     ("sdpa_bwd_kernels", ("sdpa_delta", "sdpa_dkdv", "sdpa_dq")),
     ("optimizer_update_kernel", ("optimizer_update", "optimizer_norms")),
     ("grad_merge_kernels", ("grad_merge", "grad_finish", "grad_unscale")),
-    ("sampling_kernels", ("sample_draw", "sample_uniform")),
+    ("sampling_kernels", ("sample_draw",)),
     ("int8_linear_kernel", ("w8_linear", "w8_gemv")),
     ("lora_kernel", ("lora_shrink_expand",)),
     ("cudnn conv", ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
@@ -4997,10 +5021,11 @@ def _draw_int_ops():
 def phase_sampling(torch, ctx):
     from paddle_tpu_torch.inference.sampling import (SamplingParams,
                                                      key_row, oracle_probs)
-    from paddle_tpu_torch.ops.sampling import (masked_logits, sample_draw,
+    from paddle_tpu_torch.ops.sampling import (SALT_ACCEPT, SALT_SAMPLE,
+                                               masked_logits, sample_draw,
                                                sample_draw_plain,
-                                               sample_uniform,
-                                               sample_uniform_plain)
+                                               sample_uniform_plain,
+                                               verify_draws)
 
     V = 50304
     g = torch.Generator("cuda").manual_seed(2)
@@ -5023,17 +5048,22 @@ def phase_sampling(torch, ctx):
                          lg.argmax(-1), -1).to(torch.int32)
         got = [sample_draw(lg, keys, pos, 0), sample_draw(lg, keys, pos, 0,
                                                           ex)]
-        unif = sample_uniform(keys, pos, 1)
+        # the verify step's fused launch, with and without exclusions
+        fused = [verify_draws(lg, keys, pos), verify_draws(lg, keys, pos,
+                                                           ex)]
         torch.cuda.synchronize()
         want = [sample_draw_plain(lg, keys, pos, 0),
                 sample_draw_plain(lg, keys, pos, 0, ex)]
-        uwant = sample_uniform_plain(keys, pos, 1)
+        uwant = sample_uniform_plain(keys, pos, SALT_ACCEPT)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
-        ubits = bool(torch.equal(unif.view(torch.int32),
-                                 uwant.view(torch.int32)))
+        fsame = all(torch.equal(t, w) for (t, _), w in zip(fused, want))
+        ubits = all(bool(torch.equal(u.view(torch.int32),
+                                     uwant.view(torch.int32)))
+                    for _, u in fused)
         case = {"rows": N, "tokens_identical": same,
-                "uniform_bitwise": ubits}
-        ok &= same and ubits
+                "fused_tokens_identical": fsame,
+                "fused_coin_bitwise": ubits}
+        ok &= same and fsame and ubits
         flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
         # device time: calls on copies of the logits past the L2 in one
         # CUDA graph, its replays timed; and one eager call, the
@@ -5041,23 +5071,41 @@ def phase_sampling(torch, ctx):
         copies = [lg.clone() for _ in range(_copies(lg.numel() * 4))]
         kms = _graph_ms_cold(torch, [
             (lambda c=c: sample_draw(c, keys, pos, 0)) for c in copies])
+        xms = _graph_ms_cold(torch, [
+            (lambda c=c: sample_draw(c, keys, pos, SALT_SAMPLE, ex))
+            for c in copies])
+        fms = _graph_ms_cold(torch, [
+            (lambda c=c: verify_draws(c, keys, pos, ex)) for c in copies])
         del copies
         eager = cuda_ms(torch, lambda: sample_draw(lg, keys, pos, 0), 50,
                         flush)
         pms = cuda_ms(torch, lambda: sample_draw_plain(lg, keys, pos, 0), 5,
                       flush, warmup=1)
+        fpms = cuda_ms(torch, lambda: (
+            sample_draw_plain(lg, keys, pos, SALT_SAMPLE, ex),
+            sample_uniform_plain(keys, pos, SALT_ACCEPT)), 5, flush,
+            warmup=1)
         lms = cuda_ms(torch, lambda: torch.multinomial(
             torch.softmax(lg, -1), 1), 50, flush)
-        ums = cuda_ms(torch, lambda: sample_uniform(keys, pos, 1), 50,
-                      flush)
-        upms = cuda_ms(torch, lambda: sample_uniform_plain(keys, pos, 1), 5,
-                       flush, warmup=1)
+        upms = cuda_ms(torch, lambda: sample_uniform_plain(
+            keys, pos, SALT_ACCEPT), 5, flush, warmup=1)
         del flush
         bytes_ms, _ = bound_ms(N * V * 4 + N * (16 + 4 + 4), 0, "float32")
         int_ms = N * V * ops["per_entry"] / ops["int_ops_per_s"] * 1e3
         b, by = max(bytes_ms, int_ms), ("bytes" if bytes_ms >= int_ms
                                         else "operations")
-        ub, uby = bound_ms(N * (16 + 4 + 4), 0, "float32")
+        # the coin inside the fused launch: its key row, position and coin
+        # read, written once, and three hashes a row, each counted as one
+        # entry of the draw's loop
+        ub_bytes, _ = bound_ms(N * (16 + 4 + 4), 0, "float32")
+        ub_ops = N * 3 * ops["per_entry"] / ops["int_ops_per_s"] * 1e3
+        ub, uby = max(ub_bytes, ub_ops), ("bytes" if ub_bytes >= ub_ops
+                                          else "operations")
+        fb_bytes, _ = bound_ms(N * V * 4 + N * (16 + 4 + 4 + 4 + 4), 0,
+                               "float32")
+        fb_ops = int_ms + ub_ops
+        fb, fby = max(fb_bytes, fb_ops), ("bytes" if fb_bytes >= fb_ops
+                                          else "operations")
         case.update(
             kernel_ms=kms, eager_call_ms=eager, plain_ms=pms, bound_ms=b,
             bound_by=by, bytes_bound_ms=bytes_ms, int_ops_bound_ms=int_ms,
@@ -5067,23 +5115,39 @@ def phase_sampling(torch, ctx):
             plain_launches=_plain_launches(
                 torch, lambda: sample_draw_plain(lg, keys, pos, 0),
                 f"sample_draw_plain_{N}"),
-            uniform_kernel_ms=ums, uniform_plain_ms=upms,
-            uniform_bound_ms=ub,
-            uniform_plain_launches=_plain_launches(
-                torch, lambda: sample_uniform_plain(keys, pos, 1),
+            draw_excluded_ms=xms, fused_ms=fms, fused_plain_ms=fpms,
+            fused_bound_ms=fb, fused_bound_by=fby,
+            fused_over_draw_excluded=fms / xms,
+            coin_marginal_ms=fms - xms, coin_plain_ms=upms,
+            coin_bound_ms=ub, coin_bound_by=uby,
+            coin_plain_launches=_plain_launches(
+                torch, lambda: sample_uniform_plain(keys, pos, SALT_ACCEPT),
                 f"sample_uniform_plain_{N}"))
         res["cases"].append(case)
+        shape = (f"N {N} V {V}; ms by graph replays over copies of the "
+                 f"logits past the L2")
         if N == SAMPLING_ROWS[0]:
             ctx["sample_draw"] = dict(
                 max_abs_err=0.0 if same else None, kernel_ms=kms,
                 plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms,
-                shape=f"N {N} V {V} (decode step); ms by graph replays "
-                      f"over copies of the logits past the L2",
-                dtype="float32")
+                shape=f"{shape} (decode step)", dtype="float32")
+        else:
+            ctx["verify_draws"] = dict(
+                max_abs_err=0.0 if fsame and ubits else None,
+                kernel_ms=fms, plain_ms=fpms, bound_ms=fb, bound_by=fby,
+                library_ms=None, shape=f"{shape} (verify step), with "
+                f"exclusions", dtype="float32")
+            # the coin has no launch of its own: its ms, plain_ms and
+            # bound_ms are the fused launch's (the draw and the coin), its
+            # marginal_ms that launch less the coin-free draw with
+            # exclusions, beside the bound of its three hashes a row
             ctx["sample_uniform"] = dict(
-                max_abs_err=(unif - uwant).abs().max().item(),
-                kernel_ms=ums, plain_ms=upms, bound_ms=ub, bound_by=uby,
-                library_ms=None, shape=f"N {N}", dtype="float32")
+                max_abs_err=0.0 if ubits else None, kernel_ms=fms,
+                plain_ms=fpms, bound_ms=fb, bound_by=fby, library_ms=None,
+                marginal_ms=fms - xms, marginal_bound_ms=ub,
+                shape=f"{shape} (verify step), with exclusions: the "
+                      f"fused launch (verify_draws) that computes the "
+                      f"coin", dtype="float32")
     # the distribution: 4,096 draws of one row against the numpy oracle
     n = 4096
     row = (torch.randn(V, generator=g, device="cuda") * 3)
@@ -5363,7 +5427,7 @@ def phase_engine_sampled(torch, ctx, seed):
             outs.append([out[r] for r in ids])
             if rep == 0:
                 draws = ctx["paths"][path][DRAW]["launches"]
-                unifs = ctx["paths"][path][UNIF]["launches"]
+                fused = ctx["paths"][path][VDRAW]["launches"]
                 run_res = {
                     "spec_decode_k": K, "wall_s": wall,
                     "tokens_generated": eng.tokens_generated,
@@ -5371,18 +5435,20 @@ def phase_engine_sampled(torch, ctx, seed):
                     "sampled_tokens": eng.sampled_tokens,
                     "decode_steps": eng.decode_steps,
                     "prefill_first_tokens": eng.prefill_first_tokens,
-                    "draw_launches": draws, "uniform_launches": unifs,
+                    "draw_launches": draws, "verify_draws_launches": fused,
                     "outputs_ok": _outputs_ok(ids, out, reqs, V),
                     "leak_check": "passed",
                     "kernel_counts": ctx["paths"][path]}
                 if K:
                     run_res.update(accepted=eng.spec_accepted_tokens,
                                    rejected=eng.spec_rejected_tokens)
-                # one draw a decode or verify step and one a final prefill
-                # chunk; one uniform a verify step
+                # one coin-free draw a decode step and a final prefill
+                # chunk, one fused draw and coin a verify step: together
+                # one draw a step and a final chunk, and no coin launch
                 run_res["launches_per_step_ok"] = bool(
-                    draws == eng.decode_steps + eng.prefill_first_tokens
-                    and unifs == (eng.decode_steps if K else 0))
+                    draws + fused == eng.decode_steps
+                    + eng.prefill_first_tokens
+                    and fused == (eng.decode_steps if K else 0))
             del eng
         greedy = [i for i in range(len(reqs)) if i not in params]
         run_res["greedy_lanes_identical_to_sampling_off"] = all(
@@ -7080,6 +7146,244 @@ def phase_train_telemetry(torch, ctx, seed):
         raise AssertionError("train_telemetry phase failed its checks")
 
 
+def _paddle_op_run(paddle, fn, case, args, place):
+    """The op on `place` (also the selected place, for the ops that make
+    tensors from shapes): its outputs and, for a differentiable case, the
+    gradient of its outputs weighted by seeded cotangents."""
+    paddle.set_device(place)
+    leaves = []
+
+    def build(a):
+        kind, v = a
+        if kind == "py":
+            return v
+        if kind == "L":
+            return [build(x) for x in v]
+        diff = case.grad and v.dtype == np.float32
+        t = paddle.to_tensor(np.array(v), stop_gradient=not diff,
+                             place=place)
+        if diff:
+            leaves.append(t)
+        return t
+
+    built = [build(a) for a in args]
+    if case.rand:
+        paddle.seed(7)
+    out = fn(*built, **case.kw)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    grads = []
+    if case.grad:
+        rng = np.random.RandomState(11)
+        loss = None
+        for o in outs:
+            if o.stop_gradient:
+                continue
+            cot = paddle.to_tensor(np.asarray(rng.randn(*o.shape),
+                                              np.float32), place=place)
+            term = paddle.sum(paddle.multiply(o, cot))
+            loss = term if loss is None else paddle.add(loss, term)
+        loss.backward()
+        grads = [t.grad for t in leaves]
+    return outs, grads
+
+
+def phase_paddle_api(torch, ctx, seed):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    from paddle_op_cases import (PADDLE_OP_CASES, PADDLE_OP_MODULES,
+                                 paddle_op_args)
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import GPTConfig
+    from paddle_tpu_torch.models.gpt import GPTMLP
+    from paddle_tpu_torch.ops import threefry
+
+    cfg = GPTConfig.gpt_1p3b()
+    H, I, B, S = cfg.hidden_size, cfg.intermediate_size, 4, 512
+    eps = cfg.layer_norm_epsilon
+    res = {"phase": "paddle_api", "card": nvidia_smi_line(),
+           "shape": f"LayerNorm and MLP of GPT-1.3B, hidden {H}, ffn {I}, "
+                    f"{B} x {S} tokens, f32, TF32 off"}
+    ok = True
+    paddle.set_device("gpu")
+    g = torch.Generator("cuda").manual_seed(seed + 81)
+    mlp = GPTMLP(cfg, device="cuda", dtype=torch.float32)
+    ln = torch.nn.LayerNorm(H, eps=eps, device="cuda")
+    with torch.no_grad():
+        for p in (*mlp.parameters(), *ln.parameters()):
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                    * (0.02 if p.dim() == 2 else 0.5))
+    x_np = torch.randn((B, S, H), generator=g, device="cuda")
+    cot = torch.randn((B, S, H), generator=g, device="cuda")
+
+    # the paddle API: Parameters from the same weights, paddle ops only
+    w1 = paddle.Parameter(mlp.fc1.weight.detach().t().contiguous())
+    b1 = paddle.Parameter(mlp.fc1.bias.detach().clone())
+    w2 = paddle.Parameter(mlp.fc2.weight.detach().t().contiguous())
+    b2 = paddle.Parameter(mlp.fc2.bias.detach().clone())
+    gam = paddle.Parameter(ln.weight.detach().clone())
+    bet = paddle.Parameter(ln.bias.detach().clone())
+    params = [w1, b1, w2, b2, gam, bet]
+
+    def paddle_block(x):
+        mu = paddle.mean(x, axis=-1, keepdim=True)
+        var = paddle.var(x, axis=-1, unbiased=False, keepdim=True)
+        xn = paddle.multiply(paddle.subtract(x, mu),
+                             paddle.rsqrt(paddle.add(var, eps)))
+        h = paddle.add(paddle.multiply(xn, gam), bet)
+        a = paddle.gelu(paddle.add(h @ w1, b1), approximate=True)
+        return paddle.add(a @ w2, b2)
+
+    xp = paddle.to_tensor(x_np, stop_gradient=False)
+    yp = paddle_block(xp)
+    xr = x_np.clone().requires_grad_(True)
+    yr = mlp(ln(xr))
+    res["forward_rel_err"] = _rel(yp.detach(), yr.detach())
+    res["on_card"] = yp.device.type == "cuda" and all(
+        p.device.type == "cuda" for p in params)
+    gp = paddle.grad(paddle.sum(paddle.multiply(yp, cot)), [xp, *params])
+    gr = torch.autograd.grad((yr * cot).sum(),
+                             [xr, mlp.fc1.weight, mlp.fc1.bias,
+                              mlp.fc2.weight, mlp.fc2.bias, ln.weight,
+                              ln.bias])
+    gr = [gr[0], gr[1].t(), gr[2], gr[3].t(), gr[4], gr[5], gr[6]]
+    res["grad_rel_err"] = max(_rel(a.detach(), b) for a, b in zip(gp, gr))
+    ok &= (res["forward_rel_err"] <= TOL["float32"]
+           and res["grad_rel_err"] <= TOL["float32"] and res["on_card"])
+
+    # one PyLayer: tanh GELU with its derivative written out
+    class GeluTanh(paddle.PyLayer):
+        @staticmethod
+        def forward(pctx, z):
+            pctx.save_for_backward(z)
+            return paddle.gelu(z, approximate=True)
+
+        @staticmethod
+        def backward(pctx, dy):
+            (z,) = pctx.saved_tensor()
+            c = math.sqrt(2.0 / math.pi)
+            u = paddle.multiply(c, paddle.add(z, paddle.multiply(
+                0.044715, paddle.pow(z, 3.0))))
+            t = paddle.tanh(u)
+            du = paddle.multiply(c, paddle.add(1.0, paddle.multiply(
+                3 * 0.044715, paddle.square(z))))
+            d = paddle.add(paddle.multiply(0.5, paddle.add(1.0, t)),
+                           paddle.multiply(paddle.multiply(0.5, z),
+                                           paddle.multiply(
+                                               paddle.subtract(
+                                                   1.0, paddle.square(t)),
+                                               du)))
+            return paddle.multiply(dy, d)
+
+    z = paddle.to_tensor(x_np[0, :64] * 2, stop_gradient=False)
+    (gl,) = paddle.grad(paddle.sum(paddle.multiply(GeluTanh.apply(z),
+                                                   cot[0, :64])), [z])
+    zr = (x_np[0, :64] * 2).requires_grad_(True)
+    (gref,) = torch.autograd.grad(
+        (torch.nn.functional.gelu(zr, approximate="tanh")
+         * cot[0, :64]).sum(), [zr])
+    res["pylayer_grad_rel_err"] = _rel(gl.detach(), gref)
+    ok &= res["pylayer_grad_rel_err"] <= TOL["float32"]
+
+    # time: the MLP block's forward and backward, paddle ops and modules
+    def step_paddle():
+        y = paddle_block(xp)
+        paddle.grad(paddle.sum(paddle.multiply(y, cot)), [xp, *params])
+
+    def step_modules():
+        y = mlp(ln(xr))
+        torch.autograd.grad((y * cot).sum(), [xr, *mlp.parameters(),
+                                              *ln.parameters()])
+
+    res["block_fwd_bwd_ms"] = cuda_ms(torch, step_paddle, 10)
+    res["block_fwd_bwd_modules_ms"] = cuda_ms(torch, step_modules, 10)
+
+    # the subclass's host time an op: 2,000 adds enqueued, no sync
+    a_p, b_p = paddle.to_tensor(x_np[0, 0]), paddle.to_tensor(x_np[0, 1])
+    a_t, b_t = x_np[0, 0].clone(), x_np[0, 1].clone()
+
+    def host_us(fn, n=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    res["host_us_per_op"] = {
+        "Tensor + Tensor": host_us(lambda: a_p + b_p),
+        "torch.Tensor + torch.Tensor": host_us(lambda: a_t + b_t),
+        "paddle.add (Tensor)": host_us(lambda: paddle.add(a_p, b_p)),
+        "torch.add (plain)": host_us(lambda: torch.add(a_t, b_t))}
+    res["subclass_host_us_over_plain"] = (
+        res["host_us_per_op"]["Tensor + Tensor"]
+        - res["host_us_per_op"]["torch.Tensor + torch.Tensor"])
+
+    # every op of the six modules on the card against the CPU
+    mods = {m: getattr(paddle.ops, m) for m in PADDLE_OP_MODULES}
+    names = sorted({n for m in mods.values() for n in m.__all__})
+    failed, off_card, errors, t0 = [], [], {}, time.perf_counter()
+    for name in names:
+        mod = next(m for m in mods.values() if name in m.__all__)
+        fn, case = getattr(mod, name), PADDLE_OP_CASES[name]
+        args = paddle_op_args(name)
+        try:
+            couts, cgrads = _paddle_op_run(paddle, fn, case, args, "gpu")
+            houts, hgrads = _paddle_op_run(paddle, fn, case, args, "cpu")
+        except Exception as e:       # recorded as a failure of the op
+            errors[name] = f"{type(e).__name__}: {e}"[:300]
+            failed.append(name)
+            continue
+        pairs = list(zip(couts, houts)) + list(zip(cgrads, hgrads))
+        if len(couts) != len(houts) or len(cgrads) != len(hgrads):
+            failed.append(name)
+            continue
+        for k, (c, h) in enumerate(pairs):
+            if not isinstance(c, torch.Tensor):
+                if bool(c) != bool(h):
+                    failed.append(name)
+                continue
+            if c.device.type != "cuda":
+                off_card.append(name)
+            c = c.detach().cpu()
+            h = h.detach()
+            if c.dtype != h.dtype or c.shape != h.shape:
+                failed.append(name)
+            elif case.check == "shape":
+                continue
+            elif not (c.dtype.is_floating_point or c.dtype.is_complex):
+                if not torch.equal(c, h):
+                    failed.append(name)
+            else:
+                scale = h[torch.isfinite(h)].abs().max().item() if \
+                    torch.isfinite(h).any() else 1.0
+                tol = 1e-6 if case.rand and k < len(couts) else max(
+                    case.tol, 1e-5) * max(scale, 1e-30)
+                if not torch.allclose(c, h, rtol=0, atol=tol,
+                                      equal_nan=True):
+                    failed.append(name)
+    # the seeded bits on the card: jax's partitionable layout
+    key = (12345, 678)
+    res["bits_bitwise_cpu"] = torch.equal(
+        threefry.bits(key, (1 << 20,), 32, "cuda").cpu(),
+        threefry.bits(key, (1 << 20,), 32, "cpu"))
+    paddle.set_device("gpu")
+    res.update(ops_run=len(names), ops_failed=sorted(set(failed)),
+               ops_errors=errors, ops_off_card=sorted(set(off_card)),
+               ops_seconds=time.perf_counter() - t0)
+    ok &= not failed and not off_card and res["bits_bitwise_cpu"]
+    res["ok"] = bool(ok)
+    emit(res)
+    paddle.set_device("cpu")
+    del mlp, ln, params, gp, gr
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("paddle_api phase failed its checks")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7121,7 +7425,7 @@ def main(argv=None):
                                                  grad_unscale)
     from paddle_tpu_torch.ops.int8_linear import int8_linear
     from paddle_tpu_torch.ops.lora import batched_lora
-    from paddle_tpu_torch.ops.sampling import sample_draw, sample_uniform
+    from paddle_tpu_torch.ops.sampling import sample_draw, verify_draws
     from paddle_tpu_torch.ops.optimizer_update import (optimizer_norms,
                                                        optimizer_update)
     from paddle_tpu_torch.ops.paged_decode import (
@@ -7141,7 +7445,7 @@ def main(argv=None):
                         conv1x1_bwd, conv3x3_dw, sdpa_forward,
                         sdpa_backward, optimizer_update, optimizer_norms,
                         grad_merge, grad_finish, grad_unscale, sample_draw,
-                        sample_uniform, int8_linear, batched_lora)}
+                        verify_draws, int8_linear, batched_lora)}
     failed = []
     for name in phases:
         t0 = time.perf_counter()
@@ -7236,8 +7540,10 @@ def main(argv=None):
                 phase_engine_observed(torch, ctx, SEED)
             elif name == "fleet":
                 phase_fleet(torch, ctx, SEED)
-            else:
+            elif name == "train_telemetry":
                 phase_train_telemetry(torch, ctx, SEED)
+            else:
+                phase_paddle_api(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,
@@ -7315,6 +7621,8 @@ def main(argv=None):
             # dequantize that XLA fuses into the JAX engine's steps
             (DRAW, DRAW, "paddle_tpu_torch/csrc/sampling.cu",
              "paddle_tpu/ops/sampling.py:107"),
+            (VDRAW, VDRAW, "paddle_tpu_torch/csrc/sampling.cu",
+             "paddle_tpu/ops/sampling.py:143"),
             (UNIF, UNIF, "paddle_tpu_torch/csrc/sampling.cu",
              "paddle_tpu/ops/sampling.py:119"),
             (W8, W8, "paddle_tpu_torch/csrc/int8_linear.cu",
@@ -7327,22 +7635,28 @@ def main(argv=None):
         # launches: the first run of the main path that must take this
         # kernel (serving before training, bf16 before f32); every run's
         # count beside it
+        # the coin has no launch of its own: it counts the fused launch
+        # that computes it
+        counted = VDRAW if name == UNIF else name
         own = [p for p, ks in PATH_KERNEL.items()
-               if name in ks and p in ctx["paths"]]
+               if counted in ks and p in ctx["paths"]]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": (ctx["paths"][own[0]][name]["launches"] if own
+            "launches": (ctx["paths"][own[0]][counted]["launches"] if own
                          else None),
+            "launched_as": counted,
             "launches_in": own[0] if own else None,
-            "launches_by_run": {p: c[name]["launches"]
+            "launches_by_run": {p: c[counted]["launches"]
                                 for p, c in ctx["paths"].items()},
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("kernel_ms"),
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"),
             "library_ms": m.get("library_ms"), "shape": m.get("shape"),
             "dtype": m.get("dtype"),
-            "design": DESIGN.get(key, "fp32 FMA")})
+            "design": DESIGN.get(key, "fp32 FMA"),
+            **{k: m[k] for k in ("marginal_ms", "marginal_bound_ms")
+               if k in m}})
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)
         return 1

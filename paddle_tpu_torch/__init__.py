@@ -58,10 +58,59 @@ Ported so far:
   Prometheus exposition and server, request tracing, the flight recorder,
   `TrainingTelemetry`) and the profiler's host half (`profiler`); the
   engine's metrics, tracing and flight recorder, its dispatch-ahead async
-  core (`async_core=True`), and `TrainStep(telemetry=)`.
+  core (`async_core=True`), and `TrainStep(telemetry=)`;
+- the paddle API that user code is written against (`core`, `autograd`,
+  `ops.creation`, `ops.math`, `ops.manipulation`, `ops.reduction`,
+  `ops.activation`, `ops.random_ops`): `Tensor` (a `torch.Tensor`
+  subclass) and `Parameter`, `to_tensor`, `stop_gradient`, `.backward()`,
+  `grad`, `PyLayer`, `seed` (jax's key chain and bits), `set_device`
+  ('gpu' or 'cpu'), and the ops of the six modules under the JAX
+  package's top-level names.
 """
 from . import amp, distributed, observability, optimizer, profiler, vision
+from . import autograd, core, ops
+from .core import (Parameter, Tensor, enable_grad, get_default_dtype,
+                   get_device, grad, no_grad, seed, set_default_dtype,
+                   set_device)
+from .core.pylayer import PyLayer
+from .core.random import get_rng_state, set_rng_state
 from .device import resolve_device
+from .ops.activation import (  # noqa: F401
+    celu, elu, gelu, glu, gumbel_softmax, hardshrink, hardsigmoid,
+    hardswish, hardtanh, leaky_relu, log_sigmoid, log_softmax, maxout, mish,
+    prelu, relu, relu6, rrelu, selu, sigmoid, silu, softmax, softplus,
+    softshrink, softsign, swish, tanhshrink, thresholded_relu)
+from .ops.creation import (  # noqa: F401
+    arange, complex, diag, diagflat, empty, empty_like, eye, full, full_like,
+    linspace, logspace, meshgrid, one_hot, ones, ones_like, to_tensor, tril,
+    triu, vander, zeros, zeros_like)
+from .ops.manipulation import (  # noqa: F401
+    as_complex, as_real, as_strided, broadcast_to, bucketize, chunk, clone,
+    concat, crop, diff, dsplit, expand, expand_as, flatten, flip, gather,
+    gather_nd, hsplit, index_select, masked_select, moveaxis, numel,
+    put_along_axis, repeat_interleave, reshape, roll, rot90, scatter,
+    scatter_nd, searchsorted, slice, split, squeeze, stack, strided_slice,
+    swapaxes, swapdims, take, take_along_axis, tensordot, tile, transpose,
+    unbind, unsqueeze, unstack, vsplit)
+from .ops.math import (  # noqa: F401
+    abs, add, addmm, allclose, angle, atan2, cast, ceil, clip, conj,
+    copysign, cos, cosh, digamma, divide, equal, equal_all, erf, erfinv,
+    exp, expm1, float_power, floor, floor_divide, fmax, fmin, fmod, frac,
+    greater_equal, greater_than, heaviside, hypot, i0, imag, increment,
+    isclose, isfinite, isinf, isnan, lerp, less_equal, less_than, lgamma,
+    log, log1p, log2, log10, logaddexp, logical_and, logical_not, logical_or,
+    logical_xor, logit, maximum, minimum, mod, multiplex, multiply,
+    multiply_, nan_to_num, neg, nextafter, not_equal, polygamma, pow, real,
+    reciprocal, remainder, round, rsqrt, scale, sgn, sign, signbit, sin,
+    sinc, sinh, sqrt, square, subtract, tan, tanh, true_divide, trunc, where)
+from .ops.random_ops import (  # noqa: F401
+    bernoulli, multinomial, normal, poisson, rand, randint, randint_like,
+    randn, randperm, shuffle, standard_normal, uniform)
+from .ops.reduction import (  # noqa: F401
+    all, amax, amin, any, argmax, argmin, argsort, bincount, count_nonzero,
+    cumprod, cumsum, kthvalue, logsumexp, max, mean, median, min, mode,
+    nanmean, nanmedian, nansum, nonzero, prod, quantile, sort, std, sum,
+    topk, trapezoid, unique, var)
 from .inference.engine import GenerationEngine, PagedKVCache, Request
 from .jit import TrainStep
 from .models.bert import (BertConfig, BertForPretraining,
@@ -89,4 +138,29 @@ __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "TransformerEncoder", "TransformerDecoderLayer",
            "TransformerDecoder", "Transformer",
            "vision", "resnet18", "resnet34", "resnet50", "resnet101",
-           "resnet152"]
+           "resnet152", "core", "autograd", "ops", "Tensor", "Parameter",
+           "PyLayer", "grad", "no_grad", "enable_grad", "is_grad_enabled",
+           "seed", "get_rng_state", "set_rng_state", "set_device",
+           "get_device", "get_default_dtype", "set_default_dtype",
+           "in_dynamic_mode"]
+
+
+def is_grad_enabled():
+    return core.autograd.is_grad_enabled()
+
+
+def in_dynamic_mode():
+    return True
+
+
+bfloat16 = "bfloat16"
+float16 = "float16"
+float32 = "float32"
+float64 = "float64"
+int8 = "int8"
+int16 = "int16"
+int32 = "int32"
+int64 = "int64"
+uint8 = "uint8"
+bool = "bool"
+complex64 = "complex64"

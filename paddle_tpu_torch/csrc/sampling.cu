@@ -5,7 +5,8 @@
 // `_draw_categorical`, `_draw_uniform`), where XLA fuses jax.random's
 // threefry hashes, the Gumbel and the argmax into the step. Eager PyTorch
 // would run each of those as its own launch: a threefry hash is some
-// hundred elementwise ops. These two kernels are the fused draws.
+// hundred elementwise ops. These kernels are the fused draws: the decode
+// step's draw, and the verify step's draw and coin in one launch.
 // Wrappers and plain versions: paddle_tpu_torch/ops/sampling.py and
 // paddle_tpu_torch/ops/threefry.py.
 //
@@ -30,8 +31,21 @@
 //   the C partial (value, index) pairs in rank order through distributed
 //   shared memory and writes the token, and the others wait at a cluster
 //   barrier until it has read them. One launch, no atomic.
-// - sample_uniform_kernel: one thread a row: the hash of (0, 0) under the
-//   row's key, jax.random.uniform's f32 on [0, 1).
+// - sample_draw_coin_kernel: the same draw, and in the same launch the
+//   acceptance coin of the verify step, one U[0, 1) a row under the row's
+//   key with the coin's salt, fold_in(fold_in(key, pos), coin_salt): the
+//   hash of (0, 0), jax.random.uniform's f32 on [0, 1). The coin and the
+//   draw share the rows, positions and base keys and differ only in the
+//   salt (JAX computes both inside one compiled verify program), so the
+//   last thread of each row's rank 0 derives the coin's key (two hashes)
+//   while thread 0 derives the draw's, and hashes the coin after its walk
+//   of the fours, which is one four shorter than thread 0's unless the
+//   fours divide evenly over the threads: three hashes a row in a thread
+//   that would otherwise wait. (Lane 0 of warp 1, the first design, kept
+//   the first barrier one hash longer and walked the most fours: 6-7 %
+//   slower than the draw alone.) Both kernels are thin instances of one
+//   body (`draw_row<COIN>`); the decode step's draw takes the coin-free
+//   one.
 //
 // Arithmetic: uint32 adds, xors and rotations are exact; the uniform is
 // built from bits and its affine step is a correctly rounded multiply and
@@ -143,11 +157,14 @@ __device__ __forceinline__ void warp_best(float& best, int& arg) {
 }
 
 // grid (C N), cluster (C, 1, 1): rank c of row n's cluster walks the share
-// [c vs, (c + 1) vs) of the vocabulary
-__global__ void __launch_bounds__(kThreads) sample_draw_kernel(
+// [c vs, (c + 1) vs) of the vocabulary; with COIN, rank 0 also writes the
+// row's coin u[row] under `coin_salt`
+template <bool COIN>
+__device__ __forceinline__ void draw_row(
     const float* __restrict__ logits, const long long* __restrict__ key_rows,
     const int* __restrict__ positions, const int* __restrict__ exclude,
-    int salt, int V, int vs, int* __restrict__ out) {
+    int salt, int V, int vs, int* __restrict__ out, int coin_salt,
+    float* __restrict__ u) {
   const uint32_t rank = hopper::cluster_ctarank();
   const uint32_t ranks = hopper::cluster_nctarank();
   const int row = blockIdx.x / ranks;
@@ -162,6 +179,13 @@ __global__ void __launch_bounds__(kThreads) sample_draw_kernel(
     s_key[0] = k1;
     s_key[1] = k2;
   }
+  // the coin's key beside the draw's (two hashes each, so the barrier
+  // below waits no longer), in the last thread, which walks no more fours
+  // than thread 0
+  constexpr int kCoin = kThreads - 1;
+  uint32_t c1 = 0u, c2 = 0u;
+  if (COIN && rank == 0 && tid == kCoin)
+    row_key(key_rows, positions, coin_salt, row, c1, c2);
   const int skip = exclude ? exclude[row] : -1;
   const float* lg = logits + static_cast<long long>(row) * V;
   const int v0 = min(V, static_cast<int>(rank) * vs);
@@ -203,6 +227,14 @@ __global__ void __launch_bounds__(kThreads) sample_draw_kernel(
     take(a[1], b[1], v + 1, l.y, skip, best, arg);
     take(a[2], b[2], v + 2, l.z, skip, best, arg);
     take(a[3], b[3], v + 3, l.w, skip, best, arg);
+  }
+  // the coin's hash of (0, 0): where the fours do not divide evenly over
+  // the threads, the last one walks one four fewer than thread 0 and
+  // hashes the coin while thread 0 finishes its walk
+  if (COIN && rank == 0 && tid == kCoin) {
+    uint32_t a = 0u, b = 0u;
+    threefry2x32(c1, c2, a, b);
+    u[row] = uniform_of(a ^ b, 0.0f);
   }
   // the at most three entries on each side of the fours
   if (tid < 8) {
@@ -256,17 +288,27 @@ __global__ void __launch_bounds__(kThreads) sample_draw_kernel(
   hopper::cluster_wait();
 }
 
-__global__ void sample_uniform_kernel(const long long* __restrict__ key_rows,
-                                      const int* __restrict__ positions,
-                                      int salt, int N,
-                                      float* __restrict__ out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  uint32_t k1, k2;
-  row_key(key_rows, positions, salt, row, k1, k2);
-  uint32_t a = 0u, b = 0u;
-  threefry2x32(k1, k2, a, b);
-  out[row] = uniform_of(a ^ b, 0.0f);
+__global__ void __launch_bounds__(kThreads) sample_draw_kernel(
+    const float* __restrict__ logits, const long long* __restrict__ key_rows,
+    const int* __restrict__ positions, const int* __restrict__ exclude,
+    int salt, int V, int vs, int* __restrict__ out) {
+  draw_row<false>(logits, key_rows, positions, exclude, salt, V, vs, out, 0,
+                  nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads) sample_draw_coin_kernel(
+    const float* __restrict__ logits, const long long* __restrict__ key_rows,
+    const int* __restrict__ positions, const int* __restrict__ exclude,
+    int salt, int V, int vs, int* __restrict__ out, int coin_salt,
+    float* __restrict__ u) {
+  draw_row<true>(logits, key_rows, positions, exclude, salt, V, vs, out,
+                 coin_salt, u);
+}
+
+// each rank's share of the vocabulary, whole fours but the last
+int share_of(int V, int cluster) {
+  const int vs = ((V + cluster - 1) / cluster + 3) / 4 * 4;
+  return vs;
 }
 
 }  // namespace
@@ -284,27 +326,34 @@ int sample_draw(const void* logits, const void* key_rows,
   if (cluster < 1 || cluster > hopper::kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  // each rank's share of the vocabulary, whole fours but the last
-  const int vs = ((V + cluster - 1) / cluster + 3) / 4 * 4;
   const cudaError_t e = hopper::launch_split(
       sample_draw_kernel, dim3(cluster * N), kThreads, 0, cluster,
       static_cast<cudaStream_t>(stream), static_cast<const float*>(logits),
       static_cast<const long long*>(key_rows),
       static_cast<const int*>(positions), static_cast<const int*>(exclude),
-      salt, V, vs, static_cast<int*>(out));
+      salt, V, share_of(V, cluster), static_cast<int*>(out));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One U[0, 1) a row under the same keys; out fp32 [N].
-int sample_uniform(const void* key_rows, const void* positions, int salt,
-                   int N, void* out, void* stream) {
-  const int threads = 128;
-  sample_uniform_kernel<<<(N + threads - 1) / threads, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+// The verify step's two draws in one launch: sample_draw's token a row
+// under `salt` into out, and the row's coin, one U[0, 1) under the same
+// key row and position with `coin_salt`, into u (fp32 [N]).
+int sample_draw_coin(const void* logits, const void* key_rows,
+                     const void* positions, const void* exclude, int salt,
+                     int coin_salt, int N, int V, int cluster, void* out,
+                     void* u, void* stream) {
+  if (cluster < 1 || cluster > hopper::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  const cudaError_t e = hopper::launch_split(
+      sample_draw_coin_kernel, dim3(cluster * N), kThreads, 0, cluster,
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(logits),
       static_cast<const long long*>(key_rows),
-      static_cast<const int*>(positions), salt, N,
-      static_cast<float*>(out));
+      static_cast<const int*>(positions), static_cast<const int*>(exclude),
+      salt, V, share_of(V, cluster), static_cast<int*>(out), coin_salt,
+      static_cast<float*>(u));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

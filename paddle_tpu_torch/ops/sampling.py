@@ -20,16 +20,21 @@ test `u < min(1, p(x) / q(x))` is `u < p(x)` and the residual resample
 emitted stream keeps the target distribution. Greedy lanes test argmax
 equality and pin every choice to the argmax.
 
-The two draws are kernels. `sample_draw` is one categorical draw a row by
-the Gumbel-max trick, `argmax(gumbel(key, V) + logits)` (jax.random's
+The draws are kernels. `sample_draw` is one categorical draw a row by the
+Gumbel-max trick, `argmax(gumbel(key, V) + logits)` (jax.random's
 `categorical`), with an optional excluded index a row (the residual
-resample's -inf, without a second `[N, V]` tensor); `sample_uniform` is one
-U[0, 1) a row (the acceptance coin). On a CPU tensor each runs its plain
-version (`sample_draw_plain`, `sample_uniform_plain`: the same arithmetic in
-torch ops over `ops.threefry`); on a CUDA tensor it launches its kernel or
-raises. Each counts `.launches` and `.plain_calls`. The draw's kernel
-splits each row over the CTAs of a thread-block cluster; `_draw_cluster`
-is its launch plan, here so that the CPU tests can pin it.
+resample's -inf, without a second `[N, V]` tensor). `verify_draws` is the
+verify step's two draws in one launch: that draw, and the acceptance coin,
+one U[0, 1) a row under the same key rows and positions with the coin's
+salt (JAX computes both inside one compiled verify program). On a CPU
+tensor each runs its plain versions (`sample_draw_plain`,
+`sample_uniform_plain`: the same arithmetic in torch ops over
+`ops.threefry`); on a CUDA tensor it launches its kernel or raises. Each
+counts `.launches`; `.plain_calls` counts the plain versions' calls on any
+device (`sample_draw_plain`'s under `sample_draw`, `sample_uniform_plain`'s
+under `verify_draws`). The draw's kernel splits each row over the CTAs of
+a thread-block cluster; `_draw_cluster` is its launch plan, here so that
+the CPU tests can pin it.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ from ..utils import cpp_extension
 from .threefry import fold_in, gumbel, uniform
 
 __all__ = ["masked_logits", "sample_token", "verify_window", "SALT_SAMPLE",
-           "SALT_ACCEPT", "sample_draw", "sample_uniform",
+           "SALT_ACCEPT", "sample_draw", "verify_draws",
            "sample_draw_plain", "sample_uniform_plain"]
 
 #: draw-purpose salts folded into the per-(slot, position) key: the
@@ -71,11 +76,11 @@ def _draw_cluster(N):
 def _kernels():
     lib = cpp_extension.load("sampling")
     P, I = ctypes.c_void_p, ctypes.c_int
-    draw, unif = lib.sample_draw, lib.sample_uniform
+    draw, coin = lib.sample_draw, lib.sample_draw_coin
     draw.argtypes = [P, P, P, P, I, I, I, I, P, P]
-    unif.argtypes = [P, P, I, I, P, P]
-    draw.restype = unif.restype = I
-    return draw, unif
+    coin.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P]
+    draw.restype = coin.restype = I
+    return draw, coin
 
 
 def _row_keys(key_rows, positions, salt):
@@ -100,8 +105,8 @@ def sample_draw_plain(lg, key_rows, positions, salt, exclude=None):
 
 def sample_uniform_plain(key_rows, positions, salt):
     """One U[0, 1) a row, jax.random.uniform under the row's key: `[N]`
-    f32."""
-    sample_uniform.plain_calls += 1
+    f32. The plain version of the coin in `verify_draws`' launch."""
+    verify_draws.plain_calls += 1
     return uniform(_row_keys(key_rows, positions, salt), 1)[:, 0]
 
 
@@ -116,6 +121,18 @@ def _check_rows(name, key_rows, positions, N, dev):
                          f"[{N}] on {dev}")
 
 
+def _check_draw(name, lg, key_rows, positions, exclude):
+    if lg.dtype != torch.float32 or lg.dim() != 2 or not lg.is_contiguous():
+        raise ValueError(f"{name}: logits must be contiguous float32 [N, V]")
+    N = lg.shape[0]
+    _check_rows(name, key_rows, positions, N, lg.device)
+    if exclude is not None and (
+            exclude.dtype != torch.int32 or tuple(exclude.shape) != (N,)
+            or not exclude.is_contiguous() or exclude.device != lg.device):
+        raise ValueError(f"{name}: exclude must be contiguous int32 "
+                         f"[{N}] on {lg.device}")
+
+
 def _launched(err, what):
     if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -128,16 +145,8 @@ def sample_draw(lg, key_rows, positions, salt, exclude=None):
     int64 `[N, 2]` key rows, int32 `[N]` positions and exclusions."""
     if lg.device.type == "cpu":
         return sample_draw_plain(lg, key_rows, positions, salt, exclude)
-    if lg.dtype != torch.float32 or lg.dim() != 2 or not lg.is_contiguous():
-        raise ValueError("sample_draw: logits must be contiguous float32 "
-                         "[N, V]")
+    _check_draw("sample_draw", lg, key_rows, positions, exclude)
     N, V = lg.shape
-    _check_rows("sample_draw", key_rows, positions, N, lg.device)
-    if exclude is not None and (
-            exclude.dtype != torch.int32 or tuple(exclude.shape) != (N,)
-            or not exclude.is_contiguous() or exclude.device != lg.device):
-        raise ValueError(f"sample_draw: exclude must be contiguous int32 "
-                         f"[{N}] on {lg.device}")
     out = torch.empty(N, dtype=torch.int32, device=lg.device)
     sample_draw.launches += 1
     _launched(_kernels()[0](
@@ -149,24 +158,32 @@ def sample_draw(lg, key_rows, positions, salt, exclude=None):
     return out
 
 
-def sample_uniform(key_rows, positions, salt):
-    """`sample_uniform_plain` on a CPU tensor; on a CUDA one, one launch
-    of `sample_uniform_kernel` (a thread a row), or a ValueError."""
-    if key_rows.device.type == "cpu":
-        return sample_uniform_plain(key_rows, positions, salt)
-    N = key_rows.shape[0]
-    _check_rows("sample_uniform", key_rows, positions, N, key_rows.device)
-    out = torch.empty(N, dtype=torch.float32, device=key_rows.device)
-    sample_uniform.launches += 1
+def verify_draws(lg, key_rows, positions, exclude=None):
+    """The verify step's two draws a row: `(sample_draw_plain(lg, key_rows,
+    positions, SALT_SAMPLE, exclude), sample_uniform_plain(key_rows,
+    positions, SALT_ACCEPT))` on a CPU tensor; on a CUDA one, one launch of
+    `sample_draw_coin_kernel` (the draw's cluster plan, rank 0 of each row
+    also writing its coin), or a ValueError for what `sample_draw` does not
+    take. Returns (`[N]` int32 tokens, `[N]` f32 coins)."""
+    if lg.device.type == "cpu":
+        return (sample_draw_plain(lg, key_rows, positions, SALT_SAMPLE,
+                                  exclude),
+                sample_uniform_plain(key_rows, positions, SALT_ACCEPT))
+    _check_draw("verify_draws", lg, key_rows, positions, exclude)
+    N, V = lg.shape
+    out = torch.empty(N, dtype=torch.int32, device=lg.device)
+    u = torch.empty(N, dtype=torch.float32, device=lg.device)
+    verify_draws.launches += 1
     _launched(_kernels()[1](
-        key_rows.data_ptr(), positions.data_ptr(), int(salt), N,
-        out.data_ptr(),
-        torch.cuda.current_stream(key_rows.device).cuda_stream),
-        "sample_uniform")
-    return out
+        lg.data_ptr(), key_rows.data_ptr(), positions.data_ptr(),
+        None if exclude is None else exclude.data_ptr(), SALT_SAMPLE,
+        SALT_ACCEPT, N, V, _draw_cluster(N), out.data_ptr(), u.data_ptr(),
+        torch.cuda.current_stream(lg.device).cuda_stream),
+        "verify_draws")
+    return out, u
 
 
-for _w in (sample_draw, sample_uniform):
+for _w in (sample_draw, verify_draws):
     _w.launches = 0
     _w.plain_calls = 0
 del _w
@@ -246,10 +263,10 @@ def verify_window(logits, tokens, draft_lens, temps, top_ks, top_ps,
     has_draft = col[None] < draft_lens[:, None]
     p_d = torch.gather(probs, 2, d_next.long()[..., None])[..., 0]
     wpos = (positions[:, None] + col[None]).reshape(-1)
-    keys = rep(key_rows)
-    u = sample_uniform(keys, wpos, SALT_ACCEPT).view(B, W)
-    greedy = (temps <= 0.0)[:, None]
-    accepts = torch.where(greedy, d_next == am, u < p_d) & has_draft
     exclude = torch.where(has_draft, d_next, -1).reshape(-1)
-    drawn = sample_draw(lg, keys, wpos, SALT_SAMPLE, exclude).view(B, W)
+    drawn, u = verify_draws(lg, rep(key_rows), wpos, exclude)
+    greedy = (temps <= 0.0)[:, None]
+    accepts = torch.where(greedy, d_next == am, u.view(B, W) < p_d) \
+        & has_draft
+    drawn = drawn.view(B, W)
     return torch.where(greedy, am, drawn), accepts

@@ -223,7 +223,7 @@ def test_profile_family_of_attention_backward_kernels(lib, kernel):
     ("shortseq_fwd_mma_kernel", "shortseq_fwd_kernel"),
     ("causal_fwd_mma_kernel", "causal_fwd_kernel"),
     ("sample_draw_kernel", "sampling_kernels"),
-    ("sample_uniform_kernel", "sampling_kernels"),
+    ("sample_draw_coin_kernel", "sampling_kernels"),
     ("w8_gemv_mma_kernel", "int8_linear_kernel"),
     ("w8_linear_mma_kernel", "int8_linear_kernel"),
     ("w8_linear_fma_kernel", "int8_linear_kernel"),
@@ -381,7 +381,7 @@ def test_sampler_and_int8_weight_libraries():
     assert set(KERNEL_SOURCES["sampling"]) == {
         "sampling.cu", "hopper.cuh", "attention_mma.cuh"}
     assert _globals("sampling") == {"sample_draw_kernel",
-                                    "sample_uniform_kernel"}
+                                    "sample_draw_coin_kernel"}
     assert "sampling" in CHIP_SMOKE.FMA_LIBS
     assert _included("int8_linear") == {"attention_mma.cuh", "hopper.cuh"}
     assert set(KERNEL_SOURCES["int8_linear"]) == {

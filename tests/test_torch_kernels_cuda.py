@@ -56,7 +56,8 @@ walk) against their plain versions over dtype x stride x shape, the training
 op's gradients through the kernels against autograd through the plain
 composition, and a ResNet-50 train step on the card against the CPU.
 
-The sampler's draws (`sample_draw`, `sample_uniform`): tokens and uniforms
+The sampler's draws (`sample_draw`, and `verify_draws`, the draw and the
+acceptance coin in one launch): tokens and coins
 bit for bit the plain versions' on the card, at the serving shapes and at
 odd N and V tails (N 1 to 4,096, V not a multiple of four times the
 draw's cluster, rows off 16-byte boundaries), with and without excluded
@@ -124,9 +125,10 @@ from paddle_tpu_torch.ops.paged_verify import (paged_verify_attention,
 from paddle_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
 from paddle_tpu_torch.ops.lora import (LORA_MAX_RANK, batched_lora,
                                        batched_lora_plain)
-from paddle_tpu_torch.ops.sampling import (sample_draw, sample_draw_plain,
-                                           sample_uniform,
-                                           sample_uniform_plain)
+from paddle_tpu_torch.ops.sampling import (SALT_ACCEPT, SALT_SAMPLE,
+                                           sample_draw, sample_draw_plain,
+                                           sample_uniform_plain,
+                                           verify_draws)
 from paddle_tpu_torch.quantization import quantize_absmax
 
 pytestmark = pytest.mark.cuda
@@ -2291,14 +2293,29 @@ def test_sample_draw_ties_take_the_lowest_index(card):
     assert torch.equal(got, sample_draw_plain(lg, keys, pos, 0))
 
 
-@pytest.mark.parametrize("N", [1, 8, 40, 129])
-@pytest.mark.parametrize("salt", [0, 1])
-def test_sample_uniform_kernel_bitwise_plain(card, N, salt):
-    _, keys, pos = _draw_case(card, N, 1)
-    got = sample_uniform(keys, pos, salt)
-    want = sample_uniform_plain(keys, pos, salt)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert ((got >= 0) & (got < 1)).all()
+@pytest.mark.parametrize("N,V", [(1, 1), (8, 50304), (40, 50304),
+                                 (129, 1003), (3, 5)])
+@pytest.mark.parametrize("exclude", [False, True])
+def test_verify_draws_kernel_bitwise_plain(card, N, V, exclude):
+    """The fused launch: its tokens are the coin-free draw's and the plain
+    draw's, its coins bitwise the plain uniform's under the accept salt,
+    one launch and no plain call."""
+    lg, keys, pos = _draw_case(card, N, V)
+    ex = None
+    if exclude:
+        ex = lg.argmax(-1).to(torch.int32)
+        ex[::2] = -1
+    launches, plain = verify_draws.launches, verify_draws.plain_calls
+    draws = sample_draw.launches
+    tok, u = verify_draws(lg, keys, pos, ex)
+    torch.cuda.synchronize()
+    assert (verify_draws.launches - launches, verify_draws.plain_calls
+            - plain, sample_draw.launches - draws) == (1, 0, 0)
+    want = sample_uniform_plain(keys, pos, SALT_ACCEPT)
+    assert torch.equal(u.view(torch.int32), want.view(torch.int32))
+    assert ((u >= 0) & (u < 1)).all()
+    assert torch.equal(tok, sample_draw_plain(lg, keys, pos, SALT_SAMPLE, ex))
+    assert torch.equal(tok, sample_draw(lg, keys, pos, SALT_SAMPLE, ex))
 
 
 def test_sampling_kernels_refuse_what_they_do_not_take(card):
@@ -2312,13 +2329,18 @@ def test_sampling_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="exclude"):
         sample_draw(lg, keys, pos, 0, torch.zeros(4, device="cuda"))
     with pytest.raises(ValueError):
-        sample_uniform(keys, pos.long(), 1)
+        verify_draws(lg, keys, pos.long())
+    with pytest.raises(ValueError, match="exclude"):
+        verify_draws(lg, keys, pos, torch.zeros(4, device="cuda"))
+    with pytest.raises(ValueError):
+        verify_draws(lg.bfloat16(), keys, pos)
 
 
 def test_sampled_engine_on_the_card_matches_the_cpu(card):
     """A tiny f32 GPT with greedy and sampled lanes, K=0 and K=2: the card's
-    engine (the draw kernels, one draw a decode step, a draw and a uniform
-    a verify step, no plain call) emits the CPU engine's streams."""
+    engine (the draw kernels: one coin-free draw a decode step and a final
+    prefill chunk, one fused draw and coin a verify step, no plain call)
+    emits the CPU engine's streams."""
     from paddle_tpu_torch import GenerationEngine, GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.inference import SamplingParams
 
@@ -2341,15 +2363,15 @@ def test_sampled_engine_on_the_card_matches_the_cpu(card):
 
     for K in (0, 2):
         counts = [(w.launches, w.plain_calls)
-                  for w in (sample_draw, sample_uniform)]
+                  for w in (sample_draw, verify_draws)]
         got, eng = serve(model, "cuda", K)
         torch.cuda.synchronize()
-        (d0, dp), (u0, up) = counts
+        (d0, dp), (v0, vp) = counts
         assert sample_draw.plain_calls == dp
-        assert sample_uniform.plain_calls == up
+        assert verify_draws.plain_calls == vp
         assert sample_draw.launches - d0 == \
-            eng.decode_steps + eng.prefill_first_tokens
-        assert sample_uniform.launches - u0 == (eng.decode_steps if K else 0)
+            (0 if K else eng.decode_steps) + eng.prefill_first_tokens
+        assert verify_draws.launches - v0 == (eng.decode_steps if K else 0)
         assert got == serve(host, "cpu", K)[0]
 
 
@@ -2850,7 +2872,7 @@ def test_async_core_makes_no_host_sync_after_its_dispatch(card, kw):
         before = (paged_decode_attention.launches,
                   paged_decode_attention_int8.launches,
                   paged_verify_attention.launches, batched_lora.launches,
-                  sample_draw.launches)
+                  sample_draw.launches, verify_draws.launches)
         ids = []
         for i, p in enumerate(reqs):
             extra = {}
@@ -2865,7 +2887,7 @@ def test_async_core_makes_no_host_sync_after_its_dispatch(card, kw):
         after = (paged_decode_attention.launches,
                  paged_decode_attention_int8.launches,
                  paged_verify_attention.launches, batched_lora.launches,
-                 sample_draw.launches)
+                 sample_draw.launches, verify_draws.launches)
         return ([out[i] for i in ids], [a - b for a, b in zip(after, before)],
                 eng)
 

@@ -203,6 +203,47 @@ def test_verify_window_identical_to_jax(V):
     assert ta.any() and not ta.all()
 
 
+@pytest.mark.parametrize("exclude", [False, True])
+def test_verify_draws_plain_path_is_the_two_plain_draws(exclude):
+    """The verify step's fused entry on a CPU tensor: its tokens are
+    `sample_draw_plain`'s under the sample salt and its coins bitwise
+    `sample_uniform_plain`'s under the accept salt, on the same key rows
+    and positions; no launch, and one call of each plain version, counted
+    where the plain versions count them (`sample_draw_plain` under
+    `sample_draw`, `sample_uniform_plain` under `verify_draws`).
+    `verify_window` takes it once a window, and no other draw."""
+    N, V = 10, 333
+    rng = np.random.RandomState(8)
+    lg = torch.from_numpy((3 * rng.randn(N, V)).astype(np.float32))
+    keys = torch.stack([key_row(s) for s in range(N)])
+    pos = torch.from_numpy(rng.randint(0, 2048, N).astype(np.int32))
+    ex = torch.where(torch.arange(N) % 2 == 0, lg.argmax(-1), -1) \
+        .to(torch.int32) if exclude else None
+    counts = (tsops.sample_draw.plain_calls, tsops.verify_draws.plain_calls,
+              tsops.sample_draw.launches, tsops.verify_draws.launches)
+    tok, u = tsops.verify_draws(lg, keys, pos, ex)
+    assert (tsops.sample_draw.plain_calls - counts[0],
+            tsops.verify_draws.plain_calls - counts[1],
+            tsops.sample_draw.launches - counts[2],
+            tsops.verify_draws.launches - counts[3]) == (1, 1, 0, 0)
+    assert tok.dtype == torch.int32 and u.dtype == torch.float32
+    assert torch.equal(tok, tsops.sample_draw_plain(
+        lg, keys, pos, tsops.SALT_SAMPLE, ex))
+    assert torch.equal(u.view(torch.int32), tsops.sample_uniform_plain(
+        keys, pos, tsops.SALT_ACCEPT).view(torch.int32))
+    if exclude:
+        assert (tok[::2] != ex[::2]).all()
+    B, W = 2, 5
+    draws, fused = tsops.sample_draw.plain_calls, \
+        tsops.verify_draws.plain_calls
+    tsops.verify_window(lg[:B * W].view(B, W, V), torch.zeros(
+        (B, W), dtype=torch.int32), torch.tensor([4, 2], dtype=torch.int32),
+        torch.tensor([0.8, 0.0]), torch.tensor([0, 0], dtype=torch.int32),
+        torch.tensor([1.0, 1.0]), keys[:B].contiguous(), pos[:B])
+    assert (tsops.sample_draw.plain_calls - draws,
+            tsops.verify_draws.plain_calls - fused) == (1, 1)
+
+
 def test_verify_window_greedy_rows_reproduce_equality_contract():
     """Greedy rows: accepts is argmax equality on the drafted columns and
     choices pin the argmax chain (the port of the JAX test)."""

@@ -26,9 +26,14 @@ one JSON object: the card's name and power limit, then
   `LoraState.add` and of one direct `batched_lora` call, and the decode
   step's sums over its 96 sites;
 - the categorical draw at N 8 and 40 over V 50,304: its time by graph
-  replays over copies of the logits past the L2, one call's time by
-  graph replays after an L2 flush (a graph launch's latency in it), and
-  the host's time of one call.
+  replays over copies of the logits past the L2, with and without the
+  verify step's exclusions, one call's time by graph replays after an L2
+  flush (a graph launch's latency in it), and the host's time of one
+  call; and the verify step's two draws (the draw with exclusions and
+  the acceptance coin) timed the same way, as the checkout computes
+  them: two launches where it has `sample_uniform` (and the coin's
+  launch alone, by graph replays), the one fused launch where it has
+  `verify_draws`.
 Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -209,8 +214,14 @@ def time_lora(torch, cs):
 
 
 def time_draw(torch, cs):
+    """The draws at the decode step's and the verify step's rows: the
+    coin-free draw alone (with and without the verify step's exclusions),
+    and the verify step's two draws, a checkout's way: the draw with
+    exclusions and then the separate coin launch (`sample_uniform`) where
+    the checkout has it, the one fused launch (`verify_draws`) where it has
+    that."""
     from paddle_tpu_torch.inference.sampling import key_row
-    from paddle_tpu_torch.ops.sampling import masked_logits, sample_draw
+    from paddle_tpu_torch.ops import sampling as sops
 
     V = 50304
     g = torch.Generator("cuda").manual_seed(2)
@@ -218,22 +229,42 @@ def time_draw(torch, cs):
     cases = []
     for N in cs.SAMPLING_ROWS:
         raw = torch.randn((N, V), generator=g, device="cuda") * 3
-        lg = masked_logits(raw, torch.full((N,), 0.8, device="cuda"),
-                           torch.full((N,), 50, dtype=torch.int32,
-                                      device="cuda"),
-                           torch.full((N,), 0.9, device="cuda"))
+        lg = sops.masked_logits(raw, torch.full((N,), 0.8, device="cuda"),
+                                torch.full((N,), 50, dtype=torch.int32,
+                                           device="cuda"),
+                                torch.full((N,), 0.9, device="cuda"))
         keys = torch.stack([key_row(cs.SEED + i) for i in range(N)]).cuda()
         pos = torch.randint(0, 2048, (N,), generator=g, device="cuda",
                             dtype=torch.int32)
+        ex = torch.where(torch.arange(N, device="cuda") % 2 == 0,
+                         lg.argmax(-1), -1).to(torch.int32)
         copies = [lg.clone() for _ in range(cs._copies(lg.numel() * 4))]
         ms = cs._graph_ms_cold(torch, [
-            (lambda c=c: sample_draw(c, keys, pos, 0)) for c in copies])
+            (lambda c=c: sops.sample_draw(c, keys, pos, 0)) for c in copies])
+        xms = cs._graph_ms_cold(torch, [
+            (lambda c=c: sops.sample_draw(c, keys, pos, 0, ex))
+            for c in copies])
+        case = {"N": N, "V": V, "ms": ms, "excluded_ms": xms}
+        if hasattr(sops, "verify_draws"):
+            pair = "fused"
+            step = lambda c: sops.verify_draws(c, keys, pos, ex)
+        else:
+            pair = "draw_then_coin"
+            step = lambda c: (sops.sample_draw(c, keys, pos, 0, ex),
+                              sops.sample_uniform(keys, pos, 1))
+            # the coin's own launch alone (it reads no logits)
+            case["coin_ms"] = cs._graph_ms(
+                torch, lambda: sops.sample_uniform(keys, pos, 1))
+        case["verify_pair"] = pair
+        case["verify_pair_ms"] = cs._graph_ms_cold(torch, [
+            (lambda c=c: step(c)) for c in copies])
         del copies
-        call = lambda: sample_draw(lg, keys, pos, 0)
-        cases.append({"N": N, "V": V, "ms": ms,
-                      "one_call_flushed_ms": cs._graph_call_ms(torch, call,
-                                                               flush),
-                      "host_us": _host_us(torch, call)})
+        call = lambda: sops.sample_draw(lg, keys, pos, 0)
+        case.update(one_call_flushed_ms=cs._graph_call_ms(torch, call,
+                                                          flush),
+                    host_us=_host_us(torch, call),
+                    verify_pair_host_us=_host_us(torch, lambda: step(lg)))
+        cases.append(case)
     return {"cases": cases}
 
 
