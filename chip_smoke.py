@@ -24,6 +24,7 @@ engine_lora
     python3 chip_smoke.py --phases build,int8_linear,engine_wint8
     python3 chip_smoke.py --phases build,sdpa_bwd,transformer_train,\
 transformer_train_parity
+    python3 chip_smoke.py --phases build,paddle_api,paddle_program
 
 Phases, each printing one JSON line:
 
@@ -440,16 +441,38 @@ Phases, each printing one JSON line:
    and `paddle.grad` against `torch.autograd.grad` within TOL, a PyLayer's
    hand-written backward against autograd; then every op of the six
    ported modules (`tools/paddle_op_cases.py`, the cases the CPU tests
-   hold to the JAX package) on the card against the same op on the CPU,
-   gradients too: f32 within 1e-5 of the largest magnitude, the random
-   ops' float transforms within 1e-6, integers, bools and the seeded bits
-   and integer draws exactly, every result on the card; the ms of the MLP's
-   forward and backward both ways and the subclass's host microseconds an
-   op against a plain tensor's.
+   hold to the JAX package: the six of PR 24, `linalg` and `nn_ops`) on
+   the card against the same op on the CPU, gradients too: f32 within
+   1e-5 of the largest magnitude, the random ops' float transforms within
+   1e-6, integers, bools and the seeded bits and integer draws exactly,
+   the decompositions by reconstruction, orthogonality and their values,
+   every result on the card; the ms of the MLP's forward and backward
+   both ways and the subclass's host microseconds an op against a plain
+   tensor's.
+48. paddle_program: GPT-1.3B written in the paddle API
+   (`tools/paddle_gpt_program.py`: `F.embedding`, `F.layer_norm`,
+   `F.linear`, the `reshape` and `transpose` methods,
+   `F.scaled_dot_product_attention(is_causal=True)`, `F.gelu`,
+   `paddle.matmul`, `F.cross_entropy`) on a seeded `GPTForCausalLM`'s
+   weights (`paddle_tpu_state`), 4 x 1024 tokens. f32, TF32 off: the loss
+   within 1e-5 of the module's, every gradient within PROGRAM_GRAD_TOL,
+   `OpStats.counts` the program's pinned counts at 24 layers, B1 and B2 24
+   launches each, no plain call. Under `auto_cast(dtype="bfloat16")` O1:
+   the pinned counts with the casts, `linear` and `flash_attention` bf16,
+   `layer_norm` and `softmax_ce` fp32, B1 and B2 24 each, finite grads,
+   the loss within PROGRAM_BF16_LOSS_TOL of f32's. Not gated: fwd+bwd ms
+   of the program and the module at f32 and bf16, peak memory, the host
+   µs of an enqueued `paddle.add` and `F.linear`. With
+   FLAGS_check_nan_inf=1 an inf in layer 5's fc1 weight raises naming op
+   `linear` and counts one `nan_inf_events_total`; a layer's bf16 state
+   through `paddle.save` / `paddle.load` bitwise; the share of a bf16
+   `F.linear` equal to one rounding of its fp32 product and bias, and of a
+   bf16 GEMM unchanged by cuBLAS' reduced-precision split-K setting.
 
 Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36, 37,
-39 to 42 and 45 are the main path, in sixty-one runs: the bf16 engine, the
-bf16 generate(), the f32 engine, the f32 generate(), the bf16 train steps,
+39 to 42, 45 and 48 are the main path, in sixty-three runs: the bf16
+engine, the bf16 generate(), the f32 engine, the f32 generate(), the bf16
+train steps,
 the f32 train steps, the bf16 speculative engine, the three f32 engines of
 spec_parity, the int8 engine, the int8 speculative engine, BERT's
 mask-free and padded bf16 train steps, its padded eval forwards and its
@@ -464,8 +487,9 @@ bf16 and int8 pools, the f32 int8-weight engine, the bucketed engines with
 bf16 and int8 pools, the f32 bucketed engine, the mixed-tenant and the
 all-null-adapter LoRA engines, the f32 LoRA engines, the f32
 tensor-parallel engines on the card, and engine_tp's eight engines (three
-configurations at mp 1, 2 and 4, the adapter one at mp 1 and 2), and
-fleet's eleven runs (phase 45). Kernel
+configurations at mp 1, 2 and 4, the adapter one at mp 1 and 2),
+fleet's eleven runs (phase 45) and the paddle program at f32 and bf16
+(phase 48). Kernel
 counts are set to 0 just before each run and read just after it; each run
 must launch every kernel it takes (PATH_KERNEL: the engine the paged
 decode kernel, generate() the causal forward, training the causal forward
@@ -485,8 +509,9 @@ decode step and a final prefill chunk, and at K=4 the fused draw and
 acceptance coin once a verify step; an int8-weight engine the int8-weight linear four
 times a layer a step; a bucketed engine the causal forward 24 times an
 admission; a LoRA engine the batched LoRA kernel four times a layer a
-step; at mp N each of these N times, once a shard, the draws once) and
-call no plain version.
+step; at mp N each of these N times, once a shard, the draws once; the
+paddle program B1 and B2 24 times a forward and backward) and call no
+plain version.
 `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
 one GPT train step, of one BERT train step, of one bf16 ResNet-50
@@ -527,7 +552,7 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "bert_lamb", "sampling", "int8_linear", "engine_sampled",
           "engine_wint8", "lora", "engine_bucketed", "engine_lora",
           "tp_parity", "engine_tp", "engine_async", "engine_observed",
-          "fleet", "train_telemetry", "paddle_api")
+          "fleet", "train_telemetry", "paddle_api", "paddle_program")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2 ** 20            # the H100's L2 cache
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -775,7 +800,9 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                **{f"fleet_{name}_bf16": ks
                   for name, ks in FLEET_PATHS.items()},
                "train_telemetry_off_bf16": (FWD, BWD, OPT, MERGE, FINISH),
-               "train_telemetry_bf16": (FWD, BWD, OPT, MERGE, FINISH)}
+               "train_telemetry_bf16": (FWD, BWD, OPT, MERGE, FINISH),
+               "paddle_program_f32": (FWD, BWD),
+               "paddle_program_bf16": (FWD, BWD)}
 # peak device memory (GB) of the bf16 train phases with the per-parameter
 # optimizer loop, before the update became one pass (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W); each phase fails more than
@@ -7191,7 +7218,7 @@ def phase_paddle_api(torch, ctx, seed):
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tools"))
     from paddle_op_cases import (PADDLE_OP_CASES, PADDLE_OP_MODULES,
-                                 paddle_op_args)
+                                 decomposition_error, paddle_op_args)
 
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import GPTConfig
@@ -7337,6 +7364,18 @@ def phase_paddle_api(torch, ctx, seed):
             errors[name] = f"{type(e).__name__}: {e}"[:300]
             failed.append(name)
             continue
+        if case.check == "decomp":
+            # vectors' signs are the solver's choice: reconstruction,
+            # orthogonality and the unique values
+            cnp = [c.detach().cpu().numpy() for c in couts]
+            hnp = [h.detach().numpy() for h in houts]
+            uniq = {"svd": 1, "eigh": 0}.get(name)
+            if (decomposition_error(name, cnp, args[0][1]) >= 1e-5
+                    or any(c.device.type != "cuda" for c in couts)
+                    or (uniq is not None and not np.allclose(
+                        cnp[uniq], hnp[uniq], rtol=1e-5, atol=1e-5))):
+                failed.append(name)
+            continue
         pairs = list(zip(couts, houts)) + list(zip(cgrads, hgrads))
         if len(couts) != len(houts) or len(cgrads) != len(hgrads):
             failed.append(name)
@@ -7382,6 +7421,268 @@ def phase_paddle_api(torch, ctx, seed):
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("paddle_api phase failed its checks")
+
+
+# the paddle program on the card (phase paddle_program), each bar stated
+# before its first run: every f32 gradient within 1e-4 of the largest
+# magnitude of GPTForCausalLM's (the program's GEMMs take the [in, out]
+# weights, the module's [out, in]: cuBLAS may pick other kernels, so the
+# sums round in other orders); the O1 bf16 loss within 2e-2 of the f32
+# loss (about 0.2 % of ln 50304)
+PROGRAM_GRAD_TOL = 1e-4
+PROGRAM_BF16_LOSS_TOL = 2e-2
+
+
+def _host_us(torch, fn, n=2000, reps=3):
+    """Host microseconds a call of `fn` enqueued with no sync: the median
+    and the spread (min, max) of `reps` runs of `n` calls."""
+    runs = []
+    for _ in range(reps):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return {"us": float(np.median(runs)), "min": min(runs), "max": max(runs)}
+
+
+def phase_paddle_program(torch, ctx, seed):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import tempfile
+
+    import paddle_gpt_program as prog
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import GPTConfig, GPTForCausalLM, paddle_tpu_state
+    from paddle_tpu_torch.core import dtype as pdtypes
+    from paddle_tpu_torch.models.convert import _linear_weights
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops import dispatch
+
+    F = paddle.nn.functional
+    cfg = GPTConfig.gpt_1p3b()
+    L, heads, B, S = cfg.num_layers, cfg.num_heads, 4, 1024
+    res = {"phase": "paddle_program", "card": nvidia_smi_line(),
+           "shape": f"GPT-1.3B in the paddle API: {L} layers, hidden "
+                    f"{cfg.hidden_size}, {heads} heads, ffn "
+                    f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, "
+                    f"{B} x {S} tokens; f32 TF32 off, and auto_cast O1 "
+                    "bf16"}
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    ok = True
+    paddle.set_device("gpu")
+    g = torch.Generator("cuda").manual_seed(seed + 91)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           generator=g)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device="cuda")
+    state = paddle_tpu_state(model)
+    params = {k: paddle.to_tensor(v, stop_gradient=False)
+              for k, v in state.items()}
+    del state
+    pids, plabels = paddle.to_tensor(ids), paddle.to_tensor(labels)
+
+    def program():
+        return prog.gpt_loss(paddle, params, pids, plabels, heads)
+
+    def clear():
+        for p in params.values():
+            p.clear_grad()
+
+    # (a) f32: the module's loss and grads, then the program's
+    model.zero_grad(set_to_none=True)
+    ref_loss = model(ids, labels=labels)
+    ref_loss.backward()
+    linear = _linear_weights(model)
+    named = dict(model.named_parameters())
+    dispatch.OpStats.enabled, dispatch.OpStats.counts = True, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def run_f32():
+        loss = program()
+        loss.backward()
+        return loss
+
+    loss32 = _counted(torch, ctx, "paddle_program_f32", run_f32,
+                      exact={FWD: L, BWD: L})
+    dispatch.OpStats.enabled = False
+    res["f32_counts_ok"] = dispatch.OpStats.counts == prog.expected_counts(L)
+    res["f32_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["f32_loss"] = loss32.item()
+    res["f32_module_loss"] = ref_loss.item()
+    res["f32_loss_rel_err"] = abs(res["f32_loss"] - res["f32_module_loss"]) \
+        / abs(res["f32_module_loss"])
+    worst, worst_name = 0.0, None
+    for k, p in params.items():
+        gref = named[k].grad
+        gref = gref.t() if k in linear else gref
+        e = _rel(p.grad.detach(), gref)
+        if e > worst:
+            worst, worst_name = e, k
+    res.update(f32_grad_rel_err=worst, f32_grad_worst=worst_name,
+               f32_grad_tol=PROGRAM_GRAD_TOL)
+    ok &= (res["f32_counts_ok"] and res["f32_loss_rel_err"] <= 1e-5
+           and worst <= PROGRAM_GRAD_TOL)
+    model.zero_grad(set_to_none=True)
+    clear()
+
+    # (b) auto_cast O1 bf16: counts, dtypes, finite grads, the loss
+    seen = {}
+    finish = dispatch._finish
+
+    def logged(name, out, inputs, paddle_out):
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        seen.setdefault(name, set()).update(
+            pdtypes.canonical_name(o.dtype) for o in outs)
+        return finish(name, out, inputs, paddle_out)
+
+    def run_bf16():
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            loss = program()
+        loss.backward()
+        return loss
+
+    dispatch._finish = logged
+    dispatch.OpStats.enabled, dispatch.OpStats.counts = True, {}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        loss16 = _counted(torch, ctx, "paddle_program_bf16", run_bf16,
+                          exact={FWD: L, BWD: L})
+    finally:
+        dispatch._finish = finish
+        dispatch.OpStats.enabled = False
+    res["bf16_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["bf16_counts_ok"] = dispatch.OpStats.counts == prog.expected_counts(
+        L, o1=True)
+    res["bf16_dtypes"] = {k: sorted(v) for k, v in seen.items()}
+    res["bf16_loss"] = loss16.item()
+    res["bf16_loss_minus_f32"] = res["bf16_loss"] - res["f32_loss"]
+    res["bf16_grads_finite"] = all(
+        bool(torch.isfinite(p.grad).all()) for p in params.values())
+    ok &= (res["bf16_counts_ok"] and seen.get("linear") == {"bfloat16"}
+           and seen.get("flash_attention") == {"bfloat16"}
+           and seen.get("layer_norm") == {"float32"}
+           and seen.get("softmax_ce") == {"float32"}
+           and str(loss16.dtype) == "torch.float32"
+           and res["bf16_grads_finite"]
+           and abs(res["bf16_loss_minus_f32"]) <= PROGRAM_BF16_LOSS_TOL)
+    clear()
+
+    # (c) times, peak memory and host costs, not gated
+    def step_module():
+        model.zero_grad(set_to_none=True)
+        model(ids, labels=labels).backward()
+
+    def step_program():
+        clear()
+        program().backward()
+
+    def step_program_bf16():
+        clear()
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            loss = program()
+        loss.backward()
+
+    res["fwd_bwd_ms"] = {
+        "program_f32": cuda_ms(torch, step_program, 3, warmup=1),
+        "module_f32": cuda_ms(torch, step_module, 3, warmup=1),
+        "program_bf16_o1": cuda_ms(torch, step_program_bf16, 3, warmup=1)}
+    model.zero_grad(set_to_none=True)
+    model.to(torch.bfloat16)
+    res["fwd_bwd_ms"]["module_bf16"] = cuda_ms(torch, step_module, 3,
+                                               warmup=1)
+    del model, named
+    clear()
+    torch.cuda.empty_cache()
+    xa = paddle.to_tensor(torch.randn(2048, device="cuda", generator=g))
+    xb = paddle.to_tensor(torch.randn(2048, device="cuda", generator=g))
+    xl = paddle.to_tensor(torch.randn(4, 2048, device="cuda", generator=g))
+    wl = paddle.to_tensor(torch.randn(2048, 2048, device="cuda",
+                                      generator=g) * 0.02)
+    bl = paddle.to_tensor(torch.randn(2048, device="cuda", generator=g))
+    pa, pb = xa.as_subclass(torch.Tensor), xb.as_subclass(torch.Tensor)
+    host = {"paddle.add": lambda: paddle.add(xa, xb),
+            "Tensor + Tensor": lambda: xa + xb,
+            "F.linear": lambda: F.linear(xl, wl, bl),
+            "torch.add (plain)": lambda: torch.add(pa, pb)}
+    res["host_us"] = {k: _host_us(torch, fn) for k, fn in host.items()}
+
+    # (d) FLAGS_check_nan_inf: an inf in layer 5's fc1 weight
+    counter = get_registry().counter(
+        "nan_inf_events_total",
+        "NaN/Inf detections (FLAGS_check_nan_inf); each event may cover "
+        "several tensors of one op/step.")
+    before = counter.value
+    w = params["gpt.blocks.5.mlp.fc1.weight"]
+    with torch.no_grad():
+        keep = w[0, 0].item()
+        w.as_subclass(torch.Tensor)[0, 0] = float("inf")
+    paddle.set_flags({"FLAGS_check_nan_inf": 1})
+    try:
+        with paddle.no_grad():
+            program()
+        res["nan_inf_error"] = None
+    except FloatingPointError as e:
+        res["nan_inf_error"] = str(e)
+    finally:
+        paddle.set_flags({"FLAGS_check_nan_inf": 0})
+        with torch.no_grad():
+            w.as_subclass(torch.Tensor)[0, 0] = keep
+    res["nan_inf_events_total"] = counter.value
+    ok &= (res["nan_inf_error"] is not None
+           and "op 'linear'" in res["nan_inf_error"]
+           and counter.value - before == 1)
+    res["host_us_flag_off"] = {k: _host_us(torch, host[k])
+                               for k in ("paddle.add", "F.linear")}
+
+    # (e) one layer's bf16 state through paddle.save / paddle.load
+    layer0 = {k: paddle.cast(p.detach(), "bfloat16")
+              for k, p in params.items() if k.startswith("gpt.blocks.0.")}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "layer0.pdparams")
+        paddle.save(layer0, path)
+        back = paddle.load(path)
+    res["save_load_bf16_bitwise"] = set(back) == set(layer0) and all(
+        back[k].dtype == torch.bfloat16 and torch.equal(
+            back[k].cpu().view(torch.int16),
+            layer0[k].cpu().view(torch.int16)) for k in layer0)
+    ok &= res["save_load_bf16_bitwise"]
+
+    # linear's rounding in bf16 on the card: addmm against fp32 products
+    # plus the bias rounded once; and the split-K reduction setting
+    xb16 = paddle.cast(paddle.to_tensor(torch.randn(
+        4096, 2048, device="cuda", generator=g)), "bfloat16")
+    wb16 = paddle.cast(params["gpt.blocks.0.mlp.fc1.weight"].detach(),
+                       "bfloat16")
+    bb16 = paddle.cast(params["gpt.blocks.0.mlp.fc1.bias"].detach(),
+                       "bfloat16")
+    got = F.linear(xb16, wb16, bb16).as_subclass(torch.Tensor)
+    once = (xb16.as_subclass(torch.Tensor).float()
+            @ wb16.as_subclass(torch.Tensor).float()
+            + bb16.as_subclass(torch.Tensor).float()).to(torch.bfloat16)
+    res["linear_bf16_equal_share"] = (got == once).float().mean().item()
+    a16, w16 = xb16.as_subclass(torch.Tensor), wb16.as_subclass(torch.Tensor)
+    off = a16 @ w16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    on = a16 @ w16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        reduced
+    res["bf16_reduced_reduction_equal_share"] = (off == on).float().mean() \
+        .item()
+    res["ok"] = bool(ok)
+    emit(res)
+    del params, layer0, back
+    paddle.set_device("cpu")
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("paddle_program phase failed its checks")
 
 
 def main(argv=None):
@@ -7542,8 +7843,10 @@ def main(argv=None):
                 phase_fleet(torch, ctx, SEED)
             elif name == "train_telemetry":
                 phase_train_telemetry(torch, ctx, SEED)
-            else:
+            elif name == "paddle_api":
                 phase_paddle_api(torch, ctx, SEED)
+            else:
+                phase_paddle_program(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,

@@ -103,6 +103,11 @@ from .ops.math import (  # noqa: F401
     multiply_, nan_to_num, neg, nextafter, not_equal, polygamma, pow, real,
     reciprocal, remainder, round, rsqrt, scale, sgn, sign, signbit, sin,
     sinc, sinh, sqrt, square, subtract, tan, tanh, true_divide, trunc, where)
+from .ops.linalg import (  # noqa: F401
+    baddbmm, bmm, corrcoef, cov, cross, det, diagonal, dist, dot, eigh,
+    einsum, histogram, inner, inverse, kron, matmul, mm, mv, norm, outer,
+    pinv, qr, renorm, slogdet, solve, svd, t, trace)
+from .ops import tensor_methods  # noqa: F401  (installs the methods)
 from .ops.random_ops import (  # noqa: F401
     bernoulli, multinomial, normal, poisson, rand, randint, randint_like,
     randn, randperm, shuffle, standard_normal, uniform)
@@ -111,6 +116,8 @@ from .ops.reduction import (  # noqa: F401
     cumprod, cumsum, kthvalue, logsumexp, max, mean, median, min, mode,
     nanmean, nanmedian, nansum, nonzero, prod, quantile, sort, std, sum,
     topk, trapezoid, unique, var)
+from . import framework, linalg  # noqa: E402
+from .framework import get_flags, load, save, set_flags  # noqa: E402
 from .inference.engine import GenerationEngine, PagedKVCache, Request
 from .jit import TrainStep
 from .models.bert import (BertConfig, BertForPretraining,
@@ -118,6 +125,7 @@ from .models.bert import (BertConfig, BertForPretraining,
                           ErnieModel)
 from .models.convert import load_paddle_tpu_state, paddle_tpu_state
 from .models.gpt import GPTConfig, GPTForCausalLM
+from . import nn  # noqa: E402
 from .nn import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                  MultiHeadAttention, Transformer, TransformerDecoder,
                  TransformerDecoderLayer, TransformerEncoder,
@@ -142,7 +150,8 @@ __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "PyLayer", "grad", "no_grad", "enable_grad", "is_grad_enabled",
            "seed", "get_rng_state", "set_rng_state", "set_device",
            "get_device", "get_default_dtype", "set_default_dtype",
-           "in_dynamic_mode"]
+           "in_dynamic_mode", "framework", "linalg", "save", "load",
+           "set_flags", "get_flags", "nn"]
 
 
 def is_grad_enabled():

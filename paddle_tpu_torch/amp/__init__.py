@@ -1,7 +1,9 @@
-"""Mixed precision of the port: `GradScaler` (counterpart of
-paddle_tpu/amp/grad_scaler.py). `auto_cast` is not ported: the JAX package
-casts at op dispatch by the names of `ops/ops.yaml`, and the port's layers
-call torch directly."""
+"""Mixed precision of the port (counterpart of paddle_tpu/amp):
+`auto_cast` (casts at op dispatch by the op schema's lists) and
+`GradScaler`."""
+from .auto_cast import BLACK_LIST, WHITE_LIST, amp_state, auto_cast
 from .grad_scaler import GradScaler
 
-__all__ = ["GradScaler"]
+autocast = auto_cast
+
+__all__ = ["auto_cast", "autocast", "GradScaler", "WHITE_LIST", "BLACK_LIST"]

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import plain
+
 __all__ = ["GradScaler"]
 
 
@@ -56,8 +58,8 @@ class GradScaler:
         found = []
         for p in optimizer._parameter_list:
             if p.grad is not None:
-                g = p.grad * torch.tensor(inv, dtype=p.grad.dtype,
-                                          device=p.grad.device)
+                g = plain(p.grad)
+                g = g * torch.tensor(inv, dtype=g.dtype, device=g.device)
                 found.append(~torch.isfinite(g).all())
                 p.grad = g
         self._found_inf = bool(torch.stack(found).any()) if found else False

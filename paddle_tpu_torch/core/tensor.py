@@ -9,8 +9,8 @@ adds what JAX's has and torch lacks or spells differently:
   recording through it);
 - `numpy()` and `__array__` that detach (bf16 comes back as float32:
   numpy has no bfloat16);
-- `place`, `astype`, `clear_grad` and `clear_gradient` (the gradient
-  becomes None), `set_value`, `name`, `persistable`;
+- `place`, `clear_grad` and `clear_gradient` (the gradient becomes
+  None), `set_value`, `name`, `persistable`;
 - `backward(grad_tensor, retain_graph)` seeding ones of a non-scalar
   tensor's shape, as JAX's does;
 - `register_hook(hook)` with JAX's timing: on a leaf the hook sees the
@@ -19,13 +19,19 @@ adds what JAX's has and torch lacks or spells differently:
   non-leaf, its cotangent. The hook receives a `Tensor` and returns one or
   None; the handle has `.remove()`.
 
-Any torch op on a `Tensor` returns a `Tensor` (`__torch_function__`), so
-the paddle ops and torch's own mix. `Parameter` is also an
-`nn.Parameter`, so modules register it; ops on it return `Tensor`s.
-Nothing is set on `torch.Tensor` itself: the models, the engine and
-`TrainStep` keep plain tensors and pay no per-op Python hook.
+The paddle methods and dunders (`transpose(perm)`, `astype`, `x + y`
+through `paddle.add`, ...) are installed by `ops.tensor_methods`. Any
+torch function on a `Tensor` runs on plain views of it and returns a
+`Tensor` (`__torch_function__`), so torch's own code never meets paddle's
+methods. `Parameter` is also an `nn.Parameter`, so modules register it;
+ops on it return `Tensor`s. Nothing is set on `torch.Tensor` itself: the
+models, the engine and `TrainStep` keep plain tensors, pay no per-op
+Python hook, and take plain views of what they are given (`plain`,
+`plain_entry`).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -34,7 +40,8 @@ from torch.overrides import get_default_nowrap_functions
 from . import dtype as dtypes
 from .device import Place, current_device
 
-__all__ = ["Tensor", "Parameter", "to_torch_tensor", "as_tensor"]
+__all__ = ["Tensor", "Parameter", "to_torch_tensor", "plain", "to_paddle",
+           "plain_entry"]
 
 _NOWRAP = get_default_nowrap_functions()
 
@@ -61,6 +68,55 @@ def _convert(ret, args=(), kwargs=None):
     if isinstance(ret, (tuple, list)):
         return type(ret)(_convert(r, args, kwargs) for r in ret)
     return ret
+
+
+# functions of a tensor's own state (in-place ops, attribute reads and
+# writes, autograd metadata, `torch.autograd.grad`'s inputs): they run on
+# the object itself, not on a plain alias, whose own grad_fn, grad and
+# view state are the alias's
+_OWN_STATE = {"__setitem__", "retain_grad", "register_hook", "backward",
+              "register_post_accumulate_grad_hook", "__reduce_ex__",
+              "__deepcopy__", "__setstate__", "share_memory_", "__get__",
+              "__set__", "__delete__", "_is_view", "grad"}
+
+
+_MODE = {}                      # func -> 0 plain views, 1 own state, 2 nowrap
+
+
+def _mode(func):
+    try:
+        return _MODE[func]
+    except (KeyError, TypeError):
+        pass
+    n = getattr(func, "__name__", "")
+    mode = 2 if func in _NOWRAP else int(
+        (n.endswith("_") and not n.endswith("__")) or n.startswith("__i")
+        or n in _OWN_STATE)
+    try:
+        _MODE[func] = mode
+    except TypeError:
+        pass
+    return mode
+
+
+def _plain_tree(x, views):
+    if isinstance(x, Tensor):
+        v = x.as_subclass(torch.Tensor)
+        views[id(v)] = x
+        return v
+    if isinstance(x, (list, tuple)) and any(isinstance(a, Tensor)
+                                            for a in x):
+        return type(x)(_plain_tree(a, views) for a in x)
+    return x
+
+
+def _back(ret, views, args, kwargs):
+    if isinstance(ret, torch.Tensor) and id(ret) in views:
+        return views[id(ret)]
+    if isinstance(ret, (tuple, list)) and not hasattr(ret, "_fields") \
+            and type(ret) in (tuple, list):
+        return type(ret)(_back(r, views, args, kwargs) for r in ret)
+    return _convert(ret, args, kwargs)
 
 
 def to_torch_tensor(data, dtype=None, place=None) -> torch.Tensor:
@@ -103,10 +159,25 @@ class Tensor(torch.Tensor):
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
+        """torch's function on plain views of the `Tensor` operands, its
+        new tensors retyped to `Tensor`: torch's own Python code inside
+        `func` then meets torch's methods, never paddle's. Functions that
+        change their tensor's own state (in-place ops, hooks) run on the
+        object itself; an operand that comes back is returned as itself."""
         kwargs = kwargs or {}
+        mode = _mode(func)
+        if mode:
+            with torch._C.DisableTorchFunctionSubclass():
+                ret = func(*args, **kwargs)
+            return ret if mode == 2 or not isinstance(
+                ret, (torch.Tensor, tuple, list)) else _convert(
+                    ret, args, kwargs)
+        views = {}
+        pargs = tuple(_plain_tree(a, views) for a in args)
+        pkw = {k: _plain_tree(v, views) for k, v in kwargs.items()}
         with torch._C.DisableTorchFunctionSubclass():
-            ret = func(*args, **kwargs)
-        return ret if func in _NOWRAP else _convert(ret, args, kwargs)
+            ret = func(*pargs, **pkw)
+        return _back(ret, views, pargs, pkw)
 
     # -- autograd ----------------------------------------------------------
     @property
@@ -152,11 +223,6 @@ class Tensor(torch.Tensor):
     def place(self) -> Place:
         return Place.of(self.device)
 
-    def astype(self, dtype) -> "Tensor":
-        from ..ops.math import cast
-
-        return cast(self, dtype)
-
     def set_value(self, value):
         with torch.no_grad():
             src = value if isinstance(value, torch.Tensor) else \
@@ -164,6 +230,13 @@ class Tensor(torch.Tensor):
             self.copy_(src.to(device=self.device, dtype=self.dtype)
                        .reshape(self.shape))
         return self
+
+    def __repr__(self, *, tensor_contents=None):
+        body = repr(self.detach().as_subclass(torch.Tensor))
+        body = "Tensor" + body[len("tensor"):]
+        if self.requires_grad:
+            body = body[:-1] + ", stop_gradient=False)"
+        return body
 
     # -- host interop --------------------------------------------------------
     def numpy(self) -> np.ndarray:
@@ -208,21 +281,77 @@ class Parameter(Tensor, torch.nn.Parameter):
         return memo[id(self)]
 
 
-def as_tensor(x, ref=None):
-    """Coerce an op's operand to a `Tensor` (JAX's `dispatch.as_tensor`):
-    a tensor passes (a plain one as a `Tensor` view); a Python scalar
-    takes the dtype of `ref` where `ref` is inexact, or where both are
-    integers (paddle's scalar promotion: `x * 2.0` keeps x's dtype), and
-    `ref`'s device; anything else becomes a new tensor."""
+def _has_paddle(x):
     if isinstance(x, Tensor):
-        return x
-    if isinstance(x, torch.Tensor):
+        return True
+    if isinstance(x, (list, tuple)):
+        return any(_has_paddle(a) for a in x)
+    if isinstance(x, dict):
+        return any(_has_paddle(a) for a in x.values())
+    return False
+
+
+def plain(x):
+    """`x` with every `Tensor` in it (lists, tuples and dicts walked) as a
+    plain torch alias on the same autograd graph: what the port's own
+    modules take, so paddle's methods never reach their code."""
+    if isinstance(x, Tensor):
+        return x.as_subclass(torch.Tensor)
+    if isinstance(x, (list, tuple)) and _has_paddle(x):
+        return type(x)(plain(a) for a in x)
+    if isinstance(x, dict) and _has_paddle(x):
+        return {k: plain(v) for k, v in x.items()}
+    return x
+
+
+def to_paddle(x):
+    """`x` with its plain torch tensors retyped to `Tensor`."""
+    if type(x) is torch.Tensor:
         return x.as_subclass(Tensor)
-    if ref is not None and isinstance(x, (bool, int, float)):
-        if ref.dtype.is_floating_point or ref.dtype.is_complex or (
-                isinstance(x, int) and not isinstance(x, bool)
-                and dtypes.is_integer(ref.dtype)):
-            return torch.full((), x, dtype=ref.dtype,
-                              device=ref.device).as_subclass(Tensor)
-        return Tensor(x, place=ref.device)
-    return Tensor(x)
+    if isinstance(x, tuple) and not hasattr(x, "_fields"):
+        return tuple(to_paddle(a) for a in x)
+    if isinstance(x, list):
+        return [to_paddle(a) for a in x]
+    if isinstance(x, dict):
+        return {k: to_paddle(v) for k, v in x.items()}
+    return x
+
+
+def _paddle_slots(module):
+    """(submodule, table, name, tensor) of every `Tensor` parameter or
+    buffer of `module`."""
+    return [(m, table, n, t) for m in module.modules()
+            for table in (m._parameters, m._buffers)
+            for n, t in table.items() if isinstance(t, Tensor)]
+
+
+def plain_entry(what=None):
+    """Decorate a port module's `forward` to run on plain tensors: the
+    arguments as plain aliases, and for the call's duration each `Tensor`
+    parameter or buffer of the module swapped for its plain alias (the
+    gradients still reach the `Parameter`s). The outputs are `Tensor`s when
+    a `Tensor` was given. `what` names a module that calls torch directly:
+    it raises under an enabled `amp.auto_cast` (one check a call)."""
+    def deco(forward):
+        @functools.wraps(forward)
+        def wrapper(self, *args, **kwargs):
+            if what is not None:
+                from ..amp.auto_cast import refuse_under_auto_cast
+
+                refuse_under_auto_cast(what)
+            given = _has_paddle(args) or _has_paddle(kwargs)
+            slots = _paddle_slots(self)
+            if not given and not slots:
+                return forward(self, *args, **kwargs)
+            for m, table, n, t in slots:
+                table[n] = t.as_subclass(torch.Tensor)
+            try:
+                out = forward(self, *plain(args), **plain(kwargs))
+            finally:
+                for m, table, n, t in slots:
+                    table[n] = t
+            return to_paddle(out) if given else out
+
+        return wrapper
+
+    return deco

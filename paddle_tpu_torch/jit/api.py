@@ -40,6 +40,9 @@ import time
 import numpy as np
 import torch
 
+from ..amp.auto_cast import refuse_under_auto_cast
+from ..core.tensor import plain
+from ..framework import nan_inf
 from ..ops.grad_merge import grad_finish, grad_merge, grad_table, \
     grad_unscale
 from ..ops.optimizer_update import _layout
@@ -106,7 +109,7 @@ class TrainStep:
         self._params = [p for p in model.parameters()
                         if p.requires_grad and id(p) in opt_index]
         self._acc_idx = [opt_index[id(p)] for p in self._params]
-        self._buffers = list(model.buffers())
+        self._buffers = [plain(b) for b in model.buffers()]
         self._accum_count = 0
         self._grad_bufs = None
         self._window_flags = None
@@ -137,19 +140,27 @@ class TrainStep:
         out = self.model(*inputs)
         loss = out if self.loss_fn is None else self.loss_fn(out, label)
         (loss if scale is None else loss.float() * scale).backward()
-        return loss.detach(), out
+        self._last_loss = loss.detach()
+        return self._last_loss, out
 
     def _grads(self):
         """The traced set's grads in its parameters' layouts, a zero grad
         where the loss did not reach a parameter."""
         out = []
         for p in self._params:
-            g = p.grad
+            g, p = plain(p.grad), plain(p)
             if g is None:
                 g = torch.zeros_like(p)
             elif _layout(g) != _layout(p):
                 g = torch.empty_like(p).copy_(g)
             out.append(g)
+        if nan_inf.check_enabled():
+            # FLAGS_check_nan_inf: the loss and every grad, by name, in
+            # one stacked isfinite reduction and one host read a step
+            nan_inf.check_named(
+                [("loss", self._last_loss)]
+                + [(f"param{i}.grad", g) for i, g in enumerate(out)],
+                "compiled train step")
         return out
 
     def _groups(self, grads):
@@ -195,6 +206,8 @@ class TrainStep:
         self.scaler.update()
 
     def __call__(self, *inputs, label=None):
+        refuse_under_auto_cast("TrainStep")
+        inputs, label = plain(inputs), plain(label)
         if self.telemetry is None:
             return self._call_inner(*inputs, label=label)
         # gradient merge: the K micro-batch calls of one optimizer step

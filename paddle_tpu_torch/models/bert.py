@@ -23,8 +23,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..core.tensor import plain_entry
 from ..device import resolve_device
-from ..ops.nn_ops import cross_entropy, dropout, scaled_dot_product_attention
+from ..ops.nn_ops import attention_with_generator as \
+    scaled_dot_product_attention
+from ..ops.nn_ops import cross_entropy
+from ..ops.nn_ops import dropout_with_generator as dropout
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertSelfAttention", "BertLayer",
            "BertPooler", "BertModel", "ErnieModel",
@@ -218,6 +222,7 @@ class BertModel(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
+    @plain_entry('BertModel')
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 position_ids=None):
         """(hidden `[B, S, H]`, pooled `[B, H]`), or hidden alone without a
@@ -288,6 +293,7 @@ class BertForSequenceClassification(nn.Module):
     def _init_head(self, generator):
         _init_linear(self.classifier, None, generator)
 
+    @plain_entry('BertForSequenceClassification')
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 labels=None):
         """Logits `[B, num_labels]`, or with `labels` `[B]` their mean
@@ -384,6 +390,7 @@ class BertForPretraining(nn.Module):
         h.layer_norm.weight.fill_(1.0)
         h.layer_norm.bias.zero_()
 
+    @plain_entry('BertForPretraining')
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 mlm_labels=None, nsp_labels=None):
         hidden, pooled = self.bert(input_ids, token_type_ids, attention_mask)

@@ -45,9 +45,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..core.tensor import plain_entry
 from ..device import on_device, resolve_device
 from ..ops.int8_linear import int8_linear
-from ..ops.nn_ops import cross_entropy, dropout, scaled_dot_product_attention
+from ..ops.nn_ops import attention_with_generator as \
+    scaled_dot_product_attention
+from ..ops.nn_ops import cross_entropy
+from ..ops.nn_ops import dropout_with_generator as dropout
 from ..ops.paged_attention import (paged_attention_step,
                                    paged_attention_step_shards,
                                    paged_prefill_chunk,
@@ -451,6 +455,7 @@ class GPTModel(nn.Module):
         self.ln_f = nn.LayerNorm(config.hidden_size,
                                  eps=config.layer_norm_epsilon, **kw)
 
+    @plain_entry('GPTModel')
     def forward(self, input_ids, position_ids=None):
         """Hidden states `[B, S, H]`; dropout after the embedding and in
         every block in training mode."""
@@ -679,6 +684,7 @@ class GPTForCausalLM(nn.Module):
             ln.weight.fill_(1.0)
             ln.bias.zero_()
 
+    @plain_entry('GPTForCausalLM')
     def forward(self, input_ids, labels=None):
         """Logits `[B, S, vocab]` (the tied projection), or with `labels`
         `[B, S]` the mean cross entropy of the logits against them (as

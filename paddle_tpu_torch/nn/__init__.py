@@ -1,6 +1,8 @@
 """Layers and helpers of the port outside the models: gradient clipping,
 the conv layers a ResNet is built from, BatchNorm folding, the loss layers
-and the Transformer layers."""
+and the Transformer layers; `functional`, the paddle API's
+nn.functional."""
+from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .conv import Conv2D
 from .fused import ConvBNReLU, fold_bn_into_conv, fuse_conv_bn
@@ -21,4 +23,4 @@ __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
            "MarginRankingLoss", "HingeEmbeddingLoss",
            "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
-           "TransformerDecoder", "Transformer"]
+           "TransformerDecoder", "Transformer", "functional"]

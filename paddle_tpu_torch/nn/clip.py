@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import plain
+
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm"]
 
@@ -14,7 +16,7 @@ __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
 class ClipGradBase:
     def __call__(self, params_grads):
         """[(param, grad or None)] -> the same pairs, grads clipped."""
-        grads = self._clip([g for _, g in params_grads])
+        grads = self._clip([plain(g) for _, g in params_grads])
         return [(p, g) for (p, _), g in zip(params_grads, grads)]
 
     def _clip(self, grads):

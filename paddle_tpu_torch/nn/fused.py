@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core.tensor import plain_entry
 from ..ops.conv import (fused_conv_bn_relu, fused_conv_bn_relu_train,
                         resolve_conv_backend)
 from ..ops.nn_ops import update_running_stats
@@ -89,6 +90,7 @@ class ConvBNReLU(nn.Module):
                 f"stride={self.conv._stride}, act={self._act!r}, "
                 f"backend={self.backend}")
 
+    @plain_entry('ConvBNReLU')
     def forward(self, x):
         if self.backend == "pallas" and not self._folded:
             if not self.training:

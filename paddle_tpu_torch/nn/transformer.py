@@ -33,8 +33,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..core.tensor import plain_entry
 from ..device import resolve_device
-from ..ops.nn_ops import dropout, scaled_dot_product_attention
+from ..ops.nn_ops import attention_with_generator as \
+    scaled_dot_product_attention
+from ..ops.nn_ops import dropout_with_generator as dropout
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
@@ -118,6 +121,7 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = _linear(vdim, embed_dim, bias, g, kw)
         self.out_proj = _linear(embed_dim, embed_dim, bias, g, kw)
 
+    @plain_entry('MultiHeadAttention')
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
         """`[B, S, embed_dim]` -> `[B, S, embed_dim]`; key and value default
@@ -179,6 +183,7 @@ class TransformerEncoderLayer(nn.Module):
     def _drop(self, x, p):
         return dropout(x, p, self.training, self.dropout_generator)
 
+    @plain_entry('TransformerEncoderLayer')
     def forward(self, src, src_mask=None, cache=None):
         """`[B, S, d_model]` -> `[B, S, d_model]`; `cache` is accepted and
         ignored, as in JAX."""
@@ -215,6 +220,7 @@ class TransformerEncoder(nn.Module):
         self.norm = norm
         _share_dropout_generator(self, encoder_layer.dropout_generator)
 
+    @plain_entry('TransformerEncoder')
     def forward(self, src, src_mask=None):
         out = src
         for layer in self.layers:
@@ -255,6 +261,7 @@ class TransformerDecoderLayer(nn.Module):
     def _drop(self, x, p):
         return dropout(x, p, self.training, self.dropout_generator)
 
+    @plain_entry('TransformerDecoderLayer')
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
                 cache=None):
         """`[B, T, d_model]` over memory `[B, S, d_model]` -> `[B, T,
@@ -297,6 +304,7 @@ class TransformerDecoder(nn.Module):
         self.norm = norm
         _share_dropout_generator(self, decoder_layer.dropout_generator)
 
+    @plain_entry('TransformerDecoder')
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
         out = tgt
         for layer in self.layers:
@@ -345,6 +353,7 @@ class Transformer(nn.Module):
         self.nhead = nhead
         _share_dropout_generator(self, self.dropout_generator)
 
+    @plain_entry('Transformer')
     def forward(self, src, tgt, src_mask=None, tgt_mask=None,
                 memory_mask=None):
         memory = self.encoder(src, src_mask=src_mask)

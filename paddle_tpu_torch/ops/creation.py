@@ -3,7 +3,10 @@ paddle_tpu/ops/creation.py (python/paddle/tensor/creation.py).
 
 New tensors land on the selected place (`core.device.set_device`; the
 card when none is selected), ops of a tensor on that tensor's device. The
-dtypes are JAX's names over 32-bit storage (`core.dtype`).
+dtypes are JAX's names over 32-bit storage (`core.dtype`). The ops that
+go through `ops.dispatch.apply` in JAX (tril, triu, vander, diagflat,
+complex) go through the port's; the others build their tensor directly, as
+JAX's do, and are not counted.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ import torch
 
 from ..core import dtype as dtypes
 from ..core.device import current_device
-from ..core.tensor import Tensor, as_tensor
+from ..core.tensor import Tensor
+from .dispatch import apply, as_tensor, unwrap
 
 __all__ = [
     "to_tensor",
@@ -143,50 +147,53 @@ def eye(num_rows, num_columns=None, dtype=None) -> Tensor:
 
 
 def diag(x, offset=0) -> Tensor:
-    return torch.diag(as_tensor(x), offset)
+    return _t(torch.diag(unwrap(as_tensor(x)), offset))
 
 
 def tril(x, diagonal=0) -> Tensor:
-    return torch.tril(as_tensor(x), diagonal)
+    return apply("tril", lambda a: torch.tril(a, diagonal), as_tensor(x))
 
 
 def triu(x, diagonal=0) -> Tensor:
-    return torch.triu(as_tensor(x), diagonal)
+    return apply("triu", lambda a: torch.triu(a, diagonal), as_tensor(x))
 
 
 def meshgrid(*xs):
-    ts = [as_tensor(x) for x in xs]
-    return tuple(torch.meshgrid(*ts, indexing="ij"))
+    ts = [unwrap(as_tensor(x)) for x in xs]
+    return tuple(_t(m) for m in torch.meshgrid(*ts, indexing="ij"))
 
 
 def one_hot(x, num_classes, dtype=None) -> Tensor:
-    x = as_tensor(x)
+    x = unwrap(as_tensor(x))
     td = dtypes.to_torch(dtype or dtypes.get_default_dtype())
     # jax.nn.one_hot: indices outside [0, num_classes) give zero rows
     col = torch.arange(int(num_classes), device=x.device)
-    return (x[..., None].long() == col).to(td)
+    return _t((x[..., None].long() == col).to(td))
 
 
 def logspace(start, stop, num, base=10.0, dtype=None, name=None):
     td = dtypes.to_torch(dtype) if dtype is not None else torch.float32
-    exps = linspace(float(start), float(stop), int(num), "float32")
-    return torch.pow(torch.full((), float(base), device=exps.device),
-                     exps).to(td)
+    exps = unwrap(linspace(float(start), float(stop), int(num), "float32"))
+    return _t(torch.pow(torch.full((), float(base), device=exps.device),
+                        exps).to(td))
 
 
 def vander(x, n=None, increasing=False, name=None):
-    x = as_tensor(x)
-    n = x.shape[0] if n is None else int(n)
-    pw = torch.arange(n, device=x.device)
-    if not increasing:
-        pw = pw.flip(0)
-    if not (x.dtype.is_floating_point or x.dtype.is_complex):
-        return x[:, None] ** pw.to(x.dtype)
-    return torch.pow(x[:, None], pw.to(x.dtype))
+    def fn(a):
+        m = a.shape[0] if n is None else int(n)
+        pw = torch.arange(m, device=a.device)
+        if not increasing:
+            pw = pw.flip(0)
+        if not (a.dtype.is_floating_point or a.dtype.is_complex):
+            return a[:, None] ** pw.to(a.dtype)
+        return torch.pow(a[:, None], pw.to(a.dtype))
+
+    return apply("vander", fn, as_tensor(x))
 
 
 def diagflat(x, offset=0, name=None):
-    return torch.diagflat(as_tensor(x), offset)
+    return apply("diagflat", lambda a: torch.diagflat(a, offset),
+                 as_tensor(x))
 
 
 def complex(real, imag, name=None):
@@ -195,5 +202,9 @@ def complex(real, imag, name=None):
     fdt = dtypes.promote_types(r.dtype, i.dtype)
     if not fdt.is_floating_point or torch.finfo(fdt).bits < 32:
         fdt = torch.float32          # complex parts are f32 or f64
-    a, b = torch.broadcast_tensors(r.to(fdt), i.to(fdt))
-    return torch.complex(a, b)
+
+    def fn(a, b):
+        a, b = torch.broadcast_tensors(a.to(fdt), b.to(fdt))
+        return torch.complex(a, b)
+
+    return apply("complex", fn, r, i)

@@ -1,7 +1,8 @@
 """Shape and layout ops of the paddle surface: counterpart of
 paddle_tpu/ops/manipulation.py (python/paddle/tensor/manipulation.py),
-over torch ops. Index operands may be int32 (the port's "int64"); torch's
-index ops take int64, so the ops cast inside the call. Outputs that JAX
+over torch ops, through `ops.dispatch` under the JAX package's names.
+Index operands may be int32 (the port's "int64"); torch's index ops take
+int64, so the ops cast inside the call. Outputs that JAX
 materializes (slices, splits) may be torch views here: the values are the
 same.
 """
@@ -12,7 +13,9 @@ import builtins
 import numpy as np
 import torch
 
-from ..core.tensor import Tensor, as_tensor
+from ..core.tensor import Tensor
+from .dispatch import (OpStats, apply, apply_nograd, as_tensor, const,
+                       unwrap)
 
 builtins_slice = builtins.slice
 
@@ -30,22 +33,23 @@ __all__ = [
 
 
 def _index(index, like):
-    """An index operand as an int64 tensor on `like`'s device."""
+    """An index operand as a plain int64 tensor on `like`'s device."""
     if isinstance(index, torch.Tensor):
-        return index.to(device=like.device, dtype=torch.int64)
+        return unwrap(index).to(device=like.device, dtype=torch.int64)
     return torch.as_tensor(np.asarray(index), dtype=torch.int64,
                            device=like.device)
 
 
 def clone(x):
-    return torch.clone(as_tensor(x))
+    return apply("clone", torch.clone, as_tensor(x))
 
 
 def reshape(x, shape):
     x = as_tensor(x)
     if isinstance(shape, torch.Tensor):
         shape = shape.tolist()
-    return torch.reshape(x, tuple(int(s) for s in shape))
+    shape = tuple(int(s) for s in shape)
+    return apply("reshape", lambda a: torch.reshape(a, shape), x)
 
 
 def flatten(x, start_axis=0, stop_axis=-1):
@@ -68,11 +72,11 @@ def squeeze(x, axis=None):
     x = as_tensor(x)
     axes = _norm_axes(axis, x.ndim)
     if axes is None:
-        return torch.squeeze(x)
+        return apply("squeeze", torch.squeeze, x)
     axes = tuple(a for a in axes if x.shape[a] == 1)
     if not axes:
         return clone(x)
-    return torch.squeeze(x, axes)
+    return apply("squeeze", lambda a: torch.squeeze(a, axes), x)
 
 
 def unsqueeze(x, axis):
@@ -85,7 +89,7 @@ def unsqueeze(x, axis):
     shape, it = [], iter(x.shape)
     for i in range(out_nd):
         shape.append(1 if i in axes else next(it))
-    return torch.reshape(x, shape)
+    return apply("unsqueeze", lambda a: torch.reshape(a, shape), x)
 
 
 squeeze_ = squeeze
@@ -96,21 +100,25 @@ def transpose(x, perm=None):
     x = as_tensor(x)
     if perm is None:
         perm = list(range(x.ndim))[::-1]
-    return x.permute(*[int(p) for p in perm])
+    perm = [int(p) for p in perm]
+    return apply("transpose", lambda a: a.permute(*perm), x)
 
 
 def moveaxis(x, source, destination):
-    return torch.movedim(as_tensor(x), source, destination)
+    return apply("moveaxis",
+                 lambda a: torch.movedim(a, source, destination),
+                 as_tensor(x))
 
 
 def concat(xs, axis=0):
     ts = [as_tensor(t) for t in xs]
     axis = int(axis if not isinstance(axis, torch.Tensor) else axis.item())
-    return torch.cat(ts, axis)
+    return apply("concat", lambda *arrs: torch.cat(arrs, axis), *ts)
 
 
 def stack(xs, axis=0):
-    return torch.stack([as_tensor(t) for t in xs], axis)
+    return apply("stack", lambda *arrs: torch.stack(arrs, axis),
+                 *[as_tensor(t) for t in xs])
 
 
 def split(x, num_or_sections, axis=0):
@@ -131,7 +139,8 @@ def split(x, num_or_sections, axis=0):
             sizes[neg[0]] = dim - sum(s for s in sizes if s >= 0)
     if len(sizes) == 1:
         return [clone(x)]
-    return list(torch.split(x, sizes, axis))
+    return list(apply("split", lambda a: tuple(torch.split(a, sizes, axis)),
+                      x))
 
 
 def chunk(x, chunks, axis=0):
@@ -139,14 +148,16 @@ def chunk(x, chunks, axis=0):
 
 
 def unbind(x, axis=0):
-    return list(torch.unbind(as_tensor(x), axis))
+    return list(apply("unbind", lambda a: tuple(torch.unbind(a, axis)),
+                      as_tensor(x)))
 
 
 unstack = unbind
 
 
 def tile(x, repeat_times):
-    return torch.tile(as_tensor(x), tuple(int(r) for r in repeat_times))
+    rt = tuple(int(r) for r in repeat_times)
+    return apply("tile", lambda a: torch.tile(a, rt), as_tensor(x))
 
 
 def expand(x, shape):
@@ -154,7 +165,7 @@ def expand(x, shape):
     shape = tuple(
         x.shape[i - (len(shape) - x.ndim)] if int(s) == -1 else int(s)
         for i, s in enumerate(shape))
-    return torch.broadcast_to(x, shape)
+    return apply("expand", lambda a: torch.broadcast_to(a, shape), x)
 
 
 def expand_as(x, y):
@@ -168,32 +179,40 @@ def broadcast_to(x, shape):
 def flip(x, axis):
     if isinstance(axis, (int, np.integer)):
         axis = [int(axis)]
-    return torch.flip(as_tensor(x), tuple(axis))
+    axis = tuple(axis)
+    return apply("flip", lambda a: torch.flip(a, axis), as_tensor(x))
 
 
 def roll(x, shifts, axis=None):
-    return torch.roll(as_tensor(x), shifts, axis)
+    return apply("roll", lambda a: torch.roll(a, shifts, axis),
+                 as_tensor(x))
 
 
 def gather(x, index, axis=0):
     x = as_tensor(x)
     idx = _index(index, x)
-    if idx.ndim == 0:
-        return x.select(axis, int(idx))
-    return torch.index_select(x, axis, idx.reshape(-1))
+
+    def fn(a):
+        if idx.ndim == 0:
+            return a.select(axis, int(idx))
+        return torch.index_select(a, axis, idx.reshape(-1))
+
+    return apply("gather", fn, x)
 
 
 def gather_nd(x, index):
     x = as_tensor(x)
     idx = _index(index, x)
-    return x[tuple(idx[..., i] for i in range(idx.shape[-1]))]
+    return apply("gather_nd", lambda a: a[tuple(
+        idx[..., i] for i in range(idx.shape[-1]))], x)
 
 
 def scatter(x, index, updates, overwrite=True):
     x = as_tensor(x)
-    updates = as_tensor(updates, x).to(x.dtype)
+    updates = as_tensor(updates, x)
     idx = _index(index, x).reshape(-1)
-    return torch.index_put(x, (idx,), updates, accumulate=not overwrite)
+    return apply("scatter", lambda a, u: torch.index_put(
+        a, (idx,), u.to(a.dtype), accumulate=not overwrite), x, updates)
 
 
 def index_select(x, index, axis=0):
@@ -202,19 +221,28 @@ def index_select(x, index, axis=0):
 
 def masked_select(x, mask):
     x = as_tensor(x)
-    return torch.masked_select(x, as_tensor(mask).to(x.device))
+    m = unwrap(as_tensor(mask)).to(x.device)
+    return apply_nograd("masked_select",
+                        lambda a: torch.masked_select(a, m), x)
 
 
 def take_along_axis(x, indices, axis):
     x = as_tensor(x)
-    return torch.take_along_dim(x, _index(indices, x), axis)
+    idx = _index(indices, x)
+    return apply("take_along_axis",
+                 lambda a: torch.take_along_dim(a, idx, axis), x)
 
 
 def put_along_axis(x, indices, values, axis):
     x = as_tensor(x)
+    values = as_tensor(values, x)
     idx = _index(indices, x)
-    v = torch.broadcast_to(as_tensor(values, x).to(x.dtype), idx.shape)
-    return torch.scatter(x, axis, idx, v)
+
+    def fn(a, v):
+        v = torch.broadcast_to(v.to(a.dtype), idx.shape)
+        return torch.scatter(a, axis, idx, v)
+
+    return apply("put_along_axis", fn, x, values)
 
 
 def slice(x, axes, starts, ends):
@@ -222,51 +250,96 @@ def slice(x, axes, starts, ends):
     sl = [builtins_slice(None)] * x.ndim
     for ax, st, en in zip(axes, starts, ends):
         sl[ax] = builtins_slice(int(st), int(en))
-    return x[tuple(sl)]
+    sl = tuple(sl)
+    return apply("slice", lambda a: a[sl], x)
 
 
 def strided_slice(x, axes, starts, ends, strides):
     x = as_tensor(x)
+    picks = []
     for ax, st, en, sd in zip(axes, starts, ends, strides):
         # Python's slice rules, negative strides too (torch's slicing
         # takes only positive steps)
         rng = range(*builtins_slice(int(st), int(en), int(sd)).indices(
             x.shape[ax]))
-        x = torch.index_select(x, ax, torch.as_tensor(
-            list(rng), dtype=torch.int64, device=x.device))
-    return x
+        picks.append((ax, torch.as_tensor(list(rng), dtype=torch.int64,
+                                          device=x.device)))
+
+    def fn(a):
+        for ax, idx in picks:
+            a = torch.index_select(a, ax, idx)
+        return a
+
+    return apply("strided_slice", fn, x)
 
 
 def _prep_index(item, like):
     if isinstance(item, torch.Tensor) and not item.dtype == torch.bool:
-        return item.to(device=like.device, dtype=torch.int64)
+        return unwrap(item).to(device=like.device, dtype=torch.int64)
     if isinstance(item, torch.Tensor):
-        return item.to(like.device)
+        return unwrap(item).to(like.device)
     if isinstance(item, tuple):
         return tuple(_prep_index(i, like) for i in item)
+    if isinstance(item, list) and any(isinstance(i, torch.Tensor)
+                                      for i in item):
+        return [_prep_index(i, like) for i in item]
     return item
 
 
 def getitem(x, item):
     x = as_tensor(x)
-    return x[_prep_index(item, x)]
+    key = _prep_index(item, x)
+    return apply("getitem", lambda a: a[key], x)
+
+
+def setitem(x, item, value):
+    """`x[item] = value` in place. Where autograd records it (x requires
+    grad through its graph, or `value` does), the overwrite is a
+    differentiable op, JAX's `setitem`: x's old gradient is zeroed at the
+    overwritten positions and `value` takes the gradient gathered from
+    them (torch's in-place write on a non-leaf, or on a leaf that does not
+    require grad). A leaf that requires grad is refused, as in JAX."""
+    from ..core.autograd import is_grad_enabled
+
+    key = _prep_index(item, x)
+    if isinstance(value, torch.Tensor):
+        v = unwrap(value).to(device=x.device, dtype=x.dtype)
+    else:
+        v = torch.as_tensor(np.asarray(value), device=x.device).to(x.dtype)
+    if is_grad_enabled() and x.is_leaf and x.requires_grad:
+        raise RuntimeError(
+            "in-place __setitem__ on a leaf tensor with stop_gradient=False "
+            "is not supported (its .grad would no longer match the stored "
+            "value); use paddle.no_grad() or assign to a cloned tensor")
+    plain = unwrap(x)
+    tgt = plain[key]
+    while v.ndim > tgt.ndim and v.shape[0] == 1:
+        v = v[0]
+    if is_grad_enabled() and (x.requires_grad or v.requires_grad):
+        OpStats.record("setitem")
+        plain[key] = v
+    else:
+        with torch.no_grad():
+            plain[key] = v
+    return x
 
 
 def repeat_interleave(x, repeats, axis=None):
     x = as_tensor(x)
     if isinstance(repeats, torch.Tensor):
-        repeats = repeats.to(device=x.device, dtype=torch.int64)
-    return torch.repeat_interleave(x, repeats, axis)
+        repeats = unwrap(repeats).to(device=x.device, dtype=torch.int64)
+    return apply("repeat_interleave",
+                 lambda a: torch.repeat_interleave(a, repeats, axis), x)
 
 
 def as_complex(x):
-    x = as_tensor(x)
-    return torch.complex(x[..., 0], x[..., 1])
+    return apply("as_complex", lambda a: torch.complex(a[..., 0], a[..., 1]),
+                 as_tensor(x))
 
 
 def as_real(x):
-    x = as_tensor(x)
-    return torch.stack([torch.real(x), torch.imag(x)], -1)
+    return apply("as_real", lambda a: torch.stack(
+        [torch.real(a), torch.imag(a)], -1), as_tensor(x))
 
 
 def _pad_index(n, before, after, mode):
@@ -299,39 +372,48 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
              "replicate": "edge", "circular": "wrap"}[mode]
     if jmode == "constant":
         flat = [p for pair in cfg[::-1] for p in pair]
-        return torch.nn.functional.pad(x, flat, value=value)
-    for ax, (b, a) in enumerate(cfg):
-        if b or a:
-            idx = _pad_index(x.shape[ax], b, a, jmode)
-            x = torch.index_select(x, ax, torch.as_tensor(
-                idx, dtype=torch.int64, device=x.device))
-    return x
+        return apply("pad", lambda a: torch.nn.functional.pad(
+            a, flat, value=value), x)
+    picks = [(ax, torch.as_tensor(_pad_index(x.shape[ax], b, a, jmode),
+                                  dtype=torch.int64, device=x.device))
+             for ax, (b, a) in enumerate(cfg) if b or a]
+
+    def fn(a):
+        for ax, idx in picks:
+            a = torch.index_select(a, ax, idx)
+        return a
+
+    return apply("pad", fn, x)
 
 
 def crop(x, shape, offsets=None):
     x = as_tensor(x)
     if offsets is None:
         offsets = [0] * x.ndim
-    return x[tuple(builtins_slice(int(o), int(o) + int(s))
-                   for o, s in zip(offsets, shape))]
+    sl = tuple(builtins_slice(int(o), int(o) + int(s))
+               for o, s in zip(offsets, shape))
+    return apply("crop", lambda a: a[sl], x)
 
 
 def rot90(x, k=1, axes=(0, 1)):
-    return torch.rot90(as_tensor(x), k, list(axes))
+    return apply("rot90", lambda a: torch.rot90(a, k, list(axes)),
+                 as_tensor(x))
 
 
 def numel(x):
-    return torch.tensor(as_tensor(x).numel(), dtype=torch.int32,
+    x = as_tensor(x)
+    return torch.tensor(unwrap(x).numel(), dtype=torch.int32,
                         device=x.device).as_subclass(Tensor)
 
 
 def tensordot(x, y, axes=2):
-    x, y = as_tensor(x), as_tensor(y)
-    return torch.tensordot(x, y, dims=axes)
+    return apply("tensordot", lambda a, b: torch.tensordot(a, b, dims=axes),
+                 as_tensor(x), as_tensor(y))
 
 
 def swapaxes(x, axis1, axis2, name=None):
-    return torch.swapaxes(as_tensor(x), axis1, axis2)
+    return apply("swapaxes", lambda a: torch.swapaxes(a, axis1, axis2),
+                 as_tensor(x))
 
 
 swapdims = swapaxes
@@ -348,7 +430,7 @@ def _axis_split(opname, fn, min_ndim):
                 f"got {x.ndim}-D")
         spec = num_or_indices if isinstance(num_or_indices, int) \
             else [int(i) for i in num_or_indices]
-        return tuple(fn(x, spec))
+        return apply(opname, lambda a: tuple(fn(a, spec)), x)
 
     op.__name__ = opname
     return op
@@ -367,30 +449,35 @@ def take(x, index, mode="raise", name=None):
                          "expected 'raise', 'clip' or 'wrap'")
     x = as_tensor(x)
     idx = _index(index, x)
-    n = x.numel()
+    n = unwrap(x).numel()
     if mode == "raise" and bool(((idx < -n) | (idx >= n)).any()):
         raise IndexError(f"take: index out of range for numel {n}")
     if mode == "wrap":
         idx = torch.remainder(idx, n)
     else:
         idx = torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
-    return x.reshape(-1)[idx]
+    return apply("take", lambda a: a.reshape(-1)[idx], x)
 
 
 def as_strided(x, shape, stride, offset=0, name=None):
     """View-by-strides (paddle as_strided) over x's elements in row-major
     order: element [i0, i1, ...] = flat[offset + sum(ik * stride[k])]."""
     x = as_tensor(x)
-    flat = x.reshape(-1)
     shape = tuple(int(s) for s in shape)
-    if not shape:
-        return flat[int(offset)]
-    idx = torch.full(shape, int(offset), dtype=torch.int64, device=x.device)
-    for k, (s, st) in enumerate(zip(shape, stride)):
-        view = [1] * len(shape)
-        view[k] = s
-        idx = idx + torch.arange(s, device=x.device).view(view) * int(st)
-    return flat[idx]
+
+    def fn(a):
+        flat = a.reshape(-1)
+        if not shape:
+            return flat[int(offset)]
+        idx = torch.full(shape, int(offset), dtype=torch.int64,
+                         device=a.device)
+        for k, (s, st) in enumerate(zip(shape, stride)):
+            view = [1] * len(shape)
+            view[k] = s
+            idx = idx + torch.arange(s, device=a.device).view(view) * int(st)
+        return flat[idx]
+
+    return apply("as_strided", fn, x)
 
 
 def diff(x, n=1, axis=-1, prepend=None, append=None, name=None):
@@ -399,14 +486,15 @@ def diff(x, n=1, axis=-1, prepend=None, append=None, name=None):
     def edge(v):
         if v is None:
             return None
-        v = as_tensor(v, x)
+        v = const(as_tensor(v, x))
         if v.ndim == 0:
             shape = list(x.shape)
             shape[axis] = 1
             v = v.expand(shape)
         return v
 
-    return torch.diff(x, n, axis, edge(prepend), edge(append))
+    pre, app = edge(prepend), edge(append)
+    return apply("diff", lambda a: torch.diff(a, n, axis, pre, app), x)
 
 
 def scatter_nd(index, updates, shape, name=None):
@@ -414,18 +502,24 @@ def scatter_nd(index, updates, shape, name=None):
     scatter_nd)."""
     updates = as_tensor(updates)
     idx = _index(index, updates)
-    z = torch.zeros(tuple(int(s) for s in shape), dtype=updates.dtype,
-                    device=updates.device)
-    return torch.index_put(z, tuple(idx[..., i] for i in range(
-        idx.shape[-1])), updates, accumulate=True).as_subclass(Tensor)
+    shape = tuple(int(s) for s in shape)
+
+    def fn(u):
+        z = torch.zeros(shape, dtype=u.dtype, device=u.device)
+        return torch.index_put(z, tuple(idx[..., i] for i in range(
+            idx.shape[-1])), u, accumulate=True)
+
+    return apply("scatter_nd", fn, updates)
 
 
 def searchsorted(sorted_sequence, values, out_int32=False, right=False,
                  name=None):
     seq = as_tensor(sorted_sequence)
-    vals = as_tensor(values, seq).to(device=seq.device, dtype=seq.dtype)
+    vals = unwrap(as_tensor(values, seq)).to(device=seq.device,
+                                              dtype=seq.dtype)
     # int32: JAX's int64 is int32 storage (out_int32 changes nothing)
-    return torch.searchsorted(seq, vals, right=right, out_int32=True)
+    return apply_nograd("searchsorted", lambda s: torch.searchsorted(
+        s, vals, right=right, out_int32=True), seq)
 
 
 def bucketize(x, sorted_sequence, out_int32=False, right=False, name=None):

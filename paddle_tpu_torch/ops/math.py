@@ -1,17 +1,18 @@
 """Elementwise and binary math ops of the paddle surface: counterpart of
-paddle_tpu/ops/math.py (python/paddle/tensor/math.py), over torch ops.
+paddle_tpu/ops/math.py (python/paddle/tensor/math.py), over torch ops,
+each through `ops.dispatch.apply` under the JAX package's name.
 
-Operands go through `core.tensor.as_tensor` (a Python scalar takes the
+Operands go through `ops.dispatch.as_tensor` (a Python scalar takes the
 other operand's dtype), and two tensors of different dtypes meet at
-`core.dtype.promote_types`, as JAX's `_binary` promotes them. Autograd is
-torch's.
+`core.dtype.promote_types` inside the op, as JAX's `_binary` promotes
+them. Autograd is torch's.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import dtype as dtypes
-from ..core.tensor import Tensor, as_tensor
+from .dispatch import apply, apply_nograd, as_tensor, const
 
 __all__ = [
     "add", "subtract", "multiply", "divide", "floor_divide", "mod", "pow",
@@ -34,18 +35,30 @@ __all__ = [
 
 
 def _operands(x, y):
+    if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+        return x, y
     if not isinstance(x, torch.Tensor):
         x = as_tensor(x, y if isinstance(y, torch.Tensor) else None)
     return as_tensor(x), as_tensor(y, x)
 
 
+def _promoting(fn):
+    """`fn` on its operands brought to their promoted dtype (inside the
+    op, on the plain tensors)."""
+    def run(a, b):
+        if a.dtype != b.dtype:
+            common = dtypes.promote_types(a.dtype, b.dtype)
+            a, b = a.to(common), b.to(common)
+        return fn(a, b)
+
+    return run
+
+
 def _binary(name, fn):
+    run = _promoting(fn)
+
     def op(x, y):
-        x, y = _operands(x, y)
-        if x.dtype != y.dtype:
-            common = dtypes.promote_types(x.dtype, y.dtype)
-            x, y = x.to(common), y.to(common)
-        return fn(x, y)
+        return apply(name, run, *_operands(x, y))
 
     op.__name__ = name
     return op
@@ -53,15 +66,17 @@ def _binary(name, fn):
 
 def _binary_nograd(name, fn):
     def op(x, y):
-        return fn(*_operands(x, y))
+        return apply_nograd(name, fn, *_operands(x, y))
 
     op.__name__ = name
     return op
 
 
-def _unary(opname, fn):
+def _unary(opname, fn, nograd=False):
+    ap = apply_nograd if nograd else apply
+
     def op(x, name=None):
-        return fn(as_tensor(x))
+        return ap(opname, fn, as_tensor(x))
 
     op.__name__ = opname
     return op
@@ -124,13 +139,17 @@ square = _unary("square", torch.square)
 
 
 def clip(x, min=None, max=None):
-    return torch.clamp(as_tensor(x), min, max)
+    lo, hi = const(min), const(max)
+    return apply("clip", lambda a: torch.clamp(a, lo, hi), as_tensor(x))
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None):
     x = as_tensor(x)
     s, b = _scalar(float(scale), x), _scalar(float(bias), x)
-    out = x * s + b if bias_after_scale else (x + b) * s
+    if bias_after_scale:
+        out = apply("scale", lambda a: a * s + b, x)
+    else:
+        out = apply("scale", lambda a: (a + b) * s, x)
     if act is not None:
         from . import activation
 
@@ -140,13 +159,15 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None):
 
 def lerp(x, y, weight):
     x, y = as_tensor(x), as_tensor(y)
-    return x + _scalar(weight, x) * (y - x)
+    w = const(_scalar(weight, x))
+    return apply("lerp", lambda a, b: a + w * (b - a), x, y)
 
 
 def addmm(input, x, y, beta=1.0, alpha=1.0):
     input, x, y = as_tensor(input), as_tensor(x), as_tensor(y)
-    return _scalar(beta, input) * input + _scalar(alpha, x) * \
-        torch.matmul(x, y)
+    b, al = _scalar(beta, input), _scalar(alpha, x)
+    return apply("addmm", lambda i, p, q: b * i + al * torch.matmul(p, q),
+                 input, x, y)
 
 
 equal = _binary_nograd("equal", torch.eq)
@@ -164,39 +185,45 @@ bitwise_xor = _binary_nograd("bitwise_xor", torch.bitwise_xor)
 
 
 def logical_not(x):
-    return torch.logical_not(as_tensor(x))
+    return apply_nograd("logical_not", torch.logical_not, as_tensor(x))
 
 
 def bitwise_not(x):
-    return torch.bitwise_not(as_tensor(x))
+    return apply_nograd("bitwise_not", torch.bitwise_not, as_tensor(x))
 
 
 def isnan(x):
-    return torch.isnan(as_tensor(x))
+    return apply_nograd("isnan", torch.isnan, as_tensor(x))
 
 
 def isinf(x):
-    return torch.isinf(as_tensor(x))
+    return apply_nograd("isinf", torch.isinf, as_tensor(x))
 
 
 def isfinite(x):
-    return torch.isfinite(as_tensor(x))
+    return apply_nograd("isfinite", torch.isfinite, as_tensor(x))
 
 
 def where(condition, x=None, y=None):
     if x is None and y is None:
-        return torch.nonzero(as_tensor(condition), as_tuple=True)
-    cond = as_tensor(condition)
+        c = as_tensor(condition)
+        idx = torch.nonzero(c.as_subclass(torch.Tensor), as_tuple=True)
+        return tuple(i.as_subclass(type(c)) for i in idx)
+    cond = as_tensor(condition).as_subclass(torch.Tensor)
     x = as_tensor(x, y if isinstance(y, torch.Tensor) else None)
     y = as_tensor(y, x)
-    if x.dtype != y.dtype:
-        common = dtypes.promote_types(x.dtype, y.dtype)
-        x, y = x.to(common), y.to(common)
-    return torch.where(cond.to(x.device), x, y)
+    common = dtypes.promote_types(x.dtype, y.dtype)
+    return apply("where", lambda a, b: torch.where(
+        cond.to(a.device), a.to(common), b.to(common)), x, y)
 
 
 def cast(x, dtype):
-    return as_tensor(x).to(dtypes.to_torch(dtype))
+    x = as_tensor(x)
+    td = dtypes.to_torch(dtype)
+    inexact = (td.is_floating_point or td.is_complex) and (
+        x.dtype.is_floating_point or x.dtype.is_complex)
+    return (apply if inexact else apply_nograd)("cast", lambda a: a.to(td),
+                                                x)
 
 
 def increment(x, value=1.0):
@@ -207,20 +234,25 @@ def increment(x, value=1.0):
 
 def stanh(x, scale_a=0.67, scale_b=1.7159):
     x = as_tensor(x)
-    return _scalar(scale_b, x) * torch.tanh(_scalar(scale_a, x) * x)
+    sa, sb = _scalar(scale_a, x), _scalar(scale_b, x)
+    return apply("stanh", lambda a: sb * torch.tanh(sa * a), x)
 
 
 def multiplex(inputs, index):
     ts = [as_tensor(t) for t in inputs]
-    idx = as_tensor(index).reshape(-1).long()
-    stacked = torch.stack(ts, 0)
-    rows = torch.arange(stacked.shape[1], device=stacked.device)
-    return stacked[idx.to(stacked.device), rows]
+    idx = as_tensor(index).as_subclass(torch.Tensor).reshape(-1).long()
+
+    def fn(*arrs):
+        stacked = torch.stack(arrs, 0)
+        rows = torch.arange(stacked.shape[1], device=stacked.device)
+        return stacked[idx.to(stacked.device), rows]
+
+    return apply("multiplex", fn, *ts)
 
 
 def nan_to_num(x, nan=0.0, posinf=None, neginf=None):
-    return torch.nan_to_num(as_tensor(x), nan=nan, posinf=posinf,
-                            neginf=neginf)
+    return apply("nan_to_num", lambda a: torch.nan_to_num(
+        a, nan=nan, posinf=posinf, neginf=neginf), as_tensor(x))
 
 
 def _frac(a):
@@ -240,7 +272,7 @@ def _real(a):
 
 frac = _unary("frac", _frac)
 sinc = _unary("sinc", torch.sinc)
-signbit = _unary("signbit", torch.signbit)
+signbit = _unary("signbit", torch.signbit, nograd=True)
 digamma = _unary("digamma", torch.digamma)
 lgamma = _unary("lgamma", torch.lgamma)
 i0 = _unary("i0", torch.i0)
@@ -252,17 +284,20 @@ conj = _unary("conj", torch.conj_physical)
 
 def sgn(x, name=None):
     """sign for real; x/|x| (0 -> 0) for complex (paddle sgn)."""
-    return torch.sgn(as_tensor(x))
+    return apply("sgn", torch.sgn, as_tensor(x))
 
 
 def logit(x, eps=None, name=None):
-    x = as_tensor(x)
-    p = x if eps is None else torch.clamp(x, eps, 1.0 - eps)
-    return torch.log(p / (1.0 - p))
+    def fn(a):
+        p = a if eps is None else torch.clamp(a, eps, 1.0 - eps)
+        return torch.log(p / (1.0 - p))
+
+    return apply("logit", fn, as_tensor(x))
 
 
 def polygamma(x, n, name=None):
-    return torch.polygamma(int(n), as_tensor(x))
+    return apply("polygamma", lambda a: torch.polygamma(int(n), a),
+                 as_tensor(x))
 
 
 copysign = _binary("copysign", torch.copysign)
@@ -276,7 +311,7 @@ remainder = _binary("remainder", torch.remainder)
 
 def true_divide(x, y, name=None):
     """Always-float division (paddle true_divide)."""
-    return torch.true_divide(*_operands(x, y))
+    return apply("true_divide", torch.true_divide, *_operands(x, y))
 
 
 def float_power(x, y, name=None):
@@ -284,33 +319,36 @@ def float_power(x, y, name=None):
     # jnp.float_power's widest float is float32 here (no float64 storage)
     common = dtypes.promote_types(dtypes.promote_types(x.dtype, y.dtype),
                                   torch.float32)
-    return torch.pow(x.to(common), y.to(common))
+    return apply("float_power",
+                 lambda a, b: torch.pow(a.to(common), b.to(common)), x, y)
 
 
 def isclose(x, y, rtol=1e-5, atol=1e-8, equal_nan=False, name=None):
-    x, y = as_tensor(x), as_tensor(y)
-    return torch.isclose(x, y, rtol=rtol, atol=atol, equal_nan=equal_nan)
+    return apply_nograd("isclose", lambda a, b: torch.isclose(
+        a, b, rtol=rtol, atol=atol, equal_nan=equal_nan),
+        as_tensor(x), as_tensor(y))
 
 
 def allclose(x, y, rtol=1e-5, atol=1e-8, equal_nan=False, name=None):
-    x, y = as_tensor(x), as_tensor(y)
-    return torch.isclose(x, y, rtol=rtol, atol=atol,
-                         equal_nan=equal_nan).all()
+    return apply_nograd("allclose", lambda a, b: torch.isclose(
+        a, b, rtol=rtol, atol=atol, equal_nan=equal_nan).all(),
+        as_tensor(x), as_tensor(y))
 
 
 def equal_all(x, y, name=None):
-    x, y = as_tensor(x), as_tensor(y)
-    if tuple(x.shape) != tuple(y.shape):
-        return torch.zeros((), dtype=torch.bool,
-                           device=x.device).as_subclass(Tensor)
-    return (x == y).all()
+    def fn(a, b):
+        if tuple(a.shape) != tuple(b.shape):
+            return torch.zeros((), dtype=torch.bool, device=a.device)
+        return (a == b).all()
+
+    return apply_nograd("equal_all", fn, as_tensor(x), as_tensor(y))
 
 
 def multiply_(x, y, name=None):
     """In-place multiply (paddle inplace-op parity): x <- x * y. As in the
     JAX package, a tensor that requires grad is refused."""
     x = as_tensor(x)
-    if not x.stop_gradient:
+    if x.requires_grad:
         raise RuntimeError(
             "multiply_: in-place op on a tensor that requires grad; use "
             "x = x * y (out-of-place) inside differentiated code")

@@ -19,9 +19,10 @@ import torch
 from ..core import dtype as dtypes
 from ..core.device import current_device
 from ..core.random import next_key
-from ..core.tensor import Tensor, as_tensor
+from ..core.tensor import Tensor
 from . import threefry
 from .creation import _shape_tuple
+from .dispatch import apply_nograd, as_tensor, unwrap
 
 __all__ = [
     "rand", "randn", "randint", "randint_like", "randperm", "uniform",
@@ -55,10 +56,11 @@ def uniform(shape, dtype=None, min=-1.0, max=1.0, seed=0):
 
 def normal(mean=0.0, std=1.0, shape=None):
     if isinstance(mean, torch.Tensor) or isinstance(std, torch.Tensor):
-        ref = mean if isinstance(mean, torch.Tensor) else std
+        m, sd = unwrap(mean), unwrap(std)
+        ref = m if isinstance(m, torch.Tensor) else sd
         n = threefry.normal(next_key(), tuple(ref.shape), torch.float32,
                             ref.device)
-        return mean + std * n
+        return _t(m + sd * n)
     dev = current_device()
     n = threefry.normal(next_key(), _shape_tuple(shape),
                         dtypes.to_torch(None), dev)
@@ -86,29 +88,32 @@ def randperm(n, dtype="int64"):
 
 
 def bernoulli(x):
-    x = as_tensor(x)
-    with torch.no_grad():
-        return threefry.bernoulli(next_key(), x).to(x.dtype)
+    key = next_key()
+    return apply_nograd("bernoulli", lambda a: threefry.bernoulli(
+        key, a).to(a.dtype), as_tensor(x))
 
 
 def multinomial(x, num_samples=1, replacement=False):
     x = as_tensor(x)
     key = next_key()
-    with torch.no_grad():
-        logits = torch.log(torch.clamp(x, min=1e-30))
+
+    def fn(a):
+        logits = torch.log(torch.clamp(a, min=1e-30))
         if replacement:
             # jax.random.categorical(key, logits, shape=(num_samples,) +
             # batch): a Gumbel a sample and category, then the argmax
-            g = threefry.gumbel_shaped(key, (num_samples,) + tuple(x.shape),
-                                       x.dtype, x.device)
+            g = threefry.gumbel_shaped(key, (num_samples,) + tuple(a.shape),
+                                       a.dtype, a.device)
             out = torch.argmax(g + logits, -1).to(torch.int32)
-            return out.T if x.ndim > 1 else out
+            return out.T if a.ndim > 1 else out
         # without replacement: the Gumbel top-k trick
-        g = threefry.gumbel_shaped(key, tuple(x.shape), torch.float32,
-                                   x.device)
+        g = threefry.gumbel_shaped(key, tuple(a.shape), torch.float32,
+                                   a.device)
         idx = torch.sort(logits + g, dim=-1, descending=True,
                          stable=True).indices[..., :num_samples]
         return idx.to(torch.int32)
+
+    return apply_nograd("multinomial", fn, x)
 
 
 def poisson(x):
@@ -118,21 +123,20 @@ def poisson(x):
     k1, k2 = next_key()
     gen = torch.Generator(device=x.device)
     gen.manual_seed((k1 << 32) | k2)
-    with torch.no_grad():
-        return torch.poisson(x, generator=gen).to(x.dtype)
+    return apply_nograd("poisson", lambda a: torch.poisson(
+        a, generator=gen).to(a.dtype), x)
 
 
 def exponential(x, lam=1.0):
-    x = as_tensor(x)
-    with torch.no_grad():
-        return threefry.exponential(next_key(), tuple(x.shape), x.dtype,
-                                    x.device) / lam
+    key = next_key()
+    return apply_nograd("exponential", lambda a: threefry.exponential(
+        key, tuple(a.shape), a.dtype, a.device) / lam, as_tensor(x))
 
 
 def shuffle(x, axis=0):
-    x = as_tensor(x)
-    with torch.no_grad():
-        return threefry.permutation(next_key(), x, axis)
+    key = next_key()
+    return apply_nograd("shuffle", lambda a: threefry.permutation(
+        key, a, axis), as_tensor(x))
 
 
 def uniform_(x, min=-1.0, max=1.0):

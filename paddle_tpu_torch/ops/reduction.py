@@ -1,7 +1,8 @@
 """Reduction and search ops of the paddle surface: counterpart of
 paddle_tpu/ops/reduction.py (python/paddle/tensor/{math,search,stat}.py),
-over torch ops. Where torch and jnp differ, JAX's rule holds: integer sums
-and cumulative sums stay int32, means of integers are float32, medians
+over torch ops, through `ops.dispatch` under the JAX package's names.
+Where torch and jnp differ, JAX's rule holds: integer sums and cumulative
+sums stay int32, means of integers are float32, medians
 and quantiles interpolate (`jnp.median`, not torch's lower median),
 sorts are stable with descending the flip of ascending, `topk` takes the
 lower index on a tie, and indices are int32.
@@ -12,7 +13,8 @@ import numpy as np
 import torch
 
 from ..core import dtype as dtypes
-from ..core.tensor import Tensor, as_tensor
+from ..core.tensor import Tensor
+from .dispatch import apply, apply_nograd, as_tensor
 
 __all__ = [
     "sum", "mean", "max", "min", "prod", "std", "var", "median",
@@ -42,13 +44,17 @@ def _int32(t, like):
 def _reduce(name, fn, cast_int=False, float_int=False):
     def op(x, axis=None, keepdim=False):
         x = as_tensor(x)
-        if float_int and x.dtype in _INTS:
-            x = x.to(torch.float32)
-        if x.ndim == 0:
-            out = fn(x, (), False)
-        else:
-            out = fn(x, _dims(axis, x.ndim), keepdim)
-        return _int32(out, x) if cast_int else out
+
+        def f(a):
+            if float_int and a.dtype in _INTS:
+                a = a.to(torch.float32)
+            if a.ndim == 0:
+                out = fn(a, (), False)
+            else:
+                out = fn(a, _dims(axis, a.ndim), keepdim)
+            return _int32(out, a) if cast_int else out
+
+        return apply(name, f, x)
 
     op.__name__ = name
     return op
@@ -82,21 +88,22 @@ nanmean = _reduce("nanmean", lambda x, d, k: torch.nanmean(x, d,
 logsumexp = _reduce("logsumexp", _logsumexp)
 
 
-def _moments(fn):
+def _moments(name, fn):
     def op(x, axis=None, unbiased=True, keepdim=False):
-        x = as_tensor(x)
-        if x.dtype in _INTS:
-            x = x.to(torch.float32)
-        return fn(x, _dims(axis, x.ndim), correction=1 if unbiased else 0,
-                  keepdim=keepdim)
+        def f(a):
+            if a.dtype in _INTS:
+                a = a.to(torch.float32)
+            return fn(a, _dims(axis, a.ndim),
+                      correction=1 if unbiased else 0, keepdim=keepdim)
 
+        return apply(name, f, as_tensor(x))
+
+    op.__name__ = name
     return op
 
 
-std = _moments(torch.std)
-std.__name__ = "std"
-var = _moments(torch.var)
-var.__name__ = "var"
+std = _moments("std", torch.std)
+var = _moments("var", torch.var)
 
 
 def _over_last(x, dims):
@@ -106,125 +113,142 @@ def _over_last(x, dims):
     return y.reshape(*[x.shape[d] for d in rest], -1)
 
 
-def _quantile(fn, x, q, axis, keepdim):
-    x = as_tensor(x)
-    if x.dtype in _INTS:
-        x = x.to(torch.float32)
-    dims = _dims(axis, x.ndim)
-    qt = q if isinstance(q, float) else torch.as_tensor(
-        q, dtype=x.dtype, device=x.device)
-    out = fn(_over_last(x, dims), qt, dim=-1)
-    if keepdim:
-        lead = 0 if isinstance(q, float) else 1
-        for d in sorted(dims):
-            out = out.unsqueeze(lead + d)
-    return out
+def _quantile(name, fn, x, q, axis, keepdim):
+    def f(a):
+        if a.dtype in _INTS:
+            a = a.to(torch.float32)
+        dims = _dims(axis, a.ndim)
+        qt = q if isinstance(q, float) else torch.as_tensor(
+            q, dtype=a.dtype, device=a.device)
+        out = fn(_over_last(a, dims), qt, dim=-1)
+        if keepdim:
+            lead = 0 if isinstance(q, float) else 1
+            for d in sorted(dims):
+                out = out.unsqueeze(lead + d)
+        return out
+
+    return apply(name, f, as_tensor(x))
 
 
 def median(x, axis=None, keepdim=False):
-    return _quantile(torch.quantile, x, 0.5, axis, keepdim)
+    return _quantile("median", torch.quantile, x, 0.5, axis, keepdim)
 
 
 def quantile(x, q, axis=None, keepdim=False):
-    return _quantile(torch.quantile, x, q, axis, keepdim)
+    return _quantile("quantile", torch.quantile, x, q, axis, keepdim)
 
 
 def nanmedian(x, axis=None, keepdim=False, name=None):
-    return _quantile(torch.nanquantile, x, 0.5, axis, keepdim)
+    return _quantile("nanmedian", torch.nanquantile, x, 0.5, axis, keepdim)
 
 
-def _arg(fn):
+def _arg(name, fn):
     def op(x, axis=None, keepdim=False, dtype="int64"):
-        x = as_tensor(x)
-        if axis is None:
-            r = fn(x.reshape(-1), 0)
-        else:
-            r = fn(x, int(axis), keepdim=keepdim)
-        return r.to(dtypes.to_torch(dtype))
+        def f(a):
+            if axis is None:
+                r = fn(a.reshape(-1), 0)
+            else:
+                r = fn(a, int(axis), keepdim=keepdim)
+            return r.to(dtypes.to_torch(dtype))
 
+        return apply_nograd(name, f, as_tensor(x))
+
+    op.__name__ = name
     return op
 
 
-argmax = _arg(torch.argmax)
-argmax.__name__ = "argmax"
-argmin = _arg(torch.argmin)
-argmin.__name__ = "argmin"
+argmax = _arg("argmax", torch.argmax)
+argmin = _arg("argmin", torch.argmin)
 
 
 def argsort(x, axis=-1, descending=False):
-    x = as_tensor(x)
-    idx = torch.argsort(x, dim=axis, stable=True)
-    if descending:
-        idx = torch.flip(idx, (axis,))
-    return idx.to(torch.int32)
+    def fn(a):
+        idx = torch.argsort(a, dim=axis, stable=True)
+        if descending:
+            idx = torch.flip(idx, (axis,))
+        return idx.to(torch.int32)
+
+    return apply_nograd("argsort", fn, as_tensor(x))
 
 
 def sort(x, axis=-1, descending=False):
-    x = as_tensor(x)
-    s = torch.sort(x, dim=axis, stable=True).values
-    return torch.flip(s, (axis,)) if descending else s
+    def fn(a):
+        s = torch.sort(a, dim=axis, stable=True).values
+        return torch.flip(s, (axis,)) if descending else s
+
+    return apply("sort", fn, as_tensor(x))
 
 
 def topk(x, k, axis=-1, largest=True, sorted=True):
-    x = as_tensor(x)
     k = int(k)
-    key = x if largest else -x
-    idx = torch.sort(key, dim=axis, descending=True, stable=True) \
-        .indices.narrow(axis, 0, k)
-    return torch.gather(x, axis, idx), idx.to(torch.int32)
+
+    def fn(a):
+        key = a if largest else -a
+        idx = torch.sort(key, dim=axis, descending=True, stable=True) \
+            .indices.narrow(axis, 0, k)
+        return torch.gather(a, axis, idx), idx.to(torch.int32)
+
+    return apply("topk", fn, as_tensor(x))
 
 
-def _logical(fn):
+def _logical(name, fn):
     def op(x, axis=None, keepdim=False):
-        x = as_tensor(x)
-        if x.ndim == 0:
-            return fn(x)
-        return fn(x, _dims(axis, x.ndim), keepdim=keepdim)
+        def f(a):
+            if a.ndim == 0:
+                return fn(a)
+            return fn(a, _dims(axis, a.ndim), keepdim=keepdim)
 
+        return apply_nograd(name, f, as_tensor(x))
+
+    op.__name__ = name
     return op
 
 
-all = _logical(torch.all)
-all.__name__ = "all"
-any = _logical(torch.any)
-any.__name__ = "any"
+all = _logical("all", torch.all)
+any = _logical("any", torch.any)
 
 
 def cumsum(x, axis=None):
-    x = as_tensor(x)
-    out = torch.cumsum(x.reshape(-1), 0) if axis is None else \
-        torch.cumsum(x, int(axis))
-    return _int32(out, x) if x.dtype != torch.bool else out.to(torch.int32)
+    def fn(a):
+        out = torch.cumsum(a.reshape(-1), 0) if axis is None else \
+            torch.cumsum(a, int(axis))
+        return _int32(out, a) if a.dtype != torch.bool else \
+            out.to(torch.int32)
+
+    return apply("cumsum", fn, as_tensor(x))
 
 
 def cumprod(x, dim=None):
-    x = as_tensor(x)
-    out = torch.cumprod(x.reshape(-1), 0) if dim is None else \
-        torch.cumprod(x, int(dim))
-    return _int32(out, x)
+    def fn(a):
+        out = torch.cumprod(a.reshape(-1), 0) if dim is None else \
+            torch.cumprod(a, int(dim))
+        return _int32(out, a)
+
+    return apply("cumprod", fn, as_tensor(x))
 
 
 def count_nonzero(x, axis=None, keepdim=False):
-    x = as_tensor(x)
-    return torch.sum(x != 0, _dims(axis, x.ndim), keepdim=keepdim) \
-        .to(torch.int32)
+    return apply_nograd("count_nonzero", lambda a: torch.sum(
+        a != 0, _dims(axis, a.ndim), keepdim=keepdim).to(torch.int32),
+        as_tensor(x))
 
 
 def kthvalue(x, k, axis=-1, keepdim=False):
-    x = as_tensor(x)
-    s, i = torch.sort(x, dim=axis, stable=True)
-    v, ix = s.select(axis, k - 1), i.select(axis, k - 1)
-    if keepdim:
-        v, ix = v.unsqueeze(axis), ix.unsqueeze(axis)
-    return v, ix.to(torch.int32)
+    def fn(a):
+        s, i = torch.sort(a, dim=axis, stable=True)
+        v, ix = s.select(axis, k - 1), i.select(axis, k - 1)
+        if keepdim:
+            v, ix = v.unsqueeze(axis), ix.unsqueeze(axis)
+        return v, ix.to(torch.int32)
+
+    return apply("kthvalue", fn, as_tensor(x))
 
 
 def mode(x, axis=-1, keepdim=False):
     """The most frequent value along `axis` (the smallest of the most
     frequent): the JAX package's run-length walk over the sorted values."""
-    x = as_tensor(x)
-    with torch.no_grad():
-        s = torch.sort(x, dim=axis).values
+    def fn(a):
+        s = torch.sort(a, dim=axis).values
         first = torch.zeros_like(s.narrow(axis, 0, 1), dtype=torch.int32)
         same = torch.cat([first, (torch.diff(s, dim=axis) == 0)
                           .to(torch.int32)], axis)
@@ -235,12 +259,14 @@ def mode(x, axis=-1, keepdim=False):
         v = torch.take_along_dim(s, best, axis)
         return v if keepdim else v.squeeze(axis)
 
+    return apply_nograd("mode", fn, as_tensor(x))
+
 
 def unique(x, return_index=False, return_inverse=False, return_counts=False,
            axis=None):
     # dynamic output shape: host-side, as the JAX package's
     x = as_tensor(x)
-    res = np.unique(x.numpy(), return_index=return_index,
+    res = np.unique(Tensor.numpy(x), return_index=return_index,
                     return_inverse=return_inverse,
                     return_counts=return_counts, axis=axis)
     if isinstance(res, tuple):
@@ -250,17 +276,22 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
 
 def nonzero(x, as_tuple=False):
     x = as_tensor(x)
-    idx = torch.nonzero(x).to(torch.int32)
+    idx = torch.nonzero(x.as_subclass(torch.Tensor)).to(torch.int32)
     if as_tuple:
-        return tuple(idx[:, i] for i in range(idx.shape[1]))
-    return idx
+        return tuple(idx[:, i].as_subclass(Tensor)
+                     for i in range(idx.shape[1]))
+    return idx.as_subclass(Tensor)
 
 
 def bincount(x, weights=None, minlength=0):
-    x = as_tensor(x)
-    w = None if weights is None else as_tensor(weights)
-    out = torch.bincount(x, w, minlength)
-    return out.to(torch.int32) if w is None else out.to(w.dtype)
+    w = None if weights is None else as_tensor(weights).as_subclass(
+        torch.Tensor)
+
+    def fn(a):
+        out = torch.bincount(a, w, minlength)
+        return out.to(torch.int32) if w is None else out.to(w.dtype)
+
+    return apply_nograd("bincount", fn, as_tensor(x))
 
 
 def trapezoid(y, x=None, dx=None, axis=-1, name=None):
@@ -271,6 +302,9 @@ def trapezoid(y, x=None, dx=None, axis=-1, name=None):
     y = as_tensor(y)
     if x is not None:
         # the coordinates are constants of the op, as in the JAX package
-        return torch.trapezoid(y, as_tensor(x, y).detach().to(y.device),
-                               dim=axis)
-    return torch.trapezoid(y, dx=1.0 if dx is None else float(dx), dim=axis)
+        xs = as_tensor(x, y).as_subclass(torch.Tensor).detach()
+        return apply("trapezoid", lambda a: torch.trapezoid(
+            a, xs.to(a.device), dim=axis), y)
+    d = 1.0 if dx is None else float(dx)
+    return apply("trapezoid", lambda a: torch.trapezoid(a, dx=d, dim=axis),
+                 y)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import plain
 from ..ops.optimizer_update import optimizer_update
 from .lr import LRScheduler
 
@@ -159,5 +160,5 @@ class Optimizer:
         (a channels_last weight gets channels_last accumulators, as the
         one-pass kernel walks them), fp32 or, with `dtype` None, in the
         parameter's own dtype."""
-        return [torch.full_like(p, value, dtype=dtype or p.dtype)
+        return [torch.full_like(plain(p), value, dtype=dtype or p.dtype)
                 for p in self._parameter_list]

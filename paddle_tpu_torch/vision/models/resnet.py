@@ -29,6 +29,7 @@ import math
 import torch
 from torch import nn
 
+from ...core.tensor import plain_entry
 from ...device import resolve_device
 from ...nn.conv import Conv2D
 from ...nn.fused import ConvBNReLU
@@ -146,6 +147,7 @@ class ResNet(nn.Module):
                                 conv_backend=self._conv_backend, **kw))
         return nn.Sequential(*layers)
 
+    @plain_entry('ResNet')
     def forward(self, x):
         """`[B, 3, H, W]` -> logits `[B, num_classes]` (or the pooled or
         unpooled features without a head), in the parameters' dtype."""

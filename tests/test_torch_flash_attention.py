@@ -20,7 +20,8 @@ import torch
 
 from paddle_tpu.ops.nn_ops import scaled_dot_product_attention as j_sdpa
 from paddle_tpu_torch.ops import flash_attention as tfa
-from paddle_tpu_torch.ops.nn_ops import scaled_dot_product_attention
+from paddle_tpu_torch.ops.nn_ops import (attention_with_generator,
+                                         scaled_dot_product_attention)
 
 # the module, not the function that paddle_tpu.ops.pallas re-exports
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
@@ -159,14 +160,15 @@ def test_sdpa_dropout_takes_the_dense_branch_and_drops_the_output():
     > 0 not in training: the dense branch, nothing dropped, as JAX routes
     it (the flash route only at dropout_p == 0.0). dropout_p 0: the kernel
     route (head dim 64: the causal kernel's; other head dims are dense, as
-    in JAX). No generator raises."""
+    in JAX). The models' entry, `attention_with_generator`, draws the mask
+    from their generator; no generator raises."""
     rng = np.random.RandomState(9)
     q, k, v = (torch.from_numpy(rng.randn(2, 8, 2, 64).astype(np.float32))
                for _ in range(3))
     dense = tfa.dense_attention(q, k, v, True)
     g = torch.Generator().manual_seed(3)
     fwd = tfa.causal_attention_fwd.plain_calls
-    out = scaled_dot_product_attention(q, k, v, dropout_p=0.25,
+    out = attention_with_generator(q, k, v, dropout_p=0.25,
                                        is_causal=True, generator=g)
     assert tfa.causal_attention_fwd.plain_calls == fwd
     kept = out != 0
@@ -174,7 +176,7 @@ def test_sdpa_dropout_takes_the_dense_branch_and_drops_the_output():
     torch.testing.assert_close(out[kept], (dense / 0.75)[kept], rtol=0,
                                atol=0)
     for p, training in ((0.25, False), (0.0, True)):
-        got = scaled_dot_product_attention(q, k, v, dropout_p=p,
+        got = attention_with_generator(q, k, v, dropout_p=p,
                                            is_causal=True, training=training,
                                            generator=g)
         if p > 0.0:
@@ -185,7 +187,7 @@ def test_sdpa_dropout_takes_the_dense_branch_and_drops_the_output():
         torch.testing.assert_close(got, tfa.chunked_causal_attention(
             q, k, v), rtol=0, atol=0)
     with pytest.raises(ValueError, match="generator"):
-        scaled_dot_product_attention(q, k, v, dropout_p=0.25, is_causal=True)
+        attention_with_generator(q, k, v, dropout_p=0.25, is_causal=True)
 
 
 def test_plain_causal_backward_matches_jax_interpret_kernel():

@@ -1,6 +1,6 @@
 """The port's paddle ops against the JAX package's, one case per op that
-`paddle_tpu/ops/ops.yaml` lists in the modules creation, math,
-manipulation, reduction, activation and random_ops.
+`paddle_tpu/ops/ops.yaml` lists: the modules creation, math,
+manipulation, reduction, activation, random_ops, linalg and nn_ops.
 
 Each case holds the port's function to JAX's:
 - its signature: parameter names, kinds and defaults, in order;
@@ -13,6 +13,8 @@ Each case holds the port's function to JAX's:
 - where the op is differentiable, `.backward()` of the output weighted by
   a seeded cotangent: each input's gradient within 1e-5 of the largest of
   JAX's.
+- its dispatches: the `OpStats.counts` of the op (forward, cotangent
+  weighting and backward) equal JAX's, name by name.
 The port runs on the CPU (`set_device('cpu')`). The cases are
 `tools/paddle_op_cases.py`'s: phase paddle_api of `chip_smoke.py` holds the
 same ops on the card to the CPU.
@@ -30,23 +32,28 @@ import jax
 import paddle_tpu as jp
 from paddle_tpu.core import dtype as jdtypes
 from paddle_tpu.core.tensor import Tensor as JTensor
+from paddle_tpu.ops.dispatch import OpStats as JStats
 import paddle_tpu_torch as tp
 from paddle_tpu.ops import (activation as jact, creation as jcre,
-                            manipulation as jman, math as jmath,
+                            linalg as jlin, manipulation as jman,
+                            math as jmath, nn_ops as jnn,
                             random_ops as jrand, reduction as jred)
 from paddle_tpu_torch.core import dtype as tdtypes
+from paddle_tpu_torch.ops.dispatch import OpStats as TStats
 from paddle_tpu_torch.ops import (activation as tact, creation as tcre,
-                                  manipulation as tman, math as tmath,
+                                  linalg as tlin, manipulation as tman,
+                                  math as tmath, nn_ops as tnn,
                                   random_ops as trand, reduction as tred)
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tools"))
 from paddle_op_cases import (PADDLE_OP_CASES as CASES,  # noqa: E402
-                             paddle_op_args)
+                             decomposition_error, paddle_op_args)
 
 MODULES = {"activation": (jact, tact), "creation": (jcre, tcre),
            "manipulation": (jman, tman), "math": (jmath, tmath),
-           "random_ops": (jrand, trand), "reduction": (jred, tred)}
+           "random_ops": (jrand, trand), "reduction": (jred, tred),
+           "linalg": (jlin, tlin), "nn_ops": (jnn, tnn)}
 SCHEMA = yaml.safe_load((REPO / "paddle_tpu/ops/ops.yaml").read_text())
 LISTED = [(o["module"], o["op"]) for o in SCHEMA["ops"]
           if o["module"] in MODULES]
@@ -54,7 +61,9 @@ LISTED = [(o["module"], o["op"]) for o in SCHEMA["ops"]
 # the JAX ops that need concrete values (dynamic output shapes, host
 # checks, in-place updates of their argument)
 EAGER = {"masked_select", "unique", "nonzero", "bincount", "take",
-         "increment", "multiply_", "normal_", "uniform_", "where", "rrelu"}
+         "increment", "multiply_", "normal_", "uniform_", "where", "rrelu",
+         "sequence_mask", "dropout", "dropout2d", "dropout3d",
+         "alpha_dropout"}
 
 GRAD_TOL = 1e-5
 
@@ -64,8 +73,11 @@ def _on_cpu():
     """The port on the CPU; both packages' global generators (and default
     dtypes) as they were, for the tests that run after these."""
     states = jp.get_rng_state(), tp.get_rng_state()
+    stats = [(S, S.enabled, dict(S.counts)) for S in (JStats, TStats)]
     tp.set_device("cpu")
     yield
+    for S, enabled, counts in stats:
+        S.enabled, S.counts = enabled, counts
     jp.set_rng_state(states[0])
     tp.set_rng_state(states[1])
     jp.set_default_dtype("float32")
@@ -115,6 +127,15 @@ def _forward_and_grads(pkg, fn, case, built, leaves):
         loss.backward()
         grads = [t.grad for t in leaves]
     return outs, grads
+
+
+def _counted(stats, run):
+    """`run()` and the dispatches it made."""
+    stats.enabled, stats.counts = True, {}
+    try:
+        return run(), dict(stats.counts)
+    finally:
+        stats.enabled = False
 
 
 def _run(pkg, fn, case, args, jax_side):
@@ -202,8 +223,11 @@ def test_op_matches_jax(module, name):
     assert _params(tfn) == _params(jfn)
     case = CASES[name]
     args = paddle_op_args(name)
-    jouts, jvals, jgrads = _run_jax(jfn, case, args, name)
-    touts, tvals, tgrads = _run(tp, tfn, case, args, False)
+    (jouts, jvals, jgrads), jcounts = _counted(
+        JStats, lambda: _run_jax(jfn, case, args, name))
+    (touts, tvals, tgrads), tcounts = _counted(
+        TStats, lambda: _run(tp, tfn, case, args, False))
+    assert tcounts == jcounts
     assert len(touts) == len(jouts)
     if not jvals:                       # a Python value (allclose's bool)
         assert [bool(t) for t in touts] == [bool(j) for j in jouts]
@@ -211,8 +235,18 @@ def test_op_matches_jax(module, name):
     for k, ((t, td), (j, jd)) in enumerate(zip(tvals, jvals)):
         assert td == jd, f"output {k}: dtype {td} != JAX's {jd}"
         assert t.shape == j.shape, f"output {k}: {t.shape} != {j.shape}"
-        if case.check != "shape":
+        if case.check is None:
             _close(t, j, case.tol, f"{name} output {k}")
+    if case.check == "decomp":
+        a = args[0][1]
+        assert decomposition_error(name, [v for v, _ in tvals], a) < 1e-5
+        assert decomposition_error(name, [v for v, _ in jvals], a) < 1e-5
+        unique = {"svd": 1, "eigh": 0}.get(name)
+        if unique is not None:
+            _close(tvals[unique][0], jvals[unique][0], 1e-5, name)
+        else:
+            _close(np.abs(np.diag(tvals[1][0])),
+                   np.abs(np.diag(jvals[1][0])), 1e-5, name)
     if case.grad:
         assert len(tgrads) == len(jgrads)
         for k, (t, j) in enumerate(zip(tgrads, jgrads)):
@@ -224,4 +258,4 @@ def test_op_matches_jax(module, name):
 def test_every_listed_op_has_a_case():
     # `tanh` is listed under activation and math: one case serves both
     assert {n for _, n in LISTED} == set(CASES)
-    assert len(LISTED) == 242 and len(CASES) == 241
+    assert len(LISTED) == 332 and len(CASES) == 331

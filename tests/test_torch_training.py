@@ -41,8 +41,9 @@ from paddle_tpu_torch.amp import GradScaler
 from paddle_tpu_torch.observability import MetricsRegistry, TrainingTelemetry
 from paddle_tpu_torch.models.convert import _linear_weights
 from paddle_tpu_torch.ops import flash_attention as tfa
-from paddle_tpu_torch.ops.nn_ops import (cross_entropy, dropout, mse_loss,
+from paddle_tpu_torch.ops.nn_ops import (cross_entropy, mse_loss,
                                          softmax_with_cross_entropy)
+from paddle_tpu_torch.ops.nn_ops import dropout_with_generator as dropout
 from paddle_tpu_torch.optimizer import lr as tlr
 
 VOCAB = 61

@@ -1,6 +1,7 @@
-"""The paddle API's op cases: the arguments of every op of the six modules
-ported from `paddle_tpu/ops` (activation, creation, manipulation, math,
-random_ops, reduction) at tiny shapes, made from a seed of the op's name.
+"""The paddle API's op cases: the arguments of every op of the eight modules
+ported from `paddle_tpu/ops` (activation, creation, linalg, manipulation,
+math, nn_ops, random_ops, reduction) at tiny shapes, made from a seed of
+the op's name.
 
 `tests/test_torch_ops_api.py` holds each op on the CPU to the JAX
 package's; phase `paddle_api` of `chip_smoke.py` holds the same ops on the
@@ -16,6 +17,9 @@ class OpCase:
 
     def __init__(self, *args, grad=False, tol=1e-6, rand=False, check=None,
                  **kw):
+        # check: None compares every output; "shape" dtypes and shapes;
+        # "decomp" the unique parts (values) and the reconstruction of a
+        # decomposition whose vectors' signs are LAPACK's choice
         self.args, self.kw, self.grad, self.tol = args, kw, grad, tol
         self.rand, self.check = rand, check
 
@@ -25,7 +29,10 @@ class OpCase:
 # 0.95), ("s", shape) sorted normal, ("n", shape) normal with a NaN and an
 # inf, ("i", shape, lo, hi) int32 (the "int64" name), ("b", shape) bool,
 # ("c", shape) complex64, ("perm", k, n) k distinct int32 in [0, n), ("L",
-# [specs]) a list of tensors; anything else passes as is
+# [specs]) a list of tensors, ("spd", n) a symmetric positive definite
+# n x n, ("w", n) a well-conditioned n x n, ("tri", n) an upper triangular
+# n x n with a dominant diagonal, ("pm", shape) +-1 floats; anything else
+# passes as is
 _F34, _P34, _U34 = ("f", (3, 4)), ("p", (3, 4)), ("u", (3, 4))
 _I34 = ("i", (3, 4), -5, 6)
 _LOOSE = 1e-5           # transcendental and special functions
@@ -284,10 +291,128 @@ PADDLE_OP_CASES = {
     "unique": C(("i", (12,), 0, 5), return_counts=True, return_index=True),
     "var": C(_F34, [0, 1], False, grad=True),
 }
+_X4 = ("f", (2, 3, 6, 6))
+_LOGITS, _LABELS = ("f", (4, 5)), ("i", (4,), 0, 5)
+PADDLE_OP_CASES.update({
+    # linalg
+    "baddbmm": C(("f", (2, 3, 5)), ("f", (2, 3, 4)), ("f", (2, 4, 5)),
+                 grad=True, beta=0.5, alpha=2.0),
+    "bmm": C(("f", (2, 3, 4)), ("f", (2, 4, 5)), grad=True),
+    "cholesky": C(("spd", 4), grad=True, tol=_LOOSE),
+    "corrcoef": C(("f", (3, 6)), grad=True, tol=_LOOSE),
+    "cov": C(("f", (3, 6)), grad=True),
+    "cross": C(("f", (4, 3)), ("f", (4, 3)), grad=True),
+    "det": C(("w", 4), grad=True, tol=_LOOSE),
+    "diagonal": C(("f", (3, 4, 2)), 1, 0, 1, grad=True),
+    "dist": C(_F34, _F34, 3, grad=True),
+    "dot": C(_F34, _F34, grad=True),
+    "eigh": C(("spd", 4), check="decomp"),
+    "einsum": C("ij,jk->ik", _F34, ("f", (4, 2)), grad=True),
+    "histogram": C(("f", (40,)), 6),
+    "inner": C(_F34, ("f", (5, 4)), grad=True),
+    "inverse": C(("w", 4), grad=True, tol=_LOOSE),
+    "kron": C(("f", (2, 2)), ("f", (2, 3)), grad=True),
+    "matmul": C(_F34, ("f", (5, 4)), grad=True, transpose_y=True),
+    "matrix_power": C(("w", 3), 3, grad=True, tol=_LOOSE),
+    "mm": C(_F34, ("f", (4, 5)), grad=True),
+    "mv": C(_F34, ("f", (4,)), grad=True),
+    "norm": C(_F34, grad=True),
+    "outer": C(("f", (3,)), ("f", (4,)), grad=True),
+    "pinv": C(("f", (4, 3)), grad=True, tol=_LOOSE),
+    "qr": C(("f", (4, 3)), check="decomp"),
+    "renorm": C(_F34, 2, 0, 1.5, grad=True),
+    "slogdet": C(("w", 4), grad=True, tol=_LOOSE),
+    "solve": C(("w", 3), ("f", (3, 2)), grad=True, tol=_LOOSE),
+    "svd": C(("f", (4, 3)), check="decomp"),
+    "t": C(_F34, grad=True),
+    "trace": C(_F34, 1, grad=True),
+    "triangular_solve": C(("tri", 3), ("f", (3, 2)), grad=True,
+                          tol=_LOOSE, transpose=True),
+    # nn_ops
+    "adaptive_avg_pool2d": C(_X4, 3, grad=True),
+    "adaptive_max_pool2d": C(_X4, 2, grad=True),
+    "affine_grid": C(("f", (2, 2, 3)), [2, 1, 3, 4], grad=True),
+    "alpha_dropout": C(("f", (4, 8)), 0.2, rand=True, grad=True),
+    "avg_pool1d": C(("f", (2, 3, 9)), 3, 2, 1, grad=True),
+    "avg_pool2d": C(_X4, 3, 2, 1, grad=True, count_include_pad=False),
+    "avg_pool3d": C(("f", (1, 2, 4, 4, 4)), 3, 2, 1, grad=True),
+    "batch_norm": C(_X4, ("f", (3,)), ("p", (3,)), ("f", (3,)),
+                    ("f", (3,)), grad=True, tol=_LOOSE),
+    "bce_loss": C(("q", (3, 4)), ("q", (3, 4)), grad=True),
+    "bce_with_logits": C(_F34, ("q", (3, 4)), grad=True),
+    "conv1d": C(("f", (2, 3, 8)), ("f", (4, 3, 3)), ("f", (4,)), grad=True,
+                tol=_LOOSE, stride=2, padding=1),
+    "conv2d": C(_X4, ("f", (4, 3, 3, 3)), ("f", (4,)), grad=True,
+                tol=_LOOSE, padding=1),
+    "conv2d_transpose": C(("f", (2, 3, 4, 4)), ("f", (3, 2, 3, 3)),
+                          ("f", (2,)), grad=True, tol=_LOOSE, stride=2,
+                          padding=1, output_padding=1),
+    "conv3d": C(("f", (1, 2, 4, 4, 4)), ("f", (3, 2, 3, 3, 3)), grad=True,
+                tol=_LOOSE, padding=1),
+    "cosine_embedding_loss": C(_F34, _F34, ("pm", (3,)), grad=True),
+    "cosine_similarity": C(_F34, _F34, grad=True),
+    "cross_entropy": C(_LOGITS, _LABELS, grad=True),
+    "ctc_loss": C(("f", (6, 2, 5)), ("i", (2, 3), 1, 5), [6, 5], [3, 2],
+                  grad=True, tol=_LOOSE),
+    "dice_loss": C(("q", (3, 5)), ("i", (3, 1), 0, 5), grad=True),
+    "dropout": C(("f", (4, 8)), 0.3, rand=True, grad=True),
+    "dropout2d": C(("f", (2, 4, 3, 3)), 0.5, rand=True, grad=True),
+    "dropout3d": C(("f", (2, 3, 2, 2, 2)), 0.5, rand=True, grad=True),
+    "embedding": C(("i", (2, 5), 0, 7), ("f", (7, 4)), grad=True,
+                   padding_idx=2),
+    "fold": C(("f", (1, 8, 9)), [4, 4], 2, grad=True),
+    "fused_bias_dropout_residual_layer_norm": C(
+        ("f", (2, 3, 8)), ("f", (2, 3, 8)), ("f", (8,)), ("f", (8,)),
+        ("f", (8,)), grad=True, tol=_LOOSE),
+    "global_avg_pool2d": C(("f", (2, 3, 4, 4)), grad=True),
+    "grid_sample": C(("f", (1, 2, 4, 4)), ("u", (1, 3, 3, 2)), grad=True),
+    "group_norm": C(("f", (2, 4, 3, 3)), 2, ("f", (4,)), ("f", (4,)),
+                    grad=True, tol=_LOOSE),
+    "hinge_embedding_loss": C(_F34, ("pm", (3, 4)), grad=True),
+    "instance_norm": C(("f", (2, 3, 4, 4)), ("f", (3,)), ("f", (3,)),
+                       grad=True, tol=_LOOSE),
+    "interpolate": C(("f", (1, 2, 6, 6)), [4, 4], grad=True,
+                     mode="bilinear"),
+    "kl_div": C(_F34, ("q", (3, 4)), grad=True),
+    "l1_loss": C(_F34, _F34, grad=True),
+    "label_smooth": C(("q", (3, 4)), grad=True, epsilon=0.2),
+    "layer_norm": C(("f", (2, 3, 8)), 8, ("f", (8,)), ("f", (8,)),
+                    grad=True, tol=_LOOSE),
+    "linear": C(("f", (2, 3, 4)), ("f", (4, 5)), ("f", (5,)), grad=True),
+    "local_response_norm": C(("f", (1, 5, 3, 3)), 3, grad=True),
+    "log_loss": C(("q", (3, 4)), ("q", (3, 4)), grad=True),
+    "margin_cross_entropy": C(("u", (4, 5)), _LABELS, grad=True,
+                              tol=_LOOSE),
+    "margin_ranking_loss": C(("f", (5,)), ("f", (5,)), ("pm", (5,)),
+                             grad=True),
+    "max_pool1d": C(("f", (2, 3, 9)), 3, 2, 1, grad=True),
+    "max_pool2d": C(_X4, 3, 2, 1, grad=True),
+    "max_pool3d": C(("f", (1, 2, 4, 4, 4)), 2, grad=True),
+    "mse_loss": C(_F34, _F34, grad=True),
+    "nll_loss": C(_LOGITS, _LABELS, grad=True),
+    "normalize": C(_F34, grad=True),
+    "npair_loss": C(("f", (4, 6)), ("f", (4, 6)), ("i", (4,), 0, 2),
+                    grad=True, tol=_LOOSE),
+    "pixel_shuffle": C(("f", (1, 8, 2, 2)), 2, grad=True),
+    "pixel_unshuffle": C(("f", (1, 2, 4, 4)), 2, grad=True),
+    "rms_norm": C(("f", (2, 3, 8)), ("f", (8,)), grad=True, tol=_LOOSE),
+    "scaled_dot_product_attention": C(
+        ("f", (2, 8, 2, 16)), ("f", (2, 8, 2, 16)), ("f", (2, 8, 2, 16)),
+        grad=True, tol=_LOOSE, is_causal=True),
+    "sequence_mask": C(("i", (4,), 1, 6)),
+    "sigmoid_focal_loss": C(_F34, ("q", (3, 4)), grad=True),
+    "smooth_l1_loss": C(_F34, _F34, grad=True),
+    "softmax_with_cross_entropy": C(_LOGITS, ("i", (4, 1), 0, 5),
+                                    grad=True),
+    "square_error_cost": C(_F34, _F34, grad=True),
+    "temporal_shift": C(("f", (4, 4, 2, 2)), 2, grad=True),
+    "triplet_margin_loss": C(_F34, _F34, _F34, grad=True),
+    "unfold": C(("f", (1, 2, 5, 5)), 3, grad=True),
+})
 del C
 # the module of each op (tanh is in activation and in math)
-PADDLE_OP_MODULES = ("activation", "creation", "manipulation", "math",
-                     "random_ops", "reduction")
+PADDLE_OP_MODULES = ("activation", "creation", "linalg", "manipulation",
+                     "math", "nn_ops", "random_ops", "reduction")
 
 
 def paddle_op_arg(spec, rng):
@@ -324,7 +449,43 @@ def paddle_op_arg(spec, rng):
                 .astype(np.complex64))
     if kind == "perm":
         return ("t", rng.permutation(spec[2])[:shape].astype(np.int32))
+    if kind == "spd":
+        a = rng.randn(shape, shape)
+        return ("t", (a @ a.T / shape + np.eye(shape)).astype(np.float32))
+    if kind == "w":
+        return ("t", (rng.randn(shape, shape) + 3 * np.eye(shape))
+                .astype(np.float32))
+    if kind == "tri":
+        return ("t", (np.triu(rng.randn(shape, shape)) + 3 * np.eye(shape))
+                .astype(np.float32))
+    if kind == "pm":
+        return ("t", rng.choice([-1.0, 1.0], shape).astype(np.float32))
     raise ValueError(spec)
+
+
+def decomposition_error(name, outs, a):
+    """The largest error of the decomposition `outs` of `a` (numpy): the
+    reconstruction, and the orthogonality of its vectors, against the
+    scale of `a`. svd (U, S, Vh), qr (Q, R), eigh (w, V)."""
+    a = np.asarray(a, np.float64)
+    outs = [np.asarray(o, np.float64) for o in outs]
+    if name == "svd":
+        u, s, vh = outs
+        rec = (u * s) @ vh
+        orth = [u.T @ u, vh @ vh.T]
+    elif name == "qr":
+        q, r = outs
+        rec = q @ r
+        orth = [q.T @ q]
+        if np.abs(np.tril(r, -1)).max() > 0:
+            return float("inf")
+    else:
+        w, v = outs
+        rec = (v * w) @ v.T
+        orth = [v.T @ v]
+    scale = max(np.abs(a).max(), 1.0)
+    return max([np.abs(rec - a).max() / scale]
+               + [np.abs(o - np.eye(len(o))).max() for o in orth])
 
 
 def paddle_op_args(name):
