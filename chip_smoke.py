@@ -25,6 +25,7 @@ engine_lora
     python3 chip_smoke.py --phases build,sdpa_bwd,transformer_train,\
 transformer_train_parity
     python3 chip_smoke.py --phases build,paddle_api,paddle_program
+    python3 chip_smoke.py --phases build,paddle_layers
 
 Phases, each printing one JSON line:
 
@@ -468,9 +469,31 @@ Phases, each printing one JSON line:
    through `paddle.save` / `paddle.load` bitwise; the share of a bf16
    `F.linear` equal to one rounding of its fp32 product and bias, and of a
    bf16 GEMM unchanged by cuBLAS' reduced-precision split-K setting.
+49. paddle_layers: the `nn` layers. (a) The README's "Drive it"
+   flow (`nn.Sequential(nn.Linear(8, 16), nn.Tanh(), nn.Linear(16, 1))`,
+   `Adam`, ten eager steps) on the card: the loss falls and the ten
+   losses equal the CPU's within 1e-5. (b) GPT-1.3B written as `nn`
+   layers (`tools/paddle_gpt_layers.py`: `nn.Embedding`, an
+   `nn.LayerList` of blocks of `nn.LayerNorm`, `nn.Linear` and
+   `nn.Dropout(0.0)`, `F.scaled_dot_product_attention(is_causal=True)`),
+   4 x 1024 tokens, loaded through `set_state_dict` from a seeded
+   `GPTForCausalLM`'s `paddle_tpu_state`: f32, TF32 off, the loss within
+   1e-5 of the module's, every gradient within LAYER_GRAD_TOL, B1 and B2
+   24 launches each and no plain call; then `Layer.astype("bfloat16")` and
+   one eager AdamW step: a finite loss, B1 and B2 24 each, the update
+   kernel, its ms, and its peak memory as `paddle.device` reads it, equal
+   to `torch.cuda.max_memory_allocated`. (c) Every case of
+   `tools/paddle_layer_cases.py` (one a ported layer class) and the
+   card-sized RNNs (LSTM and GRU, hidden 1024, batch 32, T 128, two
+   bidirectional layers) built on the card, copied to the CPU with
+   `Layer.to`, run on both from that state: forward, input and parameter
+   gradients and the state after, within each case's tolerance. (d)
+   `paddle.device`: `synchronize`, `memory_allocated` equal to torch's,
+   and after `reset_peak_memory_stats` the peak following a 256 MiB
+   allocation.
 
 Phases 5 to 8, 11 to 13, 16, 17, 19, 20, 22, 23, 25, 26, 29 to 33, 36, 37,
-39 to 42, 45 and 48 are the main path, in sixty-three runs: the bf16
+39 to 42, 45, 48 and 49 are the main path, in sixty-five runs: the bf16
 engine, the bf16 generate(), the f32 engine, the f32 generate(), the bf16
 train steps,
 the f32 train steps, the bf16 speculative engine, the three f32 engines of
@@ -488,8 +511,9 @@ bf16 and int8 pools, the f32 bucketed engine, the mixed-tenant and the
 all-null-adapter LoRA engines, the f32 LoRA engines, the f32
 tensor-parallel engines on the card, and engine_tp's eight engines (three
 configurations at mp 1, 2 and 4, the adapter one at mp 1 and 2),
-fleet's eleven runs (phase 45) and the paddle program at f32 and bf16
-(phase 48). Kernel
+fleet's eleven runs (phase 45), the paddle program at f32 and bf16
+(phase 48) and the GPT of `nn` layers at f32 and its bf16 AdamW step
+(phase 49). Kernel
 counts are set to 0 just before each run and read just after it; each run
 must launch every kernel it takes (PATH_KERNEL: the engine the paged
 decode kernel, generate() the causal forward, training the causal forward
@@ -510,8 +534,9 @@ acceptance coin once a verify step; an int8-weight engine the int8-weight linear
 times a layer a step; a bucketed engine the causal forward 24 times an
 admission; a LoRA engine the batched LoRA kernel four times a layer a
 step; at mp N each of these N times, once a shard, the draws once; the
-paddle program B1 and B2 24 times a forward and backward) and call no
-plain version.
+paddle program and the GPT of `nn` layers B1 and B2 24 times a forward
+and backward, the layers' AdamW step the update once) and call no plain
+version.
 `--profile` adds a device-time
 breakdown of each engine run (the part after its prefixes are cached), of
 one GPT train step, of one BERT train step, of one bf16 ResNet-50
@@ -552,7 +577,8 @@ PHASES = ("build", "paged_decode", "causal_fwd", "causal_bwd", "engine",
           "bert_lamb", "sampling", "int8_linear", "engine_sampled",
           "engine_wint8", "lora", "engine_bucketed", "engine_lora",
           "tp_parity", "engine_tp", "engine_async", "engine_observed",
-          "fleet", "train_telemetry", "paddle_api", "paddle_program")
+          "fleet", "train_telemetry", "paddle_api", "paddle_program",
+          "paddle_layers")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2 ** 20            # the H100's L2 cache
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -802,7 +828,9 @@ PATH_KERNEL = {"engine_bf16": (DEC,),
                "train_telemetry_off_bf16": (FWD, BWD, OPT, MERGE, FINISH),
                "train_telemetry_bf16": (FWD, BWD, OPT, MERGE, FINISH),
                "paddle_program_f32": (FWD, BWD),
-               "paddle_program_bf16": (FWD, BWD)}
+               "paddle_program_bf16": (FWD, BWD),
+               "paddle_layers_f32": (FWD, BWD),
+               "paddle_layers_bf16": (FWD, BWD, OPT)}
 # peak device memory (GB) of the bf16 train phases with the per-parameter
 # optimizer loop, before the update became one pass (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W); each phase fails more than
@@ -4388,7 +4416,8 @@ def phase_optimizer_update(torch, ctx, seed):
     g = torch.Generator("cuda").manual_seed(seed)
     rn = resnet50(num_classes=1000, device="cuda", generator=g).to(
         torch.bfloat16)
-    rnamed = [(n, p.detach()) for n, p in rn.named_parameters()]
+    rnamed = [(n, p.detach().as_subclass(torch.Tensor))
+              for n, p in rn.named_parameters()]
     del rn
     params = [p for _, p in rnamed]
     res["cases"].append(_update_case(
@@ -7685,6 +7714,198 @@ def phase_paddle_program(torch, ctx, seed):
         raise AssertionError("paddle_program phase failed its checks")
 
 
+LAYER_GRAD_TOL = PROGRAM_GRAD_TOL   # the bar phase paddle_program holds
+
+
+def _layer_table(torch, paddle, plc, seed):
+    """Each case of tools/paddle_layer_cases.py built on the card, copied
+    to the CPU (`Layer.to`), run on both from that one state: the worst
+    error of each case against its tolerance, and the card's ms of the
+    card-sized RNNs' forward and backward."""
+    import copy
+
+    table, worst_ok, rnn_ms = {}, True, {}
+    cases = dict(plc.LAYER_CASES, **plc.CARD_CASES)
+    for name, case in cases.items():
+        paddle.set_device("gpu")
+        gl = plc.build_case(paddle, case, seed)
+        cl = copy.deepcopy(gl).to(device="cpu")
+        got = plc.numpy_result(plc.run_case(paddle, name, case, gl, seed))
+        if name in plc.CARD_CASES:
+            def run(gl=gl, name=name, case=case):
+                gl.clear_gradients()
+                plc.run_case(paddle, name, case, gl, seed)
+            rnn_ms[name] = cuda_ms(torch, run, 2, warmup=0)
+        paddle.set_device("cpu")
+        want = plc.numpy_result(plc.run_case(paddle, name, case, cl, seed))
+        err = plc.max_err(got, want)
+        table[name] = err
+        worst_ok &= err <= case.tol
+        del gl, cl
+    paddle.set_device("gpu")
+    torch.cuda.empty_cache()
+    return table, bool(worst_ok), rnn_ms
+
+
+def phase_paddle_layers(torch, ctx, seed):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import paddle_gpt_layers as pgl
+    import paddle_layer_cases as plc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import GPTConfig, GPTForCausalLM, paddle_tpu_state
+    from paddle_tpu_torch.models.convert import _linear_weights
+
+    cfg = GPTConfig.gpt_1p3b()
+    L, heads, B, S = cfg.num_layers, cfg.num_heads, 4, 1024
+    res = {"phase": "paddle_layers", "card": nvidia_smi_line(),
+           "shape": f"GPT-1.3B as nn layers: {L} layers, hidden "
+                    f"{cfg.hidden_size}, {heads} heads, ffn "
+                    f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, "
+                    f"{B} x {S} tokens; f32 TF32 off, then one bf16 AdamW "
+                    "step"}
+    ok = True
+
+    # (a) the README's flow: a Sequential MLP with Adam, ten eager steps
+    paddle.set_device("gpu")
+    card = pgl.user_flow(paddle)
+    paddle.set_device("cpu")
+    host = pgl.user_flow(paddle)
+    res["flow_losses"] = card
+    res["flow_max_abs_err"] = float(np.abs(np.subtract(card, host)).max())
+    ok &= card[-1] < card[0] and res["flow_max_abs_err"] <= 1e-5
+
+    # (b) GPT-1.3B from nn layers on the seeded module's weights
+    paddle.set_device("gpu")
+    g = torch.Generator("cuda").manual_seed(seed + 91)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           generator=g)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device="cuda")
+    paddle.seed(seed)
+    t0 = time.perf_counter()
+    net = pgl.gpt_layers(paddle, cfg.vocab_size, cfg.hidden_size, L, heads,
+                         cfg.max_seq_len, cfg.intermediate_size,
+                         cfg.layer_norm_epsilon)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    state = paddle_tpu_state(model)
+    missing, unexpected = net.set_state_dict(state)
+    del state
+    res["state_missing_unexpected"] = [missing, unexpected]
+    ok &= not missing and not unexpected
+    pids, plabels = paddle.to_tensor(ids), paddle.to_tensor(labels)
+    model.zero_grad(set_to_none=True)
+    ref_loss = model(ids, labels=labels)
+    ref_loss.backward()
+    linear = _linear_weights(model)
+    named = dict(model.named_parameters())
+
+    def run_f32():
+        loss = net(pids, plabels)
+        loss.backward()
+        return loss
+
+    loss32 = _counted(torch, ctx, "paddle_layers_f32", run_f32,
+                      exact={FWD: L, BWD: L})
+    res["f32_loss"] = loss32.item()
+    res["f32_module_loss"] = ref_loss.item()
+    res["f32_loss_rel_err"] = abs(res["f32_loss"] - res["f32_module_loss"]) \
+        / abs(res["f32_module_loss"])
+    worst, worst_name = 0.0, None
+    for k, p in net.named_parameters():
+        gref = named[k].grad
+        gref = gref.t() if k in linear else gref
+        e = _rel(p.grad.detach(), gref)
+        if e > worst:
+            worst, worst_name = e, k
+    res.update(f32_grad_rel_err=worst, f32_grad_worst=worst_name,
+               f32_grad_tol=LAYER_GRAD_TOL)
+    ok &= res["f32_loss_rel_err"] <= 1e-5 and worst <= LAYER_GRAD_TOL
+
+    def step_module():
+        model.zero_grad(set_to_none=True)
+        model(ids, labels=labels).backward()
+
+    def step_layers():
+        net.clear_gradients()
+        net(pids, plabels).backward()
+
+    res["fwd_bwd_ms"] = {
+        "layers_f32": cuda_ms(torch, step_layers, 2, warmup=0),
+        "module_f32": cuda_ms(torch, step_module, 2, warmup=0)}
+    del model, named, ref_loss, loss32
+    net.clear_gradients()
+    torch.cuda.empty_cache()
+
+    # one eager AdamW step over the Layer at bf16
+    net.astype("bfloat16")
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=net.parameters())
+
+    def step_bf16():
+        loss = net(pids, plabels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    paddle.device.reset_peak_memory_stats()
+    loss16 = _counted(torch, ctx, "paddle_layers_bf16", step_bf16,
+                      exact={FWD: L, BWD: L})
+    res["bf16_loss"] = loss16.item()
+    res["bf16_peak_gb"] = paddle.device.max_memory_allocated() / 1e9
+    res["bf16_peak_torch_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["bf16_step_ms"] = cuda_ms(torch, step_bf16, 2, warmup=0)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_bf16()
+        torch.cuda.synchronize()
+    res["bf16_step_profile"] = _device_breakdown(prof, "paddle_layers_bf16")
+    ok &= (math.isfinite(res["bf16_loss"])
+           and res["bf16_peak_gb"] == res["bf16_peak_torch_gb"])
+    del net, opt, loss16
+    torch.cuda.empty_cache()
+
+    # (c) the layer table, card against CPU from one state
+    t0 = time.perf_counter()
+    table, table_ok, rnn_ms = _layer_table(torch, paddle, plc, seed)
+    res.update(layer_max_err=table, layer_table_ok=table_ok,
+               layer_table_s=time.perf_counter() - t0,
+               rnn_card_fwd_bwd_ms=rnn_ms)
+    ok &= table_ok
+
+    # (d) the device package: the caching allocator's counters
+    paddle.set_device("gpu")
+    paddle.device.synchronize()
+    stats = paddle.device.memory_stats()
+    res["memory_source"] = stats["source"]
+    res["memory_allocated_equal"] = \
+        paddle.device.memory_allocated() == torch.cuda.memory_allocated()
+    paddle.device.reset_peak_memory_stats()
+    before = paddle.device.memory_allocated()
+    block = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    paddle.device.synchronize()
+    res["peak_after_256mib"] = paddle.device.max_memory_allocated() - before
+    res["peak_equal"] = (paddle.device.max_memory_allocated()
+                         == torch.cuda.max_memory_allocated())
+    del block
+    ok &= (stats["source"] == "cuda_caching_allocator"
+           and res["memory_allocated_equal"] and res["peak_equal"]
+           and res["peak_after_256mib"] >= 256 << 20)
+    res["ok"] = bool(ok)
+    emit(res)
+    paddle.set_device("cpu")
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("paddle_layers phase failed its checks")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7845,8 +8066,10 @@ def main(argv=None):
                 phase_train_telemetry(torch, ctx, SEED)
             elif name == "paddle_api":
                 phase_paddle_api(torch, ctx, SEED)
-            else:
+            elif name == "paddle_program":
                 phase_paddle_program(torch, ctx, SEED)
+            else:
+                phase_paddle_layers(torch, ctx, SEED)
         except Exception as e:  # noqa: BLE001 — report, go on, exit 1
             traceback.print_exc()
             emit({"phase": name, "ok": False,

@@ -65,7 +65,11 @@ Ported so far:
   subclass) and `Parameter`, `to_tensor`, `stop_gradient`, `.backward()`,
   `grad`, `PyLayer`, `seed` (jax's key chain and bits), `set_device`
   ('gpu' or 'cpu'), and the ops of the six modules under the JAX
-  package's top-level names.
+  package's top-level names;
+- the `nn` layers (`nn.Layer`, a `torch.nn.Module` with JAX's surface,
+  `ParamAttr`, the initializers of `nn.initializer` on jax's key chain,
+  and every layer class of JAX's `nn`, from `Linear` to `LSTM`) and the
+  `paddle.device` package (places, `synchronize`, memory statistics).
 """
 from . import amp, distributed, observability, optimizer, profiler, vision
 from . import autograd, core, ops
@@ -74,6 +78,7 @@ from .core import (Parameter, Tensor, enable_grad, get_default_dtype,
                    set_device)
 from .core.pylayer import PyLayer
 from .core.random import get_rng_state, set_rng_state
+from . import device  # noqa: E402
 from .device import resolve_device
 from .ops.activation import (  # noqa: F401
     celu, elu, gelu, glu, gumbel_softmax, hardshrink, hardsigmoid,
@@ -151,7 +156,7 @@ __all__ = ["resolve_device", "GenerationEngine", "PagedKVCache", "Request",
            "seed", "get_rng_state", "set_rng_state", "set_device",
            "get_device", "get_default_dtype", "set_default_dtype",
            "in_dynamic_mode", "framework", "linalg", "save", "load",
-           "set_flags", "get_flags", "nn"]
+           "set_flags", "get_flags", "nn", "device"]
 
 
 def is_grad_enabled():

@@ -6,18 +6,36 @@ JAX's places are 'tpu' and 'cpu'; the port's are 'gpu' (the CUDA cards)
 and 'cpu'. `set_device` selects the place where the creation ops put new
 tensors. With no `set_device` call the place is the card, and resolving
 it raises where there is none: the port never drops to the CPU unasked
-(`device.resolve_device`). Ops on tensors stay on their tensors' device.
+(`resolve_device`, which the `device` package re-exports). Ops on
+tensors stay on their tensors' device.
 """
 from __future__ import annotations
 
 import torch
 
-from ..device import resolve_device
-
 __all__ = ["Place", "set_device", "get_device", "get_place", "device_count",
-           "is_compiled_with_cuda", "current_device"]
+           "is_compiled_with_cuda", "current_device", "resolve_device"]
 
 _current_place = None
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA card, and raises when there is none: the port
+    never drops to the CPU unasked. Pass `device="cpu"` to run the plain
+    PyTorch versions of the kernels on the CPU (the tests do)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the plain PyTorch versions on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA "
+                           "device is available")
+    return dev
 
 
 class Place:

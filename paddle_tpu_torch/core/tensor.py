@@ -31,6 +31,7 @@ Python hook, and take plain views of what they are given (`plain`,
 """
 from __future__ import annotations
 
+import copy
 import functools
 
 import numpy as np
@@ -237,6 +238,18 @@ class Tensor(torch.Tensor):
         if self.requires_grad:
             body = body[:-1] + ", stop_gradient=False)"
         return body
+
+    def __deepcopy__(self, memo):
+        """A copy of the data and of the Python attributes (`name`,
+        `persistable`), still a `Tensor` (torch's default needs
+        `new_empty` to keep the subclass)."""
+        if id(self) not in memo:
+            data = self.detach().as_subclass(torch.Tensor).clone()
+            out = torch.Tensor._make_subclass(type(self), data,
+                                              self.requires_grad)
+            memo[id(self)] = out
+            out.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return memo[id(self)]
 
     # -- host interop --------------------------------------------------------
     def numpy(self) -> np.ndarray:

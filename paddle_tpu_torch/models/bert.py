@@ -86,7 +86,7 @@ def _layer_norm(config, kw):
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, config: BertConfig, device=None, dtype=None):
+    def __init__(self, config: BertConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.word_embeddings = nn.Embedding(config.vocab_size,
@@ -117,7 +117,7 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, config: BertConfig, device=None, dtype=None):
+    def __init__(self, config: BertConfig, *, device=None, dtype=None):
         super().__init__()
         self.num_heads = config.num_heads
         self.head_dim = config.hidden_size // config.num_heads
@@ -142,7 +142,7 @@ class BertSelfAttention(nn.Module):
 class BertLayer(nn.Module):
     """Post-LN encoder block (the original BERT residual order)."""
 
-    def __init__(self, config: BertConfig, device=None, dtype=None):
+    def __init__(self, config: BertConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.attention = BertSelfAttention(config, **kw)
@@ -163,7 +163,7 @@ class BertLayer(nn.Module):
 
 
 class BertPooler(nn.Module):
-    def __init__(self, config: BertConfig, device=None, dtype=None):
+    def __init__(self, config: BertConfig, *, device=None, dtype=None):
         super().__init__()
         self.dense = nn.Linear(config.hidden_size, config.hidden_size,
                                device=device, dtype=dtype)
@@ -185,7 +185,7 @@ class BertModel(nn.Module):
     dropout mask of `forward` is drawn in order; a caller may reseed it or
     put another generator in its place."""
 
-    def __init__(self, config: BertConfig, with_pooler=True, device=None,
+    def __init__(self, config: BertConfig, with_pooler=True, *, device=None,
                  dtype=torch.float32, generator=None):
         super().__init__()
         self.device = resolve_device(device)
@@ -270,7 +270,7 @@ class BertForSequenceClassification(nn.Module):
     `generator` (a `torch.Generator` on `device`; seed 0 when None) with
     the JAX package's init scheme."""
 
-    def __init__(self, config: BertConfig, device=None, dtype=torch.float32,
+    def __init__(self, config: BertConfig, *, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
         self.device = resolve_device(device)
@@ -328,26 +328,29 @@ class BertForSequenceClassification(nn.Module):
 
 class BertPretrainingHeads(nn.Module):
     """MLM head (transform, GELU, LayerNorm, a decoder TIED to the word
-    embeddings, its own bias) and the NSP head. The tied decoder weight is
-    read from `word_embeddings` at each call and is no parameter of this
-    module, as in the JAX model's `state_dict()`."""
+    embedding weight `[V, H]` it is given, its own bias) and the NSP head,
+    as JAX's `BertPretrainingHeads(config, embedding_weight)`. The tied
+    weight is no parameter of this module: a model's `state_dict()` holds
+    it once, under its owner's name, as the JAX model's does."""
 
-    def __init__(self, config: BertConfig, word_embeddings, device=None,
+    def __init__(self, config: BertConfig, embedding_weight, *, device=None,
                  dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.transform = nn.Linear(config.hidden_size, config.hidden_size,
                                    **kw)
         self.layer_norm = _layer_norm(config, kw)
-        # a tuple keeps nn.Module from registering the embedding here
-        self._tied = (word_embeddings,)
+        # a tuple keeps nn.Module from registering the weight here; the
+        # parameter object is kept, so `.to()` and loads (which write it in
+        # place) reach it
+        self._tied = (embedding_weight,)
         self.decoder_bias = nn.Parameter(torch.zeros(config.vocab_size,
                                                      **kw))
         self.seq_relationship = nn.Linear(config.hidden_size, 2, **kw)
 
     @property
     def decoder_weight(self):
-        return self._tied[0].weight                  # [V, H]
+        return self._tied[0]                         # [V, H]
 
     def forward(self, hidden, pooled):
         h = self.layer_norm(F.gelu(self.transform(hidden),
@@ -363,7 +366,7 @@ class BertForPretraining(nn.Module):
     cross entropy with `nsp_labels`. Device, dtype and generator as
     `BertForSequenceClassification`."""
 
-    def __init__(self, config: BertConfig, device=None, dtype=torch.float32,
+    def __init__(self, config: BertConfig, *, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
         self.device = resolve_device(device)
@@ -373,7 +376,7 @@ class BertForPretraining(nn.Module):
             generator = torch.Generator(self.device).manual_seed(0)
         self.bert = BertModel(config, generator=generator, **kw)
         self.heads = BertPretrainingHeads(
-            config, self.bert.embeddings.word_embeddings, **kw)
+            config, self.bert.embeddings.word_embeddings.weight, **kw)
         self._init_head(generator)
 
     @torch.no_grad()

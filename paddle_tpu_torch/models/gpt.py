@@ -223,7 +223,7 @@ class TensorParallel:
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         self.num_heads = config.num_heads
         self.head_dim = config.hidden_size // config.num_heads
@@ -344,7 +344,7 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(bias=config.use_bias, device=device, dtype=dtype)
         self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size,
@@ -374,7 +374,7 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(eps=config.layer_norm_epsilon, device=device, dtype=dtype)
         self.ln1 = nn.LayerNorm(config.hidden_size, **kw)
@@ -442,7 +442,7 @@ class GPTModel(nn.Module):
     from which every dropout mask of `forward` is drawn in order; a caller
     may reseed it or put another generator in its place."""
 
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
         super().__init__()
         self.config = config
         self.dropout_generator = torch.Generator(
@@ -656,7 +656,7 @@ class GPTForCausalLM(nn.Module):
     `self.gpt.dropout_generator` (seeded with 0; the caller may reseed
     it)."""
 
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
+    def __init__(self, config: GPTConfig, *, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
         self.device = resolve_device(device)

@@ -22,7 +22,11 @@ limits (VMEM slabs, the 16-tile unroll bound) the CUDA kernels do not
 have, so every shape the static gate accepts takes the kernels here.
 
 Parameter names match the JAX block's: `conv.weight`, `bn.weight`,
-`bn.bias` and the buffers `bn._mean`, `bn._variance`.
+`bn.bias` and the buffers `bn._mean`, `bn._variance`. With
+`data_format="NHWC"` the block takes and returns NHWC tensors: the kernel
+routes take the input as it is, and the composition's BatchNorm normalizes
+the last axis (JAX builds its BatchNorm NCHW whatever the layout, so its
+composition is right for NCHW only).
 
 `fold_bn_into_conv` / `fuse_conv_bn` are the deploy-time counterpart: the
 running-stat affine folded into the conv's weight and bias (in fp64 on the
@@ -33,17 +37,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..core.tensor import plain_entry
+from ..core.tensor import Parameter, plain_entry
 from ..ops.conv import (fused_conv_bn_relu, fused_conv_bn_relu_train,
                         resolve_conv_backend)
 from ..ops.nn_ops import update_running_stats
 from .conv import Conv2D
+from .layer import Layer
 from .norm import BatchNorm2D
 
 __all__ = ["ConvBNReLU", "fold_bn_into_conv", "fuse_conv_bn"]
 
 
-class ConvBNReLU(nn.Module):
+class ConvBNReLU(Layer):
     """Conv2D + BatchNorm2D + optional ReLU with a fused-kernel eval path.
 
     `act` is "relu" or None (the bn3 / downsample shape). `backend` is
@@ -53,29 +58,36 @@ class ConvBNReLU(nn.Module):
     `dense` whatever was asked, and so does a custom `norm_layer` (no
     affine to fold). `norm_layer` is called with the channel count and
     moved to `device` and `dtype`. `device`, `dtype` and `generator` as
-    `Conv2D` takes them.
+    `Conv2D` takes them, keyword-only.
 
-    On the kernel route the input goes to `torch.channels_last` memory
+    On the kernel route an NCHW input goes to `torch.channels_last` memory
     (free when it is there already: ResNet keeps its activations so), so
     that its NHWC view is contiguous; the output is the kernel's NHWC
     tensor viewed back as NCHW, channels_last in memory."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, act="relu", backend=None,
-                 norm_layer=None, device=None, dtype=torch.float32,
-                 generator=None):
-        super().__init__()
+                 norm_layer=None, data_format="NCHW", *, device=None,
+                 dtype=None, generator=None):
+        super().__init__(dtype=dtype or "float32")
+        self._place = device
         if act not in ("relu", None):
             raise ValueError(f"act must be 'relu' or None, got {act!r}")
+        if data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"data_format must be 'NCHW' or 'NHWC', got "
+                             f"{data_format!r}")
         self.conv = Conv2D(in_channels, out_channels, kernel_size,
                            stride=stride, padding=padding, dilation=dilation,
-                           groups=groups, bias_attr=False, device=device,
+                           groups=groups, bias_attr=False,
+                           data_format=data_format, device=device,
                            dtype=dtype, generator=generator)
         if norm_layer is None:
-            self.bn = BatchNorm2D(out_channels, device=device, dtype=dtype)
+            self.bn = BatchNorm2D(out_channels, data_format=data_format,
+                                  device=device, dtype=dtype)
         else:
             self.bn = norm_layer(out_channels).to(device=device, dtype=dtype)
         self._act = act
+        self._data_format = data_format
         self._folded = False
         self.backend = resolve_conv_backend(
             backend, kernel=self.conv._kernel_size, stride=self.conv._stride,
@@ -122,33 +134,40 @@ class ConvBNReLU(nn.Module):
         scale = bn.weight.float() * torch.rsqrt(bn._variance.float()
                                                 + bn._epsilon)
         shift = bn.bias.float() - bn._mean.float() * scale
-        xh = x.contiguous(memory_format=torch.channels_last) \
-            .permute(0, 2, 3, 1)
         w = self.conv.weight.permute(2, 3, 1, 0).contiguous()   # OIHW -> HWIO
-        out = fused_conv_bn_relu(xh, w, scale, shift,
+        out = fused_conv_bn_relu(self._nhwc(x), w, scale, shift,
                                  stride=self.conv._stride,
                                  padding=self.conv._padding,
                                  relu=self._act == "relu")
-        return out.permute(0, 3, 1, 2)
+        return self._back(out)
+
+    def _nhwc(self, x):
+        """The input's NHWC view, contiguous."""
+        if self._data_format == "NHWC":
+            return x.contiguous()
+        return x.contiguous(memory_format=torch.channels_last) \
+            .permute(0, 2, 3, 1)
+
+    def _back(self, y):
+        """The kernel's NHWC output in the block's layout."""
+        return y if self._data_format == "NHWC" else y.permute(0, 3, 1, 2)
 
     def _forward_fused_train(self, x):
         """One differentiable op: the NHWC view of the channels_last input
         and the weight in HWIO (a differentiable copy) through
-        `fused_conv_bn_relu_train`, the output viewed back as NCHW. The
+        `fused_conv_bn_relu_train`, the output in the block's layout. The
         running statistics update in place from the returned batch mean
         and var with `batch_norm`'s rule (unbiased var over N*Ho*Wo,
         `momentum`)."""
         bn = self.bn
-        xh = x.contiguous(memory_format=torch.channels_last) \
-            .permute(0, 2, 3, 1)
         w = self.conv.weight.permute(2, 3, 1, 0).contiguous()   # OIHW -> HWIO
         y, mean, var = fused_conv_bn_relu_train(
-            xh, w, bn.weight, bn.bias, stride=self.conv._stride,
+            self._nhwc(x), w, bn.weight, bn.bias, stride=self.conv._stride,
             padding=self.conv._padding, relu=self._act == "relu",
             eps=bn._epsilon)
         update_running_stats(bn._mean, bn._variance, mean, var,
                              y.numel() // y.shape[3], bn._momentum)
-        return y.permute(0, 3, 1, 2)
+        return self._back(y)
 
     def fold(self):
         """Inference-time folding: the running-stat affine absorbed into the
@@ -182,8 +201,8 @@ def fold_bn_into_conv(conv, bn):
     dt, dev = conv.weight.dtype, conv.weight.device
     conv.weight.copy_((w * scale[:, None, None, None]).to(dev, dt))
     if conv.bias is None:
-        conv.bias = nn.Parameter(torch.empty(conv._out_channels, device=dev,
-                                             dtype=dt))
+        conv.bias = Parameter(torch.empty(conv._out_channels, device=dev,
+                                          dtype=dt))
     conv.bias.copy_(shift.to(dev, dt))
     return conv
 

@@ -1,19 +1,18 @@
 """Loss layers: counterparts of the ten layers of paddle_tpu/nn/loss.py,
 from `CrossEntropyLoss` to `HingeEmbeddingLoss`. Each holds its options
 and calls its function of `ops.nn_ops`; `name` is accepted and unused,
-as in JAX."""
+as in JAX. Each is a `Layer`."""
 from __future__ import annotations
 
-from torch import nn
-
 from ..ops import nn_ops
+from .layer import Layer
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
            "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
            "MarginRankingLoss", "HingeEmbeddingLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -34,7 +33,7 @@ class CrossEntropyLoss(nn.Module):
             label_smoothing=self.label_smoothing)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -43,7 +42,7 @@ class MSELoss(nn.Module):
         return nn_ops.mse_loss(input, label, self.reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean", name=None):
         super().__init__()
         self.reduction = reduction
@@ -52,7 +51,7 @@ class L1Loss(nn.Module):
         return nn_ops.l1_loss(input, label, self.reduction)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0, name=None):
         super().__init__()
         self.reduction = reduction
@@ -63,7 +62,7 @@ class SmoothL1Loss(nn.Module):
                                      self.delta)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  name=None):
         super().__init__()
@@ -76,7 +75,7 @@ class NLLLoss(nn.Module):
                                self.reduction)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -86,7 +85,7 @@ class BCELoss(nn.Module):
         return nn_ops.bce_loss(input, label, self.weight, self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()
@@ -99,7 +98,7 @@ class BCEWithLogitsLoss(nn.Module):
                                       self.reduction, self.pos_weight)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -108,7 +107,7 @@ class KLDivLoss(nn.Module):
         return nn_ops.kl_div(input, label, self.reduction)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -119,7 +118,7 @@ class MarginRankingLoss(nn.Module):
                                           self.reduction)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     def __init__(self, margin=1.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin

@@ -104,7 +104,7 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
-                 bias_attr=None, device=None, dtype=torch.float32,
+                 bias_attr=None, *, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
         g, kw = _setup(self, device, dtype, generator)
@@ -161,7 +161,7 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
-                 device=None, dtype=torch.float32, generator=None):
+                 *, device=None, dtype=torch.float32, generator=None):
         super().__init__()
         g, kw = _setup(self, device, dtype, generator)
         bias = _has_bias(weight_attr, bias_attr)
@@ -239,7 +239,7 @@ class TransformerDecoderLayer(nn.Module):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
-                 device=None, dtype=torch.float32, generator=None):
+                 *, device=None, dtype=torch.float32, generator=None):
         super().__init__()
         g, kw = _setup(self, device, dtype, generator)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
@@ -327,7 +327,7 @@ class Transformer(nn.Module):
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, custom_encoder=None,
-                 custom_decoder=None, device=None, dtype=torch.float32,
+                 custom_decoder=None, *, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
         g, kw = _setup(self, device, dtype, generator)

@@ -9,40 +9,21 @@ so the measured time is device time + launches, not launches alone —
 only paid when telemetry is attached).
 
 Device-memory watermarks are read on demand (`record_memory()` /
-`memory_every=N`), not per step. On a CUDA device they come from the
-caching allocator (`torch.cuda.memory_stats`: `allocated_bytes.all.
-current` and `.peak`), as the JAX package reads its device's
-`memory_stats`. The JAX package falls back to live-array accounting on a
-device without allocator statistics; the port has no such accounting
-(ROADMAP Queue A 13, the device layer), so on the CPU it raises.
+`memory_every=N`), not per step, through `device.memory.memory_stats`:
+on a CUDA device from the caching allocator (`allocated_bytes.all.current`
+and `.peak`), on the CPU from the live-tensor accounting, as the JAX
+package falls back to live-array accounting on a device without allocator
+statistics.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
 
+from ..device.memory import memory_stats
 from .metrics import LATENCY_BUCKETS, get_registry
 
 __all__ = ["TrainingTelemetry"]
-
-
-def _memory_stats(device):
-    """Allocated and peak bytes of a CUDA device's caching allocator."""
-    import torch
-
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
-        raise NotImplementedError(
-            f"device memory statistics on {dev} need the device layer's "
-            "live-array accounting, which is not ported yet (ROADMAP "
-            "Queue A 13); record memory on a CUDA device")
-    raw = torch.cuda.memory_stats(dev)
-    return {"source": "cuda_caching_allocator",
-            "allocated_bytes": raw.get("allocated_bytes.all.current", 0),
-            "peak_allocated_bytes": raw.get("allocated_bytes.all.peak", 0),
-            "reserved_bytes": raw.get("reserved_bytes.all.current", 0),
-            "peak_reserved_bytes": raw.get("reserved_bytes.all.peak", 0),
-            "raw": raw}
 
 
 class TrainingTelemetry:
@@ -97,10 +78,10 @@ class TrainingTelemetry:
                           grad_norm=grad_norm)
 
     def record_memory(self, device=None):
-        """Sample allocated/peak bytes of a CUDA device (`device`, the
-        current card when None) into gauges (peak is a high-water gauge —
-        it never goes down between resets). Raises on the CPU."""
-        stats = _memory_stats(device)
+        """Sample allocated/peak bytes of `device` (the selected place when
+        None) into gauges (peak is a high-water gauge — it never goes down
+        between resets)."""
+        stats = memory_stats(device)
         self._mem.labels(kind="allocated").set(stats["allocated_bytes"])
         self._mem.labels(kind="peak").set_max(
             stats["peak_allocated_bytes"])

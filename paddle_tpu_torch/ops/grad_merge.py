@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from ..core.tensor import plain
 from ..utils import cpp_extension
 from .optimizer_update import _DTYPE_CODE, _dense, _layout, _Table
 
@@ -142,6 +143,7 @@ def grad_table(grads, bufs=None):
     versions."""
     if not grads or grads[0].device.type == "cpu":
         return None
+    grads = [plain(g) for g in grads]     # paddle's numel() is a tensor
     _check(grads, bufs)
     table = _Table([(g.numel(), [g.data_ptr(),
                                  bufs[i].data_ptr() if bufs else 0], 0)

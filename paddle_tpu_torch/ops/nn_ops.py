@@ -257,11 +257,12 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
 def _nchw_only(op, ceil_mode, data_format, first="NCHW"):
     if ceil_mode:
         raise NotImplementedError(
-            f"{op}: ceil_mode=True (the JAX package ignores it)")
+            f"{op}: ceil_mode=True (the JAX package ignores it; ROADMAP "
+            "Queue C 29)")
     if data_format != first:
         raise NotImplementedError(
             f"{op}: data_format={data_format!r} (the JAX package pools the "
-            f"{first} axes whatever the layout)")
+            f"{first} axes whatever the layout; ROADMAP Queue C 29)")
 
 
 def _window_sum(a, ks, st, pads, value=0.0):

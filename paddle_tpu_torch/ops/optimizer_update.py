@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core.tensor import plain
 from ..utils import cpp_extension
 
 __all__ = ["optimizer_update", "optimizer_update_plain", "optimizer_norms",
@@ -119,7 +120,9 @@ def _spans(group, names, accs, acc_fp32):
     dtype. A grad in another layout is copied into the parameter's
     (autograd gives the parameter's own); an accumulator in another layout
     (made before the parameter's layout changed) is replaced, once, by a
-    copy in the parameter's."""
+    copy in the parameter's. A paddle `Parameter` and its grad come back as
+    plain aliases (paddle's `numel()` is a tensor)."""
+    group = [(i, plain(p), plain(g)) for i, p, g in group]
     p0 = group[0][1]
     if p0.dtype not in _DTYPE_CODE:
         raise ValueError(f"optimizer_update: parameter dtype {p0.dtype} has "

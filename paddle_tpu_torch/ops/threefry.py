@@ -32,7 +32,9 @@ key chain stays on the host, and the draw runs on `device`:
 - `uniform_shaped`, `normal`, `randint`, `bernoulli`, `exponential`,
   `gumbel_shaped`, `permutation`: `jax.random`'s `_uniform` (its
   mantissa trick at the dtype's width, 8 random bits below 8 mantissa
-  bits), `_normal_real` (`sqrt(2) erfinv(u)` over `u` on
+  bits; the scale and shift one fused multiply-add at f32, one rounding
+  an op at 16 bits, as XLA's CPU code computes them), `_normal_real`
+  (`sqrt(2) erfinv(u)` over `u` on
   `(nextafter(-1, 0), 1)`), `_randint` (two words a value from
   `split(key)`, the span's remainders), `_bernoulli` (`u < p`),
   `_exponential` (`-log1p(-u)`), `_gumbel` ("low") and `_shuffle`
@@ -156,6 +158,9 @@ def uniform_shaped(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0,
     f = f - torch.ones((), dtype=dtype, device=device)
     lo = torch.as_tensor(minval, dtype=dtype, device=device)
     hi = torch.as_tensor(maxval, dtype=dtype, device=device)
+    if nbits == 16:
+        # XLA rounds each 16-bit op to the dtype: no contraction
+        return torch.maximum(lo, f * (hi - lo) + lo)
     # XLA contracts `f * (hi - lo) + lo` into one fused multiply-add: the
     # product is exact in float64, so the sum rounds once, as the FMA does
     span = (hi - lo).double()

@@ -48,8 +48,10 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
                  groups=1, base_width=64, dilation=1, norm_layer=None,
-                 conv_backend=None, **kw):
+                 conv_backend=None, *, device=None, dtype=torch.float32,
+                 generator=None):
         super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
         self.convbn1 = ConvBNReLU(inplanes, planes, 3, stride=stride,
                                   padding=1, act="relu",
                                   backend=conv_backend,
@@ -69,8 +71,10 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
                  groups=1, base_width=64, dilation=1, norm_layer=None,
-                 conv_backend=None, **kw):
+                 conv_backend=None, *, device=None, dtype=torch.float32,
+                 generator=None):
         super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
         width = int(planes * (base_width / 64.0)) * groups
         self.convbn1 = ConvBNReLU(inplanes, width, 1, act="relu",
                                   backend=conv_backend,
@@ -93,8 +97,8 @@ class BottleneckBlock(nn.Module):
 
 class ResNet(nn.Module):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
-                 with_pool=True, groups=1, conv_backend=None, device=None,
-                 dtype=torch.float32, generator=None):
+                 with_pool=True, groups=1, conv_backend=None, *,
+                 device=None, dtype=torch.float32, generator=None):
         super().__init__()
         self.device = resolve_device(device)
         if generator is None:

@@ -13,7 +13,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "paddle_gpt_layers.py",
+    REPO / "tools" / "paddle_layer_cases.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -22,6 +23,10 @@ def test_import_loads_no_jax_or_paddle_tpu_in_a_subprocess():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import paddle_tpu_torch, paddle_tpu_torch.inference.engine\n"
+        "import paddle_tpu_torch.nn.rnn, paddle_tpu_torch.nn.initializer\n"
+        "import paddle_tpu_torch.nn.layer, paddle_tpu_torch.device.memory\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import paddle_gpt_layers, paddle_layer_cases\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"

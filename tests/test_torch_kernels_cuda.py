@@ -1355,7 +1355,7 @@ def test_trainstep_merge_and_scaler_launch_the_kernels(card):
             super().__init__()
             self.fc = torch.nn.Linear(64, 64)
             self.off = torch.nn.Linear(64, 64)
-            self.bn = BatchNorm2D(4)
+            self.bn = BatchNorm2D(4, device="cpu")
 
         def forward(self, x):
             return self.bn(self.fc(x).reshape(-1, 4, 4, 4)).reshape(-1, 64)

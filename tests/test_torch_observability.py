@@ -309,9 +309,11 @@ def test_trainstep_telemetry_leaves_the_update_bitwise():
         assert torch.equal(p, q)
 
 
-def test_telemetry_observe_step_and_memory_refusal_on_the_cpu():
-    """`observe_step` fills JAX's gauges; memory statistics need a card
-    (the CPU's live-array accounting is ROADMAP Queue A 13)."""
+def test_telemetry_observe_step_and_memory_refusal_on_the_cpu(monkeypatch):
+    """`observe_step` fills JAX's gauges; on the CPU the memory gauges
+    record the live-tensor accounting, as JAX falls back to live-array
+    accounting on a device without allocator statistics (this test once
+    held the refusal, before the device package was ported)."""
     regs = jobs.MetricsRegistry(), tobs.MetricsRegistry()
     for pkg, reg in zip((jobs, tobs), regs):
         pkg.TrainingTelemetry(registry=reg, tokens_per_step=64) \
@@ -319,10 +321,19 @@ def test_telemetry_observe_step_and_memory_refusal_on_the_cpu():
     assert json.dumps(regs[0].snapshot(), sort_keys=True) == \
         json.dumps(regs[1].snapshot(), sort_keys=True)
     tel = tobs.TrainingTelemetry(registry=regs[1], memory_every=1)
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        tel.record_memory("cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        tel.observe_step(0.1)                   # memory_every=1 samples
+    # observe_step samples the selected place: the CPU for this test
+    from paddle_tpu_torch.core import device as cdev
+
+    monkeypatch.setattr(cdev, "_current_place", cdev.Place("cpu", 0))
+    keep = torch.zeros(1 << 20)                 # 4 MiB held across reads
+    stats = tel.record_memory("cpu")
+    assert stats["source"] == "live_tensors"
+    assert stats["allocated_bytes"] >= keep.numel() * 4
+    assert tel._mem.labels(kind="allocated").value == \
+        stats["allocated_bytes"]
+    tel.observe_step(0.1)                       # memory_every=1 samples
+    assert tel._mem.labels(kind="peak").value >= stats["allocated_bytes"]
+    del keep
 
 
 # -- the profiler's host half ---------------------------------------------------

@@ -1,9 +1,11 @@
 """The port's entry points take the JAX package's parameters, by name and in
 JAX's positional order, so that a caller moving from `paddle_tpu` keeps its
 calls: every parameter JAX has, in JAX's order, then the port's own
-(`device`), keyword-only, last. `donate` is accepted and stored without
-effect (the port writes pools and parameters in place); `mp_axis` takes the
-serving mesh's one axis, `'mp'`, and refuses any other.
+(`device`, and on the layers and models `dtype` and `generator`),
+keyword-only, last. `donate` is accepted and stored without effect (the
+port writes pools and parameters in place); `mp_axis` takes the serving
+mesh's one axis, `'mp'`, and refuses any other. The constructors of every
+layer class of `nn` and of the models (Queue C 30) are held the same way.
 """
 import inspect
 
@@ -15,11 +17,19 @@ import paddle_tpu as paddle
 import paddle_tpu.adapters as jad
 import paddle_tpu.inference as jinf
 import paddle_tpu.jit as jjit
+import paddle_tpu.models.bert as jbert
+import paddle_tpu.models.gpt as jgpt
+import paddle_tpu.nn as jnn
+import paddle_tpu.vision.models.resnet as jresnet
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.adapters as tad
 import paddle_tpu_torch.inference as tinf
+import paddle_tpu_torch.models.bert as tbert
+import paddle_tpu_torch.models.gpt as tgpt
+import paddle_tpu_torch.nn as tnn
+import paddle_tpu_torch.vision.models.resnet as tresnet
 
-PORT_ONLY = ("device",)
+PORT_ONLY = ("device", "dtype", "generator")
 
 PAIRS = {
     "TrainStep": (jjit.TrainStep.__init__, pt.TrainStep.__init__),
@@ -38,6 +48,36 @@ PAIRS = {
     "ServingFleet.best_of_n": (jinf.ServingFleet.best_of_n,
                                tinf.ServingFleet.best_of_n),
 }
+
+
+def _layer_classes():
+    """{name: (JAX __init__, port __init__)} of every layer class of `nn`
+    and of the models' modules that both packages define."""
+    out = {}
+    for jmod, tmod, prefix in ((jnn, tnn, "nn"), (jgpt, tgpt, "gpt"),
+                               (jbert, tbert, "bert"),
+                               (jresnet, tresnet, "resnet")):
+        for n in dir(jmod):
+            jc, tc = getattr(jmod, n), getattr(tmod, n, None)
+            if isinstance(jc, type) and issubclass(jc, jnn.Layer) \
+                    and tc is not None:
+                out[f"{prefix}.{n}"] = (jc.__init__, tc.__init__)
+    return out
+
+
+PAIRS.update(_layer_classes())
+
+
+def test_every_layer_class_is_held():
+    """The layer classes of JAX's `nn` all exist in the port; the models'
+    held here are the ones the port has (JAX's pipeline stages
+    `GPTEmbeddingPipe` and `GPTFinalNorm` are not ported)."""
+    names = {k for k in PAIRS if k.startswith("nn.")}
+    assert {f"nn.{n}" for n in dir(jnn) if isinstance(getattr(jnn, n), type)
+            and issubclass(getattr(jnn, n), jnn.Layer)} == names
+    assert {"gpt.GPTForCausalLM", "gpt.GPTModel", "bert.BertModel",
+            "bert.BertPretrainingHeads", "resnet.ResNet",
+            "resnet.BottleneckBlock"} <= set(PAIRS)
 
 
 def _split(fn):

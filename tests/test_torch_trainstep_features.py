@@ -284,7 +284,7 @@ def _bn_pair(seed):
         def __init__(self):
             super().__init__()
             self.fc1 = torch.nn.Linear(8, 16)
-            self.bn = BatchNorm2D(4)
+            self.bn = BatchNorm2D(4, device="cpu")
             self.fc2 = torch.nn.Linear(16, 4)
 
         def forward(self, x):
